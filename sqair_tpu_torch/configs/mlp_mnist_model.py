@@ -1,0 +1,101 @@
+"""MLP-SQAIR built from a flags dict (the port of
+sqair_tpu/configs/mlp_mnist_model.py and common_model_flags.py).
+
+``load(flags, img_shape)`` takes the flags as a dict, e.g. a parsed
+``flags.json`` of a run of the JAX package; a missing flag takes the JAX
+package's default.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import AIRDecoder, Model, SequentialAIR, SQAIRTimestep
+from ..nn.layers import init_params
+
+# the JAX package's flag defaults (common_model_flags.py, configs/mlp_mnist_model.py)
+DEFAULTS = dict(
+    transform_var_bias=-3.0, output_scale=0.25, scale_prior="-2", glimpse_size=20,
+    prop_prior_step_bias=10.0, prop_prior_type="rnn", masked_glimpse=True,
+    k_particles=5, n_steps_per_image=3, transition="VanillaRNN", time_transition="GRU",
+    prior_transition="GRU", output_std=0.3, n_units=8, n_what=50, aspect_penalty=0.0,
+    disc_prior_type="cat", step_success_prob=0.75, disc_step_bias=1.0,
+    prop_step_bias=5.0, early_disc_step_bias=0.0, early_disc_horizon=2,
+    early_disc_logit_bias=0.0, transient_disc_penalty=0.0, transient_penalty_temp=1.0,
+    early_disc_logit_scale=1.0, early_disc_logit_clamp=0.0, disc_coverage_signal=False,
+    sample_from_prior=False, rec_where_prior=True, generate_after=-1,
+)
+
+
+def parse_string_flag(flag, num_elements=-1):
+    """'a,b' -> [a, b]; one value is repeated num_elements times."""
+    try:
+        values = [float(f.strip()) for f in str(flag).split(",")]
+    except ValueError:
+        values = [float(flag)]
+    if len(values) == 1 and num_elements > 1:
+        values = values * num_elements
+    elif num_elements != -1 and len(values) != num_elements:
+        raise ValueError(f'Incorrect number of elements in flag "{flag}"')
+    return values
+
+
+def get_params(F: Mapping):
+    n_hidden = 32 * int(F["n_units"])
+    return dict(glimpse_size=[int(F["glimpse_size"])] * 2, n_hidden=n_hidden, n_layers=2,
+                n_hiddens=[n_hidden] * 2, steps_pred_hidden=[n_hidden // 2])
+
+
+def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray] = None,
+         device="cuda", seed: int = 0) -> Model:
+    """Builds the model with weights drawn from ``seed``.
+
+    :param flags: flag values by name
+    :param img_shape: (H, W) of a frame
+    :param mean_img: [H, W] background added where nothing is written
+    """
+    F = dict(DEFAULTS)
+    F.update(flags)
+    unported = [name for name, off in (("disc_coverage_signal", False),
+                                       ("sample_from_prior", False), ("generate_after", -1))
+                if F[name] != off]
+    if unported:
+        raise ValueError(f"flags not ported yet: {unported}")
+    device = resolve_device(device)
+    params = get_params(F)
+    img_size = tuple(int(s) for s in img_shape)
+    timestep = SQAIRTimestep(
+        n_steps=int(F["n_steps_per_image"]), img_size=img_size,
+        glimpse_size=tuple(params["glimpse_size"]), n_what=int(F["n_what"]),
+        n_hidden=params["n_hidden"], n_layers=params["n_layers"],
+        steps_pred_hidden=tuple(params["steps_pred_hidden"]),
+        transition=F["transition"], time_transition=F["time_transition"],
+        prior_transition=F["prior_transition"],
+        transform_var_bias=F["transform_var_bias"], disc_step_bias=F["disc_step_bias"],
+        prop_step_bias=F["prop_step_bias"], prop_prior_step_bias=F["prop_prior_step_bias"],
+        prop_prior_type=F["prop_prior_type"], step_success_prob=F["step_success_prob"],
+        disc_prior_type=F["disc_prior_type"], rec_where_prior=F["rec_where_prior"],
+        early_disc_step_bias=F["early_disc_step_bias"],
+        early_disc_horizon=int(F["early_disc_horizon"]),
+        early_disc_logit_bias=F["early_disc_logit_bias"],
+        early_disc_logit_scale=F["early_disc_logit_scale"],
+        early_disc_logit_clamp=F["early_disc_logit_clamp"],
+        scale_prior=tuple(parse_string_flag(F["scale_prior"], num_elements=2)),
+        masked_glimpse=F["masked_glimpse"],
+    )
+    decoder = AIRDecoder(
+        img_size=img_size, glimpse_size=tuple(params["glimpse_size"]),
+        n_what=int(F["n_what"]), glimpse_n_hiddens=tuple(params["n_hiddens"]),
+        glimpse_output_scale=F["output_scale"], mean_img=mean_img,
+        output_std=F["output_std"],
+    )
+    seq = SequentialAIR(timestep, decoder)
+    init_params(seq, torch.Generator().manual_seed(seed))
+    seq.to(device)
+    return Model(seq, k_particles=int(F["k_particles"]), aspect_penalty=F["aspect_penalty"],
+                 transient_penalty=F["transient_disc_penalty"],
+                 transient_horizon=int(F["early_disc_horizon"]),
+                 transient_temp=F["transient_penalty_temp"])

@@ -1,0 +1,161 @@
+"""Moving-multi-digit sequence data (a copy of the host path of
+sqair_tpu/data/moving_mnist.py, numpy only): static canvases, trajectories
+seeded at the static positions, max-composited rendering."""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from .synthetic import make_template_bank, template_dimensions
+from .trajectory import NoisyAccelerationTrajectory
+
+
+def create_static(templates: np.ndarray, labels: Optional[np.ndarray] = None,
+                  canvas_size=(50, 50), n_objects=(0, 2), n_samples=1000,
+                  seed=0) -> Dict:
+    """Static multi-digit canvases with non-overlap rejection sampling.
+
+    Mirror of create_mnist (reference data.py:64-186), tight-bbox template
+    extraction included.  Always records coords and trimmed templates.
+    """
+    rng = np.random.RandomState(seed)
+    n_templates = len(templates)
+    if labels is None:
+        labels_bank = np.zeros((n_templates,), np.uint8)
+    else:
+        labels_bank = labels
+
+    min_obj, max_obj = sorted(n_objects)
+    imgs = np.zeros((n_samples,) + tuple(canvas_size), np.uint8)
+    out_labels = np.zeros((n_samples, max_obj), np.uint8)
+    nums = rng.randint(min_obj, max_obj + 1, size=n_samples).astype(np.uint8)
+
+    used_templates = [[] for _ in range(n_samples)]
+    used_coords = [[] for _ in range(n_samples)]
+
+    i, n_tries = 0, 5
+    while i < n_samples:
+        tries, retry = 0, False
+        n = nums[i]
+        used_templates[i], used_coords[i] = [], []
+        occupancy = np.zeros(canvas_size, bool)
+        if n > 0:
+            indices = rng.choice(n_templates, n, replace=False)
+            for j in range(n):
+                idx = indices[j]
+                out_labels[i, j] = labels_bank[idx]
+                template = templates[idx]
+                st, size = template_dimensions(template)
+                template = template[st[0]:st[0] + size[0], st[1]:st[1] + size[1]]
+
+                def make_coord():
+                    pos = rng.rand(2) * (np.asarray(canvas_size) - size)
+                    coord = np.round(pos).astype(np.int32)
+                    return coord
+
+                pos = make_coord()
+                while (occupancy[pos[0]:pos[0] + size[0], pos[1]:pos[1] + size[1]].any()
+                       and tries < n_tries):
+                    pos = make_coord()
+                    tries += 1
+                if tries == n_tries:
+                    retry = True
+                    break
+
+                used_templates[i].append(template)
+                used_coords[i].append(pos)
+                imgs[i, pos[0]:pos[0] + size[0], pos[1]:pos[1] + size[1]] = template
+                occupancy[pos[0]:pos[0] + size[0], pos[1]:pos[1] + size[1]] = True
+
+        if not retry:
+            i += 1
+        else:
+            imgs[i, ...] = 0
+
+    # cumulative one-hot counts [max+1, N, 1] (data.py:172-177)
+    expanded = np.zeros((max_obj + 1, n_samples, 1), np.uint8)
+    for i, n in enumerate(nums):
+        expanded[:n, i] = 1
+
+    return dict(imgs=imgs, labels=out_labels, nums=expanded,
+                coords=used_coords, templates=used_templates)
+
+
+def render_sequences(coords, templates, canvas_size, n_timesteps) -> np.ndarray:
+    """Max-composite template blending (reference template.py:45-104)."""
+    n_samples = len(templates)
+    canvas = np.zeros((n_timesteps, n_samples) + tuple(canvas_size), np.float32)
+    H, W = canvas_size
+
+    for i, (tjs, seq_templates) in enumerate(zip(coords, templates)):
+        for tj, template in zip(tjs, seq_templates):
+            th, tw = template.shape[:2]
+            for t in range(len(tj)):
+                y0, x0 = (int(v) for v in np.round(tj[t]))
+                y1, x1 = y0 + th, x0 + tw
+                ys0, ys1 = max(-y0, 0), th - max(y1 - H, 0)
+                xs0, xs1 = max(-x0, 0), tw - max(x1 - W, 0)
+                yd0, yd1 = max(y0, 0), min(y1, H)
+                xd0, xd1 = max(x0, 0), min(x1, W)
+                if yd1 <= yd0 or xd1 <= xd0:
+                    continue
+                region = canvas[t, i, yd0:yd1, xd0:xd1]
+                canvas[t, i, yd0:yd1, xd0:xd1] = np.maximum(
+                    region, template[ys0:ys1, xs0:xs1]
+                )
+
+    m = canvas.max()
+    if m > 0:
+        canvas = canvas / (m / 255.0)
+    return canvas.astype(np.uint8)
+
+
+def create_seq_dataset(n_samples=1000, n_timesteps=10, canvas_size=(50, 50),
+                       obj_size=(28, 28), n_objects=(0, 2), seed=0,
+                       templates: Optional[np.ndarray] = None,
+                       labels: Optional[np.ndarray] = None) -> Dict:
+    """Full mirror of create_seq_mnist.py: static -> trajectories -> render.
+
+    :param labels: optional per-template class labels (real-MNIST path)
+    :return: dict(imgs [T,N,H,W] uint8, labels, nums [1,N,max+1] uint8,
+        coords [T,N,max,4] float)
+    """
+    if templates is None:
+        templates = make_template_bank(max(256, n_samples // 4), obj_size[0], seed)
+
+    data = create_static(templates, labels=labels, canvas_size=canvas_size,
+                         n_objects=n_objects, n_samples=n_samples, seed=seed)
+
+    # trajectories seeded at the static coords (create_seq_mnist.py:35-62)
+    flat_coords = [c for sample in data["coords"] for c in sample]
+    trajectory = NoisyAccelerationTrajectory(
+        noise_std=0.01, n_dim=2,
+        pos_bounds=[[0, canvas_size[0] - obj_size[0]], [0, canvas_size[1] - obj_size[1]]],
+        max_speed=10, max_acc=3, bounce=True,
+    )
+    if flat_coords:
+        tjs_flat = trajectory.create(n_timesteps, len(flat_coords),
+                                     init_from=np.asarray(flat_coords), seed=seed)
+    else:
+        tjs_flat = np.zeros((n_timesteps, 0, 2), np.float32)
+
+    # unflatten back per sample
+    tjs, k = [], 0
+    for sample in data["coords"]:
+        tjs.append([tjs_flat[:, k + j] for j in range(len(sample))])
+        k += len(sample)
+
+    img_seq = render_sequences(tjs, data["templates"], canvas_size, n_timesteps)
+
+    # pack coords [T, N, max, 4] = (y, x, h, w)  (create_seq_mnist.py:65-87)
+    nums = data["nums"].T  # [1, N, max+1]
+    counts = nums.astype(np.int32).sum(-1)  # [1, N]
+    n_max = max(int(counts.max()), 1)
+    coords = np.zeros((n_timesteps, n_samples, n_max, 4), np.float32)
+    for i in range(n_samples):
+        for num in range(counts[0, i]):
+            coords[:, i, num, :2] = tjs[i][num]
+            coords[:, i, num, 2:] = data["templates"][i][num].shape
+
+    return dict(imgs=img_seq, labels=data["labels"], nums=nums, coords=coords)

@@ -1,0 +1,163 @@
+"""Discovery module (the port of sqair_tpu/models/discover.py)."""
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..nn.layers import MLP, Module, zeros
+from ..nn.stochastic import RecurrentNormalImpl
+from ..ops import distributions as D
+from ..ops.noise import NoiseSource
+from .core import HIDDEN_OUTPUT_FIELDS, DiscoveryCore
+
+
+class Discover(Module):
+    """Discovers up to n_steps new objects in a frame, and evaluates the
+    posterior and prior log-probs of what it found.
+
+    The early-frame levers act for t < early_disc_horizon:
+    ``early_disc_step_bias`` charges each discovery that many nats of prior
+    cost (cat prior only), ``early_disc_logit_bias`` is subtracted from the
+    presence logit, ``early_disc_logit_scale`` multiplies it and
+    ``early_disc_logit_clamp`` caps it straight-through.
+    """
+
+    def __init__(self, n_steps: int, cell: DiscoveryCore, d_cond: int,
+                 step_success_prob=0.75, where_mean: Sequence[float] = (-2.0, -2.0, 0.0, 0.0),
+                 where_std: Sequence[float] = (1.0, 1.0, 1.0, 1.0), disc_prior_type="geom",
+                 rec_where_prior=False, early_disc_step_bias=0.0, early_disc_horizon=2,
+                 early_disc_logit_bias=0.0, early_disc_logit_scale=1.0,
+                 early_disc_logit_clamp=0.0):
+        super().__init__()
+        if early_disc_step_bias and disc_prior_type != "cat":
+            raise ValueError("early_disc_step_bias requires disc_prior_type='cat'")
+        if disc_prior_type not in ("cat", "geom"):
+            raise ValueError(f"Invalid prior type: {disc_prior_type}")
+        self.n_steps, self.cell = n_steps, cell
+        self.step_success_prob = step_success_prob
+        self.where_mean, self.where_std = tuple(where_mean), tuple(where_std)
+        self.disc_prior_type, self.rec_where_prior = disc_prior_type, rec_where_prior
+        self.early_disc_step_bias = early_disc_step_bias
+        self.early_disc_horizon = early_disc_horizon
+        self.early_disc_logit_bias = early_disc_logit_bias
+        self.early_disc_logit_scale = early_disc_logit_scale
+        self.early_disc_logit_clamp = early_disc_logit_clamp
+        if rec_where_prior:
+            bias = torch.tensor(list(where_mean) + list(where_std))
+            # the where prior is conditioned on [propagation summary, expected
+            # propagated count]
+            self._where_prior = RecurrentNormalImpl(
+                4, 128, d_cond=d_cond + 1, output_bias_init=lambda t, g: t.copy_(bias))
+        if disc_prior_type == "cat":
+            self.add_param("step_prior_bias", (n_steps + 1,), zeros)
+            init = torch.tensor([10.0] + [0.0] * n_steps)
+            self.add_param("step_prior_timestep_bias", (n_steps + 1,),
+                           lambda t, g: t.copy_(init))
+            self._step_cond_mlp = MLP(1, [10], n_out=n_steps + 1)
+
+    def forward(self, img, conditioning_from_prop, time_step: int, prior_conditioning,
+                noise: NoiseSource) -> Dict:
+        """Runs discovery for one frame.
+
+        :param img: [B, H, W]
+        :param conditioning_from_prop: [B, d] summary of the propagated objects
+        :param time_step: frame index t
+        :param prior_conditioning: [B, 1] expected propagated count
+        :param noise: source scoped to this frame's discovery
+        """
+        extra_steps_logit, steps_logit_scale, steps_logit_clamp = 0.0, 1.0, None
+        if (self.early_disc_logit_bias or self.early_disc_logit_clamp
+                or self.early_disc_logit_scale != 1.0):
+            # an f32 tensor, as in the JAX package, so that the blends below
+            # round the same way
+            is_early = torch.tensor(float(time_step < self.early_disc_horizon),
+                                    dtype=torch.float32, device=img.device)
+            if self.early_disc_logit_bias:
+                extra_steps_logit = -self.early_disc_logit_bias * is_early
+            if self.early_disc_logit_scale != 1.0:
+                steps_logit_scale = 1.0 + is_early * (self.early_disc_logit_scale - 1.0)
+            if self.early_disc_logit_clamp:
+                steps_logit_clamp = self.early_disc_logit_clamp + (1.0 - is_early) * 1e4
+
+        hidden_outputs, num_steps = self._discover(
+            img, conditioning_from_prop, noise, extra_steps_logit, steps_logit_scale,
+            steps_logit_clamp)
+        log_probs = self._compute_log_probs(hidden_outputs, num_steps, time_step,
+                                            conditioning_from_prop, prior_conditioning)
+        outputs = dict(hidden_outputs=hidden_outputs, num_steps=num_steps)
+        outputs.update(hidden_outputs)
+        outputs.update(log_probs)
+        return outputs
+
+    def _discover(self, img, conditioning, noise, extra_steps_logit=0.0,
+                  steps_logit_scale=1.0, steps_logit_clamp=None):
+        """Unrolls the discovery core over the object slots."""
+        state = self.cell.initial_state(img, self.cell.encode_img(img))
+        per_slot = []
+        for k in range(self.n_steps):
+            outputs, state = self.cell(state, conditioning, noise.scope(k),
+                                       extra_steps_logit, steps_logit_scale,
+                                       steps_logit_clamp)
+            per_slot.append(outputs)
+        hidden_outputs = {f: torch.stack([o[f] for o in per_slot], 1)
+                          for f in HIDDEN_OUTPUT_FIELDS}
+        num_steps = torch.sum(hidden_outputs["presence"][..., 0], -1)
+        return hidden_outputs, num_steps
+
+    def _make_steps_prior(self, time_step, prior_conditioning):
+        """Geometric or learned-categorical prior of the discovery count."""
+        if self.disc_prior_type == "geom":
+            return D.Geometric(probs=torch.tensor(1.0 - self.step_success_prob,
+                                                  device=prior_conditioning.device))
+        is_first = float(time_step == 0)
+        step_logits = self.step_prior_bias + (1.0 - is_first) * self.step_prior_timestep_bias
+        step_logits = step_logits[None] + self._step_cond_mlp(prior_conditioning)
+        step_logits = F.elu(step_logits)
+        if self.early_disc_step_bias and time_step < self.early_disc_horizon:
+            # after the elu, so that the ramp keeps its full size
+            ramp = -self.early_disc_step_bias * torch.arange(
+                self.n_steps + 1, dtype=torch.float32, device=step_logits.device)
+            step_logits = step_logits + ramp
+        return D.Categorical(logits=step_logits)
+
+    def _where_prior_log_prob(self, where, conditioning):
+        if self.rec_where_prior:
+            return self._where_prior.log_prob(where, conditioning)
+        mean = where.new_tensor(self.where_mean)
+        std = where.new_tensor(self.where_std)
+        return D.Normal(mean, std).log_prob(where)
+
+    def _compute_log_probs(self, hidden_outputs, num_steps, time_step,
+                           conditioning_from_prop, prior_conditioning):
+        where_conditioning = torch.cat([conditioning_from_prop, prior_conditioning], -1)
+        steps_prior = self._make_steps_prior(time_step, prior_conditioning)
+        presence = hidden_outputs["presence"][..., 0]  # [B, S]
+
+        what_post = D.Normal(hidden_outputs["what_loc"], hidden_outputs["what_scale"])
+        where_post = D.Normal(hidden_outputs["where_loc"], hidden_outputs["where_scale"])
+        steps_post = D.NumStepsDistribution(logits=hidden_outputs["presence_logit"][..., 0])
+
+        what_lp = torch.sum(what_post.log_prob(hidden_outputs["what"]), -1) * presence
+        where_lp = torch.sum(where_post.log_prob(hidden_outputs["where"]), -1) * presence
+        steps_lp = steps_post.log_prob(num_steps)
+
+        std_normal = D.Normal(presence.new_tensor(0.0), presence.new_tensor(1.0))
+        what_prior_lp = torch.sum(std_normal.log_prob(hidden_outputs["what"]), -1) * presence
+        where_prior_lp = torch.sum(
+            self._where_prior_log_prob(hidden_outputs["where"], where_conditioning),
+            -1) * presence
+        steps_prior_lp = steps_prior.log_prob(num_steps)
+
+        return dict(
+            q_z_given_x=torch.sum(what_lp + where_lp, -1) + steps_lp,
+            p_z=torch.sum(what_prior_lp + where_prior_lp, -1) + steps_prior_lp,
+            what_log_prob=what_lp,
+            where_log_prob=where_lp,
+            num_step_log_prob=steps_lp,
+            what_prior_log_prob=what_prior_lp,
+            where_prior_log_prob=where_prior_lp,
+            num_step_prior_log_prob=steps_prior_lp,
+            num_steps_prob=steps_post.probs,
+        )

@@ -1,0 +1,135 @@
+"""Model: IWAE particles, bounds, importance-weighted metrics and the VIMCO
+target (the port of sqair_tpu/models/model.py, full record mode)."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import indexing, targets
+from ..ops import math as ops_math
+from ..ops.noise import NoiseSource
+from .seq import SequentialAIR
+
+
+class Model:
+    """IWAE/VIMCO wrapper around SequentialAIR.
+
+    :param transient_horizon: frames [0, H) are compared with frame H in the
+        ``transient_excess`` metric
+    """
+
+    def __init__(self, sequence: SequentialAIR, k_particles: int = 5,
+                 aspect_penalty: float = 0.0, transient_penalty: float = 0.0,
+                 transient_horizon: int = 2, transient_temp: float = 1.0):
+        self.sequence = sequence
+        self.k_particles = k_particles
+        self.aspect_penalty = aspect_penalty
+        self.transient_penalty = transient_penalty
+        self.transient_horizon = transient_horizon
+        self.transient_temp = transient_temp
+
+    @property
+    def device(self):
+        return next(self.sequence.parameters()).device
+
+    @staticmethod
+    def finalize_metrics(metrics):
+        """Turns the aspect ratio's parts into the ratio."""
+        m = dict(metrics)
+        if "aspect_sq_sum" in m:
+            m["aspect"] = m.pop("aspect_sq_sum") / torch.clamp(m.pop("aspect_n"), min=1.0)
+        return m
+
+    def forward(self, obs, noise: NoiseSource) -> Dict:
+        """:param obs: [T, B, H, W] -> outputs with [T, B*k, ...] leaves"""
+        tiled_obs = indexing.tile_input_for_iwae(obs, self.k_particles, with_time=True)
+        outputs = self.sequence(tiled_obs, noise)
+        outputs["tiled_obs"] = tiled_obs
+        return outputs
+
+    def loss_and_metrics(self, obs, noise: NoiseSource,
+                         gt_presence=None) -> Tuple[torch.Tensor, Dict]:
+        """The VIMCO target and the JAX package's metric set.
+
+        :param obs: [T, B, H, W]
+        :param gt_presence: [T, B, C] cumulative one-hot object counts
+        :return: (target, dict(metrics=..., log_weights=[B, k]))
+        """
+        k = self.k_particles
+        T, B = obs.shape[0], obs.shape[1]
+        outputs = self.forward(obs, noise)
+
+        log_weights = torch.sum(outputs["log_weights_per_timestep"], 0).reshape(B, k)
+        elbo_vae = torch.mean(log_weights)
+        elbo_iwae_per_example = targets.iwae(log_weights)
+        elbo_iwae = torch.mean(elbo_iwae_per_example)
+        metrics = dict(vae=elbo_vae, iwae=elbo_iwae, normalised_vae=elbo_vae / T,
+                       normalised_iwae=elbo_iwae / T)
+
+        importance_weights = F.softmax(log_weights, -1).detach()
+        metrics["ess"] = ops_math.ess(importance_weights, average=True)
+
+        def imp_weighted_mean(tensor):
+            t = torch.mean(tensor.reshape(-1, B, k), 0)
+            return torch.mean(importance_weights * t * k)
+
+        for name, key in (
+            ("data_ll", "data_ll_per_sample"),
+            ("log_p_z", "log_p_z_per_sample"),
+            ("log_q_z_given_x", "log_q_z_given_x_per_sample"),
+            ("kl", "kl_per_sample"),
+            ("num_steps", "num_steps_per_sample"),
+            ("num_disc_steps", "num_disc_steps_per_sample"),
+            ("num_prop_steps", "num_prop_steps_per_sample"),
+        ):
+            metrics[name] = imp_weighted_mean(outputs[key])
+
+        mse_per_sample = torch.mean((outputs["tiled_obs"] - outputs["canvas"]) ** 2,
+                                    dim=(0, 2, 3))
+        metrics["mse"] = imp_weighted_mean(mse_per_sample[None])
+        metrics["raw_mse"] = torch.mean(mse_per_sample)
+
+        if gt_presence is not None:
+            gt_num_steps = torch.sum(gt_presence, -1)  # [T, B]
+            num_steps = outputs["num_steps_per_sample"].reshape(-1, B, k)
+            acc = (gt_num_steps[..., None] == num_steps).to(torch.float32)
+            metrics["raw_num_step_accuracy"] = torch.mean(acc)
+            metrics["num_step_accuracy"] = imp_weighted_mean(acc)
+            metrics["num_step_acc_per_t"] = torch.mean(
+                importance_weights[None] * acc * k, dim=(1, 2))
+            metrics["num_steps_per_t"] = torch.mean(
+                importance_weights[None] * num_steps * k, dim=(1, 2))
+
+        discrete_log_prob = torch.sum(outputs["discrete_log_prob"], 0)
+        surrogate = targets.vimco if k > 1 else targets.reinforce
+        target = surrogate(log_weights, discrete_log_prob, elbo_iwae_per_example) / T
+
+        # mean squared log-aspect of the present glimpses
+        wh = outputs["where"]
+        pres = outputs["presence"].detach()
+        log_aspect = F.logsigmoid(wh[..., 0]) - F.logsigmoid(wh[..., 1])
+        sq = torch.sum(log_aspect**2 * pres)
+        n_pres = torch.sum(pres)
+        aspect = sq / torch.clamp(n_pres, min=1.0)
+        if self.aspect_penalty:
+            target = target + self.aspect_penalty * aspect
+        metrics.update(aspect=aspect, aspect_sq_sum=sq, aspect_n=n_pres)
+
+        # expected early-frame counts in excess of the count at frame H
+        pl = outputs["presence_logit"]  # [T, B*k, S]
+        H = self.transient_horizon
+        if pl.shape[0] > H:
+            def _excess(tau):
+                n_hat = torch.sum(torch.sigmoid(pl / tau), -1)
+                ex = F.relu(n_hat[:H] - n_hat[H].detach()[None])
+                return torch.mean(torch.sum(ex, 0))
+
+            transient = _excess(1.0)
+            metrics["transient_excess"] = transient
+            if self.transient_penalty:
+                pen = transient if self.transient_temp == 1.0 else _excess(self.transient_temp)
+                target = target + self.transient_penalty * pen
+        metrics["target"] = target
+        return target, dict(metrics=metrics, log_weights=log_weights)

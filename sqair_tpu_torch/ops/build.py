@@ -1,0 +1,120 @@
+"""Builds the CUDA kernels of ``sqair_tpu_torch/csrc`` and loads them.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
+a plain C interface, which ``ctypes`` loads; nothing includes PyTorch's
+headers, so the build takes seconds.  The library's name carries a hash of
+the sources and the flags, so a second run finds it and skips the build.
+It is written under a temporary name and renamed into place, so processes
+that build at the same time never load a half-written file.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+REQUIRED_CAPABILITY = (9, 0)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes per exported function: every pointer (device or host) and the
+# stream as c_void_p, so that ctypes never cuts a pointer to 32 bits
+PROTOTYPES = {
+    # x, y, n, n_layers, dims*, acts*, w**, b**, saved**, stream
+    "sqair_fused_mlp": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
+    # x, h, w, u, b, hn, n, dx, units, stream
+    "sqair_fused_vanilla_rnn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, h, wg, ug, bg, wc, uc, bc, hn, zr, c, n, dx, units, stream
+    "sqair_fused_gru": (_P,) * 11 + (_I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_library = None
+last_build = {}  # {"seconds": float, "cached": bool, "path": str}
+
+
+def find_nvcc() -> str:
+    """nvcc on PATH, else under CUDA_HOME, else at /usr/local/cuda/bin."""
+    candidates = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME/bin and in "
+        "/usr/local/cuda/bin): the CUDA toolkit is needed to build the "
+        "kernels of sqair_tpu_torch/csrc")
+
+
+def sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libsqair_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compiles the kernels unless the library for these sources exists."""
+    path = library_path()
+    t0 = time.perf_counter()
+    cached = path.exists()
+    if not cached:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cu = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    last_build.update(seconds=time.perf_counter() - t0, cached=cached,
+                      path=str(path))
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use on a Hopper card."""
+    global _library
+    with _lock:
+        if _library is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("the CUDA kernels need a CUDA device")
+            cap = torch.cuda.get_device_capability()
+            if cap != REQUIRED_CAPABILITY:
+                raise RuntimeError(
+                    f"the kernels are built for sm_90a (Hopper); this device "
+                    f"has compute capability {cap}")
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in PROTOTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _library = lib
+        return _library

@@ -1,0 +1,96 @@
+"""Spatial transformer as separable bilinear matrix products (the port of
+sqair_tpu/ops/stn.py).
+
+The affine warp has no shear, so bilinear resampling factorises:
+
+    crop  = W_y @ img @ W_x^T      W_y: [gh, H], W_x: [gw, W]
+    paste = U_y @ glimpse @ U_x^T  U_y: [H, gh], U_x: [W, gw]
+
+with interpolation matrices built from the ST coords [sx, sy, tx, ty];
+source coordinates out of range interpolate against zeros.  The products
+run in full float32: see ``full_fp32_matmul``.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from .math import clip_preserve
+
+SCALE_EPS = 1e-4
+
+
+def full_fp32_matmul():
+    """Keeps float32 products in full float32 on the card.
+
+    The JAX package runs these products at Precision.HIGHEST: a TF32
+    product keeps about three decimal digits and would put ~1e-3 noise on
+    the canvas, which the Gaussian likelihood pays for in nats.  So TF32 is
+    switched off explicitly for matmuls and for cuDNN.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def to_coords(logits: torch.Tensor) -> torch.Tensor:
+    """where logits -> ST coords: scale = sigmoid, shift = tanh."""
+    scale_logit, shift_logit = torch.chunk(logits, 2, -1)
+    return torch.cat([torch.sigmoid(scale_logit), torch.tanh(shift_logit)], -1)
+
+
+def to_logits(coords: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """Inverse of to_coords."""
+    scale, shift = torch.chunk(coords, 2, -1)
+    scale = torch.clamp(scale, eps, 1.0 - eps)
+    scale_logit = torch.log(scale / (1.0 - scale))
+    shift = torch.clamp(shift, eps - 1.0, 1.0 - eps)
+    shift_logit = 0.5 * (torch.log1p(shift) - torch.log1p(-shift))
+    return torch.cat([scale_logit, shift_logit], -1)
+
+
+def _interp_matrix(scale, shift, src_len: int, dst_len: int) -> torch.Tensor:
+    """M[..., i, p] = max(0, 1 - |u_i - p|) with
+    u_i = (scale t_i + shift + 1) (src_len - 1) / 2, t_i = linspace(-1, 1)."""
+    t = torch.linspace(-1.0, 1.0, dst_len, dtype=torch.float32, device=scale.device)
+    u = (scale[..., None] * t + shift[..., None] + 1.0) * (src_len - 1) / 2.0
+    p = torch.arange(src_len, dtype=torch.float32, device=scale.device)
+    return torch.clamp(1.0 - torch.abs(u[..., :, None] - p), min=0.0)
+
+
+def _split_coords(coords):
+    sx, sy, tx, ty = (coords[..., i] for i in range(4))
+    sx = clip_preserve(sx, SCALE_EPS, float("inf"))
+    sy = clip_preserve(sy, SCALE_EPS, float("inf"))
+    return sx, sy, tx, ty
+
+
+def extract_glimpse(img: torch.Tensor, coords: torch.Tensor,
+                    glimpse_size: Sequence[int]) -> torch.Tensor:
+    """Crops a [..., gh, gw] glimpse of img [..., H, W] at coords [..., 4]
+    (batch dims broadcast)."""
+    gh, gw = glimpse_size
+    H, W = img.shape[-2], img.shape[-1]
+    sx, sy, tx, ty = _split_coords(coords)
+    wy = _interp_matrix(sy, ty, H, gh)  # [..., gh, H]
+    wx = _interp_matrix(sx, tx, W, gw)  # [..., gw, W]
+    return wy @ img @ wx.transpose(-1, -2)
+
+
+def paste_matrices(coords: torch.Tensor, glimpse_size: Sequence[int],
+                   img_size: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(uy [..., H, gh], ux [..., W, gw]) of the inverse-ST paste, so that
+    paste = uy @ glimpse @ ux^T."""
+    gh, gw = glimpse_size
+    H, W = img_size
+    sx, sy, tx, ty = _split_coords(coords)
+    uy = _interp_matrix(1.0 / sy, -ty / sy, gh, H)
+    ux = _interp_matrix(1.0 / sx, -tx / sx, gw, W)
+    return uy, ux
+
+
+def paste_glimpse(glimpse: torch.Tensor, coords: torch.Tensor,
+                  img_size: Sequence[int]) -> torch.Tensor:
+    """Pastes glimpse [..., gh, gw] into a zero [..., H, W] canvas."""
+    uy, ux = paste_matrices(coords, glimpse.shape[-2:], img_size)
+    return uy @ glimpse @ ux.transpose(-1, -2)
