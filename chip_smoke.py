@@ -8,17 +8,32 @@ Run from the root of the repository, with no arguments:
 It needs one Hopper card (sm_90a) and the CUDA toolkit, and no network.
 Phases, one line each with its own numbers and seconds:
 
-  device   card name, power limit, torch and CUDA versions
-  build    nvcc build of sqair_tpu_torch/csrc (or the cached library)
-  kernels  every kernel against its plain PyTorch version at the shapes the
-           eval step gives it (random inputs from a seed)
-  eval     3 eval steps of the release model's flags at full width (weights
-           from a seed, data from the port's generator), with the launch
-           counts of every kernel; batch 0 re-run through the plain
-           versions on the card and on the CPU with the same noise
-  timing   CUDA-event medians per kernel (kernel, plain version, a chain of
-           torch.addmm + activation, and the bound) and of the eval step
-  profile  the device's busy time in one eval step (torch.profiler)
+  device         card name, power limit, torch and CUDA versions
+  build          nvcc build of sqair_tpu_torch/csrc (or the cached library)
+  kernels        every forward kernel against its plain PyTorch version at
+                 the shapes the eval and train steps give it (seeded inputs)
+  kernels-bwd    every backward kernel against its plain version at the
+                 shapes the train step gives it, the deferred pass's 1600
+                 and 4800 rows included
+  eval           3 eval steps of the release model's flags at full width
+                 (weights from a seed, data from the port's generator), with
+                 the launch counts of every kernel
+  eval-check     batch 0 re-run through the plain versions on the card and
+                 on the CPU with the same noise
+  timing         CUDA-event medians per forward kernel (kernel, plain
+                 version, a chain of torch.addmm + activation, and the
+                 bound) and of the eval step
+  profile        the device's busy time in one eval step (torch.profiler)
+  train          3 train steps (record_mode="train", backward, the release
+                 flags' RMSProp) on batches of the device-resident sampler,
+                 with the launch counts of all six kernels per step
+  train-check    one train step's gradients through the kernels against the
+                 same step through the plain versions, on the card and on
+                 the CPU, with the same noise
+  train-timing   CUDA-event medians per backward kernel (kernel, plain
+                 version, torch.autograd.grad through the addmm chain, and
+                 the bound) and of the train step
+  train-profile  the device's busy time in one train step
 
 It exits non-zero on any failure.  The last two lines are a JSON object of
 the kernels' numbers and the JSON result line.
@@ -39,7 +54,9 @@ REPO = Path(__file__).resolve().parent
 RELEASE_FLAGS = REPO / "release_models" / "mnist_mlp" / "1" / "flags.json"
 SEED = 0
 N_BATCHES = 3
-REPS = 20
+N_TRAIN_STEPS = 3
+REPS = 10
+IMG = (50, 50)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the tensor cores
 PEAK_BYTES = 3.35e12
@@ -48,9 +65,23 @@ PEAK_F32 = 67e12
 # tolerances, with why: the kernel and its plain version compute the same
 # f32 sums in another order, over at most 2500 terms of size ~1
 KERNEL_ATOL, KERNEL_RTOL = 1e-5, 1e-4
-# the eval metrics sum those differences over T x 2S dependent cell steps
+# a backward's weight gradients sum up to 4800 products in another order
+# than cuBLAS; small entries of a sum with cancellation carry the error of
+# the large ones, so the bound is relative to each gradient's largest entry
+BWD_TOL = 1e-4  # |d| <= BWD_TOL max|value| + 1e-6, per gradient tensor
+# the eval metrics sum the forward differences over T x 2S dependent cell steps
 METRIC_TOL = 1e-4  # on |a - b| / (|b| + 1)
+# a whole step's parameter gradients: every f32 difference of the step,
+# carried through T x 2S dependent cells, VIMCO and the transient penalty,
+# and summed over up to 4800 rows with cancellation.  Two implementations
+# with no kernel of this repository (the plain versions on the card and on
+# the CPU) differ by up to 3.2e-3 of a parameter's largest gradient at the
+# release config (chip_smoke.py on an H100, logged as plain_on_card_vs_cpu);
+# against the CPU both differences stack
+GRAD_TOL = 1e-2  # kernels vs plain on the card: |d| <= GRAD_TOL max|grad| + 1e-6
+GRAD_TOL_CPU = 2e-2  # kernels on the card vs the CPU, the same form
 
+FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru")
 KERNELS = {
     "fused_mlp": dict(source="sqair_tpu_torch/csrc/fused_mlp.cu",
                       replaces="sqair_tpu/ops/fused.py:111"),
@@ -58,6 +89,12 @@ KERNELS = {
                               replaces="sqair_tpu/ops/fused.py:201"),
     "fused_gru": dict(source="sqair_tpu_torch/csrc/fused_rnn.cu",
                       replaces="sqair_tpu/ops/fused.py:308"),
+    "fused_mlp_bwd": dict(source="sqair_tpu_torch/csrc/fused_bwd.cu",
+                          replaces="sqair_tpu/ops/fused.py:130"),
+    "fused_vanilla_rnn_bwd": dict(source="sqair_tpu_torch/csrc/fused_bwd.cu",
+                                  replaces="sqair_tpu/ops/fused.py:218"),
+    "fused_gru_bwd": dict(source="sqair_tpu_torch/csrc/fused_bwd.cu",
+                          replaces="sqair_tpu/ops/fused.py:330"),
 }
 
 
@@ -66,46 +103,70 @@ def log(phase, t0, **fields):
     print(f"[{phase}] {body} seconds={time.perf_counter() - t0:.3f}", flush=True)
 
 
+def jdump(obj):
+    return json.dumps(obj, separators=(",", ":"))
+
+
 class Failure(Exception):
     pass
 
 
-def main_path_shapes(F, rows):
-    """Every kernel call of one frame of the eval step, as
-    (kernel, shape, calls per frame); ``rows`` = B * k."""
+def main_path_shapes(F, B, k, T, train=False, img=IMG):
+    """Every forward kernel call of one eval or train step, as
+    (kernel, shape, calls per step).  In the train record the decode, the
+    discovery where prior and the count prior leave the time loop and run
+    once over all T frames (rows T*B*k, or T*B*k*S for the decode)."""
     h = 32 * int(F["n_units"])
     w, S = int(F["n_what"]), int(F["n_steps_per_image"])
     g = int(F["glimpse_size"]) ** 2
-    img = 50 * 50
+    rows = B * k
     slots = rows * S
     sp = h // 2
-    mlp = [  # (d_in, widths, transfers, rows, calls)
-        (img, [h, h], ["elu", "elu"], rows, 1),                   # input encoder
-        (g, [h, h], ["elu", "elu"], rows, 3 * S),                 # glimpse encoder
-        (h, [128, g], ["elu", "sigmoid"], rows, 2 * S),           # glimpse mask
-        (h, [h, h, 8], ["elu", "elu", "id"], rows, S),            # disc where
-        (2 * h + 4, [h, h, 8], ["elu", "elu", "id"], rows, S),    # prop where
-        (h + w, [sp, 1], ["elu", "id"], rows, S),                 # disc presence
-        (2 * h + w, [sp, 1], ["elu", "id"], rows, S),             # prop presence
-        (h, [128, 4], ["elu", "id"], rows, S),                    # where bias
-        (h, [3 * w], ["sigmoid"], rows, S),                       # what gates
-        (w + 4, [h, h], ["elu", "elu"], slots, 1),                # latent encoder
-        (1, [10, S + 1], ["elu", "id"], rows, 1),                 # count prior
-        (w, [h, h, g], ["elu", "elu", "id"], slots, 1),           # glimpse decoder
+    deferred = T if train else 1  # rows factor of the out-of-loop calls
+    per_call = 1 if train else T  # calls factor of the same calls
+    mlp = [  # (d_in, widths, transfers, rows, calls per step)
+        (img[0] * img[1], [h, h], ["elu", "elu"], rows, T),    # input encoder
+        (g, [h, h], ["elu", "elu"], rows, 3 * S * T),         # glimpse encoder
+        (h, [128, g], ["elu", "sigmoid"], rows, 2 * S * T),   # glimpse mask
+        (h, [h, h, 8], ["elu", "elu", "id"], rows, S * T),    # disc where
+        (2 * h + 4, [h, h, 8], ["elu", "elu", "id"], rows, S * T),  # prop where
+        (h + w, [sp, 1], ["elu", "id"], rows, S * T),         # disc presence
+        (2 * h + w, [sp, 1], ["elu", "id"], rows, S * T),     # prop presence
+        (h, [128, 4], ["elu", "id"], rows, S * T),            # where bias
+        (h, [3 * w], ["sigmoid"], rows, S * T),               # what gates
+        (w + 4, [h, h], ["elu", "elu"], slots, T),            # latent encoder
+        (1, [10, S + 1], ["elu", "id"], rows * deferred, per_call),       # count prior
+        (w, [h, h, g], ["elu", "elu", "id"], slots * deferred, per_call),  # decoder
     ]
-    vrnn = [  # (d_x, units, rows, calls)
-        (h + h + w + 5, h, rows, S),         # discovery transition
-        (3 * w + 10 + h, h, rows, S),        # propagation transition
-        (4, 4, rows, S),                     # where prior
+    vrnn = [  # (d_x, units, rows, calls per step)
+        (h + h + w + 5, h, rows, S * T),          # discovery transition
+        (3 * w + 10 + h, h, rows, S * T),         # propagation transition
+        (4, 4, rows * deferred, S * per_call),    # discovery where prior
     ]
     gru = [
-        (w + 4, h, slots, 1),                # propagation prior
-        (h + 4 + 2 * w, h, rows, S),         # temporal cell
+        (w + 4, h, slots, T),                     # propagation prior
+        (h + 4 + 2 * w, h, rows, S * T),          # temporal cell
     ]
     out = [("fused_mlp", dict(d_in=d, widths=ws, acts=a, n=n), c) for d, ws, a, n, c in mlp]
     out += [("fused_vanilla_rnn", dict(dx=d, units=u, n=n), c) for d, u, n, c in vrnn]
     out += [("fused_gru", dict(dx=d, units=u, n=n), c) for d, u, n, c in gru]
     return out
+
+
+def expected_launches(shapes, steps, backward=False):
+    """Launches of each kernel over ``steps`` steps; with ``backward``, also
+    one backward launch per forward call (every call's output reaches the
+    loss)."""
+    out = {name: steps * sum(c for kn, _, c in shapes if kn == name) for name in FORWARD}
+    if backward:
+        out.update({name + "_bwd": out[name] for name in FORWARD})
+    return out
+
+
+def needs_dx(kernel, shape, img=IMG):
+    """False for the one call whose input carries no gradient: the input
+    encoder reads the frames."""
+    return not (kernel == "fused_mlp" and shape["d_in"] == img[0] * img[1])
 
 
 def make_inputs(torch, kernel, shape, gen, device):
@@ -132,18 +193,57 @@ def make_inputs(torch, kernel, shape, gen, device):
             weight(u, u), bias(u))
 
 
-def work(kernel, shape):
-    """(bytes read once and written once, f32 FLOPs) of one call."""
+def make_bwd_inputs(torch, fused, kernel, args, gen):
+    """The backward's inputs for forward inputs ``args``: the saved tensors
+    from the plain forward and a seeded output gradient."""
+    if kernel == "fused_mlp":
+        x, params, acts = args
+        saved = fused.mlp_plain_acts(x, params, acts)
+        g = torch.randn(saved[-1].shape, generator=gen, device=x.device)
+        return (x, params, acts, saved, g)
+    if kernel == "fused_vanilla_rnn":
+        x, h, w, u, b = args
+        hn = fused.vanilla_rnn_plain(*args)
+        return (x, h, w, u, hn, torch.randn(hn.shape, generator=gen, device=x.device))
+    x, h, wg, ug, bg, wc, uc, bc = args
+    hn, zr, c = fused.gru_plain_saving(*args)
+    return (x, h, wg, ug, wc, uc, zr, c, torch.randn(hn.shape, generator=gen, device=x.device))
+
+
+def flat_grads(kernel, out):
+    """The backward's results as a flat list of tensors (None where skipped)."""
+    if kernel == "fused_mlp":
+        dx, dparams = out
+        return [dx] + [t for p in dparams for t in p]
+    return list(out)
+
+
+def work(kernel, shape, backward=False, need_dx=True):
+    """(bytes read once and written once, f32 FLOPs) of one call, forward or
+    backward.  A backward does twice the forward's products, less the
+    input's gradient where it is skipped."""
     n = shape["n"]
     if kernel == "fused_mlp":
         dims = [shape["d_in"]] + shape["widths"]
         weights = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
         macs = n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-        return 4 * (n * dims[0] + weights + n * dims[-1]), 2 * macs
+        if not backward:
+            return 4 * (n * dims[0] + weights + n * dims[-1]), 2 * macs
+        acts = n * sum(dims[1:])
+        w_only = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+        nbytes = 4 * (n * dims[0] + w_only + acts + n * dims[-1]  # x, W, saved, g
+                      + (n * dims[0] if need_dx else 0) + weights)  # dx, dW, db
+        return nbytes, 2 * (2 * macs - (0 if need_dx else n * dims[0] * dims[1]))
     dx, u = shape["dx"], shape["units"]
     mult = 1 if kernel == "fused_vanilla_rnn" else 3  # the GRU's gates + candidate
     weights = mult * ((dx + u) * u + u)
-    return 4 * (n * (dx + u) + weights + n * u), 2 * n * mult * (dx + u) * u
+    macs = n * mult * (dx + u) * u
+    if not backward:
+        return 4 * (n * (dx + u) + weights + n * u), 2 * macs
+    saved = n * u if kernel == "fused_vanilla_rnn" else 3 * n * u  # h' | zr, c
+    nbytes = 4 * (n * (dx + u) + (weights - mult * u) + saved + n * u  # x, h, W, saved, g
+                  + n * (dx + u) + weights)                            # dx, dh, dW, db
+    return nbytes, 2 * 2 * macs
 
 
 def library_fn(torch, kernel):
@@ -168,6 +268,27 @@ def library_fn(torch, kernel):
     return gru
 
 
+def library_bwd_fn(torch, kernel, args, need_dx, gen):
+    """A call of torch.autograd.grad through the addmm chain's graph (built
+    once) for the same gradients as the backward kernel."""
+    leaves = []
+
+    def leaf(t, grad=True):
+        t = t.detach().clone().requires_grad_(grad)
+        if grad:
+            leaves.append(t)
+        return t
+
+    if kernel == "fused_mlp":
+        x, params, acts = args
+        lib_args = (leaf(x, need_dx), tuple((leaf(w), leaf(b)) for w, b in params), acts)
+    else:
+        lib_args = tuple(leaf(t) for t in args)
+    y = library_fn(torch, kernel)(*lib_args)
+    g = torch.randn(y.shape, generator=gen, device=y.device)
+    return lambda: torch.autograd.grad(y, leaves, g, retain_graph=True)
+
+
 def device_ms(torch, fn, calls=50, reps=REPS):
     """Median over ``reps`` of the device time per call of ``fn``, from CUDA
     events around ``calls`` back-to-back calls.  A spin kernel runs first,
@@ -190,20 +311,39 @@ def device_ms(torch, fn, calls=50, reps=REPS):
     return statistics.median(times)
 
 
+def step_ms(torch, fn, reps):
+    """Median wall time of ``fn`` (one step) between CUDA events."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def profile_device(torch, fn):
     """Device time of one call of ``fn`` under torch.profiler (ms, summed over
-    every device activity), and the five largest contributors by name."""
+    the device's own activities: kernels, copies, sets), and the eight
+    largest of them by name.  A CPU op's self device time repeats the
+    kernels it launched, so CPU ops are not summed."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
         return None, []
     rows.sort(key=lambda r: -r[1])
-    top = [dict(name=k[:60], ms=round(ms, 3), count=c) for k, ms, c in rows[:5]]
+    top = [dict(name=k[:60], ms=round(ms, 3), count=c) for k, ms, c in rows[:8]]
     return sum(ms for _, ms, _ in rows), top
 
 
@@ -223,6 +363,48 @@ def compare_metrics(torch, got, want, what):
     return worst
 
 
+def scaled_err(torch, got, want):
+    """(max |got - want|, max |want|) of two tensors."""
+    a, b = got.detach().double().cpu(), want.detach().double().cpu()
+    return float(torch.max(torch.abs(a - b))), float(torch.max(torch.abs(b)))
+
+
+def grad_errors(torch, got, want, what):
+    """Per parameter (share, name, err, largest): err = max |got - want|,
+    largest = max |want|, share = err / largest; sorted, worst last."""
+    out = []
+    for name in want:
+        a, b = got[name], want[name]
+        if (a is None) != (b is None):
+            raise Failure(f"{what}: {name} has a gradient on one side only")
+        if b is None:
+            continue
+        if not torch.isfinite(a).all():
+            raise Failure(f"{what}: {name} gradient is not finite")
+        err, size = scaled_err(torch, a, b)
+        out.append((err / (size + 1e-30), name, err, size))
+    return sorted(out)
+
+
+def plain_versions(fused):
+    """The three wrappers replaced by their plain versions (autograd of
+    plain tensor ops for a gradient), as a context manager."""
+    return mock.patch.multiple(fused, fused_mlp=fused.mlp_plain,
+                               fused_vanilla_rnn=fused.vanilla_rnn_plain,
+                               fused_gru=fused.gru_plain)
+
+
+def step_gradients(torch, model, obs, nums, noise, l2):
+    """The parameter gradients of one train-record loss (no update)."""
+    params = dict(model.sequence.named_parameters())
+    model.sequence.zero_grad(set_to_none=True)
+    target, aux = model.loss_and_metrics(obs, noise, nums, l2_weight=l2, record_mode="train")
+    target.backward()
+    grads = {n: (None if p.grad is None else p.grad.detach().clone()) for n, p in params.items()}
+    model.sequence.zero_grad(set_to_none=True)
+    return grads, float(target.detach())
+
+
 def run():
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -234,11 +416,13 @@ def run():
         return 1
     sys.path.insert(0, str(REPO))
     from sqair_tpu_torch.configs import mlp_mnist_model
-    from sqair_tpu_torch.data import create_seq_dataset, make_template_bank
-    from sqair_tpu_torch.ops import build, fused
+    from sqair_tpu_torch.data import (DeviceDatasetSampler, create_seq_dataset,
+                                      make_template_bank)
+    from sqair_tpu_torch.ops import build, fused, stn
     from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
-    from sqair_tpu_torch.training import make_eval_step
+    from sqair_tpu_torch.training import make_eval_step, make_train_step
 
+    stn.full_fp32_matmul()  # no TF32 anywhere, the plain versions included
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -261,16 +445,30 @@ def run():
     flags = json.loads(RELEASE_FLAGS.read_text())
     B, k = int(flags["batch_size"]), int(flags["k_particles"])
     T = int(flags.get("font_timesteps", 10))
-    shapes = main_path_shapes(flags, B * k)
+    eval_shapes = main_path_shapes(flags, B, k, T)
+    train_shapes = main_path_shapes(flags, B, k, T, train=True)
+    # every distinct forward shape, with its calls per eval and per train step
+    shapes = {}
+    for mode, group in (("eval", eval_shapes), ("train", train_shapes)):
+        for kernel, shape, calls in group:
+            key = (kernel, jdump(shape))
+            entry = shapes.setdefault(key, dict(kernel=kernel, shape=shape, eval=0, train=0))
+            entry[mode] += calls
     wrappers = {"fused_mlp": fused.fused_mlp, "fused_vanilla_rnn": fused.fused_vanilla_rnn,
                 "fused_gru": fused.fused_gru}
     plains = {"fused_mlp": fused.mlp_plain, "fused_vanilla_rnn": fused.vanilla_rnn_plain,
               "fused_gru": fused.gru_plain}
+    bwd_wrappers = {"fused_mlp": fused.fused_mlp_bwd,
+                    "fused_vanilla_rnn": fused.fused_vanilla_rnn_bwd,
+                    "fused_gru": fused.fused_gru_bwd}
+    bwd_plains = {"fused_mlp": fused.mlp_bwd_plain,
+                  "fused_vanilla_rnn": fused.vanilla_rnn_bwd_plain,
+                  "fused_gru": fused.gru_bwd_plain}
     gen = torch.Generator(device=device).manual_seed(SEED)
-    checked = []
     with torch.inference_mode():
-        for kernel, shape, calls in shapes:
+        for entry in shapes.values():
             t0 = time.perf_counter()
+            kernel, shape = entry["kernel"], entry["shape"]
             args = make_inputs(torch, kernel, shape, gen, device)
             got = wrappers[kernel](*args)
             want = plains[kernel](*args)
@@ -281,17 +479,51 @@ def run():
             big = torch.abs(want) >= 1e-2
             rel_err = float(torch.max(diff[big] / torch.abs(want[big]))) if big.any() else 0.0
             ok = bool(torch.all(diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(want)))
-            log("kernels", t0, kernel=kernel, shape=json.dumps(shape, separators=(",", ":")),
+            log("kernels", t0, kernel=kernel, shape=jdump(shape),
                 max_abs_err=f"{abs_err:.3e}", max_rel_err=f"{rel_err:.3e}",
                 tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|", ok=ok)
             if not ok or got.shape != want.shape:
                 raise Failure(f"{kernel} {shape}: kernel disagrees with its plain version")
-            checked.append((kernel, shape, calls, args, abs_err))
+            entry.update(args=args, abs_err=abs_err)
+
+    # ------------------------------------------------------- kernels-bwd
+    bwd_entries = [e for e in shapes.values() if e["train"]]
+    with torch.inference_mode():
+        for entry in bwd_entries:
+            t0 = time.perf_counter()
+            kernel, shape = entry["kernel"], entry["shape"]
+            need_dx = needs_dx(kernel, shape)
+            bargs = make_bwd_inputs(torch, fused, kernel, entry["args"], gen)
+            got = flat_grads(kernel, bwd_wrappers[kernel](*bargs, need_dx=need_dx))
+            want = flat_grads(kernel, bwd_plains[kernel](*bargs))
+            if not need_dx:
+                want[0] = None
+            torch.cuda.synchronize()
+            worst_abs, worst_share = 0.0, 0.0
+            for i, (a, b) in enumerate(zip(got, want)):
+                if b is None:
+                    if a is not None:
+                        raise Failure(f"{kernel}_bwd {shape}: gradient {i} was not skipped")
+                    continue
+                if a.shape != b.shape:
+                    raise Failure(f"{kernel}_bwd {shape}: gradient {i} has shape "
+                                  f"{tuple(a.shape)}, expected {tuple(b.shape)}")
+                err, size = scaled_err(torch, a, b)
+                if not err <= BWD_TOL * size + 1e-6:
+                    raise Failure(f"{kernel}_bwd {shape}: gradient {i} differs by {err:.3g} "
+                                  f"(largest {size:.3g})")
+                worst_abs = max(worst_abs, err)
+                worst_share = max(worst_share, err / (size + 1e-30))
+            log("kernels-bwd", t0, kernel=kernel + "_bwd", shape=jdump(shape),
+                need_dx=need_dx, max_abs_err=f"{worst_abs:.3e}",
+                max_err_share=f"{worst_share:.3e}",
+                tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True)
+            entry.update(bwd_args=bargs, bwd_abs_err=worst_abs, need_dx=need_dx)
 
     # -------------------------------------------------------------- eval
     t0 = time.perf_counter()
     n_seq = N_BATCHES * B
-    data = create_seq_dataset(n_samples=n_seq, n_timesteps=T, canvas_size=(50, 50),
+    data = create_seq_dataset(n_samples=n_seq, n_timesteps=T, canvas_size=IMG,
                               obj_size=(28, 28), n_objects=(0, 2), seed=SEED + 1,
                               templates=make_template_bank(256, 28, seed=SEED))
     imgs = data["imgs"].astype("float32") / 255.0  # [T, N, 50, 50]
@@ -312,26 +544,22 @@ def run():
     results = [eval_step(obs, gt, noise) for (obs, gt), noise in zip(batches, noises)]
     noise0 = noises[0].table
     torch.cuda.synchronize()
-    counts = dict(fused.launches)
-    per_frame = {name: sum(c for kn, _, c in shapes if kn == name) for name in KERNELS}
-    expected = {name: N_BATCHES * T * c for name, c in per_frame.items()}
+    eval_counts = dict(fused.launches)
+    expected = expected_launches(eval_shapes, N_BATCHES)
     for i, m in enumerate(results):
         for key, v in m.items():
             if not torch.isfinite(v).all():
                 raise Failure(f"batch {i}: metric {key} is not finite")
-    log("eval", t0, steps=N_BATCHES, launches=json.dumps(counts, separators=(",", ":")),
-        expected=json.dumps(expected, separators=(",", ":")),
+    log("eval", t0, steps=N_BATCHES, launches=jdump(eval_counts), expected=jdump(expected),
         iwae=f"{float(results[0]['iwae']):.4f}",
         num_step_accuracy=f"{float(results[0]['num_step_accuracy']):.4f}",
         mse=f"{float(results[0]['mse']):.5f}")
-    if counts != expected:
-        raise Failure(f"launch counts {counts} differ from the main path's {expected}")
+    if eval_counts != expected:
+        raise Failure(f"launch counts {eval_counts} differ from the eval path's {expected}")
 
     t0 = time.perf_counter()
     obs0, gt0 = batches[0]
-    with mock.patch.object(fused, "fused_mlp", fused.mlp_plain), \
-            mock.patch.object(fused, "fused_vanilla_rnn", fused.vanilla_rnn_plain), \
-            mock.patch.object(fused, "fused_gru", fused.gru_plain):
+    with plain_versions(fused):
         fused.reset_launches()
         plain = eval_step(obs0, gt0, ReplayNoise(noise0, device))
         if sum(fused.launches.values()):
@@ -348,45 +576,43 @@ def run():
     # ------------------------------------------------------------ timing
     rows = {name: dict(weight=0, ms=0.0, plain=0.0, lib=0.0, bound=0.0, t_bytes=0.0,
                        t_ops=0.0, err=0.0) for name in KERNELS}
+
+    def add_row(name, weight, ms, plain_ms, lib_ms, t_bytes, t_ops, err):
+        r = rows[name]
+        r["weight"] += weight
+        r["ms"] += weight * ms
+        r["plain"] += weight * plain_ms
+        r["lib"] += weight * lib_ms
+        r["bound"] += weight * max(t_bytes, t_ops)
+        r["t_bytes"] += weight * t_bytes
+        r["t_ops"] += weight * t_ops
+        r["err"] = max(r["err"], err)
+
     with torch.inference_mode():
-        for kernel, shape, calls, args, abs_err in checked:
+        for entry in shapes.values():
             t0 = time.perf_counter()
+            kernel, shape, args = entry["kernel"], entry["shape"], entry["args"]
             ms = device_ms(torch, lambda: wrappers[kernel](*args))
             plain_ms = device_ms(torch, lambda: plains[kernel](*args))
             lib = library_fn(torch, kernel)
             lib_ms = device_ms(torch, lambda: lib(*args))
             nbytes, flops = work(kernel, shape)
             t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
-            log("timing", t0, kernel=kernel, shape=json.dumps(shape, separators=(",", ":")),
-                calls_per_frame=calls, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-                library_ms=f"{lib_ms:.5f}", bound_ms=f"{max(t_bytes, t_ops):.5f}",
+            log("timing", t0, kernel=kernel, shape=jdump(shape),
+                calls_per_eval_step=entry["eval"], calls_per_train_step=entry["train"],
+                ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+                bound_ms=f"{max(t_bytes, t_ops):.5f}",
                 bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
-            r = rows[kernel]
-            r["weight"] += calls
-            r["ms"] += calls * ms
-            r["plain"] += calls * plain_ms
-            r["lib"] += calls * lib_ms
-            r["bound"] += calls * max(t_bytes, t_ops)
-            r["t_bytes"] += calls * t_bytes
-            r["t_ops"] += calls * t_ops
-            r["err"] = max(r["err"], abs_err)
+            # the kernels line weights each shape by its calls in a train step,
+            # the main path of this slice
+            add_row(kernel, entry["train"], ms, plain_ms, lib_ms, t_bytes, t_ops,
+                    entry["abs_err"])
 
     t0 = time.perf_counter()
     step_noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 3), device)
-    for _ in range(2):
-        eval_step(obs0, gt0, step_noise)
-    times = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        eval_step(obs0, gt0, step_noise)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    step_ms = statistics.median(times)
-    log("timing", t0, eval_step_ms=f"{step_ms:.3f}",
-        frames_per_s=f"{B * T / (step_ms / 1e3):.1f}", reps=REPS, B=B, T=T, k=k,
+    eval_step_ms = step_ms(torch, lambda: eval_step(obs0, gt0, step_noise), 2 * REPS)
+    log("timing", t0, eval_step_ms=f"{eval_step_ms:.3f}",
+        frames_per_s=f"{B * T / (eval_step_ms / 1e3):.1f}", reps=2 * REPS, B=B, T=T, k=k,
         card=repr(card))
 
     t0 = time.perf_counter()
@@ -394,9 +620,118 @@ def run():
     if busy_ms is None:
         log("profile", t0, device_busy="not-measured (the profiler saw no device time)")
     else:
-        log("profile", t0, device_busy_ms=f"{busy_ms:.3f}", step_ms=f"{step_ms:.3f}",
-            busy_share=f"{busy_ms / step_ms:.3f}",
-            top=json.dumps(top, separators=(",", ":")), card=repr(card))
+        log("profile", t0, device_busy_ms=f"{busy_ms:.3f}", step_ms=f"{eval_step_ms:.3f}",
+            busy_share=f"{busy_ms / eval_step_ms:.3f}", top=jdump(top), card=repr(card))
+
+    # ------------------------------------------------------------- train
+    t0 = time.perf_counter()
+    sampler = DeviceDatasetSampler(data, device)
+    optimizer, l2 = mlp_mnist_model.make_optimizer(flags)
+    train_step = make_train_step(model, optimizer, l2_weight=l2)
+    params = dict(model.sequence.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    data_gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    train_noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 5), device)
+    train_batches = [sampler.sample(data_gen, B) for _ in range(N_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    log("train-setup", t0, optimizer=type(train_step.state.optimizer).__name__,
+        learning_rate=flags["learning_rate"], schedule=flags["schedule"],
+        train_itr=flags["train_itr"], l2=l2, sampler_sequences=sampler.n)
+    t0 = time.perf_counter()
+    fused.reset_launches()
+    train_metrics = [train_step(b["imgs"], b["nums"], train_noise) for b in train_batches]
+    torch.cuda.synchronize()
+    train_counts = dict(fused.launches)
+    expected = expected_launches(train_shapes, N_TRAIN_STEPS, backward=True)
+    for i, m in enumerate(train_metrics):
+        for key, v in m.items():
+            if not torch.isfinite(v).all():
+                raise Failure(f"train step {i}: metric {key} is not finite")
+    changed = sorted(n for n, p in params.items() if not torch.equal(p.detach(), before[n]))
+    frozen = sorted(set(params) - set(changed))
+    log("train", t0, steps=N_TRAIN_STEPS, launches=jdump(train_counts),
+        expected=jdump(expected), target=f"{float(train_metrics[-1]['target']):.4f}",
+        iwae=f"{float(train_metrics[-1]['iwae']):.4f}",
+        num_step_accuracy=f"{float(train_metrics[-1]['num_step_accuracy']):.4f}",
+        params_changed=f"{len(changed)}/{len(params)}", unchanged=jdump(frozen))
+    if train_counts != expected:
+        raise Failure(f"launch counts {train_counts} differ from the train path's {expected}")
+    if frozen != ["decoder.background_std", "decoder.output_std"]:
+        raise Failure(f"parameters that did not change: {frozen} (only the decoder stds, "
+                      "which get no gradient, should stay)")
+
+    t0 = time.perf_counter()
+    batch = train_batches[0]
+    rec = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 6), device,
+                         record=True)
+    got, target_k = step_gradients(torch, model, batch["imgs"], batch["nums"], rec, l2)
+    with plain_versions(fused):
+        fused.reset_launches()
+        want, target_p = step_gradients(torch, model, batch["imgs"], batch["nums"],
+                                        ReplayNoise(rec.table, device), l2)
+        if sum(fused.launches.values()):
+            raise Failure("the plain train re-run launched a kernel")
+    cpu_model = copy.copy(model)
+    cpu_model.sequence = copy.deepcopy(model.sequence).cpu()
+    cpu_grads, target_c = step_gradients(
+        torch, cpu_model, batch["imgs"].cpu(), batch["nums"].cpu(),
+        ReplayNoise({key: v.cpu() for key, v in rec.table.items()}, "cpu"), l2)
+    pairs = {"kernels_vs_plain_on_card": (got, want), "kernels_vs_cpu": (got, cpu_grads),
+             "plain_on_card_vs_cpu": (want, cpu_grads)}
+    errors = {pair: grad_errors(torch, a, b, pair) for pair, (a, b) in pairs.items()}
+    gmax = max(size for _, _, _, size in errors["kernels_vs_plain_on_card"])
+    summary = {pair: [dict(name=n, share=f"{sh:.2e}", err=f"{e:.2e}", largest=f"{sz:.2e}")
+                      for sh, n, e, sz in errs[-4:]] for pair, errs in errors.items()}
+    tols = {"kernels_vs_plain_on_card": GRAD_TOL, "kernels_vs_cpu": GRAD_TOL_CPU}
+    log("train-check", t0, params=len(want), largest_grad=f"{gmax:.3e}",
+        target=f"{target_k:.5f}", target_plain=f"{target_p:.5f}", target_cpu=f"{target_c:.5f}",
+        worst=jdump(summary), tol=jdump({pair: f"|d|<={tol:g}max|grad|+1e-6"
+                                         for pair, tol in tols.items()}))
+    for pair, tol in tols.items():
+        for share, name, err, size in errors[pair]:
+            if err > tol * size + 1e-6:
+                raise Failure(f"train gradients, {pair}: {name} differs by {err:.3g} "
+                              f"(largest {size:.3g}, tol {tol:g} of it + 1e-6)")
+
+    # ------------------------------------------------------ train-timing
+    with torch.inference_mode():
+        for entry in bwd_entries:
+            t0 = time.perf_counter()
+            kernel, shape, bargs = entry["kernel"], entry["shape"], entry["bwd_args"]
+            need_dx = entry["need_dx"]
+            ms = device_ms(torch, lambda: bwd_wrappers[kernel](*bargs, need_dx=need_dx))
+            plain_ms = device_ms(torch, lambda: bwd_plains[kernel](*bargs))
+            nbytes, flops = work(kernel, shape, backward=True, need_dx=need_dx)
+            t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+            with torch.inference_mode(False):
+                lib = library_bwd_fn(torch, kernel, entry["args"], need_dx, gen)
+                lib_ms = device_ms(torch, lib)
+            log("train-timing", t0, kernel=kernel + "_bwd", shape=jdump(shape),
+                need_dx=need_dx, calls_per_train_step=entry["train"], ms=f"{ms:.5f}",
+                plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+                bound_ms=f"{max(t_bytes, t_ops):.5f}",
+                bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
+            add_row(kernel + "_bwd", entry["train"], ms, plain_ms, lib_ms, t_bytes, t_ops,
+                    entry["bwd_abs_err"])
+
+    t0 = time.perf_counter()
+    timing_batch = train_batches[-1]
+    train_step_ms = step_ms(
+        torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise),
+        REPS)
+    log("train-timing", t0, train_step_ms=f"{train_step_ms:.3f}",
+        frames_per_s=f"{B * T / (train_step_ms / 1e3):.1f}", reps=REPS, B=B, T=T, k=k,
+        card=repr(card))
+
+    t0 = time.perf_counter()
+    busy_ms, top = profile_device(
+        torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise))
+    if busy_ms is None:
+        log("train-profile", t0, device_busy="not-measured (the profiler saw no device time)")
+    else:
+        log("train-profile", t0, device_busy_ms=f"{busy_ms:.3f}",
+            step_ms=f"{train_step_ms:.3f}", busy_share=f"{busy_ms / train_step_ms:.3f}",
+            top=jdump(top), card=repr(card))
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -404,7 +739,7 @@ def run():
         w = r["weight"]
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=counts[name], max_abs_err=r["err"], ms=r["ms"] / w,
+            launches=train_counts[name], max_abs_err=r["err"], ms=r["ms"] / w,
             plain_ms=r["plain"] / w, bound_ms=r["bound"] / w,
             bound_by="bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
             library_ms=r["lib"] / w))

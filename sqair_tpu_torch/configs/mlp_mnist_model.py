@@ -3,7 +3,8 @@ sqair_tpu/configs/mlp_mnist_model.py and common_model_flags.py).
 
 ``load(flags, img_shape)`` takes the flags as a dict, e.g. a parsed
 ``flags.json`` of a run of the JAX package; a missing flag takes the JAX
-package's default.
+package's default.  ``train_settings(flags)`` reads the training flags and
+``make_optimizer(flags)`` builds the optimizer they name.
 """
 from __future__ import annotations
 
@@ -15,6 +16,11 @@ import torch
 from ..device import resolve_device
 from ..models import AIRDecoder, Model, SequentialAIR, SQAIRTimestep
 from ..nn.layers import init_params
+from ..training import train as training
+
+# the JAX package's training flag defaults (scripts/experiment.py)
+TRAIN_DEFAULTS = dict(opt="rmsprop", learning_rate=1e-5, schedule="4,6,10",
+                      train_itr=int(2e6), l2=0.0)
 
 # the JAX package's flag defaults (common_model_flags.py, configs/mlp_mnist_model.py)
 DEFAULTS = dict(
@@ -99,3 +105,26 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
                  transient_penalty=F["transient_disc_penalty"],
                  transient_horizon=int(F["early_disc_horizon"]),
                  transient_temp=F["transient_penalty_temp"])
+
+
+def train_settings(flags: Mapping) -> dict:
+    """The training flags (opt, learning_rate, schedule, train_itr, l2),
+    missing ones at the JAX package's defaults.  Raises on an optimizer
+    that is not ported."""
+    F = dict(TRAIN_DEFAULTS)
+    F.update({k: flags[k] for k in TRAIN_DEFAULTS if k in flags})
+    if str(F["opt"]).lower() not in training.OPTIMIZERS:
+        raise ValueError(f"optimizer '{F['opt']}' is not ported yet "
+                         f"(ported: {training.OPTIMIZERS})")
+    return dict(opt=str(F["opt"]), learning_rate=float(F["learning_rate"]),
+                schedule=str(F["schedule"] or ""), train_itr=int(F["train_itr"]),
+                l2=float(F["l2"]))
+
+
+def make_optimizer(flags: Mapping):
+    """The optimizer factory (params -> optimizer) and the L2 weight of the
+    flags: ``opt`` at ``learning_rate``, decayed by ``schedule`` over
+    ``train_itr``."""
+    s = train_settings(flags)
+    lr = training.make_lr_schedule(s["learning_rate"], s["schedule"], s["train_itr"])
+    return training.make_optimizer(s["opt"], lr), s["l2"]

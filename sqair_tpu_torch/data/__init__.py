@@ -1,3 +1,4 @@
-from .moving_mnist import create_seq_dataset, create_static, render_sequences
+from .moving_mnist import (DeviceDatasetSampler, create_seq_dataset, create_static,
+                           render_sequences)
 from .synthetic import make_font_digit_bank, make_template_bank, template_dimensions
 from .trajectory import NoisyAccelerationTrajectory

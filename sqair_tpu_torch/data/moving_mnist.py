@@ -1,11 +1,13 @@
-"""Moving-multi-digit sequence data (a copy of the host path of
-sqair_tpu/data/moving_mnist.py, numpy only): static canvases, trajectories
-seeded at the static positions, max-composited rendering."""
+"""Moving-multi-digit sequence data (the port of
+sqair_tpu/data/moving_mnist.py): static canvases, trajectories seeded at
+the static positions and max-composited rendering (numpy, a copy of the
+JAX package's host path), and a device-resident minibatch sampler."""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from .synthetic import make_template_bank, template_dimensions
 from .trajectory import NoisyAccelerationTrajectory
@@ -159,3 +161,40 @@ def create_seq_dataset(n_samples=1000, n_timesteps=10, canvas_size=(50, 50),
             coords[:, i, num, 2:] = data["templates"][i][num].shape
 
     return dict(imgs=img_seq, labels=data["labels"], nums=nums, coords=coords)
+
+
+class DeviceDatasetSampler:
+    """The whole dataset on the model's device, and a minibatch gather from
+    it per step (the counterpart of the JAX package's
+    OnDeviceDatasetSampler): no host round trip, no per-step rendering.
+
+    The frames stay uint8 on the device, sample-major ([N, T, H, W]); a
+    batch is gathered with indices drawn from an explicit
+    ``torch.Generator`` and scaled to [0, 1] on the device.
+
+    :param data: a generator output dict: imgs [T, N, H, W] uint8, nums
+        [T or 1, N, C]
+    """
+
+    def __init__(self, data: Dict[str, np.ndarray], device):
+        imgs = np.asarray(data["imgs"])
+        if imgs.dtype != np.uint8:
+            raise TypeError(f"expected uint8 frames, got {imgs.dtype}")
+        nums = np.asarray(data["nums"], np.float32)
+        if nums.shape[0] == 1:  # [1, N, C]: the same counts in every frame
+            nums = np.broadcast_to(nums, (imgs.shape[0],) + nums.shape[1:])
+        self.device = torch.device(device)
+        self.imgs = torch.from_numpy(np.ascontiguousarray(np.swapaxes(imgs, 0, 1))).to(
+            self.device)
+        self.nums = torch.from_numpy(np.ascontiguousarray(np.swapaxes(nums, 0, 1))).to(
+            self.device)
+        self.n = self.imgs.shape[0]
+
+    def sample(self, generator: torch.Generator, batch_size: int) -> Dict[str, torch.Tensor]:
+        """:return: dict(imgs [T, B, H, W] float32 in [0, 1], nums [T, B, C])"""
+        idx = torch.randint(0, self.n, (batch_size,), generator=generator,
+                            device=self.device)
+        imgs = self.imgs.index_select(0, idx).to(torch.float32) / 255.0
+        nums = self.nums.index_select(0, idx)
+        return dict(imgs=imgs.transpose(0, 1).contiguous(),
+                    nums=nums.transpose(0, 1).contiguous())

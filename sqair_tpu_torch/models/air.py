@@ -51,12 +51,21 @@ class AIRDecoder(Module):
     """Per-object glimpse decode, inverse-ST paste and a mean-image
     background.  One pair of paste matrices serves the glimpse paste and
     the written-to mask, whose all-ones paste is the rank-1 outer product
-    of the matrices' row sums."""
+    of the matrices' row sums.
+
+    The fg / bg stds are parameters (kept in the state_dict under their flax
+    names) that receive no gradient: as in the JAX package with ``learn_std``
+    and ``learn_bg_std`` False, their defaults and the only setting any
+    config uses.  Learnable stds are not ported and raise.
+    """
 
     def __init__(self, img_size, glimpse_size, n_what, glimpse_n_hiddens,
                  glimpse_output_scale=0.25, mean_img: Optional[np.ndarray] = None,
-                 output_std=0.3):
+                 output_std=0.3, learn_std=False, learn_bg_std=False):
         super().__init__()
+        if learn_std or learn_bg_std:
+            raise ValueError("learnable decoder stds (learn_std, learn_bg_std) are not "
+                             "ported yet")
         self.img_size, self.glimpse_size = tuple(img_size), tuple(glimpse_size)
         self._glimpse_decoder = Decoder(n_what, glimpse_n_hiddens, self.glimpse_size,
                                         glimpse_output_scale)
@@ -83,6 +92,8 @@ class AIRDecoder(Module):
         written_to_mask = torch.sigmoid(-10.0 + torch.sum(ones_paste, 1) * 20.0)
         if self.has_mean_img:
             canvas = canvas + self.mean_img[None] * written_to_mask
-        fg, bg = self.output_std**2, self.background_std**2
+        # the JAX package stops the gradient of both stds (learn_std and
+        # learn_bg_std are False)
+        fg, bg = self.output_std.detach()**2, self.background_std.detach()**2
         std = written_to_mask * fg + (1.0 - written_to_mask) * bg
         return D.Normal(canvas, std), glimpse

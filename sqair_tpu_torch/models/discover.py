@@ -15,7 +15,8 @@ from .core import HIDDEN_OUTPUT_FIELDS, DiscoveryCore
 
 class Discover(Module):
     """Discovers up to n_steps new objects in a frame, and evaluates the
-    posterior and prior log-probs of what it found.
+    posterior and prior log-probs of what it found (in the loop, or later in
+    one batched pass over every frame: ``log_probs_only``).
 
     The early-frame levers act for t < early_disc_horizon:
     ``early_disc_step_bias`` charges each discovery that many nats of prior
@@ -57,8 +58,19 @@ class Discover(Module):
                            lambda t, g: t.copy_(init))
             self._step_cond_mlp = MLP(1, [10], n_out=n_steps + 1)
 
+    def log_probs_only(self, hidden_outputs, num_steps, time_step, conditioning_from_prop,
+                       prior_conditioning) -> Dict:
+        """Posterior and prior log-probs of recorded samples: the deferred
+        pass of the train record, over [T*B, ...] stacks, with the same
+        math as the in-loop path.
+
+        :param time_step: [T*B, 1] frame index of each row
+        """
+        return self._compute_log_probs(hidden_outputs, num_steps, time_step,
+                                       conditioning_from_prop, prior_conditioning)
+
     def forward(self, img, conditioning_from_prop, time_step: int, prior_conditioning,
-                noise: NoiseSource) -> Dict:
+                noise: NoiseSource, compute_log_probs: bool = True) -> Dict:
         """Runs discovery for one frame.
 
         :param img: [B, H, W]
@@ -66,6 +78,8 @@ class Discover(Module):
         :param time_step: frame index t
         :param prior_conditioning: [B, 1] expected propagated count
         :param noise: source scoped to this frame's discovery
+        :param compute_log_probs: False leaves the log-probs to
+            ``log_probs_only`` (the draws are the same either way)
         """
         extra_steps_logit, steps_logit_scale, steps_logit_clamp = 0.0, 1.0, None
         if (self.early_disc_logit_bias or self.early_disc_logit_clamp
@@ -84,11 +98,12 @@ class Discover(Module):
         hidden_outputs, num_steps = self._discover(
             img, conditioning_from_prop, noise, extra_steps_logit, steps_logit_scale,
             steps_logit_clamp)
-        log_probs = self._compute_log_probs(hidden_outputs, num_steps, time_step,
-                                            conditioning_from_prop, prior_conditioning)
         outputs = dict(hidden_outputs=hidden_outputs, num_steps=num_steps)
         outputs.update(hidden_outputs)
-        outputs.update(log_probs)
+        if compute_log_probs:
+            outputs.update(self._compute_log_probs(hidden_outputs, num_steps, time_step,
+                                                   conditioning_from_prop,
+                                                   prior_conditioning))
         return outputs
 
     def _discover(self, img, conditioning, noise, extra_steps_logit=0.0,
@@ -107,19 +122,26 @@ class Discover(Module):
         return hidden_outputs, num_steps
 
     def _make_steps_prior(self, time_step, prior_conditioning):
-        """Geometric or learned-categorical prior of the discovery count."""
+        """Geometric or learned-categorical prior of the discovery count.
+
+        :param time_step: the frame index (in the loop) or a [N, 1] tensor of
+            them (the deferred pass); both give the same logits
+        """
         if self.disc_prior_type == "geom":
             return D.Geometric(probs=torch.tensor(1.0 - self.step_success_prob,
                                                   device=prior_conditioning.device))
-        is_first = float(time_step == 0)
+        time_step = torch.as_tensor(time_step, device=prior_conditioning.device)
+        is_first = (time_step == 0).to(torch.float32)
         step_logits = self.step_prior_bias + (1.0 - is_first) * self.step_prior_timestep_bias
-        step_logits = step_logits[None] + self._step_cond_mlp(prior_conditioning)
-        step_logits = F.elu(step_logits)
-        if self.early_disc_step_bias and time_step < self.early_disc_horizon:
+        if step_logits.ndim == 1:
+            step_logits = step_logits[None]
+        step_logits = F.elu(step_logits + self._step_cond_mlp(prior_conditioning))
+        if self.early_disc_step_bias:
             # after the elu, so that the ramp keeps its full size
+            is_early = (time_step < self.early_disc_horizon).to(torch.float32)
             ramp = -self.early_disc_step_bias * torch.arange(
                 self.n_steps + 1, dtype=torch.float32, device=step_logits.device)
-            step_logits = step_logits + ramp
+            step_logits = step_logits + is_early * ramp
         return D.Categorical(logits=step_logits)
 
     def _where_prior_log_prob(self, where, conditioning):

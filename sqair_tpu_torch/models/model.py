@@ -1,5 +1,5 @@
 """Model: IWAE particles, bounds, importance-weighted metrics and the VIMCO
-target (the port of sqair_tpu/models/model.py, full record mode)."""
+target (the port of sqair_tpu/models/model.py)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -42,24 +42,29 @@ class Model:
             m["aspect"] = m.pop("aspect_sq_sum") / torch.clamp(m.pop("aspect_n"), min=1.0)
         return m
 
-    def forward(self, obs, noise: NoiseSource) -> Dict:
+    def forward(self, obs, noise: NoiseSource, record_mode: str = "full") -> Dict:
         """:param obs: [T, B, H, W] -> outputs with [T, B*k, ...] leaves"""
         tiled_obs = indexing.tile_input_for_iwae(obs, self.k_particles, with_time=True)
-        outputs = self.sequence(tiled_obs, noise)
+        outputs = self.sequence(tiled_obs, noise, record_mode=record_mode)
         outputs["tiled_obs"] = tiled_obs
         return outputs
 
-    def loss_and_metrics(self, obs, noise: NoiseSource,
-                         gt_presence=None) -> Tuple[torch.Tensor, Dict]:
+    def loss_and_metrics(self, obs, noise: NoiseSource, gt_presence=None,
+                         l2_weight: float = 0.0,
+                         record_mode: str = "full") -> Tuple[torch.Tensor, Dict]:
         """The VIMCO target and the JAX package's metric set.
 
         :param obs: [T, B, H, W]
         :param gt_presence: [T, B, C] cumulative one-hot object counts
+        :param l2_weight: weight of an L2 penalty on every parameter
+        :param record_mode: "full", or "train" (the same target and metrics,
+            without the per-frame count metrics ``num_step_acc_per_t`` and
+            ``num_steps_per_t``)
         :return: (target, dict(metrics=..., log_weights=[B, k]))
         """
         k = self.k_particles
         T, B = obs.shape[0], obs.shape[1]
-        outputs = self.forward(obs, noise)
+        outputs = self.forward(obs, noise, record_mode)
 
         log_weights = torch.sum(outputs["log_weights_per_timestep"], 0).reshape(B, k)
         elbo_vae = torch.mean(log_weights)
@@ -86,8 +91,11 @@ class Model:
         ):
             metrics[name] = imp_weighted_mean(outputs[key])
 
-        mse_per_sample = torch.mean((outputs["tiled_obs"] - outputs["canvas"]) ** 2,
-                                    dim=(0, 2, 3))
+        if record_mode == "train":
+            mse_per_sample = torch.mean(outputs["mse_per_timestep"], 0)
+        else:
+            mse_per_sample = torch.mean((outputs["tiled_obs"] - outputs["canvas"]) ** 2,
+                                        dim=(0, 2, 3))
         metrics["mse"] = imp_weighted_mean(mse_per_sample[None])
         metrics["raw_mse"] = torch.mean(mse_per_sample)
 
@@ -97,14 +105,17 @@ class Model:
             acc = (gt_num_steps[..., None] == num_steps).to(torch.float32)
             metrics["raw_num_step_accuracy"] = torch.mean(acc)
             metrics["num_step_accuracy"] = imp_weighted_mean(acc)
-            metrics["num_step_acc_per_t"] = torch.mean(
-                importance_weights[None] * acc * k, dim=(1, 2))
-            metrics["num_steps_per_t"] = torch.mean(
-                importance_weights[None] * num_steps * k, dim=(1, 2))
+            if record_mode != "train":
+                metrics["num_step_acc_per_t"] = torch.mean(
+                    importance_weights[None] * acc * k, dim=(1, 2))
+                metrics["num_steps_per_t"] = torch.mean(
+                    importance_weights[None] * num_steps * k, dim=(1, 2))
 
         discrete_log_prob = torch.sum(outputs["discrete_log_prob"], 0)
         surrogate = targets.vimco if k > 1 else targets.reinforce
         target = surrogate(log_weights, discrete_log_prob, elbo_iwae_per_example) / T
+        if l2_weight:
+            target = target + targets.l2_reg(self.sequence.parameters(), l2_weight)
 
         # mean squared log-aspect of the present glimpses
         wh = outputs["where"]

@@ -69,22 +69,33 @@ class Propagate(Module):
     def prior_init_state(self, batch_size):
         return self.prior.initial_state(batch_size)
 
-    def forward(self, img, z_tm1, temporal_state, prior_state, noise: NoiseSource) -> Dict:
+    def log_probs_only(self, presence_tm1, hidden_outputs, prior_stats, delta_what,
+                       delta_where) -> Dict:
+        """Posterior and prior log-probs of recorded samples and prior stats:
+        the deferred pass of the train record, over [T*B, ...] stacks, with
+        the same math as the in-loop path."""
+        return self._compute_log_probs(presence_tm1, hidden_outputs, prior_stats,
+                                       delta_what, delta_where)
+
+    def forward(self, img, z_tm1, temporal_state, prior_state, noise: NoiseSource,
+                compute_log_probs: bool = True) -> Dict:
         """:param img: [B, H, W]
         :param z_tm1: (what, where, presence, presence_logit), each [B, S, d]
         :param temporal_state, prior_state: state tuples of [B, S, U]
-        :param noise: source scoped to this frame's propagation"""
+        :param noise: source scoped to this frame's propagation
+        :param compute_log_probs: False leaves the log-probs to
+            ``log_probs_only``"""
         presence_tm1 = z_tm1[2]
         prior_stats, prior_state = self.prior(z_tm1, prior_state)
         hidden_outputs, num_steps, delta_what, delta_where, temporal_state = self._ssm(
             img, z_tm1, temporal_state, noise)
-        log_probs = self._compute_log_probs(presence_tm1, hidden_outputs, prior_stats,
-                                            delta_what, delta_where)
         outputs = dict(prior_stats=prior_stats, prior_state=prior_state,
                        hidden_outputs=hidden_outputs, num_steps=num_steps,
                        temporal_state=temporal_state)
         outputs.update(hidden_outputs)
-        outputs.update(log_probs)
+        if compute_log_probs:
+            outputs.update(self._compute_log_probs(presence_tm1, hidden_outputs,
+                                                   prior_stats, delta_what, delta_where))
         return outputs
 
     def _ssm(self, img, z_tm1, temporal_state, noise):

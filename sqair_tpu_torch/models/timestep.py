@@ -110,10 +110,15 @@ class SQAIRTimestep(Module):
 
     # -------------------------------------------------------------- step
     def forward(self, img, z_tm1, temporal_hidden_state, prop_prior_state,
-                highest_used_ids, prev_ids, time_step: int, noise: NoiseSource) -> Dict:
-        """:param noise: source scoped to this frame"""
+                highest_used_ids, prev_ids, time_step: int, noise: NoiseSource,
+                compute_log_probs: bool = True) -> Dict:
+        """:param noise: source scoped to this frame
+        :param compute_log_probs: False returns the samples and stats only,
+            with the conditioning that ``batched_log_probs`` needs to
+            evaluate the log-probs later, batched over time (they never feed
+            the recurrence)"""
         prop_output = self.propagate(img, z_tm1, temporal_hidden_state, prop_prior_state,
-                                     noise.scope("prop"))
+                                     noise.scope("prop"), compute_log_probs)
         conditioning_from_prop = self._encode_latents(
             prop_output["what"], prop_output["where"], prop_output["presence"])
 
@@ -124,7 +129,8 @@ class SQAIRTimestep(Module):
         expected_prop_prior_num_step = torch.sum(prop_prior_step_probs, -1, keepdim=True)
 
         disc_output = self.discover(img, conditioning_from_prop, time_step,
-                                    expected_prop_prior_num_step, noise.scope("disc"))
+                                    expected_prop_prior_num_step, noise.scope("disc"),
+                                    compute_log_probs)
 
         (hidden_outputs, z_t, obj_ids, prop_prior_state, temporal_hidden_state,
          highest_used_ids) = self._choose_latents(prop_output, disc_output,
@@ -134,14 +140,41 @@ class SQAIRTimestep(Module):
             prop_prior_state=prop_prior_state, ids=obj_ids,
             highest_used_ids=highest_used_ids, prop=prop_output, disc=disc_output,
             temporal_hidden_state=temporal_hidden_state,
-            presence_log_prob=(prop_output["prop_log_prob"]
-                               + disc_output["num_step_log_prob"]),
-            p_z=disc_output["p_z"] + prop_output["p_z"],
-            q_z_given_x=disc_output["q_z_given_x"] + prop_output["q_z_given_x"],
         )
+        if compute_log_probs:
+            outputs.update(
+                presence_log_prob=(prop_output["prop_log_prob"]
+                                   + disc_output["num_step_log_prob"]),
+                p_z=disc_output["p_z"] + prop_output["p_z"],
+                q_z_given_x=disc_output["q_z_given_x"] + prop_output["q_z_given_x"],
+            )
+        else:
+            outputs.update(conditioning_from_prop=conditioning_from_prop,
+                           expected_prop_prior_num_step=expected_prop_prior_num_step)
         outputs.update(hidden_outputs)
         outputs["num_steps"] = torch.sum(hidden_outputs["presence"][..., 0], -1)
         return outputs
+
+    def batched_log_probs(self, prop_hidden, prior_stats, presence_tm1, disc_hidden,
+                          conditioning_from_prop, prior_conditioning, time_steps) -> Dict:
+        """The deferred log-prob pass over flattened [T*B, ...] stacks: the
+        log-probs the in-loop path would have computed, reduced to what the
+        training target needs.
+
+        :param time_steps: [T*B, 1] frame index of each row
+        """
+        prop_lp = self.propagate.log_probs_only(presence_tm1, prop_hidden, prior_stats,
+                                                prop_hidden["what"], prop_hidden["where"])
+        disc_num_steps = torch.sum(disc_hidden["presence"][..., 0], -1)
+        disc_lp = self.discover.log_probs_only(disc_hidden, disc_num_steps, time_steps,
+                                               conditioning_from_prop, prior_conditioning)
+        return dict(
+            q_z_given_x=disc_lp["q_z_given_x"] + prop_lp["q_z_given_x"],
+            p_z=disc_lp["p_z"] + prop_lp["p_z"],
+            discrete_log_prob=prop_lp["prop_log_prob"] + disc_lp["num_step_log_prob"],
+            num_prop_steps=torch.sum(prop_hidden["presence"][..., 0], -1),
+            num_disc_steps=disc_num_steps,
+        )
 
     def _encode_latents(self, what, where, presence):
         features = self._latent_encoder(torch.cat([what, where], -1)) * presence

@@ -1,4 +1,5 @@
-"""Fused MLP and recurrent-cell forward kernels, with their plain versions.
+"""Fused MLP and recurrent-cell kernels, forward and backward, with their
+plain versions.
 
 Each function here computes what a Pallas TPU kernel of
 ``sqair_tpu/ops/fused.py`` computes:
@@ -8,11 +9,17 @@ Each function here computes what a Pallas TPU kernel of
   fused_gru          zr = sigmoid(x Wg + h Ug + bg); z, r = split(zr)
                      c = tanh(x Wc + (r h) Uc + bc); h' = (1 - z) h + z c
 
-On a CUDA tensor the wrapper launches the hand-written kernel of
-``sqair_tpu_torch/csrc`` (built by ``ops/build.py``) or raises; on a CPU
-tensor it runs the plain PyTorch version beside it.  ``launches`` counts the
-kernel launches of each wrapper.  Only the forward kernels exist yet: a
-call that would need a gradient raises on CUDA.
+and each has a hand-written backward, as the JAX package's custom VJPs do.
+On a CUDA tensor the wrapper launches the kernels of ``sqair_tpu_torch/csrc``
+(built by ``ops/build.py``) or raises; on a CPU tensor it runs the plain
+PyTorch versions beside them.  A call that needs a gradient goes through a
+``torch.autograd.Function`` whose forward saves what the JAX package's
+``_fused_fwd`` / ``_fused_vrnn_fwd`` / ``_fused_gru_fwd`` save and whose
+backward launches the backward kernel (on the CPU: runs the plain backward).
+``launches`` counts the calls of each wrapper that launched its kernels:
+``fused_mlp``, ``fused_vanilla_rnn`` and ``fused_gru`` for the forwards,
+and the same names with ``_bwd`` for the backwards (one count per call,
+however many CUDA launches the call makes).
 """
 from __future__ import annotations
 
@@ -44,31 +51,91 @@ def apply_act(z: torch.Tensor, act: str) -> torch.Tensor:
     return z
 
 
+def act_grad_from_output(a: torch.Tensor, act: str) -> torch.Tensor:
+    """d act(z) / dz written with the post-activation a (elu: 1 for a > 0,
+    else a + 1; sigmoid: a (1 - a); tanh: 1 - a^2)."""
+    if act == "elu":
+        return torch.where(a > 0, torch.ones_like(a), a + 1.0)
+    if act == "sigmoid":
+        return a * (1.0 - a)
+    if act == "tanh":
+        return 1.0 - a * a
+    return torch.ones_like(a)
+
+
 # ------------------------------------------------------------ plain versions
-def mlp_plain(x, params, transfers):
+def mlp_plain_acts(x, params, transfers):
+    """Every layer's post-activation, the last one being the output."""
+    acts = []
     for (w, b), act in zip(params, transfers):
         x = apply_act(x @ w + b, act)
-    return x
+        acts.append(x)
+    return acts
+
+
+def mlp_plain(x, params, transfers):
+    return mlp_plain_acts(x, params, transfers)[-1]
 
 
 def vanilla_rnn_plain(x, h, w, u, b):
     return torch.tanh(x @ w + h @ u + b)
 
 
-def gru_plain(x, h, wg, ug, bg, wc, uc, bc):
+def gru_plain_saving(x, h, wg, ug, bg, wc, uc, bc):
+    """(h', zr, c): the output and what the backward needs."""
     zr = torch.sigmoid(x @ wg + h @ ug + bg)
     u_dim = h.shape[-1]
     z, r = zr[..., :u_dim], zr[..., u_dim:]
     c = torch.tanh(x @ wc + (r * h) @ uc + bc)
-    return (1.0 - z) * h + z * c
+    return (1.0 - z) * h + z * c, zr, c
+
+
+def gru_plain(x, h, wg, ug, bg, wc, uc, bc):
+    return gru_plain_saving(x, h, wg, ug, bg, wc, uc, bc)[0]
+
+
+def mlp_bwd_plain(x, params, transfers, acts, g):
+    """The JAX package's ``_bwd_kernel`` (ops/fused.py) as tensor ops.
+
+    :param acts: every layer's saved post-activation
+    :param g: gradient of the output
+    :return: (dx, ((dW_1, db_1), ...))
+    """
+    n = len(params)
+    dparams = [None] * n
+    for i in range(n - 1, -1, -1):
+        dz = g * act_grad_from_output(acts[i], transfers[i])
+        a_prev = x if i == 0 else acts[i - 1]
+        dparams[i] = (a_prev.T @ dz, torch.sum(dz, 0))
+        g = dz @ params[i][0].T
+    return g, tuple(dparams)
+
+
+def vanilla_rnn_bwd_plain(x, h, w, u, hn, g):
+    """The JAX package's ``_vrnn_bwd_kernel``: (dx, dh, dW, dU, db)."""
+    dz = g * (1.0 - hn * hn)
+    return dz @ w.T, dz @ u.T, x.T @ dz, h.T @ dz, torch.sum(dz, 0)
+
+
+def gru_bwd_plain(x, h, wg, ug, wc, uc, zr, c, g):
+    """The JAX package's ``_gru_bwd_kernel``:
+    (dx, dh, dWg, dUg, dbg, dWc, dUc, dbc)."""
+    u_dim = h.shape[-1]
+    z, r = zr[:, :u_dim], zr[:, u_dim:]
+    dz = g * (c - h)
+    dc_in = (g * z) * (1.0 - c * c)
+    drh = dc_in @ uc.T
+    dr = drh * h
+    da = torch.cat([dz, dr], -1) * zr * (1.0 - zr)
+    rh = r * h
+    dx = dc_in @ wc.T + da @ wg.T
+    dh = g * (1.0 - z) + drh * r + da @ ug.T
+    return (dx, dh, x.T @ da, h.T @ da, torch.sum(da, 0), x.T @ dc_in, rh.T @ dc_in,
+            torch.sum(dc_in, 0))
 
 
 # ------------------------------------------------------------------ checks
 def _check(name, tensors, device):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: backward kernel lands with the training slice "
-            "(run the forward under torch.inference_mode())")
     for t in tensors:
         if t.device != device:
             raise ValueError(f"{name}: tensors on {t.device} and {device}")
@@ -86,8 +153,22 @@ def _on_cuda(name, x) -> bool:
     return True
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _ptrs(tensors):
+    """A host array of device pointers (NULL for None), passed as void*."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+
+
+def _ints(values):
+    return (ctypes.c_int * len(values))(*values)
 
 
 def _stream(device):
@@ -99,7 +180,108 @@ def _raise_on(name, code):
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
-# ---------------------------------------------------------------- wrappers
+def _empty(*shape, like):
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
+# ------------------------------------------------------------ fused_mlp
+def _mlp_dims(x2, params):
+    dims = [x2.shape[-1]]
+    for w, b in params:
+        if w.ndim != 2 or w.shape[0] != dims[-1] or b.shape != (w.shape[1],):
+            raise ValueError(f"fused_mlp: layer shapes {tuple(w.shape)}, "
+                             f"{tuple(b.shape)} after width {dims[-1]}")
+        if w.shape[1] > MAX_WIDTH:
+            raise ValueError(f"fused_mlp: width {w.shape[1]} > {MAX_WIDTH}")
+        dims.append(w.shape[1])
+    if not 1 <= len(params) <= MAX_LAYERS:
+        raise ValueError(f"fused_mlp: 1 to {MAX_LAYERS} layers, got {len(params)}")
+    return dims
+
+
+def _mlp_fwd_cuda(x2, params, transfers, save):
+    """The forward kernel on x2 [N, d_in]; every post-activation if
+    ``save``, else only the output."""
+    from .build import library
+
+    dims = _mlp_dims(x2, params)
+    _check("fused_mlp", [x2, *[t for wb in params for t in wb]], x2.device)
+    n, n_layers = x2.shape[0], len(params)
+    acts = [_empty(n, d, like=x2) if save else None for d in dims[1:-1]]
+    y = _empty(n, dims[-1], like=x2)
+    if n > 0:
+        code = library().sqair_fused_mlp(
+            _ptr(x2), _ptr(y), n, n_layers, _ints(dims),
+            _ints([ACTS.index(t) for t in transfers]), _ptrs([w for w, _ in params]),
+            _ptrs([b for _, b in params]), _ptrs(acts + [None]), _stream(x2.device))
+        _raise_on("fused_mlp", code)
+        launches["fused_mlp"] += 1
+    return acts + [y]
+
+
+def fused_mlp_bwd(x, params, transfers, acts, g, need_dx=True):
+    """Backward of ``fused_mlp`` on x [N, d_in]: (dx or None,
+    ((dW_1, db_1), ...)).  On CUDA the backward kernels, on the CPU
+    ``mlp_bwd_plain``."""
+    if not _on_cuda("fused_mlp_bwd", x):
+        dx, dparams = mlp_bwd_plain(x, params, transfers, acts, g)
+        return (dx if need_dx else None), dparams
+
+    from .build import library
+
+    dims = _mlp_dims(x, params)
+    _check("fused_mlp_bwd", [x, g, *acts, *[w for w, _ in params]], x.device)
+    n, n_layers = x.shape[0], len(params)
+    dx = _empty(n, dims[0], like=x) if need_dx else None
+    dparams = tuple((_empty(*w.shape, like=x), _empty(*b.shape, like=x)) for w, b in params)
+    if n == 0:
+        if dx is not None:
+            dx.zero_()
+        for dw, db in dparams:
+            dw.zero_()
+            db.zero_()
+        return dx, dparams
+    scratch = _empty(n * sum(dims[1:]), like=x)  # every layer's dz, [N, d_i] each
+    dz, off = [], 0
+    for d in dims[1:]:
+        dz.append(scratch[off:off + n * d])
+        off += n * d
+    code = library().sqair_fused_mlp_bwd(
+        _ptr(x), _ptr(g), _ptr(dx), n, n_layers, _ints(dims),
+        _ints([ACTS.index(t) for t in transfers]), _ptrs([w for w, _ in params]),
+        _ptrs(list(acts)), _ptrs(dz), _ptrs([dw for dw, _ in dparams]),
+        _ptrs([db for _, db in dparams]), _stream(x.device))
+    _raise_on("fused_mlp_bwd", code)
+    launches["fused_mlp_bwd"] += 1
+    return dx, dparams
+
+
+class _MLPFunction(torch.autograd.Function):
+    """fused_mlp with its backward kernel; saves x, the params and every
+    post-activation, as the JAX package's ``_fused_fwd``."""
+
+    @staticmethod
+    def forward(ctx, x2, transfers, *flat):
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        if x2.device.type == "cuda":
+            acts = _mlp_fwd_cuda(x2, params, transfers, save=True)
+        else:
+            acts = mlp_plain_acts(x2, params, transfers)
+        ctx.transfers = transfers
+        ctx.save_for_backward(x2, *flat, *acts)
+        return acts[-1]
+
+    @staticmethod
+    def backward(ctx, g):
+        n = len(ctx.transfers)
+        saved = ctx.saved_tensors
+        x2, flat, acts = saved[0], saved[1:1 + 2 * n], saved[1 + 2 * n:]
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        dx, dparams = fused_mlp_bwd(x2, params, ctx.transfers, acts, g.contiguous(),
+                                    need_dx=ctx.needs_input_grad[0])
+        return (dx, None, *[t for dwb in dparams for t in dwb])
+
+
 def fused_mlp(x: torch.Tensor, params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
               transfers: Sequence[str]) -> torch.Tensor:
     """Runs an MLP stack as one kernel.
@@ -114,43 +296,20 @@ def fused_mlp(x: torch.Tensor, params: Sequence[Tuple[torch.Tensor, torch.Tensor
     for t in transfers:
         if t not in ACTS:
             raise ValueError(f"unknown transfer '{t}'")
-    if not _on_cuda("fused_mlp", x):
-        return mlp_plain(x, params, transfers)
-
-    from .build import library
-
-    n_layers = len(params)
-    if not 1 <= n_layers <= MAX_LAYERS:
-        raise ValueError(f"fused_mlp: 1 to {MAX_LAYERS} layers, got {n_layers}")
-    dims = [x.shape[-1]]
-    for w, b in params:
-        if w.ndim != 2 or w.shape[0] != dims[-1] or b.shape != (w.shape[1],):
-            raise ValueError(f"fused_mlp: layer shapes {tuple(w.shape)}, "
-                             f"{tuple(b.shape)} after width {dims[-1]}")
-        if w.shape[1] > MAX_WIDTH:
-            raise ValueError(f"fused_mlp: width {w.shape[1]} > {MAX_WIDTH}")
-        dims.append(w.shape[1])
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, dims[0])
     flat = [t for wb in params for t in wb]
-    _check("fused_mlp", [x2, *flat], x.device)
-    n = x2.shape[0]
-    y = torch.empty((n, dims[-1]), dtype=torch.float32, device=x.device)
-    if n == 0:
-        return y.reshape(*lead, dims[-1])
-    c_dims = (ctypes.c_int * (n_layers + 1))(*dims)
-    c_acts = (ctypes.c_int * n_layers)(*[ACTS.index(t) for t in transfers])
-    c_w = (ctypes.c_void_p * n_layers)(*[w.data_ptr() for w, _ in params])
-    c_b = (ctypes.c_void_p * n_layers)(*[b.data_ptr() for _, b in params])
-    code = library().sqair_fused_mlp(
-        _ptr(x2), _ptr(y), n, n_layers, ctypes.cast(c_dims, ctypes.c_void_p),
-        ctypes.cast(c_acts, ctypes.c_void_p), ctypes.cast(c_w, ctypes.c_void_p),
-        ctypes.cast(c_b, ctypes.c_void_p), None, _stream(x.device))
-    _raise_on("fused_mlp", code)
-    launches["fused_mlp"] += 1
-    return y.reshape(*lead, dims[-1])
+    cuda = _on_cuda("fused_mlp", x)
+    if not cuda and not _needs_grad(x, *flat):
+        return mlp_plain(x, params, transfers)
+    lead, d_out = x.shape[:-1], params[-1][0].shape[-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if _needs_grad(x2, *flat):
+        y = _MLPFunction.apply(x2, transfers, *flat)
+    else:
+        y = _mlp_fwd_cuda(x2, params, transfers, save=False)[-1]
+    return y.reshape(*lead, d_out)
 
 
+# -------------------------------------------------------------- RNN cells
 def _check_cell(name, x, h, mats):
     if x.ndim != 2 or h.ndim != 2 or x.shape[0] != h.shape[0]:
         raise ValueError(f"{name}: x {tuple(x.shape)} and h {tuple(h.shape)}")
@@ -159,11 +318,7 @@ def _check_cell(name, x, h, mats):
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
 
 
-def fused_vanilla_rnn(x, h, w, u, b):
-    """h' = tanh(x W + h U + b) as one kernel.  x [N, d_x], h [N, U]."""
-    if not _on_cuda("fused_vanilla_rnn", x):
-        return vanilla_rnn_plain(x, h, w, u, b)
-
+def _vrnn_fwd_cuda(x, h, w, u, b):
     from .build import library
 
     n, dx = x.shape
@@ -173,22 +328,80 @@ def fused_vanilla_rnn(x, h, w, u, b):
     if units > MAX_WIDTH:
         raise ValueError(f"fused_vanilla_rnn: {units} units > {MAX_WIDTH}")
     _check("fused_vanilla_rnn", [x, h, w, u, b], x.device)
-    hn = torch.empty((n, units), dtype=torch.float32, device=x.device)
-    if n == 0:
-        return hn
-    code = library().sqair_fused_vanilla_rnn(
-        _ptr(x), _ptr(h), _ptr(w), _ptr(u), _ptr(b), _ptr(hn), n, dx, units,
-        _stream(x.device))
-    _raise_on("fused_vanilla_rnn", code)
-    launches["fused_vanilla_rnn"] += 1
+    hn = _empty(n, units, like=x)
+    if n > 0:
+        code = library().sqair_fused_vanilla_rnn(
+            _ptr(x), _ptr(h), _ptr(w), _ptr(u), _ptr(b), _ptr(hn), n, dx, units,
+            _stream(x.device))
+        _raise_on("fused_vanilla_rnn", code)
+        launches["fused_vanilla_rnn"] += 1
     return hn
 
 
-def fused_gru(x, h, wg, ug, bg, wc, uc, bc):
-    """One GRU step as one kernel.  x [N, d_x], h [N, U]."""
-    if not _on_cuda("fused_gru", x):
-        return gru_plain(x, h, wg, ug, bg, wc, uc, bc)
+def fused_vanilla_rnn_bwd(x, h, w, u, hn, g, need_dx=True, need_dh=True):
+    """Backward of ``fused_vanilla_rnn``: (dx, dh, dW, dU, db), dx and dh
+    None where not needed.  On CUDA the backward kernels, on the CPU
+    ``vanilla_rnn_bwd_plain``."""
+    if not _on_cuda("fused_vanilla_rnn_bwd", x):
+        dx, dh, dw, du, db = vanilla_rnn_bwd_plain(x, h, w, u, hn, g)
+        return (dx if need_dx else None), (dh if need_dh else None), dw, du, db
 
+    from .build import library
+
+    n, d_x = x.shape
+    units = h.shape[-1]
+    _check_cell("fused_vanilla_rnn_bwd", x, h,
+                [(w, (d_x, units)), (u, (units, units)), (hn, (n, units)), (g, (n, units))])
+    _check("fused_vanilla_rnn_bwd", [x, h, w, u, hn, g], x.device)
+    dx = _empty(n, d_x, like=x) if need_dx else None
+    dh = _empty(n, units, like=x) if need_dh else None
+    dw, du, db = _empty(d_x, units, like=x), _empty(units, units, like=x), _empty(units, like=x)
+    if n == 0:
+        for t in (dx, dh, dw, du, db):
+            if t is not None:
+                t.zero_()
+        return dx, dh, dw, du, db
+    dz = _empty(n, units, like=x)
+    code = library().sqair_fused_vanilla_rnn_bwd(
+        _ptr(x), _ptr(h), _ptr(w), _ptr(u), _ptr(hn), _ptr(g), _ptr(dz), _ptr(dx),
+        _ptr(dh), _ptr(dw), _ptr(du), _ptr(db), n, d_x, units, _stream(x.device))
+    _raise_on("fused_vanilla_rnn_bwd", code)
+    launches["fused_vanilla_rnn_bwd"] += 1
+    return dx, dh, dw, du, db
+
+
+class _VanillaRNNFunction(torch.autograd.Function):
+    """fused_vanilla_rnn with its backward kernel; saves x, h, W, U and h'
+    as the JAX package's ``_fused_vrnn_fwd``."""
+
+    @staticmethod
+    def forward(ctx, x, h, w, u, b):
+        if x.device.type == "cuda":
+            hn = _vrnn_fwd_cuda(x, h, w, u, b)
+        else:
+            hn = vanilla_rnn_plain(x, h, w, u, b)
+        ctx.save_for_backward(x, h, w, u, hn)
+        return hn
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h, w, u, hn = ctx.saved_tensors
+        return fused_vanilla_rnn_bwd(x, h, w, u, hn, g.contiguous(),
+                                     need_dx=ctx.needs_input_grad[0],
+                                     need_dh=ctx.needs_input_grad[1])
+
+
+def fused_vanilla_rnn(x, h, w, u, b):
+    """h' = tanh(x W + h U + b) as one kernel.  x [N, d_x], h [N, U]."""
+    if _needs_grad(x, h, w, u, b):
+        return _VanillaRNNFunction.apply(x, h, w, u, b)
+    if not _on_cuda("fused_vanilla_rnn", x):
+        return vanilla_rnn_plain(x, h, w, u, b)
+    return _vrnn_fwd_cuda(x, h, w, u, b)
+
+
+def _gru_fwd_cuda(x, h, wg, ug, bg, wc, uc, bc, save):
+    """(h', zr, c) with the forward kernel; zr and c are None unless ``save``."""
     from .build import library
 
     n, dx = x.shape
@@ -200,12 +413,80 @@ def fused_gru(x, h, wg, ug, bg, wc, uc, bc):
     if 2 * units > MAX_WIDTH:
         raise ValueError(f"fused_gru: {units} units > {MAX_WIDTH // 2}")
     _check("fused_gru", [x, h, wg, ug, bg, wc, uc, bc], x.device)
-    hn = torch.empty((n, units), dtype=torch.float32, device=x.device)
+    hn = _empty(n, units, like=x)
+    zr = _empty(n, 2 * units, like=x) if save else None
+    c = _empty(n, units, like=x) if save else None
+    if n > 0:
+        code = library().sqair_fused_gru(
+            _ptr(x), _ptr(h), _ptr(wg), _ptr(ug), _ptr(bg), _ptr(wc), _ptr(uc),
+            _ptr(bc), _ptr(hn), _ptr(zr), _ptr(c), n, dx, units, _stream(x.device))
+        _raise_on("fused_gru", code)
+        launches["fused_gru"] += 1
+    return hn, zr, c
+
+
+def fused_gru_bwd(x, h, wg, ug, wc, uc, zr, c, g, need_dx=True, need_dh=True):
+    """Backward of ``fused_gru``: (dx, dh, dWg, dUg, dbg, dWc, dUc, dbc), dx
+    and dh None where not needed.  On CUDA the backward kernels, on the CPU
+    ``gru_bwd_plain``."""
+    if not _on_cuda("fused_gru_bwd", x):
+        dx, dh, *rest = gru_bwd_plain(x, h, wg, ug, wc, uc, zr, c, g)
+        return ((dx if need_dx else None), (dh if need_dh else None), *rest)
+
+    from .build import library
+
+    n, d_x = x.shape
+    units = h.shape[-1]
+    _check_cell("fused_gru_bwd", x, h,
+                [(wg, (d_x, 2 * units)), (ug, (units, 2 * units)), (wc, (d_x, units)),
+                 (uc, (units, units)), (zr, (n, 2 * units)), (c, (n, units)),
+                 (g, (n, units))])
+    _check("fused_gru_bwd", [x, h, wg, ug, wc, uc, zr, c, g], x.device)
+    dx = _empty(n, d_x, like=x) if need_dx else None
+    dh = _empty(n, units, like=x) if need_dh else None
+    grads = [_empty(*t.shape, like=x) for t in (wg, ug)] + [_empty(2 * units, like=x)]
+    grads += [_empty(*t.shape, like=x) for t in (wc, uc)] + [_empty(units, like=x)]
     if n == 0:
+        for t in [dx, dh, *grads]:
+            if t is not None:
+                t.zero_()
+        return (dx, dh, *grads)
+    dc_in, da, rh = _empty(n, units, like=x), _empty(n, 2 * units, like=x), \
+        _empty(n, units, like=x)
+    code = library().sqair_fused_gru_bwd(
+        _ptr(x), _ptr(h), _ptr(wg), _ptr(ug), _ptr(wc), _ptr(uc), _ptr(zr), _ptr(c),
+        _ptr(g), _ptr(dc_in), _ptr(da), _ptr(rh), _ptr(dx), _ptr(dh),
+        *[_ptr(t) for t in grads], n, d_x, units, _stream(x.device))
+    _raise_on("fused_gru_bwd", code)
+    launches["fused_gru_bwd"] += 1
+    return (dx, dh, *grads)
+
+
+class _GRUFunction(torch.autograd.Function):
+    """fused_gru with its backward kernel; saves x, h, Wg, Ug, Wc, Uc, zr and
+    c, as the JAX package's ``_fused_gru_fwd``."""
+
+    @staticmethod
+    def forward(ctx, x, h, wg, ug, bg, wc, uc, bc):
+        if x.device.type == "cuda":
+            hn, zr, c = _gru_fwd_cuda(x, h, wg, ug, bg, wc, uc, bc, save=True)
+        else:
+            hn, zr, c = gru_plain_saving(x, h, wg, ug, bg, wc, uc, bc)
+        ctx.save_for_backward(x, h, wg, ug, wc, uc, zr, c)
         return hn
-    code = library().sqair_fused_gru(
-        _ptr(x), _ptr(h), _ptr(wg), _ptr(ug), _ptr(bg), _ptr(wc), _ptr(uc),
-        _ptr(bc), _ptr(hn), None, None, n, dx, units, _stream(x.device))
-    _raise_on("fused_gru", code)
-    launches["fused_gru"] += 1
-    return hn
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, dh, dwg, dug, dbg, dwc, duc, dbc = fused_gru_bwd(
+            *ctx.saved_tensors, g.contiguous(), need_dx=ctx.needs_input_grad[0],
+            need_dh=ctx.needs_input_grad[1])
+        return dx, dh, dwg, dug, dbg, dwc, duc, dbc
+
+
+def fused_gru(x, h, wg, ug, bg, wc, uc, bc):
+    """One GRU step as one kernel.  x [N, d_x], h [N, U]."""
+    if _needs_grad(x, h, wg, ug, bg, wc, uc, bc):
+        return _GRUFunction.apply(x, h, wg, ug, bg, wc, uc, bc)
+    if not _on_cuda("fused_gru", x):
+        return gru_plain(x, h, wg, ug, bg, wc, uc, bc)
+    return _gru_fwd_cuda(x, h, wg, ug, bg, wc, uc, bc, save=False)[0]

@@ -1,5 +1,5 @@
-"""Optimisation targets: the IWAE bound and the VIMCO and REINFORCE
-surrogates (the port of sqair_tpu/ops/targets.py).  Particles live on the
+"""Optimisation targets: the IWAE bound, the VIMCO and REINFORCE
+surrogates and the L2 penalty (the port of sqair_tpu/ops/targets.py).  Particles live on the
 last axis."""
 from __future__ import annotations
 
@@ -43,3 +43,11 @@ def vimco(log_weights, log_probs, elbo_iwae=None):
 def reinforce(log_weights, log_probs, elbo_iwae=None):
     """REINFORCE surrogate (the k = 1 fallback)."""
     return _surrogate(log_weights, log_weights, log_probs, elbo_iwae)
+
+
+def l2_reg(params, weight: float) -> torch.Tensor:
+    """0.5 weight sum ||p||^2 over the given parameters."""
+    params = list(params)
+    if weight == 0.0:
+        return params[0].new_zeros(())
+    return 0.5 * weight * sum(torch.sum(p**2) for p in params)

@@ -3,7 +3,10 @@
 Needs a CUDA device (skips without one) and imports no JAX, so that it runs
 on a machine without it; the root conftest.py imports JAX, so run it there
 with ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``.
-Tolerance 1e-5 abs + 1e-4 rel: the same f32 sums in another order.
+Forward tolerance 1e-5 abs + 1e-4 rel: the same f32 sums in another order.
+Backward tolerance 1e-4 of each gradient's largest magnitude (+1e-6): the
+weight gradients sum up to N products in another order than cuBLAS, and
+small entries of a sum with cancellation carry the error of the large ones.
 """
 import pytest
 import torch
@@ -11,15 +14,30 @@ import torch
 from sqair_tpu_torch.ops import fused
 
 
+def _rnd_fn(gen):
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device="cuda") / s[0] ** 0.5
+    return rnd
+
+
+def _assert_grads_close(got, want, what):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None, (what, i)
+            continue
+        tol = 1e-4 * float(b.abs().max()) + 1e-6
+        err = float((a - b).abs().max())
+        assert err <= tol, f"{what} gradient {i}: {err:.3g} > {tol:.3g}"
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_cuda():
-    """Each kernel against its plain version on the card (skips without one)."""
+    """Each forward kernel against its plain version on the card (skips
+    without one)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def rnd(*s):
-        return torch.randn(s, generator=gen, device="cuda") / s[0] ** 0.5
+    rnd = _rnd_fn(gen)
 
     with torch.inference_mode():
         x, h = torch.rand(100, 300, generator=gen, device="cuda"), rnd(100, 64)
@@ -34,7 +52,60 @@ def test_kernels_match_plain_on_cuda():
         g = (x, h, rnd(300, 128), rnd(64, 128), rnd(128), rnd(300, 64), rnd(64, 64), rnd(64))
         torch.testing.assert_close(fused.fused_gru(*g), fused.gru_plain(*g),
                                    rtol=1e-4, atol=1e-5)
-    w = torch.zeros(300, 8, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused.fused_mlp(torch.ones(4, 300, device="cuda"), [(w, torch.zeros(8, device="cuda"))],
-                        ["id"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [13, 160, 4800])
+def test_backward_kernels_match_plain_on_cuda(n):
+    """Each backward kernel against its plain version on the card, at a
+    ragged row count, the time loop's and the deferred decode's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    rnd = _rnd_fn(gen)
+    x = torch.rand(n, 300, generator=gen, device="cuda")
+    for acts in (("elu", "elu", "id"), ("sigmoid", "tanh", "elu")):
+        params = [(rnd(300, 256), rnd(256)), (rnd(256, 130), rnd(130)), (rnd(130, 400), rnd(400))]
+        a = fused.mlp_plain_acts(x, params, acts)
+        gy = rnd(n, 400)
+        got = fused.fused_mlp_bwd(x, params, acts, a, gy)
+        want = fused.mlp_bwd_plain(x, params, acts, a, gy)
+        _assert_grads_close([got[0], *[t for p in got[1] for t in p]],
+                            [want[0], *[t for p in want[1] for t in p]], f"mlp {acts}")
+    h, gh = 2 * torch.rand(n, 256, generator=gen, device="cuda") - 1, rnd(n, 256)
+    w, u, b = rnd(300, 256), rnd(256, 256), rnd(256)
+    hn = fused.vanilla_rnn_plain(x, h, w, u, b)
+    _assert_grads_close(fused.fused_vanilla_rnn_bwd(x, h, w, u, hn, gh),
+                        fused.vanilla_rnn_bwd_plain(x, h, w, u, hn, gh), "vanilla rnn")
+    wg, ug, bg, wc, uc, bc = rnd(300, 512), rnd(256, 512), rnd(512), rnd(300, 256), \
+        rnd(256, 256), rnd(256)
+    _, zr, c = fused.gru_plain_saving(x, h, wg, ug, bg, wc, uc, bc)
+    _assert_grads_close(fused.fused_gru_bwd(x, h, wg, ug, wc, uc, zr, c, gh),
+                        fused.gru_bwd_plain(x, h, wg, ug, wc, uc, zr, c, gh), "gru")
+
+
+@pytest.mark.cuda
+def test_autograd_on_cuda_launches_the_backward_kernels():
+    """A CUDA tensor that needs a gradient goes through the backward kernel
+    (and is counted), and its gradients match plain autograd."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rnd = _rnd_fn(gen)
+    x = torch.rand(37, 20, generator=gen, device="cuda")
+    h = rnd(37, 16).requires_grad_()
+    mats = [rnd(20, 32), rnd(16, 32), rnd(32), rnd(20, 16), rnd(16, 16), rnd(16),
+            rnd(20, 32), rnd(32)]
+    leaves = [h] + [m.requires_grad_() for m in mats]
+
+    def loss(mlp, gru):
+        y = mlp(x, [(leaves[7], leaves[8])], ["elu"])
+        hn = gru(y[:, :20].contiguous(), h, *leaves[1:7])
+        return torch.sum(hn * hn)
+
+    fused.reset_launches()
+    got = torch.autograd.grad(loss(fused.fused_mlp, fused.fused_gru), leaves)
+    torch.cuda.synchronize()
+    assert fused.launches["fused_mlp_bwd"] == 1 and fused.launches["fused_gru_bwd"] == 1
+    want = torch.autograd.grad(loss(fused.mlp_plain, fused.gru_plain), leaves)
+    _assert_grads_close(got, want, "autograd")

@@ -1,0 +1,82 @@
+"""chip_smoke.py's table of kernel calls (``main_path_shapes``), from which
+it derives the launch counts the card must show, held to the calls the
+port's eval and train steps really make.  The model is built as the script
+builds it, by the config loader from release-model flags, at small widths
+(n_units 1, n_what 8, 2 slots, 24x24 frames); its calls are counted on the
+CPU: every forward wrapper call by kernel, rows and widths, and one
+backward call per forward call in the train step."""
+import collections
+import sys
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from sqair_tpu_torch.configs import mlp_mnist_model
+from sqair_tpu_torch.ops import fused
+from sqair_tpu_torch.ops.noise import GeneratorNoise
+from torch_parity import B, H, S, T, golden_batch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
+
+FLAGS = dict(n_units=1, n_what=8, n_steps_per_image=S, glimpse_size=8, k_particles=2,
+             early_disc_logit_scale=0.15, transient_disc_penalty=2.0)
+FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru")
+
+
+def _key(kernel, shape):
+    if kernel == "fused_mlp":
+        return (kernel, shape["n"], shape["d_in"], tuple(shape["widths"]), tuple(shape["acts"]))
+    return (kernel, shape["n"], shape["dx"], shape["units"])
+
+
+def _forward_spy(calls, name, fn):
+    def spy(*args):
+        if name == "fused_mlp":
+            x, params, acts = args
+            shape = dict(n=int(np.prod(x.shape[:-1])), d_in=x.shape[-1],
+                         widths=[w.shape[1] for w, _ in params], acts=list(acts))
+        else:
+            shape = dict(n=args[0].shape[0], dx=args[0].shape[1], units=args[1].shape[1])
+        calls[_key(name, shape)] += 1
+        return fn(*args)
+    return spy
+
+
+def _backward_spy(calls, name, fn):
+    def spy(*args, **kwargs):
+        calls[name] += 1
+        return fn(*args, **kwargs)
+    return spy
+
+
+@pytest.mark.parametrize("mode", ("full", "train"))
+def test_main_path_shapes_match_the_calls_of_a_step(mode):
+    model = mlp_mnist_model.load(FLAGS, (H, H), device="cpu", seed=0)
+    obs, nums = golden_batch()
+    calls = collections.Counter()
+    spies = {n: _forward_spy(calls, n, getattr(fused, n)) for n in FORWARD}
+    spies.update({n + "_bwd": _backward_spy(calls, n + "_bwd", getattr(fused, n + "_bwd"))
+                  for n in FORWARD})
+    with mock.patch.multiple(fused, **spies):
+        target, _ = model.loss_and_metrics(
+            torch.from_numpy(obs), GeneratorNoise(torch.Generator().manual_seed(1), "cpu"),
+            torch.from_numpy(nums), record_mode=mode)
+        if mode == "train":
+            target.backward()
+
+    shapes = chip_smoke.main_path_shapes(FLAGS, B, FLAGS["k_particles"], T,
+                                         train=mode == "train", img=(H, H))
+    want = collections.Counter()
+    for kernel, shape, n_calls in shapes:
+        want[_key(kernel, shape)] += n_calls
+    assert collections.Counter({k: c for k, c in calls.items() if isinstance(k, tuple)}) == want
+    expected = chip_smoke.expected_launches(shapes, 1, backward=mode == "train")
+    assert {k: c for k, c in calls.items() if isinstance(k, str)} == {
+        k: c for k, c in expected.items() if k.endswith("_bwd")}
+    # only the input encoder's input (the frames) carries no gradient
+    no_dx = [s for kn, s, _ in shapes if not chip_smoke.needs_dx(kn, s, img=(H, H))]
+    assert no_dx == [dict(d_in=H * H, widths=[32, 32], acts=["elu", "elu"], n=B * 2)]

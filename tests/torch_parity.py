@@ -5,11 +5,16 @@ noise: ``jax_noise_table`` draws, with jax.random, exactly the noise the
 JAX model draws inside ``SequentialAIR`` for a given key, keyed the way the
 port asks for it, so the port can replay it.
 """
+import contextlib
+import functools
+
 import jax
 import numpy as np
+import pytest
 
 from sqair_tpu.models import AIRDecoder as JAIRDecoder
 from sqair_tpu.models import SQAIRTimestep as JTimestep
+from sqair_tpu.ops import fused as jfused
 from sqair_tpu_torch.models import AIRDecoder, SequentialAIR, SQAIRTimestep
 
 # the golden config of tests/test_golden.py
@@ -67,3 +72,33 @@ def assert_close(got, want, tol, what):
     assert got.shape == want.shape, (what, got.shape, want.shape)
     err = np.max(np.abs(got - want) / (np.abs(want) + 1.0)) if got.size else 0.0
     assert err <= tol, f"{what}: max scaled error {err:.3g} > {tol}"
+
+
+def golden_batch():
+    """(obs [T, B, H, H], nums [T, B, S + 1]): frames with structure, two
+    bright squares on a dim background, and their counts."""
+    rs = np.random.default_rng(5)
+    obs = (rs.uniform(size=(T, B, H, H)) * 0.2).astype(np.float32)
+    obs[:, :, 4:12, 5:13] += 0.8
+    obs[:, 1::2, 14:22, 12:20] += 0.8
+    nums = np.zeros((T, B, S + 1), np.float32)
+    nums[:, :, 0] = 1
+    nums[:, 1::2, 1] = 1
+    return obs, nums
+
+
+@contextlib.contextmanager
+def tpu_kernels_interpreted():
+    """sqair_tpu's main path as on the TPU: its three Pallas kernels and their
+    hand-written backward kernels, run in interpret mode on the CPU (as
+    tests/test_fused_rnn_kernels.py runs them).  Its gradients differ from
+    the jnp reference's at a pre-activation of exactly 0, where the
+    reference's elu derivative is 0.5 and the kernel's is 1
+    (tests/test_torch_fused_bwd.py)."""
+    from jax.experimental import pallas
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pallas, "pallas_call",
+                   functools.partial(pallas.pallas_call, interpret=True))
+        mp.setattr(jfused, "use_pallas", lambda: True)
+        yield
