@@ -11,10 +11,12 @@ Phases, one line each with its own numbers and seconds:
   device         card name, power limit, torch and CUDA versions
   build          nvcc build of sqair_tpu_torch/csrc (or the cached library)
   kernels        every forward kernel against its plain PyTorch version at
-                 the shapes the eval and train steps give it (seeded inputs)
+                 the shapes the eval and train steps give it (seeded inputs),
+                 the fused glimpse encoder's masked and unmasked at 160 rows
+                 (every output, the saved tensors included)
   kernels-bwd    every backward kernel against its plain version at the
                  shapes the train step gives it, the deferred pass's 1600
-                 and 4800 rows included
+                 and 4800 rows included, and the glimpse backward
   eval           3 eval steps of the release model's flags at full width
                  (weights from a seed, data from the port's generator), with
                  the launch counts of every kernel
@@ -24,28 +26,49 @@ Phases, one line each with its own numbers and seconds:
                  version, a chain of torch.addmm + activation, and the
                  bound) and of the eval step
   profile        the device's busy time in one eval step (torch.profiler)
+  eval-glimpse   the same 3 eval steps with SQAIR_FUSE_GLIMPSE=1: the glimpse
+                 kernel's launch counts and the metrics against the switch-off
+                 steps under the same noise; the eval step's time
   train          3 train steps (record_mode="train", backward, the release
                  flags' RMSProp) on batches of the device-resident sampler,
                  with the launch counts of all six kernels per step
-  train-check    one train step's gradients through the kernels against the
-                 same step through the plain versions, on the card and on
-                 the CPU, with the same noise
+  train-check    one train step's gradients in seven runs with the same
+                 noise: every kernel with the glimpse switch off and on, the
+                 plain versions on the card (off and on) and on the CPU, and
+                 two float64 referees (the plain versions on the card, off
+                 and on).  Each run goes twice, the second time with the
+                 gradient through the kinks at which some run crossed its
+                 referee zeroed (``kinks``); held to their bounds: kernels
+                 against plain on the card and against the CPU, and kernels
+                 switched on against plain switched off.  Every f32 run's
+                 distance to its referee, and the kernel runs' over the
+                 plain runs'
   train-timing   CUDA-event medians per backward kernel (kernel, plain
                  version, torch.autograd.grad through the addmm chain, and
                  the bound) and of the train step
   train-profile  the device's busy time in one train step
+  train-glimpse  3 train steps with SQAIR_FUSE_GLIMPSE=1 and their launch
+                 counts; the train step's time
+  eval-cli       a checkpoint of the trained model swept by
+                 sqair_tpu_torch.scripts.eval on the card with the switch on
+                 (64 sequences of the port's generator): nine metric files,
+                 the resume, the glimpse kernel's launches
 
 It exits non-zero on any failure.  The last two lines are a JSON object of
 the kernels' numbers and the JSON result line.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -55,6 +78,7 @@ RELEASE_FLAGS = REPO / "release_models" / "mnist_mlp" / "1" / "flags.json"
 SEED = 0
 N_BATCHES = 3
 N_TRAIN_STEPS = 3
+CLI_SEQUENCES = 64  # eval-cli: two batches of 32
 REPS = 10
 IMG = (50, 50)
 
@@ -80,8 +104,16 @@ METRIC_TOL = 1e-4  # on |a - b| / (|b| + 1)
 # against the CPU both differences stack
 GRAD_TOL = 1e-2  # kernels vs plain on the card: |d| <= GRAD_TOL max|grad| + 1e-6
 GRAD_TOL_CPU = 2e-2  # kernels on the card vs the CPU, the same form
+# train-check's pairs of runs (see train_check) and the bound of each
+GRADIENT_PAIRS = {"kernels_vs_plain_on_card": ("kernels", "plain_on_card"),
+                  "kernels_vs_cpu": ("kernels", "cpu"),
+                  "plain_on_card_vs_cpu": ("plain_on_card", "cpu"),
+                  "switch_on_kernels_vs_switch_off_plain": ("glimpse_kernels", "plain_on_card"),
+                  "switch_on_plain_vs_switch_off_plain": ("glimpse_plain", "plain_on_card")}
+CHECKED_PAIRS = {"kernels_vs_plain_on_card": GRAD_TOL, "kernels_vs_cpu": GRAD_TOL_CPU,
+                 "switch_on_kernels_vs_switch_off_plain": GRAD_TOL}
 
-FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru")
+FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_glimpse")
 KERNELS = {
     "fused_mlp": dict(source="sqair_tpu_torch/csrc/fused_mlp.cu",
                       replaces="sqair_tpu/ops/fused.py:111"),
@@ -95,7 +127,12 @@ KERNELS = {
                                   replaces="sqair_tpu/ops/fused.py:218"),
     "fused_gru_bwd": dict(source="sqair_tpu_torch/csrc/fused_bwd.cu",
                           replaces="sqair_tpu/ops/fused.py:330"),
+    "fused_glimpse": dict(source="sqair_tpu_torch/csrc/fused_glimpse.cu",
+                          replaces="sqair_tpu/ops/fused_glimpse.py:264"),
+    "fused_glimpse_bwd": dict(source="sqair_tpu_torch/csrc/fused_glimpse.cu",
+                              replaces="sqair_tpu/ops/fused_glimpse.py:299"),
 }
+GLIMPSE_SWITCH = {"SQAIR_FUSE_GLIMPSE": "1"}
 
 
 def log(phase, t0, **fields):
@@ -111,11 +148,25 @@ class Failure(Exception):
     pass
 
 
-def main_path_shapes(F, B, k, T, train=False, img=IMG):
+def glimpse_shapes(F, rows, T, img=IMG):
+    """The fused glimpse encoder's calls of one step, as (shape, calls):
+    twice per propagation slot with the mask (when masked_glimpse), once per
+    discovery slot without it."""
+    h, w = 32 * int(F["n_units"]), int(F["n_what"])
+    S, g = int(F["n_steps_per_image"]), int(F["glimpse_size"])
+    base = dict(n=rows, img=list(img), glimpse=[g, g], d1=h, d2=h, n_what=w)
+    masked = F.get("masked_glimpse", True)
+    prop = dict(base, d_mi=h if masked else 0, d_m=128 if masked else 0)
+    return [(prop, 2 * S * T), (dict(base, d_mi=0, d_m=0), S * T)]
+
+
+def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False):
     """Every forward kernel call of one eval or train step, as
     (kernel, shape, calls per step).  In the train record the decode, the
     discovery where prior and the count prior leave the time loop and run
-    once over all T frames (rows T*B*k, or T*B*k*S for the decode)."""
+    once over all T frames (rows T*B*k, or T*B*k*S for the decode).  With
+    ``fuse_glimpse`` (SQAIR_FUSE_GLIMPSE) the glimpse encoder and its mask
+    leave fused_mlp for the fused glimpse kernel."""
     h = 32 * int(F["n_units"])
     w, S = int(F["n_what"]), int(F["n_steps_per_image"])
     g = int(F["glimpse_size"]) ** 2
@@ -126,8 +177,8 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG):
     per_call = 1 if train else T  # calls factor of the same calls
     mlp = [  # (d_in, widths, transfers, rows, calls per step)
         (img[0] * img[1], [h, h], ["elu", "elu"], rows, T),    # input encoder
-        (g, [h, h], ["elu", "elu"], rows, 3 * S * T),         # glimpse encoder
-        (h, [128, g], ["elu", "sigmoid"], rows, 2 * S * T),   # glimpse mask
+        (g, [h, h], ["elu", "elu"], rows, 0 if fuse_glimpse else 3 * S * T),  # glimpse encoder
+        (h, [128, g], ["elu", "sigmoid"], rows, 0 if fuse_glimpse else 2 * S * T),  # mask
         (h, [h, h, 8], ["elu", "elu", "id"], rows, S * T),    # disc where
         (2 * h + 4, [h, h, 8], ["elu", "elu", "id"], rows, S * T),  # prop where
         (h + w, [sp, 1], ["elu", "id"], rows, S * T),         # disc presence
@@ -147,19 +198,23 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG):
         (w + 4, h, slots, T),                     # propagation prior
         (h + 4 + 2 * w, h, rows, S * T),          # temporal cell
     ]
-    out = [("fused_mlp", dict(d_in=d, widths=ws, acts=a, n=n), c) for d, ws, a, n, c in mlp]
+    out = [("fused_mlp", dict(d_in=d, widths=ws, acts=a, n=n), c) for d, ws, a, n, c in mlp
+           if c]
     out += [("fused_vanilla_rnn", dict(dx=d, units=u, n=n), c) for d, u, n, c in vrnn]
     out += [("fused_gru", dict(dx=d, units=u, n=n), c) for d, u, n, c in gru]
+    if fuse_glimpse:
+        out += [("fused_glimpse", shape, c) for shape, c in glimpse_shapes(F, rows, T, img)]
     return out
 
 
 def expected_launches(shapes, steps, backward=False):
-    """Launches of each kernel over ``steps`` steps; with ``backward``, also
-    one backward launch per forward call (every call's output reaches the
-    loss)."""
-    out = {name: steps * sum(c for kn, _, c in shapes if kn == name) for name in FORWARD}
+    """Launches of each kernel of ``shapes`` over ``steps`` steps; with
+    ``backward``, also one backward launch per forward call (every call's
+    output reaches the loss)."""
+    names = [name for name in FORWARD if any(kn == name for kn, _, _ in shapes)]
+    out = {name: steps * sum(c for kn, _, c in shapes if kn == name) for name in names}
     if backward:
-        out.update({name + "_bwd": out[name] for name in FORWARD})
+        out.update({name + "_bwd": out[name] for name in names})
     return out
 
 
@@ -289,6 +344,107 @@ def library_bwd_fn(torch, kernel, args, need_dx, gen):
     return lambda: torch.autograd.grad(y, leaves, g, retain_graph=True)
 
 
+def glimpse_inputs(torch, shape, gen, device):
+    """Seeded inputs of one fused glimpse call: (img, where logits, mask
+    input or None, mask params or None, encoder params, head W, head b)."""
+    n, (H, W), (gh, gw) = shape["n"], shape["img"], shape["glimpse"]
+    d1, d2, nw, d_mi, d_m = (shape[k] for k in ("d1", "d2", "n_what", "d_mi", "d_m"))
+
+    def weight(a, b):
+        return torch.randn((a, b), generator=gen, device=device) / math.sqrt(a)
+
+    def bias(d, loc=0.0):
+        return loc + 0.1 * torch.randn((d,), generator=gen, device=device)
+
+    img = torch.rand((n, H, W), generator=gen, device=device)
+    wl = torch.randn((n, 4), generator=gen, device=device)
+    mi = mask = None
+    if d_mi:
+        mi = torch.randn((n, d_mi), generator=gen, device=device)
+        mask = ((weight(d_mi, d_m), bias(d_m)), (weight(d_m, gh * gw), bias(gh * gw, 1.0)))
+    enc = ((weight(gh * gw, d1), bias(d1)), (weight(d1, d2), bias(d2)))
+    return img, wl, mi, mask, enc, weight(d2, 2 * nw), bias(2 * nw)
+
+
+def glimpse_dims(shape):
+    return (shape["glimpse"][0], shape["glimpse"][1], shape["n_what"])
+
+
+def glimpse_work(shape, backward=False):
+    """(bytes read once and written once, f32 FLOPs) of one fused glimpse
+    call.  Forward: the crop (img wx^T, then wy A), the mask MLP, the
+    encoder and the head; the outputs loc and scale.  Backward: twice the
+    products of the mask, the encoder and the head, and the crop's four
+    (A again, dwy, dA, dwx); it reads the saved tensors and the output
+    gradients and writes every parameter's gradient, where's and the mask
+    input's."""
+    n, (H, W), (gh, gw) = shape["n"], shape["img"], shape["glimpse"]
+    d1, d2, nw, d_mi, d_m = (shape[k] for k in ("d1", "d2", "n_what", "d_mi", "d_m"))
+    G, D = gh * gw, 2 * nw
+    mats = [(d_mi, d_m), (d_m, G)] if d_mi else []
+    mats += [(G, d1), (d1, d2), (d2, D)]
+    weights = sum(a * b for a, b in mats)
+    biases = sum(b for _, b in mats)
+    mlp_macs = n * weights
+    crop_macs = n * (H * W * gw + gh * H * gw)
+    inputs = n * (H * W + 4 + d_mi)
+    if not backward:
+        return 4 * (inputs + weights + biases + n * D), 2 * (crop_macs + mlp_macs)
+    saved = n * (G + d1 + d2 + nw + ((G + d_m) if d_mi else 0))
+    nbytes = 4 * (inputs + weights + saved + n * D            # in: img, wl, mi, W, saved, g
+                  + n * (4 + d_mi) + weights + biases)       # out: dwl, dmi, dW, db
+    crop_bwd = n * (H * W * gw + 2 * gh * H * gw + gw * H * W)
+    return nbytes, 2 * (2 * mlp_macs + crop_bwd)
+
+
+def glimpse_library_fn(torch, stn, shape):
+    """The port's unfused chain for the same function: stn's crop (two
+    batched matmuls), the mask and encoder as torch.addmm + activation, and
+    the head (a yardstick only: the fused path never calls it)."""
+    F = torch.nn.functional
+    nw = shape["n_what"]
+
+    def chain(img, wl, mi, mask, enc, head_w, head_b):
+        g = stn.extract_glimpse(img, stn.to_coords(wl), shape["glimpse"])
+        flat = g.reshape(g.shape[0], -1)
+        if mi is not None:
+            (wm1, bm1), (wm2, bm2) = mask
+            flat = flat * torch.sigmoid(torch.addmm(bm2, F.elu(torch.addmm(bm1, mi, wm1)), wm2))
+        (we1, be1), (we2, be2) = enc
+        h = F.elu(torch.addmm(be2, F.elu(torch.addmm(be1, flat, we1)), we2))
+        hp = torch.addmm(head_b, h, head_w)
+        return hp[:, :nw], F.softplus(hp[:, nw:]) + 1e-2
+    return chain
+
+
+def glimpse_library_bwd_fn(torch, stn, shape, args, gen):
+    """torch.autograd.grad through the unfused chain's graph (built once) for
+    the gradients the backward kernel gives: where, the mask input, every
+    weight and bias."""
+    img, wl, mi, mask, enc, head_w, head_b = args
+    leaves = []
+
+    def leaf(t):
+        t = t.detach().clone().requires_grad_()
+        leaves.append(t)
+        return t
+
+    lib_args = (img.clone(), leaf(wl), None if mi is None else leaf(mi),
+                None if mask is None else tuple((leaf(w), leaf(b)) for w, b in mask),
+                tuple((leaf(w), leaf(b)) for w, b in enc), leaf(head_w), leaf(head_b))
+    loc, scale = glimpse_library_fn(torch, stn, shape)(*lib_args)
+    g = [torch.randn(t.shape, generator=gen, device=t.device) for t in (loc, scale)]
+    return lambda: torch.autograd.grad((loc, scale), leaves, g, retain_graph=True)
+
+
+def near_integer_u(torch, fg, img, wl, dims):
+    """How many interpolation coordinates u lie within 1e-5 of an integer
+    (where a rounding difference flips a term of the where-gradient)."""
+    _, (_, uy, _), (_, ux, _) = fg.coords_and_interp(wl, img.shape[1], img.shape[2], *dims[:2])
+    u = torch.cat([uy.flatten(), ux.flatten()])
+    return int(torch.sum(torch.abs(u - torch.round(u)) < 1e-5))
+
+
 def device_ms(torch, fn, calls=50, reps=REPS):
     """Median over ``reps`` of the device time per call of ``fn``, from CUDA
     events around ``calls`` back-to-back calls.  A spin kernel runs first,
@@ -348,6 +504,7 @@ def profile_device(torch, fn):
 
 
 def compare_metrics(torch, got, want, what):
+    """The largest |a - b| / (|b| + 1) over the metrics, and its metric."""
     worst, worst_key = 0.0, None
     for key, ref in want.items():
         a = got[key].detach().double().cpu()
@@ -360,7 +517,7 @@ def compare_metrics(torch, got, want, what):
     if worst > METRIC_TOL:
         raise Failure(f"{what}: metric {worst_key} differs by {worst:.3g} > {METRIC_TOL}: "
                       f"{got[worst_key]} vs {want[worst_key]}")
-    return worst
+    return worst, worst_key
 
 
 def scaled_err(torch, got, want):
@@ -386,12 +543,111 @@ def grad_errors(torch, got, want, what):
     return sorted(out)
 
 
-def plain_versions(fused):
-    """The three wrappers replaced by their plain versions (autograd of
-    plain tensor ops for a gradient), as a context manager."""
-    return mock.patch.multiple(fused, fused_mlp=fused.mlp_plain,
-                               fused_vanilla_rnn=fused.vanilla_rnn_plain,
-                               fused_gru=fused.gru_plain)
+def plain_glimpse(fg):
+    """The fused glimpse encoder's kernels replaced by its plain versions
+    inside its autograd Function (whose backward is the hand-written one, as
+    the kernel's: autograd of the plain forward would take other
+    subgradients at exact zeros, e.g. 1 for softplus'(0)), as a context
+    manager."""
+    def fwd(*args, save):
+        out = fg.glimpse_plain_fwd(*args)
+        return out if save else out[:2]
+
+    return mock.patch.multiple(fg, _fwd_cuda=fwd, _bwd_cuda=fg.glimpse_plain_bwd)
+
+
+@contextlib.contextmanager
+def plain_versions(fused, fg):
+    """Every kernel wrapper replaced by its plain version (autograd of plain
+    tensor ops for a gradient; the glimpse encoder's hand-written backward)."""
+    with mock.patch.multiple(fused, fused_mlp=fused.mlp_plain,
+                             fused_vanilla_rnn=fused.vanilla_rnn_plain,
+                             fused_gru=fused.gru_plain), plain_glimpse(fg):
+        yield
+
+
+@contextlib.contextmanager
+def kinks(torch, AIREncoder, AIRDecoder, D, keep=None):
+    """Records where one train step meets the kinks of its gradient: the
+    where of every glimpse crop and paste (their interpolation weights
+    relu(1 - |u - p|) turn the where-gradient around where a coordinate u
+    crosses an integer), the input of every relu (the transient penalty)
+    and the presence draws.  With ``keep``, the gradient through the kinks
+    that ``keep[kind][call]`` (1 or 0 per row of a where, per entry of a
+    relu's input) does not keep is zeroed: see ``kinks_crossed``."""
+    rec = dict(glimpse=[], paste=[], relu=[], presence=[])
+    real_enc, real_dec = AIREncoder.forward, AIRDecoder.forward
+    real_relu, real_sample = torch.nn.functional.relu, D.Bernoulli.sample
+
+    class Keep(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, k):
+            ctx.save_for_backward(k)
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * ctx.saved_tensors[0], None
+
+    def kept(kind, x, rows):
+        if keep is not None and x.requires_grad:
+            k = keep[kind][len(rec[kind])].to(x.device, x.dtype)
+            x = Keep.apply(x, k[..., None] if rows else k)
+        rec[kind].append(x.detach().clone())
+        return x
+
+    def enc(self, img, where=None, mask_inpt=None):
+        where = None if where is None else kept("glimpse", where, True)
+        return real_enc(self, img, where, mask_inpt)
+
+    def dec(self, what, where, presence=None):
+        return real_dec(self, what, kept("paste", where, True), presence)
+
+    def relu(x, *args, **kw):
+        return real_relu(kept("relu", x, False), *args, **kw)
+
+    def sample(self, u):
+        out = real_sample(self, u)
+        rec["presence"].append(out.detach().clone())
+        return out
+
+    with mock.patch.object(AIREncoder, "forward", enc), \
+            mock.patch.object(AIRDecoder, "forward", dec), \
+            mock.patch.object(torch.nn.functional, "relu", relu), \
+            mock.patch.object(D.Bernoulli, "sample", sample):
+        yield rec
+
+
+def kinks_crossed(torch, fg, stn, a, b, fused, img, glimpse):
+    """Per kind, per call of two runs' ``kinks`` records: the rows of a
+    where whose crop or paste coordinates lie on another side of an integer
+    in run a than in run b, and the relu entries of another sign; with the
+    number of presence draws that differ.  The crop coordinates are computed
+    as the run computed them: the glimpse kernel's order for a [B, 4] where
+    when ``fused`` (SQAIR_FUSE_GLIMPSE on), else stn's."""
+    (H, W), (gh, gw) = img, glimpse
+
+    def crop_u(w):
+        if fused and w.ndim == 2:
+            _, (_, uy, _), (_, ux, _) = fg.coords_and_interp(w, H, W, gh, gw)
+        else:
+            uy, ux = stn.crop_coords(stn.to_coords(w), glimpse, img)
+        return torch.cat([uy, ux], -1)
+
+    def paste_u(w):
+        return torch.cat(stn.paste_coords(stn.to_coords(w), glimpse, img), -1)
+
+    def sides(ua, ub):
+        ua, ub = ua.to(ub.device, torch.float64), ub.double()
+        p = torch.round(ub)
+        return torch.any(torch.sign(ua - p) != torch.sign(ub - p), -1)
+
+    out = dict(glimpse=[sides(crop_u(x), crop_u(y)) for x, y in zip(a["glimpse"], b["glimpse"])],
+               paste=[sides(paste_u(x), paste_u(y)) for x, y in zip(a["paste"], b["paste"])],
+               relu=[(x.to(y.device) > 0) != (y > 0) for x, y in zip(a["relu"], b["relu"])])
+    flips = sum(int(torch.sum(x.to(y.device, torch.float64) != y.double()))
+                for x, y in zip(a["presence"], b["presence"]))
+    return out, flips
 
 
 def step_gradients(torch, model, obs, nums, noise, l2):
@@ -403,6 +659,92 @@ def step_gradients(torch, model, obs, nums, noise, l2):
     grads = {n: (None if p.grad is None else p.grad.detach().clone()) for n, p in params.items()}
     model.sequence.zero_grad(set_to_none=True)
     return grads, float(target.detach())
+
+
+def train_check(torch, model, batch, flags, l2, device):
+    """One train step's parameter gradients, run by run, with the same
+    noise: every kernel (switch off and on), the plain versions on the card
+    (off and on) and on the CPU, and two float64 referees, the plain
+    versions on the card with the switch off and on.  f32 rounding moves a
+    run across a kink of the step's gradient now and then, and one crossing
+    can move a parameter's gradient by 10% (PERF.md); so every run goes
+    twice, the second time with the gradient through the kinks at which
+    some run lies on another side than its referee zeroed in all of them.
+    The checked pairs and the distances are those of the second pass."""
+    from sqair_tpu_torch.models.air import AIRDecoder, AIREncoder
+    from sqair_tpu_torch.ops import distributions as D
+    from sqair_tpu_torch.ops import fused, stn
+    from sqair_tpu_torch.ops import fused_glimpse as fg
+    from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
+
+    cpu_model = copy.copy(model)
+    cpu_model.sequence = copy.deepcopy(model.sequence).cpu()
+    ref_model = copy.copy(model)
+    ref_model.sequence = copy.deepcopy(model.sequence).double()
+    # name: (model, switch on, plain versions)
+    runs = {"kernels": (model, False, False), "plain_on_card": (model, False, True),
+            "cpu": (cpu_model, False, True), "glimpse_kernels": (model, True, False),
+            "glimpse_plain": (model, True, True), "referee": (ref_model, False, True),
+            "referee_on": (ref_model, True, True)}
+    referee = {name: "referee_on" if on else "referee" for name, (_, on, _) in runs.items()}
+    n_glimpse = sum(c for _, c in glimpse_shapes(flags, int(flags["batch_size"])
+                                                 * int(flags["k_particles"]),
+                                                 int(flags.get("font_timesteps", 10))))
+    noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 6), device,
+                           record=True)
+
+    def gradients(name, keep=None):
+        m, on, plain = runs[name]
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.dict(os.environ, GLIMPSE_SWITCH if on else {}))
+            if not on:
+                os.environ.pop("SQAIR_FUSE_GLIMPSE", None)
+            if plain:
+                stack.enter_context(plain_versions(fused, fg))
+            rec = stack.enter_context(kinks(torch, AIREncoder, AIRDecoder, D, keep))
+            fused.reset_launches()
+            src = noise if noise.table == {} else ReplayNoise(
+                {key: v.to(m.device) for key, v in noise.table.items()}, m.device, m.dtype)
+            grads, target = step_gradients(torch, m, batch["imgs"].to(m.device, m.dtype),
+                                           batch["nums"].to(m.device, m.dtype), src, l2)
+        launched = dict(fused.launches)
+        if plain and sum(launched.values()):
+            raise Failure(f"the plain train re-run {name} launched a kernel: {launched}")
+        if (name == "glimpse_kernels" and device.type == "cuda"
+                and launched.get("fused_glimpse_bwd", 0) != n_glimpse):
+            raise Failure(f"the switch-on step launched the glimpse backward "
+                          f"{launched.get('fused_glimpse_bwd', 0)} times, not {n_glimpse}")
+        return grads, target, rec
+
+    first = {name: gradients(name) for name in runs}
+    mask, crossed, flips = None, {}, {}
+    for name, (_, on, _) in runs.items():
+        if name.startswith("referee"):
+            continue
+        c, flips[name] = kinks_crossed(torch, fg, stn, first[name][2], first[referee[name]][2],
+                                       on, IMG, [int(flags["glimpse_size"])] * 2)
+        crossed[name] = {kind: int(sum(int(x.sum()) for x in v)) for kind, v in c.items()}
+        mask = c if mask is None else {k: [m | x for m, x in zip(mask[k], c[k])] for k in c}
+    keep = {kind: [~m for m in v] for kind, v in mask.items()}
+    second = {name: gradients(name, keep)[0] for name in runs}
+
+    def pairs_of(g):
+        return {pair: grad_errors(torch, g[a], g[b], pair)
+                for pair, (a, b) in GRADIENT_PAIRS.items()}
+
+    def distances(g):
+        return {name: grad_errors(torch, g[name], g[referee[name]], name)
+                for name in runs if not name.startswith("referee")}
+
+    dist = distances(second)
+    return dict(
+        targets={name: r[1] for name, r in first.items()}, crossed=crossed, flips=flips,
+        masked={kind: int(sum(int(m.sum()) for m in v)) for kind, v in mask.items()},
+        errors=pairs_of(second), unmasked=pairs_of({n: r[0] for n, r in first.items()}),
+        distance=dist, unmasked_distance=distances({n: r[0] for n, r in first.items()}),
+        ratio={run: dist[run][-1][0] / (dist[plain][-1][0] + 1e-30)
+               for run, plain in (("kernels", "plain_on_card"),
+                                  ("glimpse_kernels", "glimpse_plain"))})
 
 
 def run():
@@ -418,9 +760,14 @@ def run():
     from sqair_tpu_torch.configs import mlp_mnist_model
     from sqair_tpu_torch.data import (DeviceDatasetSampler, create_seq_dataset,
                                       make_template_bank)
+    import numpy as np
+
     from sqair_tpu_torch.ops import build, fused, stn
+    from sqair_tpu_torch.ops import fused_glimpse as fg
     from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
+    from sqair_tpu_torch.scripts import eval as port_eval
     from sqair_tpu_torch.training import make_eval_step, make_train_step
+    from sqair_tpu_torch.training.checkpoint import save_checkpoint
 
     stn.full_fp32_matmul()  # no TF32 anywhere, the plain versions included
     device = torch.device("cuda")
@@ -520,6 +867,58 @@ def run():
                 tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True)
             entry.update(bwd_args=bargs, bwd_abs_err=worst_abs, need_dx=need_dx)
 
+    # the fused glimpse encoder, masked (propagation) and unmasked (discovery)
+    glimpse_entries = []
+    with torch.inference_mode():
+        for shape, calls in glimpse_shapes(flags, B * k, T):
+            t0 = time.perf_counter()
+            dims, masked = glimpse_dims(shape), bool(shape["d_mi"])
+            args = glimpse_inputs(torch, shape, gen, device)
+            got = fg._fwd_cuda(*args, dims, save=True)
+            want = fg.glimpse_plain_fwd(*args, dims)
+            torch.cuda.synchronize()
+            names = ["loc", "scale", "g0", "h1", "h2"] + (["mask", "mhid"] if masked else [])
+            worst = 0.0
+            for name, a, b in zip(names, got, want, strict=True):
+                diff = torch.abs(a - b)
+                if a.shape != b.shape or not torch.all(
+                        diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)):
+                    raise Failure(f"fused_glimpse {shape}: output {name} disagrees with the "
+                                  f"plain version (max |d| {float(diff.max()):.3g})")
+                worst = max(worst, float(diff.max()))
+            log("kernels", t0, kernel="fused_glimpse", shape=jdump(shape), outputs=len(names),
+                max_abs_err=f"{worst:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
+                ok=True)
+
+            t0 = time.perf_counter()
+            saved = tuple(want[2:5]) + (want[1],) + tuple(want[5:])
+            n, nw = shape["n"], shape["n_what"]
+            dloc = torch.randn((n, nw), generator=gen, device=device)
+            dscale = torch.randn((n, nw), generator=gen, device=device)
+            bargs = args[:6] + (saved, dloc, dscale, dims)
+            got_b = fg.fused_glimpse_bwd(*bargs)
+            want_b = fg.glimpse_plain_bwd(*bargs)
+            torch.cuda.synchronize()
+            bnames = ["dwl"] + (["dmi", "dWm1", "dbm1", "dWm2", "dbm2"] if masked else []) + [
+                "dWe1", "dbe1", "dWe2", "dbe2", "dWh", "dbh"]
+            worst_b, share_b = 0.0, 0.0
+            for name, a, b in zip(bnames, got_b, want_b, strict=True):
+                err, size = scaled_err(torch, a, b)
+                if a.shape != b.shape or not err <= BWD_TOL * size + 1e-6:
+                    if name == "dwl":
+                        print(f"[kernels-bwd] u within 1e-5 of an integer: "
+                              f"{near_integer_u(torch, fg, args[0], args[1], dims)}", flush=True)
+                    raise Failure(f"fused_glimpse_bwd {shape}: {name} differs by {err:.3g} "
+                                  f"(largest {size:.3g})")
+                worst_b, share_b = max(worst_b, err), max(share_b, err / (size + 1e-30))
+            log("kernels-bwd", t0, kernel="fused_glimpse_bwd", shape=jdump(shape),
+                gradients=len(bnames), max_abs_err=f"{worst_b:.3e}",
+                max_err_share=f"{share_b:.3e}",
+                u_near_integer=near_integer_u(torch, fg, args[0], args[1], dims),
+                tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True)
+            glimpse_entries.append(dict(shape=shape, calls=calls, args=args, bargs=bargs,
+                                        abs_err=worst, bwd_abs_err=worst_b))
+
     # -------------------------------------------------------------- eval
     t0 = time.perf_counter()
     n_seq = N_BATCHES * B
@@ -559,17 +958,17 @@ def run():
 
     t0 = time.perf_counter()
     obs0, gt0 = batches[0]
-    with plain_versions(fused):
+    with plain_versions(fused, fg):
         fused.reset_launches()
         plain = eval_step(obs0, gt0, ReplayNoise(noise0, device))
         if sum(fused.launches.values()):
             raise Failure("the plain re-run launched a kernel")
-    err_plain = compare_metrics(torch, results[0], plain, "kernels vs plain on the card")
+    err_plain, _ = compare_metrics(torch, results[0], plain, "kernels vs plain on the card")
     cpu_model = copy.copy(model)
     cpu_model.sequence = copy.deepcopy(model.sequence).cpu()
     cpu = make_eval_step(cpu_model)(obs0, gt0, ReplayNoise(
         {key: v.cpu() for key, v in noise0.items()}, "cpu"))
-    err_cpu = compare_metrics(torch, results[0], cpu, "card vs the CPU")
+    err_cpu, _ = compare_metrics(torch, results[0], cpu, "card vs the CPU")
     log("eval-check", t0, vs_plain_on_card=f"{err_plain:.3e}", vs_cpu=f"{err_cpu:.3e}",
         tol=METRIC_TOL, metrics=len(plain))
 
@@ -607,6 +1006,23 @@ def run():
             # the main path of this slice
             add_row(kernel, entry["train"], ms, plain_ms, lib_ms, t_bytes, t_ops,
                     entry["abs_err"])
+        for entry in glimpse_entries:
+            t0 = time.perf_counter()
+            shape, args = entry["shape"], entry["args"]
+            ms = device_ms(torch, lambda: fg.fused_glimpse_encoder(
+                *args, shape["glimpse"], shape["n_what"]))
+            plain_ms = device_ms(torch, lambda: fg.glimpse_plain_fwd(*args, glimpse_dims(shape)))
+            chain = glimpse_library_fn(torch, stn, shape)
+            lib_ms = device_ms(torch, lambda: chain(*args))
+            nbytes, flops = glimpse_work(shape)
+            t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+            log("timing", t0, kernel="fused_glimpse", shape=jdump(shape),
+                calls_per_step=entry["calls"], ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+                library_ms=f"{lib_ms:.5f}", bound_ms=f"{max(t_bytes, t_ops):.5f}",
+                mflop=f"{flops / 1e6:.1f}", mbyte=f"{nbytes / 1e6:.2f}",
+                bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
+            add_row("fused_glimpse", entry["calls"], ms, plain_ms, lib_ms, t_bytes, t_ops,
+                    entry["abs_err"])
 
     t0 = time.perf_counter()
     step_noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 3), device)
@@ -622,6 +1038,31 @@ def run():
     else:
         log("profile", t0, device_busy_ms=f"{busy_ms:.3f}", step_ms=f"{eval_step_ms:.3f}",
             busy_share=f"{busy_ms / eval_step_ms:.3f}", top=jdump(top), card=repr(card))
+
+    # ------------------------------------------------------ eval-glimpse
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, GLIMPSE_SWITCH):
+        # the eval phase's generator, from the same seed: the same noise
+        replay_gen = torch.Generator(device=device).manual_seed(SEED + 2)
+        fused.reset_launches()
+        glimpse_results = [eval_step(obs, gt, GeneratorNoise(replay_gen, device))
+                           for obs, gt in batches]
+        torch.cuda.synchronize()
+        glimpse_eval_counts = dict(fused.launches)
+        expected = expected_launches(main_path_shapes(flags, B, k, T, fuse_glimpse=True),
+                                     N_BATCHES)
+        if glimpse_eval_counts != expected:
+            raise Failure(f"launch counts {glimpse_eval_counts} with SQAIR_FUSE_GLIMPSE differ "
+                          f"from the eval path's {expected}")
+        err_switch, worst_metric = max(
+            compare_metrics(torch, got, want, f"eval batch {i}, switch on vs off")
+            for i, (got, want) in enumerate(zip(glimpse_results, results)))
+        eval_glimpse_ms = step_ms(torch, lambda: eval_step(obs0, gt0, step_noise), 2 * REPS)
+    log("eval-glimpse", t0, steps=N_BATCHES, launches=jdump(glimpse_eval_counts),
+        expected=jdump(expected), vs_switch_off=f"{err_switch:.3e}",
+        worst_metric=worst_metric, tol=METRIC_TOL,
+        eval_step_ms=f"{eval_glimpse_ms:.3f}", eval_step_ms_switch_off=f"{eval_step_ms:.3f}",
+        card=repr(card))
 
     # ------------------------------------------------------------- train
     t0 = time.perf_counter()
@@ -660,34 +1101,32 @@ def run():
         raise Failure(f"parameters that did not change: {frozen} (only the decoder stds, "
                       "which get no gradient, should stay)")
 
+    # ------------------------------------------------------- train-check
     t0 = time.perf_counter()
-    batch = train_batches[0]
-    rec = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 6), device,
-                         record=True)
-    got, target_k = step_gradients(torch, model, batch["imgs"], batch["nums"], rec, l2)
-    with plain_versions(fused):
-        fused.reset_launches()
-        want, target_p = step_gradients(torch, model, batch["imgs"], batch["nums"],
-                                        ReplayNoise(rec.table, device), l2)
-        if sum(fused.launches.values()):
-            raise Failure("the plain train re-run launched a kernel")
-    cpu_model = copy.copy(model)
-    cpu_model.sequence = copy.deepcopy(model.sequence).cpu()
-    cpu_grads, target_c = step_gradients(
-        torch, cpu_model, batch["imgs"].cpu(), batch["nums"].cpu(),
-        ReplayNoise({key: v.cpu() for key, v in rec.table.items()}, "cpu"), l2)
-    pairs = {"kernels_vs_plain_on_card": (got, want), "kernels_vs_cpu": (got, cpu_grads),
-             "plain_on_card_vs_cpu": (want, cpu_grads)}
-    errors = {pair: grad_errors(torch, a, b, pair) for pair, (a, b) in pairs.items()}
+    tc = train_check(torch, model, train_batches[0], flags, l2, device)
+    errors, dist = tc["errors"], tc["distance"]
     gmax = max(size for _, _, _, size in errors["kernels_vs_plain_on_card"])
-    summary = {pair: [dict(name=n, share=f"{sh:.2e}", err=f"{e:.2e}", largest=f"{sz:.2e}")
-                      for sh, n, e, sz in errs[-4:]] for pair, errs in errors.items()}
-    tols = {"kernels_vs_plain_on_card": GRAD_TOL, "kernels_vs_cpu": GRAD_TOL_CPU}
-    log("train-check", t0, params=len(want), largest_grad=f"{gmax:.3e}",
-        target=f"{target_k:.5f}", target_plain=f"{target_p:.5f}", target_cpu=f"{target_c:.5f}",
-        worst=jdump(summary), tol=jdump({pair: f"|d|<={tol:g}max|grad|+1e-6"
-                                         for pair, tol in tols.items()}))
-    for pair, tol in tols.items():
+
+    def worst(errs):
+        return [dict(name=n, share=f"{sh:.2e}", err=f"{e:.2e}", largest=f"{sz:.2e}")
+                for sh, n, e, sz in errs[-3:]]
+
+    log("train-check", t0, params=len(errors["kernels_vs_plain_on_card"]),
+        largest_grad=f"{gmax:.3e}", targets=jdump({n: f"{v:.5f}" for n, v in tc["targets"].items()}),
+        kinks_crossed=jdump(tc["crossed"]), kinks_masked=jdump(tc["masked"]),
+        presence_flips=jdump(tc["flips"]),
+        unmasked=jdump({pair: f"{errs[-1][0]:.3e}" for pair, errs in tc["unmasked"].items()}),
+        worst=jdump({pair: worst(errs) for pair, errs in errors.items()}),
+        tol=jdump({pair: f"|d|<={tol:g}max|grad|+1e-6" for pair, tol in CHECKED_PAIRS.items()}))
+    log("train-check", t0, referee="float64 plain versions on the card, switch off and on",
+        distance=jdump({run: f"{errs[-1][0]:.3e}" for run, errs in dist.items()}),
+        unmasked=jdump({run: f"{errs[-1][0]:.3e}" for run, errs in tc["unmasked_distance"].items()}),
+        worst=jdump({run: worst(errs) for run, errs in dist.items()}),
+        where_bias_mlp=jdump({run: f"{max(sh for sh, n, _, _ in errs if '_where_bias_mlp' in n):.3e}"
+                              for run, errs in dist.items()}),
+        kernels_over_plain=jdump({run: f"{v:.3f}" for run, v in tc["ratio"].items()}),
+        within_2x=jdump({run: v <= 2.0 for run, v in tc["ratio"].items()}))
+    for pair, tol in CHECKED_PAIRS.items():
         for share, name, err, size in errors[pair]:
             if err > tol * size + 1e-6:
                 raise Failure(f"train gradients, {pair}: {name} differs by {err:.3g} "
@@ -713,6 +1152,24 @@ def run():
                 bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
             add_row(kernel + "_bwd", entry["train"], ms, plain_ms, lib_ms, t_bytes, t_ops,
                     entry["bwd_abs_err"])
+        for entry in glimpse_entries:
+            t0 = time.perf_counter()
+            shape, bargs = entry["shape"], entry["bargs"]
+            ms = device_ms(torch, lambda: fg.fused_glimpse_bwd(*bargs))
+            plain_ms = device_ms(torch, lambda: fg.glimpse_plain_bwd(*bargs))
+            nbytes, flops = glimpse_work(shape, backward=True)
+            t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+            with torch.inference_mode(False):
+                lib = glimpse_library_bwd_fn(torch, stn, shape, entry["args"], gen)
+                lib_ms = device_ms(torch, lib)
+            log("train-timing", t0, kernel="fused_glimpse_bwd", shape=jdump(shape),
+                calls_per_train_step=entry["calls"], ms=f"{ms:.5f}",
+                plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+                bound_ms=f"{max(t_bytes, t_ops):.5f}", mflop=f"{flops / 1e6:.1f}",
+                mbyte=f"{nbytes / 1e6:.2f}",
+                bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
+            add_row("fused_glimpse_bwd", entry["calls"], ms, plain_ms, lib_ms, t_bytes, t_ops,
+                    entry["bwd_abs_err"])
 
     t0 = time.perf_counter()
     timing_batch = train_batches[-1]
@@ -733,13 +1190,80 @@ def run():
             step_ms=f"{train_step_ms:.3f}", busy_share=f"{busy_ms / train_step_ms:.3f}",
             top=jdump(top), card=repr(card))
 
+    # ----------------------------------------------------- train-glimpse
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, GLIMPSE_SWITCH):
+        fused.reset_launches()
+        glimpse_metrics = [train_step(b["imgs"], b["nums"], train_noise) for b in train_batches]
+        torch.cuda.synchronize()
+        glimpse_train_counts = dict(fused.launches)
+        expected = expected_launches(
+            main_path_shapes(flags, B, k, T, train=True, fuse_glimpse=True), N_TRAIN_STEPS,
+            backward=True)
+        for i, m in enumerate(glimpse_metrics):
+            for key, v in m.items():
+                if not torch.isfinite(v).all():
+                    raise Failure(f"switch-on train step {i}: metric {key} is not finite")
+        if glimpse_train_counts != expected:
+            raise Failure(f"launch counts {glimpse_train_counts} with SQAIR_FUSE_GLIMPSE differ "
+                          f"from the train path's {expected}")
+        train_glimpse_ms = step_ms(
+            torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise),
+            REPS)
+    log("train-glimpse", t0, steps=N_TRAIN_STEPS, launches=jdump(glimpse_train_counts),
+        expected=jdump(expected), target=f"{float(glimpse_metrics[-1]['target']):.4f}",
+        train_step_ms=f"{train_glimpse_ms:.3f}",
+        train_step_ms_switch_off=f"{train_step_ms:.3f}", card=repr(card))
+
+    # ---------------------------------------------------------- eval-cli
+    t0 = time.perf_counter()
+    run_root = tempfile.mkdtemp(prefix="sqair_eval_cli_")
+    try:
+        run_dir = os.path.join(run_root, "1")
+        ckpt_step = train_step.state.step
+        save_checkpoint(run_dir, ckpt_step, model.sequence, train_step.state.optimizer)
+        shutil.copyfile(RELEASE_FLAGS, os.path.join(run_dir, "flags.json"))
+        cli_data = create_seq_dataset(n_samples=CLI_SEQUENCES, n_timesteps=T, canvas_size=IMG,
+                                      obj_size=(28, 28), n_objects=(0, 2), seed=SEED + 7,
+                                      templates=make_template_bank(256, 28, seed=SEED))
+        npz = os.path.join(run_root, "valid.npz")
+        np.savez(npz, imgs=cli_data["imgs"], nums=cli_data["nums"])
+        argv = ["--checkpoint_dir", run_dir, "--data_npz", npz, "--eval_batch_size", str(B)]
+        with mock.patch.dict(os.environ, GLIMPSE_SWITCH):
+            fused.reset_launches()
+            done = port_eval.main(argv)
+            torch.cuda.synchronize()
+            cli_counts = dict(fused.launches)
+            again = port_eval.main(argv)
+        n_cli = CLI_SEQUENCES // B
+        expected = expected_launches(main_path_shapes(flags, B, k, T, fuse_glimpse=True), n_cli)
+        files = {}
+        for m in port_eval.METRICS:
+            path = os.path.join(run_dir, f"{port_eval.METRIC_FILES[m]}_valid.txt")
+            with open(path) as f:
+                lines = f.read().splitlines()
+            values = [float(v) for v in lines[0].split(":")[1].split()] if lines else []
+            if len(lines) != 1 or not values or not all(math.isfinite(v) for v in values):
+                raise Failure(f"eval-cli: {path} holds {lines}, not one finite line")
+            files[port_eval.METRIC_FILES[m]] = values if len(values) > 1 else values[0]
+    finally:
+        shutil.rmtree(run_root)
+    if done != [ckpt_step] or again != []:
+        raise Failure(f"eval-cli: evaluated {done} then {again}, expected [{ckpt_step}] then []")
+    if cli_counts != expected:
+        raise Failure(f"eval-cli: launch counts {cli_counts} differ from {expected}")
+    log("eval-cli", t0, step=ckpt_step, batches=n_cli, launches=jdump(cli_counts),
+        expected=jdump(expected), resumed_skips=True, metric_files=len(files),
+        logpx=files["logpx"], acc=files["acc"])
+
     kernels = []
     for name, meta in KERNELS.items():
         r = rows[name]
         w = r["weight"]
+        launches = (glimpse_train_counts if name.startswith("fused_glimpse") else train_counts)
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=train_counts[name], max_abs_err=r["err"], ms=r["ms"] / w,
+            launches=launches[name], max_abs_err=r["err"], ms=r["ms"] / w,
             plain_ms=r["plain"] / w, bound_ms=r["bound"] / w,
             bound_by="bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
             library_ms=r["lib"] / w))

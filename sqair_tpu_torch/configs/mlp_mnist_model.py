@@ -8,6 +8,7 @@ package's default.  ``train_settings(flags)`` reads the training flags and
 """
 from __future__ import annotations
 
+import os
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -63,6 +64,11 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
     :param img_shape: (H, W) of a frame
     :param mean_img: [H, W] background added where nothing is written
     """
+    if os.environ.get("SQAIR_FUSE_CELLS"):
+        raise NotImplementedError(
+            "SQAIR_FUSE_CELLS asks for the fused discovery and propagation kernels (TPU "
+            "kernels #7-#10: sqair_tpu/ops/fused_cells.py _disc_run_fwd/_disc_run_bwd, "
+            "_prop_run_fwd/_prop_run_bwd), which are not ported yet; unset it")
     F = dict(DEFAULTS)
     F.update(flags)
     unported = [name for name, off in (("disc_coverage_signal", False),

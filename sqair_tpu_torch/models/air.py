@@ -10,7 +10,7 @@ import torch
 from ..nn.layers import MLP, Decoder, Module, const
 from ..nn.stochastic import GaussianFromParamVec
 from ..ops import distributions as D
-from ..ops import stn
+from ..ops import fused_glimpse, stn
 
 
 class AIREncoder(Module):
@@ -31,10 +31,34 @@ class AIREncoder(Module):
             self._mask_mlp = MLP(d_mask, [128], n_out=math.prod(self.glimpse_size),
                                  transfer="sigmoid", output_bias_init=const(1.0))
 
-    def forward(self, img, where=None, mask_inpt=None) -> Tuple[D.Normal, torch.Tensor]:
+    def _fused_params(self):
+        """(mask_params, enc_params, head_w, head_b) for the fused glimpse
+        kernel, or None where the JAX package's ``_fused_param_tree`` gives
+        None: a glimpse encoder of other than two layers, or no head."""
+        mlp = self.glimpse_encoder.MLP_0
+        if mlp.n_layers != 2 or not hasattr(self._what_distrib, "Dense_0"):
+            return None
+        head = self._what_distrib.Dense_0
+        mask_params = self._mask_mlp.layer_params() if self.masked_glimpse else None
+        return mask_params, mlp.layer_params(), head.kernel, head.bias
+
+    def forward(self, img, where=None, mask_inpt=None
+                ) -> Tuple[D.Normal, Optional[torch.Tensor]]:
         """:param img: [B, H, W]
         :param where: [B, 4] or [B, S, 4] where logits
-        :return: (what Normal [..., n_what], glimpse [..., gh, gw])"""
+        :return: (what Normal [..., n_what], glimpse [..., gh, gw]); the
+            glimpse is None on the fused path (no caller reads it)"""
+        # the JAX package's gate (sqair_tpu/models/air.py): the switch, a
+        # per-object [B, 4] where and the standard two-layer encoder
+        fused = (fused_glimpse.enabled() and where is not None and where.ndim == 2
+                 and self._fused_params())
+        if fused:
+            mask_params, enc_params, head_w, head_b = fused
+            mi = mask_inpt if (self.masked_glimpse and mask_inpt is not None) else None
+            loc, scale = fused_glimpse.fused_glimpse_encoder(
+                img, where, mi, mask_params, enc_params, head_w, head_b, self.glimpse_size,
+                self._what_distrib.n_dim)
+            return D.Normal(loc, scale), None
         if where is not None:
             coords = stn.to_coords(where)
             src = img[:, None] if coords.ndim == 3 else img

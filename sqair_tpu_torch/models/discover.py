@@ -84,10 +84,10 @@ class Discover(Module):
         extra_steps_logit, steps_logit_scale, steps_logit_clamp = 0.0, 1.0, None
         if (self.early_disc_logit_bias or self.early_disc_logit_clamp
                 or self.early_disc_logit_scale != 1.0):
-            # an f32 tensor, as in the JAX package, so that the blends below
-            # round the same way
+            # a tensor of the frames' type (f32, as in the JAX package), so
+            # that the blends below round the same way
             is_early = torch.tensor(float(time_step < self.early_disc_horizon),
-                                    dtype=torch.float32, device=img.device)
+                                    dtype=img.dtype, device=img.device)
             if self.early_disc_logit_bias:
                 extra_steps_logit = -self.early_disc_logit_bias * is_early
             if self.early_disc_logit_scale != 1.0:
@@ -131,16 +131,16 @@ class Discover(Module):
             return D.Geometric(probs=torch.tensor(1.0 - self.step_success_prob,
                                                   device=prior_conditioning.device))
         time_step = torch.as_tensor(time_step, device=prior_conditioning.device)
-        is_first = (time_step == 0).to(torch.float32)
+        is_first = (time_step == 0).to(prior_conditioning.dtype)
         step_logits = self.step_prior_bias + (1.0 - is_first) * self.step_prior_timestep_bias
         if step_logits.ndim == 1:
             step_logits = step_logits[None]
         step_logits = F.elu(step_logits + self._step_cond_mlp(prior_conditioning))
         if self.early_disc_step_bias:
             # after the elu, so that the ramp keeps its full size
-            is_early = (time_step < self.early_disc_horizon).to(torch.float32)
+            is_early = (time_step < self.early_disc_horizon).to(prior_conditioning.dtype)
             ramp = -self.early_disc_step_bias * torch.arange(
-                self.n_steps + 1, dtype=torch.float32, device=step_logits.device)
+                self.n_steps + 1, dtype=step_logits.dtype, device=step_logits.device)
             step_logits = step_logits + is_early * ramp
         return D.Categorical(logits=step_logits)
 

@@ -34,6 +34,10 @@ class Model:
     def device(self):
         return next(self.sequence.parameters()).device
 
+    @property
+    def dtype(self):
+        return next(self.sequence.parameters()).dtype
+
     @staticmethod
     def finalize_metrics(metrics):
         """Turns the aspect ratio's parts into the ratio."""
@@ -102,7 +106,7 @@ class Model:
         if gt_presence is not None:
             gt_num_steps = torch.sum(gt_presence, -1)  # [T, B]
             num_steps = outputs["num_steps_per_sample"].reshape(-1, B, k)
-            acc = (gt_num_steps[..., None] == num_steps).to(torch.float32)
+            acc = (gt_num_steps[..., None] == num_steps).to(num_steps.dtype)
             metrics["raw_num_step_accuracy"] = torch.mean(acc)
             metrics["num_step_accuracy"] = imp_weighted_mean(acc)
             if record_mode != "train":

@@ -69,7 +69,7 @@ class SequentialAIR(Module):
             raise ValueError(f"record_mode must be one of {RECORD_MODES}, got {record_mode!r}")
         train = record_mode == "train"
         T, B = obs.shape[0], obs.shape[1]
-        carry = self.timestep.initial_carry(B, obs.device)
+        carry = self.timestep.initial_carry(B, obs.device, obs.dtype)
         records = []
         for t in range(T):
             img = obs[t]
@@ -145,7 +145,7 @@ class SequentialAIR(Module):
         zw, zwh, zp = rec["z_what"], rec["z_where"], rec["z_presence"]
         outputs = dict(where=zwh, presence=zp[..., 0],
                        presence_logit=rec["z_presence_logit"][..., 0])
-        time_steps = torch.arange(T, dtype=torch.float32, device=obs.device)
+        time_steps = torch.arange(T, dtype=obs.dtype, device=obs.device)
         time_steps = time_steps[:, None, None].expand(T, B, 1).reshape(T * B, 1)
         flat = _flatten_time
         lp = self.timestep.batched_log_probs(

@@ -88,15 +88,15 @@ class SQAIRTimestep(Module):
         self._latent_encoder = MLP(n_what + 4, [n_hidden, n_hidden])
 
     # ------------------------------------------------------------- carry
-    def initial_carry(self, batch_size: int, device) -> Dict:
+    def initial_carry(self, batch_size: int, device, dtype=torch.float32) -> Dict:
         S = self.n_steps
-        z0 = tuple(torch.zeros((batch_size, S, d), device=device)
+        z0 = tuple(torch.zeros((batch_size, S, d), device=device, dtype=dtype)
                    for d in (self.n_what, 4, 1, 1))
         return dict(
             z=z0, time_state=self.initial_temporal_state(batch_size),
             prior_state=self.initial_prior_state(batch_size),
-            prev_ids=-torch.ones((batch_size, S, 1), device=device),
-            last_used_id=-torch.ones((batch_size, 1), device=device),
+            prev_ids=-torch.ones((batch_size, S, 1), device=device, dtype=dtype),
+            last_used_id=-torch.ones((batch_size, 1), device=device, dtype=dtype),
         )
 
     def _tile_slots(self, state):

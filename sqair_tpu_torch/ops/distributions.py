@@ -2,7 +2,8 @@
 
 Each sampler takes its noise as an argument: standard-normal ``eps`` or
 uniform ``u`` of the sample's shape, drawn by the caller from a noise
-source (ops/noise.py).  All distributions are float32.
+source (ops/noise.py).  Each computes in the type of its parameters
+(float32 in the model).
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ class Bernoulli:
         return torch.sigmoid(self.logits)
 
     def sample(self, u):
-        return (u < torch.sigmoid(self.logits)).to(torch.float32)
+        return (u < torch.sigmoid(self.logits)).to(self.logits.dtype)
 
     def log_prob(self, x):
         return x * self.logits - softplus(self.logits)

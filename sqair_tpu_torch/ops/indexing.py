@@ -27,7 +27,7 @@ def presence_order(presence: torch.Tensor, top_k: Optional[int] = None) -> torch
 
 def presence_sort_matrix(presence, top_k=None) -> torch.Tensor:
     """The same permutation as a [B, K_out, K] one-hot matrix."""
-    return F.one_hot(presence_order(presence, top_k), presence.shape[1]).to(torch.float32)
+    return F.one_hot(presence_order(presence, top_k), presence.shape[1]).to(presence.dtype)
 
 
 def select_present(tensors, presence: torch.Tensor, top_k: Optional[int] = None):

@@ -55,11 +55,14 @@ class GeneratorNoise(NoiseSource):
 
 
 class ReplayNoise(NoiseSource):
-    """Noise given in advance: ``table[key]`` for every draw."""
+    """Noise given in advance: ``table[key]`` for every draw, handed back as
+    ``dtype`` (float32 unless asked: float64 replays an f32 run's noise to a
+    float64 model)."""
 
-    def __init__(self, table: Dict, device):
+    def __init__(self, table: Dict, device, dtype=torch.float32):
         self.table = table
         self.device = torch.device(device)
+        self.dtype = dtype
 
     def _draw(self, kind, key, shape):
         got = self.table[key]
@@ -67,4 +70,4 @@ class ReplayNoise(NoiseSource):
             raise ValueError(f"noise {key}: shape {tuple(got.shape)}, expected {shape}")
         if isinstance(got, np.ndarray):
             got = torch.from_numpy(np.array(got, np.float32))
-        return got.to(device=self.device, dtype=torch.float32)
+        return got.to(device=self.device, dtype=self.dtype)

@@ -49,12 +49,16 @@ def to_logits(coords: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     return torch.cat([scale_logit, shift_logit], -1)
 
 
-def _interp_matrix(scale, shift, src_len: int, dst_len: int) -> torch.Tensor:
-    """M[..., i, p] = max(0, 1 - |u_i - p|) with
-    u_i = (scale t_i + shift + 1) (src_len - 1) / 2, t_i = linspace(-1, 1)."""
-    t = torch.linspace(-1.0, 1.0, dst_len, dtype=torch.float32, device=scale.device)
-    u = (scale[..., None] * t + shift[..., None] + 1.0) * (src_len - 1) / 2.0
-    p = torch.arange(src_len, dtype=torch.float32, device=scale.device)
+def _interp_coords(scale, shift, src_len: int, dst_len: int) -> torch.Tensor:
+    """u_i = (scale t_i + shift + 1) (src_len - 1) / 2, t_i = linspace(-1, 1):
+    the source coordinate of each of the dst_len outputs."""
+    t = torch.linspace(-1.0, 1.0, dst_len, dtype=scale.dtype, device=scale.device)
+    return (scale[..., None] * t + shift[..., None] + 1.0) * (src_len - 1) / 2.0
+
+
+def _interp_weights(u, src_len: int) -> torch.Tensor:
+    """M[..., i, p] = max(0, 1 - |u_i - p|)."""
+    p = torch.arange(src_len, dtype=u.dtype, device=u.device)
     return torch.clamp(1.0 - torch.abs(u[..., :, None] - p), min=0.0)
 
 
@@ -65,15 +69,35 @@ def _split_coords(coords):
     return sx, sy, tx, ty
 
 
+def crop_coords(coords: torch.Tensor, glimpse_size: Sequence[int],
+                img_size: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u_y [..., gh], u_x [..., gw]): the image coordinates that a crop at
+    coords [..., 4] interpolates at.  The crop's gradient with respect to
+    coords jumps where one of them crosses an integer."""
+    gh, gw = glimpse_size
+    H, W = img_size
+    sx, sy, tx, ty = _split_coords(coords)
+    return _interp_coords(sy, ty, H, gh), _interp_coords(sx, tx, W, gw)
+
+
+def paste_coords(coords: torch.Tensor, glimpse_size: Sequence[int],
+                 img_size: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u_y [..., H], u_x [..., W]): the glimpse coordinates that a paste at
+    coords interpolates at, one per image row and column."""
+    gh, gw = glimpse_size
+    H, W = img_size
+    sx, sy, tx, ty = _split_coords(coords)
+    return _interp_coords(1.0 / sy, -ty / sy, gh, H), _interp_coords(1.0 / sx, -tx / sx, gw, W)
+
+
 def extract_glimpse(img: torch.Tensor, coords: torch.Tensor,
                     glimpse_size: Sequence[int]) -> torch.Tensor:
     """Crops a [..., gh, gw] glimpse of img [..., H, W] at coords [..., 4]
     (batch dims broadcast)."""
-    gh, gw = glimpse_size
     H, W = img.shape[-2], img.shape[-1]
-    sx, sy, tx, ty = _split_coords(coords)
-    wy = _interp_matrix(sy, ty, H, gh)  # [..., gh, H]
-    wx = _interp_matrix(sx, tx, W, gw)  # [..., gw, W]
+    uy, ux = crop_coords(coords, glimpse_size, (H, W))
+    wy = _interp_weights(uy, H)  # [..., gh, H]
+    wx = _interp_weights(ux, W)  # [..., gw, W]
     return wy @ img @ wx.transpose(-1, -2)
 
 
@@ -82,11 +106,8 @@ def paste_matrices(coords: torch.Tensor, glimpse_size: Sequence[int],
     """(uy [..., H, gh], ux [..., W, gw]) of the inverse-ST paste, so that
     paste = uy @ glimpse @ ux^T."""
     gh, gw = glimpse_size
-    H, W = img_size
-    sx, sy, tx, ty = _split_coords(coords)
-    uy = _interp_matrix(1.0 / sy, -ty / sy, gh, H)
-    ux = _interp_matrix(1.0 / sx, -tx / sx, gw, W)
-    return uy, ux
+    uy, ux = paste_coords(coords, glimpse_size, img_size)
+    return _interp_weights(uy, gh), _interp_weights(ux, gw)
 
 
 def paste_glimpse(glimpse: torch.Tensor, coords: torch.Tensor,

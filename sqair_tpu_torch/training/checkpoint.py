@@ -1,0 +1,110 @@
+"""Checkpoints of the port, in the JAX package's run-dir layout
+(``<results_dir>/<run_name>/<n>/ckpt-<step>``, sqair_tpu/training/checkpoint.py).
+
+A checkpoint is one file written by ``torch.save`` and read back with
+``torch.load(..., weights_only=True)``; it holds tensors and ints only:
+
+  {"step": int,
+   "params": {state_dict key: tensor},          # mean_img included
+   "optimizer": {"count": int,                  # TFRMSProp's schedule count
+                 "nu": {key: tensor}, "trace": {key: tensor}}}   # optional
+
+The optimizer's state is kept per parameter name; a parameter that never
+had a gradient (the decoder's two stds) has none.
+``tools/jax_ckpt_to_torch.py`` writes this format from an orbax checkpoint.
+"""
+from __future__ import annotations
+
+import os
+import re
+import tempfile
+from typing import Dict
+
+import torch
+
+from .train import TrainState
+
+CKPT_PREFIX = "ckpt-"
+
+
+def find_checkpoints(run_dir: str) -> Dict[int, str]:
+    """step -> path of every checkpoint in a run dir."""
+    if not os.path.isdir(run_dir):
+        return {}
+    pat = re.compile(rf"^{CKPT_PREFIX}(\d+)$")
+    out = {}
+    for name in os.listdir(run_dir):
+        m = pat.match(name)
+        if m:
+            out[int(m.group(1))] = os.path.join(run_dir, name)
+    return out
+
+
+def _optimizer_state(sequence: torch.nn.Module, optimizer) -> Dict:
+    """A TFRMSProp's state keyed by the parameters' names in ``sequence``."""
+    names = {id(p): n for n, p in sequence.named_parameters()}
+    nu, trace = {}, {}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st:
+                nu[names[id(p)]] = st["nu"].detach().cpu().clone()
+                trace[names[id(p)]] = st["trace"].detach().cpu().clone()
+    return dict(count=int(optimizer.count), nu=nu, trace=trace)
+
+
+def save_checkpoint(run_dir: str, step: int, sequence: torch.nn.Module,
+                    optimizer=None) -> str:
+    """Writes ``<run_dir>/ckpt-<step>`` (under a temporary name first, so a
+    reader never sees half a file) and returns its path."""
+    state = dict(step=int(step),
+                 params={k: v.detach().cpu().clone() for k, v in sequence.state_dict().items()})
+    if optimizer is not None:
+        state["optimizer"] = _optimizer_state(sequence, optimizer)
+    path = os.path.abspath(os.path.join(run_dir, f"{CKPT_PREFIX}{int(step)}"))
+    os.makedirs(run_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=".ckpt-", dir=run_dir)
+    os.close(fd)
+    try:
+        with open(tmp, "wb") as f:
+            torch.save(state, f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def load_checkpoint(path: str) -> Dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_params(path: str, sequence: torch.nn.Module) -> int:
+    """Loads the parameters strictly into ``sequence``; returns the step."""
+    state = load_checkpoint(path)
+    sequence.load_state_dict(state["params"], strict=True)
+    return int(state["step"])
+
+
+def restore_train_state(path: str, sequence: torch.nn.Module,
+                        train_state: TrainState) -> TrainState:
+    """Loads parameters, the optimizer's state and the step into a train
+    state bound to ``sequence``'s parameters (``training.init_train``)."""
+    state = load_checkpoint(path)
+    sequence.load_state_dict(state["params"], strict=True)
+    opt = train_state.optimizer
+    saved = state.get("optimizer")
+    if saved is None:
+        raise KeyError(f"{path} holds no optimizer state")
+    params = dict(sequence.named_parameters())
+    unknown = sorted(set(saved["nu"]) - set(params))
+    if unknown or set(saved["nu"]) != set(saved["trace"]):
+        raise KeyError(f"{path}: optimizer state for unknown parameters {unknown}")
+    opt.state.clear()
+    for name, nu in saved["nu"].items():
+        p = params[name]
+        opt.state[p] = dict(nu=nu.to(p.device, p.dtype).clone(),
+                            trace=saved["trace"][name].to(p.device, p.dtype).clone())
+    opt.count = int(saved["count"])
+    train_state.step = int(state["step"])
+    return train_state

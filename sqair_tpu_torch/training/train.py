@@ -130,8 +130,8 @@ def make_train_step(model: Model, optimizer, l2_weight: float = 0.0) -> Callable
 
     def train_step(obs, nums, noise: NoiseSource) -> Dict[str, torch.Tensor]:
         device = model.device
-        obs = torch.as_tensor(obs, dtype=torch.float32, device=device)
-        nums = torch.as_tensor(nums, dtype=torch.float32, device=device)
+        obs = torch.as_tensor(obs, dtype=model.dtype, device=device)
+        nums = torch.as_tensor(nums, dtype=model.dtype, device=device)
         state.optimizer.zero_grad(set_to_none=True)
         target, aux = model.loss_and_metrics(obs, noise, nums, l2_weight=l2_weight,
                                              record_mode="train")
@@ -151,8 +151,8 @@ def make_eval_step(model: Model) -> Callable:
     def eval_step(obs, nums, noise: NoiseSource):
         device = model.device
         with torch.inference_mode():
-            obs = torch.as_tensor(obs, dtype=torch.float32, device=device)
-            nums = torch.as_tensor(nums, dtype=torch.float32, device=device)
+            obs = torch.as_tensor(obs, dtype=model.dtype, device=device)
+            nums = torch.as_tensor(nums, dtype=model.dtype, device=device)
             _, aux = model.loss_and_metrics(obs, noise, nums)
             return Model.finalize_metrics(aux["metrics"])
 

@@ -1,4 +1,5 @@
-"""sqair_tpu_torch's CUDA kernels against their plain versions on the card.
+"""sqair_tpu_torch's CUDA kernels (the fused MLP, the two cells and the fused
+glimpse encoder) against their plain versions on the card.
 
 Needs a CUDA device (skips without one) and imports no JAX, so that it runs
 on a machine without it; the root conftest.py imports JAX, so run it there
@@ -109,3 +110,73 @@ def test_autograd_on_cuda_launches_the_backward_kernels():
     assert fused.launches["fused_mlp_bwd"] == 1 and fused.launches["fused_gru_bwd"] == 1
     want = torch.autograd.grad(loss(fused.mlp_plain, fused.gru_plain), leaves)
     _assert_grads_close(got, want, "autograd")
+
+
+def _glimpse_case(gen, n, masked):
+    """Inputs of one glimpse call at the release model's widths."""
+    rnd = _rnd_fn(gen)
+    img = torch.rand(n, 50, 50, generator=gen, device="cuda")
+    wl = torch.randn(n, 4, generator=gen, device="cuda")
+    mi = torch.randn(n, 256, generator=gen, device="cuda") if masked else None
+    mask = ((rnd(256, 128), rnd(128)), (rnd(128, 400), 1 + rnd(400))) if masked else None
+    enc = ((rnd(400, 256), rnd(256)), (rnd(256, 256), rnd(256)))
+    return img, wl, mi, mask, enc, rnd(256, 100), rnd(100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", (True, False))
+@pytest.mark.parametrize("n", [13, 160])
+def test_glimpse_kernels_match_plain_on_cuda(n, masked):
+    """The fused glimpse forward (every output, the saved tensors included)
+    and backward (every gradient, where's included) against their plain
+    versions, at a ragged row count and the release model's 160 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sqair_tpu_torch.ops import fused_glimpse as fg
+
+    gen = torch.Generator(device="cuda").manual_seed(n + masked)
+    args = _glimpse_case(gen, n, masked)
+    dims = (20, 20, 50)
+    with torch.inference_mode():
+        got = fg._fwd_cuda(*args, dims, save=True)
+        want = fg.glimpse_plain_fwd(*args, dims)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        saved = want[2:5] + (want[1],) + tuple(want[5:])
+        dloc = torch.randn(n, 50, generator=gen, device="cuda")
+        dscale = torch.randn(n, 50, generator=gen, device="cuda")
+        img, wl, mi, mask, enc, head_w, _ = args
+        _assert_grads_close(
+            fg.fused_glimpse_bwd(img, wl, mi, mask, enc, head_w, saved, dloc, dscale, dims),
+            fg.glimpse_plain_bwd(img, wl, mi, mask, enc, head_w, saved, dloc, dscale, dims),
+            f"glimpse masked={masked}")
+
+
+@pytest.mark.cuda
+def test_glimpse_autograd_on_cuda_launches_both_kernels():
+    """The model's entry point on CUDA tensors that need a gradient goes
+    through the forward and the backward kernel, once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sqair_tpu_torch.ops import fused_glimpse as fg
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    img, wl, mi, mask, enc, head_w, head_b = _glimpse_case(gen, 37, True)
+    leaves = [wl, mi, *[t for wb in mask for t in wb], *[t for wb in enc for t in wb],
+              head_w, head_b]
+    for t in leaves:
+        t.requires_grad_()
+
+    def loss(fn):
+        loc, scale = fn(img, wl, mi, mask, enc, head_w, head_b)
+        return torch.sum(loc * loc) + torch.sum(scale)
+
+    fused.reset_launches()
+    got = torch.autograd.grad(
+        loss(lambda *a: fg.fused_glimpse_encoder(*a, (20, 20), 50)), leaves)
+    torch.cuda.synchronize()
+    assert fused.launches["fused_glimpse"] == 1 and fused.launches["fused_glimpse_bwd"] == 1
+    want = torch.autograd.grad(loss(lambda *a: fg.glimpse_plain_fwd(*a, (20, 20, 50))[:2]),
+                               leaves)
+    _assert_grads_close(got, want, "glimpse autograd")

@@ -1,0 +1,123 @@
+"""chip_smoke.py's train-check, on the CPU at two sequences of three frames:
+the kinks of a train step's gradient found between two runs (a crop or
+paste coordinate on other sides of an integer, a relu input of other
+sign, a presence draw), the masking of the gradient through them, and the
+pairs and referee distances that ``train_check`` reports."""
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from sqair_tpu_torch.configs import mlp_mnist_model
+from sqair_tpu_torch.data import DeviceDatasetSampler, create_seq_dataset, make_template_bank
+from sqair_tpu_torch.models.air import AIRDecoder, AIREncoder
+from sqair_tpu_torch.ops import distributions as D
+from sqair_tpu_torch.ops import fused_glimpse as fg
+from sqair_tpu_torch.ops import stn
+from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
+
+IMG, GLIMPSE = (50, 50), (20, 20)
+
+
+def _model_and_batch():
+    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
+    flags.update(batch_size=2, font_timesteps=3, k_particles=2)
+    data = create_seq_dataset(n_samples=4, n_timesteps=3, canvas_size=IMG, obj_size=(28, 28),
+                              n_objects=(1, 2), seed=1,
+                              templates=make_template_bank(16, 28, seed=0))
+    imgs = data["imgs"].astype("float32") / 255.0
+    model = mlp_mnist_model.load(flags, imgs.shape[2:], mean_img=imgs.mean((0, 1)),
+                                 device="cpu", seed=0)
+    batch = DeviceDatasetSampler(data, "cpu").sample(torch.Generator().manual_seed(4), 2)
+    return flags, model, batch
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_kinks_crossed_finds_the_rows_whose_coordinates_cross(fused):
+    gen = torch.Generator().manual_seed(0)
+    crop_a = torch.randn(64, 4, generator=gen, dtype=torch.float64)
+    paste_a = torch.randn(8, 3, 4, generator=gen, dtype=torch.float64)
+    # a small shift of rows 0-31 / objects 0-3 moves some coordinates
+    # across an integer and no coordinate by half a unit
+    crop_b, paste_b = crop_a.clone(), paste_a.clone()
+    crop_b[:32, 2:] += 0.02
+    paste_b[:4, :, 2:] += 0.02
+    relu_a = torch.tensor([0.5, -1e-7, 2.0])
+    relu_b = torch.tensor([0.5, 1e-7, 2.0])
+    pres_a, pres_b = torch.tensor([1.0, 0.0, 1.0]), torch.tensor([1.0, 1.0, 1.0])
+    a = dict(glimpse=[crop_a], paste=[paste_a], relu=[relu_a], presence=[pres_a])
+    b = dict(glimpse=[crop_b], paste=[paste_b], relu=[relu_b], presence=[pres_b])
+    got, flips = chip_smoke.kinks_crossed(torch, fg, stn, a, b, fused, IMG, GLIMPSE)
+
+    def floors(u):
+        return torch.floor(u)
+
+    if fused:
+        _, (_, uya, _), (_, uxa, _) = fg.coords_and_interp(crop_a, *IMG, *GLIMPSE)
+        _, (_, uyb, _), (_, uxb, _) = fg.coords_and_interp(crop_b, *IMG, *GLIMPSE)
+    else:
+        uya, uxa = stn.crop_coords(stn.to_coords(crop_a), GLIMPSE, IMG)
+        uyb, uxb = stn.crop_coords(stn.to_coords(crop_b), GLIMPSE, IMG)
+    want_crop = torch.any(floors(torch.cat([uya, uxa], -1)) != floors(torch.cat([uyb, uxb], -1)), -1)
+    pa = torch.cat(stn.paste_coords(stn.to_coords(paste_a), GLIMPSE, IMG), -1)
+    pb = torch.cat(stn.paste_coords(stn.to_coords(paste_b), GLIMPSE, IMG), -1)
+    want_paste = torch.any(floors(pa) != floors(pb), -1)
+    assert want_crop[:32].any() and not want_crop[32:].any()
+    assert want_paste[:4].any() and not want_paste[4:].any()
+    assert torch.equal(got["glimpse"][0], want_crop)
+    assert torch.equal(got["paste"][0], want_paste)
+    assert got["relu"][0].tolist() == [False, True, False]
+    assert flips == 1
+
+
+def test_kinks_masks_the_gradient_only_where_asked():
+    flags, model, batch = _model_and_batch()
+    _, l2 = mlp_mnist_model.make_optimizer(flags)
+    noise = GeneratorNoise(torch.Generator().manual_seed(6), "cpu", record=True)
+    with chip_smoke.kinks(torch, AIREncoder, AIRDecoder, D) as rec:
+        free, _ = chip_smoke.step_gradients(torch, model, batch["imgs"], batch["nums"], noise, l2)
+    assert len(rec["glimpse"]) == 3 * 3 * 3  # 3 calls a slot and frame, 3 slots, 3 frames
+    assert len(rec["paste"]) == 1 and len(rec["relu"]) == 1 and rec["presence"]
+
+    def run(fill):
+        keep = {kind: [torch.full(x.shape[:-1] if kind != "relu" else x.shape, fill)
+                       for x in rec[kind]] for kind in ("glimpse", "paste", "relu")}
+        with chip_smoke.kinks(torch, AIREncoder, AIRDecoder, D, keep):
+            return chip_smoke.step_gradients(torch, model, batch["imgs"], batch["nums"],
+                                             ReplayNoise(noise.table, "cpu"), l2)[0]
+
+    kept = run(True)
+    for name, g in free.items():
+        assert (g is None) == (kept[name] is None)
+        if g is not None:
+            assert torch.equal(g, kept[name]), name
+    masked = run(False)
+    where_bias = [n for n in free if "_where_bias_mlp" in n]
+    assert where_bias
+    # the where-bias MLP reaches the loss only through the propagation
+    # glimpse's where: with every crop and paste row masked it gets none
+    for name in where_bias:
+        assert torch.count_nonzero(masked[name]) == 0, name
+        assert torch.count_nonzero(free[name]) > 0, name
+
+
+def test_train_check_on_the_cpu():
+    flags, model, batch = _model_and_batch()
+    _, l2 = mlp_mnist_model.make_optimizer(flags)
+    tc = chip_smoke.train_check(torch, model, batch, flags, l2, torch.device("cpu"))
+    assert set(tc["errors"]) == set(chip_smoke.GRADIENT_PAIRS)
+    assert set(tc["distance"]) == {"kernels", "plain_on_card", "cpu", "glimpse_kernels",
+                                   "glimpse_plain"}
+    for pair, tol in chip_smoke.CHECKED_PAIRS.items():
+        for share, name, err, size in tc["errors"][pair]:
+            assert np.isfinite(err) and err <= tol * size + 1e-6, (pair, name)
+    for run, errs in tc["distance"].items():
+        assert 0.0 < errs[-1][0] < 1e-2, run
+    assert set(tc["masked"]) == {"glimpse", "paste", "relu"}
+    assert all(np.isfinite(v) for v in tc["ratio"].values())

@@ -4,7 +4,10 @@ port's eval and train steps really make.  The model is built as the script
 builds it, by the config loader from release-model flags, at small widths
 (n_units 1, n_what 8, 2 slots, 24x24 frames); its calls are counted on the
 CPU: every forward wrapper call by kernel, rows and widths, and one
-backward call per forward call in the train step."""
+backward call per forward call in the train step.  With
+SQAIR_FUSE_GLIMPSE the glimpse encoder and its mask leave fused_mlp for the
+fused glimpse kernel, once per discovery slot and twice per propagation
+slot."""
 import collections
 import sys
 from pathlib import Path
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from sqair_tpu_torch.configs import mlp_mnist_model
-from sqair_tpu_torch.ops import fused
+from sqair_tpu_torch.ops import fused, fused_glimpse
 from sqair_tpu_torch.ops.noise import GeneratorNoise
 from torch_parity import B, H, S, T, golden_batch
 
@@ -30,6 +33,9 @@ FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru")
 def _key(kernel, shape):
     if kernel == "fused_mlp":
         return (kernel, shape["n"], shape["d_in"], tuple(shape["widths"]), tuple(shape["acts"]))
+    if kernel == "fused_glimpse":
+        return (kernel,) + tuple((k, tuple(v) if isinstance(v, list) else v)
+                                 for k, v in sorted(shape.items()))
     return (kernel, shape["n"], shape["dx"], shape["units"])
 
 
@@ -46,6 +52,18 @@ def _forward_spy(calls, name, fn):
     return spy
 
 
+def _glimpse_spy(calls, fn):
+    def spy(img, wl, mi, mask_params, enc_params, head_w, head_b, glimpse_size, n_what):
+        masked = mi is not None
+        shape = dict(n=img.shape[0], img=list(img.shape[1:]), glimpse=list(glimpse_size),
+                     d1=enc_params[0][0].shape[1], d2=enc_params[1][0].shape[1],
+                     n_what=n_what, d_mi=mi.shape[1] if masked else 0,
+                     d_m=mask_params[0][0].shape[1] if masked else 0)
+        calls[_key("fused_glimpse", shape)] += 1
+        return fn(img, wl, mi, mask_params, enc_params, head_w, head_b, glimpse_size, n_what)
+    return spy
+
+
 def _backward_spy(calls, name, fn):
     def spy(*args, **kwargs):
         calls[name] += 1
@@ -54,13 +72,30 @@ def _backward_spy(calls, name, fn):
 
 
 @pytest.mark.parametrize("mode", ("full", "train"))
-def test_main_path_shapes_match_the_calls_of_a_step(mode):
+def test_main_path_shapes_match_the_calls_of_a_step(mode, monkeypatch):
+    _check_calls_of_a_step(mode, False, monkeypatch)
+
+
+@pytest.mark.parametrize("mode", ("full", "train"))
+def test_main_path_shapes_match_the_calls_of_a_step_with_the_glimpse_switch(mode, monkeypatch):
+    _check_calls_of_a_step(mode, True, monkeypatch)
+
+
+def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch):
+    if fuse_glimpse:
+        monkeypatch.setenv("SQAIR_FUSE_GLIMPSE", "1")
+    else:
+        monkeypatch.delenv("SQAIR_FUSE_GLIMPSE", raising=False)
     model = mlp_mnist_model.load(FLAGS, (H, H), device="cpu", seed=0)
     obs, nums = golden_batch()
     calls = collections.Counter()
     spies = {n: _forward_spy(calls, n, getattr(fused, n)) for n in FORWARD}
     spies.update({n + "_bwd": _backward_spy(calls, n + "_bwd", getattr(fused, n + "_bwd"))
                   for n in FORWARD})
+    monkeypatch.setattr(fused_glimpse, "fused_glimpse_encoder",
+                        _glimpse_spy(calls, fused_glimpse.fused_glimpse_encoder))
+    monkeypatch.setattr(fused_glimpse, "fused_glimpse_bwd", _backward_spy(
+        calls, "fused_glimpse_bwd", fused_glimpse.fused_glimpse_bwd))
     with mock.patch.multiple(fused, **spies):
         target, _ = model.loss_and_metrics(
             torch.from_numpy(obs), GeneratorNoise(torch.Generator().manual_seed(1), "cpu"),
@@ -69,7 +104,8 @@ def test_main_path_shapes_match_the_calls_of_a_step(mode):
             target.backward()
 
     shapes = chip_smoke.main_path_shapes(FLAGS, B, FLAGS["k_particles"], T,
-                                         train=mode == "train", img=(H, H))
+                                         train=mode == "train", img=(H, H),
+                                         fuse_glimpse=fuse_glimpse)
     want = collections.Counter()
     for kernel, shape, n_calls in shapes:
         want[_key(kernel, shape)] += n_calls

@@ -36,6 +36,13 @@ CONFIGS = {
     # the release model's levers (release_models/mnist_mlp/1/flags.json)
     "k5_release_levers": dict(k=5, timestep=dict(early_disc_logit_scale=0.15),
                               model=dict(transient_penalty=400.0), l2=0.0),
+    # branches no other case reaches: the geometric count prior, the
+    # non-recurrent where prior, the unmasked glimpse, the aspect penalty and
+    # one particle (REINFORCE)
+    "k1_untested_branches": dict(k=1, timestep=dict(disc_prior_type="geom",
+                                                    rec_where_prior=False,
+                                                    masked_glimpse=False),
+                                 model=dict(aspect_penalty=0.7), l2=0.0),
 }
 
 
