@@ -13,46 +13,60 @@ Phases, one line each with its own numbers and seconds:
   kernels        every forward kernel against its plain PyTorch version at
                  the shapes the eval and train steps give it (seeded inputs),
                  the fused glimpse encoder's masked and unmasked at 160 rows
-                 (every output, the saved tensors included)
+                 (every output, the saved tensors included) and the fused
+                 propagation unroll's at 160 rows and 3 slots (the ten
+                 outputs and every residual field)
   kernels-bwd    every backward kernel against its plain version at the
                  shapes the train step gives it, the deferred pass's 1600
-                 and 4800 rows included, and the glimpse backward
+                 and 4800 rows included, the glimpse backward and the
+                 propagation backward (every input's and weight's gradient)
   eval           3 eval steps of the release model's flags at full width
                  (weights from a seed, data from the port's generator), with
                  the launch counts of every kernel
   eval-check     batch 0 re-run through the plain versions on the card and
                  on the CPU with the same noise
   timing         CUDA-event medians per forward kernel (kernel, plain
-                 version, a chain of torch.addmm + activation, and the
-                 bound) and of the eval step
+                 version, a chain of torch.addmm + activation or, for the
+                 glimpse and propagation kernels, the port's unfused path,
+                 and the bound) and of the eval step
   profile        the device's busy time in one eval step (torch.profiler)
   eval-glimpse   the same 3 eval steps with SQAIR_FUSE_GLIMPSE=1: the glimpse
                  kernel's launch counts and the metrics against the switch-off
                  steps under the same noise; the eval step's time
+  eval-cells     the same with SQAIR_FUSE_CELLS=1 and SQAIR_FUSE_GLIMPSE=1
+                 (the JAX package's all-opt-in configuration; at the release
+                 flags propagation runs fused and discovery unfused): one
+                 fused_prop launch per frame, the metrics against the
+                 switch-off steps; the eval step's time and busy time
   train          3 train steps (record_mode="train", backward, the release
                  flags' RMSProp) on batches of the device-resident sampler,
                  with the launch counts of all six kernels per step
-  train-check    one train step's gradients in seven runs with the same
-                 noise: every kernel with the glimpse switch off and on, the
-                 plain versions on the card (off and on) and on the CPU, and
-                 two float64 referees (the plain versions on the card, off
-                 and on).  Each run goes twice, the second time with the
-                 gradient through the kinks at which some run crossed its
-                 referee zeroed (``kinks``); held to their bounds: kernels
-                 against plain on the card and against the CPU, and kernels
-                 switched on against plain switched off.  Every f32 run's
-                 distance to its referee, and the kernel runs' over the
-                 plain runs'
+  train-check    one train step's gradients in ten runs with the same
+                 noise: every kernel with no switch, the glimpse switch and
+                 both switches, the plain versions on the card with each and
+                 on the CPU, and a float64 referee for each switch setting
+                 (the plain versions on the card).  Each run goes twice, the
+                 second time with the gradient through the kinks at which
+                 some run crossed its referee zeroed (``kinks``; the fused
+                 propagation's crops are counted, not masked).  Gate: every
+                 kernel run and the CPU run lies, per parameter, at most
+                 max(GRAD_TOL, 2 x its plain run's distance) of the
+                 parameter's largest referee gradient from its referee.
+                 The distances between pairs of runs are printed
   train-timing   CUDA-event medians per backward kernel (kernel, plain
-                 version, torch.autograd.grad through the addmm chain, and
-                 the bound) and of the train step
+                 version, torch.autograd.grad through the addmm chain or the
+                 unfused path, and the bound) and of the train step
   train-profile  the device's busy time in one train step
   train-glimpse  3 train steps with SQAIR_FUSE_GLIMPSE=1 and their launch
                  counts; the train step's time
+  train-cells    3 train steps with both switches and their launch counts;
+                 the train step's time and busy time
   eval-cli       a checkpoint of the trained model swept by
-                 sqair_tpu_torch.scripts.eval on the card with the switch on
-                 (64 sequences of the port's generator): nine metric files,
-                 the resume, the glimpse kernel's launches
+                 sqair_tpu_torch.scripts.eval on the card twice, with
+                 SQAIR_FUSE_GLIMPSE=1 alone and with both switches (64
+                 sequences of the port's generator): each sweep's nine metric
+                 files, its resume and its launch counts; the two sweeps'
+                 metrics agree
 
 It exits non-zero on any failure.  The last two lines are a JSON object of
 the kernels' numbers and the JSON result line.
@@ -97,23 +111,44 @@ BWD_TOL = 1e-4  # |d| <= BWD_TOL max|value| + 1e-6, per gradient tensor
 METRIC_TOL = 1e-4  # on |a - b| / (|b| + 1)
 # a whole step's parameter gradients: every f32 difference of the step,
 # carried through T x 2S dependent cells, VIMCO and the transient penalty,
-# and summed over up to 4800 rows with cancellation.  Two implementations
-# with no kernel of this repository (the plain versions on the card and on
-# the CPU) differ by up to 3.2e-3 of a parameter's largest gradient at the
-# release config (chip_smoke.py on an H100, logged as plain_on_card_vs_cpu);
-# against the CPU both differences stack
-GRAD_TOL = 1e-2  # kernels vs plain on the card: |d| <= GRAD_TOL max|grad| + 1e-6
-GRAD_TOL_CPU = 2e-2  # kernels on the card vs the CPU, the same form
-# train-check's pairs of runs (see train_check) and the bound of each
+# and summed over up to 4800 rows with cancellation.  A run of the plain
+# versions on the card lies up to ~1.5e-2 of a parameter's largest gradient
+# from a float64 referee (scale_offset, PERF.md): train-check holds each run
+# to the referee at max(GRAD_TOL, 2x that run's distance), per parameter
+GRAD_TOL = 1e-2  # |g - g64| <= max(GRAD_TOL max|g64|, 2 |g_plain - g64|) + 1e-6
+# train-check's runs: name -> (model: the card's, a CPU copy or a float64
+# copy on the card; switches; plain versions), and the float64 referee of
+# each switch setting
+# ("cells" is the JAX package's all-opt-in configuration: the frame kernels,
+# at the release flags only propagation's, and the glimpse encoder)
+SWITCHES = {"off": {}, "glimpse": {"SQAIR_FUSE_GLIMPSE": "1"},
+            "cells": {"SQAIR_FUSE_CELLS": "1", "SQAIR_FUSE_GLIMPSE": "1"}}
+TRAIN_RUNS = {"kernels": ("card", "off", False), "plain_on_card": ("card", "off", True),
+              "cpu": ("cpu", "off", True), "glimpse_kernels": ("card", "glimpse", False),
+              "glimpse_plain": ("card", "glimpse", True),
+              "cells_kernels": ("card", "cells", False), "cells_plain": ("card", "cells", True),
+              "referee": ("f64", "off", True), "referee_on": ("f64", "glimpse", True),
+              "referee_cells": ("f64", "cells", True)}
+REFEREES = {"off": "referee", "glimpse": "referee_on", "cells": "referee_cells"}
+# the gate: each run against its referee, per parameter, at
+# max(GRAD_TOL, 2 x the distance of the plain run on the card with the same
+# switches) of the parameter's largest referee gradient.  A scalar whose
+# gradient is a sum with heavy cancellation (scale_offset) can lie 1.5e-2
+# from the referee in a kernel-free run; a bound on a pair of f32 runs
+# cannot tell that from a kernel's fault, one on the distance to the
+# referee can.  The CPU run, with no kernel at all, is held to it too.
+REFEREE_GATE = {"kernels": "plain_on_card", "cpu": "plain_on_card",
+                "glimpse_kernels": "glimpse_plain", "cells_kernels": "cells_plain"}
+# pairs of runs whose distances are printed (not gated)
 GRADIENT_PAIRS = {"kernels_vs_plain_on_card": ("kernels", "plain_on_card"),
                   "kernels_vs_cpu": ("kernels", "cpu"),
                   "plain_on_card_vs_cpu": ("plain_on_card", "cpu"),
                   "switch_on_kernels_vs_switch_off_plain": ("glimpse_kernels", "plain_on_card"),
-                  "switch_on_plain_vs_switch_off_plain": ("glimpse_plain", "plain_on_card")}
-CHECKED_PAIRS = {"kernels_vs_plain_on_card": GRAD_TOL, "kernels_vs_cpu": GRAD_TOL_CPU,
-                 "switch_on_kernels_vs_switch_off_plain": GRAD_TOL}
+                  "switch_on_plain_vs_switch_off_plain": ("glimpse_plain", "plain_on_card"),
+                  "cells_kernels_vs_cells_plain": ("cells_kernels", "cells_plain"),
+                  "cells_kernels_vs_switch_off_plain": ("cells_kernels", "plain_on_card")}
 
-FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_glimpse")
+FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_glimpse", "fused_prop")
 KERNELS = {
     "fused_mlp": dict(source="sqair_tpu_torch/csrc/fused_mlp.cu",
                       replaces="sqair_tpu/ops/fused.py:111"),
@@ -131,8 +166,13 @@ KERNELS = {
                           replaces="sqair_tpu/ops/fused_glimpse.py:264"),
     "fused_glimpse_bwd": dict(source="sqair_tpu_torch/csrc/fused_glimpse.cu",
                               replaces="sqair_tpu/ops/fused_glimpse.py:299"),
+    "fused_prop": dict(source="sqair_tpu_torch/csrc/fused_prop.cu",
+                       replaces="sqair_tpu/ops/fused_cells.py:1332"),
+    "fused_prop_bwd": dict(source="sqair_tpu_torch/csrc/fused_prop.cu",
+                           replaces="sqair_tpu/ops/fused_cells.py:1363"),
 }
-GLIMPSE_SWITCH = {"SQAIR_FUSE_GLIMPSE": "1"}
+GLIMPSE_SWITCH = SWITCHES["glimpse"]
+CELLS_SWITCH = SWITCHES["cells"]
 
 
 def log(phase, t0, **fields):
@@ -160,13 +200,23 @@ def glimpse_shapes(F, rows, T, img=IMG):
     return [(prop, 2 * S * T), (dict(base, d_mi=0, d_m=0), S * T)]
 
 
-def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False):
+def prop_shape(F, rows, img=IMG):
+    """The fused propagation kernel's shape at the flags ``F``."""
+    h, g = 32 * int(F["n_units"]), int(F["glimpse_size"])
+    return dict(n=rows, S=int(F["n_steps_per_image"]), img=list(img), glimpse=[g, g],
+                n_what=int(F["n_what"]), U=h, SP=h // 2, WB=128, MH=128)
+
+
+def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_cells=False):
     """Every forward kernel call of one eval or train step, as
     (kernel, shape, calls per step).  In the train record the decode, the
     discovery where prior and the count prior leave the time loop and run
     once over all T frames (rows T*B*k, or T*B*k*S for the decode).  With
     ``fuse_glimpse`` (SQAIR_FUSE_GLIMPSE) the glimpse encoder and its mask
-    leave fused_mlp for the fused glimpse kernel."""
+    leave fused_mlp for the fused glimpse kernel.  With ``fuse_cells``
+    (SQAIR_FUSE_CELLS, at flags where discovery stays unfused) each frame's
+    propagation slots are one fused_prop call, and their MLPs, cells and
+    glimpses leave the other kernels."""
     h = 32 * int(F["n_units"])
     w, S = int(F["n_what"]), int(F["n_steps_per_image"])
     g = int(F["glimpse_size"]) ** 2
@@ -175,35 +225,40 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False):
     sp = h // 2
     deferred = T if train else 1  # rows factor of the out-of-loop calls
     per_call = 1 if train else T  # calls factor of the same calls
+    prop = 0 if fuse_cells else 1  # calls factor of the propagation slots' calls
     mlp = [  # (d_in, widths, transfers, rows, calls per step)
         (img[0] * img[1], [h, h], ["elu", "elu"], rows, T),    # input encoder
-        (g, [h, h], ["elu", "elu"], rows, 0 if fuse_glimpse else 3 * S * T),  # glimpse encoder
-        (h, [128, g], ["elu", "sigmoid"], rows, 0 if fuse_glimpse else 2 * S * T),  # mask
+        (g, [h, h], ["elu", "elu"], rows,                      # glimpse encoder
+         0 if fuse_glimpse else (1 + 2 * prop) * S * T),
+        (h, [128, g], ["elu", "sigmoid"], rows, 0 if fuse_glimpse else 2 * prop * S * T),  # mask
         (h, [h, h, 8], ["elu", "elu", "id"], rows, S * T),    # disc where
-        (2 * h + 4, [h, h, 8], ["elu", "elu", "id"], rows, S * T),  # prop where
+        (2 * h + 4, [h, h, 8], ["elu", "elu", "id"], rows, prop * S * T),  # prop where
         (h + w, [sp, 1], ["elu", "id"], rows, S * T),         # disc presence
-        (2 * h + w, [sp, 1], ["elu", "id"], rows, S * T),     # prop presence
-        (h, [128, 4], ["elu", "id"], rows, S * T),            # where bias
-        (h, [3 * w], ["sigmoid"], rows, S * T),               # what gates
+        (2 * h + w, [sp, 1], ["elu", "id"], rows, prop * S * T),  # prop presence
+        (h, [128, 4], ["elu", "id"], rows, prop * S * T),     # where bias
+        (h, [3 * w], ["sigmoid"], rows, prop * S * T),        # what gates
         (w + 4, [h, h], ["elu", "elu"], slots, T),            # latent encoder
         (1, [10, S + 1], ["elu", "id"], rows * deferred, per_call),       # count prior
         (w, [h, h, g], ["elu", "elu", "id"], slots * deferred, per_call),  # decoder
     ]
     vrnn = [  # (d_x, units, rows, calls per step)
         (h + h + w + 5, h, rows, S * T),          # discovery transition
-        (3 * w + 10 + h, h, rows, S * T),         # propagation transition
+        (3 * w + 10 + h, h, rows, prop * S * T),  # propagation transition
         (4, 4, rows * deferred, S * per_call),    # discovery where prior
     ]
     gru = [
         (w + 4, h, slots, T),                     # propagation prior
-        (h + 4 + 2 * w, h, rows, S * T),          # temporal cell
+        (h + 4 + 2 * w, h, rows, prop * S * T),   # temporal cell
     ]
     out = [("fused_mlp", dict(d_in=d, widths=ws, acts=a, n=n), c) for d, ws, a, n, c in mlp
            if c]
-    out += [("fused_vanilla_rnn", dict(dx=d, units=u, n=n), c) for d, u, n, c in vrnn]
-    out += [("fused_gru", dict(dx=d, units=u, n=n), c) for d, u, n, c in gru]
+    out += [("fused_vanilla_rnn", dict(dx=d, units=u, n=n), c) for d, u, n, c in vrnn if c]
+    out += [("fused_gru", dict(dx=d, units=u, n=n), c) for d, u, n, c in gru if c]
     if fuse_glimpse:
-        out += [("fused_glimpse", shape, c) for shape, c in glimpse_shapes(F, rows, T, img)]
+        out += [("fused_glimpse", shape, c) for shape, c in glimpse_shapes(F, rows, T, img)
+                if c and (shape["d_mi"] == 0 or not fuse_cells)]
+    if fuse_cells:
+        out += [("fused_prop", prop_shape(F, rows, img), T)]
     return out
 
 
@@ -437,6 +492,123 @@ def glimpse_library_bwd_fn(torch, stn, shape, args, gen):
     return lambda: torch.autograd.grad((loc, scale), leaves, g, retain_graph=True)
 
 
+def prop_dims(shape):
+    """(S, gh, gw, n_what, U, SP, WB, MH) of a fused propagation shape."""
+    return (shape["S"], shape["glimpse"][0], shape["glimpse"][1], shape["n_what"],
+            shape["U"], shape["SP"], shape["WB"], shape["MH"])
+
+
+def prop_inputs(torch, fc, shape, gen, device):
+    """Seeded inputs of one fused propagation call: (args, weights) with args
+    (img, what_tm1, where_tm1, pres_tm1, ht, h0 [B, U], eps_w, eps_x, u) and
+    the 38 weights of ``fc.weights_flat``, lecun-scaled, the mask's output
+    bias at 1 and the steps predictor's at 5 (objects mostly live)."""
+    S, gh, gw, nw, U, SP, WB, MH = prop_dims(shape)
+    n, (H, W), G = shape["n"], shape["img"], gh * gw
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    def weight(a, b):
+        return rnd(a, b) / math.sqrt(a)
+
+    def bias(d, loc=0.0):
+        return loc + 0.1 * rnd(d)
+
+    d_rnn, d_tin = 3 * nw + 10 + U, U + 4 + 2 * nw
+    p = fc.PropParams(
+        wb=((weight(U, WB), bias(WB)), (weight(WB, 4), bias(4))),
+        mask=((weight(U, MH), bias(MH)), (weight(MH, G), bias(G, 1.0))),
+        ge_enc=((weight(G, U), bias(U)), (weight(U, U), bias(U))),
+        ge_head=(weight(U, 2 * nw), bias(2 * nw)),
+        rnn=(weight(d_rnn, U), weight(U, U), bias(U)),
+        stp=((weight(2 * U + 4, U), bias(U)), (weight(U, U), bias(U)), (weight(U, 8), bias(8))),
+        stp_offset=torch.tensor(-3.0, device=device),
+        tril=torch.tril(0.2 * rnd(4, 4)),
+        gru=(weight(d_tin, 2 * U), weight(U, 2 * U), bias(2 * U), weight(d_tin, U),
+             weight(U, U), bias(U)),
+        td=(weight(U, 2 * nw), bias(2 * nw)), gates=(weight(U, 3 * nw), bias(3 * nw, 1.0)),
+        sp=((weight(2 * U + nw, SP), bias(SP)), (weight(SP, 1), bias(1, 5.0))))
+    s3w, s3b = p.stp[2]
+    fold = torch.cat([torch.zeros(4, device=device), torch.ones(4, device=device)])
+    p = p._replace(stp=(p.stp[0], p.stp[1], (s3w, s3b + fold * (p.stp_offset - 1.0))))
+    args = (torch.rand((n, H, W), generator=gen, device=device), 0.5 * rnd(S, n, nw),
+            0.5 * rnd(S, n, 4), (torch.rand((S, n, 1), generator=gen, device=device) < 0.7).float(),
+            0.3 * rnd(S, n, U), 0.1 * rnd(n, U), rnd(S, n, 4), rnd(S, n, nw),
+            torch.rand((S, n, 1), generator=gen, device=device))
+    return args, tuple(t.contiguous() for t in fc.weights_flat(p))
+
+
+def prop_work(shape, backward=False):
+    """(bytes read once and written once, f32 FLOPs) of one fused propagation
+    call.  Forward, per row and slot: the where-bias and mask MLPs, two
+    crops (img wx^T, then wy A), two encoders and heads, the transition, the
+    estimator, the GRU, the temporal head and gates, the steps predictor;
+    it reads the frames, the inputs and the weights and writes the outputs
+    and the residual rows.  Backward: twice the dense products (the input's
+    and the weight's gradient of each), the two crops recomputed and their
+    backward (dwy, dA, dwx); it reads what the forward read, the saved
+    outputs, the residual rows and the output gradients, and writes the
+    input and weight gradients."""
+    S, gh, gw, nw, U, SP, WB, MH = prop_dims(shape)
+    n, (H, W), G = shape["n"], shape["img"], gh * gw
+    d_rnn, d_stp, d_tin, d_spf = 3 * nw + 10 + U, 2 * U + 4, U + 4 + 2 * nw, 2 * U + nw
+    mats = [(U, WB), (WB, 4), (U, MH), (MH, G), (G, U), (U, U), (U, 2 * nw), (G, U), (U, U),
+            (U, 2 * nw), (d_rnn, U), (U, U), (d_stp, U), (U, U), (U, 8), (d_tin, 2 * U),
+            (U, 2 * U), (d_tin, U), (U, U), (U, 2 * nw), (U, 3 * nw), (d_spf, SP), (SP, 1)]
+    dense = sum(a * b for a, b in mats)  # the encoder's products counted twice, once a glimpse
+    crop = H * W * gw + gh * H * gw
+    weights = (dense - (G * U + U * U + U * 2 * nw)) + 16  # each matrix once, and tril
+    biases = WB + 4 + MH + G + U + U + 2 * nw + U + U + U + 8 + 3 * U + 2 * nw + 3 * nw + SP + 1
+    rows = S * n
+    inputs = n * H * W + rows * (nw + 4 + 1 + U + 4 + nw + 1) + n * U
+    outputs = rows * (3 * nw + 3 * 4 + 3 + U)
+    from sqair_tpu_torch.ops.fused_cells import residual_layout
+    R = residual_layout(prop_dims(shape))[1]
+    if not backward:
+        return 4 * (inputs + weights + biases + outputs + rows * R), 2 * rows * (dense + 2 * crop)
+    crop_bwd = 2 * (crop + gh * H * gw + H * gw * gh + gw * W * H)
+    saved = rows * (2 * nw + 2 * 4 + 2 + U)
+    nbytes = 4 * (inputs + weights + saved + rows * R + outputs          # in
+                  + rows * (nw + 4 + 1 + U) + n * U + weights + biases)  # out
+    return nbytes, 2 * rows * (2 * dense + crop_bwd)
+
+
+def prop_library_fns(torch, propagate, args, gen):
+    """The port's unfused propagation of one frame, ``Propagate._ssm``, on the
+    same inputs, and torch.autograd.grad through its graph (built once) for
+    the inputs' and the propagation core's parameters' gradients: a
+    yardstick only (the model's own weights; the plain versions and no
+    switch must be active while these run and are built)."""
+    from sqair_tpu_torch.ops.noise import ReplayNoise
+
+    img, wt1, wh1, p1, th, _, eps_w, eps_x, u = args
+    table = {}
+    for kk in range(wt1.shape[0]):
+        table.update({(kk, "where"): eps_w[kk], (kk, "what"): eps_x[kk],
+                      (kk, "presence"): u[kk]})
+    noise = ReplayNoise(table, img.device)
+
+    def inputs(wt1, wh1, p1, th):
+        z = tuple(t.transpose(0, 1) for t in (wt1, wh1, p1))
+        return z + (torch.zeros_like(z[2]),), (th.transpose(0, 1),)
+
+    def fwd():
+        return propagate._ssm(img, *inputs(wt1, wh1, p1, th), noise)
+
+    cell = propagate.ssm_cell
+    with torch.inference_mode(False), torch.enable_grad():
+        leaves = [t.detach().clone().requires_grad_() for t in (wt1, wh1, p1, th)]
+        leaves += [*cell.parameters(), *cell.glimpse_encoder.parameters(),
+                   *cell.temporal_cell.parameters()]
+        stacked, _, dwhat, dwhere, ts = propagate._ssm(img, *inputs(*leaves[:4]), noise)
+        outs = [*stacked.values(), dwhat, dwhere, *ts]
+        cots = [torch.randn(o.shape, generator=gen, device=o.device) for o in outs]
+    # the temporal cell's h0 takes no part (the temporal state is given)
+    return fwd, lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True,
+                                            allow_unused=True)
+
+
 def near_integer_u(torch, fg, img, wl, dims):
     """How many interpolation coordinates u lie within 1e-5 of an integer
     (where a rounding difference flips a term of the where-gradient)."""
@@ -556,26 +728,48 @@ def plain_glimpse(fg):
     return mock.patch.multiple(fg, _fwd_cuda=fwd, _bwd_cuda=fg.glimpse_plain_bwd)
 
 
+def plain_prop(fc):
+    """The fused propagation's kernels replaced by its plain versions inside
+    its autograd Function (with the hand-written backward, as
+    ``plain_glimpse``), as a context manager."""
+    return mock.patch.multiple(fc, _fwd_cuda=fc.prop_plain_fwd, _bwd_cuda=fc.prop_plain_bwd)
+
+
 @contextlib.contextmanager
-def plain_versions(fused, fg):
+def plain_versions(fused, fg, fc):
     """Every kernel wrapper replaced by its plain version (autograd of plain
-    tensor ops for a gradient; the glimpse encoder's hand-written backward)."""
+    tensor ops for a gradient; the glimpse encoder's and the propagation
+    unroll's hand-written backwards)."""
     with mock.patch.multiple(fused, fused_mlp=fused.mlp_plain,
                              fused_vanilla_rnn=fused.vanilla_rnn_plain,
-                             fused_gru=fused.gru_plain), plain_glimpse(fg):
+                             fused_gru=fused.gru_plain), plain_glimpse(fg), plain_prop(fc):
         yield
 
 
 @contextlib.contextmanager
-def kinks(torch, AIREncoder, AIRDecoder, D, keep=None):
+def switched(switches):
+    """The environment with exactly ``switches`` of SQAIR_FUSE_GLIMPSE and
+    SQAIR_FUSE_CELLS set."""
+    with mock.patch.dict(os.environ, switches):
+        for name in CELLS_SWITCH:
+            if name not in switches:
+                os.environ.pop(name, None)
+        yield
+
+
+@contextlib.contextmanager
+def kinks(torch, AIREncoder, AIRDecoder, D, keep=None, fc=None):
     """Records where one train step meets the kinks of its gradient: the
     where of every glimpse crop and paste (their interpolation weights
     relu(1 - |u - p|) turn the where-gradient around where a coordinate u
     crosses an integer), the input of every relu (the transient penalty)
-    and the presence draws.  With ``keep``, the gradient through the kinks
-    that ``keep[kind][call]`` (1 or 0 per row of a where, per entry of a
-    relu's input) does not keep is zeroed: see ``kinks_crossed``."""
-    rec = dict(glimpse=[], paste=[], relu=[], presence=[])
+    and the presence draws; with ``fc`` (ops/fused_cells), the where of
+    both crops of every fused propagation call, [S, B, 8] (the where-bias
+    location from the residual rows, then the sampled where), which are
+    recorded but never masked.  With ``keep``, the gradient through the
+    kinks that ``keep[kind][call]`` (1 or 0 per row of a where, per entry of
+    a relu's input) does not keep is zeroed: see ``kinks_crossed``."""
+    rec = dict(glimpse=[], paste=[], relu=[], presence=[], prop=[])
     real_enc, real_dec = AIREncoder.forward, AIRDecoder.forward
     real_relu, real_sample = torch.nn.functional.relu, D.Bernoulli.sample
 
@@ -611,10 +805,20 @@ def kinks(torch, AIREncoder, AIRDecoder, D, keep=None):
         rec["presence"].append(out.detach().clone())
         return out
 
-    with mock.patch.object(AIREncoder, "forward", enc), \
-            mock.patch.object(AIRDecoder, "forward", dec), \
-            mock.patch.object(torch.nn.functional, "relu", relu), \
-            mock.patch.object(D.Bernoulli, "sample", sample):
+    def prop_fwd(*args):
+        out = real_prop(*args)
+        lo, hi = fc.residual_layout(args[-1])[0]["gwl"]
+        rec["prop"].append(torch.cat([out[10][..., lo:hi], out[3]], -1).detach().clone())
+        return out
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(AIREncoder, "forward", enc))
+        stack.enter_context(mock.patch.object(AIRDecoder, "forward", dec))
+        stack.enter_context(mock.patch.object(torch.nn.functional, "relu", relu))
+        stack.enter_context(mock.patch.object(D.Bernoulli, "sample", sample))
+        if fc is not None:
+            real_prop = fc.prop_fwd
+            stack.enter_context(mock.patch.object(fc, "prop_fwd", prop_fwd))
         yield rec
 
 
@@ -622,9 +826,11 @@ def kinks_crossed(torch, fg, stn, a, b, fused, img, glimpse):
     """Per kind, per call of two runs' ``kinks`` records: the rows of a
     where whose crop or paste coordinates lie on another side of an integer
     in run a than in run b, and the relu entries of another sign; with the
-    number of presence draws that differ.  The crop coordinates are computed
-    as the run computed them: the glimpse kernel's order for a [B, 4] where
-    when ``fused`` (SQAIR_FUSE_GLIMPSE on), else stn's."""
+    number of presence draws that differ; and the row-slots of each fused
+    propagation call whose two crops' coordinates differ in side ("prop").
+    The crop coordinates are computed as the run computed them: the glimpse
+    kernel's order for a [B, 4] where when ``fused`` (SQAIR_FUSE_GLIMPSE on)
+    and in the propagation kernel, else stn's."""
     (H, W), (gh, gw) = img, glimpse
 
     def crop_u(w):
@@ -642,9 +848,17 @@ def kinks_crossed(torch, fg, stn, a, b, fused, img, glimpse):
         p = torch.round(ub)
         return torch.any(torch.sign(ua - p) != torch.sign(ub - p), -1)
 
+    def prop_u(w):  # both crops of each row-slot, in the kernel's order
+        flat, us = w.reshape(-1, 8), []
+        for x in (flat[:, :4], flat[:, 4:]):
+            _, (_, uy, _), (_, ux, _) = fg.coords_and_interp(x, H, W, gh, gw)
+            us += [uy, ux]
+        return torch.cat(us, -1)
+
     out = dict(glimpse=[sides(crop_u(x), crop_u(y)) for x, y in zip(a["glimpse"], b["glimpse"])],
                paste=[sides(paste_u(x), paste_u(y)) for x, y in zip(a["paste"], b["paste"])],
-               relu=[(x.to(y.device) > 0) != (y > 0) for x, y in zip(a["relu"], b["relu"])])
+               relu=[(x.to(y.device) > 0) != (y > 0) for x, y in zip(a["relu"], b["relu"])],
+               prop=[sides(prop_u(x), prop_u(y)) for x, y in zip(a["prop"], b["prop"])])
     flips = sum(int(torch.sum(x.to(y.device, torch.float64) != y.double()))
                 for x, y in zip(a["presence"], b["presence"]))
     return out, flips
@@ -663,17 +877,23 @@ def step_gradients(torch, model, obs, nums, noise, l2):
 
 def train_check(torch, model, batch, flags, l2, device):
     """One train step's parameter gradients, run by run, with the same
-    noise: every kernel (switch off and on), the plain versions on the card
-    (off and on) and on the CPU, and two float64 referees, the plain
-    versions on the card with the switch off and on.  f32 rounding moves a
-    run across a kink of the step's gradient now and then, and one crossing
-    can move a parameter's gradient by 10% (PERF.md); so every run goes
-    twice, the second time with the gradient through the kinks at which
-    some run lies on another side than its referee zeroed in all of them.
-    The checked pairs and the distances are those of the second pass."""
+    noise: every kernel with no switch, the glimpse switch and both
+    switches; the plain versions on the card with each and on the CPU; and
+    a float64 referee for each switch setting (the plain versions on the
+    card).  f32 rounding moves a run across a kink of the step's gradient
+    now and then, and one crossing can move a parameter's gradient by 10%
+    (PERF.md); so every run goes twice, the second time with the gradient
+    through the kinks at which some run lies on another side than its
+    referee zeroed, in every run whose calls line up with it (the runs
+    with and without the cells switch make other calls).  The gate and
+    the printed pairs are those of the second pass: each gated run
+    (``REFEREE_GATE``) lies, on every parameter, at most
+    max(GRAD_TOL, 2 x its plain run's distance) of that parameter's largest
+    referee gradient from its referee."""
     from sqair_tpu_torch.models.air import AIRDecoder, AIREncoder
     from sqair_tpu_torch.ops import distributions as D
     from sqair_tpu_torch.ops import fused, stn
+    from sqair_tpu_torch.ops import fused_cells as fc
     from sqair_tpu_torch.ops import fused_glimpse as fg
     from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
 
@@ -681,27 +901,21 @@ def train_check(torch, model, batch, flags, l2, device):
     cpu_model.sequence = copy.deepcopy(model.sequence).cpu()
     ref_model = copy.copy(model)
     ref_model.sequence = copy.deepcopy(model.sequence).double()
-    # name: (model, switch on, plain versions)
-    runs = {"kernels": (model, False, False), "plain_on_card": (model, False, True),
-            "cpu": (cpu_model, False, True), "glimpse_kernels": (model, True, False),
-            "glimpse_plain": (model, True, True), "referee": (ref_model, False, True),
-            "referee_on": (ref_model, True, True)}
-    referee = {name: "referee_on" if on else "referee" for name, (_, on, _) in runs.items()}
-    n_glimpse = sum(c for _, c in glimpse_shapes(flags, int(flags["batch_size"])
-                                                 * int(flags["k_particles"]),
-                                                 int(flags.get("font_timesteps", 10))))
+    B, k = int(flags["batch_size"]), int(flags["k_particles"])
+    T = int(flags.get("font_timesteps", 10))
+    referee = {name: REFEREES[sw] for name, (_, sw, _) in TRAIN_RUNS.items()}
+    models = {"card": model, "cpu": cpu_model, "f64": ref_model}
     noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 6), device,
                            record=True)
 
     def gradients(name, keep=None):
-        m, on, plain = runs[name]
+        where, sw, plain = TRAIN_RUNS[name]
+        m, switches = models[where], SWITCHES[sw]
         with contextlib.ExitStack() as stack:
-            stack.enter_context(mock.patch.dict(os.environ, GLIMPSE_SWITCH if on else {}))
-            if not on:
-                os.environ.pop("SQAIR_FUSE_GLIMPSE", None)
+            stack.enter_context(switched(switches))
             if plain:
-                stack.enter_context(plain_versions(fused, fg))
-            rec = stack.enter_context(kinks(torch, AIREncoder, AIRDecoder, D, keep))
+                stack.enter_context(plain_versions(fused, fg, fc))
+            rec = stack.enter_context(kinks(torch, AIREncoder, AIRDecoder, D, keep, fc))
             fused.reset_launches()
             src = noise if noise.table == {} else ReplayNoise(
                 {key: v.to(m.device) for key, v in noise.table.items()}, m.device, m.dtype)
@@ -710,23 +924,36 @@ def train_check(torch, model, batch, flags, l2, device):
         launched = dict(fused.launches)
         if plain and sum(launched.values()):
             raise Failure(f"the plain train re-run {name} launched a kernel: {launched}")
-        if (name == "glimpse_kernels" and device.type == "cuda"
-                and launched.get("fused_glimpse_bwd", 0) != n_glimpse):
-            raise Failure(f"the switch-on step launched the glimpse backward "
-                          f"{launched.get('fused_glimpse_bwd', 0)} times, not {n_glimpse}")
+        if not plain and device.type == "cuda":
+            want = expected_launches(main_path_shapes(
+                flags, B, k, T, train=True, fuse_glimpse="SQAIR_FUSE_GLIMPSE" in switches,
+                fuse_cells="SQAIR_FUSE_CELLS" in switches), 1, backward=True)
+            if launched != want:
+                raise Failure(f"train-check run {name} launched {launched}, not {want}")
         return grads, target, rec
 
-    first = {name: gradients(name) for name in runs}
-    mask, crossed, flips = None, {}, {}
-    for name, (_, on, _) in runs.items():
-        if name.startswith("referee"):
-            continue
-        c, flips[name] = kinks_crossed(torch, fg, stn, first[name][2], first[referee[name]][2],
-                                       on, IMG, [int(flags["glimpse_size"])] * 2)
-        crossed[name] = {kind: int(sum(int(x.sum()) for x in v)) for kind, v in c.items()}
-        mask = c if mask is None else {k: [m | x for m, x in zip(mask[k], c[k])] for k in c}
-    keep = {kind: [~m for m in v] for kind, v in mask.items()}
-    second = {name: gradients(name, keep)[0] for name in runs}
+    def masks(records):
+        """Per group of runs whose calls line up (cells switch on or off): the
+        union of the kinks that any of its runs crossed against its referee."""
+        out, crossed, flips = {}, {}, {}
+        for name, (_, sw, _) in TRAIN_RUNS.items():
+            if name in REFEREES.values():
+                continue
+            c, flips[name] = kinks_crossed(torch, fg, stn, records[name], records[referee[name]],
+                                           sw != "off", IMG, [int(flags["glimpse_size"])] * 2)
+            crossed[name] = {kind: int(sum(int(x.sum()) for x in v)) for kind, v in c.items()}
+            group = sw == "cells"
+            u = out.get(group)
+            out[group] = c if u is None else {kd: [m | x for m, x in zip(u[kd], c[kd])]
+                                              for kd in c}
+        return out, crossed, flips
+
+    first = {name: gradients(name) for name in TRAIN_RUNS}
+    union, crossed, flips = masks({n: r[2] for n, r in first.items()})
+    keep = {group: {kind: [~m for m in v] for kind, v in u.items() if kind != "prop"}
+            for group, u in union.items()}
+    second = {name: gradients(name, keep[sw == "cells"])[0]
+              for name, (_, sw, _) in TRAIN_RUNS.items()}
 
     def pairs_of(g):
         return {pair: grad_errors(torch, g[a], g[b], pair)
@@ -734,17 +961,27 @@ def train_check(torch, model, batch, flags, l2, device):
 
     def distances(g):
         return {name: grad_errors(torch, g[name], g[referee[name]], name)
-                for name in runs if not name.startswith("referee")}
+                for name in TRAIN_RUNS if name not in REFEREES.values()}
 
     dist = distances(second)
+    # the gate: per parameter, err <= max(GRAD_TOL largest, 2 err of the plain run) + 1e-6
+    gate = {}
+    for run, plain in REFEREE_GATE.items():
+        plain_err = {n: e for _, n, e, _ in dist[plain]}
+        rows = []
+        for _, n, e, size in dist[run]:
+            bound = max(GRAD_TOL * size, 2.0 * plain_err[n]) + 1e-6
+            rows.append((e / bound, n, e, bound))
+        gate[run] = sorted(rows)
     return dict(
         targets={name: r[1] for name, r in first.items()}, crossed=crossed, flips=flips,
-        masked={kind: int(sum(int(m.sum()) for m in v)) for kind, v in mask.items()},
+        masked={f"{'cells' if g else 'off_glimpse'}.{kind}": int(sum(int(m.sum()) for m in v))
+                for g, u in union.items() for kind, v in u.items() if kind != "prop"},
         errors=pairs_of(second), unmasked=pairs_of({n: r[0] for n, r in first.items()}),
         distance=dist, unmasked_distance=distances({n: r[0] for n, r in first.items()}),
+        gate=gate,
         ratio={run: dist[run][-1][0] / (dist[plain][-1][0] + 1e-30)
-               for run, plain in (("kernels", "plain_on_card"),
-                                  ("glimpse_kernels", "glimpse_plain"))})
+               for run, plain in REFEREE_GATE.items()})
 
 
 def run():
@@ -763,6 +1000,7 @@ def run():
     import numpy as np
 
     from sqair_tpu_torch.ops import build, fused, stn
+    from sqair_tpu_torch.ops import fused_cells as fc
     from sqair_tpu_torch.ops import fused_glimpse as fg
     from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
     from sqair_tpu_torch.scripts import eval as port_eval
@@ -919,6 +1157,56 @@ def run():
             glimpse_entries.append(dict(shape=shape, calls=calls, args=args, bargs=bargs,
                                         abs_err=worst, bwd_abs_err=worst_b))
 
+    # the fused propagation unroll (SQAIR_FUSE_CELLS), one call per frame
+    t0 = time.perf_counter()
+    pshape = prop_shape(flags, B * k)
+    pdims = prop_dims(pshape)
+    pargs, pweights = prop_inputs(torch, fc, pshape, gen, device)
+    poffs = fc.residual_layout(pdims)[0]
+    with torch.inference_mode():
+        got = fc._fwd_cuda(*pargs, pweights, pdims)
+        want = fc.prop_plain_fwd(*pargs, pweights, pdims)
+        torch.cuda.synchronize()
+        fields = list(zip(fc.OUT_FIELDS, got, want)) + [
+            (f"residual.{name}", got[10][..., lo:hi], want[10][..., lo:hi])
+            for name, (lo, hi) in poffs.items()]
+        worst_p = 0.0
+        for name, a, b in fields:
+            diff = torch.abs(a - b)
+            if a.shape != b.shape or not torch.all(
+                    diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)):
+                raise Failure(f"fused_prop {pshape}: {name} disagrees with the plain version "
+                              f"(max |d| {float(diff.max()):.3g})")
+            worst_p = max(worst_p, float(diff.max()))
+        lo, hi = poffs["gwl"]
+        near = sum(near_integer_u(torch, fg, pargs[0], w.reshape(-1, 4), pdims[1:4])
+                   for w in (want[10][..., lo:hi], want[3]))
+        log("kernels", t0, kernel="fused_prop", shape=jdump(pshape), outputs=len(fields),
+            presence=f"{float(want[7].sum()):.0f}/{want[7].numel()}",
+            max_abs_err=f"{worst_p:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
+            ok=True)
+
+        t0 = time.perf_counter()
+        cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in want[:10])
+        saved = (want[0], want[2], want[3], want[5], want[6], want[7], want[9])
+        pbargs = (*pargs, pweights, saved, want[10], cots, pdims)
+        got_b = fc._bwd_cuda(*pbargs)
+        want_b = fc.prop_plain_bwd(*pbargs)
+        torch.cuda.synchronize()
+        bnames = ["dwhat_tm1", "dwhere_tm1", "dpres_tm1", "dtemporal_h", "dh0"] + [
+            "d" + n for n in fc.WEIGHT_NAMES]
+        worst_pb, share_pb = 0.0, 0.0
+        for name, a, b in zip(bnames, got_b, want_b, strict=True):
+            err, size = scaled_err(torch, a, b)
+            if a.shape != b.shape or not err <= BWD_TOL * size + 1e-6:
+                raise Failure(f"fused_prop_bwd {pshape}: {name} differs by {err:.3g} "
+                              f"(largest {size:.3g}; u within 1e-5 of an integer: {near})")
+            worst_pb, share_pb = max(worst_pb, err), max(share_pb, err / (size + 1e-30))
+        log("kernels-bwd", t0, kernel="fused_prop_bwd", shape=jdump(pshape),
+            gradients=len(bnames), max_abs_err=f"{worst_pb:.3e}", max_err_share=f"{share_pb:.3e}",
+            u_near_integer=near, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True)
+    prop_entry = dict(calls=T, abs_err=worst_p, bwd_abs_err=worst_pb)
+
     # -------------------------------------------------------------- eval
     t0 = time.perf_counter()
     n_seq = N_BATCHES * B
@@ -958,7 +1246,7 @@ def run():
 
     t0 = time.perf_counter()
     obs0, gt0 = batches[0]
-    with plain_versions(fused, fg):
+    with plain_versions(fused, fg, fc):
         fused.reset_launches()
         plain = eval_step(obs0, gt0, ReplayNoise(noise0, device))
         if sum(fused.launches.values()):
@@ -1023,6 +1311,22 @@ def run():
                 bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
             add_row("fused_glimpse", entry["calls"], ms, plain_ms, lib_ms, t_bytes, t_ops,
                     entry["abs_err"])
+        t0 = time.perf_counter()
+        ms = device_ms(torch, lambda: fc._fwd_cuda(*pargs, pweights, pdims), calls=10)
+        plain_ms = device_ms(torch, lambda: fc.prop_plain_fwd(*pargs, pweights, pdims),
+                             calls=10)
+        with switched({}), plain_versions(fused, fg, fc):
+            lib_fwd, _ = prop_library_fns(torch, model.sequence.timestep.propagate, pargs, gen)
+            lib_ms = device_ms(torch, lib_fwd, calls=10)
+        nbytes, flops = prop_work(pshape)
+        t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+        log("timing", t0, kernel="fused_prop", shape=jdump(pshape),
+            calls_per_step=prop_entry["calls"], ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+            library_ms=f"{lib_ms:.5f}", bound_ms=f"{max(t_bytes, t_ops):.5f}",
+            mflop=f"{flops / 1e6:.1f}", mbyte=f"{nbytes / 1e6:.2f}",
+            bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
+        add_row("fused_prop", prop_entry["calls"], ms, plain_ms, lib_ms, t_bytes, t_ops,
+                prop_entry["abs_err"])
 
     t0 = time.perf_counter()
     step_noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 3), device)
@@ -1041,7 +1345,7 @@ def run():
 
     # ------------------------------------------------------ eval-glimpse
     t0 = time.perf_counter()
-    with mock.patch.dict(os.environ, GLIMPSE_SWITCH):
+    with switched(GLIMPSE_SWITCH):
         # the eval phase's generator, from the same seed: the same noise
         replay_gen = torch.Generator(device=device).manual_seed(SEED + 2)
         fused.reset_launches()
@@ -1062,6 +1366,34 @@ def run():
         expected=jdump(expected), vs_switch_off=f"{err_switch:.3e}",
         worst_metric=worst_metric, tol=METRIC_TOL,
         eval_step_ms=f"{eval_glimpse_ms:.3f}", eval_step_ms_switch_off=f"{eval_step_ms:.3f}",
+        card=repr(card))
+
+    # -------------------------------------------------------- eval-cells
+    t0 = time.perf_counter()
+    with switched(CELLS_SWITCH):
+        replay_gen = torch.Generator(device=device).manual_seed(SEED + 2)
+        fused.reset_launches()
+        cells_results = [eval_step(obs, gt, GeneratorNoise(replay_gen, device))
+                         for obs, gt in batches]
+        torch.cuda.synchronize()
+        cells_eval_counts = dict(fused.launches)
+        expected = expected_launches(
+            main_path_shapes(flags, B, k, T, fuse_glimpse=True, fuse_cells=True), N_BATCHES)
+        if cells_eval_counts != expected:
+            raise Failure(f"launch counts {cells_eval_counts} with SQAIR_FUSE_CELLS differ "
+                          f"from the eval path's {expected}")
+        err_cells, worst_metric = max(
+            compare_metrics(torch, got, want, f"eval batch {i}, cells switch on vs off")
+            for i, (got, want) in enumerate(zip(cells_results, results)))
+        eval_cells_ms = step_ms(torch, lambda: eval_step(obs0, gt0, step_noise), 2 * REPS)
+        busy_ms, _ = profile_device(torch, lambda: eval_step(obs0, gt0, step_noise))
+    log("eval-cells", t0, steps=N_BATCHES, launches=jdump(cells_eval_counts),
+        expected=jdump(expected), vs_switch_off=f"{err_cells:.3e}", worst_metric=worst_metric,
+        tol=METRIC_TOL, eval_step_ms=f"{eval_cells_ms:.3f}",
+        eval_step_ms_glimpse_only=f"{eval_glimpse_ms:.3f}",
+        eval_step_ms_switch_off=f"{eval_step_ms:.3f}",
+        frames_per_s=f"{B * T / (eval_cells_ms / 1e3):.1f}",
+        device_busy_ms="not-measured" if busy_ms is None else f"{busy_ms:.3f}",
         card=repr(card))
 
     # ------------------------------------------------------------- train
@@ -1115,22 +1447,25 @@ def run():
         largest_grad=f"{gmax:.3e}", targets=jdump({n: f"{v:.5f}" for n, v in tc["targets"].items()}),
         kinks_crossed=jdump(tc["crossed"]), kinks_masked=jdump(tc["masked"]),
         presence_flips=jdump(tc["flips"]),
-        unmasked=jdump({pair: f"{errs[-1][0]:.3e}" for pair, errs in tc["unmasked"].items()}),
-        worst=jdump({pair: worst(errs) for pair, errs in errors.items()}),
-        tol=jdump({pair: f"|d|<={tol:g}max|grad|+1e-6" for pair, tol in CHECKED_PAIRS.items()}))
-    log("train-check", t0, referee="float64 plain versions on the card, switch off and on",
+        pairs_unmasked=jdump({pair: f"{errs[-1][0]:.3e}" for pair, errs in tc["unmasked"].items()}),
+        pairs=jdump({pair: worst(errs) for pair, errs in errors.items()}))
+    log("train-check", t0, referee="float64 plain versions on the card, per switch setting",
         distance=jdump({run: f"{errs[-1][0]:.3e}" for run, errs in dist.items()}),
         unmasked=jdump({run: f"{errs[-1][0]:.3e}" for run, errs in tc["unmasked_distance"].items()}),
         worst=jdump({run: worst(errs) for run, errs in dist.items()}),
         where_bias_mlp=jdump({run: f"{max(sh for sh, n, _, _ in errs if '_where_bias_mlp' in n):.3e}"
                               for run, errs in dist.items()}),
-        kernels_over_plain=jdump({run: f"{v:.3f}" for run, v in tc["ratio"].items()}),
-        within_2x=jdump({run: v <= 2.0 for run, v in tc["ratio"].items()}))
-    for pair, tol in CHECKED_PAIRS.items():
-        for share, name, err, size in errors[pair]:
-            if err > tol * size + 1e-6:
-                raise Failure(f"train gradients, {pair}: {name} differs by {err:.3g} "
-                              f"(largest {size:.3g}, tol {tol:g} of it + 1e-6)")
+        kernels_over_plain=jdump({run: f"{v:.3f}" for run, v in tc["ratio"].items()}))
+    log("train-check", t0, gate=jdump({run: [dict(name=n, of_bound=f"{r:.3f}", err=f"{e:.2e}",
+                                                  bound=f"{b:.2e}") for r, n, e, b in gated[-2:]]
+                                       for run, gated in tc["gate"].items()}),
+        tol=f"|g-g64|<=max({GRAD_TOL:g}max|g64|,2|g_plain-g64|)+1e-6 per parameter")
+    for run, gated in tc["gate"].items():
+        for of_bound, name, err, bound in gated:
+            if of_bound > 1.0:
+                raise Failure(f"train gradients, {run}: {name} lies {err:.3g} from its float64 "
+                              f"referee, over the bound {bound:.3g} (tol {GRAD_TOL:g} of its "
+                              f"largest gradient, or twice {REFEREE_GATE[run]}'s distance)")
 
     # ------------------------------------------------------ train-timing
     with torch.inference_mode():
@@ -1170,6 +1505,22 @@ def run():
                 bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
             add_row("fused_glimpse_bwd", entry["calls"], ms, plain_ms, lib_ms, t_bytes, t_ops,
                     entry["bwd_abs_err"])
+        t0 = time.perf_counter()
+        ms = device_ms(torch, lambda: fc._bwd_cuda(*pbargs), calls=10)
+        plain_ms = device_ms(torch, lambda: fc.prop_plain_bwd(*pbargs), calls=10)
+        with torch.inference_mode(False), switched({}), plain_versions(fused, fg, fc):
+            _, lib_bwd = prop_library_fns(torch, model.sequence.timestep.propagate, pargs, gen)
+            lib_ms = device_ms(torch, lib_bwd, calls=10)
+        nbytes, flops = prop_work(pshape, backward=True)
+        t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+        log("train-timing", t0, kernel="fused_prop_bwd", shape=jdump(pshape),
+            calls_per_train_step=prop_entry["calls"], ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+            bound_ms=f"{max(t_bytes, t_ops):.5f}", mflop=f"{flops / 1e6:.1f}",
+            mbyte=f"{nbytes / 1e6:.2f}",
+            bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
+        add_row("fused_prop_bwd", prop_entry["calls"], ms, plain_ms, lib_ms, t_bytes, t_ops,
+                prop_entry["bwd_abs_err"])
 
     t0 = time.perf_counter()
     timing_batch = train_batches[-1]
@@ -1192,7 +1543,7 @@ def run():
 
     # ----------------------------------------------------- train-glimpse
     t0 = time.perf_counter()
-    with mock.patch.dict(os.environ, GLIMPSE_SWITCH):
+    with switched(GLIMPSE_SWITCH):
         fused.reset_launches()
         glimpse_metrics = [train_step(b["imgs"], b["nums"], train_noise) for b in train_batches]
         torch.cuda.synchronize()
@@ -1215,52 +1566,105 @@ def run():
         train_step_ms=f"{train_glimpse_ms:.3f}",
         train_step_ms_switch_off=f"{train_step_ms:.3f}", card=repr(card))
 
-    # ---------------------------------------------------------- eval-cli
+    # ------------------------------------------------------- train-cells
     t0 = time.perf_counter()
-    run_root = tempfile.mkdtemp(prefix="sqair_eval_cli_")
-    try:
-        run_dir = os.path.join(run_root, "1")
-        ckpt_step = train_step.state.step
-        save_checkpoint(run_dir, ckpt_step, model.sequence, train_step.state.optimizer)
-        shutil.copyfile(RELEASE_FLAGS, os.path.join(run_dir, "flags.json"))
-        cli_data = create_seq_dataset(n_samples=CLI_SEQUENCES, n_timesteps=T, canvas_size=IMG,
-                                      obj_size=(28, 28), n_objects=(0, 2), seed=SEED + 7,
-                                      templates=make_template_bank(256, 28, seed=SEED))
-        npz = os.path.join(run_root, "valid.npz")
-        np.savez(npz, imgs=cli_data["imgs"], nums=cli_data["nums"])
-        argv = ["--checkpoint_dir", run_dir, "--data_npz", npz, "--eval_batch_size", str(B)]
-        with mock.patch.dict(os.environ, GLIMPSE_SWITCH):
-            fused.reset_launches()
-            done = port_eval.main(argv)
-            torch.cuda.synchronize()
-            cli_counts = dict(fused.launches)
-            again = port_eval.main(argv)
-        n_cli = CLI_SEQUENCES // B
-        expected = expected_launches(main_path_shapes(flags, B, k, T, fuse_glimpse=True), n_cli)
-        files = {}
-        for m in port_eval.METRICS:
-            path = os.path.join(run_dir, f"{port_eval.METRIC_FILES[m]}_valid.txt")
-            with open(path) as f:
-                lines = f.read().splitlines()
-            values = [float(v) for v in lines[0].split(":")[1].split()] if lines else []
-            if len(lines) != 1 or not values or not all(math.isfinite(v) for v in values):
-                raise Failure(f"eval-cli: {path} holds {lines}, not one finite line")
-            files[port_eval.METRIC_FILES[m]] = values if len(values) > 1 else values[0]
-    finally:
-        shutil.rmtree(run_root)
-    if done != [ckpt_step] or again != []:
-        raise Failure(f"eval-cli: evaluated {done} then {again}, expected [{ckpt_step}] then []")
-    if cli_counts != expected:
-        raise Failure(f"eval-cli: launch counts {cli_counts} differ from {expected}")
-    log("eval-cli", t0, step=ckpt_step, batches=n_cli, launches=jdump(cli_counts),
-        expected=jdump(expected), resumed_skips=True, metric_files=len(files),
-        logpx=files["logpx"], acc=files["acc"])
+    with switched(CELLS_SWITCH):
+        fused.reset_launches()
+        cells_metrics = [train_step(b["imgs"], b["nums"], train_noise) for b in train_batches]
+        torch.cuda.synchronize()
+        cells_train_counts = dict(fused.launches)
+        expected = expected_launches(
+            main_path_shapes(flags, B, k, T, train=True, fuse_glimpse=True, fuse_cells=True),
+            N_TRAIN_STEPS, backward=True)
+        for i, m in enumerate(cells_metrics):
+            for key, v in m.items():
+                if not torch.isfinite(v).all():
+                    raise Failure(f"cells-switch train step {i}: metric {key} is not finite")
+        if cells_train_counts != expected:
+            raise Failure(f"launch counts {cells_train_counts} with SQAIR_FUSE_CELLS differ "
+                          f"from the train path's {expected}")
+        train_cells_ms = step_ms(
+            torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise),
+            REPS)
+        busy_ms, _ = profile_device(
+            torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise))
+    log("train-cells", t0, steps=N_TRAIN_STEPS, launches=jdump(cells_train_counts),
+        expected=jdump(expected), target=f"{float(cells_metrics[-1]['target']):.4f}",
+        train_step_ms=f"{train_cells_ms:.3f}", train_step_ms_glimpse_only=f"{train_glimpse_ms:.3f}",
+        train_step_ms_switch_off=f"{train_step_ms:.3f}",
+        frames_per_s=f"{B * T / (train_cells_ms / 1e3):.1f}",
+        device_busy_ms="not-measured" if busy_ms is None else f"{busy_ms:.3f}",
+        card=repr(card))
+
+    # ---------------------------------------------------------- eval-cli
+    # the saved checkpoint swept twice, each time into a run dir of its own:
+    # with the glimpse switch alone, then with both switches
+    cli_data = create_seq_dataset(n_samples=CLI_SEQUENCES, n_timesteps=T, canvas_size=IMG,
+                                  obj_size=(28, 28), n_objects=(0, 2), seed=SEED + 7,
+                                  templates=make_template_bank(256, 28, seed=SEED))
+    ckpt_step = train_step.state.step
+    n_cli = CLI_SEQUENCES // B
+    sweeps = {}
+    for label, switches, fuse_cells in (("glimpse", GLIMPSE_SWITCH, False),
+                                        ("glimpse+cells", CELLS_SWITCH, True)):
+        t0 = time.perf_counter()
+        run_root = tempfile.mkdtemp(prefix="sqair_eval_cli_")
+        try:
+            run_dir = os.path.join(run_root, "1")
+            save_checkpoint(run_dir, ckpt_step, model.sequence, train_step.state.optimizer)
+            shutil.copyfile(RELEASE_FLAGS, os.path.join(run_dir, "flags.json"))
+            npz = os.path.join(run_root, "valid.npz")
+            np.savez(npz, imgs=cli_data["imgs"], nums=cli_data["nums"])
+            argv = ["--checkpoint_dir", run_dir, "--data_npz", npz, "--eval_batch_size", str(B)]
+            with switched(switches):
+                fused.reset_launches()
+                done = port_eval.main(argv)
+                torch.cuda.synchronize()
+                cli_counts = dict(fused.launches)
+                again = port_eval.main(argv)
+            expected = expected_launches(
+                main_path_shapes(flags, B, k, T, fuse_glimpse=True, fuse_cells=fuse_cells), n_cli)
+            files = {}
+            for m in port_eval.METRICS:
+                path = os.path.join(run_dir, f"{port_eval.METRIC_FILES[m]}_valid.txt")
+                with open(path) as f:
+                    lines = f.read().splitlines()
+                values = [float(v) for v in lines[0].split(":")[1].split()] if lines else []
+                if len(lines) != 1 or not values or not all(math.isfinite(v) for v in values):
+                    raise Failure(f"eval-cli ({label}): {path} holds {lines}, not one finite line")
+                files[port_eval.METRIC_FILES[m]] = values if len(values) > 1 else values[0]
+        finally:
+            shutil.rmtree(run_root)
+        if done != [ckpt_step] or again != []:
+            raise Failure(f"eval-cli ({label}): evaluated {done} then {again}, expected "
+                          f"[{ckpt_step}] then []")
+        if cli_counts != expected:
+            raise Failure(f"eval-cli ({label}): launch counts {cli_counts} differ from "
+                          f"{expected}")
+        sweeps[label] = files
+        log("eval-cli", t0, switches=label, step=ckpt_step, batches=n_cli,
+            launches=jdump(cli_counts), expected=jdump(expected), resumed_skips=True,
+            metric_files=len(files), logpx=files["logpx"], acc=files["acc"])
+    # the same checkpoint, data and noise: the two sweeps' metrics agree
+    worst, worst_key = 0.0, None
+    for key, want in sweeps["glimpse"].items():
+        got = np.asarray(sweeps["glimpse+cells"][key], np.float64)
+        want = np.asarray(want, np.float64)
+        err = float(np.max(np.abs(got - want) / (np.abs(want) + 1.0)))
+        if err >= worst:
+            worst, worst_key = err, key
+    if worst > METRIC_TOL:
+        raise Failure(f"eval-cli: metric file {worst_key} differs between the sweeps by "
+                      f"{worst:.3g} > {METRIC_TOL}")
+    print(f"[eval-cli] sweeps_agree worst={worst:.3e} worst_file={worst_key} tol={METRIC_TOL}",
+          flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():
         r = rows[name]
         w = r["weight"]
-        launches = (glimpse_train_counts if name.startswith("fused_glimpse") else train_counts)
+        launches = (cells_train_counts if name.startswith("fused_prop") else
+                    glimpse_train_counts if name.startswith("fused_glimpse") else train_counts)
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=launches[name], max_abs_err=r["err"], ms=r["ms"] / w,

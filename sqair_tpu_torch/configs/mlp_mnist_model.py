@@ -8,7 +8,6 @@ package's default.  ``train_settings(flags)`` reads the training flags and
 """
 from __future__ import annotations
 
-import os
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -64,11 +63,6 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
     :param img_shape: (H, W) of a frame
     :param mean_img: [H, W] background added where nothing is written
     """
-    if os.environ.get("SQAIR_FUSE_CELLS"):
-        raise NotImplementedError(
-            "SQAIR_FUSE_CELLS asks for the fused discovery and propagation kernels (TPU "
-            "kernels #7-#10: sqair_tpu/ops/fused_cells.py _disc_run_fwd/_disc_run_bwd, "
-            "_prop_run_fwd/_prop_run_bwd), which are not ported yet; unset it")
     F = dict(DEFAULTS)
     F.update(flags)
     unported = [name for name, off in (("disc_coverage_signal", False),
@@ -104,6 +98,8 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
         glimpse_output_scale=F["output_scale"], mean_img=mean_img,
         output_std=F["output_std"],
     )
+    # fails here already where SQAIR_FUSE_CELLS asks for the unported discovery kernel
+    timestep.discover.check_fused_switch()
     seq = SequentialAIR(timestep, decoder)
     init_params(seq, torch.Generator().manual_seed(seed))
     seq.to(device)

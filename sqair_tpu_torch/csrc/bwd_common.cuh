@@ -1,5 +1,5 @@
 // Shared pieces of the hand-written backward kernels (fused_bwd.cu,
-// fused_glimpse.cu): elu' and the other activations' derivatives read off
+// fused_glimpse.cu, fused_prop.cu): elu' and the other activations' derivatives read off
 // the output, the products with a transposed weight, and the launch of
 // phase B, the column-parallel weight-gradient reduction in fixed order.
 #pragma once
@@ -11,7 +11,7 @@ namespace sqair {
 constexpr int kOuterThreads = 128;  // dW columns of a phase-B tile
 constexpr int kOuterK = 8;          // dW rows of a phase-B tile
 constexpr int kOuterN = 32;         // batch rows staged at a time
-constexpr int kMaxJobs = 5;         // dW matrices per phase-B launch
+constexpr int kMaxJobs = 24;        // dW matrices per phase-B launch
 
 // d act(z) / dz written with the post-activation a, exactly as the JAX
 // package's `_act_grad_from_output` (elu: 1 for a > 0, else a + 1).
@@ -27,33 +27,45 @@ __device__ __forceinline__ float act_grad_from_output(float a, int act) {
 // acc[c][r] += sum_{j < J} a[r * lda + j] * w[col * ldw + j], for the
 // columns col = col0 + threadIdx.x + c * kThreads < n_cols: a product with
 // the TRANSPOSE of the row-major w [n_cols, ldw].  `a` is in shared memory.
-__device__ __forceinline__ void acc_smem_t(Acc& acc, const float* a, int lda, int J,
-                                           const float* __restrict__ w, int ldw, int col0,
-                                           int n_cols) {
+// Summed kBlockK products at a time, as acc_smem.
+template <int NR>
+__device__ __forceinline__ void acc_smem_t(float (&acc)[kMaxCols][NR], const float* a,
+                                           int lda, int J, const float* __restrict__ w,
+                                           int ldw, int col0, int n_cols) {
 #pragma unroll
   for (int c = 0; c < kMaxCols; ++c) {
     const int col = col0 + threadIdx.x + c * kThreads;
     if (col < n_cols) {
       const float* wc = w + (size_t)col * ldw;
-#pragma unroll 4
-      for (int j = 0; j < J; ++j) {
-        const float wv = __ldg(wc + j);
+      for (int j0 = 0; j0 < J; j0 += kBlockK) {
+        const int j1 = min(j0 + kBlockK, J);
+        float part[NR];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[c][r] = fmaf(a[r * lda + j], wv, acc[c][r]);
+        for (int r = 0; r < NR; ++r) part[r] = 0.f;
+#pragma unroll 4
+        for (int j = j0; j < j1; ++j) {
+          const float wv = __ldg(wc + j);
+#pragma unroll
+          for (int r = 0; r < NR; ++r) part[r] = fmaf(a[r * lda + j], wv, part[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < NR; ++r) acc[c][r] += part[r];
       }
     }
   }
 }
 
 // out[(row0 + r) * ld + col] = acc[c][r] for the block's valid rows.
-__device__ __forceinline__ void store_rows(const Acc& acc, float* __restrict__ out, int ld,
-                                           int row0, int rows, int col0, int n_cols) {
+template <int NR>
+__device__ __forceinline__ void store_rows(const float (&acc)[kMaxCols][NR],
+                                           float* __restrict__ out, int ld, int row0,
+                                           int rows, int col0, int n_cols) {
 #pragma unroll
   for (int c = 0; c < kMaxCols; ++c) {
     const int col = col0 + threadIdx.x + c * kThreads;
     if (col < n_cols) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+      for (int r = 0; r < NR; ++r)
         if (r < rows) out[(size_t)(row0 + r) * ld + col] = acc[c][r];
     }
   }
@@ -62,12 +74,17 @@ __device__ __forceinline__ void store_rows(const Acc& acc, float* __restrict__ o
 // --------------------------------------------------------------- phase B
 struct OuterJob {
   const float* a;   // [N, K], row stride lda
-  const float* dz;  // [N, J], row stride J
+  const float* dz;  // [N, J], row stride ldz (0: J)
   float* dw;        // [K, J]
   float* db;        // [J] or null
   int lda, K, J;
-  int tiles_j;      // column tiles of this job
-  int tile0;        // first block index of this job
+  int tiles_j;      // column tiles of this job (set by launch_outer)
+  int tile0;        // first block index of this job (set by launch_outer)
+  int ldz;
+  // an optional second segment of N rows with the same strides, summed
+  // after the first (a layer applied twice per row, e.g. to two glimpses)
+  const float* a2;
+  const float* dz2;
 };
 
 struct OuterArgs {
@@ -77,7 +94,8 @@ struct OuterArgs {
 };
 
 // dw = a^T dz and db = sum over the rows of dz for every job, in fixed row
-// order (outer_reduce_kernel, defined once in fused_bwd.cu).
+// order, the second segment's rows after the first's (outer_reduce_kernel,
+// defined once in fused_bwd.cu).
 cudaError_t launch_outer(OuterArgs& p, cudaStream_t stream);
 
 }  // namespace sqair

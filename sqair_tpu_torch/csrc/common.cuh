@@ -1,5 +1,5 @@
-// Shared pieces of the hand-written forward kernels (fused_mlp.cu,
-// fused_rnn.cu).
+// Shared pieces of the hand-written kernels (fused_mlp.cu, fused_rnn.cu,
+// and through bwd_common.cuh and glimpse_common.cuh the others).
 //
 // Every kernel here has the same shape: one block of kThreads threads owns
 // kRows rows of the batch, and each thread owns up to kMaxCols output
@@ -9,7 +9,8 @@
 // columns of a row-major [K, D] matrix); the block's rows of the left
 // operand are read from shared memory, where every thread of a warp reads
 // the same word (a broadcast, no bank conflict).  All arithmetic is f32
-// with f32 accumulation, summed over k in increasing order.
+// with f32 accumulation, summed over k in increasing order, kBlockK
+// products at a time (acc_smem).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,30 +36,50 @@ __device__ __forceinline__ float apply_act(float z, int act) {
   }
 }
 
-using Acc = float[kMaxCols][kRows];
+// kMaxCols x NR accumulators: column c of the thread, row r of the block
+template <int NR>
+using AccN = float[kMaxCols][NR];
+using Acc = AccN<kRows>;
 
-__device__ __forceinline__ void zero(Acc& acc) {
+template <int NR>
+__device__ __forceinline__ void zero(float (&acc)[kMaxCols][NR]) {
 #pragma unroll
   for (int c = 0; c < kMaxCols; ++c)
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[c][r] = 0.f;
+    for (int r = 0; r < NR; ++r) acc[c][r] = 0.f;
 }
+
+// Products are summed kBlockK at a time into a partial sum, which is then
+// added to the accumulator: the rounding error of a K-term sum grows with
+// K / kBlockK + kBlockK instead of with K (a sequential chain over the
+// 2500 inputs of the input encoder lay twice as far from a float64
+// referee as the plain version's blocked sums).
+constexpr int kBlockK = 32;
 
 // acc[c][r] += sum_{k < K} a[r * lda + k] * w[k * ldw + j_c], with `a` in
 // shared memory and j_c = threadIdx.x + c * kThreads < n_cols.
-__device__ __forceinline__ void acc_smem(Acc& acc, const float* a, int lda, int K,
-                                         const float* __restrict__ w, int ldw,
+template <int NR>
+__device__ __forceinline__ void acc_smem(float (&acc)[kMaxCols][NR], const float* a, int lda,
+                                         int K, const float* __restrict__ w, int ldw,
                                          int n_cols) {
 #pragma unroll
   for (int c = 0; c < kMaxCols; ++c) {
     const int j = threadIdx.x + c * kThreads;
     if (j < n_cols) {
       const float* wj = w + j;
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        const float wk = __ldg(wj + (size_t)k * ldw);
+      for (int k0 = 0; k0 < K; k0 += kBlockK) {
+        const int k1 = min(k0 + kBlockK, K);
+        float part[NR];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[c][r] = fmaf(a[r * lda + k], wk, acc[c][r]);
+        for (int r = 0; r < NR; ++r) part[r] = 0.f;
+#pragma unroll 4
+        for (int k = k0; k < k1; ++k) {
+          const float wk = __ldg(wj + (size_t)k * ldw);
+#pragma unroll
+          for (int r = 0; r < NR; ++r) part[r] = fmaf(a[r * lda + k], wk, part[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < NR; ++r) acc[c][r] += part[r];
       }
     }
   }

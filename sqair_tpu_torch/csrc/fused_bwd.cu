@@ -55,29 +55,34 @@ __global__ void __launch_bounds__(kOuterThreads) outer_reduce_kernel(OuterArgs p
   const int k0 = (local / jb.tiles_j) * kOuterK;
   const int j = (local % jb.tiles_j) * kOuterThreads + threadIdx.x;
   const bool with_db = jb.db != nullptr && k0 == 0;
+  const int ldz = jb.ldz > 0 ? jb.ldz : jb.J;
   float acc[kOuterK];
 #pragma unroll
   for (int kk = 0; kk < kOuterK; ++kk) acc[kk] = 0.f;
   float accb = 0.f;
 
-  for (int n0 = 0; n0 < p.n; n0 += kOuterN) {
-    const int nc = min(kOuterN, p.n - n0);
-    __syncthreads();  // the previous chunk has been read by every thread
-    for (int i = threadIdx.x; i < kOuterN * kOuterK; i += kOuterThreads) {
-      const int r = i / kOuterK, kk = i - r * kOuterK;
-      as[i] = (r < nc && k0 + kk < jb.K) ? jb.a[(size_t)(n0 + r) * jb.lda + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-    if (j < jb.J) {
-      float d[kOuterN];
+  for (int seg = 0; seg < 2; ++seg) {
+    const float* a = seg == 0 ? jb.a : jb.a2;
+    const float* dz = seg == 0 ? jb.dz : jb.dz2;
+    if (a == nullptr) break;
+    for (int n0 = 0; n0 < p.n; n0 += kOuterN) {
+      const int nc = min(kOuterN, p.n - n0);
+      __syncthreads();  // the previous chunk has been read by every thread
+      for (int i = threadIdx.x; i < kOuterN * kOuterK; i += kOuterThreads) {
+        const int r = i / kOuterK, kk = i - r * kOuterK;
+        as[i] = (r < nc && k0 + kk < jb.K) ? a[(size_t)(n0 + r) * jb.lda + k0 + kk] : 0.f;
+      }
+      __syncthreads();
+      if (j < jb.J) {
+        float d[kOuterN];
 #pragma unroll
-      for (int r = 0; r < kOuterN; ++r)
-        d[r] = r < nc ? jb.dz[(size_t)(n0 + r) * jb.J + j] : 0.f;
+        for (int r = 0; r < kOuterN; ++r) d[r] = r < nc ? dz[(size_t)(n0 + r) * ldz + j] : 0.f;
 #pragma unroll
-      for (int r = 0; r < kOuterN; ++r) {
+        for (int r = 0; r < kOuterN; ++r) {
 #pragma unroll
-        for (int kk = 0; kk < kOuterK; ++kk) acc[kk] = fmaf(as[r * kOuterK + kk], d[r], acc[kk]);
-        if (with_db) accb += d[r];
+          for (int kk = 0; kk < kOuterK; ++kk) acc[kk] = fmaf(as[r * kOuterK + kk], d[r], acc[kk]);
+          if (with_db) accb += d[r];
+        }
       }
     }
   }

@@ -39,16 +39,12 @@
 // scratch; phase B (outer_reduce_kernel) reduces dWh, dWe2, dWe1, dWm2 and
 // dWm1 with their biases over all rows in fixed order.  No atomics.
 //
-// The interpolation coordinate u is computed with explicitly rounded
-// operations (no FMA contraction), in the plain version's order: a u that
-// rounds to the other side of an integer flips a whole term of dwl.
+// The crop, its backward and the encoder's layers are device code shared
+// with fused_prop.cu (glimpse_common.cuh).
 
-#include "bwd_common.cuh"
+#include "glimpse_common.cuh"
 
 namespace sqair {
-
-constexpr float kMinScale = 1e-4f;  // stn.SCALE_EPS
-constexpr float kMinStd = 1e-2f;
 
 struct GlimpseDims {
   int n, H, W, gh, gw;
@@ -57,75 +53,8 @@ struct GlimpseDims {
   int n_what;
 };
 
-// sigmoid and tanh of the where logits, as torch.sigmoid / torch.tanh
-// compute them: c = (sx, sy, tx, ty)
-__device__ __forceinline__ void where_coords(const float* wl, float c[4]) {
-  c[0] = 1.f / (1.f + expf(-wl[0]));
-  c[1] = 1.f / (1.f + expf(-wl[1]));
-  c[2] = tanhf(wl[2]);
-  c[3] = tanhf(wl[3]);
-}
-
-// t_i = i * (2 / (dst - 1)) - 1, rounded after each operation
-__device__ __forceinline__ float grid_t(int i, int dst) {
-  return __fsub_rn(__fmul_rn((float)i, (float)(2.0 / (dst - 1))), 1.f);
-}
-
-// u_i = (scale t_i + shift + 1) (src - 1) / 2, rounded after each operation
-__device__ __forceinline__ float grid_u(float scale, float shift, int i, int dst, int src) {
-  const float v = __fadd_rn(__fadd_rn(__fmul_rn(scale, grid_t(i, dst)), shift), 1.f);
-  return __fmul_rn(v, (float)(src - 1)) / 2.f;
-}
-
-// Shared memory of one row's crop (forward and backward).
-struct CropSmem {
-  float* img;  // [H, W]
-  float* wy;   // [gh, H]
-  float* wx;   // [gw, W]
-  float* A;    // [H, gw] = img wx^T
-  float* u;    // [gh + gw]: uy then ux
-  static size_t floats(const GlimpseDims& d) {
-    return (size_t)d.H * d.W + d.gh * d.H + d.gw * d.W + d.H * d.gw + d.gh + d.gw;
-  }
-  __device__ CropSmem(float* s, const GlimpseDims& d) {
-    img = s;
-    wy = img + d.H * d.W;
-    wx = wy + d.gh * d.H;
-    A = wx + d.gw * d.W;
-    u = A + d.H * d.gw;
-  }
-};
-
-// Loads row b's frame, builds its interpolation matrices and A = img wx^T
-// into `cs`; c receives (sx, sy, tx, ty).  Every thread calls it; it
-// synchronises before it returns.
-__device__ void crop_setup(const float* __restrict__ img, const float* __restrict__ wl, int b,
-                           const GlimpseDims& d, const CropSmem& cs, float c[4]) {
-  const int hw = d.H * d.W;
-  for (int i = threadIdx.x; i < hw; i += kThreads) cs.img[i] = img[(size_t)b * hw + i];
-  where_coords(wl + (size_t)b * 4, c);
-  const float sxc = fmaxf(c[0], kMinScale), syc = fmaxf(c[1], kMinScale);
-  for (int i = threadIdx.x; i < d.gh + d.gw; i += kThreads)
-    cs.u[i] = i < d.gh ? grid_u(syc, c[3], i, d.gh, d.H) : grid_u(sxc, c[2], i - d.gh, d.gw, d.W);
-  __syncthreads();
-  for (int i = threadIdx.x; i < d.gh * d.H; i += kThreads) {
-    const int r = i / d.H, p = i - r * d.H;
-    cs.wy[i] = fmaxf(0.f, 1.f - fabsf(cs.u[r] - (float)p));
-  }
-  for (int i = threadIdx.x; i < d.gw * d.W; i += kThreads) {
-    const int r = i / d.W, p = i - r * d.W;
-    cs.wx[i] = fmaxf(0.f, 1.f - fabsf(cs.u[d.gh + r] - (float)p));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < d.H * d.gw; i += kThreads) {
-    const int h = i / d.gw, j = i - h * d.gw;
-    const float* a = cs.img + h * d.W;
-    const float* w = cs.wx + j * d.W;
-    float s = 0.f;
-    for (int p = 0; p < d.W; ++p) s = fmaf(a[p], w[p], s);
-    cs.A[i] = s;
-  }
-  __syncthreads();
+__host__ __device__ inline CropDims crop_dims(const GlimpseDims& d) {
+  return CropDims{d.H, d.W, d.gh, d.gw};
 }
 
 // ------------------------------------------------------------- forward
@@ -146,7 +75,8 @@ __global__ void __launch_bounds__(kThreads) glimpse_fwd_kernel(GlimpseFwdArgs p)
   float* h1s = mh + kRows * d.d_m;      // kRows x d1
   float* h2s = h1s + kRows * d.d1;      // kRows x d2
   float* stage = h2s + kRows * d.d2;    // kRows x kChunk
-  const CropSmem cs(stage + kRows * kChunk, d);
+  const CropDims cd = crop_dims(d);
+  const CropSmem cs(stage + kRows * kChunk, cd);
   const int row0 = blockIdx.x * kRows;
   const int rows = min(kRows, d.n - row0);
 
@@ -158,16 +88,8 @@ __global__ void __launch_bounds__(kThreads) glimpse_fwd_kernel(GlimpseFwdArgs p)
     }
     const int b = row0 + r;
     float c[4];
-    crop_setup(p.img, p.wl, b, d, cs, c);
-    for (int i = threadIdx.x; i < G; i += kThreads) {
-      const int gi = i / d.gw, j = i - gi * d.gw;
-      const float* w = cs.wy + gi * d.H;
-      float s = 0.f;
-      for (int h = 0; h < d.H; ++h) s = fmaf(w[h], cs.A[h * d.gw + j], s);
-      gs[r * G + i] = s;
-      if (p.g0 != nullptr) p.g0[(size_t)b * G + i] = s;
-    }
-    __syncthreads();  // before the next row overwrites the crop buffers
+    crop_setup(p.img + (size_t)b * d.H * d.W, p.wl + (size_t)b * 4, cd, cs, c);
+    crop_glimpse(cd, cs, gs + r * G, p.g0 == nullptr ? nullptr : p.g0 + (size_t)b * G);
   }
   __syncthreads();  // the zero rows of a ragged block are written too
 
@@ -207,29 +129,9 @@ __global__ void __launch_bounds__(kThreads) glimpse_fwd_kernel(GlimpseFwdArgs p)
   }
 
   // encoder: two elu layers, activations in shared memory
-  const float* ins[2] = {gs, h1s};
-  float* outs[2] = {h1s, h2s};
-  float* saved[2] = {p.h1, p.h2};
-  const float* ws[2] = {p.we1, p.we2};
-  const float* bs[2] = {p.be1, p.be2};
-  const int Ks[2] = {G, d.d1}, Ds[2] = {d.d1, d.d2};
-  for (int l = 0; l < 2; ++l) {
-    zero(acc);
-    acc_smem(acc, ins[l], Ks[l], Ks[l], ws[l], Ds[l], Ds[l]);
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int j = threadIdx.x + c * kThreads;
-      if (j < Ds[l]) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float v = apply_act(acc[c][r] + bs[l][j], kElu);
-          outs[l][r * Ds[l] + j] = v;
-          if (r < rows && saved[l] != nullptr) saved[l][(size_t)(row0 + r) * Ds[l] + j] = v;
-        }
-      }
-    }
-    __syncthreads();
-  }
+  encode_rows<kRows>(gs, G, p.we1, p.be1, d.d1, p.we2, p.be2, d.d2, h1s, h2s,
+                     p.h1 == nullptr ? nullptr : p.h1 + (size_t)row0 * d.d1, d.d1,
+                     p.h2 == nullptr ? nullptr : p.h2 + (size_t)row0 * d.d2, d.d2, rows);
 
   // the Gaussian head: loc, softplus(z) + 1e-2 with the JAX package's softplus
   const int D = 2 * d.n_what;
@@ -247,8 +149,7 @@ __global__ void __launch_bounds__(kThreads) glimpse_fwd_kernel(GlimpseFwdArgs p)
         if (j < d.n_what) {
           p.loc[row * d.n_what + j] = z;
         } else {
-          const float sp = fmaxf(z, 0.f) + logf(1.f + expf(-fabsf(z)));
-          p.scale[row * d.n_what + j - d.n_what] = sp + kMinStd;
+          p.scale[row * d.n_what + j - d.n_what] = softplus(z) + kMinStd;
         }
       }
     }
@@ -300,11 +201,9 @@ __global__ void __launch_bounds__(kThreads) glimpse_bwd_rows_kernel(GlimpseBwdAr
   float* dgs = dz1s + kRows * d.d1;      // kRows x G: d(masked glimpse), then dg0
   float* dmz2s = dgs + kRows * G;        // kRows x G (masked)
   float* dmz1s = dmz2s + (masked ? kRows * G : 0);  // kRows x d_m (masked)
-  const CropSmem cs(dmz1s + kRows * d.d_m, d);
-  float* dA = cs.u + d.gh + d.gw;        // [H, gw]
-  float* dwy = dA + d.H * d.gw;          // [gh, H]
-  float* dwx = dwy + d.gh * d.H;         // [gw, W]
-  float* du = dwx + d.gw * d.W;          // [gh + gw]
+  const CropDims cd = crop_dims(d);
+  const CropSmem cs(dmz1s + kRows * d.d_m, cd);
+  float* bw = cs.u + d.gh + d.gw;        // CropSmem::bwd_floats
   const int row0 = blockIdx.x * kRows;
   const int rows = min(kRows, d.n - row0);
 
@@ -325,26 +224,10 @@ __global__ void __launch_bounds__(kThreads) glimpse_bwd_rows_kernel(GlimpseBwdAr
     dhs[i] = v;
   }
   __syncthreads();
-  Acc acc;
-  zero(acc);
-  acc_smem_t(acc, dhs, D, D, p.wh, D, 0, d.d2);  // dh2 = dhp Wh^T
-  store_dz(acc, p.h2, dz2s, p.dz2, d.d2, row0, rows);
-  __syncthreads();
-  zero(acc);
-  acc_smem_t(acc, dz2s, d.d2, d.d2, p.we2, d.d2, 0, d.d1);  // dh1 = dz2 We2^T
-  store_dz(acc, p.h1, dz1s, p.dz1, d.d1, row0, rows);
-  __syncthreads();
-  zero(acc);
-  acc_smem_t(acc, dz1s, d.d1, d.d1, p.we1, d.d1, 0, G);  // d(masked glimpse) = dz1 We1^T
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int col = threadIdx.x + c * kThreads;
-    if (col < G) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) dgs[r * G + col] = acc[c][r];
-    }
-  }
-  __syncthreads();
+  encode_rows_bwd<kRows>(dhs, D, p.wh, p.we2, p.we1, d.d1, d.d2, G,
+                         p.h1 + (size_t)row0 * d.d1, d.d1, p.h2 + (size_t)row0 * d.d2, d.d2,
+                         dz2s, dz1s, dgs, p.dz2 + (size_t)row0 * d.d2, d.d2,
+                         p.dz1 + (size_t)row0 * d.d1, d.d1, rows);
 
   if (masked) {
     // dmask = dg g0, dg0 = dg mask, dmz2 = dmask mask (1 - mask); the masked
@@ -363,6 +246,7 @@ __global__ void __launch_bounds__(kThreads) glimpse_bwd_rows_kernel(GlimpseBwdAr
       dmz2s[i] = v;
     }
     __syncthreads();
+    Acc acc;
     zero(acc);
     acc_smem_t(acc, dmz2s, G, G, p.wm2, G, 0, d.d_m);  // dmhid = dmz2 Wm2^T
     store_dz(acc, p.mhid, dmz1s, p.dmz1, d.d_m, row0, rows);
@@ -375,80 +259,22 @@ __global__ void __launch_bounds__(kThreads) glimpse_bwd_rows_kernel(GlimpseBwdAr
   // the crop backward and the where-gradient, one row at a time
   for (int r = 0; r < rows; ++r) {
     const int b = row0 + r;
-    const float* dg0 = dgs + r * G;
     float c[4];
-    crop_setup(p.img, p.wl, b, d, cs, c);
-    // dwy = dg0 A^T [gh, H]; dA = wy^T dg0 [H, gw]
-    for (int i = threadIdx.x; i < d.gh * d.H; i += kThreads) {
-      const int gi = i / d.H, h = i - gi * d.H;
-      float s = 0.f;
-      for (int j = 0; j < d.gw; ++j) s = fmaf(dg0[gi * d.gw + j], cs.A[h * d.gw + j], s);
-      dwy[i] = s;
-    }
-    for (int i = threadIdx.x; i < d.H * d.gw; i += kThreads) {
-      const int h = i / d.gw, j = i - h * d.gw;
-      float s = 0.f;
-      for (int gi = 0; gi < d.gh; ++gi) s = fmaf(cs.wy[gi * d.H + h], dg0[gi * d.gw + j], s);
-      dA[i] = s;
-    }
-    __syncthreads();
-    // dwx = dA^T img [gw, W]
-    for (int i = threadIdx.x; i < d.gw * d.W; i += kThreads) {
-      const int j = i / d.W, w = i - j * d.W;
-      float s = 0.f;
-      for (int h = 0; h < d.H; ++h) s = fmaf(dA[h * d.gw + j], cs.img[h * d.W + w], s);
-      dwx[i] = s;
-    }
-    __syncthreads();
-    // du_i = sum_p dw[i, p] (w[i, p] > 0 ? -sign(u_i - p) : 0)
-    for (int i = threadIdx.x; i < d.gh + d.gw; i += kThreads) {
-      const bool y = i < d.gh;
-      const int src = y ? d.H : d.W;
-      const float* dw = y ? dwy + i * d.H : dwx + (i - d.gh) * d.W;
-      const float* w = y ? cs.wy + i * d.H : cs.wx + (i - d.gh) * d.W;
-      const float ui = cs.u[i];
-      float s = 0.f;
-      for (int q = 0; q < src; ++q) {
-        const float diff = ui - (float)q;
-        const float sgn = diff > 0.f ? -1.f : (diff < 0.f ? 1.f : 0.f);
-        s += dw[q] * (w[q] > 0.f ? sgn : 0.f);
-      }
-      du[i] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float st_y = 0.f, s_y = 0.f, st_x = 0.f, s_x = 0.f;
-      for (int i = 0; i < d.gh; ++i) {
-        st_y += du[i] * grid_t(i, d.gh);
-        s_y += du[i];
-      }
-      for (int j = 0; j < d.gw; ++j) {
-        st_x += du[d.gh + j] * grid_t(j, d.gw);
-        s_x += du[d.gh + j];
-      }
-      const float dsyc = st_y * (float)(d.H - 1) / 2.f, dty = s_y * (float)(d.H - 1) / 2.f;
-      const float dsxc = st_x * (float)(d.W - 1) / 2.f, dtx = s_x * (float)(d.W - 1) / 2.f;
-      float* o = p.dwl + (size_t)b * 4;
-      o[0] = dsxc * c[0] * (1.f - c[0]);
-      o[1] = dsyc * c[1] * (1.f - c[1]);
-      o[2] = dtx * (1.f - c[2] * c[2]);
-      o[3] = dty * (1.f - c[3] * c[3]);
-    }
-    __syncthreads();  // before the next row overwrites the crop buffers
+    crop_setup(p.img + (size_t)b * d.H * d.W, p.wl + (size_t)b * 4, cd, cs, c);
+    crop_bwd(cd, cs, c, dgs + r * G, bw, p.dwl + (size_t)b * 4);
   }
 }
 
 size_t fwd_smem(const GlimpseDims& d) {
   return sizeof(float) * ((size_t)kRows * (d.gh * d.gw + d.d_m + d.d1 + d.d2 + kChunk) +
-                          CropSmem::floats(d));
+                          CropSmem::floats(crop_dims(d)));
 }
 
 size_t bwd_smem(const GlimpseDims& d, bool masked) {
   const size_t G = (size_t)d.gh * d.gw;
   return sizeof(float) * ((size_t)kRows * (2 * d.n_what + d.d2 + d.d1 + G +
                                            (masked ? G + d.d_m : 0)) +
-                          CropSmem::floats(d) + (size_t)d.H * d.gw + d.gh * d.H + d.gw * d.W +
-                          d.gh + d.gw);  // + dA, dwy, dwx, du
+                          CropSmem::floats(crop_dims(d)) + CropSmem::bwd_floats(crop_dims(d)));
 }
 
 bool read_dims(const int* dims, GlimpseDims& d) {

@@ -1,0 +1,1104 @@
+// The fused propagation unroll of one frame, forward and backward.
+//
+// Replaces: sqair_tpu/ops/fused_cells.py, `_prop_run_fwd` (the Pallas
+// kernel `_prop_fwd_kernel`) and `_prop_run_bwd` (`_prop_bwd_kernel`),
+// behind `fused_prop_ssm`.  Per row b of the batch the S propagation slots
+// run in order (slot k + 1 reads slot k's what, where and presence and its
+// transition state h):
+//
+//   gwl = where_tm1 + (elu(ht Wb1 + bb1) Wb2 + bb2) 0.1
+//   mask = sigmoid(elu(ht Wm1 + bm1) Wm2 + bm2)
+//   g1loc = (elu(elu((crop(gwl) mask) We1 + be1) We2 + be2) Wh + bh)[:n_what]
+//   h = tanh([g1loc, what_{k-1}, where_{k-1}, pres_{k-1}, what_tm1,
+//             where_tm1, pres_tm1, ht] Wr + h Ur + br)
+//   a = elu-elu-id MLP([h, where_tm1, ht]); where_loc = where_tm1 + a[:4]
+//   where_scale = softplus(a[4:]) + 1e-2 (the scale offset - 1 is in the bias)
+//   where = where_loc + where_scale (eps_w tril^T + eps_w)
+//   g2loc, g2scale = the encoder and head at where (softplus + 1e-2)
+//   zr = sigmoid(tin Wg + ht Ug + bg), tin = [h, where, g2loc, g2scale]
+//   c = tanh(tin Wc + (r ht) Uc + bc); ht' = (1 - z) ht + z c
+//   tloc, tscale = ht' Wtd + btd (softplus + 1e-2); gates = sigmoid(ht' Wga + bga) 0.9999
+//   what_loc = f what_tm1 + (1 - i) g2loc + (1 - t) tloc
+//   what_scale = (1 - i) g2scale + (1 - t) tscale; what = what_loc + what_scale eps_x
+//   logit = pres_tm1 (elu([h, ht, what] Wsp1 + bsp1) Wsp2 + bsp2) + (pres_tm1 - 1) 88
+//   presence = (u < sigmoid(logit)) pres_tm1
+//
+// The forward writes the ten outputs and one residual row per (slot, row)
+// (the JAX package's fields in its order, unpadded; R = 3749 floats at the
+// release model's widths).  The backward is the JAX package's
+// `_prop_bwd_kernel`: slots in reverse, carrying the gradients of the
+// explaining-away inputs and of h across slots, recomputing both crops,
+// elu' read off the output (1 at 0), the scale clip straight-through, no
+// gradient into the frame or the noise.
+//
+// What bounds it on an H100 at the release model's shapes (f32, B k = 160
+// rows, S = 3, 50 x 50 frames, 20 x 20 glimpses, 256 wide): operations.  A
+// row-slot does ~1.63 M multiply-adds (two crops and two encoders, the
+// mask, the transition, the estimator, the GRU, the heads), 1.56 GFLOP a
+// call: 23 us at 67 TFLOP/s off the tensor cores, against ~14 MB of
+// weights, frames, outputs and residuals (4 us at 3.35 TB/s); the backward
+// about twice that.  What the design does: one block of kThreads threads
+// owns kPropRows rows (80 blocks at 160 rows, so most SMs hold one) and
+// runs all slots for them with every activation in shared memory; the
+// weights stream through L2 once per block and slot.  That re-reads ~5 MB
+// of weights per block and slot, which a later PR can cut by giving a
+// block more rows or splitting the columns of the wide layers.  The crops
+// and encoders are glimpse_common.cuh's, shared with fused_glimpse.cu.
+//
+// The backward is two launches, as fused_bwd.cu: phase A
+// (prop_bwd_rows_kernel), row-parallel, chains the row gradients through
+// the slots in reverse and writes every layer's dz and the weight
+// products' left operands that the residual rows do not hold to scratch;
+// phase B (outer_reduce_kernel) reduces the 21 weight gradients and their
+// biases over all rows and slots in fixed order.  No atomics: two runs
+// give the same bits.
+
+#include "glimpse_common.cuh"
+
+namespace sqair {
+
+constexpr int kPropRows = 2;  // batch rows per block
+
+struct PropDims {
+  int B, S, H, W, gh, gw, nw, U, SP, WB, MH;
+  int G, d_rnn, d_stp, d_tin, d_spf;
+  int R, Z;  // residual and scratch row widths
+  // residual fields (the JAX package's `_prop_offsets`, unpadded)
+  int wbh, maskh, mask, e11, e12, g1loc, h, a1, a2, e21, e22, g2loc, g2sc, zr, c, tloc, tsc,
+      gates, s1, lraw, gwl;
+};
+
+// Scratch fields of one row-slot (backward): the weight products' left
+// operands that the residual row does not hold, then every layer's dz.
+struct PropScratch {
+  int rnn_in, hprev, stp_in, tin, rh, spf, gfl1, gfl2, dwsc;
+  int dwbh, dwb, dmaskh, dmz2, dz11, dz21, dz12, dz22, dhp1, dhp2, dzr, dza1, dza2, dstp8, da,
+      dcin, dtd, dzg, dsp1, dlraw;
+  int Z;
+};
+
+__host__ __device__ inline int take(int& off, int n) {
+  const int o = off;
+  off += n;
+  return o;
+}
+
+__host__ __device__ inline PropScratch prop_scratch(const PropDims& d) {
+  PropScratch s;
+  int o = 0;
+  s.rnn_in = take(o, d.d_rnn);
+  s.hprev = take(o, d.U);
+  s.stp_in = take(o, d.d_stp);
+  s.tin = take(o, d.d_tin);
+  s.rh = take(o, d.U);
+  s.spf = take(o, d.d_spf);
+  s.gfl1 = take(o, d.G);
+  s.gfl2 = take(o, d.G);
+  s.dwsc = take(o, 4);
+  s.dwbh = take(o, d.WB);
+  s.dwb = take(o, 4);
+  s.dmaskh = take(o, d.MH);
+  s.dmz2 = take(o, d.G);
+  s.dz11 = take(o, d.U);
+  s.dz21 = take(o, d.U);
+  s.dz12 = take(o, d.U);
+  s.dz22 = take(o, d.U);
+  s.dhp1 = take(o, 2 * d.nw);
+  s.dhp2 = take(o, 2 * d.nw);
+  s.dzr = take(o, d.U);
+  s.dza1 = take(o, d.U);
+  s.dza2 = take(o, d.U);
+  s.dstp8 = take(o, 8);
+  s.da = take(o, 2 * d.U);
+  s.dcin = take(o, d.U);
+  s.dtd = take(o, 2 * d.nw);
+  s.dzg = take(o, 3 * d.nw);
+  s.dsp1 = take(o, d.SP);
+  s.dlraw = take(o, 1);
+  s.Z = o;
+  return s;
+}
+
+bool read_prop_dims(const int* v, PropDims& d) {
+  d = PropDims{};
+  d.B = v[0]; d.S = v[1]; d.H = v[2]; d.W = v[3]; d.gh = v[4]; d.gw = v[5];
+  d.nw = v[6]; d.U = v[7]; d.SP = v[8]; d.WB = v[9]; d.MH = v[10];
+  d.G = d.gh * d.gw;
+  d.d_rnn = 3 * d.nw + 10 + d.U;
+  d.d_stp = 2 * d.U + 4;
+  d.d_tin = d.U + 4 + 2 * d.nw;
+  d.d_spf = 2 * d.U + d.nw;
+  int o = 0;
+  d.wbh = take(o, d.WB); d.maskh = take(o, d.MH); d.mask = take(o, d.G);
+  d.e11 = take(o, d.U); d.e12 = take(o, d.U); d.g1loc = take(o, d.nw);
+  d.h = take(o, d.U); d.a1 = take(o, d.U); d.a2 = take(o, d.U);
+  d.e21 = take(o, d.U); d.e22 = take(o, d.U); d.g2loc = take(o, d.nw); d.g2sc = take(o, d.nw);
+  d.zr = take(o, 2 * d.U); d.c = take(o, d.U); d.tloc = take(o, d.nw); d.tsc = take(o, d.nw);
+  d.gates = take(o, 3 * d.nw); d.s1 = take(o, d.SP); d.lraw = take(o, 1); d.gwl = take(o, 4);
+  d.R = o;
+  d.Z = prop_scratch(d).Z;
+  const int widest[] = {d.G, 2 * d.U, 3 * d.nw, d.d_rnn, d.d_stp, d.d_tin, d.d_spf, d.WB, d.MH,
+                        d.SP};
+  for (int w : widest)
+    if (w > kMaxWidth) return false;
+  return d.B > 0 && d.S > 0 && d.H > 1 && d.W > 1 && d.gh > 1 && d.gw > 1 && d.nw > 0 &&
+         d.U > 0 && d.SP > 0 && d.WB > 0 && d.MH > 0;
+}
+
+// The 38 weights, in the order of the JAX package's `_prop_weights_flat`.
+struct PropWeights {
+  const float *wb1w, *wb1b, *wb2w, *wb2b, *m1w, *m1b, *m2w, *m2b, *we1, *be1, *we2, *be2, *wh,
+      *bh, *rw, *ru, *rb, *s1w, *s1b, *s2w, *s2b, *s3w, *s3b, *tril, *gwg, *gug, *gbg, *gwc,
+      *guc, *gbc, *tdw, *tdb, *gaw, *gab, *sp1w, *sp1b, *sp2w, *sp2b;
+};
+constexpr int kPropWeights = 38;
+static_assert(sizeof(PropWeights) == kPropWeights * sizeof(const float*), "38 pointers");
+
+PropWeights read_weights(const float* const* f) {
+  PropWeights w;
+  const float** dst = reinterpret_cast<const float**>(&w);
+  for (int i = 0; i < kPropWeights; ++i) dst[i] = f[i];
+  return w;
+}
+
+// The inputs: img [B, H, W], what_tm1 [S, B, nw], where_tm1 [S, B, 4],
+// pres_tm1 [S, B, 1], ht [S, B, U], h0 [B, U], eps_w [S, B, 4], eps_x
+// [S, B, nw], u [S, B, 1].
+struct PropInputs {
+  const float *img, *wt1, *wh1, *p1, *th, *h0b, *epsw, *epsx, *u;
+};
+
+PropInputs read_inputs(const float* const* f) {
+  return PropInputs{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
+}
+
+// ------------------------------------------------------------- forward
+struct PropFwdArgs {
+  PropDims d;
+  PropWeights w;
+  PropInputs in;
+  // what, what_loc, what_scale, where, where_loc, where_scale, prob,
+  // presence, logit, temporal state [S, B, d]; residual rows [S, B, R]
+  float *what, *what_loc, *what_scale, *where, *where_loc, *where_scale, *prob, *pres, *logit,
+      *tnew, *res;
+};
+
+// Shared memory of the forward: kPropRows rows of each buffer, then one
+// row's crop.
+struct FwdSmem {
+  int rin, stp, tin, spf, wbh, gwl, maskh, mask, gbuf, e1, e2, hp, a1, a2, st8, rh, zr, c, htn,
+      td, gates, s1, crop, total;
+};
+
+__host__ __device__ inline FwdSmem fwd_smem(const PropDims& d) {
+  FwdSmem L;
+  int o = 0;
+  const int n = kPropRows;
+  L.rin = take(o, n * d.d_rnn);  // [g1loc, what, where, pres of slot k-1, what_tm1, where_tm1, pres_tm1, ht]
+  L.stp = take(o, n * d.d_stp);  // [h, where_tm1, ht]
+  L.tin = take(o, n * d.d_tin);  // [h, where, g2loc, g2scale]
+  L.spf = take(o, n * d.d_spf);  // [h, ht, what]
+  L.wbh = take(o, n * d.WB);
+  L.gwl = take(o, n * 4);
+  L.maskh = take(o, n * d.MH);
+  L.mask = take(o, n * d.G);
+  L.gbuf = take(o, n * d.G);
+  L.e1 = take(o, n * d.U);
+  L.e2 = take(o, n * d.U);
+  L.hp = take(o, n * 2 * d.nw);
+  L.a1 = take(o, n * d.U);
+  L.a2 = take(o, n * d.U);
+  L.st8 = take(o, n * 8);
+  L.rh = take(o, n * d.U);
+  L.zr = take(o, n * 2 * d.U);
+  L.c = take(o, n * d.U);
+  L.htn = take(o, n * d.U);
+  L.td = take(o, n * 2 * d.nw);
+  L.gates = take(o, n * 3 * d.nw);
+  L.s1 = take(o, n * d.SP);
+  L.crop = take(o, (int)CropSmem::floats(CropDims{d.H, d.W, d.gh, d.gw}));
+  L.total = o;
+  return L;
+}
+
+__device__ __forceinline__ float sigmoidf(float z) { return 1.f / (1.f + expf(-z)); }
+
+// The masked glimpse of each row at its where logits wl + r * ldwl (shared
+// memory), encoded: e1, e2 (and their residual fields o1, o2) and the
+// head's pre-activation hp [2 nw].  Rows past `rows` get a zero glimpse.
+__device__ __forceinline__ void prop_glimpse(const PropDims& d, const PropWeights& w,
+                                             const float* __restrict__ img, int row0, int rows,
+                                             const float* wl, int ldwl, const float* mask,
+                                             float* gbuf, float* e1, float* e2, float* hp,
+                                             const CropSmem& cs, float* res0, int o1, int o2) {
+  const CropDims cd{d.H, d.W, d.gh, d.gw};
+  const int G = d.G, NW = d.nw;
+  for (int r = 0; r < kPropRows; ++r) {
+    if (r < rows) {
+      float c[4];
+      crop_setup(img + (size_t)(row0 + r) * d.H * d.W, wl + r * ldwl, cd, cs, c);
+      crop_glimpse(cd, cs, gbuf + r * G, nullptr);
+    } else {
+      for (int i = threadIdx.x; i < G; i += kThreads) gbuf[r * G + i] = 0.f;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kPropRows * G; i += kThreads) gbuf[i] *= mask[i];
+  __syncthreads();
+  encode_rows<kPropRows>(gbuf, G, w.we1, w.be1, d.U, w.we2, w.be2, d.U, e1, e2, res0 + o1,
+                         (size_t)d.R, res0 + o2, (size_t)d.R, rows);
+  dense<kPropRows>(e2, d.U, d.U, w.wh, 2 * NW,
+                   [&](int r, int j, float z) { hp[r * 2 * NW + j] = z + w.bh[j]; });
+}
+
+__global__ void __launch_bounds__(kThreads) prop_fwd_kernel(PropFwdArgs p) {
+  extern __shared__ float smem[];
+  constexpr int NR = kPropRows;
+  const PropDims& d = p.d;
+  const PropWeights& w = p.w;
+  const PropInputs& in = p.in;
+  const FwdSmem L = fwd_smem(d);
+  float *rin = smem + L.rin, *stp = smem + L.stp, *tin = smem + L.tin, *spf = smem + L.spf;
+  float *wbh = smem + L.wbh, *gwl = smem + L.gwl, *maskh = smem + L.maskh, *mask = smem + L.mask;
+  float *gbuf = smem + L.gbuf, *e1 = smem + L.e1, *e2 = smem + L.e2, *hp = smem + L.hp;
+  float *a1 = smem + L.a1, *a2 = smem + L.a2, *st8 = smem + L.st8, *rh = smem + L.rh;
+  float *zr = smem + L.zr, *cc = smem + L.c, *htn = smem + L.htn, *td = smem + L.td;
+  float *gates = smem + L.gates, *s1 = smem + L.s1;
+  const CropSmem cs(smem + L.crop, CropDims{d.H, d.W, d.gh, d.gw});
+  const int NW = d.nw, U = d.U, G = d.G, R = d.R;
+  const int drn = d.d_rnn, dst = d.d_stp, dti = d.d_tin, dsp = d.d_spf;
+  const int o_sw = NW, o_swh = 2 * NW, o_sp = 2 * NW + 4, o_wt = 2 * NW + 5, o_wh = 3 * NW + 5,
+            o_p = 3 * NW + 9, o_ht = 3 * NW + 10;  // fields of rin
+  const int row0 = blockIdx.x * NR;
+  const int rows = min(NR, d.B - row0);
+  const float* ht = rin + o_ht;  // row stride drn
+
+  // slot 0: no explaining-away inputs yet; h = h0
+  for (int i = threadIdx.x; i < NR * drn; i += kThreads) rin[i] = 0.f;
+  for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+    const int r = i / U, j = i - r * U;
+    stp[r * dst + j] = r < rows ? in.h0b[(size_t)(row0 + r) * U + j] : 0.f;
+  }
+  __syncthreads();
+
+  for (int k = 0; k < d.S; ++k) {
+    const size_t slot = (size_t)k * d.B + row0;  // the block's first row-slot
+    float* res0 = p.res + slot * R;              // row r at res0 + r * R
+    for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      const float v = r < rows ? in.th[(slot + r) * U + j] : 0.f;
+      rin[r * drn + o_ht + j] = v;
+      stp[r * dst + U + 4 + j] = v;
+      spf[r * dsp + U + j] = v;
+    }
+    for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
+      const int r = i / NW, j = i - r * NW;
+      rin[r * drn + o_wt + j] = r < rows ? in.wt1[(slot + r) * NW + j] : 0.f;
+    }
+    for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
+      const int r = i / 4, j = i - r * 4;
+      const float v = r < rows ? in.wh1[(slot + r) * 4 + j] : 0.f;
+      rin[r * drn + o_wh + j] = v;
+      stp[r * dst + U + j] = v;
+    }
+    for (int r = threadIdx.x; r < NR; r += kThreads)
+      rin[r * drn + o_p] = r < rows ? in.p1[slot + r] : 0.f;
+    __syncthreads();
+
+    // the where bias and the glimpse mask, from the old temporal state
+    dense<NR>(ht, drn, U, w.wb1w, d.WB, [&](int r, int j, float z) {
+      const float v = apply_act(z + w.wb1b[j], kElu);
+      wbh[r * d.WB + j] = v;
+      if (r < rows) res0[r * R + d.wbh + j] = v;
+    });
+    dense<NR>(wbh, d.WB, d.WB, w.wb2w, 4, [&](int r, int j, float z) {
+      const float v = rin[r * drn + o_wh + j] + (z + w.wb2b[j]) * 0.1f;
+      gwl[r * 4 + j] = v;
+      if (r < rows) res0[r * R + d.gwl + j] = v;
+    });
+    dense<NR>(ht, drn, U, w.m1w, d.MH, [&](int r, int j, float z) {
+      const float v = apply_act(z + w.m1b[j], kElu);
+      maskh[r * d.MH + j] = v;
+      if (r < rows) res0[r * R + d.maskh + j] = v;
+    });
+    dense<NR>(maskh, d.MH, d.MH, w.m2w, G, [&](int r, int j, float z) {
+      const float v = sigmoidf(z + w.m2b[j]);
+      mask[r * G + j] = v;
+      if (r < rows) res0[r * R + d.mask + j] = v;
+    });
+
+    // glimpse 1 at the where-bias location: its loc feeds the transition
+    prop_glimpse(d, w, in.img, row0, rows, gwl, 4, mask, gbuf, e1, e2, hp, cs, res0, d.e11,
+                 d.e12);
+    for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
+      const int r = i / NW, j = i - r * NW;
+      const float v = hp[r * 2 * NW + j];
+      rin[r * drn + j] = v;
+      if (r < rows) res0[r * R + d.g1loc + j] = v;
+    }
+    __syncthreads();
+
+    // the transition: h = tanh(rin Wr + h Ur + br), h in stp[:U]
+    dense2<NR>(rin, drn, drn, w.rw, stp, dst, U, w.ru, U, [&](int r, int j, float z) {
+      const float v = tanhf(z + w.rb[j]);
+      stp[r * dst + j] = v;
+      tin[r * dti + j] = v;
+      spf[r * dsp + j] = v;
+      if (r < rows) res0[r * R + d.h + j] = v;
+    });
+
+    // the relative where: estimator, then the full-covariance sample
+    dense<NR>(stp, dst, dst, w.s1w, U, [&](int r, int j, float z) {
+      const float v = apply_act(z + w.s1b[j], kElu);
+      a1[r * U + j] = v;
+      if (r < rows) res0[r * R + d.a1 + j] = v;
+    });
+    dense<NR>(a1, U, U, w.s2w, U, [&](int r, int j, float z) {
+      const float v = apply_act(z + w.s2b[j], kElu);
+      a2[r * U + j] = v;
+      if (r < rows) res0[r * R + d.a2 + j] = v;
+    });
+    dense<NR>(a2, U, U, w.s3w, 8,
+              [&](int r, int j, float z) { st8[r * 8 + j] = z + w.s3b[j]; });
+    for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
+      const int r = i / 4, j = i - r * 4;
+      const float wloc = stp[r * dst + U + j] + st8[r * 8 + j];
+      const float wsc = softplus(st8[r * 8 + 4 + j]) + kMinStd;
+      float where = 0.f;
+      if (r < rows) {
+        const float* e = in.epsw + (slot + r) * 4;
+        float m = 0.f;
+        for (int q = 0; q < 4; ++q) m += e[q] * w.tril[j * 4 + q];
+        where = wloc + wsc * (m + e[j]);
+        const size_t o = (slot + r) * 4 + j;
+        p.where[o] = where;
+        p.where_loc[o] = wloc;
+        p.where_scale[o] = wsc;
+      }
+      tin[r * dti + U + j] = where;
+    }
+    __syncthreads();
+
+    // glimpse 2 at the sampled where
+    prop_glimpse(d, w, in.img, row0, rows, tin + U, dti, mask, gbuf, e1, e2, hp, cs, res0,
+                 d.e21, d.e22);
+    for (int i = threadIdx.x; i < NR * 2 * NW; i += kThreads) {
+      const int r = i / (2 * NW), j = i - r * 2 * NW;
+      const float z = hp[i];
+      const float v = j < NW ? z : softplus(z) + kMinStd;
+      tin[r * dti + U + 4 + j] = v;
+      if (r < rows) res0[r * R + (j < NW ? d.g2loc + j : d.g2sc + j - NW)] = v;
+    }
+    __syncthreads();
+
+    // the temporal GRU
+    dense2<NR>(tin, dti, dti, w.gwg, ht, drn, U, w.gug, 2 * U, [&](int r, int j, float z) {
+      const float v = sigmoidf(z + w.gbg[j]);
+      zr[r * 2 * U + j] = v;
+      if (r < rows) res0[r * R + d.zr + j] = v;
+    });
+    for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      rh[i] = zr[r * 2 * U + U + j] * ht[r * drn + j];
+    }
+    __syncthreads();
+    dense2<NR>(tin, dti, dti, w.gwc, rh, U, U, w.guc, U, [&](int r, int j, float z) {
+      const float v = tanhf(z + w.gbc[j]);
+      cc[r * U + j] = v;
+      if (r < rows) res0[r * R + d.c + j] = v;
+    });
+    for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      const float z = zr[r * 2 * U + j];
+      const float v = (1.f - z) * ht[r * drn + j] + z * cc[i];
+      htn[i] = v;
+      if (r < rows) p.tnew[(slot + r) * U + j] = v;
+    }
+    __syncthreads();
+
+    // the temporal what distribution and the gates
+    dense<NR>(htn, U, U, w.tdw, 2 * NW, [&](int r, int j, float z) {
+      float v = z + w.tdb[j];
+      if (j >= NW) v = softplus(v) + kMinStd;
+      td[r * 2 * NW + j] = v;
+      if (r < rows) res0[r * R + (j < NW ? d.tloc + j : d.tsc + j - NW)] = v;
+    });
+    dense<NR>(htn, U, U, w.gaw, 3 * NW, [&](int r, int j, float z) {
+      const float v = sigmoidf(z + w.gab[j]) * 0.9999f;
+      gates[r * 3 * NW + j] = v;
+      if (r < rows) res0[r * R + d.gates + j] = v;
+    });
+
+    // the what fusion and sample; what is the next slot's explaining away
+    for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
+      const int r = i / NW, j = i - r * NW;
+      const float* g = gates + r * 3 * NW;
+      const float f = g[j], ig = g[NW + j], tg = g[2 * NW + j];
+      const float g2l = tin[r * dti + U + 4 + j], g2s = tin[r * dti + U + 4 + NW + j];
+      const float tl = td[r * 2 * NW + j], ts = td[r * 2 * NW + NW + j];
+      const float wl = f * rin[r * drn + o_wt + j] + (1.f - ig) * g2l + (1.f - tg) * tl;
+      const float ws = (1.f - ig) * g2s + (1.f - tg) * ts;
+      float what = 0.f;
+      if (r < rows) {
+        const size_t o = (slot + r) * NW + j;
+        what = wl + ws * in.epsx[o];
+        p.what[o] = what;
+        p.what_loc[o] = wl;
+        p.what_scale[o] = ws;
+      }
+      spf[r * dsp + 2 * U + j] = what;
+      rin[r * drn + o_sw + j] = what;
+    }
+    __syncthreads();
+
+    // the steps predictor (on the OLD temporal state) and the presence
+    dense<NR>(spf, dsp, dsp, w.sp1w, d.SP, [&](int r, int j, float z) {
+      const float v = apply_act(z + w.sp1b[j], kElu);
+      s1[r * d.SP + j] = v;
+      if (r < rows) res0[r * R + d.s1 + j] = v;
+    });
+    dense<NR>(s1, d.SP, d.SP, w.sp2w, 1, [&](int r, int, float z) {
+      const float lraw = z + w.sp2b[0];
+      const float pk = rin[r * drn + o_p];
+      const float logit = pk * lraw + (pk - 1.f) * 88.f;
+      const float prob = sigmoidf(logit);
+      float pres = 0.f;
+      if (r < rows) {
+        pres = (in.u[slot + r] < prob ? 1.f : 0.f) * pk;
+        res0[r * R + d.lraw] = lraw;
+        p.prob[slot + r] = prob;
+        p.pres[slot + r] = pres;
+        p.logit[slot + r] = logit;
+      }
+      rin[r * drn + o_sp] = pres;
+    });
+    for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
+      const int r = i / 4, j = i - r * 4;
+      rin[r * drn + o_swh + j] = tin[r * dti + U + j];
+    }
+    __syncthreads();
+  }
+}
+
+// --------------------------------------------------- backward, phase A
+struct PropBwdArgs {
+  PropDims d;
+  PropScratch sc;
+  PropWeights w;
+  PropInputs in;
+  // saved outputs: what, what_scale, where, where_scale, prob, presence,
+  // temporal state; residual rows
+  const float *what, *what_scale, *where, *where_scale, *prob, *pres, *tnew, *res;
+  // the outputs' gradients, in the forward's output order
+  const float *dwhat, *dwhat_loc, *dwhat_scale, *dwhere, *dwhere_loc, *dwhere_scale, *dprob,
+      *dpres, *dlogit, *dtnew;
+  float *dwt1, *dwh1, *dp1, *dth, *dh0;  // the inputs' gradients
+  float* scratch;                        // [S, B, Z]
+};
+
+struct BwdSmem {
+  int ht, dsw, dswh, dsp, dhc, dlr, dsp1, dspf, dwt1, dwh1, dp1, dg2, dzg, dtd, dhtn, dcin, drh,
+      da, dtin, dhp, dz2, dz1, dg, g0, dmask, dwl, dst8, dza2, dza1, dzr, drnn, dwb, dwbh, dmz2,
+      dmaskh, crop, cropb, total;
+};
+
+__host__ __device__ inline BwdSmem bwd_smem(const PropDims& d) {
+  BwdSmem L;
+  int o = 0;
+  const int n = kPropRows, NW = d.nw, U = d.U;
+  L.ht = take(o, n * U);
+  L.dsw = take(o, n * NW);   // carried from slot k + 1: d what_{k}
+  L.dswh = take(o, n * 4);   // d where_{k}
+  L.dsp = take(o, n);        // d presence_{k}
+  L.dhc = take(o, n * U);    // d h_{k}
+  L.dlr = take(o, n);
+  L.dsp1 = take(o, n * d.SP);
+  L.dspf = take(o, n * d.d_spf);  // [d h (accumulated), d ht (accumulated), d what]
+  L.dwt1 = take(o, n * NW);
+  L.dwh1 = take(o, n * 4);
+  L.dp1 = take(o, n);
+  L.dg2 = take(o, n * 2 * NW);
+  L.dzg = take(o, n * 3 * NW);
+  L.dtd = take(o, n * 2 * NW);
+  L.dhtn = take(o, n * U);
+  L.dcin = take(o, n * U);
+  L.drh = take(o, n * U);
+  L.da = take(o, n * 2 * U);
+  L.dtin = take(o, n * d.d_tin);
+  L.dhp = take(o, n * 2 * NW);
+  L.dz2 = take(o, n * U);
+  L.dz1 = take(o, n * U);
+  L.dg = take(o, n * d.G);
+  L.g0 = take(o, n * d.G);
+  L.dmask = take(o, n * d.G);
+  L.dwl = take(o, n * 4);
+  L.dst8 = take(o, n * 8);
+  L.dza2 = take(o, n * U);
+  L.dza1 = take(o, n * U);
+  L.dzr = take(o, n * U);
+  L.drnn = take(o, n * d.d_rnn);
+  L.dwb = take(o, n * 4);
+  L.dwbh = take(o, n * d.WB);
+  L.dmz2 = take(o, n * d.G);
+  L.dmaskh = take(o, n * d.MH);
+  const CropDims cd{d.H, d.W, d.gh, d.gw};
+  L.crop = take(o, (int)CropSmem::floats(cd));
+  L.cropb = take(o, (int)CropSmem::bwd_floats(cd));
+  L.total = o;
+  return L;
+}
+
+// One glimpse's backward over the block's rows, from the head's gradient
+// dhp: the encoder chain (dz into the scratch fields s_dz2, s_dz1), the
+// crop recomputed at each row's where (res or output memory, stride ldwl),
+// dmask (set when `first`, else added), the masked glimpse into the scratch
+// field s_gfl, and the where gradient into dwl [4] per row.
+__device__ __forceinline__ void prop_glimpse_bwd(const PropBwdArgs& p, int row0, int rows,
+                                                 size_t slot, const float* wl, size_t ldwl,
+                                                 int o_e1, int o_e2, int s_dz2, int s_dz1,
+                                                 int s_gfl, bool first, const float* dhp,
+                                                 float* dz2, float* dz1, float* dg, float* g0,
+                                                 float* dmask, float* dwl, const CropSmem& cs,
+                                                 float* bw) {
+  const PropDims& d = p.d;
+  const PropWeights& w = p.w;
+  const CropDims cd{d.H, d.W, d.gh, d.gw};
+  const int G = d.G, R = d.R, Z = p.sc.Z;
+  const float* res0 = p.res + slot * R;
+  float* sc0 = p.scratch + slot * Z;
+  encode_rows_bwd<kPropRows>(dhp, 2 * d.nw, w.wh, w.we2, w.we1, d.U, d.U, G, res0 + o_e1,
+                             (size_t)R, res0 + o_e2, (size_t)R, dz2, dz1, dg, sc0 + s_dz2,
+                             (size_t)Z, sc0 + s_dz1, (size_t)Z, rows);
+  for (int r = 0; r < kPropRows; ++r) {
+    if (r >= rows) {
+      for (int i = threadIdx.x; i < G; i += kThreads) {
+        if (first) dmask[r * G + i] = 0.f;
+      }
+      for (int i = threadIdx.x; i < 4; i += kThreads) dwl[r * 4 + i] = 0.f;
+      continue;
+    }
+    float c[4];
+    crop_setup(p.in.img + (size_t)(row0 + r) * d.H * d.W, wl + r * ldwl, cd, cs, c);
+    crop_glimpse(cd, cs, g0 + r * G, nullptr);
+    for (int i = threadIdx.x; i < G; i += kThreads) {
+      const float m = res0[r * R + d.mask + i], g = g0[r * G + i], dgv = dg[r * G + i];
+      dmask[r * G + i] = first ? dgv * g : dmask[r * G + i] + dgv * g;
+      sc0[r * Z + s_gfl + i] = g * m;
+      dg[r * G + i] = dgv * m;
+    }
+    __syncthreads();
+    crop_bwd(cd, cs, c, dg + r * G, bw, dwl + r * 4);
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) {
+  extern __shared__ float smem[];
+  constexpr int NR = kPropRows;
+  const PropDims& d = p.d;
+  const PropScratch& s = p.sc;
+  const PropWeights& w = p.w;
+  const PropInputs& in = p.in;
+  const BwdSmem L = bwd_smem(d);
+  float *hts = smem + L.ht, *dsw = smem + L.dsw, *dswh = smem + L.dswh, *dsp = smem + L.dsp;
+  float *dhc = smem + L.dhc, *dlr = smem + L.dlr, *dsp1 = smem + L.dsp1, *dspf = smem + L.dspf;
+  float *dwt1 = smem + L.dwt1, *dwh1 = smem + L.dwh1, *dp1 = smem + L.dp1, *dg2 = smem + L.dg2;
+  float *dzg = smem + L.dzg, *dtd = smem + L.dtd, *dhtn = smem + L.dhtn, *dcin = smem + L.dcin;
+  float *drh = smem + L.drh, *da = smem + L.da, *dtin = smem + L.dtin, *dhp = smem + L.dhp;
+  float *dz2 = smem + L.dz2, *dz1 = smem + L.dz1, *dg = smem + L.dg, *g0 = smem + L.g0;
+  float *dmask = smem + L.dmask, *dwl = smem + L.dwl, *dst8 = smem + L.dst8;
+  float *dza2 = smem + L.dza2, *dza1 = smem + L.dza1, *dzr = smem + L.dzr, *drnn = smem + L.drnn;
+  float *dwb = smem + L.dwb, *dwbh = smem + L.dwbh, *dmz2 = smem + L.dmz2;
+  float* dmaskh = smem + L.dmaskh;
+  const CropSmem cs(smem + L.crop, CropDims{d.H, d.W, d.gh, d.gw});
+  float* bw = smem + L.cropb;
+  const int NW = d.nw, U = d.U, G = d.G, R = d.R, Z = s.Z;
+  const int dsf = d.d_spf, dti = d.d_tin;
+  const int row0 = blockIdx.x * NR;
+  const int rows = min(NR, d.B - row0);
+
+  for (int i = threadIdx.x; i < NR * U; i += kThreads) dhc[i] = 0.f;
+  for (int i = threadIdx.x; i < NR * NW; i += kThreads) dsw[i] = 0.f;
+  for (int i = threadIdx.x; i < NR * 4; i += kThreads) dswh[i] = 0.f;
+  for (int i = threadIdx.x; i < NR; i += kThreads) dsp[i] = 0.f;
+
+  for (int k = d.S - 1; k >= 0; --k) {
+    const size_t slot = (size_t)k * d.B + row0;
+    const float* res0 = p.res + slot * R;  // row r at res0 + r * R
+    float* sc0 = p.scratch + slot * Z;     // row r at sc0 + r * Z
+    __syncthreads();
+    for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      hts[i] = r < rows ? in.th[(slot + r) * U + j] : 0.f;
+    }
+    // the presence
+    for (int r = threadIdx.x; r < NR; r += kThreads) {
+      float dlraw = 0.f, dpv = 0.f;
+      if (r < rows) {
+        const size_t o = slot + r;
+        const float prob = p.prob[o], pk = in.p1[o], lraw = res0[r * R + d.lraw];
+        const float dpres = p.dpres[o] + dsp[r];
+        const float dlogit = p.dlogit[o] + p.dprob[o] * prob * (1.f - prob);
+        dlraw = dlogit * pk;
+        const float psamp = in.u[o] < prob ? 1.f : 0.f;
+        dpv = dpres * psamp + dlogit * (lraw + 88.f);
+        sc0[r * Z + s.dlraw] = dlraw;
+      }
+      dlr[r] = dlraw;
+      dp1[r] = dpv;
+    }
+    __syncthreads();
+    // the steps predictor on [h, ht, what]
+    for (int i = threadIdx.x; i < NR * d.SP; i += kThreads) {
+      const int r = i / d.SP, j = i - r * d.SP;
+      float v = 0.f;
+      if (r < rows) {
+        v = dlr[r] * w.sp2w[j] * act_grad_from_output(res0[r * R + d.s1 + j], kElu);
+        sc0[r * Z + s.dsp1 + j] = v;
+      }
+      dsp1[i] = v;
+    }
+    for (int i = threadIdx.x; i < rows * dsf; i += kThreads) {
+      const int r = i / dsf, j = i - r * dsf;
+      sc0[r * Z + s.spf + j] = j < U ? res0[r * R + d.h + j]
+                               : j < 2 * U ? hts[r * U + j - U]
+                                           : p.what[(slot + r) * NW + j - 2 * U];
+    }
+    __syncthreads();
+    dense_t<NR>(dsp1, d.SP, d.SP, w.sp1w, dsf,
+                [&](int r, int k2, float v) { dspf[r * dsf + k2] = v; });
+
+    // the what fusion and the gates
+    for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
+      const int r = i / NW, j = i - r * NW;
+      float v_wt = 0.f, v_g2l = 0.f, v_g2s = 0.f, v_f = 0.f, v_i = 0.f, v_t = 0.f, v_tl = 0.f,
+            v_ts = 0.f;
+      if (r < rows) {
+        const size_t o = (slot + r) * NW + j;
+        const float* rr = res0 + r * R;
+        const float dwt = p.dwhat[o] + dsw[i] + dspf[r * dsf + 2 * U + j];
+        const float dwl_t = dwt + p.dwhat_loc[o];
+        const float dws_t = dwt * in.epsx[o] + p.dwhat_scale[o];
+        const float f = rr[d.gates + j], ig = rr[d.gates + NW + j], tg = rr[d.gates + 2 * NW + j];
+        const float g2l = rr[d.g2loc + j], g2s = rr[d.g2sc + j];
+        const float tl = rr[d.tloc + j], ts = rr[d.tsc + j];
+        const float gs[3] = {f, ig, tg};
+        const float dgt[3] = {dwl_t * in.wt1[o], -(dwl_t * g2l + dws_t * g2s),
+                              -(dwl_t * tl + dws_t * ts)};
+        float dz[3];
+        for (int q = 0; q < 3; ++q) {
+          const float sg = gs[q] * (1.f / 0.9999f);
+          dz[q] = dgt[q] * 0.9999f * sg * (1.f - sg);
+        }
+        v_f = dz[0];
+        v_i = dz[1];
+        v_t = dz[2];
+        v_wt = dwl_t * f;
+        v_g2l = dwl_t * (1.f - ig);
+        v_g2s = dws_t * (1.f - ig);
+        v_tl = dwl_t * (1.f - tg);
+        v_ts = dws_t * (1.f - tg) * (1.f - expf(-(ts - kMinStd)));
+        float* sr = sc0 + r * Z;
+        sr[s.dzg + j] = v_f;
+        sr[s.dzg + NW + j] = v_i;
+        sr[s.dzg + 2 * NW + j] = v_t;
+        sr[s.dtd + j] = v_tl;
+        sr[s.dtd + NW + j] = v_ts;
+      }
+      dwt1[i] = v_wt;
+      dg2[r * 2 * NW + j] = v_g2l;
+      dg2[r * 2 * NW + NW + j] = v_g2s;
+      dzg[r * 3 * NW + j] = v_f;
+      dzg[r * 3 * NW + NW + j] = v_i;
+      dzg[r * 3 * NW + 2 * NW + j] = v_t;
+      dtd[r * 2 * NW + j] = v_tl;
+      dtd[r * 2 * NW + NW + j] = v_ts;
+    }
+    __syncthreads();
+    dense_t2<NR>(dzg, 3 * NW, 3 * NW, w.gaw, dtd, 2 * NW, 2 * NW, w.tdw, U,
+                 [&](int r, int k2, float v, float v2) {
+                   dhtn[r * U + k2] =
+                       r < rows ? (p.dtnew[(slot + r) * U + k2] + v) + v2 : 0.f;
+                 });
+
+    // the temporal GRU
+    for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      float vc = 0.f, vz = 0.f;
+      if (r < rows) {
+        const float* rr = res0 + r * R;
+        const float c = rr[d.c + j], z = rr[d.zr + j], dh = dhtn[i];
+        vz = dh * (c - hts[i]);
+        vc = (dh * z) * (1.f - c * c);
+        sc0[r * Z + s.dcin + j] = vc;
+        sc0[r * Z + s.rh + j] = rr[d.zr + U + j] * hts[i];
+      }
+      dcin[i] = vc;
+      da[r * 2 * U + j] = vz;  // dz_g, times the sigmoid' below
+    }
+    for (int i = threadIdx.x; i < rows * dti; i += kThreads) {
+      const int r = i / dti, j = i - r * dti;
+      const float* rr = res0 + r * R;
+      sc0[r * Z + s.tin + j] = j < U ? rr[d.h + j]
+                               : j < U + 4 ? p.where[(slot + r) * 4 + j - U]
+                               : j < U + 4 + NW ? rr[d.g2loc + j - U - 4]
+                                                : rr[d.g2sc + j - U - 4 - NW];
+    }
+    __syncthreads();
+    dense_t<NR>(dcin, U, U, w.guc, U, [&](int r, int k2, float v) { drh[r * U + k2] = v; });
+    for (int i = threadIdx.x; i < NR * 2 * U; i += kThreads) {
+      const int r = i / (2 * U), j = i - r * 2 * U;
+      float v = 0.f;
+      if (r < rows) {
+        const float zz = res0[r * R + d.zr + j];
+        const float pre = j < U ? da[i] : drh[r * U + j - U] * hts[r * U + j - U];
+        v = pre * zz * (1.f - zz);
+        sc0[r * Z + s.da + j] = v;
+      }
+      da[i] = v;
+    }
+    __syncthreads();
+    dense_t2<NR>(dcin, U, U, w.gwc, da, 2 * U, 2 * U, w.gwg, dti,
+                 [&](int r, int k2, float v, float v2) { dtin[r * dti + k2] = v + v2; });
+    dense_t<NR>(da, 2 * U, 2 * U, w.gug, U, [&](int r, int k2, float v) {
+      if (r >= rows) return;
+      const float z = res0[r * R + d.zr + k2], rg = res0[r * R + d.zr + U + k2];
+      float& dht = dspf[r * dsf + U + k2];
+      dht = ((dht + dhtn[r * U + k2] * (1.f - z)) + drh[r * U + k2] * rg) + v;
+    });
+    for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      dspf[r * dsf + j] += dtin[r * dti + j];
+    }
+    for (int i = threadIdx.x; i < NR * 2 * NW; i += kThreads) {
+      const int r = i / (2 * NW), j = i - r * 2 * NW;
+      dg2[i] += dtin[r * dti + U + 4 + j];
+    }
+    __syncthreads();
+
+    // glimpse 2
+    for (int i = threadIdx.x; i < NR * 2 * NW; i += kThreads) {
+      const int r = i / (2 * NW), j = i - r * 2 * NW;
+      float v = 0.f;
+      if (r < rows) {
+        v = j < NW ? dg2[i]
+                   : dg2[i] * (1.f - expf(-(res0[r * R + d.g2sc + j - NW] - kMinStd)));
+        sc0[r * Z + s.dhp2 + j] = v;
+      }
+      dhp[i] = v;
+    }
+    __syncthreads();
+    prop_glimpse_bwd(p, row0, rows, slot, p.where + slot * 4, 4, d.e21, d.e22, s.dz22, s.dz21,
+                     s.gfl2, true, dhp, dz2, dz1, dg, g0, dmask, dwl, cs, bw);
+
+    // the where sample and the transform estimator
+    for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
+      const int r = i / 4, j = i - r * 4;
+      float dloc = 0.f, dsc = 0.f;
+      if (r < rows) {
+        const size_t o = (slot + r) * 4 + j;
+        const float dwt = ((p.dwhere[o] + dswh[i]) + dtin[r * dti + U + j]) + dwl[i];
+        dloc = dwt + p.dwhere_loc[o];
+        const float* e = in.epsw + (slot + r) * 4;
+        float m = 0.f;
+        for (int q = 0; q < 4; ++q) m += e[q] * w.tril[j * 4 + q];
+        const float wsc = p.where_scale[o];
+        const float dwscale = dwt * (m + e[j]) + p.dwhere_scale[o];
+        dsc = dwscale * (1.f - expf(-(wsc - kMinStd)));
+        float* sr = sc0 + r * Z;
+        sr[s.dwsc + j] = dwt * wsc;
+        sr[s.dstp8 + j] = dloc;
+        sr[s.dstp8 + 4 + j] = dsc;
+      }
+      dwh1[i] = dloc;
+      dst8[r * 8 + j] = dloc;
+      dst8[r * 8 + 4 + j] = dsc;
+    }
+    for (int i = threadIdx.x; i < rows * d.d_stp; i += kThreads) {
+      const int r = i / d.d_stp, j = i - r * d.d_stp;
+      sc0[r * Z + s.stp_in + j] = j < U ? res0[r * R + d.h + j]
+                                  : j < U + 4 ? in.wh1[(slot + r) * 4 + j - U]
+                                              : hts[r * U + j - U - 4];
+    }
+    __syncthreads();
+    dense_t<NR>(dst8, 8, 8, w.s3w, U, [&](int r, int k2, float v) {
+      float dz = 0.f;
+      if (r < rows) {
+        dz = v * act_grad_from_output(res0[r * R + d.a2 + k2], kElu);
+        sc0[r * Z + s.dza2 + k2] = dz;
+      }
+      dza2[r * U + k2] = dz;
+    });
+    dense_t<NR>(dza2, U, U, w.s2w, U, [&](int r, int k2, float v) {
+      float dz = 0.f;
+      if (r < rows) {
+        dz = v * act_grad_from_output(res0[r * R + d.a1 + k2], kElu);
+        sc0[r * Z + s.dza1 + k2] = dz;
+      }
+      dza1[r * U + k2] = dz;
+    });
+    dense_t<NR>(dza1, U, U, w.s1w, d.d_stp, [&](int r, int k2, float v) {
+      if (k2 < U) {
+        dspf[r * dsf + k2] += v;
+      } else if (k2 < U + 4) {
+        dwh1[r * 4 + k2 - U] += v;
+      } else {
+        dspf[r * dsf + U + k2 - U - 4] += v;
+      }
+    });
+
+    // the transition
+    for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      float v = 0.f;
+      if (r < rows) {
+        const float h = res0[r * R + d.h + j];
+        v = (dspf[r * dsf + j] + dhc[i]) * (1.f - h * h);
+        sc0[r * Z + s.dzr + j] = v;
+        sc0[r * Z + s.hprev + j] =
+            k > 0 ? res0[r * R - (ptrdiff_t)d.B * R + d.h + j] : in.h0b[(size_t)(row0 + r) * U + j];
+      }
+      dzr[i] = v;
+    }
+    for (int i = threadIdx.x; i < rows * d.d_rnn; i += kThreads) {
+      const int r = i / d.d_rnn, j = i - r * d.d_rnn;
+      const size_t o = slot + r, prev = o - d.B;
+      float v;
+      if (j < NW) {
+        v = res0[r * R + d.g1loc + j];
+      } else if (j < 2 * NW) {
+        v = k > 0 ? p.what[prev * NW + j - NW] : 0.f;
+      } else if (j < 2 * NW + 4) {
+        v = k > 0 ? p.where[prev * 4 + j - 2 * NW] : 0.f;
+      } else if (j < 2 * NW + 5) {
+        v = k > 0 ? p.pres[prev] : 0.f;
+      } else if (j < 3 * NW + 5) {
+        v = in.wt1[o * NW + j - 2 * NW - 5];
+      } else if (j < 3 * NW + 9) {
+        v = in.wh1[o * 4 + j - 3 * NW - 5];
+      } else if (j < 3 * NW + 10) {
+        v = in.p1[o];
+      } else {
+        v = hts[r * U + j - 3 * NW - 10];
+      }
+      sc0[r * Z + s.rnn_in + j] = v;
+    }
+    __syncthreads();
+    dense_t<NR>(dzr, U, U, w.rw, d.d_rnn,
+                [&](int r, int k2, float v) { drnn[r * d.d_rnn + k2] = v; });
+    dense_t<NR>(dzr, U, U, w.ru, U, [&](int r, int k2, float v) { dhc[r * U + k2] = v; });
+    for (int i = threadIdx.x; i < NR * d.d_rnn; i += kThreads) {
+      const int r = i / d.d_rnn, j = i - r * d.d_rnn;
+      const float v = drnn[i];
+      if (j < NW) {
+        // d g1loc: the head's gradient of glimpse 1 (its scale feeds nothing)
+      } else if (j < 2 * NW) {
+        dsw[r * NW + j - NW] = v;
+      } else if (j < 2 * NW + 4) {
+        dswh[r * 4 + j - 2 * NW] = v;
+      } else if (j < 2 * NW + 5) {
+        dsp[r] = v;
+      } else if (j < 3 * NW + 5) {
+        dwt1[r * NW + j - 2 * NW - 5] += v;
+      } else if (j < 3 * NW + 9) {
+        dwh1[r * 4 + j - 3 * NW - 5] += v;
+      } else if (j < 3 * NW + 10) {
+        dp1[r] += v;
+      } else {
+        dspf[r * dsf + U + j - 3 * NW - 10] += v;
+      }
+    }
+    for (int i = threadIdx.x; i < NR * 2 * NW; i += kThreads) {
+      const int r = i / (2 * NW), j = i - r * 2 * NW;
+      const float v = j < NW && r < rows ? drnn[r * d.d_rnn + j] : 0.f;
+      dhp[i] = v;
+      if (r < rows) sc0[r * Z + s.dhp1 + j] = v;
+    }
+    __syncthreads();
+
+    // glimpse 1, at the where-bias location
+    prop_glimpse_bwd(p, row0, rows, slot, res0 + d.gwl, R, d.e11, d.e12, s.dz12, s.dz11, s.gfl1,
+                     false, dhp, dz2, dz1, dg, g0, dmask, dwl, cs, bw);
+    for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
+      const int r = i / 4, j = i - r * 4;
+      dwh1[i] += dwl[i];
+      const float v = dwl[i] * 0.1f;
+      dwb[i] = v;
+      if (r < rows) sc0[r * Z + s.dwb + j] = v;
+    }
+    __syncthreads();
+
+    // the where-bias MLP
+    dense_t<NR>(dwb, 4, 4, w.wb2w, d.WB, [&](int r, int k2, float v) {
+      float dz = 0.f;
+      if (r < rows) {
+        dz = v * act_grad_from_output(res0[r * R + d.wbh + k2], kElu);
+        sc0[r * Z + s.dwbh + k2] = dz;
+      }
+      dwbh[r * d.WB + k2] = dz;
+    });
+    dense_t<NR>(dwbh, d.WB, d.WB, w.wb1w, U,
+                [&](int r, int k2, float v) { dspf[r * dsf + U + k2] += v; });
+
+    // the mask MLP, for both glimpses' uses
+    for (int i = threadIdx.x; i < NR * G; i += kThreads) {
+      const int r = i / G, j = i - r * G;
+      float v = 0.f;
+      if (r < rows) {
+        const float m = res0[r * R + d.mask + j];
+        v = dmask[i] * m * (1.f - m);
+        sc0[r * Z + s.dmz2 + j] = v;
+      }
+      dmz2[i] = v;
+    }
+    __syncthreads();
+    dense_t<NR>(dmz2, G, G, w.m2w, d.MH, [&](int r, int k2, float v) {
+      float dz = 0.f;
+      if (r < rows) {
+        dz = v * act_grad_from_output(res0[r * R + d.maskh + k2], kElu);
+        sc0[r * Z + s.dmaskh + k2] = dz;
+      }
+      dmaskh[r * d.MH + k2] = dz;
+    });
+    dense_t<NR>(dmaskh, d.MH, d.MH, w.m1w, U,
+                [&](int r, int k2, float v) { dspf[r * dsf + U + k2] += v; });
+
+    // this slot's input gradients
+    for (int i = threadIdx.x; i < rows * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      p.dth[(slot + r) * U + j] = dspf[r * dsf + U + j];
+    }
+    for (int i = threadIdx.x; i < rows * NW; i += kThreads) {
+      const int r = i / NW, j = i - r * NW;
+      p.dwt1[(slot + r) * NW + j] = dwt1[i];
+    }
+    for (int i = threadIdx.x; i < rows * 4; i += kThreads) p.dwh1[slot * 4 + i] = dwh1[i];
+    for (int r = threadIdx.x; r < rows; r += kThreads) p.dp1[slot + r] = dp1[r];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * U; i += kThreads) p.dh0[(size_t)row0 * U + i] = dhc[i];
+}
+
+}  // namespace sqair
+
+// The forward.  ptrs holds, in order: img [B, H, W], what_tm1 [S, B, nw],
+// where_tm1 [S, B, 4], pres_tm1 [S, B, 1], ht [S, B, U], h0 [B, U], eps_w
+// [S, B, 4], eps_x [S, B, nw], u [S, B, 1]; the 38 weights in the order of
+// `_prop_weights_flat` (the estimator's last bias with the scale offset
+// minus one folded in; We1 [gh gw, U]); then the outputs what, what_loc,
+// what_scale [S, B, nw], where, where_loc, where_scale [S, B, 4], prob,
+// presence, logit [S, B, 1], the new temporal state [S, B, U] and the
+// residual rows [S, B, R].  dims is {B, S, H, W, gh, gw, nw, U, SP, WB,
+// MH}.  All f32, contiguous and on the device; ptrs and dims are host
+// arrays.  Launches on `stream`, does not synchronise, allocates nothing,
+// and returns the CUDA error code of the launch (0 on success).
+extern "C" int sqair_fused_prop(void* const* ptrs, const int* dims, void* stream) {
+  using namespace sqair;
+  PropFwdArgs p{};
+  if (!read_prop_dims(dims, p.d)) return (int)cudaErrorInvalidValue;
+  const float* const* f = reinterpret_cast<const float* const*>(ptrs);
+  p.in = read_inputs(f);
+  p.w = read_weights(f + 9);
+  float* const* o = reinterpret_cast<float* const*>(ptrs + 9 + kPropWeights);
+  p.what = o[0]; p.what_loc = o[1]; p.what_scale = o[2];
+  p.where = o[3]; p.where_loc = o[4]; p.where_scale = o[5];
+  p.prob = o[6]; p.pres = o[7]; p.logit = o[8]; p.tnew = o[9]; p.res = o[10];
+  const size_t smem = sizeof(float) * (size_t)fwd_smem(p.d).total;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(prop_fwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (p.d.B + kPropRows - 1) / kPropRows;
+  prop_fwd_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Z, the floats per row-slot of the backward's scratch (PropScratch), for
+// the forward's dims; -1 where the dims are refused.
+extern "C" int sqair_fused_prop_scratch_floats(const int* dims) {
+  sqair::PropDims d;
+  return sqair::read_prop_dims(dims, d) ? d.Z : -1;
+}
+
+// The backward.  ptrs holds, in order: the forward's 9 inputs and 38
+// weights; the saved what, what_scale, where, where_scale, prob, presence,
+// new temporal state and residual rows; the gradients of the ten outputs
+// (in the forward's order); then the outputs d what_tm1, d where_tm1,
+// d pres_tm1, d ht, d h0 and the 38 weights' gradients (in their order; the
+// full [4, 4] product for tril); then scratch of S B Z floats, Z as
+// sqair_fused_prop_scratch_floats gives it.  dims is the forward's.
+// Launches phase A and phase B.
+extern "C" int sqair_fused_prop_bwd(void* const* ptrs, const int* dims, void* stream) {
+  using namespace sqair;
+  PropBwdArgs p{};
+  if (!read_prop_dims(dims, p.d)) return (int)cudaErrorInvalidValue;
+  p.sc = prop_scratch(p.d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* const* f = reinterpret_cast<const float* const*>(ptrs);
+  p.in = read_inputs(f);
+  p.w = read_weights(f + 9);
+  const float* const* sv = f + 9 + kPropWeights;
+  p.what = sv[0]; p.what_scale = sv[1]; p.where = sv[2]; p.where_scale = sv[3];
+  p.prob = sv[4]; p.pres = sv[5]; p.tnew = sv[6]; p.res = sv[7];
+  const float* const* g = sv + 8;
+  p.dwhat = g[0]; p.dwhat_loc = g[1]; p.dwhat_scale = g[2];
+  p.dwhere = g[3]; p.dwhere_loc = g[4]; p.dwhere_scale = g[5];
+  p.dprob = g[6]; p.dpres = g[7]; p.dlogit = g[8]; p.dtnew = g[9];
+  float* const* o = reinterpret_cast<float* const*>(ptrs + 9 + kPropWeights + 18);
+  p.dwt1 = o[0]; p.dwh1 = o[1]; p.dp1 = o[2]; p.dth = o[3]; p.dh0 = o[4];
+  float* const* dw = o + 5;
+  p.scratch = o[5 + kPropWeights];
+
+  const size_t smem = sizeof(float) * (size_t)bwd_smem(p.d).total;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(prop_bwd_rows_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (p.d.B + kPropRows - 1) / kPropRows;
+  prop_bwd_rows_kernel<<<blocks, kThreads, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // phase B: every weight gradient over the S B row-slots, in fixed order
+  const PropDims& d = p.d;
+  const PropScratch& c = p.sc;
+  const float* res = p.res;
+  const float* sc = p.scratch;
+  const int R = d.R, Z = c.Z, U = d.U, NW = d.nw;
+  OuterArgs q{};
+  q.n = d.S * d.B;
+  int n = 0;
+  auto job = [&](const float* a, int lda, const float* dz, int ldz, int wi, bool bias, int K,
+                 int J, const float* a2 = nullptr, const float* dz2 = nullptr) {
+    OuterJob& jb = q.job[n++];
+    jb = OuterJob{a, dz, dw[wi], bias ? dw[wi + 1] : nullptr, lda, K, J};
+    jb.ldz = ldz;
+    jb.a2 = a2;
+    jb.dz2 = dz2;
+  };
+  // weight indices in `_prop_weights_flat` order (the bias follows its matrix)
+  job(p.in.th, U, sc + c.dwbh, Z, 0, true, U, d.WB);                 // wb1
+  job(res + d.wbh, R, sc + c.dwb, Z, 2, true, d.WB, 4);               // wb2
+  job(p.in.th, U, sc + c.dmaskh, Z, 4, true, U, d.MH);                // m1
+  job(res + d.maskh, R, sc + c.dmz2, Z, 6, true, d.MH, d.G);          // m2
+  job(sc + c.gfl1, Z, sc + c.dz11, Z, 8, true, d.G, U, sc + c.gfl2, sc + c.dz21);    // we1
+  job(res + d.e11, R, sc + c.dz12, Z, 10, true, U, U, res + d.e21, sc + c.dz22);     // we2
+  job(res + d.e12, R, sc + c.dhp1, Z, 12, true, U, 2 * NW, res + d.e22, sc + c.dhp2);  // wh
+  job(sc + c.rnn_in, Z, sc + c.dzr, Z, 14, false, d.d_rnn, U);        // rw
+  job(sc + c.hprev, Z, sc + c.dzr, Z, 15, false, U, U);               // ru
+  q.job[n - 2].db = dw[16];                                            // rb, with rw
+  job(sc + c.stp_in, Z, sc + c.dza1, Z, 17, true, d.d_stp, U);        // s1
+  job(res + d.a1, R, sc + c.dza2, Z, 19, true, U, U);                 // s2
+  job(res + d.a2, R, sc + c.dstp8, Z, 21, true, U, 8);                // s3
+  job(sc + c.dwsc, Z, p.in.epsw, 4, 23, false, 4, 4);                 // tril
+  job(sc + c.tin, Z, sc + c.da, Z, 24, false, d.d_tin, 2 * U);        // gwg
+  q.job[n - 1].db = dw[26];                                            // gbg
+  job(p.in.th, U, sc + c.da, Z, 25, false, U, 2 * U);                 // gug
+  job(sc + c.tin, Z, sc + c.dcin, Z, 27, false, d.d_tin, U);          // gwc
+  q.job[n - 1].db = dw[29];                                            // gbc
+  job(sc + c.rh, Z, sc + c.dcin, Z, 28, false, U, U);                 // guc
+  job(p.tnew, U, sc + c.dtd, Z, 30, true, U, 2 * NW);                 // td
+  job(p.tnew, U, sc + c.dzg, Z, 32, true, U, 3 * NW);                 // gates
+  job(sc + c.spf, Z, sc + c.dsp1, Z, 34, true, d.d_spf, d.SP);        // sp1
+  job(res + d.s1, R, sc + c.dlraw, Z, 36, true, d.SP, 1);             // sp2
+  q.n_jobs = n;
+  return (int)launch_outer(q, s);
+}

@@ -1,0 +1,349 @@
+// Shared device code of the kernels that crop and encode glimpses
+// (fused_glimpse.cu, fused_prop.cu): the bilinear crop at a where in logit
+// space and its where-gradient, one row at a time with the frame and the
+// interpolation matrices in shared memory, and dense layers over a block's
+// NR rows held in shared memory (the glimpse mask, the encoder, and the
+// transposed products of their backward).
+//
+//   s = sigmoid(wl[:2]), t = tanh(wl[2:]); s_c = max(s, 1e-4)
+//   u_i = (s_c t_i + t + 1)(src - 1) / 2, t_i = i 2/(dst - 1) - 1
+//   wy[i, p] = max(0, 1 - |u_i - p|)  [gh, H], wx alike [gw, W]
+//   g0 = wy (img wx^T)                [gh, gw]
+//
+// and backward, with the clip straight-through:
+//   du_i = sum_p dwy[i, p] (wy[i, p] > 0 ? -sign(u_i - p) : 0),
+//   d s_c = sum_i du_i t_i (src - 1)/2, d t = sum_i du_i (src - 1)/2,
+// then the sigmoid / tanh derivatives.  No gradient goes into the frame.
+//
+// The interpolation coordinate u is computed with explicitly rounded
+// operations (no FMA contraction), in the plain version's order: a u that
+// rounds to the other side of an integer flips a whole term of dwl.
+#pragma once
+
+#include "bwd_common.cuh"
+
+namespace sqair {
+
+constexpr float kMinScale = 1e-4f;  // stn.SCALE_EPS
+constexpr float kMinStd = 1e-2f;
+
+struct CropDims {
+  int H, W, gh, gw;
+};
+
+// sigmoid and tanh of the where logits, as torch.sigmoid / torch.tanh
+// compute them: c = (sx, sy, tx, ty)
+__device__ __forceinline__ void where_coords(const float* wl, float c[4]) {
+  c[0] = 1.f / (1.f + expf(-wl[0]));
+  c[1] = 1.f / (1.f + expf(-wl[1]));
+  c[2] = tanhf(wl[2]);
+  c[3] = tanhf(wl[3]);
+}
+
+// t_i = i * (2 / (dst - 1)) - 1, rounded after each operation
+__device__ __forceinline__ float grid_t(int i, int dst) {
+  return __fsub_rn(__fmul_rn((float)i, (float)(2.0 / (dst - 1))), 1.f);
+}
+
+// u_i = (scale t_i + shift + 1) (src - 1) / 2, rounded after each operation
+__device__ __forceinline__ float grid_u(float scale, float shift, int i, int dst, int src) {
+  const float v = __fadd_rn(__fadd_rn(__fmul_rn(scale, grid_t(i, dst)), shift), 1.f);
+  return __fmul_rn(v, (float)(src - 1)) / 2.f;
+}
+
+// softplus as the JAX package writes it: max(x, 0) + log(1 + exp(-|x|))
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.f) + logf(1.f + expf(-fabsf(x)));
+}
+
+// Shared memory of one row's crop (forward and backward).
+struct CropSmem {
+  float* img;  // [H, W]
+  float* wy;   // [gh, H]
+  float* wx;   // [gw, W]
+  float* A;    // [H, gw] = img wx^T
+  float* u;    // [gh + gw]: uy then ux
+  __host__ __device__ static size_t floats(const CropDims& d) {
+    return (size_t)d.H * d.W + d.gh * d.H + d.gw * d.W + d.H * d.gw + d.gh + d.gw;
+  }
+  // the backward's dA [H, gw], dwy [gh, H], dwx [gw, W] and du [gh + gw]
+  __host__ __device__ static size_t bwd_floats(const CropDims& d) {
+    return (size_t)d.H * d.gw + d.gh * d.H + d.gw * d.W + d.gh + d.gw;
+  }
+  __device__ CropSmem(float* s, const CropDims& d) {
+    img = s;
+    wy = img + d.H * d.W;
+    wx = wy + d.gh * d.H;
+    A = wx + d.gw * d.W;
+    u = A + d.H * d.gw;
+  }
+};
+
+// Loads one row's frame, builds its interpolation matrices at the where
+// logits wl[0..3] (any memory) and A = img wx^T into `cs`; c receives
+// (sx, sy, tx, ty).  Every thread calls it; it synchronises before it
+// returns.
+__device__ __forceinline__ void crop_setup(const float* __restrict__ frame, const float* wl,
+                                           const CropDims& d, const CropSmem& cs, float c[4]) {
+  const int hw = d.H * d.W;
+  for (int i = threadIdx.x; i < hw; i += kThreads) cs.img[i] = frame[i];
+  where_coords(wl, c);
+  const float sxc = fmaxf(c[0], kMinScale), syc = fmaxf(c[1], kMinScale);
+  for (int i = threadIdx.x; i < d.gh + d.gw; i += kThreads)
+    cs.u[i] = i < d.gh ? grid_u(syc, c[3], i, d.gh, d.H) : grid_u(sxc, c[2], i - d.gh, d.gw, d.W);
+  __syncthreads();
+  for (int i = threadIdx.x; i < d.gh * d.H; i += kThreads) {
+    const int r = i / d.H, p = i - r * d.H;
+    cs.wy[i] = fmaxf(0.f, 1.f - fabsf(cs.u[r] - (float)p));
+  }
+  for (int i = threadIdx.x; i < d.gw * d.W; i += kThreads) {
+    const int r = i / d.W, p = i - r * d.W;
+    cs.wx[i] = fmaxf(0.f, 1.f - fabsf(cs.u[d.gh + r] - (float)p));
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < d.H * d.gw; i += kThreads) {
+    const int h = i / d.gw, j = i - h * d.gw;
+    const float* a = cs.img + h * d.W;
+    const float* w = cs.wx + j * d.W;
+    float s = 0.f;
+    for (int p = 0; p < d.W; ++p) s = fmaf(a[p], w[p], s);
+    cs.A[i] = s;
+  }
+  __syncthreads();
+}
+
+// The glimpse g0 = wy A [gh gw] of the row set up in `cs`, into `out`
+// (shared memory) and, unless null, `out_global`.  Synchronises.
+__device__ __forceinline__ void crop_glimpse(const CropDims& d, const CropSmem& cs, float* out,
+                                             float* __restrict__ out_global) {
+  const int G = d.gh * d.gw;
+  for (int i = threadIdx.x; i < G; i += kThreads) {
+    const int gi = i / d.gw, j = i - gi * d.gw;
+    const float* w = cs.wy + gi * d.H;
+    float s = 0.f;
+    for (int h = 0; h < d.H; ++h) s = fmaf(w[h], cs.A[h * d.gw + j], s);
+    out[i] = s;
+    if (out_global != nullptr) out_global[i] = s;
+  }
+  __syncthreads();
+}
+
+// The where logits' gradient of the row set up in `cs` (with c from
+// crop_setup) for the glimpse gradient dg0 [gh gw] (shared memory); thread
+// 0 writes dwl[0..3] (any memory).  `bw` holds CropSmem::bwd_floats.
+// Synchronises.
+__device__ __forceinline__ void crop_bwd(const CropDims& d, const CropSmem& cs, const float c[4],
+                                         const float* dg0, float* bw, float* dwl) {
+  float* dA = bw;                 // [H, gw]
+  float* dwy = dA + d.H * d.gw;   // [gh, H]
+  float* dwx = dwy + d.gh * d.H;  // [gw, W]
+  float* du = dwx + d.gw * d.W;   // [gh + gw]
+  // dwy = dg0 A^T [gh, H]; dA = wy^T dg0 [H, gw]
+  for (int i = threadIdx.x; i < d.gh * d.H; i += kThreads) {
+    const int gi = i / d.H, h = i - gi * d.H;
+    float s = 0.f;
+    for (int j = 0; j < d.gw; ++j) s = fmaf(dg0[gi * d.gw + j], cs.A[h * d.gw + j], s);
+    dwy[i] = s;
+  }
+  for (int i = threadIdx.x; i < d.H * d.gw; i += kThreads) {
+    const int h = i / d.gw, j = i - h * d.gw;
+    float s = 0.f;
+    for (int gi = 0; gi < d.gh; ++gi) s = fmaf(cs.wy[gi * d.H + h], dg0[gi * d.gw + j], s);
+    dA[i] = s;
+  }
+  __syncthreads();
+  // dwx = dA^T img [gw, W]
+  for (int i = threadIdx.x; i < d.gw * d.W; i += kThreads) {
+    const int j = i / d.W, w = i - j * d.W;
+    float s = 0.f;
+    for (int h = 0; h < d.H; ++h) s = fmaf(dA[h * d.gw + j], cs.img[h * d.W + w], s);
+    dwx[i] = s;
+  }
+  __syncthreads();
+  // du_i = sum_p dw[i, p] (w[i, p] > 0 ? -sign(u_i - p) : 0)
+  for (int i = threadIdx.x; i < d.gh + d.gw; i += kThreads) {
+    const bool y = i < d.gh;
+    const int src = y ? d.H : d.W;
+    const float* dw = y ? dwy + i * d.H : dwx + (i - d.gh) * d.W;
+    const float* w = y ? cs.wy + i * d.H : cs.wx + (i - d.gh) * d.W;
+    const float ui = cs.u[i];
+    float s = 0.f;
+    for (int q = 0; q < src; ++q) {
+      const float diff = ui - (float)q;
+      const float sgn = diff > 0.f ? -1.f : (diff < 0.f ? 1.f : 0.f);
+      s += dw[q] * (w[q] > 0.f ? sgn : 0.f);
+    }
+    du[i] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float st_y = 0.f, s_y = 0.f, st_x = 0.f, s_x = 0.f;
+    for (int i = 0; i < d.gh; ++i) {
+      st_y += du[i] * grid_t(i, d.gh);
+      s_y += du[i];
+    }
+    for (int j = 0; j < d.gw; ++j) {
+      st_x += du[d.gh + j] * grid_t(j, d.gw);
+      s_x += du[d.gh + j];
+    }
+    const float dsyc = st_y * (float)(d.H - 1) / 2.f, dty = s_y * (float)(d.H - 1) / 2.f;
+    const float dsxc = st_x * (float)(d.W - 1) / 2.f, dtx = s_x * (float)(d.W - 1) / 2.f;
+    dwl[0] = dsxc * c[0] * (1.f - c[0]);
+    dwl[1] = dsyc * c[1] * (1.f - c[1]);
+    dwl[2] = dtx * (1.f - c[2] * c[2]);
+    dwl[3] = dty * (1.f - c[3] * c[3]);
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------ dense layers over NR rows
+// epi(r, j, a[r] W[:, j]) for the block's NR rows of `a` (shared memory, row
+// stride lda, K columns) and the D columns of the row-major W [K, D].  The
+// products are all taken before any epilogue runs, so an epilogue may
+// overwrite `a`.  Synchronises after the epilogues.
+template <int NR, typename Epi>
+__device__ __forceinline__ void dense(const float* a, int lda, int K,
+                                      const float* __restrict__ w, int D, Epi epi) {
+  float acc[kMaxCols][NR];
+  zero(acc);
+  acc_smem(acc, a, lda, K, w, D, D);
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) {
+    const int j = threadIdx.x + c * kThreads;
+    if (j < D) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) epi(r, j, acc[c][r]);
+    }
+  }
+  __syncthreads();
+}
+
+// epi(r, j, a[r] W[:, j] + a2[r] W2[:, j]): two products summed, as
+// `a @ W + a2 @ W2`.
+template <int NR, typename Epi>
+__device__ __forceinline__ void dense2(const float* a, int lda, int K,
+                                       const float* __restrict__ w, const float* a2, int lda2,
+                                       int K2, const float* __restrict__ w2, int D, Epi epi) {
+  float acc[kMaxCols][NR], acc2[kMaxCols][NR];
+  zero(acc);
+  zero(acc2);
+  acc_smem(acc, a, lda, K, w, D, D);
+  acc_smem(acc2, a2, lda2, K2, w2, D, D);
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) {
+    const int j = threadIdx.x + c * kThreads;
+    if (j < D) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) epi(r, j, acc[c][r] + acc2[c][r]);
+    }
+  }
+  __syncthreads();
+}
+
+// epi(r, k, dz[r] W[k, :]) for the rows of dz (shared memory, row stride
+// ldz, J columns) and the n_cols rows of the row-major W [n_cols, J]: the
+// product with W's transpose.  Synchronises after the epilogues.
+template <int NR, typename Epi>
+__device__ __forceinline__ void dense_t(const float* dz, int ldz, int J,
+                                        const float* __restrict__ w, int n_cols, Epi epi) {
+  float acc[kMaxCols][NR];
+  zero(acc);
+  acc_smem_t(acc, dz, ldz, J, w, J, 0, n_cols);
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) {
+    const int k = threadIdx.x + c * kThreads;
+    if (k < n_cols) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) epi(r, k, acc[c][r]);
+    }
+  }
+  __syncthreads();
+}
+
+// epi(r, k, dz[r] W[k, :], dz2[r] W2[k, :]): two transposed products, for
+// an epilogue that adds them in the plain version's order.
+template <int NR, typename Epi>
+__device__ __forceinline__ void dense_t2(const float* dz, int ldz, int J,
+                                         const float* __restrict__ w, const float* dz2,
+                                         int ldz2, int J2, const float* __restrict__ w2,
+                                         int n_cols, Epi epi) {
+  float acc[kMaxCols][NR], acc2[kMaxCols][NR];
+  zero(acc);
+  zero(acc2);
+  acc_smem_t(acc, dz, ldz, J, w, J, 0, n_cols);
+  acc_smem_t(acc2, dz2, ldz2, J2, w2, J2, 0, n_cols);
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) {
+    const int k = threadIdx.x + c * kThreads;
+    if (k < n_cols) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) epi(r, k, acc[c][r], acc2[c][r]);
+    }
+  }
+  __syncthreads();
+}
+
+// The glimpse encoder over NR rows: h1 = elu(g We1 + be1) [d1],
+// h2 = elu(h1 We2 + be2) [d2] into shared memory, and into the global rows
+// h1_out + r * ld1, h2_out + r * ld2 (each unless null) for r < rows.
+template <int NR>
+__device__ __forceinline__ void encode_rows(const float* g, int G, const float* __restrict__ we1,
+                                            const float* __restrict__ be1, int d1,
+                                            const float* __restrict__ we2,
+                                            const float* __restrict__ be2, int d2, float* h1,
+                                            float* h2, float* __restrict__ h1_out, size_t ld1,
+                                            float* __restrict__ h2_out, size_t ld2, int rows) {
+  dense<NR>(g, G, G, we1, d1, [&](int r, int j, float z) {
+    const float v = apply_act(z + be1[j], kElu);
+    h1[r * d1 + j] = v;
+    if (h1_out != nullptr && r < rows) h1_out[r * ld1 + j] = v;
+  });
+  dense<NR>(h1, d1, d1, we2, d2, [&](int r, int j, float z) {
+    const float v = apply_act(z + be2[j], kElu);
+    h2[r * d2 + j] = v;
+    if (h2_out != nullptr && r < rows) h2_out[r * ld2 + j] = v;
+  });
+}
+
+// The encoder's and head's backward over NR rows, from the head's
+// pre-activation gradient dhp [2 n_what] (shared memory): dz2 = (dhp Wh^T)
+// elu'(h2), dz1 = (dz2 We2^T) elu'(h1), dg = dz1 We1^T [G], each into
+// shared memory; dz2 and dz1 also into the global rows dz2_out + r * ld2,
+// dz1_out + r * ld1 for r < rows (0 in shared memory past them).  h1 and h2
+// are the saved activations' global rows (row strides ldh1, ldh2).
+template <int NR>
+__device__ __forceinline__ void encode_rows_bwd(const float* dhp, int D,
+                                                const float* __restrict__ wh,
+                                                const float* __restrict__ we2,
+                                                const float* __restrict__ we1, int d1, int d2,
+                                                int G, const float* __restrict__ h1,
+                                                size_t ldh1, const float* __restrict__ h2,
+                                                size_t ldh2,
+                                                float* dz2, float* dz1, float* dg,
+                                                float* __restrict__ dz2_out, size_t ld2,
+                                                float* __restrict__ dz1_out, size_t ld1,
+                                                int rows) {
+  dense_t<NR>(dhp, D, D, wh, d2, [&](int r, int k, float v) {
+    float dz = 0.f;
+    if (r < rows) {
+      dz = v * act_grad_from_output(h2[r * ldh2 + k], kElu);
+      dz2_out[r * ld2 + k] = dz;
+    }
+    dz2[r * d2 + k] = dz;
+  });
+  dense_t<NR>(dz2, d2, d2, we2, d1, [&](int r, int k, float v) {
+    float dz = 0.f;
+    if (r < rows) {
+      dz = v * act_grad_from_output(h1[r * ldh1 + k], kElu);
+      dz1_out[r * ld1 + k] = dz;
+    }
+    dz1[r * d1 + k] = dz;
+  });
+  dense_t<NR>(dz1, d1, d1, we1, G, [&](int r, int k, float v) { dg[r * G + k] = v; });
+}
+
+}  // namespace sqair

@@ -1,14 +1,16 @@
 """Discovery module (the port of sqair_tpu/models/discover.py)."""
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from ..nn.layers import MLP, Module, zeros
+from ..nn.layers import MLP, Module, VanillaRNN, zeros
 from ..nn.stochastic import RecurrentNormalImpl
 from ..ops import distributions as D
+from ..ops import fused_cells
 from ..ops.noise import NoiseSource
 from .core import HIDDEN_OUTPUT_FIELDS, DiscoveryCore
 
@@ -106,9 +108,42 @@ class Discover(Module):
                                                    prior_conditioning))
         return outputs
 
+    def fused_disc_eligible(self) -> bool:
+        """Whether the JAX package's ``Discover._fused_disc_params`` would run
+        its fused discovery kernel (TPU kernels #7/#8) with
+        ``SQAIR_FUSE_CELLS`` set: no early-discovery logit lever, a
+        VanillaRNN transition, uncapped presence logits, and MLPs of the
+        kernel's depths (input encoder 2, estimator 3, steps predictor 2,
+        glimpse encoder 2 with a head).  The port has no coverage signal and
+        no glimpse scale offset."""
+        cell = self.cell
+        sp = cell.steps_predictor
+        return not (self.early_disc_logit_bias or self.early_disc_logit_clamp
+                    or self.early_disc_logit_scale != 1.0
+                    or not isinstance(cell.transition, VanillaRNN)
+                    or sp.max_rel_logit_change != math.inf
+                    or sp.max_logit_change != math.inf
+                    or cell.glimpse_encoder._fused_params() is None
+                    or cell.input_encoder.MLP_0.n_layers != 2
+                    or cell.transform_estimator.MLP_0.n_layers != 3
+                    or sp.MLP_0.n_layers != 2)
+
+    def check_fused_switch(self):
+        """Raises where ``SQAIR_FUSE_CELLS`` would run discovery fused in the
+        JAX package: that kernel is not ported, and running discovery unfused
+        instead would not be what the switch asks for."""
+        if fused_cells.enabled() and self.fused_disc_eligible():
+            raise NotImplementedError(
+                "SQAIR_FUSE_CELLS with this configuration runs the fused discovery kernel "
+                "in the JAX package (TPU kernels #7/#8: sqair_tpu/ops/fused_cells.py "
+                "_disc_run_fwd/_disc_run_bwd), which is not ported yet; unset the switch, "
+                "or use an early-discovery logit lever (e.g. early_disc_logit_scale != 1, "
+                "as the release flags do), under which JAX runs discovery unfused")
+
     def _discover(self, img, conditioning, noise, extra_steps_logit=0.0,
                   steps_logit_scale=1.0, steps_logit_clamp=None):
         """Unrolls the discovery core over the object slots."""
+        self.check_fused_switch()
         state = self.cell.initial_state(img, self.cell.encode_img(img))
         per_slot = []
         for k in range(self.n_steps):

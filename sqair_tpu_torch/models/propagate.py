@@ -2,15 +2,17 @@
 sqair_tpu/models/propagate.py; the prior's "rnn" mode)."""
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..nn.layers import Dense, Module
+from ..nn.layers import GRU, Dense, Module, VanillaRNN
 from ..ops import distributions as D
+from ..ops import fused_cells
 from ..ops.math import softplus
 from ..ops.noise import NoiseSource
-from .core import PropagationCore
+from .core import HIDDEN_OUTPUT_FIELDS, PropagationCore
 
 
 class PropagatePrior(Module):
@@ -98,8 +100,73 @@ class Propagate(Module):
                                                    prior_stats, delta_what, delta_where))
         return outputs
 
+    def _fused_prop_params(self) -> Optional[Tuple[fused_cells.PropParams, torch.Tensor]]:
+        """(raw weights, h0) for the fused propagation kernel, or None where
+        the JAX package's ``Propagate._fused_prop_params`` gives None: the
+        switch off, a transition other than a VanillaRNN, a temporal cell
+        other than a GRU, an unmasked glimpse, capped presence logits, or
+        MLPs of other depths than the kernel's (where bias 2 layers,
+        estimator 3, steps predictor 2, glimpse encoder 2 with a head, a
+        temporal what head).  The port has no where-update scale and no
+        glimpse scale offset: both are at the values the gate asks for."""
+        if not fused_cells.enabled():
+            return None
+        cell = self.ssm_cell
+        ge, sp = cell.glimpse_encoder, cell.steps_predictor
+        if (not isinstance(cell.transition, VanillaRNN)
+                or not isinstance(cell.temporal_cell, GRU) or not ge.masked_glimpse
+                or sp.max_rel_logit_change != math.inf or sp.max_logit_change != math.inf):
+            return None
+        tree = ge._fused_params()
+        stp, spm, wb = cell.transform_estimator, sp.MLP_0, cell._where_bias_mlp
+        chol = cell._where_distrib.cholesky_scale
+        if (tree is None or not hasattr(cell._temporal_what_distrib, "Dense_0")
+                or stp.MLP_0.n_layers != 3 or spm.n_layers != 2 or wb.n_layers != 2
+                or tuple(chol.shape) != (10, 1)):
+            return None
+        mask_params, enc_params, head_w, head_b = tree
+        tr, gru = cell.transition, cell.temporal_cell
+        p = fused_cells.PropParams(
+            wb=wb.layer_params(), mask=mask_params, ge_enc=enc_params,
+            ge_head=(head_w, head_b),
+            rnn=(tr.in_to_hidden_w, tr.hidden_to_hidden_w, tr.in_to_hidden_b),
+            stp=stp.MLP_0.layer_params(), stp_offset=stp.scale_offset,
+            tril=D.fill_triangular(chol[:, 0], 4),
+            gru=(gru.gates_xw, gru.gates_hw, gru.gates_b, gru.candidate_xw,
+                 gru.candidate_hw, gru.candidate_b),
+            td=(cell._temporal_what_distrib.Dense_0.kernel,
+                cell._temporal_what_distrib.Dense_0.bias),
+            gates=cell._gates.layer_params()[0], sp=spm.layer_params())
+        return p, tr.h0
+
+    def _ssm_fused(self, fp, img, z_tm1, temporal_state, noise):
+        """All S slots as one kernel (ops/fused_cells.py).  The noise is drawn
+        under the unfused path's keys and in its order, slot by slot, and
+        stacked slot-major."""
+        p, h0 = fp
+        S, B = z_tm1[0].shape[1], img.shape[0]
+        n_what = z_tm1[0].shape[-1]
+        draws = []
+        for k in range(S):
+            scope = noise.scope(k)
+            draws.append((scope.normal("where", (B, 4)), scope.normal("what", (B, n_what)),
+                          scope.uniform("presence", (B, 1))))
+        eps_w, eps_x, u = (torch.stack(d, 0) for d in zip(*draws))
+        out = fused_cells.fused_prop_ssm(
+            img, tuple(z.transpose(0, 1) for z in z_tm1), temporal_state[0].transpose(0, 1),
+            h0, eps_w, eps_x, u, p, self.ssm_cell.glimpse_size)
+        stacked = {f: out[f].transpose(0, 1) for f in HIDDEN_OUTPUT_FIELDS}
+        num_steps = torch.sum(stacked["presence"][..., 0], -1)
+        return (stacked, num_steps, out["what_sample"].transpose(0, 1),
+                out["where_sample"].transpose(0, 1), (out["temporal_h"].transpose(0, 1),))
+
     def _ssm(self, img, z_tm1, temporal_state, noise):
-        """Slot unroll of the propagation core."""
+        """Slot unroll of the propagation core: one fused kernel when the
+        JAX package would run its kernel (a single temporal state and
+        ``_fused_prop_params``), else the core slot by slot."""
+        fp = self._fused_prop_params() if len(temporal_state) == 1 else None
+        if fp is not None:
+            return self._ssm_fused(fp, img, z_tm1, temporal_state, noise)
         S = z_tm1[0].shape[1]
         state = self.ssm_cell.initial_state(img)
         per_slot, new_temporal = [], []

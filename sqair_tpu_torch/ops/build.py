@@ -49,6 +49,11 @@ PROTOTYPES = {
     # ptrs* (see csrc/fused_glimpse.cu), dims*, stream
     "sqair_fused_glimpse": (_P, _P, _P),
     "sqair_fused_glimpse_bwd": (_P, _P, _P),
+    # ptrs* (see csrc/fused_prop.cu), dims*, stream
+    "sqair_fused_prop": (_P, _P, _P),
+    "sqair_fused_prop_bwd": (_P, _P, _P),
+    # dims*
+    "sqair_fused_prop_scratch_floats": (_P,),
 }
 
 _lock = threading.Lock()

@@ -72,14 +72,45 @@ def coords_and_interp(wl, H, W, gh, gw):
     return (sx, sy, tx, ty), interp(syc, ty, H, gh), interp(sxc, tx, W, gw)
 
 
+def crop_plain(img, wl, gh, gw):
+    """The separable bilinear crop g0 = wy (img wx^T) [B, gh, gw] at the where
+    logits wl [B, 4]."""
+    _, (wy, _, _), (wx, _, _) = coords_and_interp(wl, img.shape[1], img.shape[2], gh, gw)
+    return wy @ (img @ wx.transpose(1, 2))
+
+
+def crop_plain_bwd(img, wl, dg0):
+    """The where logits' gradient [B, 4] of ``crop_plain`` for dg0 [B, gh, gw]:
+    through the interpolation weights, the clip straight-through, then the
+    sigmoid / tanh derivatives.  img gets none."""
+    (B, H, W), (gh, gw) = img.shape, dg0.shape[1:]
+    (sx, sy, tx, ty), (wy, uy, ti_y), (wx, ux, ti_x) = coords_and_interp(wl, H, W, gh, gw)
+    A = img @ wx.transpose(1, 2)
+    dwy = dg0 @ A.transpose(1, 2)
+    dA = wy.transpose(1, 2) @ dg0
+    dwx = dA.transpose(1, 2) @ img
+
+    def d_interp(dw, w_mat, u, src, ti):
+        p = torch.arange(src, dtype=wl.dtype, device=wl.device)
+        du_dp = torch.where(w_mat > 0.0, -torch.sign(u[:, :, None] - p),
+                            torch.zeros_like(w_mat))
+        du = torch.sum(dw * du_dp, 2)
+        return (torch.sum(du * ti[None, :], 1) * (src - 1) / 2.0,
+                torch.sum(du, 1) * (src - 1) / 2.0)
+
+    dsyc, dty = d_interp(dwy, wy, uy, H, ti_y)
+    dsxc, dtx = d_interp(dwx, wx, ux, W, ti_x)
+    return torch.stack([dsxc * sx * (1.0 - sx), dsyc * sy * (1.0 - sy),
+                        dtx * (1.0 - tx * tx), dty * (1.0 - ty * ty)], -1)
+
+
 # ------------------------------------------------------------ plain versions
 def glimpse_plain_fwd(img, wl, mi, mask_params, enc_params, head_w, head_b, dims):
     """What the JAX package's ``_run_fwd`` returns: (loc, scale, g0 [B, gh, gw],
     h1, h2) and, when masked (``mi`` given), (mask [B, gh gw], mhid)."""
     gh, gw, n_what = dims
-    B, H, W = img.shape
-    _, (wy, _, _), (wx, _, _) = coords_and_interp(wl, H, W, gh, gw)
-    g0 = wy @ (img @ wx.transpose(1, 2))
+    B = img.shape[0]
+    g0 = crop_plain(img, wl, gh, gw)
     flat = g0.reshape(B, gh * gw)
     extra = ()
     if mi is not None:
@@ -105,10 +136,9 @@ def glimpse_plain_bwd(img, wl, mi, mask_params, enc_params, head_w, saved, dloc,
     :param saved: (g0, h1, h2, scale) and, when masked, (mask, mhid)
     """
     gh, gw, _ = dims
-    B, H, W = img.shape
+    B = img.shape[0]
     masked = mi is not None
     g0, h1, h2, scale = saved[:4]
-    (sx, sy, tx, ty), (wy, uy, ti_y), (wx, ux, ti_x) = coords_and_interp(wl, H, W, gh, gw)
     g0_flat = g0.reshape(B, gh * gw)
     mask = saved[4] if masked else None
     gflat = g0_flat * mask if masked else g0_flat
@@ -135,27 +165,7 @@ def glimpse_plain_bwd(img, wl, mi, mask_params, enc_params, head_w, saved, dloc,
                       torch.sum(dmz2, 0))
     else:
         dg0 = dgflat
-    dg0 = dg0.reshape(B, gh, gw)
-
-    # crop backward: g0 = wy @ A, A = img @ wx^T
-    A = img @ wx.transpose(1, 2)
-    dwy = dg0 @ A.transpose(1, 2)
-    dA = wy.transpose(1, 2) @ dg0
-    dwx = dA.transpose(1, 2) @ img
-
-    def d_interp(dw, w_mat, u, src, ti):
-        p = torch.arange(src, dtype=wl.dtype, device=wl.device)
-        du_dp = torch.where(w_mat > 0.0, -torch.sign(u[:, :, None] - p),
-                            torch.zeros_like(w_mat))
-        du = torch.sum(dw * du_dp, 2)
-        return (torch.sum(du * ti[None, :], 1) * (src - 1) / 2.0,
-                torch.sum(du, 1) * (src - 1) / 2.0)
-
-    dsyc, dty = d_interp(dwy, wy, uy, H, ti_y)
-    dsxc, dtx = d_interp(dwx, wx, ux, W, ti_x)
-    # clip_preserve is straight-through; then the to_coords backward
-    dwl = torch.stack([dsxc * sx * (1.0 - sx), dsyc * sy * (1.0 - sy),
-                       dtx * (1.0 - tx * tx), dty * (1.0 - ty * ty)], -1)
+    dwl = crop_plain_bwd(img, wl, dg0.reshape(B, gh, gw))
     return (dwl,) + mask_grads + (dwe1, dbe1, dwe2, dbe2, dwh, dbh)
 
 

@@ -18,7 +18,11 @@ Run (on the card unless ``--device cpu``):
         --data_npz valid.npz [--dataset valid] [--every_nth_checkpoint 1] \\
         [--eval_batch_size 32] [--device cuda] [--<model flag> value ...]
 
-``SQAIR_FUSE_GLIMPSE=1`` runs the glimpse encoder through its fused kernel.
+``SQAIR_FUSE_GLIMPSE=1`` runs the glimpse encoder through its fused kernel;
+``SQAIR_FUSE_CELLS=1`` runs each frame's propagation slots through the
+fused propagation kernel where the JAX package would (the release flags),
+and raises where the JAX package would also fuse discovery (not ported).
+The model reads both switches at every step, as the JAX package does.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""sqair_tpu_torch's CUDA kernels (the fused MLP, the two cells and the fused
-glimpse encoder) against their plain versions on the card.
+"""sqair_tpu_torch's CUDA kernels (the fused MLP, the two cells, the fused
+glimpse encoder and the fused propagation unroll) against their plain
+versions on the card.
 
 Needs a CUDA device (skips without one) and imports no JAX, so that it runs
 on a machine without it; the root conftest.py imports JAX, so run it there
@@ -9,6 +10,8 @@ Backward tolerance 1e-4 of each gradient's largest magnitude (+1e-6): the
 weight gradients sum up to N products in another order than cuBLAS, and
 small entries of a sum with cancellation carry the error of the large ones.
 """
+from unittest import mock
+
 import pytest
 import torch
 
@@ -180,3 +183,66 @@ def test_glimpse_autograd_on_cuda_launches_both_kernels():
     want = torch.autograd.grad(loss(lambda *a: fg.glimpse_plain_fwd(*a, (20, 20, 50))[:2]),
                                leaves)
     _assert_grads_close(got, want, "glimpse autograd")
+
+
+def _prop_case(n):
+    """Inputs of one fused propagation call at the release model's widths
+    (chip_smoke.prop_inputs), and its dims."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from sqair_tpu_torch.ops import fused_cells as fc
+
+    shape = dict(n=n, S=3, img=[50, 50], glimpse=[20, 20], n_what=50, U=256, SP=128, WB=128,
+                 MH=128)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    args, weights = chip_smoke.prop_inputs(torch, fc, shape, gen, "cuda")
+    return fc, args, weights, chip_smoke.prop_dims(shape), gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [13, 160])
+def test_prop_kernels_match_plain_on_cuda(n):
+    """The fused propagation forward (the ten outputs and the residual rows)
+    and backward (every input's and weight's gradient) against their plain
+    versions, at a ragged row count and the release model's 160 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fc, args, weights, dims, gen = _prop_case(n)
+    with torch.inference_mode():
+        got = fc._fwd_cuda(*args, weights, dims)
+        want = fc.prop_plain_fwd(*args, weights, dims)
+        assert len(got) == len(want) == 11
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        cots = tuple(torch.randn(t.shape, generator=gen, device="cuda") for t in want[:10])
+        saved = (want[0], want[2], want[3], want[5], want[6], want[7], want[9])
+        _assert_grads_close(fc._bwd_cuda(*args, weights, saved, want[10], cots, dims),
+                            fc.prop_plain_bwd(*args, weights, saved, want[10], cots, dims),
+                            "prop")
+
+
+@pytest.mark.cuda
+def test_prop_autograd_on_cuda_launches_both_kernels():
+    """The entry point on CUDA tensors that need a gradient goes through the
+    forward and the backward kernel, once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fc, args, weights, dims, gen = _prop_case(37)
+    leaves = [t.requires_grad_() for t in args[1:6] + weights]
+
+    def loss(fwd):
+        out = fwd(args[0], *leaves[:5], *args[6:], tuple(leaves[5:]), dims)
+        return sum(torch.sum(o * o) for o in out[:10])
+
+    fused.reset_launches()
+    got = torch.autograd.grad(loss(lambda *a: fc._PropFunction.apply(a[-1], *a[:9], *a[9])),
+                              leaves)
+    torch.cuda.synchronize()
+    assert fused.launches["fused_prop"] == 1 and fused.launches["fused_prop_bwd"] == 1
+    with mock.patch.multiple(fc, _fwd_cuda=fc.prop_plain_fwd, _bwd_cuda=fc.prop_plain_bwd):
+        want = torch.autograd.grad(
+            loss(lambda *a: fc._PropFunction.apply(a[-1], *a[:9], *a[9])), leaves)
+    _assert_grads_close(got, want, "prop autograd")

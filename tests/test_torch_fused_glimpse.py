@@ -241,8 +241,14 @@ def test_the_cuda_request_raises_without_a_card(monkeypatch):
 
 
 def test_switches(monkeypatch):
-    """SQAIR_FUSE_GLIMPSE is read as the JAX package reads it; SQAIR_FUSE_CELLS
-    (kernels #7-#10, not ported) raises instead of running unfused."""
+    """SQAIR_FUSE_GLIMPSE is read as the JAX package reads it.  With
+    SQAIR_FUSE_CELLS a model whose discovery the JAX package would fuse
+    (kernels #7/#8, not ported) raises instead of running it unfused; the
+    release flags (early_disc_logit_scale 0.15) load, with propagation fused
+    and discovery unfused, as in JAX."""
+    import json
+    from pathlib import Path
+
     from sqair_tpu_torch.configs import mlp_mnist_model
 
     monkeypatch.delenv("SQAIR_FUSE_GLIMPSE", raising=False)
@@ -250,5 +256,11 @@ def test_switches(monkeypatch):
     monkeypatch.setenv("SQAIR_FUSE_GLIMPSE", "1")
     assert fused_glimpse.enabled()
     monkeypatch.setenv("SQAIR_FUSE_CELLS", "1")
-    with pytest.raises(NotImplementedError, match="#7-#10"):
+    with pytest.raises(NotImplementedError, match="#7/#8"):
         mlp_mnist_model.load({"n_units": 1, "n_what": 4}, (24, 24), device="cpu")
+    release = Path(__file__).resolve().parent.parent / "release_models/mnist_mlp/1/flags.json"
+    flags = dict(json.loads(release.read_text()), n_units=1, n_what=4)
+    model = mlp_mnist_model.load(flags, (24, 24), device="cpu")
+    ts = model.sequence.timestep
+    assert not ts.discover.fused_disc_eligible()
+    assert ts.propagate._fused_prop_params() is not None

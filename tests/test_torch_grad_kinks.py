@@ -1,8 +1,9 @@
 """chip_smoke.py's train-check, on the CPU at two sequences of three frames:
 the kinks of a train step's gradient found between two runs (a crop or
 paste coordinate on other sides of an integer, a relu input of other
-sign, a presence draw), the masking of the gradient through them, and the
-pairs and referee distances that ``train_check`` reports."""
+sign, a presence draw, a fused propagation crop's coordinates), the masking
+of the gradient through them, and the referee gate, distances and pairs
+that ``train_check`` reports."""
 import json
 import sys
 from pathlib import Path
@@ -51,12 +52,26 @@ def test_kinks_crossed_finds_the_rows_whose_coordinates_cross(fused):
     relu_a = torch.tensor([0.5, -1e-7, 2.0])
     relu_b = torch.tensor([0.5, 1e-7, 2.0])
     pres_a, pres_b = torch.tensor([1.0, 0.0, 1.0]), torch.tensor([1.0, 1.0, 1.0])
-    a = dict(glimpse=[crop_a], paste=[paste_a], relu=[relu_a], presence=[pres_a])
-    b = dict(glimpse=[crop_b], paste=[paste_b], relu=[relu_b], presence=[pres_b])
+    # a fused propagation call's record: both crops' where of 8 slots x 8 rows,
+    # the first crop moved as above, the second not
+    prop_a = torch.cat([crop_a, crop_a.flip(0)], -1).reshape(8, 8, 8)
+    prop_b = torch.cat([crop_b, crop_a.flip(0)], -1).reshape(8, 8, 8)
+    a = dict(glimpse=[crop_a], paste=[paste_a], relu=[relu_a], presence=[pres_a], prop=[prop_a])
+    b = dict(glimpse=[crop_b], paste=[paste_b], relu=[relu_b], presence=[pres_b], prop=[prop_b])
     got, flips = chip_smoke.kinks_crossed(torch, fg, stn, a, b, fused, IMG, GLIMPSE)
 
     def floors(u):
         return torch.floor(u)
+
+    def kernel_crossed(x, y):  # the propagation kernel's coordinates, either switch
+        _, (_, uyx, _), (_, uxx, _) = fg.coords_and_interp(x, *IMG, *GLIMPSE)
+        _, (_, uyy, _), (_, uxy, _) = fg.coords_and_interp(y, *IMG, *GLIMPSE)
+        return torch.any(floors(torch.cat([uyx, uxx], -1)) != floors(torch.cat([uyy, uxy], -1)),
+                         -1)
+
+    want_prop = kernel_crossed(crop_a, crop_b)
+    assert want_prop[:32].any() and not want_prop[32:].any()
+    assert torch.equal(got["prop"][0], want_prop)
 
     if fused:
         _, (_, uya, _), (_, uxa, _) = fg.coords_and_interp(crop_a, *IMG, *GLIMPSE)
@@ -113,11 +128,16 @@ def test_train_check_on_the_cpu():
     tc = chip_smoke.train_check(torch, model, batch, flags, l2, torch.device("cpu"))
     assert set(tc["errors"]) == set(chip_smoke.GRADIENT_PAIRS)
     assert set(tc["distance"]) == {"kernels", "plain_on_card", "cpu", "glimpse_kernels",
-                                   "glimpse_plain"}
-    for pair, tol in chip_smoke.CHECKED_PAIRS.items():
-        for share, name, err, size in tc["errors"][pair]:
-            assert np.isfinite(err) and err <= tol * size + 1e-6, (pair, name)
+                                   "glimpse_plain", "cells_kernels", "cells_plain"}
+    for pair, errs in tc["errors"].items():
+        assert all(np.isfinite(err) for _, _, err, _ in errs), pair
+    # the gate: every gated run within its bound on every parameter
+    assert set(tc["gate"]) == set(chip_smoke.REFEREE_GATE)
+    for run, gated in tc["gate"].items():
+        assert len(gated) == len(tc["distance"][run])
+        assert all(np.isfinite(r) and r <= 1.0 for r, _, _, _ in gated), run
     for run, errs in tc["distance"].items():
         assert 0.0 < errs[-1][0] < 1e-2, run
-    assert set(tc["masked"]) == {"glimpse", "paste", "relu"}
+    assert set(tc["masked"]) == {f"{group}.{kind}" for group in ("off_glimpse", "cells")
+                                 for kind in ("glimpse", "paste", "relu")}
     assert all(np.isfinite(v) for v in tc["ratio"].values())

@@ -7,7 +7,9 @@ CPU: every forward wrapper call by kernel, rows and widths, and one
 backward call per forward call in the train step.  With
 SQAIR_FUSE_GLIMPSE the glimpse encoder and its mask leave fused_mlp for the
 fused glimpse kernel, once per discovery slot and twice per propagation
-slot."""
+slot.  With SQAIR_FUSE_CELLS (at these flags discovery stays unfused, as in
+the JAX package) each frame's propagation is one fused_prop call, and its
+slots' MLPs, cells and glimpses leave the other kernels."""
 import collections
 import sys
 from pathlib import Path
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 from sqair_tpu_torch.configs import mlp_mnist_model
-from sqair_tpu_torch.ops import fused, fused_glimpse
+from sqair_tpu_torch.ops import fused, fused_cells, fused_glimpse
 from sqair_tpu_torch.ops.noise import GeneratorNoise
 from torch_parity import B, H, S, T, golden_batch
 
@@ -33,7 +35,7 @@ FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru")
 def _key(kernel, shape):
     if kernel == "fused_mlp":
         return (kernel, shape["n"], shape["d_in"], tuple(shape["widths"]), tuple(shape["acts"]))
-    if kernel == "fused_glimpse":
+    if kernel in ("fused_glimpse", "fused_prop"):
         return (kernel,) + tuple((k, tuple(v) if isinstance(v, list) else v)
                                  for k, v in sorted(shape.items()))
     return (kernel, shape["n"], shape["dx"], shape["units"])
@@ -64,6 +66,17 @@ def _glimpse_spy(calls, fn):
     return spy
 
 
+def _prop_spy(calls, fn):
+    def spy(img, z_tm1, temporal_h, h0, eps_where, eps_what, u_pres, p, glimpse_size):
+        S, n, U = temporal_h.shape
+        shape = dict(n=n, S=S, img=list(img.shape[1:]), glimpse=list(glimpse_size),
+                     n_what=eps_what.shape[-1], U=U, SP=p.sp[0][0].shape[1],
+                     WB=p.wb[0][0].shape[1], MH=p.mask[0][0].shape[1])
+        calls[_key("fused_prop", shape)] += 1
+        return fn(img, z_tm1, temporal_h, h0, eps_where, eps_what, u_pres, p, glimpse_size)
+    return spy
+
+
 def _backward_spy(calls, name, fn):
     def spy(*args, **kwargs):
         calls[name] += 1
@@ -81,11 +94,19 @@ def test_main_path_shapes_match_the_calls_of_a_step_with_the_glimpse_switch(mode
     _check_calls_of_a_step(mode, True, monkeypatch)
 
 
-def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch):
-    if fuse_glimpse:
-        monkeypatch.setenv("SQAIR_FUSE_GLIMPSE", "1")
-    else:
-        monkeypatch.delenv("SQAIR_FUSE_GLIMPSE", raising=False)
+@pytest.mark.parametrize("fuse_glimpse", (False, True))
+@pytest.mark.parametrize("mode", ("full", "train"))
+def test_main_path_shapes_match_the_calls_of_a_step_with_the_cells_switch(
+        mode, fuse_glimpse, monkeypatch):
+    _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=True)
+
+
+def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False):
+    for name, on in (("SQAIR_FUSE_GLIMPSE", fuse_glimpse), ("SQAIR_FUSE_CELLS", fuse_cells)):
+        if on:
+            monkeypatch.setenv(name, "1")
+        else:
+            monkeypatch.delenv(name, raising=False)
     model = mlp_mnist_model.load(FLAGS, (H, H), device="cpu", seed=0)
     obs, nums = golden_batch()
     calls = collections.Counter()
@@ -96,6 +117,10 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch):
                         _glimpse_spy(calls, fused_glimpse.fused_glimpse_encoder))
     monkeypatch.setattr(fused_glimpse, "fused_glimpse_bwd", _backward_spy(
         calls, "fused_glimpse_bwd", fused_glimpse.fused_glimpse_bwd))
+    monkeypatch.setattr(fused_cells, "fused_prop_ssm",
+                        _prop_spy(calls, fused_cells.fused_prop_ssm))
+    monkeypatch.setattr(fused_cells, "prop_bwd", _backward_spy(
+        calls, "fused_prop_bwd", fused_cells.prop_bwd))
     with mock.patch.multiple(fused, **spies):
         target, _ = model.loss_and_metrics(
             torch.from_numpy(obs), GeneratorNoise(torch.Generator().manual_seed(1), "cpu"),
@@ -105,7 +130,7 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch):
 
     shapes = chip_smoke.main_path_shapes(FLAGS, B, FLAGS["k_particles"], T,
                                          train=mode == "train", img=(H, H),
-                                         fuse_glimpse=fuse_glimpse)
+                                         fuse_glimpse=fuse_glimpse, fuse_cells=fuse_cells)
     want = collections.Counter()
     for kernel, shape, n_calls in shapes:
         want[_key(kernel, shape)] += n_calls

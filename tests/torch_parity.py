@@ -15,6 +15,7 @@ import pytest
 from sqair_tpu.models import AIRDecoder as JAIRDecoder
 from sqair_tpu.models import SQAIRTimestep as JTimestep
 from sqair_tpu.ops import fused as jfused
+from sqair_tpu.ops import fused_cells as jfused_cells
 from sqair_tpu_torch.models import AIRDecoder, SequentialAIR, SQAIRTimestep
 
 # the golden config of tests/test_golden.py
@@ -45,10 +46,24 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def jax_noise_table(rng, n_frames, n_slots, n_rows, n_what):
+def jax_noise_table(rng, n_frames, n_slots, n_rows, n_what, fused_prop=False):
     """The noise of sqair_tpu's SequentialAIR(rng) under the port's keys
-    (t, "prop"|"disc", slot, "where"|"what"|"presence")."""
+    (t, "prop"|"disc", slot, "where"|"what"|"presence").
+
+    :param fused_prop: the propagation noise as the JAX package's fused
+        propagation path (SQAIR_FUSE_CELLS) draws it: slot-major [S, B, d]
+        from ``jax.random.split(ssm_rng, 3)``, each slot's row under its key
+    """
     table = {}
+
+    def slot_major(key, t):
+        r = jax.random.split(key, 3)
+        draws = (("where", np.asarray(jax.random.normal(r[0], (n_slots, n_rows, 4)))),
+                 ("what", np.asarray(jax.random.normal(r[1], (n_slots, n_rows, n_what)))),
+                 ("presence", np.asarray(jax.random.uniform(r[2], (n_slots, n_rows, 1)))))
+        for name, v in draws:
+            for k in range(n_slots):
+                table[(t, "prop", k, name)] = v[k]
 
     def slot(key, prefix):
         r = jax.random.split(key, 3)
@@ -61,8 +76,11 @@ def jax_noise_table(rng, n_frames, n_slots, n_rows, n_what):
         rng_prop, rng_disc = jax.random.split(step_rngs[t])
         ssm_rng = jax.random.split(rng_prop)[1]
         disc_rng = jax.random.split(rng_disc)[1]
+        if fused_prop:
+            slot_major(ssm_rng, t)
         for k in range(n_slots):
-            slot(jax.random.fold_in(ssm_rng, k), (t, "prop", k))
+            if not fused_prop:
+                slot(jax.random.fold_in(ssm_rng, k), (t, "prop", k))
             slot(jax.random.fold_in(disc_rng, k), (t, "disc", k))
     return table
 
@@ -89,7 +107,7 @@ def golden_batch():
 
 @contextlib.contextmanager
 def tpu_kernels_interpreted():
-    """sqair_tpu's main path as on the TPU: its three Pallas kernels and their
+    """sqair_tpu's main path as on the TPU: its Pallas kernels and their
     hand-written backward kernels, run in interpret mode on the CPU (as
     tests/test_fused_rnn_kernels.py runs them).  Its gradients differ from
     the jnp reference's at a pre-activation of exactly 0, where the
@@ -101,4 +119,6 @@ def tpu_kernels_interpreted():
         mp.setattr(pallas, "pallas_call",
                    functools.partial(pallas.pallas_call, interpret=True))
         mp.setattr(jfused, "use_pallas", lambda: True)
+        # the frame kernels pass their own interpret flag
+        mp.setattr(jfused_cells, "_INTERPRET", True)
         yield

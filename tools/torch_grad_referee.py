@@ -21,6 +21,13 @@ and computes one train step's parameter gradients in these runs:
   ref_off_f64    the plain versions in float64, switch off (the referee)
   ref_on_f64     the plain versions in float64, switch on (its referee)
 
+and with ``--fuse_cells`` also SQAIR_FUSE_CELLS (with the glimpse switch,
+the JAX package's all-opt-in configuration: the fused propagation unroll):
+
+  kernels_fuse_cells  every kernel
+  plain_fuse_cells    every plain version
+  ref_fuse_cells_f64  the plain versions in float64 (its referee)
+
 and each f32 run's distance to the referee of its switch: max over
 parameters of max|g - g64| / max|g64|.  f32 rounding moves a run across a
 kink of the step's gradient now and then (``chip_smoke.kinks``: the
@@ -58,6 +65,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch_size", type=int, default=None, help="overrides the flags'")
     ap.add_argument("--timesteps", type=int, default=None, help="overrides the flags'")
+    ap.add_argument("--fuse_cells", action="store_true",
+                    help="add the runs with SQAIR_FUSE_CELLS (and SQAIR_FUSE_GLIMPSE)")
     args = ap.parse_args(argv)
 
     import torch
@@ -70,6 +79,7 @@ def main(argv=None):
     from sqair_tpu_torch.models.air import AIRDecoder, AIREncoder
     from sqair_tpu_torch.ops import build, fused, stn
     from sqair_tpu_torch.ops import distributions as D
+    from sqair_tpu_torch.ops import fused_cells as fc
     from sqair_tpu_torch.ops import fused_glimpse as fg
     from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
     from sqair_tpu_torch.training import make_train_step
@@ -104,7 +114,7 @@ def main(argv=None):
     ref_model.sequence = copy.deepcopy(model.sequence).double()
 
     def plain():
-        return cs.plain_versions(fused, fg)
+        return cs.plain_versions(fused, fg, fc)
 
     def plain_cells():
         return mock.patch.multiple(fused, fused_vanilla_rnn=fused.vanilla_rnn_plain,
@@ -125,27 +135,31 @@ def main(argv=None):
                                  lambda x2, params, transfers, save:
                                  fused.mlp_plain_acts(x2, params, transfers))
 
-    # name: (switch on, patches, float64)
-    runs = {"kernels_off": (False, [], False), "plain_off": (False, [plain], False),
-            "kernels_on": (True, [], False), "plain_on": (True, [plain], False),
-            "mlp_only_on": (True, [plain_cells], False),
-            "cells_only_on": (True, [plain_mlp], False),
-            "mlp_fwd_on": (True, [plain_cells, plain_mlp_bwd], False),
-            "mlp_bwd_on": (True, [plain_cells, plain_mlp_fwd], False),
-            "ref_off_f64": (False, [plain], True), "ref_on_f64": (True, [plain], True)}
-    referee = {n: "ref_on_f64" if on else "ref_off_f64" for n, (on, _, _) in runs.items()}
+    # name: (switches, patches, float64)
+    runs = {"kernels_off": ("off", [], False), "plain_off": ("off", [plain], False),
+            "kernels_on": ("glimpse", [], False), "plain_on": ("glimpse", [plain], False),
+            "mlp_only_on": ("glimpse", [plain_cells], False),
+            "cells_only_on": ("glimpse", [plain_mlp], False),
+            "mlp_fwd_on": ("glimpse", [plain_cells, plain_mlp_bwd], False),
+            "mlp_bwd_on": ("glimpse", [plain_cells, plain_mlp_fwd], False),
+            "ref_off_f64": ("off", [plain], True), "ref_on_f64": ("glimpse", [plain], True)}
+    if args.fuse_cells:
+        runs.update({"kernels_fuse_cells": ("cells", [], False),
+                     "plain_fuse_cells": ("cells", [plain], False),
+                     "ref_fuse_cells_f64": ("cells", [plain], True)})
+    refs = {"off": "ref_off_f64", "glimpse": "ref_on_f64", "cells": "ref_fuse_cells_f64"}
+    referee = {n: refs[sw] for n, (sw, _, _) in runs.items()}
     f32 = [n for n, (_, _, f64) in runs.items() if not f64]
 
     def gradients(name, batch, table, keep=None):
-        on, patches, f64 = runs[name]
+        sw, patches, f64 = runs[name]
         m, dtype = (ref_model, torch.float64) if f64 else (model, torch.float32)
         with contextlib.ExitStack() as stack:
-            stack.enter_context(mock.patch.dict(os.environ, cs.GLIMPSE_SWITCH if on else {}))
-            if not on:
-                os.environ.pop("SQAIR_FUSE_GLIMPSE", None)
+            stack.enter_context(cs.switched(cs.SWITCHES[sw]))
             for p in patches:
                 stack.enter_context(p())
-            rec = stack.enter_context(cs.kinks(torch, AIREncoder, AIRDecoder, D, keep))
+            rec = stack.enter_context(cs.kinks(torch, AIREncoder, AIRDecoder, D,
+                                               None if keep is None else keep[sw == "cells"], fc))
             grads, _ = cs.step_gradients(torch, m, batch["imgs"].to(dtype),
                                          batch["nums"].to(dtype),
                                          ReplayNoise(table, device, dtype=dtype), l2)
@@ -159,6 +173,8 @@ def main(argv=None):
         out = {n: distance(g[n], g[referee[n]]) for n in f32}
         out["kernels_on_vs_plain_off"] = distance(g["kernels_on"], g["plain_off"])
         out["referees_apart"] = distance(g["ref_on_f64"], g["ref_off_f64"])
+        if "ref_fuse_cells_f64" in g:
+            out["cells_referees_apart"] = distance(g["ref_fuse_cells_f64"], g["ref_off_f64"])
         return out
 
     out_path = Path(args.out)
@@ -175,20 +191,25 @@ def main(argv=None):
         # the noise table (these gradients are discarded)
         cs.step_gradients(torch, model, batch["imgs"], batch["nums"], noise, l2)
         got = {n: gradients(n, batch, noise.table) for n in runs}
-        union, crossed, flips = None, {}, {}
+        union, crossed, flips = {}, {}, {}
         for n in f32:
             c, flips[n] = cs.kinks_crossed(torch, fg, stn, got[n][1], got[referee[n]][1],
-                                           runs[n][0], cs.IMG, glimpse)
+                                           runs[n][0] != "off", cs.IMG, glimpse)
             crossed[n] = {kind: int(sum(int(x.sum()) for x in v)) for kind, v in c.items()}
-            union = c if union is None else {k: [m | x for m, x in zip(union[k], c[k])]
-                                             for k in c}
-        keep_all = {kind: [~m for m in v] for kind, v in union.items()}
-        ones = {kind: [torch.ones_like(m) for m in v] for kind, v in union.items()}
-        variants = {kind: dict(ones, **{kind: keep_all[kind]}) for kind in union}
+            group = runs[n][0] == "cells"
+            u = union.get(group)
+            union[group] = c if u is None else {k: [m | x for m, x in zip(u[k], c[k])] for k in c}
+        kinds = [kind for kind in union[False] if kind != "prop"]
+        keep_all = {g: {kind: [~m for m in u[kind]] for kind in kinds} for g, u in union.items()}
+        ones = {g: {kind: [torch.ones_like(m) for m in u[kind]] for kind in kinds}
+                for g, u in union.items()}
+        variants = {kind: {g: dict(ones[g], **{kind: keep_all[g][kind]}) for g in union}
+                    for kind in kinds}
         variants["all"] = keep_all
         row = dict(seed=seed, crossed=crossed, presence_flips=flips,
-                   masked={kind: int(sum(int(m.sum()) for m in v)) for kind, v in union.items()},
-                   total={kind: int(sum(m.numel() for m in v)) for kind, v in union.items()},
+                   masked={f"{'cells' if g else 'off_glimpse'}.{kind}":
+                           int(sum(int(m.sum()) for m in u[kind]))
+                           for g, u in union.items() for kind in kinds},
                    none=distances({n: g[0] for n, g in got.items()}))
         for name, keep in variants.items():
             row[f"masked_{name}"] = distances(
