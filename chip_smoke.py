@@ -13,13 +13,17 @@ Phases, one line each with its own numbers and seconds:
   kernels        every forward kernel against its plain PyTorch version at
                  the shapes the eval and train steps give it (seeded inputs),
                  the fused glimpse encoder's masked and unmasked at 160 rows
-                 (every output, the saved tensors included) and the fused
+                 (every output, the saved tensors included), the fused
                  propagation unroll's at 160 rows and 3 slots (the ten
-                 outputs and every residual field)
+                 outputs and every residual field) and the fused discovery
+                 unroll's at 160 rows and 3 slots on the data generator's
+                 frames (the nine outputs, every residual field, the
+                 glimpses and the input encoder's layers)
   kernels-bwd    every backward kernel against its plain version at the
                  shapes the train step gives it, the deferred pass's 1600
                  and 4800 rows included, the glimpse backward and the
-                 propagation backward (every input's and weight's gradient)
+                 propagation and discovery backwards (every input's and
+                 weight's gradient)
   eval           3 eval steps of the release model's flags at full width
                  (weights from a seed, data from the port's generator), with
                  the launch counts of every kernel
@@ -27,8 +31,8 @@ Phases, one line each with its own numbers and seconds:
                  on the CPU with the same noise
   timing         CUDA-event medians per forward kernel (kernel, plain
                  version, a chain of torch.addmm + activation or, for the
-                 glimpse and propagation kernels, the port's unfused path,
-                 and the bound) and of the eval step
+                 glimpse, propagation and discovery kernels, the port's
+                 unfused path, and the bound) and of the eval step
   profile        the device's busy time in one eval step (torch.profiler)
   eval-glimpse   the same 3 eval steps with SQAIR_FUSE_GLIMPSE=1: the glimpse
                  kernel's launch counts and the metrics against the switch-off
@@ -38,17 +42,25 @@ Phases, one line each with its own numbers and seconds:
                  flags propagation runs fused and discovery unfused): one
                  fused_prop launch per frame, the metrics against the
                  switch-off steps; the eval step's time and busy time
+  eval-disc      3 eval steps at DISC_FLAGS (the release flags with
+                 early_disc_logit_scale 1, the JAX module default that
+                 bench.py takes: no early-discovery lever, so that both
+                 frame kernels run), with no switch and with both switches
+                 under the same noise: one fused_disc and one fused_prop
+                 launch per frame, the metrics against switch off; both
+                 settings' eval step time and busy time
   train          3 train steps (record_mode="train", backward, the release
                  flags' RMSProp) on batches of the device-resident sampler,
                  with the launch counts of all six kernels per step
-  train-check    one train step's gradients in ten runs with the same
+  train-check    one train step's gradients in thirteen runs with the same
                  noise: every kernel with no switch, the glimpse switch and
-                 both switches, the plain versions on the card with each and
-                 on the CPU, and a float64 referee for each switch setting
-                 (the plain versions on the card).  Each run goes twice, the
-                 second time with the gradient through the kinks at which
-                 some run crossed its referee zeroed (``kinks``; the fused
-                 propagation's crops are counted, not masked).  Gate: every
+                 both switches, and with both switches at DISC_FLAGS ("disc");
+                 the plain versions on the card with each and on the CPU,
+                 and a float64 referee for each switch setting (the plain
+                 versions on the card).  Each run goes twice, the second
+                 time with the gradient through the kinks at which some run
+                 crossed its referee zeroed (``kinks``; in the fused
+                 propagation and discovery, per row-slot).  Gate: every
                  kernel run and the CPU run lies, per parameter, at most
                  max(GRAD_TOL, 2 x its plain run's distance) of the
                  parameter's largest referee gradient from its referee.
@@ -61,6 +73,12 @@ Phases, one line each with its own numbers and seconds:
                  counts; the train step's time
   train-cells    3 train steps with both switches and their launch counts;
                  the train step's time and busy time
+  train-disc     3 train steps at DISC_FLAGS with no switch and 3 with both
+                 switches, from the same weights, batches and noise: exact
+                 launch counts, the first step's metrics against switch off
+                 (the later steps' distances printed: the updates move the
+                 two models apart), both settings' train step time and busy
+                 time
   eval-cli       a checkpoint of the trained model swept by
                  sqair_tpu_torch.scripts.eval on the card twice, with
                  SQAIR_FUSE_GLIMPSE=1 alone and with both switches (64
@@ -121,15 +139,21 @@ GRAD_TOL = 1e-2  # |g - g64| <= max(GRAD_TOL max|g64|, 2 |g_plain - g64|) + 1e-6
 # each switch setting
 # ("cells" is the JAX package's all-opt-in configuration: the frame kernels,
 # at the release flags only propagation's, and the glimpse encoder)
+# ("disc": both switches on the model at DISC_FLAGS, where discovery runs
+# fused too)
 SWITCHES = {"off": {}, "glimpse": {"SQAIR_FUSE_GLIMPSE": "1"},
-            "cells": {"SQAIR_FUSE_CELLS": "1", "SQAIR_FUSE_GLIMPSE": "1"}}
+            "cells": {"SQAIR_FUSE_CELLS": "1", "SQAIR_FUSE_GLIMPSE": "1"},
+            "disc": {"SQAIR_FUSE_CELLS": "1", "SQAIR_FUSE_GLIMPSE": "1"}}
 TRAIN_RUNS = {"kernels": ("card", "off", False), "plain_on_card": ("card", "off", True),
               "cpu": ("cpu", "off", True), "glimpse_kernels": ("card", "glimpse", False),
               "glimpse_plain": ("card", "glimpse", True),
               "cells_kernels": ("card", "cells", False), "cells_plain": ("card", "cells", True),
+              "disc_kernels": ("disc_card", "disc", False),
+              "disc_plain": ("disc_card", "disc", True),
               "referee": ("f64", "off", True), "referee_on": ("f64", "glimpse", True),
-              "referee_cells": ("f64", "cells", True)}
-REFEREES = {"off": "referee", "glimpse": "referee_on", "cells": "referee_cells"}
+              "referee_cells": ("f64", "cells", True), "referee_disc": ("disc_f64", "disc", True)}
+REFEREES = {"off": "referee", "glimpse": "referee_on", "cells": "referee_cells",
+            "disc": "referee_disc"}
 # the gate: each run against its referee, per parameter, at
 # max(GRAD_TOL, 2 x the distance of the plain run on the card with the same
 # switches) of the parameter's largest referee gradient.  A scalar whose
@@ -138,7 +162,8 @@ REFEREES = {"off": "referee", "glimpse": "referee_on", "cells": "referee_cells"}
 # cannot tell that from a kernel's fault, one on the distance to the
 # referee can.  The CPU run, with no kernel at all, is held to it too.
 REFEREE_GATE = {"kernels": "plain_on_card", "cpu": "plain_on_card",
-                "glimpse_kernels": "glimpse_plain", "cells_kernels": "cells_plain"}
+                "glimpse_kernels": "glimpse_plain", "cells_kernels": "cells_plain",
+                "disc_kernels": "disc_plain"}
 # pairs of runs whose distances are printed (not gated)
 GRADIENT_PAIRS = {"kernels_vs_plain_on_card": ("kernels", "plain_on_card"),
                   "kernels_vs_cpu": ("kernels", "cpu"),
@@ -146,9 +171,17 @@ GRADIENT_PAIRS = {"kernels_vs_plain_on_card": ("kernels", "plain_on_card"),
                   "switch_on_kernels_vs_switch_off_plain": ("glimpse_kernels", "plain_on_card"),
                   "switch_on_plain_vs_switch_off_plain": ("glimpse_plain", "plain_on_card"),
                   "cells_kernels_vs_cells_plain": ("cells_kernels", "cells_plain"),
-                  "cells_kernels_vs_switch_off_plain": ("cells_kernels", "plain_on_card")}
+                  "cells_kernels_vs_switch_off_plain": ("cells_kernels", "plain_on_card"),
+                  "disc_kernels_vs_disc_plain": ("disc_kernels", "disc_plain")}
+# the runs of one group make the same calls, so that a kink of one lines up
+# with the same kink of another (the cells and disc switches fuse others)
+KINK_GROUPS = {"off": "off_glimpse", "glimpse": "off_glimpse", "cells": "cells", "disc": "disc"}
+# DISC_FLAGS: the release flags with these levers (no early-discovery logit
+# lever: the JAX package then fuses discovery under SQAIR_FUSE_CELLS)
+DISC_LEVERS = {"early_disc_logit_scale": 1.0}
 
-FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_glimpse", "fused_prop")
+FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_glimpse", "fused_prop",
+           "fused_disc")
 KERNELS = {
     "fused_mlp": dict(source="sqair_tpu_torch/csrc/fused_mlp.cu",
                       replaces="sqair_tpu/ops/fused.py:111"),
@@ -170,6 +203,10 @@ KERNELS = {
                        replaces="sqair_tpu/ops/fused_cells.py:1332"),
     "fused_prop_bwd": dict(source="sqair_tpu_torch/csrc/fused_prop.cu",
                            replaces="sqair_tpu/ops/fused_cells.py:1363"),
+    "fused_disc": dict(source="sqair_tpu_torch/csrc/fused_disc.cu",
+                       replaces="sqair_tpu/ops/fused_cells.py:733"),
+    "fused_disc_bwd": dict(source="sqair_tpu_torch/csrc/fused_disc.cu",
+                           replaces="sqair_tpu/ops/fused_cells.py:765"),
 }
 GLIMPSE_SWITCH = SWITCHES["glimpse"]
 CELLS_SWITCH = SWITCHES["cells"]
@@ -207,6 +244,24 @@ def prop_shape(F, rows, img=IMG):
                 n_what=int(F["n_what"]), U=h, SP=h // 2, WB=128, MH=128)
 
 
+def disc_fusable(F):
+    """Whether the JAX package fuses discovery under SQAIR_FUSE_CELLS at the
+    flags ``F``: no early-discovery logit lever (the flags' other gates, a
+    VanillaRNN transition and the kernel's MLP depths, hold for every flags
+    file this script loads)."""
+    return not (float(F.get("early_disc_logit_bias", 0.0))
+                or float(F.get("early_disc_logit_clamp", 0.0))
+                or float(F.get("early_disc_logit_scale", 1.0)) != 1.0)
+
+
+def disc_shape(F, rows, img=IMG):
+    """The fused discovery kernel's shape at the flags ``F`` (the
+    conditioning is the propagation summary, n_hidden wide)."""
+    h, g = 32 * int(F["n_units"]), int(F["glimpse_size"])
+    return dict(n=rows, S=int(F["n_steps_per_image"]), img=list(img), glimpse=[g, g],
+                n_what=int(F["n_what"]), U=h, SP=h // 2, C=h)
+
+
 def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_cells=False):
     """Every forward kernel call of one eval or train step, as
     (kernel, shape, calls per step).  In the train record the decode, the
@@ -214,9 +269,10 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_
     once over all T frames (rows T*B*k, or T*B*k*S for the decode).  With
     ``fuse_glimpse`` (SQAIR_FUSE_GLIMPSE) the glimpse encoder and its mask
     leave fused_mlp for the fused glimpse kernel.  With ``fuse_cells``
-    (SQAIR_FUSE_CELLS, at flags where discovery stays unfused) each frame's
-    propagation slots are one fused_prop call, and their MLPs, cells and
-    glimpses leave the other kernels."""
+    (SQAIR_FUSE_CELLS) each frame's propagation slots are one fused_prop
+    call, and where the flags let it (``disc_fusable``) its input encoder and
+    discovery slots one fused_disc call; their MLPs, cells and glimpses
+    leave the other kernels."""
     h = 32 * int(F["n_units"])
     w, S = int(F["n_what"]), int(F["n_steps_per_image"])
     g = int(F["glimpse_size"]) ** 2
@@ -226,14 +282,16 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_
     deferred = T if train else 1  # rows factor of the out-of-loop calls
     per_call = 1 if train else T  # calls factor of the same calls
     prop = 0 if fuse_cells else 1  # calls factor of the propagation slots' calls
+    fuse_disc = fuse_cells and disc_fusable(F)
+    disc = 0 if fuse_disc else 1  # calls factor of the discovery's calls
     mlp = [  # (d_in, widths, transfers, rows, calls per step)
-        (img[0] * img[1], [h, h], ["elu", "elu"], rows, T),    # input encoder
+        (img[0] * img[1], [h, h], ["elu", "elu"], rows, disc * T),  # input encoder
         (g, [h, h], ["elu", "elu"], rows,                      # glimpse encoder
-         0 if fuse_glimpse else (1 + 2 * prop) * S * T),
+         0 if fuse_glimpse else (disc + 2 * prop) * S * T),
         (h, [128, g], ["elu", "sigmoid"], rows, 0 if fuse_glimpse else 2 * prop * S * T),  # mask
-        (h, [h, h, 8], ["elu", "elu", "id"], rows, S * T),    # disc where
+        (h, [h, h, 8], ["elu", "elu", "id"], rows, disc * S * T),  # disc where
         (2 * h + 4, [h, h, 8], ["elu", "elu", "id"], rows, prop * S * T),  # prop where
-        (h + w, [sp, 1], ["elu", "id"], rows, S * T),         # disc presence
+        (h + w, [sp, 1], ["elu", "id"], rows, disc * S * T),  # disc presence
         (2 * h + w, [sp, 1], ["elu", "id"], rows, prop * S * T),  # prop presence
         (h, [128, 4], ["elu", "id"], rows, prop * S * T),     # where bias
         (h, [3 * w], ["sigmoid"], rows, prop * S * T),        # what gates
@@ -242,7 +300,7 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_
         (w, [h, h, g], ["elu", "elu", "id"], slots * deferred, per_call),  # decoder
     ]
     vrnn = [  # (d_x, units, rows, calls per step)
-        (h + h + w + 5, h, rows, S * T),          # discovery transition
+        (h + h + w + 5, h, rows, disc * S * T),   # discovery transition
         (3 * w + 10 + h, h, rows, prop * S * T),  # propagation transition
         (4, 4, rows * deferred, S * per_call),    # discovery where prior
     ]
@@ -256,9 +314,11 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_
     out += [("fused_gru", dict(dx=d, units=u, n=n), c) for d, u, n, c in gru if c]
     if fuse_glimpse:
         out += [("fused_glimpse", shape, c) for shape, c in glimpse_shapes(F, rows, T, img)
-                if c and (shape["d_mi"] == 0 or not fuse_cells)]
+                if c and not (fuse_cells if shape["d_mi"] else fuse_disc)]
     if fuse_cells:
         out += [("fused_prop", prop_shape(F, rows, img), T)]
+    if fuse_disc:
+        out += [("fused_disc", disc_shape(F, rows, img), T)]
     return out
 
 
@@ -609,6 +669,113 @@ def prop_library_fns(torch, propagate, args, gen):
                                             allow_unused=True)
 
 
+def disc_dims(shape):
+    """(S, gh, gw, n_what, U, SP) of a fused discovery shape."""
+    return (shape["S"], shape["glimpse"][0], shape["glimpse"][1], shape["n_what"], shape["U"],
+            shape["SP"])
+
+
+def disc_inputs(torch, fc, shape, gen, device, frames):
+    """Seeded inputs of one fused discovery call: (args, weights) with args
+    (img, img flat, cond, h0 [B, U], eps_w, eps_x, u) and the 23 weights of
+    ``fc.disc_weights_flat``, lecun-scaled, the scale offset at the release
+    flags' -3 and the steps predictor's output bias at the release flags' 1
+    (some objects die).  ``frames`` [n, H, W] are frames of the port's data
+    generator, as the main path gives the kernel: over white noise the crop
+    turns a rounding difference of where into ~20x that in the glimpse."""
+    S, gh, gw, nw, U, SP = disc_dims(shape)
+    n, C, G = shape["n"], shape["C"], gh * gw
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    def weight(a, b):
+        return rnd(a, b) / math.sqrt(a)
+
+    def bias(d, loc=0.0):
+        return loc + 0.1 * rnd(d)
+
+    HW = frames.shape[1] * frames.shape[2]
+    p = fc.DiscParams(
+        enc_in=((weight(HW, U), bias(U)), (weight(U, U), bias(U))),
+        rnn=(weight(U + C + nw + 5, U), weight(U, U), bias(U)),
+        stp=((weight(U, U), bias(U)), (weight(U, U), bias(U)), (weight(U, 8), bias(8))),
+        stp_offset=torch.tensor(-3.0, device=device),
+        ge_enc=((weight(G, U), bias(U)), (weight(U, U), bias(U))),
+        ge_head=(weight(U, 2 * nw), bias(2 * nw)),
+        sp=((weight(U + nw, SP), bias(SP)), (weight(SP, 1), bias(1, 1.0))))
+    s3w, s3b = p.stp[2]
+    fold = torch.cat([torch.zeros(4, device=device), torch.ones(4, device=device)])
+    p = p._replace(stp=(p.stp[0], p.stp[1], (s3w, s3b + fold * p.stp_offset)))
+    img = frames[:n].to(device).contiguous()
+    args = (img, img.reshape(n, -1), 0.5 * rnd(n, C), 0.1 * rnd(n, U), rnd(S, n, 4),
+            rnd(S, n, nw), torch.rand((S, n, 1), generator=gen, device=device))
+    return args, tuple(t.contiguous() for t in fc.disc_weights_flat(p))
+
+
+def disc_work(shape, backward=False):
+    """(bytes read once and written once, f32 FLOPs) of one fused discovery
+    call.  Forward: the input encoder per row; per row and slot the
+    transition, the estimator, the crop (img wx^T, then wy A), the glimpse
+    encoder and head, the steps predictor; it reads the frames, the
+    conditioning, h0, the noise and the weights and writes the outputs, the
+    residual rows, the glimpses and the input encoder's layers.  Backward:
+    twice the dense products less the frames' gradient (none), the crop
+    recomputed and its backward (dwy, dA, dwx); it reads what the forward
+    read, the saved outputs, the residuals and the output gradients, and
+    writes the conditioning's, h0's and the weights' gradients."""
+    S, gh, gw, nw, U, SP = disc_dims(shape)
+    n, (H, W), C, G = shape["n"], shape["img"], shape["C"], gh * gw
+    HW, d_rnn, d_spf = H * W, U + C + nw + 5, U + nw
+    enc = HW * U + U * U
+    slot = (d_rnn * U + U * U + U * U + U * U + U * 8 + G * U + U * U + U * 2 * nw
+            + d_spf * SP + SP)
+    crop = HW * gw + gh * H * gw
+    weights = enc + slot
+    biases = 5 * U + 8 + 2 * U + 2 * nw + SP + 1
+    rows = S * n
+    R = 5 * U + SP + 1
+    inputs = n * (HW + C + U) + rows * (4 + nw + 1)
+    outputs = rows * (3 * nw + 3 * 4 + 3)
+    saved = rows * (R + G) + n * 2 * U
+    if not backward:
+        return (4 * (inputs + weights + biases + outputs + saved),
+                2 * (n * enc + rows * (slot + crop)))
+    crop_bwd = crop + gh * H * gw + H * gw * gh + gw * W * H
+    nbytes = 4 * (inputs + weights + rows * (2 * nw + 2 * 4 + 2) + saved + outputs  # in
+                  + n * (C + U) + weights + biases)                             # out
+    return nbytes, 2 * (2 * (n * enc + rows * slot) - n * HW * U + rows * crop_bwd)
+
+
+def disc_library_fns(torch, discover, args, gen):
+    """The port's unfused discovery of one frame, ``Discover._discover``, on
+    the same frames, conditioning and noise, and torch.autograd.grad through
+    its graph (built once) for the conditioning's and the discovery core's
+    parameters' gradients: a yardstick only (the model's own weights and h0;
+    the plain versions and no switch must be active while these run and are
+    built)."""
+    from sqair_tpu_torch.ops.noise import ReplayNoise
+
+    img, _, cond, _, eps_w, eps_x, u = args
+    table = {}
+    for kk in range(eps_w.shape[0]):
+        table.update({(kk, "where"): eps_w[kk], (kk, "what"): eps_x[kk],
+                      (kk, "presence"): u[kk]})
+    noise = ReplayNoise(table, img.device)
+    cell = discover.cell
+    with torch.inference_mode(False), torch.enable_grad():
+        leaves = [cond.detach().clone().requires_grad_()]
+        leaves += [*cell.parameters(), *cell.input_encoder.parameters(),
+                   *cell.glimpse_encoder.parameters()]
+        hidden, _ = discover._discover(img, leaves[0], noise)
+        outs = [o for o in hidden.values() if o.requires_grad]  # not the presence draws
+        cots = [torch.randn(o.shape, generator=gen, device=o.device) for o in outs]
+    # the glimpse mask takes no part (discovery's glimpse is unmasked)
+    return (lambda: discover._discover(img, cond, noise),
+            lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True,
+                                        allow_unused=True))
+
+
 def near_integer_u(torch, fg, img, wl, dims):
     """How many interpolation coordinates u lie within 1e-5 of an integer
     (where a rounding difference flips a term of the where-gradient)."""
@@ -675,7 +842,7 @@ def profile_device(torch, fn):
     return sum(ms for _, ms, _ in rows), top
 
 
-def compare_metrics(torch, got, want, what):
+def metric_distance(torch, got, want, what="metrics"):
     """The largest |a - b| / (|b| + 1) over the metrics, and its metric."""
     worst, worst_key = 0.0, None
     for key, ref in want.items():
@@ -686,6 +853,12 @@ def compare_metrics(torch, got, want, what):
         err = float(torch.max(torch.abs(a - b) / (torch.abs(b) + 1.0)))
         if err > worst:
             worst, worst_key = err, key
+    return worst, worst_key
+
+
+def compare_metrics(torch, got, want, what):
+    """``metric_distance``, which must be at most METRIC_TOL."""
+    worst, worst_key = metric_distance(torch, got, want, what)
     if worst > METRIC_TOL:
         raise Failure(f"{what}: metric {worst_key} differs by {worst:.3g} > {METRIC_TOL}: "
                       f"{got[worst_key]} vs {want[worst_key]}")
@@ -728,21 +901,23 @@ def plain_glimpse(fg):
     return mock.patch.multiple(fg, _fwd_cuda=fwd, _bwd_cuda=fg.glimpse_plain_bwd)
 
 
-def plain_prop(fc):
-    """The fused propagation's kernels replaced by its plain versions inside
-    its autograd Function (with the hand-written backward, as
-    ``plain_glimpse``), as a context manager."""
-    return mock.patch.multiple(fc, _fwd_cuda=fc.prop_plain_fwd, _bwd_cuda=fc.prop_plain_bwd)
+def plain_cells(fc):
+    """The fused propagation's and discovery's kernels replaced by their
+    plain versions inside their autograd Functions (with the hand-written
+    backwards, as ``plain_glimpse``), as a context manager."""
+    return mock.patch.multiple(fc, _fwd_cuda=fc.prop_plain_fwd, _bwd_cuda=fc.prop_plain_bwd,
+                               _disc_fwd_cuda=fc.disc_plain_fwd,
+                               _disc_bwd_cuda=fc.disc_plain_bwd)
 
 
 @contextlib.contextmanager
 def plain_versions(fused, fg, fc):
     """Every kernel wrapper replaced by its plain version (autograd of plain
     tensor ops for a gradient; the glimpse encoder's and the propagation
-    unroll's hand-written backwards)."""
+    and discovery unrolls' hand-written backwards)."""
     with mock.patch.multiple(fused, fused_mlp=fused.mlp_plain,
                              fused_vanilla_rnn=fused.vanilla_rnn_plain,
-                             fused_gru=fused.gru_plain), plain_glimpse(fg), plain_prop(fc):
+                             fused_gru=fused.gru_plain), plain_glimpse(fg), plain_cells(fc):
         yield
 
 
@@ -765,11 +940,12 @@ def kinks(torch, AIREncoder, AIRDecoder, D, keep=None, fc=None):
     crosses an integer), the input of every relu (the transient penalty)
     and the presence draws; with ``fc`` (ops/fused_cells), the where of
     both crops of every fused propagation call, [S, B, 8] (the where-bias
-    location from the residual rows, then the sampled where), which are
-    recorded but never masked.  With ``keep``, the gradient through the
-    kinks that ``keep[kind][call]`` (1 or 0 per row of a where, per entry of
-    a relu's input) does not keep is zeroed: see ``kinks_crossed``."""
-    rec = dict(glimpse=[], paste=[], relu=[], presence=[], prop=[])
+    location from the residual rows, then the sampled where), and of the
+    crop of every fused discovery call, [S, B, 4].  With ``keep``, the
+    gradient through the kinks that ``keep[kind][call]`` (1 or 0 per row of
+    a where, per row-slot of a fused call, per entry of a relu's input) does
+    not keep is zeroed: see ``kinks_crossed``."""
+    rec = dict(glimpse=[], paste=[], relu=[], presence=[], prop=[], disc=[])
     real_enc, real_dec = AIREncoder.forward, AIRDecoder.forward
     real_relu, real_sample = torch.nn.functional.relu, D.Bernoulli.sample
 
@@ -805,11 +981,30 @@ def kinks(torch, AIREncoder, AIRDecoder, D, keep=None, fc=None):
         rec["presence"].append(out.detach().clone())
         return out
 
+    calls = dict(prop={}, disc={})  # a fused call's residual blob address -> its index
+
     def prop_fwd(*args):
         out = real_prop(*args)
         lo, hi = fc.residual_layout(args[-1])[0]["gwl"]
+        calls["prop"][out[10].data_ptr()] = len(rec["prop"])
         rec["prop"].append(torch.cat([out[10][..., lo:hi], out[3]], -1).detach().clone())
         return out
+
+    def disc_fwd(*args):
+        out = real_disc(*args)
+        calls["disc"][out[9].data_ptr()] = len(rec["disc"])
+        rec["disc"].append(out[3].detach().clone())
+        return out
+
+    def cells_bwd(kind, real, i_res):
+        """A fused backward that zeroes the crop gradient of the row-slots
+        whose kinks ``keep[kind]`` does not keep (its residual blob, args[i_res],
+        names the forward call)."""
+        def bwd(*args):
+            res = args[i_res]
+            k = keep[kind][calls[kind][res.data_ptr()]].reshape(res.shape[:2])
+            return real(*args, crop_keep=k.to(res.device, res.dtype).contiguous())
+        return bwd
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(AIREncoder, "forward", enc))
@@ -817,8 +1012,13 @@ def kinks(torch, AIREncoder, AIRDecoder, D, keep=None, fc=None):
         stack.enter_context(mock.patch.object(torch.nn.functional, "relu", relu))
         stack.enter_context(mock.patch.object(D.Bernoulli, "sample", sample))
         if fc is not None:
-            real_prop = fc.prop_fwd
+            real_prop, real_disc = fc.prop_fwd, fc.disc_fwd
             stack.enter_context(mock.patch.object(fc, "prop_fwd", prop_fwd))
+            stack.enter_context(mock.patch.object(fc, "disc_fwd", disc_fwd))
+            for kind, name, i_res in (("prop", "prop_bwd", 11), ("disc", "disc_bwd", 9)):
+                if keep is not None and keep.get(kind):
+                    stack.enter_context(mock.patch.object(
+                        fc, name, cells_bwd(kind, getattr(fc, name), i_res)))
         yield rec
 
 
@@ -827,7 +1027,8 @@ def kinks_crossed(torch, fg, stn, a, b, fused, img, glimpse):
     where whose crop or paste coordinates lie on another side of an integer
     in run a than in run b, and the relu entries of another sign; with the
     number of presence draws that differ; and the row-slots of each fused
-    propagation call whose two crops' coordinates differ in side ("prop").
+    propagation call whose two crops' coordinates differ in side ("prop"),
+    and of each fused discovery call whose crop's do ("disc").
     The crop coordinates are computed as the run computed them: the glimpse
     kernel's order for a [B, 4] where when ``fused`` (SQAIR_FUSE_GLIMPSE on)
     and in the propagation kernel, else stn's."""
@@ -848,17 +1049,18 @@ def kinks_crossed(torch, fg, stn, a, b, fused, img, glimpse):
         p = torch.round(ub)
         return torch.any(torch.sign(ua - p) != torch.sign(ub - p), -1)
 
-    def prop_u(w):  # both crops of each row-slot, in the kernel's order
-        flat, us = w.reshape(-1, 8), []
-        for x in (flat[:, :4], flat[:, 4:]):
-            _, (_, uy, _), (_, ux, _) = fg.coords_and_interp(x, H, W, gh, gw)
+    def cells_u(w):  # every crop of each row-slot, in the kernel's order
+        flat, us = w.reshape(-1, w.shape[-1]), []
+        for i in range(0, flat.shape[1], 4):
+            _, (_, uy, _), (_, ux, _) = fg.coords_and_interp(flat[:, i:i + 4], H, W, gh, gw)
             us += [uy, ux]
         return torch.cat(us, -1)
 
     out = dict(glimpse=[sides(crop_u(x), crop_u(y)) for x, y in zip(a["glimpse"], b["glimpse"])],
                paste=[sides(paste_u(x), paste_u(y)) for x, y in zip(a["paste"], b["paste"])],
                relu=[(x.to(y.device) > 0) != (y > 0) for x, y in zip(a["relu"], b["relu"])],
-               prop=[sides(prop_u(x), prop_u(y)) for x, y in zip(a["prop"], b["prop"])])
+               prop=[sides(cells_u(x), cells_u(y)) for x, y in zip(a["prop"], b["prop"])],
+               disc=[sides(cells_u(x), cells_u(y)) for x, y in zip(a["disc"], b["disc"])])
     flips = sum(int(torch.sum(x.to(y.device, torch.float64) != y.double()))
                 for x, y in zip(a["presence"], b["presence"]))
     return out, flips
@@ -875,17 +1077,18 @@ def step_gradients(torch, model, obs, nums, noise, l2):
     return grads, float(target.detach())
 
 
-def train_check(torch, model, batch, flags, l2, device):
+def train_check(torch, model, disc_model, batch, flags, disc_flags, l2, device):
     """One train step's parameter gradients, run by run, with the same
     noise: every kernel with no switch, the glimpse switch and both
-    switches; the plain versions on the card with each and on the CPU; and
-    a float64 referee for each switch setting (the plain versions on the
-    card).  f32 rounding moves a run across a kink of the step's gradient
-    now and then, and one crossing can move a parameter's gradient by 10%
-    (PERF.md); so every run goes twice, the second time with the gradient
-    through the kinks at which some run lies on another side than its
-    referee zeroed, in every run whose calls line up with it (the runs
-    with and without the cells switch make other calls).  The gate and
+    switches, and with both switches on ``disc_model`` (DISC_FLAGS, where
+    discovery runs fused too); the plain versions on the card with each and
+    on the CPU; and a float64 referee for each switch setting (the plain
+    versions on the card).  f32 rounding moves a run across a kink of the
+    step's gradient now and then, and one crossing can move a parameter's
+    gradient by 10% (PERF.md); so every run goes twice, the second time
+    with the gradient through the kinks at which some run lies on another
+    side than its referee zeroed, in every run whose calls line up with it
+    (``KINK_GROUPS``: the cells and disc switches make other calls).  The gate and
     the printed pairs are those of the second pass: each gated run
     (``REFEREE_GATE``) lies, on every parameter, at most
     max(GRAD_TOL, 2 x its plain run's distance) of that parameter's largest
@@ -901,10 +1104,14 @@ def train_check(torch, model, batch, flags, l2, device):
     cpu_model.sequence = copy.deepcopy(model.sequence).cpu()
     ref_model = copy.copy(model)
     ref_model.sequence = copy.deepcopy(model.sequence).double()
+    disc_ref = copy.copy(disc_model)
+    disc_ref.sequence = copy.deepcopy(disc_model.sequence).double()
     B, k = int(flags["batch_size"]), int(flags["k_particles"])
     T = int(flags.get("font_timesteps", 10))
     referee = {name: REFEREES[sw] for name, (_, sw, _) in TRAIN_RUNS.items()}
-    models = {"card": model, "cpu": cpu_model, "f64": ref_model}
+    models = {"card": model, "cpu": cpu_model, "f64": ref_model, "disc_card": disc_model,
+              "disc_f64": disc_ref}
+    run_flags = {where: disc_flags if where.startswith("disc") else flags for where in models}
     noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 6), device,
                            record=True)
 
@@ -926,15 +1133,16 @@ def train_check(torch, model, batch, flags, l2, device):
             raise Failure(f"the plain train re-run {name} launched a kernel: {launched}")
         if not plain and device.type == "cuda":
             want = expected_launches(main_path_shapes(
-                flags, B, k, T, train=True, fuse_glimpse="SQAIR_FUSE_GLIMPSE" in switches,
+                run_flags[where], B, k, T, train=True,
+                fuse_glimpse="SQAIR_FUSE_GLIMPSE" in switches,
                 fuse_cells="SQAIR_FUSE_CELLS" in switches), 1, backward=True)
             if launched != want:
                 raise Failure(f"train-check run {name} launched {launched}, not {want}")
         return grads, target, rec
 
     def masks(records):
-        """Per group of runs whose calls line up (cells switch on or off): the
-        union of the kinks that any of its runs crossed against its referee."""
+        """Per group of runs whose calls line up (``KINK_GROUPS``): the union
+        of the kinks that any of its runs crossed against its referee."""
         out, crossed, flips = {}, {}, {}
         for name, (_, sw, _) in TRAIN_RUNS.items():
             if name in REFEREES.values():
@@ -942,7 +1150,7 @@ def train_check(torch, model, batch, flags, l2, device):
             c, flips[name] = kinks_crossed(torch, fg, stn, records[name], records[referee[name]],
                                            sw != "off", IMG, [int(flags["glimpse_size"])] * 2)
             crossed[name] = {kind: int(sum(int(x.sum()) for x in v)) for kind, v in c.items()}
-            group = sw == "cells"
+            group = KINK_GROUPS[sw]
             u = out.get(group)
             out[group] = c if u is None else {kd: [m | x for m, x in zip(u[kd], c[kd])]
                                               for kd in c}
@@ -950,9 +1158,9 @@ def train_check(torch, model, batch, flags, l2, device):
 
     first = {name: gradients(name) for name in TRAIN_RUNS}
     union, crossed, flips = masks({n: r[2] for n, r in first.items()})
-    keep = {group: {kind: [~m for m in v] for kind, v in u.items() if kind != "prop"}
+    keep = {group: {kind: [~m for m in v] for kind, v in u.items()}
             for group, u in union.items()}
-    second = {name: gradients(name, keep[sw == "cells"])[0]
+    second = {name: gradients(name, keep[KINK_GROUPS[sw]])[0]
               for name, (_, sw, _) in TRAIN_RUNS.items()}
 
     def pairs_of(g):
@@ -975,8 +1183,8 @@ def train_check(torch, model, batch, flags, l2, device):
         gate[run] = sorted(rows)
     return dict(
         targets={name: r[1] for name, r in first.items()}, crossed=crossed, flips=flips,
-        masked={f"{'cells' if g else 'off_glimpse'}.{kind}": int(sum(int(m.sum()) for m in v))
-                for g, u in union.items() for kind, v in u.items() if kind != "prop"},
+        masked={f"{g}.{kind}": int(sum(int(m.sum()) for m in v))
+                for g, u in union.items() for kind, v in u.items()},
         errors=pairs_of(second), unmasked=pairs_of({n: r[0] for n, r in first.items()}),
         distance=dist, unmasked_distance=distances({n: r[0] for n, r in first.items()}),
         gate=gate,
@@ -1207,6 +1415,60 @@ def run():
             u_near_integer=near, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True)
     prop_entry = dict(calls=T, abs_err=worst_p, bwd_abs_err=worst_pb)
 
+    # the fused discovery unroll (SQAIR_FUSE_CELLS at DISC_FLAGS), one call
+    # per frame, on frames of the port's data generator
+    t0 = time.perf_counter()
+    disc_flags = dict(flags, **DISC_LEVERS)
+    dshape = disc_shape(disc_flags, B * k)
+    ddims = disc_dims(dshape)
+    frames = create_seq_dataset(n_samples=-(-B * k // T), n_timesteps=T, canvas_size=IMG,
+                                obj_size=(28, 28), n_objects=(0, 2), seed=SEED + 8,
+                                templates=make_template_bank(256, 28, seed=SEED))["imgs"]
+    frames = torch.from_numpy(frames.reshape(-1, *IMG).astype("float32") / 255.0)
+    dargs, dweights = disc_inputs(torch, fc, dshape, gen, device, frames)
+    doffs = fc.disc_residual_layout(ddims)[0]
+    with torch.inference_mode():
+        got = fc._disc_fwd_cuda(*dargs, dweights, ddims)
+        want = fc.disc_plain_fwd(*dargs, dweights, ddims)
+        torch.cuda.synchronize()
+        fields = list(zip(fc.DISC_OUT_FIELDS, got, want)) + [
+            (f"residual.{name}", got[9][..., lo:hi], want[9][..., lo:hi])
+            for name, (lo, hi) in doffs.items()] + [
+            ("glimpses", got[10], want[10]), ("input_encoder", got[11], want[11])]
+        worst_d = 0.0
+        for name, a, b in fields:
+            diff = torch.abs(a - b)
+            if a.shape != b.shape or not torch.all(
+                    diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)):
+                raise Failure(f"fused_disc {dshape}: {name} disagrees with the plain version "
+                              f"(max |d| {float(diff.max()):.3g})")
+            worst_d = max(worst_d, float(diff.max()))
+        near_d = near_integer_u(torch, fg, dargs[0], want[3].reshape(-1, 4), ddims[1:4])
+        log("kernels", t0, kernel="fused_disc", shape=jdump(dshape), outputs=len(fields),
+            presence=f"{float(want[7].sum()):.0f}/{want[7].numel()}",
+            max_abs_err=f"{worst_d:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
+            ok=True)
+
+        t0 = time.perf_counter()
+        cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in want[:9])
+        saved = (want[0], want[2], want[3], want[5], want[6], want[7])
+        dbargs = (*dargs, dweights, saved, want[9], want[10], want[11], cots, ddims)
+        got_b = fc._disc_bwd_cuda(*dbargs)
+        want_b = fc.disc_plain_bwd(*dbargs)
+        torch.cuda.synchronize()
+        bnames = ["dcond", "dh0"] + ["d" + n for n in fc.DISC_WEIGHT_NAMES]
+        worst_db, share_db = 0.0, 0.0
+        for name, a, b in zip(bnames, got_b, want_b, strict=True):
+            err, size = scaled_err(torch, a, b)
+            if a.shape != b.shape or not err <= BWD_TOL * size + 1e-6:
+                raise Failure(f"fused_disc_bwd {dshape}: {name} differs by {err:.3g} "
+                              f"(largest {size:.3g}; u within 1e-5 of an integer: {near_d})")
+            worst_db, share_db = max(worst_db, err), max(share_db, err / (size + 1e-30))
+        log("kernels-bwd", t0, kernel="fused_disc_bwd", shape=jdump(dshape),
+            gradients=len(bnames), max_abs_err=f"{worst_db:.3e}", max_err_share=f"{share_db:.3e}",
+            u_near_integer=near_d, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True)
+    disc_entry = dict(calls=T, abs_err=worst_d, bwd_abs_err=worst_db)
+
     # -------------------------------------------------------------- eval
     t0 = time.perf_counter()
     n_seq = N_BATCHES * B
@@ -1327,6 +1589,22 @@ def run():
             bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
         add_row("fused_prop", prop_entry["calls"], ms, plain_ms, lib_ms, t_bytes, t_ops,
                 prop_entry["abs_err"])
+        t0 = time.perf_counter()
+        ms = device_ms(torch, lambda: fc._disc_fwd_cuda(*dargs, dweights, ddims), calls=10)
+        plain_ms = device_ms(torch, lambda: fc.disc_plain_fwd(*dargs, dweights, ddims),
+                             calls=10)
+        with switched({}), plain_versions(fused, fg, fc):
+            lib_fwd, _ = disc_library_fns(torch, model.sequence.timestep.discover, dargs, gen)
+            lib_ms = device_ms(torch, lib_fwd, calls=10)
+        nbytes, flops = disc_work(dshape)
+        t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+        log("timing", t0, kernel="fused_disc", shape=jdump(dshape),
+            calls_per_step=disc_entry["calls"], ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+            library_ms=f"{lib_ms:.5f}", bound_ms=f"{max(t_bytes, t_ops):.5f}",
+            mflop=f"{flops / 1e6:.1f}", mbyte=f"{nbytes / 1e6:.2f}",
+            bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
+        add_row("fused_disc", disc_entry["calls"], ms, plain_ms, lib_ms, t_bytes, t_ops,
+                disc_entry["abs_err"])
 
     t0 = time.perf_counter()
     step_noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 3), device)
@@ -1396,6 +1674,50 @@ def run():
         device_busy_ms="not-measured" if busy_ms is None else f"{busy_ms:.3f}",
         card=repr(card))
 
+    # --------------------------------------------------------- eval-disc
+    # the model at DISC_FLAGS (the same weights: the levers hold none), with
+    # no switch and with both switches, under the eval phase's noise
+    t0 = time.perf_counter()
+
+    def load_disc_model():
+        return mlp_mnist_model.load(disc_flags, imgs.shape[2:], mean_img=imgs.mean((0, 1)),
+                                    device=device, seed=SEED)
+
+    disc_model = load_disc_model()
+    disc_eval = make_eval_step(disc_model)
+    disc_runs = {}
+    for label, switches in (("off", {}), ("on", CELLS_SWITCH)):
+        with switched(switches):
+            replay_gen = torch.Generator(device=device).manual_seed(SEED + 2)
+            fused.reset_launches()
+            res_d = [disc_eval(obs, gt, GeneratorNoise(replay_gen, device)) for obs, gt in batches]
+            torch.cuda.synchronize()
+            counts = dict(fused.launches)
+            expected = expected_launches(main_path_shapes(
+                disc_flags, B, k, T, fuse_glimpse=bool(switches), fuse_cells=bool(switches)),
+                N_BATCHES)
+            if counts != expected:
+                raise Failure(f"launch counts {counts} at DISC_FLAGS, switches {switches}, "
+                              f"differ from the eval path's {expected}")
+            ms = step_ms(torch, lambda: disc_eval(obs0, gt0, step_noise), 2 * REPS)
+            busy_ms, _ = profile_device(torch, lambda: disc_eval(obs0, gt0, step_noise))
+        disc_runs[label] = dict(results=res_d, counts=counts, ms=ms, busy=busy_ms)
+    err_disc, worst_metric = max(
+        compare_metrics(torch, got, want, f"eval batch {i} at DISC_FLAGS, both switches vs off")
+        for i, (got, want) in enumerate(zip(disc_runs["on"]["results"],
+                                            disc_runs["off"]["results"])))
+    off_d, on_d = disc_runs["off"], disc_runs["on"]
+    log("eval-disc", t0, steps=N_BATCHES, launches=jdump(on_d["counts"]),
+        launches_switch_off=jdump(off_d["counts"]), vs_switch_off=f"{err_disc:.3e}",
+        worst_metric=worst_metric, tol=METRIC_TOL, eval_step_ms=f"{on_d['ms']:.3f}",
+        eval_step_ms_switch_off=f"{off_d['ms']:.3f}",
+        frames_per_s=f"{B * T / (on_d['ms'] / 1e3):.1f}",
+        frames_per_s_switch_off=f"{B * T / (off_d['ms'] / 1e3):.1f}",
+        device_busy_ms="not-measured" if on_d["busy"] is None else f"{on_d['busy']:.3f}",
+        device_busy_ms_switch_off=("not-measured" if off_d["busy"] is None
+                                   else f"{off_d['busy']:.3f}"),
+        card=repr(card))
+
     # ------------------------------------------------------------- train
     t0 = time.perf_counter()
     sampler = DeviceDatasetSampler(data, device)
@@ -1435,7 +1757,7 @@ def run():
 
     # ------------------------------------------------------- train-check
     t0 = time.perf_counter()
-    tc = train_check(torch, model, train_batches[0], flags, l2, device)
+    tc = train_check(torch, model, disc_model, train_batches[0], flags, disc_flags, l2, device)
     errors, dist = tc["errors"], tc["distance"]
     gmax = max(size for _, _, _, size in errors["kernels_vs_plain_on_card"])
 
@@ -1521,6 +1843,22 @@ def run():
             bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
         add_row("fused_prop_bwd", prop_entry["calls"], ms, plain_ms, lib_ms, t_bytes, t_ops,
                 prop_entry["bwd_abs_err"])
+        t0 = time.perf_counter()
+        ms = device_ms(torch, lambda: fc._disc_bwd_cuda(*dbargs), calls=10)
+        plain_ms = device_ms(torch, lambda: fc.disc_plain_bwd(*dbargs), calls=10)
+        with torch.inference_mode(False), switched({}), plain_versions(fused, fg, fc):
+            _, lib_bwd = disc_library_fns(torch, model.sequence.timestep.discover, dargs, gen)
+            lib_ms = device_ms(torch, lib_bwd, calls=10)
+        nbytes, flops = disc_work(dshape, backward=True)
+        t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+        log("train-timing", t0, kernel="fused_disc_bwd", shape=jdump(dshape),
+            calls_per_train_step=disc_entry["calls"], ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+            bound_ms=f"{max(t_bytes, t_ops):.5f}", mflop=f"{flops / 1e6:.1f}",
+            mbyte=f"{nbytes / 1e6:.2f}",
+            bound_by="bytes" if t_bytes >= t_ops else "operations", card=repr(card))
+        add_row("fused_disc_bwd", disc_entry["calls"], ms, plain_ms, lib_ms, t_bytes, t_ops,
+                disc_entry["bwd_abs_err"])
 
     t0 = time.perf_counter()
     timing_batch = train_batches[-1]
@@ -1596,6 +1934,56 @@ def run():
         device_busy_ms="not-measured" if busy_ms is None else f"{busy_ms:.3f}",
         card=repr(card))
 
+    # -------------------------------------------------------- train-disc
+    # two models at DISC_FLAGS from the same weights, one trained with no
+    # switch and one with both, on the same batches and noise
+    t0 = time.perf_counter()
+    disc_off = load_disc_model()
+    for name, p in disc_off.sequence.named_parameters():
+        if not torch.equal(p, dict(disc_model.sequence.named_parameters())[name]):
+            raise Failure(f"train-disc: the two models' {name} differ before training")
+    for label, m, switches in (("off", disc_off, {}), ("on", disc_model, CELLS_SWITCH)):
+        opt_d, _ = mlp_mnist_model.make_optimizer(disc_flags)
+        step_d = make_train_step(m, opt_d, l2_weight=l2)
+        noise_d = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 5), device)
+        with switched(switches):
+            fused.reset_launches()
+            metrics_d = [step_d(b["imgs"], b["nums"], noise_d) for b in train_batches]
+            torch.cuda.synchronize()
+            counts = dict(fused.launches)
+            expected = expected_launches(main_path_shapes(
+                disc_flags, B, k, T, train=True, fuse_glimpse=bool(switches),
+                fuse_cells=bool(switches)), N_TRAIN_STEPS, backward=True)
+            if counts != expected:
+                raise Failure(f"launch counts {counts} of the train step at DISC_FLAGS, "
+                              f"switches {switches}, differ from {expected}")
+            ms = step_ms(torch, lambda: step_d(timing_batch["imgs"], timing_batch["nums"],
+                                               noise_d), REPS)
+            busy_ms, _ = profile_device(
+                torch, lambda: step_d(timing_batch["imgs"], timing_batch["nums"], noise_d))
+        disc_runs["train_" + label] = dict(metrics=metrics_d, counts=counts, ms=ms, busy=busy_ms)
+    off_t, on_t = disc_runs["train_off"], disc_runs["train_on"]
+    # the first step's metrics come from the same weights; the updates move
+    # the two models apart by the gradients' kink crossings (train-check),
+    # so the later steps' distances are printed, not gated
+    err_train_disc, worst_metric = compare_metrics(
+        torch, on_t["metrics"][0], off_t["metrics"][0],
+        "train step 0 at DISC_FLAGS, both switches vs off")
+    later = [metric_distance(torch, got, want)
+             for got, want in zip(on_t["metrics"][1:], off_t["metrics"][1:])]
+    log("train-disc", t0, steps=N_TRAIN_STEPS, launches=jdump(on_t["counts"]),
+        launches_switch_off=jdump(off_t["counts"]), vs_switch_off=f"{err_train_disc:.3e}",
+        worst_metric=worst_metric, tol=METRIC_TOL,
+        later_steps_vs_switch_off=jdump([f"{e:.3e} ({k})" for e, k in later]),
+        target=f"{float(on_t['metrics'][-1]['target']):.4f}",
+        train_step_ms=f"{on_t['ms']:.3f}", train_step_ms_switch_off=f"{off_t['ms']:.3f}",
+        frames_per_s=f"{B * T / (on_t['ms'] / 1e3):.1f}",
+        frames_per_s_switch_off=f"{B * T / (off_t['ms'] / 1e3):.1f}",
+        device_busy_ms="not-measured" if on_t["busy"] is None else f"{on_t['busy']:.3f}",
+        device_busy_ms_switch_off=("not-measured" if off_t["busy"] is None
+                                   else f"{off_t['busy']:.3f}"),
+        card=repr(card))
+
     # ---------------------------------------------------------- eval-cli
     # the saved checkpoint swept twice, each time into a run dir of its own:
     # with the glimpse switch alone, then with both switches
@@ -1663,7 +2051,8 @@ def run():
     for name, meta in KERNELS.items():
         r = rows[name]
         w = r["weight"]
-        launches = (cells_train_counts if name.startswith("fused_prop") else
+        launches = (disc_runs["train_on"]["counts"] if name.startswith("fused_disc") else
+                    cells_train_counts if name.startswith("fused_prop") else
                     glimpse_train_counts if name.startswith("fused_glimpse") else train_counts)
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],

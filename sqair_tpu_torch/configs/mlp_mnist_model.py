@@ -98,8 +98,6 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
         glimpse_output_scale=F["output_scale"], mean_img=mean_img,
         output_std=F["output_std"],
     )
-    # fails here already where SQAIR_FUSE_CELLS asks for the unported discovery kernel
-    timestep.discover.check_fused_switch()
     seq = SequentialAIR(timestep, decoder)
     init_params(seq, torch.Generator().manual_seed(seed))
     seq.to(device)

@@ -105,6 +105,13 @@ __device__ __forceinline__ void acc_global(Acc& acc, const float* __restrict__ a
   }
 }
 
+// The offset of the next n floats of a layout being built at `off`.
+__host__ __device__ inline int take(int& off, int n) {
+  const int o = off;
+  off += n;
+  return o;
+}
+
 // Dynamic shared memory above the default 48 KB needs an opt-in per kernel.
 template <typename Kernel>
 __host__ cudaError_t allow_smem(Kernel kernel, size_t bytes) {

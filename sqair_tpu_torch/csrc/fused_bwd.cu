@@ -24,7 +24,8 @@
 //   B. column-parallel (`outer_reduce_kernel`): each block owns a tile of
 //      kOuterK rows x kOuterThreads columns of one dW (and, in its first
 //      row of tiles, the same columns of db) and loops over ALL N rows in
-//      increasing order.  No atomics: two runs give the same bits.
+//      increasing order, kOuterN rows at a time into a partial sum.  No
+//      atomics: two runs give the same bits.
 //
 // What bounds them on an H100 at the release model's train-step shapes
 // (f32; N = 160 or 480 rows in the time loop, 1600 and 4800 rows in the
@@ -77,12 +78,21 @@ __global__ void __launch_bounds__(kOuterThreads) outer_reduce_kernel(OuterArgs p
         float d[kOuterN];
 #pragma unroll
         for (int r = 0; r < kOuterN; ++r) d[r] = r < nc ? dz[(size_t)(n0 + r) * ldz + j] : 0.f;
+        // the chunk's kOuterN rows into partial sums, then added: the
+        // rounding error grows with N / kOuterN + kOuterN, not with N
+        float part[kOuterK], partb = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kOuterK; ++kk) part[kk] = 0.f;
 #pragma unroll
         for (int r = 0; r < kOuterN; ++r) {
 #pragma unroll
-          for (int kk = 0; kk < kOuterK; ++kk) acc[kk] = fmaf(as[r * kOuterK + kk], d[r], acc[kk]);
-          if (with_db) accb += d[r];
+          for (int kk = 0; kk < kOuterK; ++kk)
+            part[kk] = fmaf(as[r * kOuterK + kk], d[r], part[kk]);
+          if (with_db) partb += d[r];
         }
+#pragma unroll
+        for (int kk = 0; kk < kOuterK; ++kk) acc[kk] += part[kk];
+        accb += partb;
       }
     }
   }

@@ -1,0 +1,762 @@
+// The fused discovery unroll of one frame, forward and backward.
+//
+// Replaces: sqair_tpu/ops/fused_cells.py, `_disc_run_fwd` (the Pallas
+// kernel `_disc_fwd_kernel`) and `_disc_run_bwd` (`_disc_bwd_kernel`),
+// behind `fused_disc_ssm`.  Once per frame the input encoder
+//
+//   enc = elu(elu(img Wi1 + bi1) Wi2 + bi2)        [B, H W] -> U -> U
+//
+// then per row b of the batch the S discovery slots in order (slot k + 1
+// reads slot k's what, where and presence and its transition state h):
+//
+//   h = tanh([enc, cond, what_{k-1}, where_{k-1}, pres_{k-1}] Wr + h Ur + br)
+//   a = elu-elu-id MLP(h) -> 8; where_loc = a[:4]
+//   where_scale = softplus(a[4:]) + 1e-2 (the scale offset is in the bias)
+//   where = where_loc + where_scale eps_w
+//   g = crop(img, where) (unmasked); e = elu(elu(g We1 + be1) We2 + be2)
+//   what_loc, what_scale = (e Wh + bh) split (softplus + 1e-2)
+//   what = what_loc + what_scale eps_x
+//   logit = pres_{k-1} (elu([h, what] Wsp1 + bsp1) Wsp2 + bsp2) + (pres_{k-1} - 1) 88
+//   presence = (u < sigmoid(logit)) pres_{k-1}
+//
+// with (what, where, presence) = (0, 0, 1) and h = h0 before slot 0.  The
+// forward writes the nine outputs, one residual row per (slot, row) (the
+// JAX package's fields h, a1, a2, e1, e2, s1, lraw in its order, unpadded;
+// R = 5 U + SP + 1 = 1409 floats at the release model's widths), the
+// glimpses [S, B, gh gw] and the input encoder's two layers [B, 2U].  The
+// backward is the JAX package's `_disc_bwd_kernel`: slots in reverse,
+// carrying the gradients of the explaining-away inputs, of h and the
+// two-term gradient of the previous presence across slots, recomputing the
+// crop's interpolation from the saved where, then the input encoder; elu'
+// read off the output (1 at 0), the scale clip straight-through, no
+// gradient into the frame or the noise.
+//
+// What bounds it on an H100 at the release model's shapes (f32, B k = 160
+// rows, S = 3, 50 x 50 frames, 20 x 20 glimpses, 256 wide, conditioning
+// 256): operations.  The input encoder is ~113 M multiply-adds a call
+// (160 x 2500 x 256 + 160 x 256 x 256) and a row-slot ~0.65 M (the
+// transition, 567 + 256 wide; the estimator; the crop; the glimpse encoder
+// and head; the steps predictor), 0.85 GFLOP a call: 13 us at 67 TFLOP/s
+// off the tensor cores, against ~13 MB of frames, weights, outputs and
+// residuals (4 us at 3.35 TB/s); the backward about twice that.  What the design
+// does: the input encoder is a first launch of kRows rows a block (its
+// weights streamed once per block, as fused_mlp.cu); the slots are a second
+// launch in which one block of kThreads threads owns kDiscRows rows and runs
+// all slots for them with every activation in shared memory, the weights
+// streaming through L2 once per block and slot.  The crop, the encoder and
+// the dense layers are glimpse_common.cuh's, shared with fused_glimpse.cu
+// and fused_prop.cu.
+//
+// The backward is three launches: phase A (disc_bwd_rows_kernel),
+// row-parallel, chains the row gradients through the slots in reverse and
+// then through the input encoder, and writes every layer's dz and the
+// weight products' left operands that the residual rows do not hold to
+// scratch; phase B (outer_reduce_kernel, twice) reduces the ten slot layers'
+// weight gradients over all S B row-slots and the input encoder's two over
+// the B rows, in fixed order.  No atomics: two runs give the same bits.
+
+#include "glimpse_common.cuh"
+
+namespace sqair {
+
+constexpr int kDiscRows = 2;  // batch rows per block of the slot kernels
+
+struct DiscDims {
+  int B, S, H, W, gh, gw, nw, U, SP, C;
+  int G, HW, d_rnn, d_spf;
+  int R, Z;  // residual and scratch row widths
+  // residual fields (the JAX package's `_disc_offsets`, unpadded)
+  int h, a1, a2, e1, e2, s1, lraw;
+};
+
+// Scratch fields of one row-slot (backward): the weight products' left
+// operands that the residual row does not hold, then every layer's dz.
+struct DiscScratch {
+  int rnn_in, hprev, spf, dzr, dza1, dza2, dstp8, dz1, dz2, dhp, dsp1, dlraw;
+  int Z;
+};
+
+__host__ __device__ inline DiscScratch disc_scratch(const DiscDims& d) {
+  DiscScratch s;
+  int o = 0;
+  s.rnn_in = take(o, d.d_rnn);
+  s.hprev = take(o, d.U);
+  s.spf = take(o, d.d_spf);
+  s.dzr = take(o, d.U);
+  s.dza1 = take(o, d.U);
+  s.dza2 = take(o, d.U);
+  s.dstp8 = take(o, 8);
+  s.dz1 = take(o, d.U);
+  s.dz2 = take(o, d.U);
+  s.dhp = take(o, 2 * d.nw);
+  s.dsp1 = take(o, d.SP);
+  s.dlraw = take(o, 1);
+  s.Z = o;
+  return s;
+}
+
+bool read_disc_dims(const int* v, DiscDims& d) {
+  d = DiscDims{};
+  d.B = v[0]; d.S = v[1]; d.H = v[2]; d.W = v[3]; d.gh = v[4]; d.gw = v[5];
+  d.nw = v[6]; d.U = v[7]; d.SP = v[8]; d.C = v[9];
+  d.G = d.gh * d.gw;
+  d.HW = d.H * d.W;
+  d.d_rnn = d.U + d.C + d.nw + 5;
+  d.d_spf = d.U + d.nw;
+  int o = 0;
+  d.h = take(o, d.U); d.a1 = take(o, d.U); d.a2 = take(o, d.U);
+  d.e1 = take(o, d.U); d.e2 = take(o, d.U); d.s1 = take(o, d.SP); d.lraw = take(o, 1);
+  d.R = o;
+  d.Z = disc_scratch(d).Z;
+  const int widest[] = {d.G, d.U, 2 * d.nw, d.d_rnn, d.d_spf, d.SP};
+  for (int w : widest)
+    if (w > kMaxWidth) return false;
+  return d.B > 0 && d.S > 0 && d.H > 1 && d.W > 1 && d.gh > 1 && d.gw > 1 && d.nw > 0 &&
+         d.U > 0 && d.SP > 0 && d.C > 0;
+}
+
+// The 23 weights, in the order of the JAX package's `_disc_weights_flat`.
+struct DiscWeights {
+  const float *wi1, *bi1, *wi2, *bi2, *rw, *ru, *rb, *s1w, *s1b, *s2w, *s2b, *s3w, *s3b, *we1,
+      *be1, *we2, *be2, *wh, *bh, *sp1w, *sp1b, *sp2w, *sp2b;
+};
+constexpr int kDiscWeights = 23;
+static_assert(sizeof(DiscWeights) == kDiscWeights * sizeof(const float*), "23 pointers");
+
+DiscWeights read_disc_weights(const float* const* f) {
+  DiscWeights w;
+  const float** dst = reinterpret_cast<const float**>(&w);
+  for (int i = 0; i < kDiscWeights; ++i) dst[i] = f[i];
+  return w;
+}
+
+// The inputs: img [B, H, W], imgf [B, H W] (the same frames flat), cond
+// [B, C], h0 [B, U], eps_w [S, B, 4], eps_x [S, B, nw], u [S, B, 1].
+struct DiscInputs {
+  const float *img, *imgf, *cond, *h0b, *epsw, *epsx, *u;
+};
+
+DiscInputs read_disc_inputs(const float* const* f) {
+  return DiscInputs{f[0], f[1], f[2], f[3], f[4], f[5], f[6]};
+}
+
+// ------------------------------------------------------------- forward
+struct DiscFwdArgs {
+  DiscDims d;
+  DiscWeights w;
+  DiscInputs in;
+  // what, what_loc, what_scale, where, where_loc, where_scale, prob,
+  // presence, logit [S, B, d]; residual rows [S, B, R]; glimpses
+  // [S, B, G]; the input encoder's layers [B, 2U]
+  float *what, *what_loc, *what_scale, *where, *where_loc, *where_scale, *prob, *pres, *logit,
+      *res, *g0s, *fres;
+};
+
+// The input encoder: kRows rows a block, layer 1 staged from the frames,
+// layer 2 from shared memory; both layers into fres.
+__global__ void __launch_bounds__(kThreads) disc_encoder_kernel(DiscFwdArgs p) {
+  extern __shared__ float smem[];
+  const DiscDims& d = p.d;
+  const int U = d.U;
+  float* stage = smem;                 // kRows * kChunk
+  float* h1 = smem + kRows * kChunk;   // kRows * U
+  const int row0 = blockIdx.x * kRows;
+  const int rows = min(kRows, d.B - row0);
+  Acc acc;
+  zero(acc);
+  acc_global(acc, p.in.imgf + (size_t)row0 * d.HW, d.HW, rows, d.HW, p.w.wi1, U, U, stage);
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) {
+    const int j = threadIdx.x + c * kThreads;
+    if (j < U) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float v = apply_act(acc[c][r] + p.w.bi1[j], kElu);
+        h1[r * U + j] = v;
+        if (r < rows) p.fres[(size_t)(row0 + r) * 2 * U + j] = v;
+      }
+    }
+  }
+  __syncthreads();
+  zero(acc);
+  acc_smem(acc, h1, U, U, p.w.wi2, U, U);
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) {
+    const int j = threadIdx.x + c * kThreads;
+    if (j < U) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < rows)
+          p.fres[(size_t)(row0 + r) * 2 * U + U + j] = apply_act(acc[c][r] + p.w.bi2[j], kElu);
+    }
+  }
+}
+
+__host__ __device__ inline size_t disc_encoder_smem(const DiscDims& d) {
+  return sizeof(float) * (size_t)kRows * (kChunk + d.U);
+}
+
+// Shared memory of the slot forward: kDiscRows rows of each buffer, then
+// one row's crop.
+struct DiscFwdSmem {
+  int rin, spf, a1, a2, st8, gbuf, e1, e2, hp, s1, crop, total;
+};
+
+__host__ __device__ inline DiscFwdSmem disc_fwd_smem(const DiscDims& d) {
+  DiscFwdSmem L;
+  int o = 0;
+  const int n = kDiscRows;
+  L.rin = take(o, n * d.d_rnn);  // [enc, cond, what, where, pres of slot k - 1]
+  L.spf = take(o, n * d.d_spf);  // [h, what]
+  L.a1 = take(o, n * d.U);
+  L.a2 = take(o, n * d.U);
+  L.st8 = take(o, n * 8);
+  L.gbuf = take(o, n * d.G);
+  L.e1 = take(o, n * d.U);
+  L.e2 = take(o, n * d.U);
+  L.hp = take(o, n * 2 * d.nw);
+  L.s1 = take(o, n * d.SP);
+  L.crop = take(o, (int)CropSmem::floats(CropDims{d.H, d.W, d.gh, d.gw}));
+  L.total = o;
+  return L;
+}
+
+__global__ void __launch_bounds__(kThreads) disc_fwd_kernel(DiscFwdArgs p) {
+  extern __shared__ float smem[];
+  constexpr int NR = kDiscRows;
+  const DiscDims& d = p.d;
+  const DiscWeights& w = p.w;
+  const DiscInputs& in = p.in;
+  const DiscFwdSmem L = disc_fwd_smem(d);
+  float *rin = smem + L.rin, *spf = smem + L.spf, *a1 = smem + L.a1, *a2 = smem + L.a2;
+  float *st8 = smem + L.st8, *gbuf = smem + L.gbuf, *e1 = smem + L.e1, *e2 = smem + L.e2;
+  float *hp = smem + L.hp, *s1 = smem + L.s1;
+  const CropDims cd{d.H, d.W, d.gh, d.gw};
+  const CropSmem cs(smem + L.crop, cd);
+  const int NW = d.nw, U = d.U, C = d.C, G = d.G, R = d.R;
+  const int drn = d.d_rnn, dsp = d.d_spf;
+  const int o_what = U + C, o_where = U + C + NW, o_pres = U + C + NW + 4;  // fields of rin
+  const int row0 = blockIdx.x * NR;
+  const int rows = min(NR, d.B - row0);
+
+  // slot 0: the frame's code and conditioning, no object yet, h = h0
+  for (int i = threadIdx.x; i < NR * drn; i += kThreads) {
+    const int r = i / drn, j = i - r * drn;
+    const size_t row = (size_t)row0 + r;
+    float v = 0.f;
+    if (j >= o_pres) {
+      v = 1.f;
+    } else if (r < rows && j < U) {
+      v = p.fres[row * 2 * U + U + j];
+    } else if (r < rows && j < U + C) {
+      v = in.cond[row * C + j - U];
+    }
+    rin[i] = v;
+  }
+  for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+    const int r = i / U, j = i - r * U;
+    spf[r * dsp + j] = r < rows ? in.h0b[(size_t)(row0 + r) * U + j] : 0.f;
+  }
+  __syncthreads();
+
+  for (int k = 0; k < d.S; ++k) {
+    const size_t slot = (size_t)k * d.B + row0;  // the block's first row-slot
+    float* res0 = p.res + slot * R;              // row r at res0 + r * R
+
+    // the transition: h = tanh(rin Wr + h Ur + br), h in spf[:U]
+    dense2<NR>(rin, drn, drn, w.rw, spf, dsp, U, w.ru, U, [&](int r, int j, float z) {
+      const float v = tanhf(z + w.rb[j]);
+      spf[r * dsp + j] = v;
+      if (r < rows) res0[r * R + d.h + j] = v;
+    });
+
+    // the transform estimator and the where sample
+    dense<NR>(spf, dsp, U, w.s1w, U, [&](int r, int j, float z) {
+      const float v = apply_act(z + w.s1b[j], kElu);
+      a1[r * U + j] = v;
+      if (r < rows) res0[r * R + d.a1 + j] = v;
+    });
+    dense<NR>(a1, U, U, w.s2w, U, [&](int r, int j, float z) {
+      const float v = apply_act(z + w.s2b[j], kElu);
+      a2[r * U + j] = v;
+      if (r < rows) res0[r * R + d.a2 + j] = v;
+    });
+    dense<NR>(a2, U, U, w.s3w, 8,
+              [&](int r, int j, float z) { st8[r * 8 + j] = z + w.s3b[j]; });
+    for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
+      const int r = i / 4, j = i - r * 4;
+      const float wloc = st8[r * 8 + j];
+      const float wsc = softplus(st8[r * 8 + 4 + j]) + kMinStd;
+      float where = 0.f;
+      if (r < rows) {
+        const size_t o = (slot + r) * 4 + j;
+        // the plain version's order, unfused: the crop turns at integers
+        where = __fadd_rn(wloc, __fmul_rn(wsc, in.epsw[o]));
+        p.where[o] = where;
+        p.where_loc[o] = wloc;
+        p.where_scale[o] = wsc;
+      }
+      rin[r * drn + o_where + j] = where;
+    }
+    __syncthreads();
+
+    // the unmasked glimpse at the sampled where, encoded
+    for (int r = 0; r < NR; ++r) {
+      if (r < rows) {
+        float c[4];
+        crop_setup(in.img + (size_t)(row0 + r) * d.HW, rin + r * drn + o_where, cd, cs, c);
+        crop_glimpse(cd, cs, gbuf + r * G, p.g0s + (slot + r) * G);
+      } else {
+        for (int i = threadIdx.x; i < G; i += kThreads) gbuf[r * G + i] = 0.f;
+      }
+    }
+    __syncthreads();
+    encode_rows<NR>(gbuf, G, w.we1, w.be1, U, w.we2, w.be2, U, e1, e2, res0 + d.e1, (size_t)R,
+                    res0 + d.e2, (size_t)R, rows);
+    dense<NR>(e2, U, U, w.wh, 2 * NW,
+              [&](int r, int j, float z) { hp[r * 2 * NW + j] = z + w.bh[j]; });
+
+    // the what sample; what is the next slot's explaining away
+    for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
+      const int r = i / NW, j = i - r * NW;
+      const float gloc = hp[r * 2 * NW + j];
+      const float gsc = softplus(hp[r * 2 * NW + NW + j]) + kMinStd;
+      float what = 0.f;
+      if (r < rows) {
+        const size_t o = (slot + r) * NW + j;
+        what = __fadd_rn(gloc, __fmul_rn(gsc, in.epsx[o]));
+        p.what[o] = what;
+        p.what_loc[o] = gloc;
+        p.what_scale[o] = gsc;
+      }
+      spf[r * dsp + U + j] = what;
+      rin[r * drn + o_what + j] = what;
+    }
+    __syncthreads();
+
+    // the steps predictor on [h, what] and the presence
+    dense<NR>(spf, dsp, dsp, w.sp1w, d.SP, [&](int r, int j, float z) {
+      const float v = apply_act(z + w.sp1b[j], kElu);
+      s1[r * d.SP + j] = v;
+      if (r < rows) res0[r * R + d.s1 + j] = v;
+    });
+    dense<NR>(s1, d.SP, d.SP, w.sp2w, 1, [&](int r, int, float z) {
+      const float lraw = z + w.sp2b[0];
+      const float pk = rin[r * drn + o_pres];
+      const float logit = pk * lraw + (pk - 1.f) * 88.f;
+      const float prob = sigmoidf(logit);
+      float pres = 0.f;
+      if (r < rows) {
+        pres = (in.u[slot + r] < prob ? 1.f : 0.f) * pk;
+        res0[r * R + d.lraw] = lraw;
+        p.prob[slot + r] = prob;
+        p.pres[slot + r] = pres;
+        p.logit[slot + r] = logit;
+      }
+      rin[r * drn + o_pres] = pres;
+    });
+  }
+}
+
+// --------------------------------------------------- backward, phase A
+struct DiscBwdArgs {
+  DiscDims d;
+  DiscScratch sc;
+  DiscWeights w;
+  DiscInputs in;
+  // saved outputs: what, what_scale, where, where_scale, prob, presence;
+  // residual rows, glimpses, the input encoder's layers
+  const float *what, *what_scale, *where, *where_scale, *prob, *pres, *res, *g0s, *fres;
+  // the outputs' gradients, in the forward's output order
+  const float *dwhat, *dwhat_loc, *dwhat_scale, *dwhere, *dwhere_loc, *dwhere_scale, *dprob,
+      *dpres, *dlogit;
+  float *dcond, *dh0;  // the inputs' gradients
+  float* scratch;      // [S, B, Z], then the input encoder's dz2 and dz1 [B, U] each
+  const float* crop_keep;  // [S, B] or null: keep_crop_grad's factors
+};
+
+struct DiscBwdSmem {
+  int dpc, dpt, dlr, dwc, dwhc, dhc, denc, dcond, dsp1, dspf, dhp, dz2, dz1, dg, dwl, dst8, dza2,
+      dza1, dzr, drnn, crop, cropb, total;
+};
+
+__host__ __device__ inline DiscBwdSmem disc_bwd_smem(const DiscDims& d) {
+  DiscBwdSmem L;
+  int o = 0;
+  const int n = kDiscRows, U = d.U;
+  L.dpc = take(o, n);            // carried from slot k + 1: d presence_{k}
+  L.dpt = take(o, n);            // this slot's d pres_{k-1} before the transition's part
+  L.dlr = take(o, n);
+  L.dwc = take(o, n * d.nw);     // d what_{k}
+  L.dwhc = take(o, n * 4);       // d where_{k}
+  L.dhc = take(o, n * U);        // d h_{k}
+  L.denc = take(o, n * U);       // d enc, summed over the slots
+  L.dcond = take(o, n * d.C);    // d cond, summed over the slots
+  L.dsp1 = take(o, n * d.SP);
+  L.dspf = take(o, n * d.d_spf);  // [d h (accumulated), d what]
+  L.dhp = take(o, n * 2 * d.nw);
+  L.dz2 = take(o, n * U);
+  L.dz1 = take(o, n * U);
+  L.dg = take(o, n * d.G);
+  L.dwl = take(o, n * 4);
+  L.dst8 = take(o, n * 8);
+  L.dza2 = take(o, n * U);
+  L.dza1 = take(o, n * U);
+  L.dzr = take(o, n * U);
+  L.drnn = take(o, n * d.d_rnn);
+  const CropDims cd{d.H, d.W, d.gh, d.gw};
+  L.crop = take(o, (int)CropSmem::floats(cd));
+  L.cropb = take(o, (int)CropSmem::bwd_floats(cd));
+  L.total = o;
+  return L;
+}
+
+__global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) {
+  extern __shared__ float smem[];
+  constexpr int NR = kDiscRows;
+  const DiscDims& d = p.d;
+  const DiscScratch& s = p.sc;
+  const DiscWeights& w = p.w;
+  const DiscInputs& in = p.in;
+  const DiscBwdSmem L = disc_bwd_smem(d);
+  float *dpc = smem + L.dpc, *dpt = smem + L.dpt, *dlr = smem + L.dlr, *dwc = smem + L.dwc;
+  float *dwhc = smem + L.dwhc, *dhc = smem + L.dhc, *denc = smem + L.denc;
+  float *dcond = smem + L.dcond, *dsp1 = smem + L.dsp1, *dspf = smem + L.dspf;
+  float *dhp = smem + L.dhp, *dz2 = smem + L.dz2, *dz1 = smem + L.dz1, *dg = smem + L.dg;
+  float *dwl = smem + L.dwl, *dst8 = smem + L.dst8, *dza2 = smem + L.dza2;
+  float *dza1 = smem + L.dza1, *dzr = smem + L.dzr, *drnn = smem + L.drnn;
+  const CropDims cd{d.H, d.W, d.gh, d.gw};
+  const CropSmem cs(smem + L.crop, cd);
+  float* bw = smem + L.cropb;
+  const int NW = d.nw, U = d.U, C = d.C, G = d.G, R = d.R, Z = s.Z;
+  const int dsf = d.d_spf, drn = d.d_rnn;
+  const int row0 = blockIdx.x * NR;
+  const int rows = min(NR, d.B - row0);
+
+  for (int i = threadIdx.x; i < NR; i += kThreads) dpc[i] = 0.f;
+  for (int i = threadIdx.x; i < NR * NW; i += kThreads) dwc[i] = 0.f;
+  for (int i = threadIdx.x; i < NR * 4; i += kThreads) dwhc[i] = 0.f;
+  for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+    dhc[i] = 0.f;
+    denc[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i < NR * C; i += kThreads) dcond[i] = 0.f;
+
+  for (int k = d.S - 1; k >= 0; --k) {
+    const size_t slot = (size_t)k * d.B + row0;
+    const float* res0 = p.res + slot * R;  // row r at res0 + r * R
+    float* sc0 = p.scratch + slot * Z;     // row r at sc0 + r * Z
+    __syncthreads();
+    // the presence
+    for (int r = threadIdx.x; r < NR; r += kThreads) {
+      float dlraw = 0.f, part = 0.f;
+      if (r < rows) {
+        const size_t o = slot + r;
+        const float prob = p.prob[o], lraw = res0[r * R + d.lraw];
+        const float pprev = k > 0 ? p.pres[o - d.B] : 1.f;
+        const float dpres = p.dpres[o] + dpc[r];
+        const float dlogit = p.dlogit[o] + p.dprob[o] * prob * (1.f - prob);
+        dlraw = dlogit * pprev;
+        const float psamp = in.u[o] < prob ? 1.f : 0.f;
+        part = dpres * psamp + dlogit * (lraw + 88.f);
+        sc0[r * Z + s.dlraw] = dlraw;
+      }
+      dlr[r] = dlraw;
+      dpt[r] = part;
+    }
+    __syncthreads();
+    // the steps predictor on [h, what]
+    for (int i = threadIdx.x; i < NR * d.SP; i += kThreads) {
+      const int r = i / d.SP, j = i - r * d.SP;
+      float v = 0.f;
+      if (r < rows) {
+        v = dlr[r] * w.sp2w[j] * act_grad_from_output(res0[r * R + d.s1 + j], kElu);
+        sc0[r * Z + s.dsp1 + j] = v;
+      }
+      dsp1[i] = v;
+    }
+    for (int i = threadIdx.x; i < rows * dsf; i += kThreads) {
+      const int r = i / dsf, j = i - r * dsf;
+      sc0[r * Z + s.spf + j] = j < U ? res0[r * R + d.h + j] : p.what[(slot + r) * NW + j - U];
+    }
+    __syncthreads();
+    dense_t<NR>(dsp1, d.SP, d.SP, w.sp1w, dsf,
+                [&](int r, int k2, float v) { dspf[r * dsf + k2] = v; });
+
+    // the what sample and the head
+    for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
+      const int r = i / NW, j = i - r * NW;
+      float vl = 0.f, vs = 0.f;
+      if (r < rows) {
+        const size_t o = (slot + r) * NW + j;
+        const float dwt = (p.dwhat[o] + dwc[i]) + dspf[r * dsf + U + j];
+        vl = dwt + p.dwhat_loc[o];
+        const float dgsc = dwt * in.epsx[o] + p.dwhat_scale[o];
+        vs = dgsc * (1.f - expf(-(p.what_scale[o] - kMinStd)));
+        sc0[r * Z + s.dhp + j] = vl;
+        sc0[r * Z + s.dhp + NW + j] = vs;
+      }
+      dhp[r * 2 * NW + j] = vl;
+      dhp[r * 2 * NW + NW + j] = vs;
+    }
+    __syncthreads();
+
+    // the glimpse encoder, then the crop at the saved where
+    encode_rows_bwd<NR>(dhp, 2 * NW, w.wh, w.we2, w.we1, U, U, G, res0 + d.e1, (size_t)R,
+                        res0 + d.e2, (size_t)R, dz2, dz1, dg, sc0 + s.dz2, (size_t)Z,
+                        sc0 + s.dz1, (size_t)Z, rows);
+    for (int r = 0; r < NR; ++r) {
+      if (r >= rows) {
+        for (int i = threadIdx.x; i < 4; i += kThreads) dwl[r * 4 + i] = 0.f;
+        continue;
+      }
+      float c[4];
+      crop_setup(in.img + (size_t)(row0 + r) * d.HW, p.where + (slot + r) * 4, cd, cs, c);
+      crop_bwd(cd, cs, c, dg + r * G, bw, dwl + r * 4);
+    }
+    __syncthreads();
+    keep_crop_grad<NR>(dwl, p.crop_keep, slot, rows);
+
+    // the where sample and the transform estimator
+    for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
+      const int r = i / 4, j = i - r * 4;
+      float dloc = 0.f, dsc = 0.f;
+      if (r < rows) {
+        const size_t o = (slot + r) * 4 + j;
+        const float dwt = (p.dwhere[o] + dwhc[i]) + dwl[i];
+        dloc = dwt + p.dwhere_loc[o];
+        const float dwscale = dwt * in.epsw[o] + p.dwhere_scale[o];
+        dsc = dwscale * (1.f - expf(-(p.where_scale[o] - kMinStd)));
+        sc0[r * Z + s.dstp8 + j] = dloc;
+        sc0[r * Z + s.dstp8 + 4 + j] = dsc;
+      }
+      dst8[r * 8 + j] = dloc;
+      dst8[r * 8 + 4 + j] = dsc;
+    }
+    __syncthreads();
+    dense_t<NR>(dst8, 8, 8, w.s3w, U, [&](int r, int k2, float v) {
+      float dz = 0.f;
+      if (r < rows) {
+        dz = v * act_grad_from_output(res0[r * R + d.a2 + k2], kElu);
+        sc0[r * Z + s.dza2 + k2] = dz;
+      }
+      dza2[r * U + k2] = dz;
+    });
+    dense_t<NR>(dza2, U, U, w.s2w, U, [&](int r, int k2, float v) {
+      float dz = 0.f;
+      if (r < rows) {
+        dz = v * act_grad_from_output(res0[r * R + d.a1 + k2], kElu);
+        sc0[r * Z + s.dza1 + k2] = dz;
+      }
+      dza1[r * U + k2] = dz;
+    });
+    dense_t<NR>(dza1, U, U, w.s1w, U,
+                [&](int r, int k2, float v) { dspf[r * dsf + k2] += v; });
+
+    // the transition
+    for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      float v = 0.f;
+      if (r < rows) {
+        const float h = res0[r * R + d.h + j];
+        v = (dspf[r * dsf + j] + dhc[i]) * (1.f - h * h);
+        sc0[r * Z + s.dzr + j] = v;
+        sc0[r * Z + s.hprev + j] = k > 0 ? res0[r * R - (ptrdiff_t)d.B * R + d.h + j]
+                                         : in.h0b[(size_t)(row0 + r) * U + j];
+      }
+      dzr[i] = v;
+    }
+    for (int i = threadIdx.x; i < rows * drn; i += kThreads) {
+      const int r = i / drn, j = i - r * drn;
+      const size_t row = (size_t)row0 + r, prev = slot + r - d.B;
+      float v;
+      if (j < U) {
+        v = p.fres[row * 2 * U + U + j];
+      } else if (j < U + C) {
+        v = in.cond[row * C + j - U];
+      } else if (j < U + C + NW) {
+        v = k > 0 ? p.what[prev * NW + j - U - C] : 0.f;
+      } else if (j < U + C + NW + 4) {
+        v = k > 0 ? p.where[prev * 4 + j - U - C - NW] : 0.f;
+      } else {
+        v = k > 0 ? p.pres[prev] : 1.f;
+      }
+      sc0[r * Z + s.rnn_in + j] = v;
+    }
+    __syncthreads();
+    dense_t<NR>(dzr, U, U, w.rw, drn, [&](int r, int k2, float v) { drnn[r * drn + k2] = v; });
+    dense_t<NR>(dzr, U, U, w.ru, U, [&](int r, int k2, float v) { dhc[r * U + k2] = v; });
+    for (int i = threadIdx.x; i < NR * drn; i += kThreads) {
+      const int r = i / drn, j = i - r * drn;
+      const float v = drnn[i];
+      if (j < U) {
+        denc[r * U + j] += v;
+      } else if (j < U + C) {
+        dcond[r * C + j - U] += v;
+      } else if (j < U + C + NW) {
+        dwc[r * NW + j - U - C] = v;
+      } else if (j < U + C + NW + 4) {
+        dwhc[r * 4 + j - U - C - NW] = v;
+      } else {
+        dpc[r] = dpt[r] + v;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the input encoder: dz2 = d enc elu'(enc), dz1 = (dz2 Wi2^T) elu'(ench1)
+  float* dz2e = p.scratch + (size_t)d.S * d.B * Z;
+  float* dz1e = dz2e + (size_t)d.B * U;
+  for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+    const int r = i / U, j = i - r * U;
+    float v = 0.f;
+    if (r < rows) {
+      const size_t o = (size_t)(row0 + r) * U + j;
+      v = denc[i] * act_grad_from_output(p.fres[(size_t)(row0 + r) * 2 * U + U + j], kElu);
+      dz2e[o] = v;
+    }
+    dz2[i] = v;
+  }
+  __syncthreads();
+  dense_t<NR>(dz2, U, U, w.wi2, U, [&](int r, int k2, float v) {
+    if (r < rows)
+      dz1e[(size_t)(row0 + r) * U + k2] =
+          v * act_grad_from_output(p.fres[(size_t)(row0 + r) * 2 * U + k2], kElu);
+  });
+  for (int i = threadIdx.x; i < rows * C; i += kThreads) p.dcond[(size_t)row0 * C + i] = dcond[i];
+  for (int i = threadIdx.x; i < rows * U; i += kThreads) p.dh0[(size_t)row0 * U + i] = dhc[i];
+}
+
+}  // namespace sqair
+
+// The forward.  ptrs holds, in order: img [B, H, W], imgf [B, H W] (the
+// same frames flat), cond [B, C], h0 [B, U], eps_w [S, B, 4], eps_x
+// [S, B, nw], u [S, B, 1]; the 23 weights in the order of
+// `_disc_weights_flat` (the estimator's last bias with the scale offset
+// folded in; We1 [gh gw, U]); then the outputs what, what_loc, what_scale
+// [S, B, nw], where, where_loc, where_scale [S, B, 4], prob, presence,
+// logit [S, B, 1], the residual rows [S, B, R], the glimpses [S, B, gh gw]
+// and the input encoder's layers [B, 2U].  dims is {B, S, H, W, gh, gw, nw,
+// U, SP, C}.  All f32, contiguous and on the device; ptrs and dims are host
+// arrays.  Launches the input encoder, then the slots, on `stream`; does
+// not synchronise, allocates nothing, and returns the CUDA error code of
+// the launches (0 on success).
+extern "C" int sqair_fused_disc(void* const* ptrs, const int* dims, void* stream) {
+  using namespace sqair;
+  DiscFwdArgs p{};
+  if (!read_disc_dims(dims, p.d)) return (int)cudaErrorInvalidValue;
+  const float* const* f = reinterpret_cast<const float* const*>(ptrs);
+  p.in = read_disc_inputs(f);
+  p.w = read_disc_weights(f + 7);
+  float* const* o = reinterpret_cast<float* const*>(ptrs + 7 + kDiscWeights);
+  p.what = o[0]; p.what_loc = o[1]; p.what_scale = o[2];
+  p.where = o[3]; p.where_loc = o[4]; p.where_scale = o[5];
+  p.prob = o[6]; p.pres = o[7]; p.logit = o[8];
+  p.res = o[9]; p.g0s = o[10]; p.fres = o[11];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+
+  const size_t smem_enc = disc_encoder_smem(p.d);
+  cudaError_t err = allow_smem(disc_encoder_kernel, smem_enc);
+  if (err != cudaSuccess) return (int)err;
+  disc_encoder_kernel<<<(p.d.B + kRows - 1) / kRows, kThreads, smem_enc, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem = sizeof(float) * (size_t)disc_fwd_smem(p.d).total;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  err = allow_smem(disc_fwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  disc_fwd_kernel<<<(p.d.B + kDiscRows - 1) / kDiscRows, kThreads, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The floats of the backward's scratch (S B row-slots of DiscScratch, then
+// the input encoder's dz2 and dz1 [B, U] each) for the forward's dims; -1
+// where the dims are refused.
+extern "C" int sqair_fused_disc_scratch_floats(const int* dims) {
+  sqair::DiscDims d;
+  if (!sqair::read_disc_dims(dims, d)) return -1;
+  return d.S * d.B * d.Z + 2 * d.B * d.U;
+}
+
+// The backward.  ptrs holds, in order: the forward's 7 inputs and 23
+// weights; the saved what, what_scale, where, where_scale, prob and
+// presence, the residual rows, the glimpses and the input encoder's
+// layers; the gradients of the nine outputs (in the forward's order); then
+// the outputs d cond, d h0 and the 23 weights' gradients (in their order);
+// then the scratch, as sqair_fused_disc_scratch_floats sizes it, and a
+// factor [S, B] on each row-slot's where-gradient through the crop, or
+// null (none).  dims is the forward's.  Launches phase A and phase B
+// (twice).
+extern "C" int sqair_fused_disc_bwd(void* const* ptrs, const int* dims, void* stream) {
+  using namespace sqair;
+  DiscBwdArgs p{};
+  if (!read_disc_dims(dims, p.d)) return (int)cudaErrorInvalidValue;
+  p.sc = disc_scratch(p.d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* const* f = reinterpret_cast<const float* const*>(ptrs);
+  p.in = read_disc_inputs(f);
+  p.w = read_disc_weights(f + 7);
+  const float* const* sv = f + 7 + kDiscWeights;
+  p.what = sv[0]; p.what_scale = sv[1]; p.where = sv[2]; p.where_scale = sv[3];
+  p.prob = sv[4]; p.pres = sv[5]; p.res = sv[6]; p.g0s = sv[7]; p.fres = sv[8];
+  const float* const* g = sv + 9;
+  p.dwhat = g[0]; p.dwhat_loc = g[1]; p.dwhat_scale = g[2];
+  p.dwhere = g[3]; p.dwhere_loc = g[4]; p.dwhere_scale = g[5];
+  p.dprob = g[6]; p.dpres = g[7]; p.dlogit = g[8];
+  float* const* o = reinterpret_cast<float* const*>(ptrs + 7 + kDiscWeights + 18);
+  p.dcond = o[0]; p.dh0 = o[1];
+  float* const* dw = o + 2;
+  p.scratch = o[2 + kDiscWeights];
+  p.crop_keep = o[3 + kDiscWeights];
+
+  const size_t smem = sizeof(float) * (size_t)disc_bwd_smem(p.d).total;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(disc_bwd_rows_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  disc_bwd_rows_kernel<<<(p.d.B + kDiscRows - 1) / kDiscRows, kThreads, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // phase B: the slot layers' weight gradients over the S B row-slots,
+  // then the input encoder's over the B rows, each in fixed order
+  const DiscDims& d = p.d;
+  const DiscScratch& c = p.sc;
+  const float* res = p.res;
+  const float* sc = p.scratch;
+  const int R = d.R, Z = c.Z, U = d.U;
+  OuterArgs q{};
+  int n = 0;
+  auto job = [&](const float* a, int lda, const float* dz, int ldz, int wi, bool bias, int K,
+                 int J) {
+    OuterJob& jb = q.job[n++];
+    jb = OuterJob{a, dz, dw[wi], bias ? dw[wi + 1] : nullptr, lda, K, J};
+    jb.ldz = ldz;
+  };
+  // weight indices in `_disc_weights_flat` order (the bias follows its matrix)
+  q.n = d.S * d.B;
+  job(sc + c.rnn_in, Z, sc + c.dzr, Z, 4, false, d.d_rnn, U);    // rw
+  q.job[n - 1].db = dw[6];                                        // rb
+  job(sc + c.hprev, Z, sc + c.dzr, Z, 5, false, U, U);           // ru
+  job(res + d.h, R, sc + c.dza1, Z, 7, true, U, U);              // s1
+  job(res + d.a1, R, sc + c.dza2, Z, 9, true, U, U);             // s2
+  job(res + d.a2, R, sc + c.dstp8, Z, 11, true, U, 8);           // s3
+  job(p.g0s, d.G, sc + c.dz1, Z, 13, true, d.G, U);              // we1
+  job(res + d.e1, R, sc + c.dz2, Z, 15, true, U, U);             // we2
+  job(res + d.e2, R, sc + c.dhp, Z, 17, true, U, 2 * d.nw);      // wh
+  job(sc + c.spf, Z, sc + c.dsp1, Z, 19, true, d.d_spf, d.SP);   // sp1
+  job(res + d.s1, R, sc + c.dlraw, Z, 21, true, d.SP, 1);        // sp2
+  q.n_jobs = n;
+  err = launch_outer(q, s);
+  if (err != cudaSuccess) return (int)err;
+
+  const float* dz2e = sc + (size_t)d.S * d.B * Z;
+  const float* dz1e = dz2e + (size_t)d.B * U;
+  q = OuterArgs{};
+  n = 0;
+  q.n = d.B;
+  job(p.in.imgf, d.HW, dz1e, U, 0, true, d.HW, U);  // wi1
+  job(p.fres, 2 * U, dz2e, U, 2, true, U, U);       // wi2 (on ench1, fres[:, :U])
+  q.n_jobs = n;
+  return (int)launch_outer(q, s);
+}

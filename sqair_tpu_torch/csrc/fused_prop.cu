@@ -77,12 +77,6 @@ struct PropScratch {
   int Z;
 };
 
-__host__ __device__ inline int take(int& off, int n) {
-  const int o = off;
-  off += n;
-  return o;
-}
-
 __host__ __device__ inline PropScratch prop_scratch(const PropDims& d) {
   PropScratch s;
   int o = 0;
@@ -220,8 +214,6 @@ __host__ __device__ inline FwdSmem fwd_smem(const PropDims& d) {
   L.total = o;
   return L;
 }
-
-__device__ __forceinline__ float sigmoidf(float z) { return 1.f / (1.f + expf(-z)); }
 
 // The masked glimpse of each row at its where logits wl + r * ldwl (shared
 // memory), encoded: e1, e2 (and their residual fields o1, o2) and the
@@ -494,6 +486,7 @@ struct PropBwdArgs {
       *dpres, *dlogit, *dtnew;
   float *dwt1, *dwh1, *dp1, *dth, *dh0;  // the inputs' gradients
   float* scratch;                        // [S, B, Z]
+  const float* crop_keep;  // [S, B] or null: keep_crop_grad's factors, both crops
 };
 
 struct BwdSmem {
@@ -790,6 +783,7 @@ __global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) 
     __syncthreads();
     prop_glimpse_bwd(p, row0, rows, slot, p.where + slot * 4, 4, d.e21, d.e22, s.dz22, s.dz21,
                      s.gfl2, true, dhp, dz2, dz1, dg, g0, dmask, dwl, cs, bw);
+    keep_crop_grad<NR>(dwl, p.crop_keep, slot, rows);
 
     // the where sample and the transform estimator
     for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
@@ -919,6 +913,7 @@ __global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) 
     // glimpse 1, at the where-bias location
     prop_glimpse_bwd(p, row0, rows, slot, res0 + d.gwl, R, d.e11, d.e12, s.dz12, s.dz11, s.gfl1,
                      false, dhp, dz2, dz1, dg, g0, dmask, dwl, cs, bw);
+    keep_crop_grad<NR>(dwl, p.crop_keep, slot, rows);
     for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
       const int r = i / 4, j = i - r * 4;
       dwh1[i] += dwl[i];
@@ -1025,7 +1020,9 @@ extern "C" int sqair_fused_prop_scratch_floats(const int* dims) {
 // (in the forward's order); then the outputs d what_tm1, d where_tm1,
 // d pres_tm1, d ht, d h0 and the 38 weights' gradients (in their order; the
 // full [4, 4] product for tril); then scratch of S B Z floats, Z as
-// sqair_fused_prop_scratch_floats gives it.  dims is the forward's.
+// sqair_fused_prop_scratch_floats gives it, and a factor [S, B] on each
+// row-slot's where-gradients through its two crops, or null (none).  dims
+// is the forward's.
 // Launches phase A and phase B.
 extern "C" int sqair_fused_prop_bwd(void* const* ptrs, const int* dims, void* stream) {
   using namespace sqair;
@@ -1047,6 +1044,7 @@ extern "C" int sqair_fused_prop_bwd(void* const* ptrs, const int* dims, void* st
   p.dwt1 = o[0]; p.dwh1 = o[1]; p.dp1 = o[2]; p.dth = o[3]; p.dh0 = o[4];
   float* const* dw = o + 5;
   p.scratch = o[5 + kPropWeights];
+  p.crop_keep = o[6 + kPropWeights];
 
   const size_t smem = sizeof(float) * (size_t)bwd_smem(p.d).total;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;

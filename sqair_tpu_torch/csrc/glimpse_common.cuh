@@ -1,5 +1,5 @@
 // Shared device code of the kernels that crop and encode glimpses
-// (fused_glimpse.cu, fused_prop.cu): the bilinear crop at a where in logit
+// (fused_glimpse.cu, fused_prop.cu, fused_disc.cu): the bilinear crop at a where in logit
 // space and its where-gradient, one row at a time with the frame and the
 // interpolation matrices in shared memory, and dense layers over a block's
 // NR rows held in shared memory (the glimpse mask, the encoder, and the
@@ -55,6 +55,8 @@ __device__ __forceinline__ float grid_u(float scale, float shift, int i, int dst
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + logf(1.f + expf(-fabsf(x)));
 }
+
+__device__ __forceinline__ float sigmoidf(float z) { return 1.f / (1.f + expf(-z)); }
 
 // Shared memory of one row's crop (forward and backward).
 struct CropSmem {
@@ -192,6 +194,21 @@ __device__ __forceinline__ void crop_bwd(const CropDims& d, const CropSmem& cs, 
     dwl[1] = dsyc * c[1] * (1.f - c[1]);
     dwl[2] = dtx * (1.f - c[2] * c[2]);
     dwl[3] = dty * (1.f - c[3] * c[3]);
+  }
+  __syncthreads();
+}
+
+// Scales each of the block's rows' where-gradients through a crop, dwl
+// [NR, 4] in shared memory, by keep[slot + r] where keep is not null (a
+// factor per row-slot, [S, B]: 0 cuts a kink of the step's gradient out
+// when two runs are compared).  Synchronises unless keep is null.
+template <int NR>
+__device__ __forceinline__ void keep_crop_grad(float* dwl, const float* __restrict__ keep,
+                                               size_t slot, int rows) {
+  if (keep == nullptr) return;
+  for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
+    const int r = i / 4;
+    if (r < rows) dwl[i] *= keep[slot + r];
   }
   __syncthreads();
 }

@@ -128,22 +128,47 @@ class Discover(Module):
                     or cell.transform_estimator.MLP_0.n_layers != 3
                     or sp.MLP_0.n_layers != 2)
 
-    def check_fused_switch(self):
-        """Raises where ``SQAIR_FUSE_CELLS`` would run discovery fused in the
-        JAX package: that kernel is not ported, and running discovery unfused
-        instead would not be what the switch asks for."""
-        if fused_cells.enabled() and self.fused_disc_eligible():
-            raise NotImplementedError(
-                "SQAIR_FUSE_CELLS with this configuration runs the fused discovery kernel "
-                "in the JAX package (TPU kernels #7/#8: sqair_tpu/ops/fused_cells.py "
-                "_disc_run_fwd/_disc_run_bwd), which is not ported yet; unset the switch, "
-                "or use an early-discovery logit lever (e.g. early_disc_logit_scale != 1, "
-                "as the release flags do), under which JAX runs discovery unfused")
+    def _fused_disc_params(self):
+        """(raw weights, h0) for the fused discovery kernel, or None where the
+        JAX package's ``Discover._fused_disc_params`` gives None: the switch
+        off or the gate of ``fused_disc_eligible`` not met."""
+        if not (fused_cells.enabled() and self.fused_disc_eligible()):
+            return None
+        cell = self.cell
+        _, enc_params, head_w, head_b = cell.glimpse_encoder._fused_params()
+        tr, stp = cell.transition, cell.transform_estimator
+        p = fused_cells.DiscParams(
+            enc_in=cell.input_encoder.MLP_0.layer_params(),
+            rnn=(tr.in_to_hidden_w, tr.hidden_to_hidden_w, tr.in_to_hidden_b),
+            stp=stp.MLP_0.layer_params(), stp_offset=stp.scale_offset, ge_enc=enc_params,
+            ge_head=(head_w, head_b), sp=cell.steps_predictor.MLP_0.layer_params())
+        return p, tr.h0
+
+    def _discover_fused(self, fp, img, conditioning, noise):
+        """All S slots as one kernel (ops/fused_cells.py).  The noise is drawn
+        under the unfused path's keys and in its order, slot by slot, and
+        stacked slot-major."""
+        p, h0 = fp
+        B, n_what = img.shape[0], self.cell.n_what
+        draws = []
+        for k in range(self.n_steps):
+            scope = noise.scope(k)
+            draws.append((scope.normal("where", (B, 4)), scope.normal("what", (B, n_what)),
+                          scope.uniform("presence", (B, 1))))
+        eps_w, eps_x, u = (torch.stack(d, 0) for d in zip(*draws))
+        out = fused_cells.fused_disc_ssm(img, img.reshape(B, -1), conditioning, h0, eps_w,
+                                         eps_x, u, p, self.cell.glimpse_size)
+        hidden_outputs = {f: out[f].transpose(0, 1) for f in HIDDEN_OUTPUT_FIELDS}
+        num_steps = torch.sum(hidden_outputs["presence"][..., 0], -1)
+        return hidden_outputs, num_steps
 
     def _discover(self, img, conditioning, noise, extra_steps_logit=0.0,
                   steps_logit_scale=1.0, steps_logit_clamp=None):
-        """Unrolls the discovery core over the object slots."""
-        self.check_fused_switch()
+        """Unrolls the discovery core over the object slots: one fused kernel
+        where the JAX package would run its kernel, else slot by slot."""
+        fp = self._fused_disc_params()
+        if fp is not None:
+            return self._discover_fused(fp, img, conditioning, noise)
         state = self.cell.initial_state(img, self.cell.encode_img(img))
         per_slot = []
         for k in range(self.n_steps):

@@ -1,10 +1,11 @@
 """Builds the CUDA kernels of ``sqair_tpu_torch/csrc`` and loads them.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface, which ``ctypes`` loads; nothing includes PyTorch's
+One ``nvcc`` process per ``csrc/*.cu``, all started together, compiles the
+sources to objects, and one more links them into one shared library with a
+plain C interface, which ``ctypes`` loads; nothing includes PyTorch's
 headers, so the build takes seconds.  The library's name carries a hash of
 the sources and the flags, so a second run finds it and skips the build.
-It is written under a temporary name and renamed into place, so processes
+It is written in a temporary directory and renamed into place, so processes
 that build at the same time never load a half-written file.
 """
 from __future__ import annotations
@@ -25,7 +26,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")  # each source to an object (-c)
+LINK_FLAGS = ("-shared",)
 REQUIRED_CAPABILITY = (9, 0)
 
 _P = ctypes.c_void_p
@@ -52,8 +54,12 @@ PROTOTYPES = {
     # ptrs* (see csrc/fused_prop.cu), dims*, stream
     "sqair_fused_prop": (_P, _P, _P),
     "sqair_fused_prop_bwd": (_P, _P, _P),
+    # ptrs* (see csrc/fused_disc.cu), dims*, stream
+    "sqair_fused_disc": (_P, _P, _P),
+    "sqair_fused_disc_bwd": (_P, _P, _P),
     # dims*
     "sqair_fused_prop_scratch_floats": (_P,),
+    "sqair_fused_disc_scratch_floats": (_P,),
 }
 
 _lock = threading.Lock()
@@ -81,7 +87,7 @@ def sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -95,20 +101,30 @@ def build() -> Path:
     cached = path.exists()
     if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cu = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        nvcc = find_nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs, procs = [], []
+            for src in sorted(CSRC_DIR.glob("*.cu")):
+                objs.append(os.path.join(tmp, src.stem + ".o"))
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+                procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
+            lib = os.path.join(tmp, "lib.so")
+            link = [nvcc, *LINK_FLAGS, "-o", lib, *objs]
+            failed = []
+            for cmd, proc in procs:
+                out, err = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                                  f"{out}\n{err}")
+            if not failed:
+                proc = subprocess.run(link, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                                  f"{proc.stdout}\n{proc.stderr}")
+            if failed:
+                raise RuntimeError("\n".join(failed))
+            os.replace(lib, path)
     last_build.update(seconds=time.perf_counter() - t0, cached=cached,
                       path=str(path))
     return path

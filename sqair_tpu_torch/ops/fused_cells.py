@@ -1,10 +1,24 @@
-"""The fused propagation unroll of one frame, forward and backward, with its
-plain versions.
+"""The fused discovery and propagation unrolls of one frame, forward and
+backward, with their plain versions.
 
-The port of the propagation half of ``sqair_tpu/ops/fused_cells.py``: all
-S slots of the PropagationCore for one frame as one kernel forward and one
-backward (``csrc/fused_prop.cu``).  Per slot k, with the previous frame's
-(what, where, presence) of the object and its temporal state ht:
+The port of ``sqair_tpu/ops/fused_cells.py``: all S slots of the
+DiscoveryCore (``csrc/fused_disc.cu``) or of the PropagationCore
+(``csrc/fused_prop.cu``) for one frame as one kernel forward and one
+backward.
+
+Discovery, once per frame enc = elu(elu(img Wi1 + bi1) Wi2 + bi2), then per
+slot k, with the previous slot's (what, where, presence) (0, 0, 1 at k = 0):
+
+  h = tanh([enc, cond, what_{k-1}, where_{k-1}, pres_{k-1}] W + h U + b)
+  a = MLP(h) (elu, elu, id) -> 8; where_loc = a[:4]
+  where_scale = softplus(a[4:]) + 1e-2; where = where_loc + where_scale eps_w
+  what_loc, what_scale = head(encode(crop(img, where)))   # unmasked
+  what = what_loc + what_scale eps_x
+  logit = pres_{k-1} MLP([h, what]) + (pres_{k-1} - 1) 88
+  presence = (u < sigmoid(logit)) pres_{k-1}
+
+Propagation, per slot k, with the previous frame's (what, where, presence)
+of the object and its temporal state ht:
 
   gwl = where_tm1 + (elu(ht Wb1 + bb1) Wb2 + bb2) 0.1     # where bias
   mask = sigmoid(elu(ht Wm1 + bm1) Wm2 + bm2)             # one per slot
@@ -23,21 +37,25 @@ backward (``csrc/fused_prop.cu``).  Per slot k, with the previous frame's
   presence = (u < sigmoid(logit)) pres_tm1
 
 The noise (eps_w, eps_x, u) comes in from outside and gets no gradient;
-``img`` gets none either.  The estimator's scale offset minus one is folded
-into its last bias by ``fused_prop_ssm``, as the JAX package does.  The
-forward writes every activation the backward needs into one residual blob
-[S, B, R] (``residual_layout``; the JAX package's fields in its order, without
-its 128-lane padding).
+``img`` gets none either.  The estimator's scale offset is folded into its
+last bias by ``fused_disc_ssm`` (as is) and ``fused_prop_ssm`` (minus one),
+as the JAX package does.  Each forward writes every activation its backward
+needs into one residual blob [S, B, R] (``disc_residual_layout``,
+``residual_layout``; the JAX package's fields in its order, without its
+128-lane padding); discovery also keeps its glimpses [S, B, gh gw] and the
+input encoder's two layers [B, 2U].
 
-On a CUDA tensor the wrapper launches the kernels or raises; on a CPU tensor
+On a CUDA tensor a wrapper launches the kernels or raises; on a CPU tensor
 it runs the plain versions here, which follow the JAX package's
-``_prop_fwd_kernel`` / ``_prop_bwd_kernel`` step by step (elu' read off the
-output, 1 at 0, as its ``_delu``).  ``launches["fused_prop"]`` and
-``launches["fused_prop_bwd"]`` count the calls that launched a kernel, in
-the counter of ``ops/fused.py``.
+``_disc_fwd_kernel`` / ``_disc_bwd_kernel`` / ``_prop_fwd_kernel`` /
+``_prop_bwd_kernel`` step by step (elu' read off the output, 1 at 0, as its
+``_delu``).  ``launches["fused_disc"]``, ``launches["fused_disc_bwd"]``,
+``launches["fused_prop"]`` and ``launches["fused_prop_bwd"]`` count the
+calls that launched a kernel, in the counter of ``ops/fused.py``.
 
-The model takes this path only when ``SQAIR_FUSE_CELLS`` is set
-(``enabled``) and the JAX package's gate is met (``models/propagate.py``).
+The model takes these paths only when ``SQAIR_FUSE_CELLS`` is set
+(``enabled``) and the JAX package's gates are met (``models/discover.py``,
+``models/propagate.py``).
 """
 from __future__ import annotations
 
@@ -192,7 +210,7 @@ def prop_plain_fwd(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, dims):
 
 
 def prop_plain_bwd(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, res, cots,
-                   dims):
+                   dims, crop_keep=None):
     """The JAX package's ``_prop_bwd_kernel`` as tensor ops: (dwt1, dwh1, dp1,
     dth, dh0b) and the 38 weights' gradients in ``weights_flat`` order (the
     biases of the layers whose gradient is the same as their pre-activation's
@@ -201,6 +219,9 @@ def prop_plain_bwd(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, 
     :param saved: (what, what_scale, where, where_scale, prob, presence,
         temporal_h) of the forward
     :param cots: the ten outputs' gradients, in ``OUT_FIELDS`` order
+    :param crop_keep: None, or [S, B] factors on each row-slot's
+        where-gradients through its two crops (0 cuts a kink of the step's
+        gradient out when two runs are compared)
     """
     S, gh, gw, nw, U, SP, WB, MH = dims
     (wb1w, _, wb2w, _, m1w, _, m2w, _, we1, _, we2, _, wh, _, rw, ru, _,
@@ -312,6 +333,8 @@ def prop_plain_bwd(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, 
         # glimpse 2
         dhp2 = torch.cat([d_g2loc, d_g2sc * (1.0 - torch.exp(-(g2sc - MIN_STD)))], -1)
         dwl2, dmask = glimpse_bwd(k, where, r("e21", k), r("e22", k), dhp2, mask)
+        if crop_keep is not None:
+            dwl2 = dwl2 * crop_keep[k][:, None]
 
         # where sample and the transform estimator
         d_where_tot = dwhere_c[k] + d_swh + d_where_tin + dwl2
@@ -359,6 +382,8 @@ def prop_plain_bwd(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, 
         # glimpse 1 (its scale feeds nothing)
         dhp1 = torch.cat([d_g1loc, zeros(B, nw)], -1)
         dwl1, dmask1 = glimpse_bwd(k, gwl, r("e11", k), r("e12", k), dhp1, mask)
+        if crop_keep is not None:
+            dwl1 = dwl1 * crop_keep[k][:, None]
         dmask = dmask + dmask1
         d_wh1 = d_wh1 + dwl1
         d_wb = dwl1 * 0.1
@@ -446,14 +471,24 @@ def _fwd_cuda(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, dims):
     return tuple(outs) + (res,)
 
 
-def _bwd_cuda(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, res, cots, dims):
+def _crop_keep(name, crop_keep, S, B):
+    """[crop_keep] after checking its shape [S, B], or [] for None."""
+    if crop_keep is None:
+        return []
+    if tuple(crop_keep.shape) != (S, B):
+        raise ValueError(f"{name}: crop_keep {tuple(crop_keep.shape)}, expected {(S, B)}")
+    return [crop_keep]
+
+
+def _bwd_cuda(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, res, cots, dims,
+              crop_keep=None):
     from .build import library
 
     inputs = [img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u]
     kd = _kernel_dims(inputs, weights, dims, saved, res, cots)
     B, S = kd[:2]
-    _check("fused_prop_bwd", inputs + list(weights) + list(saved) + [res] + list(cots),
-           img.device)
+    _check("fused_prop_bwd", inputs + list(weights) + list(saved) + [res] + list(cots)
+           + _crop_keep("fused_prop_bwd", crop_keep, S, B), img.device)
     outs = [_empty(*t.shape, like=img) for t in (wt1, wh1, p1, th, h0b)]
     outs += [_empty(*w.shape, like=img) for w in weights]
     if B == 0:
@@ -465,8 +500,8 @@ def _bwd_cuda(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, res, 
         raise ValueError(f"fused_prop_bwd: dims {kd} refused")
     scratch = _empty(S * B * Z, like=img)
     code = library().sqair_fused_prop_bwd(
-        _ptrs(inputs + list(weights) + list(saved) + [res] + list(cots) + outs + [scratch]),
-        _ints(kd), _stream(img.device))
+        _ptrs(inputs + list(weights) + list(saved) + [res] + list(cots) + outs
+              + [scratch, crop_keep]), _ints(kd), _stream(img.device))
     _raise_on("fused_prop_bwd", code)
     launches["fused_prop_bwd"] += 1
     return tuple(outs)
@@ -480,13 +515,14 @@ def prop_fwd(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, dims):
     return _fwd_cuda(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, dims)
 
 
-def prop_bwd(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, res, cots, dims):
+def prop_bwd(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, res, cots, dims,
+             crop_keep=None):
     """The backward of one call, as ``prop_plain_bwd`` returns it: on CUDA the
     kernels, on the CPU the plain version."""
     args = (img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, res, cots, dims)
     if not _on_cuda("fused_prop_bwd", img):
-        return prop_plain_bwd(*args)
-    return _bwd_cuda(*args)
+        return prop_plain_bwd(*args, crop_keep=crop_keep)
+    return _bwd_cuda(*args, crop_keep=crop_keep)
 
 
 class _PropFunction(torch.autograd.Function):
@@ -546,3 +582,358 @@ def fused_prop_ssm(img, z_tm1, temporal_h, h0, eps_where, eps_what, u_pres, p: P
     d = dict(zip(OUT_FIELDS, out))
     d["what_sample"], d["where_sample"] = d["what"], d["where"]
     return d
+
+
+# ==================================================================== discovery
+class DiscParams(NamedTuple):
+    """The discovery core's raw weights, as the JAX package's DiscParams."""
+    enc_in: Tuple  # ((W, b), (W, b)) input encoder, elu elu
+    rnn: Tuple  # (W, U, b) VanillaRNN
+    stp: Tuple  # ((W, b), (W, b), (W, b)) transform estimator, elu elu id
+    stp_offset: torch.Tensor  # scalar scale offset
+    ge_enc: Tuple  # ((W, b), (W, b)) glimpse encoder, elu elu; W_1 [gh gw, U]
+    ge_head: Tuple  # (W, b) Gaussian head
+    sp: Tuple  # ((W, b), (W, b)) steps predictor, elu id
+
+
+DISC_OUT_FIELDS = OUT_FIELDS[:9]
+# the weights in the kernels' order (``disc_weights_flat``)
+DISC_WEIGHT_NAMES = ("wi1", "bi1", "wi2", "bi2", "rw", "ru", "rb", "s1w", "s1b", "s2w", "s2b",
+                     "s3w", "s3b", "we1", "be1", "we2", "be2", "wh", "bh", "sp1w", "sp1b",
+                     "sp2w", "sp2b")
+N_DISC_WEIGHTS = len(DISC_WEIGHT_NAMES)
+
+
+def disc_residual_layout(dims) -> Tuple[Dict[str, Tuple[int, int]], int]:
+    """({field: (start, end)}, R) of one slot's residual row, for ``dims``
+    (S, gh, gw, n_what, U, SP)."""
+    U, SP = dims[4], dims[5]
+    off, out = 0, {}
+    for name, d in (("h", U), ("a1", U), ("a2", U), ("e1", U), ("e2", U), ("s1", SP),
+                    ("lraw", 1)):
+        out[name] = (off, off + d)
+        off += d
+    return out, off
+
+
+def disc_weights_flat(p: DiscParams):
+    """The 23 weights in the kernels' order (the JAX package's
+    ``_disc_weights_flat``)."""
+    (wi1, bi1), (wi2, bi2) = p.enc_in
+    rw, ru, rb = p.rnn
+    (s1w, s1b), (s2w, s2b), (s3w, s3b) = p.stp
+    (we1, be1), (we2, be2) = p.ge_enc
+    wh, bh = p.ge_head
+    (sp1w, sp1b), (sp2w, sp2b) = p.sp
+    return (wi1, bi1, wi2, bi2, rw, ru, rb, s1w, s1b, s2w, s2b, s3w, s3b, we1, be1, we2, be2,
+            wh, bh, sp1w, sp1b, sp2w, sp2b)
+
+
+def disc_plain_fwd(img, imgf, cond, h0b, eps_w, eps_x, u, weights, dims):
+    """The forward in the kernel's order: the nine outputs of
+    ``DISC_OUT_FIELDS``, each [S, B, d], the residual blob [S, B, R], the
+    glimpses [S, B, gh gw] and the input encoder's layers [B, 2U].
+
+    :param imgf: the frames flat [B, H W]
+    :param cond: [B, C] conditioning
+    :param h0b: [B, U] initial transition state
+    :param weights: ``disc_weights_flat`` with the scale offset folded
+    :param dims: (S, gh, gw, n_what, U, SP)
+    """
+    S, gh, gw, nw = dims[:4]
+    (wi1, bi1, wi2, bi2, rw, ru, rb, s1w, s1b, s2w, s2b, s3w, s3b, we1, be1, we2, be2, wh, bh,
+     sp1w, sp1b, sp2w, sp2b) = weights
+    B = img.shape[0]
+    ench1 = _elu(imgf @ wi1 + bi1)
+    enc = _elu(ench1 @ wi2 + bi2)
+    what, where, pres, h = img.new_zeros(B, nw), img.new_zeros(B, 4), img.new_ones(B, 1), h0b
+    outs = [[] for _ in DISC_OUT_FIELDS]
+    res, g0s = [], []
+    for k in range(S):
+        h = torch.tanh(torch.cat([enc, cond, what, where, pres], -1) @ rw + h @ ru + rb)
+        a1 = _elu(h @ s1w + s1b)
+        a2 = _elu(a1 @ s2w + s2b)
+        stp8 = a2 @ s3w + s3b
+        wloc = stp8[:, :4]
+        wscale = _softplus(stp8[:, 4:]) + MIN_STD
+        where = wloc + wscale * eps_w[k]
+        g0 = crop_plain(img, where, gh, gw).reshape(B, gh * gw)
+        e1 = _elu(g0 @ we1 + be1)
+        e2 = _elu(e1 @ we2 + be2)
+        hp = e2 @ wh + bh
+        gloc = hp[:, :nw]
+        gscale = _softplus(hp[:, nw:]) + MIN_STD
+        what = gloc + gscale * eps_x[k]
+        sp1 = _elu(torch.cat([h, what], -1) @ sp1w + sp1b)
+        lraw = sp1 @ sp2w + sp2b
+        logit = pres * lraw + (pres - 1.0) * 88.0
+        prob = torch.sigmoid(logit)
+        pres = (u[k] < prob).to(img.dtype) * pres
+        for lst, v in zip(outs, (what, gloc, gscale, where, wloc, wscale, prob, pres, logit)):
+            lst.append(v)
+        res.append(torch.cat([h, a1, a2, e1, e2, sp1, lraw], -1))
+        g0s.append(g0)
+    return (tuple(torch.stack(v, 0) for v in outs)
+            + (torch.stack(res, 0), torch.stack(g0s, 0), torch.cat([ench1, enc], -1)))
+
+
+def disc_plain_bwd(img, imgf, cond, h0b, eps_w, eps_x, u, weights, saved, res, g0s, fres,
+                   cots, dims, crop_keep=None):
+    """The JAX package's ``_disc_bwd_kernel`` as tensor ops: (dcond, dh0b)
+    and the 23 weights' gradients in ``disc_weights_flat`` order.
+
+    :param saved: (what, what_scale, where, where_scale, prob, presence) of
+        the forward
+    :param res, g0s, fres: the forward's residual blob, glimpses and input
+        encoder layers
+    :param cots: the nine outputs' gradients, in ``DISC_OUT_FIELDS`` order
+    :param crop_keep: None, or [S, B] factors on each row-slot's
+        where-gradient through the crop (as ``prop_plain_bwd``'s)
+    """
+    S, gh, gw, nw, U, SP = dims
+    (_, _, wi2, _, rw, ru, _, s1w, _, s2w, _, s3w, _, we1, _, we2, _, wh, _, sp1w, _, sp2w,
+     _) = weights
+    what_o, whatsc_o, where_o, wheresc_o, prob_o, pres_o = saved
+    (dwhat_c, dwhatloc_c, dwhatsc_c, dwhere_c, dwhereloc_c, dwheresc_c, dprob_c, dpres_c,
+     dlogit_c) = cots
+    B, C = img.shape[0], cond.shape[-1]
+    offs, _ = disc_residual_layout(dims)
+    acc = {}
+
+    def add(name, val):
+        acc[name] = val if name not in acc else acc[name] + val
+
+    def r(name, k):
+        a, b = offs[name]
+        return res[k, :, a:b]
+
+    ench1, enc = fres[:, :U], fres[:, U:]
+    zeros = img.new_zeros
+    d_enc, d_cond = zeros(B, U), zeros(B, C)
+    d_what_c, d_where_c, d_pres_c, d_h_c = zeros(B, nw), zeros(B, 4), zeros(B, 1), zeros(B, U)
+    for k in range(S - 1, -1, -1):
+        h, a1, a2, e1, e2, sp1, lraw = (r(n, k) for n in ("h", "a1", "a2", "e1", "e2", "s1",
+                                                           "lraw"))
+        what, gscale, where, wscale, prob = (what_o[k], whatsc_o[k], where_o[k], wheresc_o[k],
+                                             prob_o[k])
+        if k > 0:
+            pres_prev, what_prev, where_prev = pres_o[k - 1], what_o[k - 1], where_o[k - 1]
+        else:
+            pres_prev, what_prev, where_prev = img.new_ones(B, 1), zeros(B, nw), zeros(B, 4)
+
+        # presence
+        d_pres_tot = dpres_c[k] + d_pres_c
+        dlogit = dlogit_c[k] + dprob_c[k] * prob * (1.0 - prob)
+        dlraw = dlogit * pres_prev
+        psamp = (u[k] < prob).to(img.dtype)
+
+        # steps predictor on [h, what]
+        dsp1z = (dlraw @ sp2w.T) * _delu(sp1)
+        add("dsp2w", sp1.T @ dlraw)
+        add("dsp2b", torch.sum(dlraw, 0))
+        add("dsp1w", torch.cat([h, what], -1).T @ dsp1z)
+        add("dsp1b", torch.sum(dsp1z, 0))
+        dspfeat = dsp1z @ sp1w.T
+        dh_acc, dwhat_sp = dspfeat[:, :U], dspfeat[:, U:]
+
+        # the what sample, the head and the glimpse encoder
+        d_what_tot = dwhat_c[k] + d_what_c + dwhat_sp
+        dgloc = d_what_tot + dwhatloc_c[k]
+        dgscale = d_what_tot * eps_x[k] + dwhatsc_c[k]
+        dhp = torch.cat([dgloc, dgscale * (1.0 - torch.exp(-(gscale - MIN_STD)))], -1)
+        add("dwh", e2.T @ dhp)
+        add("dbh", torch.sum(dhp, 0))
+        dz2 = (dhp @ wh.T) * _delu(e2)
+        add("dwe2", e1.T @ dz2)
+        add("dbe2", torch.sum(dz2, 0))
+        dz1 = (dz2 @ we2.T) * _delu(e1)
+        add("dwe1", g0s[k].T @ dz1)
+        add("dbe1", torch.sum(dz1, 0))
+        dwl_crop = crop_plain_bwd(img, where, (dz1 @ we1.T).reshape(B, gh, gw))
+        if crop_keep is not None:
+            dwl_crop = dwl_crop * crop_keep[k][:, None]
+
+        # the where sample and the transform estimator
+        d_where_tot = dwhere_c[k] + d_where_c + dwl_crop
+        dwloc = d_where_tot + dwhereloc_c[k]
+        dwscale = d_where_tot * eps_w[k] + dwheresc_c[k]
+        dstp8 = torch.cat([dwloc, dwscale * (1.0 - torch.exp(-(wscale - MIN_STD)))], -1)
+        add("ds3w", a2.T @ dstp8)
+        add("ds3b", torch.sum(dstp8, 0))
+        dz_a2 = (dstp8 @ s3w.T) * _delu(a2)
+        add("ds2w", a1.T @ dz_a2)
+        add("ds2b", torch.sum(dz_a2, 0))
+        dz_a1 = (dz_a2 @ s2w.T) * _delu(a1)
+        add("ds1w", h.T @ dz_a1)
+        add("ds1b", torch.sum(dz_a1, 0))
+        dh_acc = dh_acc + dz_a1 @ s1w.T
+
+        # the transition
+        dz = (dh_acc + d_h_c) * (1.0 - h * h)
+        h_prev = r("h", k - 1) if k > 0 else h0b
+        add("drw", torch.cat([enc, cond, what_prev, where_prev, pres_prev], -1).T @ dz)
+        add("dru", h_prev.T @ dz)
+        add("drb", torch.sum(dz, 0))
+        drnn_in = dz @ rw.T
+        d_h_c = dz @ ru.T
+        d_enc = d_enc + drnn_in[:, :U]
+        d_cond = d_cond + drnn_in[:, U:U + C]
+        d_what_c = drnn_in[:, U + C:U + C + nw]
+        d_where_c = drnn_in[:, U + C + nw:U + C + nw + 4]
+        d_pres_c = d_pres_tot * psamp + dlogit * (lraw + 88.0) + drnn_in[:, U + C + nw + 4:]
+
+    # the input encoder
+    dz2 = d_enc * _delu(enc)
+    dz1 = (dz2 @ wi2.T) * _delu(ench1)
+    grads = dict(dwi1=imgf.T @ dz1, dbi1=torch.sum(dz1, 0), dwi2=ench1.T @ dz2,
+                 dbi2=torch.sum(dz2, 0), **acc)
+    return (d_cond, d_h_c) + tuple(grads["d" + n] for n in DISC_WEIGHT_NAMES)
+
+
+def _disc_kernel_dims(inputs, weights, dims, saved=(), res=None, g0s=None, fres=None,
+                      cots=()):
+    """[B, S, H, W, gh, gw, n_what, U, SP, C] of a call; raises on shapes
+    that do not fit together.
+
+    :param inputs: (img, imgf, cond, h0b, eps_w, eps_x, u)
+    :param saved, res, g0s, fres, cots: the backward's (see ``disc_plain_bwd``)
+    """
+    S, gh, gw, nw, U, SP = dims
+    img, cond = inputs[0], inputs[2]
+    if img.ndim != 3 or cond.ndim != 2:
+        raise ValueError(f"fused_disc: img {tuple(img.shape)}, cond {tuple(cond.shape)}")
+    (B, H, W), C = img.shape, cond.shape[1]
+    G, d_rnn = gh * gw, U + C + nw + 5
+    want = [(H * W, U), (U,), (U, U), (U,), (d_rnn, U), (U, U), (U,), (U, U), (U,), (U, U),
+            (U,), (U, 8), (8,), (G, U), (U,), (U, U), (U,), (U, 2 * nw), (2 * nw,),
+            (U + nw, SP), (SP,), (SP, 1), (1,)]
+    want += [(B, H * W), (B, C), (B, U), (S, B, 4), (S, B, nw), (S, B, 1)]
+    got = list(weights) + list(inputs[1:])
+    if saved:
+        want += [(S, B, d) for d in (nw, nw, 4, 4, 1, 1)]
+        want += [(S, B, disc_residual_layout(dims)[1]), (S, B, G), (B, 2 * U)]
+        want += [(S, B, d) for d in (nw, nw, nw, 4, 4, 4, 1, 1, 1)]
+        got += list(saved) + [res, g0s, fres] + list(cots)
+    if len(weights) != N_DISC_WEIGHTS or len(got) != len(want):
+        raise ValueError(f"fused_disc: {len(weights)} weights, {len(got)} tensors; expected "
+                         f"{N_DISC_WEIGHTS} and {len(want)}")
+    for i, (t, shape) in enumerate(zip(got, want)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused_disc: tensor {i} is {tuple(t.shape)}, expected {shape}")
+    return [B, S, H, W, gh, gw, nw, U, SP, C]
+
+
+def _disc_fwd_cuda(img, imgf, cond, h0b, eps_w, eps_x, u, weights, dims):
+    from .build import library
+
+    inputs = [img, imgf, cond, h0b, eps_w, eps_x, u]
+    kd = _disc_kernel_dims(inputs, weights, dims)
+    B, S, _, _, gh, gw, nw, U = kd[:8]
+    _check("fused_disc", inputs + list(weights), img.device)
+    outs = [_empty(S, B, d, like=img) for d in (nw, nw, nw, 4, 4, 4, 1, 1, 1)]
+    outs += [_empty(S, B, disc_residual_layout(dims)[1], like=img),
+             _empty(S, B, gh * gw, like=img), _empty(B, 2 * U, like=img)]
+    if B > 0:
+        code = library().sqair_fused_disc(_ptrs(inputs + list(weights) + outs), _ints(kd),
+                                          _stream(img.device))
+        _raise_on("fused_disc", code)
+        launches["fused_disc"] += 1
+    return tuple(outs)
+
+
+def _disc_bwd_cuda(img, imgf, cond, h0b, eps_w, eps_x, u, weights, saved, res, g0s, fres,
+                   cots, dims, crop_keep=None):
+    from .build import library
+
+    inputs = [img, imgf, cond, h0b, eps_w, eps_x, u]
+    kd = _disc_kernel_dims(inputs, weights, dims, saved, res, g0s, fres, cots)
+    _check("fused_disc_bwd", inputs + list(weights) + list(saved) + [res, g0s, fres]
+           + list(cots) + _crop_keep("fused_disc_bwd", crop_keep, kd[1], kd[0]), img.device)
+    outs = [_empty(*cond.shape, like=img), _empty(*h0b.shape, like=img)]
+    outs += [_empty(*w.shape, like=img) for w in weights]
+    if kd[0] == 0:
+        for t in outs:
+            t.zero_()
+        return tuple(outs)
+    n_scratch = library().sqair_fused_disc_scratch_floats(_ints(kd))
+    if n_scratch < 0:
+        raise ValueError(f"fused_disc_bwd: dims {kd} refused")
+    scratch = _empty(n_scratch, like=img)
+    code = library().sqair_fused_disc_bwd(
+        _ptrs(inputs + list(weights) + list(saved) + [res, g0s, fres] + list(cots) + outs
+              + [scratch, crop_keep]), _ints(kd), _stream(img.device))
+    _raise_on("fused_disc_bwd", code)
+    launches["fused_disc_bwd"] += 1
+    return tuple(outs)
+
+
+def disc_fwd(img, imgf, cond, h0b, eps_w, eps_x, u, weights, dims):
+    """The forward of one call, as ``disc_plain_fwd`` returns it: on CUDA the
+    kernel, on the CPU the plain version."""
+    if not _on_cuda("fused_disc", img):
+        return disc_plain_fwd(img, imgf, cond, h0b, eps_w, eps_x, u, weights, dims)
+    return _disc_fwd_cuda(img, imgf, cond, h0b, eps_w, eps_x, u, weights, dims)
+
+
+def disc_bwd(img, imgf, cond, h0b, eps_w, eps_x, u, weights, saved, res, g0s, fres, cots,
+             dims, crop_keep=None):
+    """The backward of one call, as ``disc_plain_bwd`` returns it: on CUDA the
+    kernels, on the CPU the plain version."""
+    args = (img, imgf, cond, h0b, eps_w, eps_x, u, weights, saved, res, g0s, fres, cots, dims)
+    if not _on_cuda("fused_disc_bwd", img):
+        return disc_plain_bwd(*args, crop_keep=crop_keep)
+    return _disc_bwd_cuda(*args, crop_keep=crop_keep)
+
+
+class _DiscFunction(torch.autograd.Function):
+    """The discovery unroll with its backward kernel; saves the inputs, the
+    weights, (what, what_scale, where, where_scale, prob, presence), the
+    residual blob, the glimpses and the input encoder's layers, as the JAX
+    package's ``_fused_disc_fwd``."""
+
+    @staticmethod
+    def forward(ctx, dims, img, imgf, cond, h0b, eps_w, eps_x, u, *weights):
+        out = disc_fwd(img, imgf, cond, h0b, eps_w, eps_x, u, weights, dims)
+        what, _, whatsc, where, _, wheresc, prob, pres = out[:8]
+        ctx.dims = dims
+        ctx.save_for_backward(img, imgf, cond, h0b, eps_w, eps_x, u, *weights, what, whatsc,
+                              where, wheresc, prob, pres, *out[9:])
+        return out[:9]
+
+    @staticmethod
+    def backward(ctx, *cots):
+        saved = ctx.saved_tensors
+        inputs, weights = saved[:7], saved[7:7 + N_DISC_WEIGHTS]
+        outs, (res, g0s, fres) = saved[7 + N_DISC_WEIGHTS:-3], saved[-3:]
+        grads = disc_bwd(*inputs, weights, outs, res, g0s, fres,
+                         tuple(c.contiguous() for c in cots), ctx.dims)
+        return (None, None, None) + tuple(grads[:2]) + (None, None, None) + tuple(grads[2:])
+
+
+def fused_disc_ssm(img, img_flat, conditioning, h0, eps_where, eps_what, u_pres,
+                   p: DiscParams, glimpse_size) -> Dict[str, torch.Tensor]:
+    """All S discovery slots of one frame as one kernel forward and one
+    backward.
+
+    The contract of the JAX package's ``fused_disc_ssm``: img [B, H, W],
+    img_flat [B, H W], conditioning [B, C], h0 [1, U] or [B, U], the noise
+    slot-major [S, B, d].  Returns ``DISC_OUT_FIELDS`` [S, B, d].
+    """
+    S, B = eps_where.shape[0], img.shape[0]
+    gh, gw = int(glimpse_size[0]), int(glimpse_size[1])
+    n_what, U = eps_what.shape[-1], p.rnn[1].shape[0]
+    dims = (S, gh, gw, n_what, U, p.sp[0][0].shape[1])
+    # the scale offset folded into the estimator's scale bias: the core's
+    # softplus(x + offset)
+    s3w, s3b = p.stp[2]
+    fold = torch.cat([s3b.new_zeros(4), s3b.new_ones(4)]) * p.stp_offset
+    p = p._replace(stp=(p.stp[0], p.stp[1], (s3w, s3b + fold)))
+    h0b = h0.expand(B, U).contiguous()
+    args = [t.contiguous() for t in (img, img_flat, conditioning, h0b, eps_where, eps_what,
+                                     u_pres)]
+    weights = tuple(t.contiguous() for t in disc_weights_flat(p))
+    if _needs_grad(*args, *weights):
+        out = _DiscFunction.apply(dims, *args, *weights)
+    else:
+        out = disc_fwd(*args, weights, dims)[:9]
+    return dict(zip(DISC_OUT_FIELDS, out))

@@ -1,6 +1,6 @@
 """sqair_tpu_torch's CUDA kernels (the fused MLP, the two cells, the fused
-glimpse encoder and the fused propagation unroll) against their plain
-versions on the card.
+glimpse encoder and the fused propagation and discovery unrolls) against
+their plain versions on the card.
 
 Needs a CUDA device (skips without one) and imports no JAX, so that it runs
 on a machine without it; the root conftest.py imports JAX, so run it there
@@ -219,9 +219,12 @@ def test_prop_kernels_match_plain_on_cuda(n):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
         cots = tuple(torch.randn(t.shape, generator=gen, device="cuda") for t in want[:10])
         saved = (want[0], want[2], want[3], want[5], want[6], want[7], want[9])
-        _assert_grads_close(fc._bwd_cuda(*args, weights, saved, want[10], cots, dims),
-                            fc.prop_plain_bwd(*args, weights, saved, want[10], cots, dims),
-                            "prop")
+        bargs = (*args, weights, saved, want[10], cots, dims)
+        _assert_grads_close(fc._bwd_cuda(*bargs), fc.prop_plain_bwd(*bargs), "prop")
+        # with both crops' where-gradients cut out of some row-slots
+        keep = (torch.rand((dims[0], n), generator=gen, device="cuda") < 0.5).float()
+        _assert_grads_close(fc._bwd_cuda(*bargs, crop_keep=keep),
+                            fc.prop_plain_bwd(*bargs, crop_keep=keep), "prop, crop_keep")
 
 
 @pytest.mark.cuda
@@ -246,3 +249,74 @@ def test_prop_autograd_on_cuda_launches_both_kernels():
         want = torch.autograd.grad(
             loss(lambda *a: fc._PropFunction.apply(a[-1], *a[:9], *a[9])), leaves)
     _assert_grads_close(got, want, "prop autograd")
+
+
+def _disc_case(n):
+    """Inputs of one fused discovery call at the release model's widths on
+    frames of the port's data generator (chip_smoke.disc_inputs), and its
+    dims."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from sqair_tpu_torch.data import create_seq_dataset, make_template_bank
+    from sqair_tpu_torch.ops import fused_cells as fc
+
+    shape = dict(n=n, S=3, img=[50, 50], glimpse=[20, 20], n_what=50, U=256, SP=128, C=256)
+    frames = create_seq_dataset(n_samples=-(-n // 10), n_timesteps=10, canvas_size=(50, 50),
+                                obj_size=(28, 28), n_objects=(0, 2), seed=n,
+                                templates=make_template_bank(256, 28, seed=0))["imgs"]
+    frames = torch.from_numpy(frames.reshape(-1, 50, 50).astype("float32") / 255.0)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    args, weights = chip_smoke.disc_inputs(torch, fc, shape, gen, "cuda", frames)
+    return fc, args, weights, chip_smoke.disc_dims(shape), gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [13, 160])
+def test_disc_kernels_match_plain_on_cuda(n):
+    """The fused discovery forward (the nine outputs, the residual rows, the
+    glimpses and the input encoder's layers) and backward (every input's and
+    weight's gradient) against their plain versions, at a ragged row count
+    and the release model's 160 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fc, args, weights, dims, gen = _disc_case(n)
+    with torch.inference_mode():
+        got = fc._disc_fwd_cuda(*args, weights, dims)
+        want = fc.disc_plain_fwd(*args, weights, dims)
+        assert len(got) == len(want) == 12
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        cots = tuple(torch.randn(t.shape, generator=gen, device="cuda") for t in want[:9])
+        saved = (want[0], want[2], want[3], want[5], want[6], want[7])
+        bargs = (*args, weights, saved, want[9], want[10], want[11], cots, dims)
+        _assert_grads_close(fc._disc_bwd_cuda(*bargs), fc.disc_plain_bwd(*bargs), "disc")
+        # with the crop's where-gradient cut out of some row-slots
+        keep = (torch.rand((dims[0], n), generator=gen, device="cuda") < 0.5).float()
+        _assert_grads_close(fc._disc_bwd_cuda(*bargs, crop_keep=keep),
+                            fc.disc_plain_bwd(*bargs, crop_keep=keep), "disc, crop_keep")
+
+
+@pytest.mark.cuda
+def test_disc_autograd_on_cuda_launches_both_kernels():
+    """The entry point on CUDA tensors that need a gradient goes through the
+    forward and the backward kernel, once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fc, args, weights, dims, gen = _disc_case(37)
+    leaves = [t.requires_grad_() for t in args[2:4] + weights]
+
+    def loss():
+        out = fc._DiscFunction.apply(dims, *args[:2], *leaves[:2], *args[4:], *leaves[2:])
+        return sum(torch.sum(o * o) for o in out)
+
+    fused.reset_launches()
+    got = torch.autograd.grad(loss(), leaves)
+    torch.cuda.synchronize()
+    assert fused.launches["fused_disc"] == 1 and fused.launches["fused_disc_bwd"] == 1
+    with mock.patch.multiple(fc, _disc_fwd_cuda=fc.disc_plain_fwd,
+                             _disc_bwd_cuda=fc.disc_plain_bwd):
+        want = torch.autograd.grad(loss(), leaves)
+    _assert_grads_close(got, want, "disc autograd")

@@ -38,6 +38,7 @@ from sqair_tpu_torch.training import make_train_step
 from sqair_tpu_torch.training.checkpoint import (find_checkpoints, load_checkpoint,
                                                  restore_train_state, save_checkpoint)
 from torch_parity import H, assert_close, golden_batch, jax_noise_table
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RELEASE = os.path.join(REPO, "release_models", "mnist_mlp", "1")

@@ -26,6 +26,7 @@ from sqair_tpu_torch.nn.layers import Encoder, init_params
 from sqair_tpu_torch.models.air import AIREncoder
 from sqair_tpu_torch.ops import build, fused, fused_glimpse
 from torch_parity import assert_close
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 B, H, W, GH, GW, D_MI, D_M, D1, D2, N_WHAT = 6, 16, 16, 6, 6, 32, 32, 32, 32, 8
 DIMS = (GH, GW, N_WHAT)
@@ -243,21 +244,33 @@ def test_the_cuda_request_raises_without_a_card(monkeypatch):
 def test_switches(monkeypatch):
     """SQAIR_FUSE_GLIMPSE is read as the JAX package reads it.  With
     SQAIR_FUSE_CELLS a model whose discovery the JAX package would fuse
-    (kernels #7/#8, not ported) raises instead of running it unfused; the
-    release flags (early_disc_logit_scale 0.15) load, with propagation fused
-    and discovery unfused, as in JAX."""
+    (kernels #7/#8: no early-discovery logit lever) loads and runs its
+    discovery through the fused kernel; the release flags
+    (early_disc_logit_scale 0.15) load with propagation fused and discovery
+    unfused, as in JAX."""
     import json
     from pathlib import Path
 
     from sqair_tpu_torch.configs import mlp_mnist_model
+    from sqair_tpu_torch.ops import fused_cells
+    from sqair_tpu_torch.ops.noise import GeneratorNoise
 
     monkeypatch.delenv("SQAIR_FUSE_GLIMPSE", raising=False)
     assert not fused_glimpse.enabled()
     monkeypatch.setenv("SQAIR_FUSE_GLIMPSE", "1")
     assert fused_glimpse.enabled()
     monkeypatch.setenv("SQAIR_FUSE_CELLS", "1")
-    with pytest.raises(NotImplementedError, match="#7/#8"):
-        mlp_mnist_model.load({"n_units": 1, "n_what": 4}, (24, 24), device="cpu")
+    model = mlp_mnist_model.load({"n_units": 1, "n_what": 4}, (24, 24), device="cpu")
+    discover = model.sequence.timestep.discover
+    assert discover.fused_disc_eligible()
+    calls = []
+    real = fused_cells.fused_disc_ssm
+    monkeypatch.setattr(fused_cells, "fused_disc_ssm", lambda *a: calls.append(1) or real(*a))
+    img = torch.rand(2, 24, 24, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = discover(img, torch.zeros(2, 32), 0, torch.zeros(2, 1),
+                       GeneratorNoise(torch.Generator().manual_seed(1), "cpu"))
+    assert len(calls) == 1 and out["what"].shape == (2, discover.n_steps, 4)
     release = Path(__file__).resolve().parent.parent / "release_models/mnist_mlp/1/flags.json"
     flags = dict(json.loads(release.read_text()), n_units=1, n_what=4)
     model = mlp_mnist_model.load(flags, (24, 24), device="cpu")

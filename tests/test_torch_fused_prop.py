@@ -18,6 +18,7 @@ import torch
 import sqair_tpu.ops.fused_cells as jfc
 from sqair_tpu_torch.ops import fused_cells
 from torch_parity import tpu_kernels_interpreted
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 B, S, HH, GG, NW, U, SP, WB, MH = 4, 3, 16, 6, 5, 16, 8, 12, 10
 FIELDS = fused_cells.OUT_FIELDS + ("what_sample", "where_sample")

@@ -7,9 +7,11 @@ CPU: every forward wrapper call by kernel, rows and widths, and one
 backward call per forward call in the train step.  With
 SQAIR_FUSE_GLIMPSE the glimpse encoder and its mask leave fused_mlp for the
 fused glimpse kernel, once per discovery slot and twice per propagation
-slot.  With SQAIR_FUSE_CELLS (at these flags discovery stays unfused, as in
-the JAX package) each frame's propagation is one fused_prop call, and its
-slots' MLPs, cells and glimpses leave the other kernels."""
+slot.  With SQAIR_FUSE_CELLS each frame's propagation is one fused_prop
+call, and its slots' MLPs, cells and glimpses leave the other kernels; at
+these flags (early_disc_logit_scale 0.15) discovery stays unfused, as in the
+JAX package, and at DISC_FLAGS (the same with early_disc_logit_scale 1) each
+frame's discovery, the input encoder included, is one fused_disc call."""
 import collections
 import sys
 from pathlib import Path
@@ -29,13 +31,14 @@ import chip_smoke  # noqa: E402
 
 FLAGS = dict(n_units=1, n_what=8, n_steps_per_image=S, glimpse_size=8, k_particles=2,
              early_disc_logit_scale=0.15, transient_disc_penalty=2.0)
+DISC_FLAGS = dict(FLAGS, **chip_smoke.DISC_LEVERS)
 FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru")
 
 
 def _key(kernel, shape):
     if kernel == "fused_mlp":
         return (kernel, shape["n"], shape["d_in"], tuple(shape["widths"]), tuple(shape["acts"]))
-    if kernel in ("fused_glimpse", "fused_prop"):
+    if kernel in ("fused_glimpse", "fused_prop", "fused_disc"):
         return (kernel,) + tuple((k, tuple(v) if isinstance(v, list) else v)
                                  for k, v in sorted(shape.items()))
     return (kernel, shape["n"], shape["dx"], shape["units"])
@@ -77,6 +80,17 @@ def _prop_spy(calls, fn):
     return spy
 
 
+def _disc_spy(calls, fn):
+    def spy(img, img_flat, conditioning, h0, eps_where, eps_what, u_pres, p, glimpse_size):
+        S, n, _ = eps_where.shape
+        shape = dict(n=n, S=S, img=list(img.shape[1:]), glimpse=list(glimpse_size),
+                     n_what=eps_what.shape[-1], U=p.rnn[1].shape[0], SP=p.sp[0][0].shape[1],
+                     C=conditioning.shape[1])
+        calls[_key("fused_disc", shape)] += 1
+        return fn(img, img_flat, conditioning, h0, eps_where, eps_what, u_pres, p, glimpse_size)
+    return spy
+
+
 def _backward_spy(calls, name, fn):
     def spy(*args, **kwargs):
         calls[name] += 1
@@ -101,13 +115,19 @@ def test_main_path_shapes_match_the_calls_of_a_step_with_the_cells_switch(
     _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=True)
 
 
-def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False):
+@pytest.mark.parametrize("mode", ("full", "train"))
+def test_main_path_shapes_match_the_calls_of_a_step_with_fused_discovery(mode, monkeypatch):
+    """Both switches at DISC_FLAGS: discovery fused too."""
+    _check_calls_of_a_step(mode, True, monkeypatch, fuse_cells=True, flags=DISC_FLAGS)
+
+
+def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, flags=FLAGS):
     for name, on in (("SQAIR_FUSE_GLIMPSE", fuse_glimpse), ("SQAIR_FUSE_CELLS", fuse_cells)):
         if on:
             monkeypatch.setenv(name, "1")
         else:
             monkeypatch.delenv(name, raising=False)
-    model = mlp_mnist_model.load(FLAGS, (H, H), device="cpu", seed=0)
+    model = mlp_mnist_model.load(flags, (H, H), device="cpu", seed=0)
     obs, nums = golden_batch()
     calls = collections.Counter()
     spies = {n: _forward_spy(calls, n, getattr(fused, n)) for n in FORWARD}
@@ -121,6 +141,10 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False):
                         _prop_spy(calls, fused_cells.fused_prop_ssm))
     monkeypatch.setattr(fused_cells, "prop_bwd", _backward_spy(
         calls, "fused_prop_bwd", fused_cells.prop_bwd))
+    monkeypatch.setattr(fused_cells, "fused_disc_ssm",
+                        _disc_spy(calls, fused_cells.fused_disc_ssm))
+    monkeypatch.setattr(fused_cells, "disc_bwd", _backward_spy(
+        calls, "fused_disc_bwd", fused_cells.disc_bwd))
     with mock.patch.multiple(fused, **spies):
         target, _ = model.loss_and_metrics(
             torch.from_numpy(obs), GeneratorNoise(torch.Generator().manual_seed(1), "cpu"),
@@ -128,7 +152,7 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False):
         if mode == "train":
             target.backward()
 
-    shapes = chip_smoke.main_path_shapes(FLAGS, B, FLAGS["k_particles"], T,
+    shapes = chip_smoke.main_path_shapes(flags, B, flags["k_particles"], T,
                                          train=mode == "train", img=(H, H),
                                          fuse_glimpse=fuse_glimpse, fuse_cells=fuse_cells)
     want = collections.Counter()
@@ -138,6 +162,10 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False):
     expected = chip_smoke.expected_launches(shapes, 1, backward=mode == "train")
     assert {k: c for k, c in calls.items() if isinstance(k, str)} == {
         k: c for k, c in expected.items() if k.endswith("_bwd")}
-    # only the input encoder's input (the frames) carries no gradient
+    # only the input encoder's input (the frames) carries no gradient; the
+    # fused discovery runs the input encoder itself
     no_dx = [s for kn, s, _ in shapes if not chip_smoke.needs_dx(kn, s, img=(H, H))]
-    assert no_dx == [dict(d_in=H * H, widths=[32, 32], acts=["elu", "elu"], n=B * 2)]
+    fused_disc = any(kn == "fused_disc" for kn, _, _ in shapes)
+    assert fused_disc == (fuse_cells and flags is DISC_FLAGS)
+    assert no_dx == ([] if fused_disc else
+                     [dict(d_in=H * H, widths=[32, 32], acts=["elu", "elu"], n=B * 2)])

@@ -26,6 +26,7 @@ from sqair_tpu_torch.models import Model
 from sqair_tpu_torch.ops.noise import ReplayNoise
 from torch_parity import (B, NWHAT, S, T, assert_close, build_pair, golden_batch,
                           jax_noise_table, to_numpy, tpu_kernels_interpreted)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 METRIC_TOL = 1e-4
 GRAD_TOL = 1e-4

@@ -40,6 +40,7 @@ from sqair_tpu_torch.ops.noise import ReplayNoise
 from sqair_tpu_torch.training import make_lr_schedule, make_optimizer, make_train_step
 from torch_parity import (B, NWHAT, S, T, build_pair, golden_batch, jax_noise_table, to_numpy,
                           tpu_kernels_interpreted)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 N_STEPS = 3
 # at lr 1e-3 the first RMSProp steps (nu starts at 1) move weights of ~0.2 by

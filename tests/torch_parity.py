@@ -6,21 +6,27 @@ JAX model draws inside ``SequentialAIR`` for a given key, keyed the way the
 port asks for it, so the port can replay it.
 """
 import contextlib
+import copy
 import functools
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from sqair_tpu.models import AIRDecoder as JAIRDecoder
 from sqair_tpu.models import SQAIRTimestep as JTimestep
 from sqair_tpu.ops import fused as jfused
 from sqair_tpu.ops import fused_cells as jfused_cells
 from sqair_tpu_torch.models import AIRDecoder, SequentialAIR, SQAIRTimestep
+from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
+from sqair_tpu_torch.training import make_eval_step
 
 # the golden config of tests/test_golden.py
 B, T, S, H, G, NWHAT, NH = 4, 3, 2, 24, 8, 8, 32
 SPH = [16]
+# the switch-on step tests' gradient tolerance (test_torch_cells_step.py)
+STEP_GRAD_TOL = 1e-4
 
 
 def _kwargs(**over):
@@ -46,24 +52,26 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def jax_noise_table(rng, n_frames, n_slots, n_rows, n_what, fused_prop=False):
+def jax_noise_table(rng, n_frames, n_slots, n_rows, n_what, fused_prop=False,
+                    fused_disc=False):
     """The noise of sqair_tpu's SequentialAIR(rng) under the port's keys
     (t, "prop"|"disc", slot, "where"|"what"|"presence").
 
-    :param fused_prop: the propagation noise as the JAX package's fused
-        propagation path (SQAIR_FUSE_CELLS) draws it: slot-major [S, B, d]
-        from ``jax.random.split(ssm_rng, 3)``, each slot's row under its key
+    :param fused_prop, fused_disc: the propagation / discovery noise as the
+        JAX package's fused path (SQAIR_FUSE_CELLS) draws it: slot-major
+        [S, B, d] from ``jax.random.split(rng, 3)`` of the module's key, each
+        slot's row under its key
     """
     table = {}
 
-    def slot_major(key, t):
+    def slot_major(key, prefix):
         r = jax.random.split(key, 3)
         draws = (("where", np.asarray(jax.random.normal(r[0], (n_slots, n_rows, 4)))),
                  ("what", np.asarray(jax.random.normal(r[1], (n_slots, n_rows, n_what)))),
                  ("presence", np.asarray(jax.random.uniform(r[2], (n_slots, n_rows, 1)))))
         for name, v in draws:
             for k in range(n_slots):
-                table[(t, "prop", k, name)] = v[k]
+                table[prefix + (k, name)] = v[k]
 
     def slot(key, prefix):
         r = jax.random.split(key, 3)
@@ -74,14 +82,13 @@ def jax_noise_table(rng, n_frames, n_slots, n_rows, n_what, fused_prop=False):
     step_rngs = jax.random.split(rng, n_frames)
     for t in range(n_frames):
         rng_prop, rng_disc = jax.random.split(step_rngs[t])
-        ssm_rng = jax.random.split(rng_prop)[1]
-        disc_rng = jax.random.split(rng_disc)[1]
-        if fused_prop:
-            slot_major(ssm_rng, t)
-        for k in range(n_slots):
-            if not fused_prop:
-                slot(jax.random.fold_in(ssm_rng, k), (t, "prop", k))
-            slot(jax.random.fold_in(disc_rng, k), (t, "disc", k))
+        for kind, key, fused in (("prop", jax.random.split(rng_prop)[1], fused_prop),
+                                 ("disc", jax.random.split(rng_disc)[1], fused_disc)):
+            if fused:
+                slot_major(key, (t, kind))
+            else:
+                for k in range(n_slots):
+                    slot(jax.random.fold_in(key, k), (t, kind, k))
     return table
 
 
@@ -105,6 +112,18 @@ def golden_batch():
     return obs, nums
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's tests with one torch intra-op thread (an autouse fixture
+    for the modules that import it): the tier-1 command runs six test
+    processes on the machine's cores, and torch's default of a thread per
+    core in each made them wait on each other, several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @contextlib.contextmanager
 def tpu_kernels_interpreted():
     """sqair_tpu's main path as on the TPU: its Pallas kernels and their
@@ -122,3 +141,49 @@ def tpu_kernels_interpreted():
         # the frame kernels pass their own interpret flag
         mp.setattr(jfused_cells, "_INTERPRET", True)
         yield
+
+
+# ------------------------------------------ the switch-on step tests' helpers
+def spy(mp, module, name):
+    """Counts the calls of module.name (for JAX: while tracing)."""
+    calls = []
+    real = getattr(module, name)
+    mp.setattr(module, name, lambda *a: calls.append(1) or real(*a))
+    return calls
+
+
+def port_noise_table(model, obs, nums):
+    """The port's own noise for one step, drawn with every switch off."""
+    noise = GeneratorNoise(torch.Generator().manual_seed(3), "cpu", record=True)
+    make_eval_step(model)(obs, nums, noise)
+    # out of the eval step's inference mode, for autograd
+    return {key: v.clone() for key, v in noise.table.items()}
+
+
+def step_grads(model, obs, nums, noise):
+    """(every parameter's gradient, aux) of one train-record loss."""
+    model.sequence.zero_grad(set_to_none=True)
+    target, aux = model.loss_and_metrics(torch.from_numpy(obs), noise, torch.from_numpy(nums),
+                                         record_mode="train")
+    target.backward()
+    out = {n: (torch.zeros_like(p) if p.grad is None else p.grad.clone())
+           for n, p in model.sequence.named_parameters()}
+    model.sequence.zero_grad(set_to_none=True)
+    return out, aux
+
+
+def f64_step_grads(model, obs, nums, table):
+    """The same step's gradients with the model and the noise in float64."""
+    m64 = copy.copy(model)
+    m64.sequence = copy.deepcopy(model.sequence).double()
+    return step_grads(m64, obs.astype(np.float64), nums.astype(np.float64),
+                      ReplayNoise(table, "cpu", dtype=torch.float64))[0]
+
+
+def step_grad_close(got, want, g64, name):
+    """|got - want| <= max(STEP_GRAD_TOL max|want| + 1e-7, 2 max|want - g64|)."""
+    got, want = got.numpy().astype(np.float64), np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got - want))) if want.size else 0.0
+    f32_noise = float(np.max(np.abs(want - g64.numpy()))) if want.size else 0.0
+    tol = max(STEP_GRAD_TOL * float(np.max(np.abs(want))) + 1e-7, 2.0 * f32_noise)
+    assert err <= tol, f"d{name}: {err:.3g} > {tol:.3g}"

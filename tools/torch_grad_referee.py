@@ -28,11 +28,19 @@ the JAX package's all-opt-in configuration: the fused propagation unroll):
   plain_fuse_cells    every plain version
   ref_fuse_cells_f64  the plain versions in float64 (its referee)
 
+and the same three with both switches on the model at chip_smoke's
+DISC_FLAGS (the same weights; discovery runs fused too):
+
+  kernels_fuse_disc   every kernel
+  plain_fuse_disc     every plain version
+  ref_fuse_disc_f64   the plain versions in float64 (its referee)
+
 and each f32 run's distance to the referee of its switch: max over
 parameters of max|g - g64| / max|g64|.  f32 rounding moves a run across a
 kink of the step's gradient now and then (``chip_smoke.kinks``: the
-interpolation coordinates of a glimpse crop or of the decoder's paste
-crossing an integer, the transient penalty's relu).  It counts the kinks
+interpolation coordinates of a glimpse crop, of a fused frame kernel's crop
+or of the decoder's paste crossing an integer, the transient penalty's
+relu).  It counts the kinks
 at which each run lies on another side than its referee, then runs
 everything again with the gradient through the union of them zeroed, one
 kind at a time and all together, and gives the distances again: what is
@@ -66,7 +74,8 @@ def main(argv=None):
     ap.add_argument("--batch_size", type=int, default=None, help="overrides the flags'")
     ap.add_argument("--timesteps", type=int, default=None, help="overrides the flags'")
     ap.add_argument("--fuse_cells", action="store_true",
-                    help="add the runs with SQAIR_FUSE_CELLS (and SQAIR_FUSE_GLIMPSE)")
+                    help="add the runs with SQAIR_FUSE_CELLS (and SQAIR_FUSE_GLIMPSE), "
+                         "at the release flags and at DISC_FLAGS")
     args = ap.parse_args(argv)
 
     import torch
@@ -112,6 +121,12 @@ def main(argv=None):
         train_step(b["imgs"], b["nums"], train_noise)
     ref_model = copy.copy(model)
     ref_model.sequence = copy.deepcopy(model.sequence).double()
+    # the same weights at DISC_FLAGS (the levers hold no weights)
+    disc_model = mlp_mnist_model.load(dict(flags, **cs.DISC_LEVERS), imgs.shape[2:],
+                                      mean_img=imgs.mean((0, 1)), device=device, seed=cs.SEED)
+    disc_model.sequence.load_state_dict(model.sequence.state_dict())
+    disc_ref = copy.copy(disc_model)
+    disc_ref.sequence = copy.deepcopy(disc_model.sequence).double()
 
     def plain():
         return cs.plain_versions(fused, fg, fc)
@@ -146,20 +161,26 @@ def main(argv=None):
     if args.fuse_cells:
         runs.update({"kernels_fuse_cells": ("cells", [], False),
                      "plain_fuse_cells": ("cells", [plain], False),
-                     "ref_fuse_cells_f64": ("cells", [plain], True)})
-    refs = {"off": "ref_off_f64", "glimpse": "ref_on_f64", "cells": "ref_fuse_cells_f64"}
+                     "ref_fuse_cells_f64": ("cells", [plain], True),
+                     "kernels_fuse_disc": ("disc", [], False),
+                     "plain_fuse_disc": ("disc", [plain], False),
+                     "ref_fuse_disc_f64": ("disc", [plain], True)})
+    refs = {"off": "ref_off_f64", "glimpse": "ref_on_f64", "cells": "ref_fuse_cells_f64",
+            "disc": "ref_fuse_disc_f64"}
     referee = {n: refs[sw] for n, (sw, _, _) in runs.items()}
     f32 = [n for n, (_, _, f64) in runs.items() if not f64]
 
     def gradients(name, batch, table, keep=None):
         sw, patches, f64 = runs[name]
-        m, dtype = (ref_model, torch.float64) if f64 else (model, torch.float32)
+        m = (disc_ref if f64 else disc_model) if sw == "disc" else (ref_model if f64 else model)
+        dtype = torch.float64 if f64 else torch.float32
         with contextlib.ExitStack() as stack:
             stack.enter_context(cs.switched(cs.SWITCHES[sw]))
             for p in patches:
                 stack.enter_context(p())
             rec = stack.enter_context(cs.kinks(torch, AIREncoder, AIRDecoder, D,
-                                               None if keep is None else keep[sw == "cells"], fc))
+                                               None if keep is None
+                                               else keep[cs.KINK_GROUPS[sw]], fc))
             grads, _ = cs.step_gradients(torch, m, batch["imgs"].to(dtype),
                                          batch["nums"].to(dtype),
                                          ReplayNoise(table, device, dtype=dtype), l2)
@@ -196,10 +217,10 @@ def main(argv=None):
             c, flips[n] = cs.kinks_crossed(torch, fg, stn, got[n][1], got[referee[n]][1],
                                            runs[n][0] != "off", cs.IMG, glimpse)
             crossed[n] = {kind: int(sum(int(x.sum()) for x in v)) for kind, v in c.items()}
-            group = runs[n][0] == "cells"
+            group = cs.KINK_GROUPS[runs[n][0]]
             u = union.get(group)
             union[group] = c if u is None else {k: [m | x for m, x in zip(u[k], c[k])] for k in c}
-        kinds = [kind for kind in union[False] if kind != "prop"]
+        kinds = list(union["off_glimpse"])
         keep_all = {g: {kind: [~m for m in u[kind]] for kind in kinds} for g, u in union.items()}
         ones = {g: {kind: [torch.ones_like(m) for m in u[kind]] for kind in kinds}
                 for g, u in union.items()}
@@ -207,7 +228,7 @@ def main(argv=None):
                     for kind in kinds}
         variants["all"] = keep_all
         row = dict(seed=seed, crossed=crossed, presence_flips=flips,
-                   masked={f"{'cells' if g else 'off_glimpse'}.{kind}":
+                   masked={f"{g}.{kind}":
                            int(sum(int(m.sum()) for m in u[kind]))
                            for g, u in union.items() for kind in kinds},
                    none=distances({n: g[0] for n, g in got.items()}))
