@@ -4,83 +4,301 @@
 // Pallas TPU kernel behind `fused_mlp`).  Like it, the whole stack runs in
 // one launch and the activations between layers never leave the chip.
 //
-// What bounds it on an H100 at the release model's shapes (f32, N = 160 or
-// 480 rows, d_in <= 2500, layers 128-400 wide): the work is small.  The
-// largest stack, the input encoder (160 x 2500 -> 256 -> 256), moves
-// 4.4 MB (2.8 MB of weights, 1.6 MB of input) = 1.3 us at 3.35 TB/s and
-// does 0.23 GFLOP of f32 FMA = 3.4 us on the CUDA cores at 67 TFLOP/s; the
-// other stacks read 0.01-0.8 MB of weights and take well under a
-// microsecond at either rate, so a launch costs more than its arithmetic.
-// What the design does about it: one launch per stack, each block keeps
-// its kRows rows' activations in shared memory between layers, and the
-// weights are streamed once per block, coalesced, through L2.  It does not
-// use the tensor cores (f32 has none without TF32, which the port keeps
-// off), and with N / kRows blocks (20 or 60) most of the 132 SMs idle:
-// splitting K or the columns over more blocks is later work.
+// What bounds it on an H100 at the release model's shapes (f32; 340 of a
+// train step's 352 calls have N = 160 rows, d_in <= 2500, layers 1-400
+// wide): not the card's rates.  The largest stack, the input encoder
+// (160 x 2500 -> 256 -> 256), moves 4.4 MB = 1.3 us at 3.35 TB/s and does
+// 0.23 GFLOP = 3.4 us at 67 TFLOP/s; the others take well under a
+// microsecond at either rate.  What a call pays is latency: each output is
+// one dependent chain of K multiply-adds, and a block per 8 rows fills 20
+// of the 132 SMs at 160 rows.
+//
+// The design:
+// - A thread block cluster of C blocks (1-8, picked on the host by
+//   `ops/fused.py:mlp_fwd_geometry` so that row tiles x C >= 132 where n
+//   allows it: C = 8 at 160 rows, 1 at 1600 and 4800) shares one tile of
+//   kTileRows rows.  Every layer's output columns are split among the C
+//   blocks in chunks of 32.  A block computes its columns for the tile's
+//   rows and writes them into every block's activation buffer through
+//   distributed shared memory (`map_shared_rank`); after `cluster.sync()`
+//   the next layer reads the whole row from its own shared memory.
+// - Inside a block, each of the 8 warps owns a unit of work: one 32-row
+//   block of K (kBlockK) for one 32-column chunk, 2 rows x 4 columns a
+//   lane.  The warps of a round take up to 8 K-blocks of the same chunks
+//   at once (`wk` a layer, from the host) and write their partial sums to
+//   shared memory; each output's owner then adds them in K order.  So
+//   every output is the same chain acc = ((p_0 + p_1) + p_2) + ... of
+//   32-product partial sums as a single thread walking K would form: the
+//   kernel gives the bits of the one-block-per-8-rows kernel it replaced.
+// - Each round's weights (and the first layer's x) are staged by cp.async
+//   (16 bytes where aligned) into a double-buffered ring while the round
+//   before computes; the next layer's first round is fetched across the
+//   layer boundary.  A lane reads 4 K-steps of its 2 rows of x and of its
+//   4 weight columns as float4s and does 32 FMAs with them; the staged x
+//   and activation rows are padded to 4 floats past a multiple of 32, so
+//   that the 4 rows a warp reads at once fall in other banks.
+//
+// What is still left: a round costs several times its FMAs; timing its
+// phases with clock64 (in a scratch copy) showed the copies landing before
+// the wait and the time spread over issuing the copies, the units'
+// shared-memory reads and the ordered combine.  The 160-row tiles re-read each
+// weight from L2 once per row tile (20 times at 160 rows); a cluster that
+// shared weight columns across row tiles would read them once.  At 4800
+// rows (C = 1, 600 blocks of 23 rounds) the kernel is slower than one
+// block per 8 rows was.  No tensor cores: f32 has none without TF32, which
+// the port keeps off.
 //
 // The optional `saved` pointers receive each layer's post-activation (the
 // backward pass of the training slice needs them); the eval path passes
 // null for all of them.
 
+#include <cooperative_groups.h>
+
+#include "async_copy.cuh"
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace sqair {
 
 constexpr int kMaxLayers = 4;
+constexpr int kTileRows = 8;                          // rows of a cluster's tile
+constexpr int kWarps = kThreads / 32;                 // units of a round
+constexpr int kChunk32 = 32;                          // output columns of a unit
+constexpr int kUnitW = kBlockK * kChunk32;            // a unit's weights [32 k][32 cols]
+constexpr int kStageW = kWarps * kUnitW;              // a round's weights
+constexpr int kXLd = kBlockK + 4;                     // row stride of staged x
+constexpr int kStageX = kWarps * kTileRows * kXLd;    // a round's x (first layer)
+constexpr int kStage = kStageW + kStageX;
+constexpr int kParts = kWarps * kTileRows * kChunk32;  // a round's partial sums
+constexpr int kMaxCluster = 8;
 
 struct MlpArgs {
   const float* x;
   float* y;
   int n;
   int n_layers;
-  int max_hidden;  // widest layer output that stays in shared memory
+  int cluster;  // blocks of a cluster, splitting each layer's columns
+  int act_ld;   // row stride of the activation buffers (0 with one layer)
   int dims[kMaxLayers + 1];
   int acts[kMaxLayers];
+  int wk[kMaxLayers];  // K-blocks a round of layer l takes at once (1, 2, 4, 8)
   const float* w[kMaxLayers];
   const float* b[kMaxLayers];
   float* saved[kMaxLayers];
 };
 
-__global__ void __launch_bounds__(kThreads) fused_mlp_kernel(MlpArgs p) {
-  extern __shared__ float smem[];
-  float* stage = smem;                            // kRows * kChunk
-  float* buf[2] = {stage + kRows * kChunk,        // kRows * max_hidden each
-                   stage + kRows * kChunk + kRows * p.max_hidden};
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, p.n - row0);
+// A block's share of layer l: chunks [chunk0, chunk0 + J) of its 32-column
+// chunks, in P passes of WJ = 2^wj_log chunks, each of Q rounds of WK
+// K-blocks.  Worked out once a launch, so that a round divides nothing.
+struct LayerPlan {
+  int K, D, nkb, J, col0, WK, WJ, wj_log, P, Q;
+};
 
-  for (int l = 0; l < p.n_layers; ++l) {
-    const int K = p.dims[l], D = p.dims[l + 1];
-    const bool last = l == p.n_layers - 1;
-    Acc acc;
-    zero(acc);
-    if (l == 0) {
-      acc_global(acc, p.x + (size_t)row0 * K, K, rows, K, p.w[0], D, D, stage);
-    } else {
-      // layer l - 1 wrote buf[(l - 1) & 1] and synchronised below
-      acc_smem(acc, buf[(l - 1) & 1], K, K, p.w[l], D, D);
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ inline LayerPlan plan_layer(const MlpArgs& p, int l, int rank) {
+  LayerPlan L;
+  L.K = p.dims[l];
+  L.D = p.dims[l + 1];
+  L.nkb = cdiv(L.K, kBlockK);
+  const int chunks = cdiv(L.D, kChunk32);
+  const int per_block = cdiv(chunks, p.cluster);
+  const int chunk0 = rank * per_block;
+  L.J = max(0, min(per_block, chunks - chunk0));
+  L.col0 = chunk0 * kChunk32;
+  L.WK = p.wk[l];
+  L.WJ = kWarps / L.WK;
+  L.wj_log = L.WJ == 8 ? 3 : L.WJ == 4 ? 2 : L.WJ == 2 ? 1 : 0;
+  L.P = cdiv(L.J, L.WJ);
+  L.Q = cdiv(L.nkb, L.WK);
+  return L;
+}
+
+// Stages round (pass, q) of layer l: unit u = wk * WJ + wc takes K-block
+// q * WK + wk of chunk pass * WJ + wc; the first layer also stages those
+// K-blocks of x for the tile's rows.  Thread t copies row t / 8 and float4
+// t % 8 of every unit's [32 k][32 cols] weights.
+__device__ __forceinline__ void issue_round(const MlpArgs& p, const LayerPlan L, int l,
+                                            int pass, int q, float* stage, int row0, int rows) {
+  const int kr = threadIdx.x >> 3, f4 = (threadIdx.x & 7) * 4;
+  const float* w = p.w[l] + (size_t)kr * L.D + L.col0 + f4;
+  float* dst = stage + kr * kChunk32 + f4;
+#pragma unroll
+  for (int u = 0; u < kWarps; ++u) {
+    const int wk = u >> L.wj_log, wc = u & (L.WJ - 1);
+    const int kb = q * L.WK + wk, chunk = pass * L.WJ + wc;
+    const int c = chunk * kChunk32;
+    if (chunk < L.J && kb * kBlockK + kr < L.K)
+      copy4_async(dst + u * kUnitW, w + (size_t)kb * kBlockK * L.D + c, L.D - L.col0 - f4 - c);
+  }
+  if (l == 0) {
+    float* sx = stage + kStageW;
+    for (int i = threadIdx.x; i < L.WK * kTileRows * 8; i += kThreads) {
+      const int wk = i >> 6, r = (i >> 3) & 7, f = (i & 7) * 4;
+      const int k = (q * L.WK + wk) * kBlockK + f;
+      if (r < rows && k < L.K)
+        copy4_async(sx + (wk * kTileRows + r) * kXLd + f, p.x + (size_t)(row0 + r) * L.K + k,
+                    L.K - k);
     }
-    float* out = buf[l & 1];
-    float* saved = p.saved[l];
+  }
+}
+
+// part[i][j] += a[r_i][k + m] * w[k + m][c_j] for m < 4, in order: the
+// lane's 2 rows (a0, a1) and 4 columns (wt, a float4 of [k][32] rows).
+__device__ __forceinline__ void mlp_step4(float (&part)[2][4], const float* a0,
+                                          const float* a1, const float* wt, int k) {
+  const float4 x0 = *reinterpret_cast<const float4*>(a0 + k);
+  const float4 x1 = *reinterpret_cast<const float4*>(a1 + k);
+  const float xs[2][4] = {{x0.x, x0.y, x0.z, x0.w}, {x1.x, x1.y, x1.z, x1.w}};
 #pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int j = threadIdx.x + c * kThreads;
-      if (j < D) {
-        const float bj = p.b[l][j];
+  for (int m = 0; m < 4; ++m) {
+    const float4 wv = *reinterpret_cast<const float4*>(wt + (k + m) * kChunk32);
+    const float ws[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float v = apply_act(acc[c][r] + bj, p.acts[l]);
-          if (!last) out[r * D + j] = v;
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = fmaf(xs[i][m], ws[j], part[i][j]);
+  }
+}
+
+// Steps (l, pass, q) to the block's next round: rounds run layer by layer,
+// pass by pass; l == n_layers past the last one.
+__device__ inline void next_round(const LayerPlan* plans, int n_layers, int& l, int& pass,
+                                 int& q) {
+  if (++q < plans[l].Q) return;
+  q = 0;
+  if (++pass < plans[l].P) return;
+  pass = 0;
+  do {
+    ++l;
+  } while (l < n_layers && plans[l].P == 0);
+}
+
+__global__ void __launch_bounds__(kThreads, 2) fused_mlp_kernel(MlpArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  float* stages = smem;                   // 2 x kStage
+  float* parts = smem + 2 * kStage;       // kParts
+  float* act = parts + kParts;            // 2 x kTileRows x act_ld
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / p.cluster) * kTileRows;
+  const int rows = min(kTileRows, p.n - row0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  __shared__ LayerPlan plans[kMaxLayers];
+  if (threadIdx.x < p.n_layers) plans[threadIdx.x] = plan_layer(p, threadIdx.x, rank);
+  __syncthreads();
+  // the round to fetch next: the block's first, then one ahead of the one
+  // that computes
+  int fl = 0, fpass = 0, fq = 0;
+  while (fl < p.n_layers && plans[fl].P == 0) ++fl;
+  if (fl < p.n_layers) issue_round(p, plans[fl], fl, fpass, fq, stages, row0, rows);
+  copy_commit();
+  if (fl < p.n_layers) next_round(plans, p.n_layers, fl, fpass, fq);
+  // every block of the cluster runs before any writes into its shared memory
+  cluster.sync();
+
+  int t = 0;
+  for (int l = 0; l < p.n_layers; ++l) {
+    const LayerPlan L = plans[l];
+    const bool last = l == p.n_layers - 1;
+    const float* act_in = act + ((l - 1) & 1) * kTileRows * p.act_ld;
+    float* act_out = act + (l & 1) * kTileRows * p.act_ld;
+    for (int pass = 0; pass < L.P; ++pass) {
+      float acc[kWarps];
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) acc[i] = 0.f;
+      for (int q = 0; q < L.Q; ++q, ++t) {
+        if (fl < p.n_layers) {
+          issue_round(p, plans[fl], fl, fpass, fq, stages + ((t + 1) & 1) * kStage, row0, rows);
+          next_round(plans, p.n_layers, fl, fpass, fq);
+        }
+        copy_commit();
+        copy_wait<1>();
+        __syncthreads();  // round t's stage has landed for every thread
+        const float* stage = stages + (t & 1) * kStage;
+        const int wk = warp >> L.wj_log, wc = warp & (L.WJ - 1);
+        const int kb = q * L.WK + wk;
+        if (kb < L.nkb && pass * L.WJ + wc < L.J) {
+          // lane: rows 2 g, 2 g + 1 and columns 4 c4 .. 4 c4 + 3 of the unit
+          const int g = lane >> 3, c4 = (lane & 7) * 4;
+          const float* wt = stage + warp * kUnitW + c4;
+          const float* a;
+          int lda;
+          if (l == 0) {
+            a = stage + kStageW + wk * kTileRows * kXLd;
+            lda = kXLd;
+          } else {
+            a = act_in + kb * kBlockK;
+            lda = p.act_ld;
+          }
+          const float* a0 = a + 2 * g * lda;
+          const float* a1 = a0 + lda;
+          const int kn = min(kBlockK, L.K - kb * kBlockK);
+          float part[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
+          int k = 0;
+          if (kn == kBlockK) {  // a whole K-block, unrolled so that loads run ahead
+#pragma unroll
+            for (int k4 = 0; k4 < kBlockK; k4 += 4) mlp_step4(part, a0, a1, wt, k4);
+            k = kBlockK;
+          }
+          for (; k + 4 <= kn; k += 4) mlp_step4(part, a0, a1, wt, k);
+          for (; k < kn; ++k) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              part[0][j] = fmaf(a0[k], wt[k * kChunk32 + j], part[0][j]);
+              part[1][j] = fmaf(a1[k], wt[k * kChunk32 + j], part[1][j]);
+            }
+          }
+          float* pw = parts + (warp * kTileRows + 2 * g) * kChunk32 + c4;
+          *reinterpret_cast<float4*>(pw) = make_float4(part[0][0], part[0][1], part[0][2],
+                                                       part[0][3]);
+          *reinterpret_cast<float4*>(pw + kChunk32) = make_float4(part[1][0], part[1][1],
+                                                                  part[1][2], part[1][3]);
+        }
+        __syncthreads();  // every unit's partial sums are in `parts`
+        // thread (warp, lane) owns row `warp`, column `lane` of each chunk
+        // i of the pass, and adds the round's K-blocks in order
+        const int nwk = min(L.WK, L.nkb - q * L.WK);
+        const float* pr = parts + warp * kChunk32 + lane;
+#pragma unroll
+        for (int i = 0; i < kWarps; ++i) {
+          if (i < L.WJ && pass * L.WJ + i < L.J) {
+            float sum = acc[i];
+#pragma unroll
+            for (int j = 0; j < kWarps; ++j)
+              if (j < nwk) sum += pr[((j << L.wj_log) + i) * kTileRows * kChunk32];
+            acc[i] = sum;
+          }
+        }
+      }
+      // the pass's outputs: row `warp`, column `lane` of each chunk
+      const int r = warp;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        const int chunk = pass * L.WJ + i;
+        const int col = L.col0 + chunk * kChunk32 + lane;
+        if (i < L.WJ && chunk < L.J && col < L.D) {
+          const float v = apply_act(acc[i] + p.b[l][col], p.acts[l]);
           if (r < rows) {
-            if (last) p.y[(size_t)(row0 + r) * D + j] = v;
-            if (saved != nullptr) saved[(size_t)(row0 + r) * D + j] = v;
+            if (last) p.y[(size_t)(row0 + r) * L.D + col] = v;
+            if (p.saved[l] != nullptr) p.saved[l][(size_t)(row0 + r) * L.D + col] = v;
+          }
+          if (!last) {
+            for (int peer = 0; peer < p.cluster; ++peer)
+              cluster.map_shared_rank(act_out, peer)[r * p.act_ld + col] = v;
           }
         }
       }
     }
-    // the buffer just written is read by the next layer; the one written
-    // before it (read by this layer) is overwritten by the next layer
-    __syncthreads();
+    // the layer's activations are in every block's buffer; the buffer this
+    // layer read is written by the layer after next, past this barrier
+    if (!last) cluster.sync();
   }
 }
 
@@ -89,13 +307,16 @@ __global__ void __launch_bounds__(kThreads) fused_mlp_kernel(MlpArgs p) {
 // x [n, dims[0]] -> y [n, dims[n_layers]], weights w[l] [dims[l], dims[l+1]]
 // and biases b[l] [dims[l+1]], all f32, contiguous and on the device.
 // `dims`, `acts`, `w`, `b` and `saved` are host arrays of n_layers (+1 for
-// dims) entries; `saved` may be null, and so may any entry of it.
+// dims) entries; `saved` may be null, and so may any entry of it.  `geom`
+// is the host's launch geometry (ops/fused.py mlp_fwd_geometry): tile rows,
+// cluster size, blocks, dynamic shared memory bytes, then each layer's
+// K-blocks a round; the launch is refused unless it matches this file's.
 // Launches on `stream`, does not synchronise, allocates nothing, and
 // returns the CUDA error code of the launch (0 on success).
 extern "C" int sqair_fused_mlp(const void* x, void* y, int n, int n_layers,
                                const int* dims, const int* acts,
                                const void* const* w, const void* const* b,
-                               void* const* saved, void* stream) {
+                               void* const* saved, const int* geom, void* stream) {
   using namespace sqair;
   if (n <= 0 || n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
   MlpArgs p{};
@@ -103,23 +324,46 @@ extern "C" int sqair_fused_mlp(const void* x, void* y, int n, int n_layers,
   p.y = static_cast<float*>(y);
   p.n = n;
   p.n_layers = n_layers;
-  p.max_hidden = 1;
+  p.cluster = geom[1];
+  int max_hidden = 0;
   for (int l = 0; l <= n_layers; ++l) {
     if (dims[l] < 1 || (l > 0 && dims[l] > kMaxWidth)) return (int)cudaErrorInvalidValue;
     p.dims[l] = dims[l];
   }
   for (int l = 0; l < n_layers; ++l) {
     if (acts[l] < kId || acts[l] > kTanh) return (int)cudaErrorInvalidValue;
+    const int wk = geom[4 + l];
+    if (wk != 1 && wk != 2 && wk != 4 && wk != 8) return (int)cudaErrorInvalidValue;
     p.acts[l] = acts[l];
+    p.wk[l] = wk;
     p.w[l] = static_cast<const float*>(w[l]);
     p.b[l] = static_cast<const float*>(b[l]);
     p.saved[l] = saved == nullptr ? nullptr : static_cast<float*>(saved[l]);
-    if (l < n_layers - 1 && dims[l + 1] > p.max_hidden) p.max_hidden = dims[l + 1];
+    if (l < n_layers - 1 && dims[l + 1] > max_hidden) max_hidden = dims[l + 1];
   }
-  const size_t smem = sizeof(float) * (size_t)kRows * (kChunk + 2 * p.max_hidden);
+  // a multiple of 4 floats (float4 reads) that is 4 past a multiple of 32:
+  // the 4 rows a warp's float4 reads touch at once fall in other banks
+  p.act_ld = max_hidden > 0 ? (max_hidden + 31) / 32 * 32 + 4 : 0;
+  const int tiles = cdiv(n, kTileRows);
+  const size_t smem = sizeof(float) * (2 * (size_t)kStage + kParts + 2 * kTileRows * p.act_ld);
+  if (geom[0] != kTileRows || p.cluster < 1 || p.cluster > kMaxCluster ||
+      geom[2] != tiles * p.cluster || (size_t)geom[3] != smem)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(fused_mlp_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + kRows - 1) / kRows;
-  fused_mlp_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * p.cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_mlp_kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -35,16 +35,16 @@ _I = ctypes.c_int
 # argtypes per exported function: every pointer (device or host) and the
 # stream as c_void_p, so that ctypes never cuts a pointer to 32 bits
 PROTOTYPES = {
-    # x, y, n, n_layers, dims*, acts*, w**, b**, saved**, stream
-    "sqair_fused_mlp": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
+    # x, y, n, n_layers, dims*, acts*, w**, b**, saved**, geom*, stream
+    "sqair_fused_mlp": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # x, h, w, u, b, hn, n, dx, units, stream
     "sqair_fused_vanilla_rnn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, h, wg, ug, bg, wc, uc, bc, hn, zr, c, n, dx, units, stream
     "sqair_fused_gru": (_P,) * 11 + (_I, _I, _I, _P),
     # x, g, dx, n, n_layers, dims*, acts*, w**, a**, dz**, dw**, db**, stream
     "sqair_fused_mlp_bwd": (_P, _P, _P, _I, _I) + (_P,) * 8,
-    # x, h, w, u, hn, g, dz, dx, dh, dw, du, db, n, dx, units, stream
-    "sqair_fused_vanilla_rnn_bwd": (_P,) * 12 + (_I, _I, _I, _P),
+    # x, h, w, u, hn, g, dx, dh, dw, du, db, n, dx, units, geom*, stream
+    "sqair_fused_vanilla_rnn_bwd": (_P,) * 11 + (_I, _I, _I, _P, _P),
     # x, h, wg, ug, wc, uc, zr, c, g, dc_in, da, rh, dx, dh, dwg, dug, dbg,
     # dwc, duc, dbc, n, dx, units, stream
     "sqair_fused_gru_bwd": (_P,) * 20 + (_I, _I, _I, _P),

@@ -32,6 +32,8 @@ import torch
 ACTS = ("id", "elu", "sigmoid", "tanh")
 MAX_LAYERS = 4  # csrc/fused_mlp.cu kMaxLayers
 MAX_WIDTH = 1024  # csrc/common.cuh kMaxWidth
+SMS = 132  # streaming multiprocessors of an H100 SXM: the blocks a launch should fill
+MAX_SMEM = 232448  # dynamic shared memory a block may take on Hopper (227 KB)
 
 launches = collections.Counter()
 
@@ -184,6 +186,69 @@ def _empty(*shape, like):
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
+# ------------------------------------------------------ launch geometry
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def mlp_fwd_geometry(n, dims):
+    """The MLP forward kernel's launch (csrc/fused_mlp.cu), as the host
+    picks it for n rows and the layer widths ``dims`` (d_in first).
+
+    A cluster of ``cluster`` blocks shares a tile of ``tile_rows`` rows and
+    splits every layer's 32-column chunks; ``cluster`` is the least of 1, 2,
+    4, 8 that gives ``SMS`` blocks (8 where none does).  A round of layer l
+    puts ``wk[l]`` K-blocks of 32 and 8 / wk[l] chunks on the block's 8
+    warps: the split with the fewest rounds, the fewer K-blocks on a tie.
+    ``smem`` is the dynamic shared memory in bytes: two stages of a round's
+    weights [8][32][32] and x [8][8][36], the partial sums [8][8][32] and
+    two activation buffers [8][widest hidden layer, rounded up to 32, + 4]
+    (rows 4 floats past a multiple of 32, so that float4 reads of 4 rows at
+    once hit other banks; none with one layer).
+    """
+    tile_rows, warps, block_k, chunk = 8, 8, 32, 32
+    tiles = _cdiv(n, tile_rows)
+    cluster = next((c for c in (1, 2, 4, 8) if tiles * c >= SMS), 8)
+    wk = []
+    for k, d in zip(dims[:-1], dims[1:]):
+        j = _cdiv(_cdiv(d, chunk), cluster)
+        nkb = _cdiv(k, block_k)
+        wk.append(min((1, 2, 4, 8),
+                      key=lambda w: (_cdiv(j, warps // w) * _cdiv(nkb, w), w)))
+    widest = max(dims[1:-1], default=0)
+    act_ld = _cdiv(widest, 32) * 32 + 4 if widest else 0
+    stage = warps * block_k * chunk + warps * tile_rows * (block_k + 4)
+    smem = 4 * (2 * stage + warps * tile_rows * chunk + 2 * tile_rows * act_ld)
+    return dict(tile_rows=tile_rows, cluster=cluster, blocks=tiles * cluster, smem=smem,
+                wk=wk)
+
+
+def vrnn_bwd_geometry(n, d_x, units, need_dx=True, need_dh=True):
+    """The vanilla-RNN backward kernel's launch (csrc/fused_bwd.cu), as the
+    host picks it.
+
+    ``wg_blocks`` weight-gradient blocks, one per 32 x 32 tile of [dW; dU],
+    come first; then ``in_blocks`` input-gradient blocks, one per tile of
+    ``rows`` batch rows x 64 columns of the [dx | dh] that is asked for.
+    ``rows`` is the largest of 8, 4, 2, 1 that gives ``SMS`` blocks in all
+    (1 where none does).  ``smem`` (bytes) is the larger of what the two
+    kinds take: eight warps' staged [W; U] slices [64][36], dz [8][256] and
+    the partial sums [8][8][64]; or the rows of [x, h] [8][32][32], the
+    partial sums [8][32][32] and those of db [8][32].
+    """
+    warps, block_k, cols, tile_k, tile_j = 8, 32, 64, 32, 32
+    c_n = (d_x if need_dx else 0) + (units if need_dh else 0)
+    col_tiles = _cdiv(c_n, cols)
+    wg_blocks = _cdiv(d_x + units, tile_k) * _cdiv(units, tile_j)
+    rows = 8 if not col_tiles else next(
+        (r for r in (8, 4, 2) if _cdiv(n, r) * col_tiles + wg_blocks >= SMS), 1)
+    in_blocks = _cdiv(n, rows) * col_tiles
+    smem = 4 * max(warps * cols * (block_k + 4) + 8 * warps * block_k + warps * 8 * cols,
+                   warps * 32 * tile_k + warps * tile_k * tile_j + warps * tile_j)
+    return dict(rows=rows, blocks=wg_blocks + in_blocks, wg_blocks=wg_blocks,
+                in_blocks=in_blocks, smem=smem)
+
+
 # ------------------------------------------------------------ fused_mlp
 def _mlp_dims(x2, params):
     dims = [x2.shape[-1]]
@@ -210,10 +275,13 @@ def _mlp_fwd_cuda(x2, params, transfers, save):
     acts = [_empty(n, d, like=x2) if save else None for d in dims[1:-1]]
     y = _empty(n, dims[-1], like=x2)
     if n > 0:
+        geom = mlp_fwd_geometry(n, dims)
         code = library().sqair_fused_mlp(
             _ptr(x2), _ptr(y), n, n_layers, _ints(dims),
             _ints([ACTS.index(t) for t in transfers]), _ptrs([w for w, _ in params]),
-            _ptrs([b for _, b in params]), _ptrs(acts + [None]), _stream(x2.device))
+            _ptrs([b for _, b in params]), _ptrs(acts + [None]),
+            _ints([geom["tile_rows"], geom["cluster"], geom["blocks"], geom["smem"],
+                   *geom["wk"]]), _stream(x2.device))
         _raise_on("fused_mlp", code)
         launches["fused_mlp"] += 1
     return acts + [y]
@@ -361,10 +429,11 @@ def fused_vanilla_rnn_bwd(x, h, w, u, hn, g, need_dx=True, need_dh=True):
             if t is not None:
                 t.zero_()
         return dx, dh, dw, du, db
-    dz = _empty(n, units, like=x)
+    geom = vrnn_bwd_geometry(n, d_x, units, need_dx, need_dh)
     code = library().sqair_fused_vanilla_rnn_bwd(
-        _ptr(x), _ptr(h), _ptr(w), _ptr(u), _ptr(hn), _ptr(g), _ptr(dz), _ptr(dx),
-        _ptr(dh), _ptr(dw), _ptr(du), _ptr(db), n, d_x, units, _stream(x.device))
+        _ptr(x), _ptr(h), _ptr(w), _ptr(u), _ptr(hn), _ptr(g), _ptr(dx), _ptr(dh),
+        _ptr(dw), _ptr(du), _ptr(db), n, d_x, units,
+        _ints([geom["rows"], geom["blocks"], geom["smem"]]), _stream(x.device))
     _raise_on("fused_vanilla_rnn_bwd", code)
     launches["fused_vanilla_rnn_bwd"] += 1
     return dx, dh, dw, du, db

@@ -320,3 +320,71 @@ def test_disc_autograd_on_cuda_launches_both_kernels():
                              _disc_bwd_cuda=fc.disc_plain_bwd):
         want = torch.autograd.grad(loss(), leaves)
     _assert_grads_close(got, want, "disc autograd")
+
+
+# MLP stacks for the redesigned forward: d_in 2500, widths 1024 and 1, 1-4
+# layers (each crosses a tile edge of csrc/fused_mlp.cu: a 32-column chunk,
+# a cluster's share of columns, a 32-row K-block, an 8-row tile)
+_MLP_STACKS = (([1024], ("elu",)),
+               ([1024, 1], ("elu", "id")),
+               ([256, 1024, 8], ("tanh", "sigmoid", "id")),
+               ([1, 1024, 400, 1024], ("elu", "elu", "tanh", "sigmoid")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 13, 160, 4800])
+def test_mlp_forward_kernel_tiles_match_plain_on_cuda(n):
+    """The cluster MLP forward against its plain version (1e-5 + 1e-4|v|) at
+    tile-edge shapes, every saved post-activation included, with and
+    without `saved`; a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    rnd = _rnd_fn(gen)
+    x = torch.rand(n, 2500, generator=gen, device="cuda")
+    with torch.inference_mode():
+        for widths, acts in _MLP_STACKS:
+            dims = [2500] + widths
+            params = [(rnd(a, b), 0.1 * rnd(b)) for a, b in zip(dims[:-1], dims[1:])]
+            want = fused.mlp_plain_acts(x, params, acts)
+            for save in (False, True):
+                got = fused._mlp_fwd_cuda(x, params, acts, save=save)
+                again = fused._mlp_fwd_cuda(x, params, acts, save=save)
+                for i, (a, b, w) in enumerate(zip(got, again, want)):
+                    if not save and i < len(want) - 1:
+                        assert a is None and b is None
+                        continue
+                    torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5,
+                                               msg=f"{dims} save={save} layer {i}")
+                    assert torch.equal(a, b), f"{dims} save={save} layer {i}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 13, 160, 1600])
+def test_vrnn_backward_kernel_tiles_match_plain_on_cuda(n):
+    """The one-launch vanilla-RNN backward against its plain version (1e-4
+    of each gradient's largest entry) for d_x in {4, 416, 567}, units in
+    {4, 256} and each choice of dx and dh; a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    rnd = _rnd_fn(gen)
+    with torch.inference_mode():
+        for d_x in (4, 416, 567):
+            for units in (4, 256):
+                x = torch.rand(n, d_x, generator=gen, device="cuda")
+                h = 2 * torch.rand(n, units, generator=gen, device="cuda") - 1
+                w, u, b = rnd(d_x, units), rnd(units, units), rnd(units)
+                hn = fused.vanilla_rnn_plain(x, h, w, u, b)
+                g = rnd(n, units)
+                want = fused.vanilla_rnn_bwd_plain(x, h, w, u, hn, g)
+                for need_dx in (True, False):
+                    for need_dh in (True, False):
+                        what = f"vrnn d_x={d_x} units={units} dx={need_dx} dh={need_dh}"
+                        got = fused.fused_vanilla_rnn_bwd(x, h, w, u, hn, g, need_dx, need_dh)
+                        again = fused.fused_vanilla_rnn_bwd(x, h, w, u, hn, g, need_dx, need_dh)
+                        skip = [i for i, need in ((0, need_dx), (1, need_dh)) if not need]
+                        _assert_grads_close(
+                            got, [None if i in skip else t for i, t in enumerate(want)], what)
+                        for a, c in zip(got, again):
+                            assert (a is None and c is None) or torch.equal(a, c), what

@@ -1,0 +1,133 @@
+"""The host's launch geometry of the two kernels redesigned for Hopper
+(``ops/fused.py``: ``mlp_fwd_geometry`` for csrc/fused_mlp.cu,
+``vrnn_bwd_geometry`` for the vanilla-RNN backward of csrc/fused_bwd.cu), at
+every MLP and vanilla-RNN shape of ``chip_smoke.main_path_shapes``: the
+release flags, with no switch and with both switches, eval and train.
+
+Each launch fills the card's 132 SMs wherever n allows it, takes a cluster
+of 1-8 blocks and at most the 227 KB of shared memory a block may have; the
+wrappers pass that geometry to the C entry.  Runs on the CPU (no card).
+"""
+import ctypes
+import json
+import math
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from sqair_tpu_torch.ops import build, fused
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
+
+SETTINGS = [(train, fuse) for train in (False, True) for fuse in (False, True)]
+
+
+def _shapes(kernel, train, fuse):
+    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
+    B, k = int(flags["batch_size"]), int(flags["k_particles"])
+    T = int(flags.get("font_timesteps", 10))
+    shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, fuse_glimpse=fuse,
+                                         fuse_cells=fuse)
+    return [s for kn, s, _ in shapes if kn == kernel]
+
+
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_mlp_forward_geometry_fills_the_card(train, fuse):
+    shapes = _shapes("fused_mlp", train, fuse)
+    assert shapes
+    for s in shapes:
+        dims = [s["d_in"]] + s["widths"]
+        g = fused.mlp_fwd_geometry(s["n"], dims)
+        tiles = math.ceil(s["n"] / g["tile_rows"])
+        assert 1 <= g["cluster"] <= 8, (s, g)
+        assert g["blocks"] == tiles * g["cluster"], (s, g)
+        # 8 blocks a row tile is the most a cluster gives
+        assert g["blocks"] >= min(fused.SMS, tiles * 8), (s, g)
+        assert g["smem"] <= fused.MAX_SMEM, (s, g)
+        assert len(g["wk"]) == len(s["widths"]) and set(g["wk"]) <= {1, 2, 4, 8}, (s, g)
+        if s["n"] == 160:
+            assert g["cluster"] == 8 and g["blocks"] >= fused.SMS, (s, g)
+
+
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_vrnn_backward_geometry_fills_the_card(train, fuse):
+    shapes = _shapes("fused_vanilla_rnn", train, fuse)
+    assert shapes
+    for s in shapes:
+        n, d_x, units = s["n"], s["dx"], s["units"]
+        g = fused.vrnn_bwd_geometry(n, d_x, units, need_dx=True, need_dh=True)
+        col_tiles = math.ceil((d_x + units) / 64)
+        assert g["rows"] in (1, 2, 4, 8), (s, g)
+        assert g["in_blocks"] == math.ceil(n / g["rows"]) * col_tiles, (s, g)
+        assert g["wg_blocks"] == math.ceil((d_x + units) / 32) * math.ceil(units / 32), (s, g)
+        assert g["blocks"] == g["in_blocks"] + g["wg_blocks"], (s, g)
+        # one batch row a tile is the most the input-gradient blocks give
+        assert g["blocks"] >= min(fused.SMS, n * col_tiles + g["wg_blocks"]), (s, g)
+        assert g["blocks"] >= fused.SMS, (s, g)  # every main-path shape fills the card
+        assert g["smem"] <= fused.MAX_SMEM, (s, g)
+
+
+@pytest.mark.parametrize("need_dx,need_dh", [(True, True), (True, False), (False, True),
+                                             (False, False)])
+def test_vrnn_backward_geometry_covers_the_asked_gradients(need_dx, need_dh):
+    """The input-gradient blocks cover only the [dx | dh] columns asked for,
+    and none are launched when neither is."""
+    g = fused.vrnn_bwd_geometry(160, 567, 256, need_dx, need_dh)
+    cols = (567 if need_dx else 0) + (256 if need_dh else 0)
+    assert g["in_blocks"] == math.ceil(160 / g["rows"]) * math.ceil(cols / 64)
+    assert g["wg_blocks"] == math.ceil((567 + 256) / 32) * 256 // 32
+    assert (g["in_blocks"] == 0) == (cols == 0)
+
+
+def test_mlp_forward_geometry_keeps_a_k_block_chain_per_warp_round():
+    """Every layer's split puts 8 units on the 8 warps (wk K-blocks of 8 / wk
+    chunks) and takes the fewest rounds, the fewer K-blocks on a tie."""
+    for n, dims in [(160, [2500, 256, 256]), (4800, [50, 256, 256, 400]), (1, [1, 10, 4]),
+                    (13, [2500, 1, 1024, 400, 1024])]:
+        g = fused.mlp_fwd_geometry(n, dims)
+        for (k, d), wk in zip(zip(dims[:-1], dims[1:]), g["wk"]):
+            j = math.ceil(math.ceil(d / 32) / g["cluster"])
+            rounds = {w: math.ceil(j / (8 // w)) * math.ceil(k / 32 / w) for w in (1, 2, 4, 8)}
+            assert rounds[wk] == min(rounds.values())
+            assert wk == min(w for w in rounds if rounds[w] == rounds[wk])
+    assert fused.mlp_fwd_geometry(160, [2500, 256, 256])["wk"] == [8, 8]
+    assert fused.mlp_fwd_geometry(4800, [50, 256, 256, 400])["cluster"] == 1
+
+
+def test_wrappers_pass_the_geometry_to_the_c_entries(monkeypatch):
+    """The forward MLP and the vanilla-RNN backward hand the host's geometry
+    to their C entries (the library is a stand-in that records it)."""
+    seen = {}
+
+    class FakeLibrary:
+        def __getattr__(self, name):
+            argtypes = build.PROTOTYPES[name]
+
+            def call(*args):
+                assert len(args) == len(argtypes), (name, len(args), len(argtypes))
+                for a, t in zip(args, argtypes):
+                    t.from_param(a)
+                seen[name] = args
+                return 0
+            return call
+
+    monkeypatch.setattr(build, "library", lambda: FakeLibrary())
+    monkeypatch.setattr(fused, "_stream", lambda device: ctypes.c_void_p(0))
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand(160, 54, generator=gen)
+    params = [(torch.rand(54, 256, generator=gen), torch.rand(256, generator=gen)),
+              (torch.rand(256, 4, generator=gen), torch.rand(4, generator=gen))]
+    fused._mlp_fwd_cuda(x, params, ("elu", "id"), save=True)
+    g = fused.mlp_fwd_geometry(160, [54, 256, 4])
+    assert list(seen["sqair_fused_mlp"][9]) == [g["tile_rows"], g["cluster"], g["blocks"],
+                                                 g["smem"], *g["wk"]]
+    monkeypatch.setattr(fused, "_on_cuda", lambda name, t: True)
+    h, w, u = torch.rand(160, 4), torch.rand(4, 4), torch.rand(4, 4)
+    xv = torch.rand(160, 4)
+    fused.fused_vanilla_rnn_bwd(xv, h, w, u, h, h, need_dx=False)
+    g = fused.vrnn_bwd_geometry(160, 4, 4, need_dx=False, need_dh=True)
+    assert list(seen["sqair_fused_vanilla_rnn_bwd"][14]) == [g["rows"], g["blocks"], g["smem"]]
+    assert seen["sqair_fused_vanilla_rnn_bwd"][6].value is None  # no dx

@@ -45,7 +45,10 @@ at which each run lies on another side than its referee, then runs
 everything again with the gradient through the union of them zeroed, one
 kind at a time and all together, and gives the distances again: what is
 left is the step's smooth part.  One JSON object per seed on standard
-output and in ``--out``.  ``--device cpu`` with a small ``--batch_size``
+output and in ``--out``, then a summary: for each f32 run that uses a
+kernel, the geometric mean over the seeds of its distance to its referee
+over the plain run's with the same switches, every crossed kink masked
+(the ratio train-check's gate is built on).  ``--device cpu`` with a small ``--batch_size``
 and ``--timesteps`` is a dry run of the logic (the plain versions only).
 """
 from __future__ import annotations
@@ -54,6 +57,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import os
 import sys
 import time
@@ -200,6 +204,9 @@ def main(argv=None):
 
     out_path = Path(args.out)
     out_path.parent.mkdir(parents=True, exist_ok=True)
+    plain_of = {sw: n for n, (sw, patches, f64) in runs.items()
+                if n.startswith("plain_") and not f64}
+    log_ratios = {n: [] for n in f32 if not n.startswith("plain_")}
     for seed in range(args.seeds):
         t0 = time.perf_counter()
         if seed == 0:
@@ -239,6 +246,16 @@ def main(argv=None):
         print(json.dumps(row), flush=True)
         with out_path.open("a") as f:
             f.write(json.dumps(row) + "\n")
+        for n, logs in log_ratios.items():
+            masked = row["masked_all"]
+            logs.append(math.log(masked[n]["share"] / masked[plain_of[runs[n][0]]]["share"]))
+    summary = dict(summary="geometric mean over seeds of the masked distance to the referee, "
+                           "kernel run over plain run",
+                   seeds=args.seeds,
+                   ratio={n: math.exp(sum(v) / len(v)) for n, v in log_ratios.items() if v})
+    print(json.dumps(summary), flush=True)
+    with out_path.open("a") as f:
+        f.write(json.dumps(summary) + "\n")
     if device.type == "cuda":
         print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
               .read().strip())
