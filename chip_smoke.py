@@ -18,8 +18,10 @@ Phases, one line each with its own numbers and seconds:
                  outputs and every residual field) and the fused discovery
                  unroll's at 160 rows and 3 slots on the data generator's
                  frames (the nine outputs, every residual field, the
-                 glimpses and the input encoder's layers); the MLP forward
-                 runs twice at each shape and must give the same bits
+                 glimpses and the input encoder's layers); the GRU also
+                 saving zr and c, as the train step calls it; the MLP,
+                 vanilla-RNN and GRU forwards run twice at each shape and
+                 must give the same bits
   kernels-bwd    every backward kernel against its plain version at the
                  shapes the train step gives it, the deferred pass's 1600
                  and 4800 rows included, the glimpse backward and the
@@ -213,8 +215,9 @@ KERNELS = {
 # the CUDA kernels redesigned for Hopper whose profile rows are always
 # printed, and the wrappers whose two runs on the same inputs must give the
 # same bits (the kernels check)
-REDESIGNED = ("fused_mlp_kernel", "vrnn_bwd_kernel", "outer_reduce_kernel")
-SAME_BITS = ("fused_mlp", "fused_vanilla_rnn_bwd")
+REDESIGNED = ("fused_mlp_kernel", "fused_vrnn_kernel", "fused_gru_kernel", "vrnn_bwd_kernel",
+              "outer_reduce_kernel")
+SAME_BITS = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_vanilla_rnn_bwd")
 GLIMPSE_SWITCH = SWITCHES["glimpse"]
 CELLS_SWITCH = SWITCHES["cells"]
 
@@ -344,6 +347,14 @@ def needs_dx(kernel, shape, img=IMG):
     """False for the one call whose input carries no gradient: the input
     encoder reads the frames."""
     return not (kernel == "fused_mlp" and shape["d_in"] == img[0] * img[1])
+
+
+def fwd_geometry(fused, kernel, shape):
+    """The host's launch geometry of a forward kernel redesigned for Hopper."""
+    if kernel == "fused_mlp":
+        return fused.mlp_fwd_geometry(shape["n"], [shape["d_in"]] + shape["widths"])
+    geometry = fused.vrnn_fwd_geometry if kernel == "fused_vanilla_rnn" else fused.gru_fwd_geometry
+    return geometry(shape["n"], shape["dx"], shape["units"])
 
 
 def make_inputs(torch, kernel, shape, gen, device):
@@ -1274,22 +1285,34 @@ def run():
             args = make_inputs(torch, kernel, shape, gen, device)
             got = wrappers[kernel](*args)
             want = plains[kernel](*args)
+            pairs = [(got, want)]
+            if kernel == "fused_gru":  # and as the train step calls it, saving zr and c
+                saved = fused._gru_fwd_cuda(*args, save=True)
+                pairs += list(zip(saved, fused.gru_plain_saving(*args)))
             torch.cuda.synchronize()
-            diff = torch.abs(got - want)
-            abs_err = float(torch.max(diff))
-            # relative error where the value is not near 0 (|value| >= 1e-2)
-            big = torch.abs(want) >= 1e-2
-            rel_err = float(torch.max(diff[big] / torch.abs(want[big]))) if big.any() else 0.0
-            ok = bool(torch.all(diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(want)))
+            abs_err, rel_err, ok = 0.0, 0.0, True
+            for a, b in pairs:
+                diff = torch.abs(a - b)
+                abs_err = max(abs_err, float(torch.max(diff)))
+                # relative error where the value is not near 0 (|value| >= 1e-2)
+                big = torch.abs(b) >= 1e-2
+                if big.any():
+                    rel_err = max(rel_err, float(torch.max(diff[big] / torch.abs(b[big]))))
+                ok = ok and a.shape == b.shape and bool(
+                    torch.all(diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)))
             extra = {}
             if kernel in SAME_BITS:
-                extra = dict(same_bits=bool(torch.equal(got, wrappers[kernel](*args))),
-                             geometry=jdump(fused.mlp_fwd_geometry(
-                                 shape["n"], [shape["d_in"]] + shape["widths"])))
+                same = torch.equal(got, wrappers[kernel](*args))
+                if kernel == "fused_gru":
+                    same = same and torch.equal(saved[0], got) and all(
+                        torch.equal(a, b) for a, b in zip(saved, fused._gru_fwd_cuda(*args,
+                                                                                     save=True)))
+                extra = dict(same_bits=bool(same),
+                             geometry=jdump(fwd_geometry(fused, kernel, shape)))
             log("kernels", t0, kernel=kernel, shape=jdump(shape),
                 max_abs_err=f"{abs_err:.3e}", max_rel_err=f"{rel_err:.3e}",
                 tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|", ok=ok, **extra)
-            if not ok or got.shape != want.shape:
+            if not ok:
                 raise Failure(f"{kernel} {shape}: kernel disagrees with its plain version")
             if not extra.get("same_bits", True):
                 raise Failure(f"{kernel} {shape}: two runs of the kernel differ")

@@ -1,6 +1,7 @@
-// Asynchronous global -> shared copies (cp.async) for the two kernels
-// redesigned for Hopper: the MLP forward (fused_mlp.cu) and the vanilla-RNN
-// backward (fused_bwd.cu).  The other kernels keep their plain loads.
+// Asynchronous global -> shared copies (cp.async) for the kernels
+// redesigned for Hopper: the MLP forward (fused_mlp.cu), the vanilla-RNN and
+// GRU forwards (fused_rnn.cu) and the vanilla-RNN backward (fused_bwd.cu).
+// The other kernels keep their plain loads.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,9 +1,11 @@
-// Shared pieces of the hand-written kernels (fused_mlp.cu, fused_rnn.cu,
-// and through bwd_common.cuh and glimpse_common.cuh the others).
+// Shared pieces of the hand-written kernels (through bwd_common.cuh,
+// glimpse_common.cuh and tile_sums.cuh all of them).
 //
-// Every kernel here has the same shape: one block of kThreads threads owns
-// kRows rows of the batch, and each thread owns up to kMaxCols output
-// columns (column j = threadIdx.x + c * kThreads).  A thread keeps
+// Every kernel but those that tile_sums.cuh serves (the MLP and cell
+// forwards, whose rounds split K over the warps) has the same shape: one
+// block of kThreads threads owns kRows rows of the batch, and each thread
+// owns up to kMaxCols output columns (column j = threadIdx.x + c *
+// kThreads).  A thread keeps
 // kMaxCols x kRows float accumulators in registers.  Weights are read from
 // device memory (coalesced: neighbouring threads read neighbouring
 // columns of a row-major [K, D] matrix); the block's rows of the left

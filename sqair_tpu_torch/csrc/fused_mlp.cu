@@ -55,23 +55,16 @@
 #include <cooperative_groups.h>
 
 #include "async_copy.cuh"
-#include "common.cuh"
+#include "tile_sums.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace sqair {
 
 constexpr int kMaxLayers = 4;
-constexpr int kTileRows = 8;                          // rows of a cluster's tile
-constexpr int kWarps = kThreads / 32;                 // units of a round
-constexpr int kChunk32 = 32;                          // output columns of a unit
-constexpr int kUnitW = kBlockK * kChunk32;            // a unit's weights [32 k][32 cols]
-constexpr int kStageW = kWarps * kUnitW;              // a round's weights
 constexpr int kXLd = kBlockK + 4;                     // row stride of staged x
 constexpr int kStageX = kWarps * kTileRows * kXLd;    // a round's x (first layer)
 constexpr int kStage = kStageW + kStageX;
-constexpr int kParts = kWarps * kTileRows * kChunk32;  // a round's partial sums
-constexpr int kMaxCluster = 8;
 
 struct MlpArgs {
   const float* x;
@@ -94,8 +87,6 @@ struct MlpArgs {
 struct LayerPlan {
   int K, D, nkb, J, col0, WK, WJ, wj_log, P, Q;
 };
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ inline LayerPlan plan_layer(const MlpArgs& p, int l, int rank) {
   LayerPlan L;
@@ -141,24 +132,6 @@ __device__ __forceinline__ void issue_round(const MlpArgs& p, const LayerPlan L,
         copy4_async(sx + (wk * kTileRows + r) * kXLd + f, p.x + (size_t)(row0 + r) * L.K + k,
                     L.K - k);
     }
-  }
-}
-
-// part[i][j] += a[r_i][k + m] * w[k + m][c_j] for m < 4, in order: the
-// lane's 2 rows (a0, a1) and 4 columns (wt, a float4 of [k][32] rows).
-__device__ __forceinline__ void mlp_step4(float (&part)[2][4], const float* a0,
-                                          const float* a1, const float* wt, int k) {
-  const float4 x0 = *reinterpret_cast<const float4*>(a0 + k);
-  const float4 x1 = *reinterpret_cast<const float4*>(a1 + k);
-  const float xs[2][4] = {{x0.x, x0.y, x0.z, x0.w}, {x1.x, x1.y, x1.z, x1.w}};
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const float4 wv = *reinterpret_cast<const float4*>(wt + (k + m) * kChunk32);
-    const float ws[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = fmaf(xs[i][m], ws[j], part[i][j]);
   }
 }
 
@@ -221,9 +194,6 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mlp_kernel(MlpArgs p) {
         const int wk = warp >> L.wj_log, wc = warp & (L.WJ - 1);
         const int kb = q * L.WK + wk;
         if (kb < L.nkb && pass * L.WJ + wc < L.J) {
-          // lane: rows 2 g, 2 g + 1 and columns 4 c4 .. 4 c4 + 3 of the unit
-          const int g = lane >> 3, c4 = (lane & 7) * 4;
-          const float* wt = stage + warp * kUnitW + c4;
           const float* a;
           int lda;
           if (l == 0) {
@@ -233,49 +203,14 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mlp_kernel(MlpArgs p) {
             a = act_in + kb * kBlockK;
             lda = p.act_ld;
           }
-          const float* a0 = a + 2 * g * lda;
-          const float* a1 = a0 + lda;
-          const int kn = min(kBlockK, L.K - kb * kBlockK);
-          float part[2][4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
-          int k = 0;
-          if (kn == kBlockK) {  // a whole K-block, unrolled so that loads run ahead
-#pragma unroll
-            for (int k4 = 0; k4 < kBlockK; k4 += 4) mlp_step4(part, a0, a1, wt, k4);
-            k = kBlockK;
-          }
-          for (; k + 4 <= kn; k += 4) mlp_step4(part, a0, a1, wt, k);
-          for (; k < kn; ++k) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              part[0][j] = fmaf(a0[k], wt[k * kChunk32 + j], part[0][j]);
-              part[1][j] = fmaf(a1[k], wt[k * kChunk32 + j], part[1][j]);
-            }
-          }
-          float* pw = parts + (warp * kTileRows + 2 * g) * kChunk32 + c4;
-          *reinterpret_cast<float4*>(pw) = make_float4(part[0][0], part[0][1], part[0][2],
-                                                       part[0][3]);
-          *reinterpret_cast<float4*>(pw + kChunk32) = make_float4(part[1][0], part[1][1],
-                                                                  part[1][2], part[1][3]);
+          unit_sums(parts + warp * kTileRows * kChunk32, a, lda, stage + warp * kUnitW,
+                    min(kBlockK, L.K - kb * kBlockK));
         }
         __syncthreads();  // every unit's partial sums are in `parts`
         // thread (warp, lane) owns row `warp`, column `lane` of each chunk
         // i of the pass, and adds the round's K-blocks in order
-        const int nwk = min(L.WK, L.nkb - q * L.WK);
-        const float* pr = parts + warp * kChunk32 + lane;
-#pragma unroll
-        for (int i = 0; i < kWarps; ++i) {
-          if (i < L.WJ && pass * L.WJ + i < L.J) {
-            float sum = acc[i];
-#pragma unroll
-            for (int j = 0; j < kWarps; ++j)
-              if (j < nwk) sum += pr[((j << L.wj_log) + i) * kTileRows * kChunk32];
-            acc[i] = sum;
-          }
-        }
+        add_round(acc, parts, L.wj_log, min(L.WJ, L.J - pass * L.WJ),
+                  min(L.WK, L.nkb - q * L.WK));
       }
       // the pass's outputs: row `warp`, column `lane` of each chunk
       const int r = warp;

@@ -37,10 +37,10 @@ _I = ctypes.c_int
 PROTOTYPES = {
     # x, y, n, n_layers, dims*, acts*, w**, b**, saved**, geom*, stream
     "sqair_fused_mlp": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
-    # x, h, w, u, b, hn, n, dx, units, stream
-    "sqair_fused_vanilla_rnn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, h, wg, ug, bg, wc, uc, bc, hn, zr, c, n, dx, units, stream
-    "sqair_fused_gru": (_P,) * 11 + (_I, _I, _I, _P),
+    # x, h, w, u, b, hn, n, dx, units, geom*, stream
+    "sqair_fused_vanilla_rnn": (_P,) * 6 + (_I, _I, _I, _P, _P),
+    # x, h, wg, ug, bg, wc, uc, bc, hn, zr, c, n, dx, units, geom*, stream
+    "sqair_fused_gru": (_P,) * 11 + (_I, _I, _I, _P, _P),
     # x, g, dx, n, n_layers, dims*, acts*, w**, a**, dz**, dw**, db**, stream
     "sqair_fused_mlp_bwd": (_P, _P, _P, _I, _I) + (_P,) * 8,
     # x, h, w, u, hn, g, dx, dh, dw, du, db, n, dx, units, geom*, stream

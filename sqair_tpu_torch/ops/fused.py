@@ -223,6 +223,61 @@ def mlp_fwd_geometry(n, dims):
                 wk=wk)
 
 
+def _cell_fwd_geometry(n, d_x, units, gru):
+    """The launch of a cell's forward kernel (csrc/fused_rnn.cu): see
+    ``vrnn_fwd_geometry`` and ``gru_fwd_geometry``."""
+    tile_rows, warps, block_k, chunk = 8, 8, 32, 32
+    tiles = _cdiv(n, tile_rows)
+    chunks = _cdiv(units, chunk)
+    splits = [c for c in (1, 2, 4, 8) if c <= chunks]
+    split = next((c for c in splits if tiles * c >= SMS), splits[-1])
+    per_block = _cdiv(chunks, split)
+    nkb_x, nkb_h = _cdiv(d_x, block_k), _cdiv(units, block_k)
+    # (chunks, K-blocks) of each stage's share of a block
+    stages = ([(2 * per_block, nkb_x + nkb_h), (per_block, nkb_x), (per_block, nkb_h)] if gru
+              else [(per_block, nkb_x + nkb_h)])
+    wk = [min((1, 2, 4, 8), key=lambda w: (_cdiv(j, warps // w) * _cdiv(nkb, w), w))
+          for j, nkb in stages]
+    lda = _cdiv(d_x, block_k) * block_k + _cdiv(units, block_k) * block_k + 4
+    rh_ld = _cdiv(units, block_k) * block_k + 4 if gru else 0
+    zld = per_block * chunk if gru else 0
+    smem = 4 * (2 * warps * block_k * chunk + warps * tile_rows * chunk
+                + tile_rows * (lda + rh_ld + 2 * zld))
+    return dict(tile_rows=tile_rows, split=split, blocks=tiles * split, smem=smem, wk=wk)
+
+
+def vrnn_fwd_geometry(n, d_x, units):
+    """The vanilla-RNN forward kernel's launch (csrc/fused_rnn.cu), as the
+    host picks it.
+
+    ``split`` blocks share a tile of ``tile_rows`` rows and split its
+    32-column chunks of the output; ``split`` is the least of 1, 2, 4, 8
+    (and at most the chunks) that gives ``SMS`` blocks, else the largest.
+    A round puts ``wk[0]`` K-blocks of 32 of [x | h] and 8 / wk[0] chunks on
+    the block's 8 warps: the split with the fewest rounds, the fewer
+    K-blocks on a tie.  ``smem`` is the dynamic shared memory in bytes: two
+    stages of a round's weights [8][32][32], the partial sums [8][8][32] and
+    the tile's rows of [x | h] [8][d_x and U, each rounded up to 32, + 4].
+    """
+    return _cell_fwd_geometry(n, d_x, units, gru=False)
+
+
+def gru_fwd_geometry(n, d_x, units):
+    """The GRU forward kernel's launch (csrc/fused_rnn.cu), as the host
+    picks it: as ``vrnn_fwd_geometry``, the ``split`` blocks of a tile
+    forming one thread block cluster, with ``wk`` for each of the three
+    stages (the gates' z and r chunks over [x | h], the candidate over x,
+    the candidate over r h).  ``smem`` adds the cluster's r h [8][U rounded
+    up to 32, + 4] and the block's z and candidate sums over x [8][its
+    chunks x 32] each.
+    """
+    return _cell_fwd_geometry(n, d_x, units, gru=True)
+
+
+def _cell_geom_ints(geom):
+    return _ints([geom["tile_rows"], geom["split"], geom["blocks"], geom["smem"], *geom["wk"]])
+
+
 def vrnn_bwd_geometry(n, d_x, units, need_dx=True, need_dh=True):
     """The vanilla-RNN backward kernel's launch (csrc/fused_bwd.cu), as the
     host picks it.
@@ -400,7 +455,7 @@ def _vrnn_fwd_cuda(x, h, w, u, b):
     if n > 0:
         code = library().sqair_fused_vanilla_rnn(
             _ptr(x), _ptr(h), _ptr(w), _ptr(u), _ptr(b), _ptr(hn), n, dx, units,
-            _stream(x.device))
+            _cell_geom_ints(vrnn_fwd_geometry(n, dx, units)), _stream(x.device))
         _raise_on("fused_vanilla_rnn", code)
         launches["fused_vanilla_rnn"] += 1
     return hn
@@ -488,7 +543,8 @@ def _gru_fwd_cuda(x, h, wg, ug, bg, wc, uc, bc, save):
     if n > 0:
         code = library().sqair_fused_gru(
             _ptr(x), _ptr(h), _ptr(wg), _ptr(ug), _ptr(bg), _ptr(wc), _ptr(uc),
-            _ptr(bc), _ptr(hn), _ptr(zr), _ptr(c), n, dx, units, _stream(x.device))
+            _ptr(bc), _ptr(hn), _ptr(zr), _ptr(c), n, dx, units,
+            _cell_geom_ints(gru_fwd_geometry(n, dx, units)), _stream(x.device))
         _raise_on("fused_gru", code)
         launches["fused_gru"] += 1
     return hn, zr, c

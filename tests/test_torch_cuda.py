@@ -388,3 +388,42 @@ def test_vrnn_backward_kernel_tiles_match_plain_on_cuda(n):
                             got, [None if i in skip else t for i, t in enumerate(want)], what)
                         for a, c in zip(got, again):
                             assert (a is None and c is None) or torch.equal(a, c), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 159, 160, 161, 479, 480, 1600])
+def test_cell_forward_kernels_tiles_match_plain_on_cuda(n):
+    """The split-column vanilla-RNN and GRU forwards against their plain
+    versions (1e-5 + 1e-4|v|) at tile edges: an 8-row tile, a 32-wide
+    K-block of x (d_x 31-33) and the main path's d_x; units 4 and 256 (and
+    512 for the vanilla RNN); the GRU's saved zr and c included, and without
+    them.  A second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    rnd = _rnd_fn(gen)
+    with torch.inference_mode():
+        for d_x in (4, 31, 32, 33, 54, 360, 416, 567):
+            for units in (4, 256, 512):
+                x = torch.rand(n, d_x, generator=gen, device="cuda")
+                h = 2 * torch.rand(n, units, generator=gen, device="cuda") - 1
+                what = f"n={n} d_x={d_x} units={units}"
+                v = (x, h, rnd(d_x, units), rnd(units, units), 0.1 * rnd(units))
+                got = fused._vrnn_fwd_cuda(*v)
+                torch.testing.assert_close(got, fused.vanilla_rnn_plain(*v), rtol=1e-4,
+                                           atol=1e-5, msg=f"vrnn {what}")
+                assert torch.equal(got, fused._vrnn_fwd_cuda(*v)), f"vrnn {what}: two runs differ"
+                if units > 256:
+                    continue
+                g = (x, h, rnd(d_x, 2 * units), rnd(units, 2 * units), 0.1 * rnd(2 * units),
+                     rnd(d_x, units), rnd(units, units), 0.1 * rnd(units))
+                want = fused.gru_plain_saving(*g)
+                got = fused._gru_fwd_cuda(*g, save=True)
+                again = fused._gru_fwd_cuda(*g, save=True)
+                for i, (a, b, w) in enumerate(zip(got, again, want)):
+                    torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5,
+                                               msg=f"gru {what} output {i}")
+                    assert torch.equal(a, b), f"gru {what} output {i}: two runs differ"
+                hn, zr, c = fused._gru_fwd_cuda(*g, save=False)
+                assert zr is None and c is None
+                assert torch.equal(hn, got[0]), f"gru {what}: save=False differs"

@@ -1,12 +1,15 @@
-"""The host's launch geometry of the two kernels redesigned for Hopper
+"""The host's launch geometry of the kernels redesigned for Hopper
 (``ops/fused.py``: ``mlp_fwd_geometry`` for csrc/fused_mlp.cu,
-``vrnn_bwd_geometry`` for the vanilla-RNN backward of csrc/fused_bwd.cu), at
-every MLP and vanilla-RNN shape of ``chip_smoke.main_path_shapes``: the
-release flags, with no switch and with both switches, eval and train.
+``vrnn_fwd_geometry`` and ``gru_fwd_geometry`` for the cells' forwards of
+csrc/fused_rnn.cu, ``vrnn_bwd_geometry`` for the vanilla-RNN backward of
+csrc/fused_bwd.cu), at every MLP, vanilla-RNN and GRU shape of
+``chip_smoke.main_path_shapes``: the release flags, with no switch and with
+both switches, eval and train.
 
 Each launch fills the card's 132 SMs wherever n allows it, takes a cluster
-of 1-8 blocks and at most the 227 KB of shared memory a block may have; the
-wrappers pass that geometry to the C entry.  Runs on the CPU (no card).
+(or column split) of 1-8 blocks and at most the 227 KB of shared memory a
+block may have; the wrappers pass that geometry to the C entry.  Runs on
+the CPU (no card).
 """
 import ctypes
 import json
@@ -97,10 +100,10 @@ def test_mlp_forward_geometry_keeps_a_k_block_chain_per_warp_round():
     assert fused.mlp_fwd_geometry(4800, [50, 256, 256, 400])["cluster"] == 1
 
 
-def test_wrappers_pass_the_geometry_to_the_c_entries(monkeypatch):
-    """The forward MLP and the vanilla-RNN backward hand the host's geometry
-    to their C entries (the library is a stand-in that records it)."""
-    seen = {}
+@pytest.fixture
+def seen(monkeypatch):
+    """The C entries' arguments, from a stand-in library that records them."""
+    calls = {}
 
     class FakeLibrary:
         def __getattr__(self, name):
@@ -110,12 +113,18 @@ def test_wrappers_pass_the_geometry_to_the_c_entries(monkeypatch):
                 assert len(args) == len(argtypes), (name, len(args), len(argtypes))
                 for a, t in zip(args, argtypes):
                     t.from_param(a)
-                seen[name] = args
+                calls[name] = args
                 return 0
             return call
 
     monkeypatch.setattr(build, "library", lambda: FakeLibrary())
     monkeypatch.setattr(fused, "_stream", lambda device: ctypes.c_void_p(0))
+    return calls
+
+
+def test_wrappers_pass_the_geometry_to_the_c_entries(seen, monkeypatch):
+    """The forward MLP and the vanilla-RNN backward hand the host's geometry
+    to their C entries (the library is a stand-in that records it)."""
     gen = torch.Generator().manual_seed(0)
     x = torch.rand(160, 54, generator=gen)
     params = [(torch.rand(54, 256, generator=gen), torch.rand(256, generator=gen)),
@@ -131,3 +140,80 @@ def test_wrappers_pass_the_geometry_to_the_c_entries(monkeypatch):
     g = fused.vrnn_bwd_geometry(160, 4, 4, need_dx=False, need_dh=True)
     assert list(seen["sqair_fused_vanilla_rnn_bwd"][14]) == [g["rows"], g["blocks"], g["smem"]]
     assert seen["sqair_fused_vanilla_rnn_bwd"][6].value is None  # no dx
+
+
+CELL_GEOMETRY = {"fused_vanilla_rnn": fused.vrnn_fwd_geometry,
+                 "fused_gru": fused.gru_fwd_geometry}
+
+
+@pytest.mark.parametrize("kernel", sorted(CELL_GEOMETRY))
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_cell_forward_geometry_fills_the_card(kernel, train, fuse):
+    shapes = _shapes(kernel, train, fuse)
+    assert shapes
+    for s in shapes:
+        n, d_x, units = s["n"], s["dx"], s["units"]
+        g = CELL_GEOMETRY[kernel](n, d_x, units)
+        tiles, chunks = math.ceil(n / 8), math.ceil(units / 32)
+        assert g["tile_rows"] == 8, (s, g)
+        assert 1 <= g["split"] <= min(8, chunks), (s, g)
+        assert g["blocks"] == tiles * g["split"], (s, g)
+        # the widest split the output's 32-column chunks allow
+        widest = max(c for c in (1, 2, 4, 8) if c <= chunks)
+        assert g["blocks"] >= min(fused.SMS, tiles * widest), (s, g)
+        if units == 256:  # every full-width cell of the main path fills the card
+            assert g["blocks"] >= fused.SMS, (s, g)
+        assert g["smem"] <= fused.MAX_SMEM, (s, g)
+        assert len(g["wk"]) == (3 if kernel == "fused_gru" else 1), (s, g)
+        assert set(g["wk"]) <= {1, 2, 4, 8}, (s, g)
+
+
+def test_cell_forward_geometry_splits_and_rounds():
+    """8 blocks a tile at 160 rows, 4 at 480, 1 at 1600 or for a 4-unit cell;
+    each stage's split takes the fewest rounds, the fewer K-blocks on a tie."""
+    assert fused.vrnn_fwd_geometry(160, 567, 256)["split"] == 8
+    assert fused.gru_fwd_geometry(160, 360, 256)["split"] == 8
+    assert fused.gru_fwd_geometry(480, 54, 256)["split"] == 4
+    assert fused.vrnn_fwd_geometry(1600, 567, 256)["split"] == 1
+    assert fused.vrnn_fwd_geometry(1600, 4, 4)["split"] == 1
+    assert fused.vrnn_fwd_geometry(160, 4, 4)["split"] == 1
+    for n, d_x, units in [(160, 567, 256), (480, 54, 256), (1600, 4, 4), (13, 0, 96),
+                          (161, 31, 512)]:
+        for kernel, geometry in CELL_GEOMETRY.items():
+            if kernel == "fused_gru" and units > 512:
+                continue
+            g = geometry(n, d_x, units)
+            j = math.ceil(math.ceil(units / 32) / g["split"])
+            nkb_x, nkb_h = math.ceil(d_x / 32), math.ceil(units / 32)
+            stages = ([(2 * j, nkb_x + nkb_h), (j, nkb_x), (j, nkb_h)]
+                      if kernel == "fused_gru" else [(j, nkb_x + nkb_h)])
+            for (chunks, nkb), wk in zip(stages, g["wk"]):
+                rounds = {w: math.ceil(chunks / (8 // w)) * math.ceil(nkb / w)
+                          for w in (1, 2, 4, 8)}
+                assert rounds[wk] == min(rounds.values()), (n, d_x, units, kernel)
+                assert wk == min(w for w in rounds if rounds[w] == rounds[wk])
+
+
+@pytest.mark.parametrize("save", (False, True))
+def test_cell_wrappers_pass_the_geometry_to_the_c_entries(seen, save):
+    """The vanilla-RNN and GRU forwards hand the host's geometry to their C
+    entries, the GRU its zr and c pointers only when it saves them."""
+    gen = torch.Generator().manual_seed(0)
+    n, d_x, units = 160, 567, 256
+    x, h = torch.rand(n, d_x, generator=gen), torch.rand(n, units, generator=gen)
+    fused._vrnn_fwd_cuda(x, h, torch.rand(d_x, units), torch.rand(units, units),
+                         torch.rand(units))
+    g = fused.vrnn_fwd_geometry(n, d_x, units)
+    assert list(seen["sqair_fused_vanilla_rnn"][9]) == [g["tile_rows"], g["split"],
+                                                        g["blocks"], g["smem"], *g["wk"]]
+    n, d_x = 480, 54
+    x, h = torch.rand(n, d_x, generator=gen), torch.rand(n, units, generator=gen)
+    hn, zr, c = fused._gru_fwd_cuda(
+        x, h, torch.rand(d_x, 2 * units), torch.rand(units, 2 * units),
+        torch.rand(2 * units), torch.rand(d_x, units), torch.rand(units, units),
+        torch.rand(units), save=save)
+    g = fused.gru_fwd_geometry(n, d_x, units)
+    args = seen["sqair_fused_gru"]
+    assert list(args[14]) == [g["tile_rows"], g["split"], g["blocks"], g["smem"], *g["wk"]]
+    assert (args[9].value is not None) == save and (args[10].value is not None) == save
+    assert (zr is not None) == save and (c is not None) == save

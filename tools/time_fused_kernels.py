@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Times the fused MLP forward and the vanilla-RNN backward of a checkout of
-this repository on one CUDA card, at every shape a train step gives them
-(release flags, no switch), beside one PyTorch call of the same function.
+"""Times the kernels redesigned for Hopper of a checkout of this repository
+(the MLP forward, the vanilla-RNN and GRU forwards, the vanilla-RNN
+backward) on one CUDA card, at every shape a train step gives them (release
+flags, no switch), beside one PyTorch call of the same function.  The GRU
+forward runs as the train step calls it, saving zr and c.
 
     python3 tools/time_fused_kernels.py [--root DIR] [--save FILE] [--compare FILE]
                                         [--sms N]
@@ -16,8 +18,8 @@ kernel: the call-weighted ms, library ms and bound ms over the train step's
 shapes, each shape's numbers, and the card's name and power limit.  Run
 two checkouts in turns (A, B, B, A) in one call to compare them.  ``--sms``
 makes the host pick its launch geometry (``ops/fused.py``: the MLP's
-cluster size, the vanilla-RNN backward's row tile) as if the card had N
-SMs, e.g. 1 for clusters of one block.
+cluster size, the cells' column split, the vanilla-RNN backward's row
+tile) as if the card had N SMs, e.g. 1 for one block a row tile.
 """
 from __future__ import annotations
 
@@ -62,7 +64,10 @@ def main():
     gen = torch.Generator(device=device).manual_seed(SEED)
     outputs, want = {}, torch.load(args.compare) if args.compare else None
     report = {}
-    for kernel, backward in (("fused_mlp", False), ("fused_vanilla_rnn", True)):
+    forwards = {"fused_mlp": fused.fused_mlp, "fused_vanilla_rnn": fused.fused_vanilla_rnn,
+                "fused_gru": lambda *a: fused._gru_fwd_cuda(*a, save=True)}
+    for kernel, backward in (("fused_mlp", False), ("fused_vanilla_rnn", False),
+                             ("fused_gru", False), ("fused_vanilla_rnn", True)):
         name = kernel + ("_bwd" if backward else "")
         rows, tot = [], dict(calls=0, ms=0.0, lib=0.0, bound=0.0)
         for kn, shape, calls in shapes:
@@ -78,7 +83,7 @@ def main():
                         return fused.fused_vanilla_rnn_bwd(*bargs, need_dx=need_dx)
                 else:
                     def fn():
-                        return fused.fused_mlp(*fargs)
+                        return forwards[kernel](*fargs)
                 out = fn()
                 torch.cuda.synchronize()
                 key = f"{name} {cs.jdump(shape)}"
