@@ -26,8 +26,8 @@ Phases, one line each with its own numbers and seconds:
                  shapes the train step gives it, the deferred pass's 1600
                  and 4800 rows included, the glimpse backward and the
                  propagation and discovery backwards (every input's and
-                 weight's gradient); the vanilla-RNN backward runs twice
-                 and must give the same bits
+                 weight's gradient); the vanilla-RNN, MLP and propagation
+                 backwards run twice and must give the same bits
   eval           3 eval steps of the release model's flags at full width
                  (weights from a seed, data from the port's generator), with
                  the launch counts of every kernel
@@ -216,8 +216,9 @@ KERNELS = {
 # printed, and the wrappers whose two runs on the same inputs must give the
 # same bits (the kernels check)
 REDESIGNED = ("fused_mlp_kernel", "fused_vrnn_kernel", "fused_gru_kernel", "vrnn_bwd_kernel",
-              "outer_reduce_kernel")
-SAME_BITS = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_vanilla_rnn_bwd")
+              "mlp_bwd_kernel", "prop_bwd_kernel", "tile_reduce_kernel")
+SAME_BITS = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_vanilla_rnn_bwd",
+             "fused_mlp_bwd", "fused_prop_bwd")
 GLIMPSE_SWITCH = SWITCHES["glimpse"]
 CELLS_SWITCH = SWITCHES["cells"]
 
@@ -1349,10 +1350,12 @@ def run():
             extra = {}
             if kernel + "_bwd" in SAME_BITS:
                 again = flat_grads(kernel, bwd_wrappers[kernel](*bargs, need_dx=need_dx))
+                geometry = (fused.mlp_bwd_geometry(shape["n"], [shape["d_in"]] + shape["widths"])
+                            if kernel == "fused_mlp" else fused.vrnn_bwd_geometry(
+                                shape["n"], shape["dx"], shape["units"], need_dx))
                 extra = dict(same_bits=all((a is None and b is None) or torch.equal(a, b)
                                            for a, b in zip(got, again)),
-                             geometry=jdump(fused.vrnn_bwd_geometry(
-                                 shape["n"], shape["dx"], shape["units"], need_dx)))
+                             geometry=jdump(geometry))
             log("kernels-bwd", t0, kernel=kernel + "_bwd", shape=jdump(shape),
                 need_dx=need_dx, max_abs_err=f"{worst_abs:.3e}",
                 max_err_share=f"{worst_share:.3e}",
@@ -1447,6 +1450,7 @@ def run():
         saved = (want[0], want[2], want[3], want[5], want[6], want[7], want[9])
         pbargs = (*pargs, pweights, saved, want[10], cots, pdims)
         got_b = fc._bwd_cuda(*pbargs)
+        same_pb = all(torch.equal(a, b) for a, b in zip(got_b, fc._bwd_cuda(*pbargs)))
         want_b = fc.prop_plain_bwd(*pbargs)
         torch.cuda.synchronize()
         bnames = ["dwhat_tm1", "dwhere_tm1", "dpres_tm1", "dtemporal_h", "dh0"] + [
@@ -1460,7 +1464,11 @@ def run():
             worst_pb, share_pb = max(worst_pb, err), max(share_pb, err / (size + 1e-30))
         log("kernels-bwd", t0, kernel="fused_prop_bwd", shape=jdump(pshape),
             gradients=len(bnames), max_abs_err=f"{worst_pb:.3e}", max_err_share=f"{share_pb:.3e}",
-            u_near_integer=near, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True)
+            u_near_integer=near, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True,
+            same_bits=same_pb, geometry=jdump(fc.prop_bwd_geometry([B * k, *pdims[:1], *IMG,
+                                                                     *pdims[1:]])))
+        if not same_pb:
+            raise Failure(f"fused_prop_bwd {pshape}: two runs of the kernel differ")
     prop_entry = dict(calls=T, abs_err=worst_p, bwd_abs_err=worst_pb)
 
     # the fused discovery unroll (SQAIR_FUSE_CELLS at DISC_FLAGS), one call

@@ -1,17 +1,16 @@
 // Shared pieces of the hand-written backward kernels (fused_bwd.cu,
-// fused_glimpse.cu, fused_prop.cu): elu' and the other activations' derivatives read off
-// the output, the products with a transposed weight, and the launch of
-// phase B, the column-parallel weight-gradient reduction in fixed order.
+// fused_glimpse.cu, fused_prop.cu, fused_disc.cu): elu' and the other
+// activations' derivatives read off the output, the products with a
+// transposed weight, and the launch of phase B, the weight-gradient
+// reduction in fixed row order that every one of them ends with.
 #pragma once
 
 #include "common.cuh"
 
 namespace sqair {
 
-constexpr int kOuterThreads = 128;  // dW columns of a phase-B tile
-constexpr int kOuterK = 8;          // dW rows of a phase-B tile
-constexpr int kOuterN = 32;         // batch rows staged at a time
-constexpr int kMaxJobs = 24;        // dW matrices per phase-B launch
+constexpr int kOuterN = 32;   // batch rows of a phase-B chunk
+constexpr int kMaxJobs = 24;  // dW matrices per phase-B launch
 
 // d act(z) / dz written with the post-activation a, exactly as the JAX
 // package's `_act_grad_from_output` (elu: 1 for a > 0, else a + 1).
@@ -74,17 +73,15 @@ __device__ __forceinline__ void store_rows(const float (&acc)[kMaxCols][NR],
 // --------------------------------------------------------------- phase B
 struct OuterJob {
   const float* a;   // [N, K], row stride lda
-  const float* dz;  // [N, J], row stride ldz (0: J)
+  const float* dz;  // [N, J], row stride ldz
   float* dw;        // [K, J]
   float* db;        // [J] or null
-  int lda, K, J;
-  int tiles_j;      // column tiles of this job (set by launch_outer)
-  int tile0;        // first block index of this job (set by launch_outer)
-  int ldz;
+  int lda, ldz, K, J;
   // an optional second segment of N rows with the same strides, summed
   // after the first (a layer applied twice per row, e.g. to two glimpses)
   const float* a2;
   const float* dz2;
+  int tiles_j, tile0;  // set by launch_tiles
 };
 
 struct OuterArgs {
@@ -94,8 +91,8 @@ struct OuterArgs {
 };
 
 // dw = a^T dz and db = sum over the rows of dz for every job, in fixed row
-// order, the second segment's rows after the first's (outer_reduce_kernel,
+// order, the second segment's rows after the first's (tile_reduce_kernel,
 // defined once in fused_bwd.cu).
-cudaError_t launch_outer(OuterArgs& p, cudaStream_t stream);
+cudaError_t launch_tiles(OuterArgs& p, cudaStream_t stream);
 
 }  // namespace sqair

@@ -16,16 +16,20 @@
 // One TPU kernel saw every row, so it chained the layers and reduced the
 // weight gradients over the rows in one body.  On the card the MLP and the
 // GRU backward are two phases, two launches per call:
-//   A. row-parallel (`*_bwd_rows_kernel`): one block of kThreads threads
-//      owns kRows rows, as in the forward kernels.  It walks the layers in
-//      reverse with the rows' gradients in shared memory, writes each
-//      layer's dz (and, for the GRU, dc_in, da and r h) to scratch that the
-//      wrapper allocates, and writes dx (and dh).
-//   B. column-parallel (`outer_reduce_kernel`): each block owns a tile of
-//      kOuterK rows x kOuterThreads columns of one dW (and, in its first
-//      row of tiles, the same columns of db) and loops over ALL N rows in
-//      increasing order, kOuterN rows at a time into a partial sum.  No
-//      atomics: two runs give the same bits.
+//   A. row-parallel.  The GRU's (`gru_bwd_rows_kernel`): one block of
+//      kThreads threads owns kRows rows, as the first forward kernels did;
+//      it writes dc_in, da and r h to scratch that the wrapper allocates,
+//      and dx and dh.  The MLP's (`mlp_bwd_kernel`, redesigned for Hopper):
+//      a thread block cluster shares a tile of 8 rows and splits each
+//      layer's transposed product over its blocks (cluster_dense.cuh), and
+//      writes each layer's dz to scratch and dx.
+//   B. column-parallel, summing the rows in fixed order
+//      (`tile_reduce_kernel`, which the glimpse, discovery and propagation
+//      backwards launch too): each block owns a 32 x 32 tile of one dW (and,
+//      in its first row of tiles, the same columns of db); its warps take
+//      the 32-row chunks of N at once and the owner of each output adds
+//      their partial sums in chunk order.  No atomics: two runs give the
+//      same bits.
 // The vanilla RNN's backward is one launch (`vrnn_bwd_kernel`, its own
 // note below): its dz is elementwise, so each block forms what it needs.
 //
@@ -33,12 +37,13 @@
 // (f32; N = 160 or 480 rows in the time loop, 1600 and 4800 rows in the
 // deferred pass; weights up to 2500 x 256): not the card's rates, at most
 // ~3.5 GFLOP for the glimpse decoder at 4800 rows (~52 us at 67 TFLOP/s)
-// and well under a microsecond for most calls, but latency.  The MLP and
-// GRU phases are right and simple first: phase B runs few blocks when a dW
-// is small and N is large (the decoder's first layer: 14 blocks over 4800
-// rows), and phase A reads each weight row per thread through L1.
-// Splitting N in phase B and tiling the weights in phase A, as the vanilla
-// RNN's kernel now does, are later work.
+// and well under a microsecond for most calls, but latency.  The first MLP
+// backward lost its time in phase A, where each thread walked its own row
+// of W through L1 (a warp load touching 32 cache lines) in 20 blocks at
+// 160 rows; the cluster kernel stages W's rows in coalesced tiles, splits
+// each product's j over the warps and its columns over 8 blocks (160 at
+// 160 rows).  The GRU keeps the first design (phase B: 14 blocks over 4800
+// rows for a small dW would be its weak spot; it runs at 160 and 480).
 //
 // The vanilla RNN's backward at the release shapes (N = 160, d_x 567 or 416
 // -> 256 units, 60 of its 63 calls a train step; the where prior's 4 -> 4
@@ -51,86 +56,139 @@
 // rows), and the where prior's single 4 x 4 weight-gradient block walks
 // its 1600 rows in 7 rounds.
 
-#include "async_copy.cuh"
-#include "bwd_common.cuh"
+#include "cluster_dense.cuh"
 
 namespace sqair {
 
 // --------------------------------------------------------------- phase B
-// Shared with fused_glimpse.cu through bwd_common.cuh's launch_outer.
-// dw = a^T dz and db = sum over the rows of dz, for every job; one block
-// per (kOuterK x kOuterThreads) tile of one dw, summing the N rows in order.
-__global__ void __launch_bounds__(kOuterThreads) outer_reduce_kernel(OuterArgs p) {
-  __shared__ float as[kOuterN * kOuterK];
+// dW = a^T dz and db = sum_rows dz for every job (bwd_common.cuh's
+// OuterArgs), one block per 32 x 32 tile of one dW.  The N rows go in
+// 32-row chunks (the second segment's after the first's): warp w of a
+// round takes chunk 8 q + w and sums its 32 rows in order into a partial
+// sum of each of the tile's outputs (a lane owns one column, 32 rows of
+// dW); the owner of each output then adds the round's partial sums in
+// chunk order.  So each output
+// is the chain ((p_0 + p_1) + p_2) + ... of 32-row partial sums, each
+// summed from zero with zeros past the last row, that one thread walking
+// the N rows in order forms: its bits, with the chunks spread over the
+// warps (the decoder's 4800 rows: 150 chunks, 19 rounds).
+constexpr int kRTile = 32;  // dW rows and columns of a reducer block
+constexpr int kRSmemFloats = 2 * kWarps * kOuterN * kRTile + kWarps * kRTile;
+
+__global__ void __launch_bounds__(kThreads, 3) tile_reduce_kernel(OuterArgs p) {
+  extern __shared__ __align__(16) float rsmem[];
+  float* as = rsmem;                                  // [warp][32 rows][32 k], then
+                                                      // the warp's partial sums [32 k][32 j]
+  float* ds = as + kWarps * kOuterN * kRTile;         // [warp][32 rows][32 j]
+  float* parts_b = ds + kWarps * kOuterN * kRTile;    // [warp][32 j]
   int q = 0;
   while (q + 1 < p.n_jobs && (int)blockIdx.x >= p.job[q + 1].tile0) ++q;
   const OuterJob jb = p.job[q];
   const int local = blockIdx.x - jb.tile0;
-  const int k0 = (local / jb.tiles_j) * kOuterK;
-  const int j = (local % jb.tiles_j) * kOuterThreads + threadIdx.x;
-  const bool with_db = jb.db != nullptr && k0 == 0;
-  const int ldz = jb.ldz > 0 ? jb.ldz : jb.J;
-  float acc[kOuterK];
+  const int kt = local / jb.tiles_j, jt = local - kt * jb.tiles_j;
+  const int k0 = kt * kRTile, j0 = jt * kRTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool with_db = jb.db != nullptr && kt == 0;
+  const int nch0 = cdiv(p.n, kOuterN);
+  const int nch = jb.a2 != nullptr ? 2 * nch0 : nch0;
+  constexpr int kOwn = kRTile * kRTile / kThreads;  // outputs a thread owns
+  float acc[kOwn];
 #pragma unroll
-  for (int kk = 0; kk < kOuterK; ++kk) acc[kk] = 0.f;
-  float accb = 0.f;
+  for (int i = 0; i < kOwn; ++i) acc[i] = 0.f;
+  float acc_b = 0.f;
 
-  for (int seg = 0; seg < 2; ++seg) {
-    const float* a = seg == 0 ? jb.a : jb.a2;
-    const float* dz = seg == 0 ? jb.dz : jb.dz2;
-    if (a == nullptr) break;
-    for (int n0 = 0; n0 < p.n; n0 += kOuterN) {
-      const int nc = min(kOuterN, p.n - n0);
-      __syncthreads();  // the previous chunk has been read by every thread
-      for (int i = threadIdx.x; i < kOuterN * kOuterK; i += kOuterThreads) {
-        const int r = i / kOuterK, kk = i - r * kOuterK;
-        as[i] = (r < nc && k0 + kk < jb.K) ? a[(size_t)(n0 + r) * jb.lda + k0 + kk] : 0.f;
+  for (int c0 = 0; c0 < nch; c0 += kWarps) {
+    const int c = c0 + warp;
+    float* aw = as + warp * kOuterN * kRTile;
+    if (c < nch) {
+      const bool second = c >= nch0;
+      const float* a = second ? jb.a2 : jb.a;
+      const float* dz = second ? jb.dz2 : jb.dz;
+      const int n0 = (second ? c - nch0 : c) * kOuterN;
+      const int nrows = min(kOuterN, p.n - n0);
+      float* dw = ds + warp * kOuterN * kRTile;
+      const int k = k0 + lane, j = j0 + lane;
+      // column k of a and column j of dz for the chunk's rows
+#pragma unroll 8
+      for (int r = 0; r < kOuterN; ++r) {
+        aw[r * kRTile + lane] =
+            (r < nrows && k < jb.K) ? __ldg(a + (size_t)(n0 + r) * jb.lda + k) : 0.f;
+        dw[r * kRTile + lane] =
+            (r < nrows && j < jb.J) ? __ldg(dz + (size_t)(n0 + r) * jb.ldz + j) : 0.f;
       }
-      __syncthreads();
-      if (j < jb.J) {
-        float d[kOuterN];
+      __syncwarp();
+      // the chunk's 32 rows in order into partial sums
+      float part[kRTile], part_b = 0.f;
 #pragma unroll
-        for (int r = 0; r < kOuterN; ++r) d[r] = r < nc ? dz[(size_t)(n0 + r) * ldz + j] : 0.f;
-        // the chunk's kOuterN rows into partial sums, then added: the
-        // rounding error grows with N / kOuterN + kOuterN, not with N
-        float part[kOuterK], partb = 0.f;
+      for (int kk = 0; kk < kRTile; ++kk) part[kk] = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < kOuterN; ++r) {
+        const float d = dw[r * kRTile + lane];
 #pragma unroll
-        for (int kk = 0; kk < kOuterK; ++kk) part[kk] = 0.f;
-#pragma unroll
-        for (int r = 0; r < kOuterN; ++r) {
-#pragma unroll
-          for (int kk = 0; kk < kOuterK; ++kk)
-            part[kk] = fmaf(as[r * kOuterK + kk], d[r], part[kk]);
-          if (with_db) partb += d[r];
+        for (int kk = 0; kk < kRTile; kk += 4) {
+          const float4 a4 = *reinterpret_cast<const float4*>(aw + r * kRTile + kk);
+          part[kk + 0] = fmaf(a4.x, d, part[kk + 0]);
+          part[kk + 1] = fmaf(a4.y, d, part[kk + 1]);
+          part[kk + 2] = fmaf(a4.z, d, part[kk + 2]);
+          part[kk + 3] = fmaf(a4.w, d, part[kk + 3]);
         }
-#pragma unroll
-        for (int kk = 0; kk < kOuterK; ++kk) acc[kk] += part[kk];
-        accb += partb;
+        if (with_db) part_b += d;
       }
-    }
-  }
-  if (j < jb.J) {
+      __syncwarp();  // every lane has read the warp's rows of a
 #pragma unroll
-    for (int kk = 0; kk < kOuterK; ++kk)
-      if (k0 + kk < jb.K) jb.dw[(size_t)(k0 + kk) * jb.J + j] = acc[kk];
-    if (with_db) jb.db[j] = accb;
+      for (int kk = 0; kk < kRTile; ++kk) aw[kk * kRTile + lane] = part[kk];
+      parts_b[warp * kRTile + lane] = part_b;
+    }
+    __syncthreads();  // the round's partial sums are in shared memory
+    const int nw = min(kWarps, nch - c0);
+#pragma unroll
+    for (int i = 0; i < kOwn; ++i) {
+      const int o = threadIdx.x + i * kThreads;
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww)
+        if (ww < nw) acc[i] += as[ww * kOuterN * kRTile + o];
+    }
+    if (with_db && threadIdx.x < kRTile) {
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww)
+        if (ww < nw) acc_b += parts_b[ww * kRTile + threadIdx.x];
+    }
+    __syncthreads();  // before the next round overwrites them
   }
+#pragma unroll
+  for (int i = 0; i < kOwn; ++i) {
+    const int o = threadIdx.x + i * kThreads;
+    const int k = k0 + o / kRTile, j = j0 + o % kRTile;
+    if (k < jb.K && j < jb.J) jb.dw[(size_t)k * jb.J + j] = acc[i];
+  }
+  if (with_db && threadIdx.x < kRTile && j0 + threadIdx.x < jb.J) jb.db[j0 + threadIdx.x] = acc_b;
 }
 
-cudaError_t launch_outer(OuterArgs& p, cudaStream_t stream) {
+cudaError_t launch_tiles(OuterArgs& p, cudaStream_t stream) {
   int tiles = 0;
   for (int q = 0; q < p.n_jobs; ++q) {
     OuterJob& jb = p.job[q];
-    jb.tiles_j = (jb.J + kOuterThreads - 1) / kOuterThreads;
+    jb.tiles_j = cdiv(jb.J, kRTile);
     jb.tile0 = tiles;
-    tiles += ((jb.K + kOuterK - 1) / kOuterK) * jb.tiles_j;
+    tiles += cdiv(jb.K, kRTile) * jb.tiles_j;
   }
   if (tiles == 0) return cudaSuccess;
-  outer_reduce_kernel<<<tiles, kOuterThreads, 0, stream>>>(p);
+  const size_t smem = sizeof(float) * (size_t)kRSmemFloats;
+  cudaError_t err = allow_smem(tile_reduce_kernel, smem);
+  if (err != cudaSuccess) return err;
+  tile_reduce_kernel<<<tiles, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------- phase A: MLP
+// A cluster of C blocks (ops/fused.py mlp_bwd_geometry: C = 8 at 160 rows,
+// 4 at 480, 1 at 1600 and 4800) shares a tile of kTileRows rows.  Every
+// block forms the top layer's dz = g act'(a) for the tile from g and the
+// saved output; then layer by layer, g_{l-1} = dz_l W_l^T is a
+// cluster_dense_t over the cluster (each block its 32-column chunks of
+// W_l's rows), whose epilogue forms dz_{l-1} = g_{l-1} act'(a_{l-1}),
+// writes it to the scratch that phase B reads and into every block's
+// buffer for the next layer; the last product writes dx.
 constexpr int kMaxLayers = 4;  // as fused_mlp.cu
 constexpr int kWarps8 = kThreads / 32;
 
@@ -138,7 +196,8 @@ struct MlpBwdArgs {
   const float* g;  // [N, dims[n_layers]]
   float* dx;       // [N, dims[0]] or null
   int n, n_layers;
-  int max_width;   // widest layer output
+  int cluster;     // blocks of a cluster, splitting each product's columns
+  int ld;          // row stride of the two gradient buffers
   int dims[kMaxLayers + 1];
   int acts[kMaxLayers];
   const float* w[kMaxLayers];
@@ -146,54 +205,60 @@ struct MlpBwdArgs {
   float* dz[kMaxLayers];       // scratch [N, dims[l + 1]]
 };
 
-__global__ void __launch_bounds__(kThreads) mlp_bwd_rows_kernel(MlpBwdArgs p) {
-  extern __shared__ float smem[];
-  float* gbuf = smem;                       // kRows x (width of the current layer)
-  float* dzbuf = smem + kRows * p.max_width;
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, p.n - row0);
+__global__ void __launch_bounds__(kThreads, 2) mlp_bwd_kernel(MlpBwdArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                // kRingT
+  float* parts = ring + kRingT;      // kParts
+  float* buf = parts + kParts;       // 2 x kTileRows x ld
+  const Peers pe;
+  const int row0 = (blockIdx.x / p.cluster) * kTileRows;
+  const int rows = min(kTileRows, p.n - row0);
+  const int L = p.n_layers;
 
-  const int dn = p.dims[p.n_layers];
-  for (int i = threadIdx.x; i < kRows * dn; i += kThreads) {
+  // the first product's first round flies while the top layer's dz for the
+  // tile's rows is formed, in every block (rank 0 writes it)
+  const bool any = L > 1 || p.dx != nullptr;
+  const TTerm t_top[1] = {{buf, p.ld, p.dims[L], p.w[L - 1]}};
+  ProductPlan plan{};
+  if (any) plan = stage_product(t_top, p.dims[L - 1], pe, ring);
+  const int dn = p.dims[L];
+  for (int i = threadIdx.x; i < kTileRows * dn; i += kThreads) {
     const int r = i / dn, j = i - r * dn;
-    gbuf[i] = r < rows ? p.g[(size_t)(row0 + r) * dn + j] : 0.f;
+    float v = 0.f;
+    if (r < rows) {
+      const size_t o = (size_t)(row0 + r) * dn + j;
+      v = __ldg(p.g + o) * act_grad_from_output(__ldg(p.a[L - 1] + o), p.acts[L - 1]);
+      if (pe.rank == 0) p.dz[L - 1][o] = v;
+    }
+    buf[r * p.ld + j] = v;
   }
-  __syncthreads();
+  // every block of the cluster runs before any writes into its shared memory
+  cluster_sync_all();
 
-  for (int l = p.n_layers - 1; l >= 0; --l) {
+  for (int l = L - 1; l >= 0; --l) {
+    if (l == 0 && p.dx == nullptr) break;
     const int K = p.dims[l], D = p.dims[l + 1];
-    for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-      const int r = i / D, j = i - r * D;
-      float v = 0.f;
-      if (r < rows) {
-        const size_t o = (size_t)(row0 + r) * D + j;
-        v = gbuf[i] * act_grad_from_output(p.a[l][o], p.acts[l]);
-        p.dz[l][o] = v;
-      }
-      dzbuf[i] = v;
-    }
-    __syncthreads();
-    if (l > 0) {  // the next layer's gradient, g_{l-1} = dz_l W_l^T, into gbuf
-      Acc acc;
-      zero(acc);
-      acc_smem_t(acc, dzbuf, D, D, p.w[l], D, 0, K);
-#pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) {
-        const int col = threadIdx.x + c * kThreads;
-        if (col < K) {
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) gbuf[r * K + col] = acc[c][r];
+    const TTerm t[1] = {{buf + ((L - 1 - l) & 1) * kTileRows * p.ld, p.ld, D, p.w[l]}};
+    if (l < L - 1) plan = stage_product(t, K, pe, ring);
+    if (l > 0) {  // g_{l-1} = dz_l W_l^T, then dz_{l-1} into the other buffer
+      float* out = buf + ((L - l) & 1) * kTileRows * p.ld;
+      const float* a = p.a[l - 1];
+      float* dz = p.dz[l - 1];
+      const int act = p.acts[l - 1];
+      cluster_dense_t(t, plan, pe, ring, parts, [&](int r, int k, float v, float) {
+        float d = 0.f;
+        if (r < rows) {
+          const size_t o = (size_t)(row0 + r) * K + k;
+          d = v * act_grad_from_output(__ldg(a + o), act);
+          dz[o] = d;
         }
-      }
-    } else if (p.dx != nullptr) {
-      for (int col0 = 0; col0 < K; col0 += kMaxWidth) {
-        Acc acc;
-        zero(acc);
-        acc_smem_t(acc, dzbuf, D, D, p.w[0], D, col0, K);
-        store_rows(acc, p.dx, K, row0, rows, col0, K);
-      }
+        pe.put(out + r * p.ld + k, d);
+      });
+    } else {
+      cluster_dense_t(t, plan, pe, ring, parts, [&](int r, int k, float v, float) {
+        if (r < rows) p.dx[(size_t)(row0 + r) * K + k] = v;
+      });
     }
-    __syncthreads();
   }
 }
 
@@ -209,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_rows_kernel(MlpBwdArgs p) {
 //   partial sum (a lane owns one column, 32 outputs), and the owner of each
 //   output then adds the round's partial sums in row-block order.  So each
 //   output is the chain ((p_0 + p_1) + p_2) + ... of 32-row partial sums
-//   that `outer_reduce_kernel` forms, with the rows split over the warps
+//   that `tile_reduce_kernel` forms, with the rows split over the warps
 //   (the where prior's 4 x 4 over 1600 rows: 50 row blocks, 7 rounds, not
 //   one thread's walk).
 // - input-gradient blocks: a tile of `rows` batch rows x kVTileCols columns
@@ -288,7 +353,7 @@ __device__ void vrnn_bwd_weights(const VrnnBwdArgs& p, int tile, float* smem) {
       for (int r = 0; r < kVRowBlock; ++r)
         d[r] = (r < nrows && j < p.units) ? vrnn_dz(p, n0 + r, j) : 0.f;
       __syncwarp();
-      // as outer_reduce_kernel: the block's 32 rows in order into partial sums
+      // as tile_reduce_kernel: the block's 32 rows in order into partial sums
       float part[kVTileK], part_b = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kVTileK; ++kk) part[kk] = 0.f;
@@ -560,14 +625,17 @@ gru_bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ wg,
 // is the output), weights w[l] [dims[l], dims[l + 1]] -> dx [n, dims[0]]
 // (null to skip), dw[l] like w[l], db[l] [dims[l + 1]].  dz[l]
 // [n, dims[l + 1]] is scratch.  `dims`, `acts`, `w`, `a`, `dz`, `dw` and
-// `db` are host arrays.  All f32, contiguous and on the device.  Launches
-// phase A and phase B on `stream`, does not synchronise, allocates
-// nothing, and returns the CUDA error code of the launches (0 on success).
+// `db` are host arrays.  All f32, contiguous and on the device.  `geom` is
+// the host's launch geometry (ops/fused.py mlp_bwd_geometry): tile rows,
+// cluster size, phase A's blocks and dynamic shared memory bytes; the
+// launch is refused unless it matches this file's.  Launches phase A and
+// phase B on `stream`, does not synchronise, allocates nothing, and
+// returns the CUDA error code of the launches (0 on success).
 extern "C" int sqair_fused_mlp_bwd(const void* x, const void* g, void* dx, int n,
                                    int n_layers, const int* dims, const int* acts,
                                    const void* const* w, const void* const* a,
                                    void* const* dz, void* const* dw, void* const* db,
-                                   void* stream) {
+                                   const int* geom, void* stream) {
   using namespace sqair;
   if (n <= 0 || n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -576,12 +644,14 @@ extern "C" int sqair_fused_mlp_bwd(const void* x, const void* g, void* dx, int n
   p.dx = static_cast<float*>(dx);
   p.n = n;
   p.n_layers = n_layers;
-  p.max_width = 1;
+  p.cluster = geom[1];
+  int widest = 1;
   for (int l = 0; l <= n_layers; ++l) {
     if (dims[l] < 1 || (l > 0 && dims[l] > kMaxWidth)) return (int)cudaErrorInvalidValue;
     p.dims[l] = dims[l];
-    if (l > 0 && dims[l] > p.max_width) p.max_width = dims[l];
+    if (l > 0 && dims[l] > widest) widest = dims[l];
   }
+  p.ld = round4(widest);
   OuterArgs q{};
   q.n = n;
   q.n_jobs = n_layers;
@@ -595,19 +665,36 @@ extern "C" int sqair_fused_mlp_bwd(const void* x, const void* g, void* dx, int n
     jb.a = l == 0 ? static_cast<const float*>(x) : p.a[l - 1];
     jb.lda = dims[l];
     jb.dz = p.dz[l];
+    jb.ldz = dims[l + 1];
     jb.dw = static_cast<float*>(dw[l]);
     jb.db = static_cast<float*>(db[l]);
     jb.K = dims[l];
     jb.J = dims[l + 1];
   }
-  const size_t smem = sizeof(float) * 2 * (size_t)kRows * p.max_width;
-  cudaError_t err = allow_smem(mlp_bwd_rows_kernel, smem);
+  const int tiles = cdiv(n, kTileRows);
+  const size_t smem = sizeof(float) * ((size_t)kRingT + kParts + 2 * kTileRows * p.ld);
+  if (geom[0] != kTileRows || p.cluster < 1 || p.cluster > kMaxCluster ||
+      geom[2] != tiles * p.cluster || (size_t)geom[3] != smem)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(mlp_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + kRows - 1) / kRows;
-  mlp_bwd_rows_kernel<<<blocks, kThreads, smem, s>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * p.cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, mlp_bwd_kernel, p);
+  if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_outer(q, s);
+  return (int)launch_tiles(q, s);
 }
 
 // fused_vanilla_rnn backward.  x [n, d_x], h [n, units], w [d_x, units],
@@ -693,12 +780,14 @@ extern "C" int sqair_fused_gru_bwd(const void* x, const void* h, const void* wg,
   OuterArgs q{};
   q.n = n;
   q.n_jobs = 4;
-  q.job[0] = OuterJob{xp, dcp, static_cast<float*>(dwc), static_cast<float*>(dbc), d_x, d_x,
-                      units};
+  // {a, dz, dw, db, lda, ldz, K, J}
+  q.job[0] = OuterJob{xp, dcp, static_cast<float*>(dwc), static_cast<float*>(dbc), d_x, units,
+                      d_x, units};
   q.job[1] = OuterJob{static_cast<const float*>(rh), dcp, static_cast<float*>(duc), nullptr,
-                      units, units, units};
-  q.job[2] = OuterJob{xp, dap, static_cast<float*>(dwg), static_cast<float*>(dbg), d_x, d_x,
+                      units, units, units, units};
+  q.job[2] = OuterJob{xp, dap, static_cast<float*>(dwg), static_cast<float*>(dbg), d_x,
+                      2 * units, d_x, 2 * units};
+  q.job[3] = OuterJob{hp, dap, static_cast<float*>(dug), nullptr, units, 2 * units, units,
                       2 * units};
-  q.job[3] = OuterJob{hp, dap, static_cast<float*>(dug), nullptr, units, units, 2 * units};
-  return (int)launch_outer(q, s);
+  return (int)launch_tiles(q, s);
 }

@@ -51,7 +51,7 @@
 // row-parallel, chains the row gradients through the slots in reverse and
 // then through the input encoder, and writes every layer's dz and the
 // weight products' left operands that the residual rows do not hold to
-// scratch; phase B (outer_reduce_kernel, twice) reduces the ten slot layers'
+// scratch; phase B (tile_reduce_kernel, twice) reduces the ten slot layers'
 // weight gradients over all S B row-slots and the input encoder's two over
 // the B rows, in fixed order.  No atomics: two runs give the same bits.
 
@@ -730,8 +730,7 @@ extern "C" int sqair_fused_disc_bwd(void* const* ptrs, const int* dims, void* st
   auto job = [&](const float* a, int lda, const float* dz, int ldz, int wi, bool bias, int K,
                  int J) {
     OuterJob& jb = q.job[n++];
-    jb = OuterJob{a, dz, dw[wi], bias ? dw[wi + 1] : nullptr, lda, K, J};
-    jb.ldz = ldz;
+    jb = OuterJob{a, dz, dw[wi], bias ? dw[wi + 1] : nullptr, lda, ldz, K, J};
   };
   // weight indices in `_disc_weights_flat` order (the bias follows its matrix)
   q.n = d.S * d.B;
@@ -747,7 +746,7 @@ extern "C" int sqair_fused_disc_bwd(void* const* ptrs, const int* dims, void* st
   job(sc + c.spf, Z, sc + c.dsp1, Z, 19, true, d.d_spf, d.SP);   // sp1
   job(res + d.s1, R, sc + c.dlraw, Z, 21, true, d.SP, 1);        // sp2
   q.n_jobs = n;
-  err = launch_outer(q, s);
+  err = launch_tiles(q, s);
   if (err != cudaSuccess) return (int)err;
 
   const float* dz2e = sc + (size_t)d.S * d.B * Z;
@@ -758,5 +757,5 @@ extern "C" int sqair_fused_disc_bwd(void* const* ptrs, const int* dims, void* st
   job(p.in.imgf, d.HW, dz1e, U, 0, true, d.HW, U);  // wi1
   job(p.fres, 2 * U, dz2e, U, 2, true, U, U);       // wi2 (on ench1, fres[:, :U])
   q.n_jobs = n;
-  return (int)launch_outer(q, s);
+  return (int)launch_tiles(q, s);
 }

@@ -36,7 +36,7 @@
 // The backward is two launches, as fused_bwd.cu: phase A, row-parallel
 // (glimpse_bwd_rows_kernel), chains the row gradients from the head down to
 // the mask input and the where logits and writes each layer's dz to
-// scratch; phase B (outer_reduce_kernel) reduces dWh, dWe2, dWe1, dWm2 and
+// scratch; phase B (tile_reduce_kernel) reduces dWh, dWe2, dWe1, dWm2 and
 // dWm1 with their biases over all rows in fixed order.  No atomics.
 //
 // The crop, its backward and the encoder's layers are device code shared
@@ -370,14 +370,15 @@ extern "C" int sqair_fused_glimpse_bwd(void* const* ptrs, const int* dims, void*
 
   OuterArgs q{};
   q.n = d.n;
-  q.job[0] = OuterJob{p.h2, p.dhp, o[10], o[11], d.d2, d.d2, D};
-  q.job[1] = OuterJob{p.h1, p.dz2, o[8], o[9], d.d1, d.d1, d.d2};
-  q.job[2] = OuterJob{masked ? p.gflat : p.g0, p.dz1, o[6], o[7], G, G, d.d1};
+  // {a, dz, dw, db, lda, ldz, K, J}
+  q.job[0] = OuterJob{p.h2, p.dhp, o[10], o[11], d.d2, D, d.d2, D};
+  q.job[1] = OuterJob{p.h1, p.dz2, o[8], o[9], d.d1, d.d2, d.d1, d.d2};
+  q.job[2] = OuterJob{masked ? p.gflat : p.g0, p.dz1, o[6], o[7], G, d.d1, G, d.d1};
   q.n_jobs = 3;
   if (masked) {
-    q.job[3] = OuterJob{p.mhid, p.dmz2, o[4], o[5], d.d_m, d.d_m, G};
-    q.job[4] = OuterJob{p.mi, p.dmz1, o[2], o[3], d.d_mi, d.d_mi, d.d_m};
+    q.job[3] = OuterJob{p.mhid, p.dmz2, o[4], o[5], d.d_m, G, d.d_m, G};
+    q.job[4] = OuterJob{p.mi, p.dmz1, o[2], o[3], d.d_mi, d.d_m, d.d_mi, d.d_m};
     q.n_jobs = 5;
   }
-  return (int)launch_outer(q, s);
+  return (int)launch_tiles(q, s);
 }

@@ -37,7 +37,7 @@
 // mask, the transition, the estimator, the GRU, the heads), 1.56 GFLOP a
 // call: 23 us at 67 TFLOP/s off the tensor cores, against ~14 MB of
 // weights, frames, outputs and residuals (4 us at 3.35 TB/s); the backward
-// about twice that.  What the design does: one block of kThreads threads
+// about twice that.  What the forward does: one block of kThreads threads
 // owns kPropRows rows (80 blocks at 160 rows, so most SMs hold one) and
 // runs all slots for them with every activation in shared memory; the
 // weights stream through L2 once per block and slot.  That re-reads ~5 MB
@@ -45,19 +45,27 @@
 // block more rows or splitting the columns of the wide layers.  The crops
 // and encoders are glimpse_common.cuh's, shared with fused_glimpse.cu.
 //
-// The backward is two launches, as fused_bwd.cu: phase A
-// (prop_bwd_rows_kernel), row-parallel, chains the row gradients through
-// the slots in reverse and writes every layer's dz and the weight
-// products' left operands that the residual rows do not hold to scratch;
-// phase B (outer_reduce_kernel) reduces the 21 weight gradients and their
-// biases over all rows and slots in fixed order.  No atomics: two runs
-// give the same bits.
+// The backward is two launches, as fused_bwd.cu's MLP backward, and was
+// redesigned for Hopper: phase A (prop_bwd_kernel) chains the row
+// gradients through the slots in reverse and writes every layer's dz and
+// the weight products' left operands that the residual rows do not hold to
+// scratch; phase B (fused_bwd.cu's tile_reduce_kernel) reduces the 21 weight
+// gradients and their biases over all rows and slots in fixed order.  No
+// atomics: two runs give the same bits, and they are the bits of the first
+// design (one block of 2 rows, each thread walking its own row of W).
+// That design spent 2.7 of its 2.8 ms in phase A, ~20 products a slot each
+// a warp load touching 32 cache lines; phase A now runs clusters of 4
+// blocks over tiles of 8 rows, every product a cluster_dense_t
+// (cluster_dense.cuh: W staged coalesced, j split over the warps, columns
+// over the cluster's blocks) and the rows' crops spread over the blocks
+// (its own note below).
 
+#include "cluster_dense.cuh"
 #include "glimpse_common.cuh"
 
 namespace sqair {
 
-constexpr int kPropRows = 2;  // batch rows per block
+constexpr int kPropRows = 2;  // batch rows per block of the forward
 
 struct PropDims {
   int B, S, H, W, gh, gw, nw, U, SP, WB, MH;
@@ -473,6 +481,17 @@ __global__ void __launch_bounds__(kThreads) prop_fwd_kernel(PropFwdArgs p) {
 }
 
 // --------------------------------------------------- backward, phase A
+// A thread block cluster of C blocks (ops/fused_cells.py prop_bwd_geometry:
+// C = 4 at 160 rows, 80 blocks, one an SM) shares a tile of kTileRows = 8
+// rows.  Every block holds the tile's whole backward state in its shared
+// memory and runs the elementwise steps for all 8 rows itself; each of
+// the ~20 transposed products of a slot is a cluster_dense_t over the
+// cluster, whose epilogue writes its outputs into every block's state.  The
+// rows' crops and crop backwards are spread over the blocks (row r by block
+// r mod C), which send the where-gradient (and, once both glimpses have
+// added to it, the mask gradient) of their rows to the others.  A global
+// write of a value every block computes is made by one block: the scratch
+// rows are split over the blocks in turns of kThreads elements.
 struct PropBwdArgs {
   PropDims d;
   PropScratch sc;
@@ -489,80 +508,151 @@ struct PropBwdArgs {
   const float* crop_keep;  // [S, B] or null: keep_crop_grad's factors, both crops
 };
 
-struct BwdSmem {
-  int ht, dsw, dswh, dsp, dhc, dlr, dsp1, dspf, dwt1, dwh1, dp1, dg2, dzg, dtd, dhtn, dcin, drh,
-      da, dtin, dhp, dz2, dz1, dg, g0, dmask, dwl, dst8, dza2, dza1, dzr, drnn, dwb, dwbh, dmz2,
-      dmaskh, crop, cropb, total;
+// Row strides of the left operands of the products (multiples of 4: the
+// units read them as float4s).
+struct BwdLds {
+  int u, u2, sp, zg, td, hp, g, wbh, mh, rnn;
 };
+
+__host__ __device__ inline BwdLds bwd_lds(const PropDims& d) {
+  return BwdLds{round4(d.U), round4(2 * d.U), round4(d.SP), round4(3 * d.nw), round4(2 * d.nw),
+                round4(2 * d.nw), round4(d.G), round4(d.WB), round4(d.MH), round4(d.d_rnn)};
+}
+
+// Shared memory of the backward, [kTileRows][width] each: the state that
+// lives across a slot, then one region that each phase of a slot lays out
+// anew (the steps predictor; the gates and the GRU; a glimpse's encoder;
+// the estimator; the transition; the where bias and the mask), then the
+// products' ring (which a crop borrows) and partial sums.
+struct BwdSmem {
+  int ht, dsw, dswh, dsp, dhc, dlr, dp1, dspf, dwt1, dwh1, dg2, dtin, dmask, dwl;
+  int dsp1, dzg, dtd, dhtn, dcin, drh, da, dhp, dz2, dz1, dg, dst8, dza2, dza1, dzr, drnn, dwb,
+      dwbh, dmz2, dmaskh;
+  int ring, parts, total;
+};
+
+__host__ __device__ inline int take4(int& off, int n) { return take(off, round4(n)); }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 __host__ __device__ inline BwdSmem bwd_smem(const PropDims& d) {
   BwdSmem L;
+  const BwdLds ld = bwd_lds(d);
+  const int n = kTileRows, NW = d.nw, U = d.U;
   int o = 0;
-  const int n = kPropRows, NW = d.nw, U = d.U;
-  L.ht = take(o, n * U);
-  L.dsw = take(o, n * NW);   // carried from slot k + 1: d what_{k}
-  L.dswh = take(o, n * 4);   // d where_{k}
-  L.dsp = take(o, n);        // d presence_{k}
-  L.dhc = take(o, n * U);    // d h_{k}
-  L.dlr = take(o, n);
-  L.dsp1 = take(o, n * d.SP);
-  L.dspf = take(o, n * d.d_spf);  // [d h (accumulated), d ht (accumulated), d what]
-  L.dwt1 = take(o, n * NW);
-  L.dwh1 = take(o, n * 4);
-  L.dp1 = take(o, n);
-  L.dg2 = take(o, n * 2 * NW);
-  L.dzg = take(o, n * 3 * NW);
-  L.dtd = take(o, n * 2 * NW);
-  L.dhtn = take(o, n * U);
-  L.dcin = take(o, n * U);
-  L.drh = take(o, n * U);
-  L.da = take(o, n * 2 * U);
-  L.dtin = take(o, n * d.d_tin);
-  L.dhp = take(o, n * 2 * NW);
-  L.dz2 = take(o, n * U);
-  L.dz1 = take(o, n * U);
-  L.dg = take(o, n * d.G);
-  L.g0 = take(o, n * d.G);
-  L.dmask = take(o, n * d.G);
-  L.dwl = take(o, n * 4);
-  L.dst8 = take(o, n * 8);
-  L.dza2 = take(o, n * U);
-  L.dza1 = take(o, n * U);
-  L.dzr = take(o, n * U);
-  L.drnn = take(o, n * d.d_rnn);
-  L.dwb = take(o, n * 4);
-  L.dwbh = take(o, n * d.WB);
-  L.dmz2 = take(o, n * d.G);
-  L.dmaskh = take(o, n * d.MH);
+  L.ht = take4(o, n * U);
+  L.dsw = take4(o, n * NW);  // carried from slot k + 1: d what_{k}
+  L.dswh = take4(o, n * 4);  // d where_{k}
+  L.dsp = take4(o, n);       // d presence_{k}
+  L.dhc = take4(o, n * U);   // d h_{k}
+  L.dlr = take4(o, n);
+  L.dp1 = take4(o, n);
+  L.dspf = take4(o, n * d.d_spf);  // [d h (accumulated), d ht (accumulated), d what]
+  L.dwt1 = take4(o, n * NW);
+  L.dwh1 = take4(o, n * 4);
+  L.dg2 = take4(o, n * 2 * NW);
+  L.dtin = take4(o, n * d.d_tin);
+  L.dmask = take4(o, n * d.G);
+  L.dwl = take4(o, n * 4);
+  const int u0 = o;
+  int end = u0, q;
+  q = u0;  // the steps predictor
+  L.dsp1 = take4(q, n * ld.sp);
+  end = imax(end, q);
+  q = u0;  // the gates and the GRU
+  L.dzg = take4(q, n * ld.zg);
+  L.dtd = take4(q, n * ld.td);
+  L.dhtn = take4(q, n * ld.u);
+  L.dcin = take4(q, n * ld.u);
+  L.drh = take4(q, n * ld.u);
+  L.da = take4(q, n * ld.u2);
+  end = imax(end, q);
+  q = u0;  // a glimpse's encoder
+  L.dhp = take4(q, n * ld.hp);
+  L.dz2 = take4(q, n * ld.u);
+  L.dz1 = take4(q, n * ld.u);
+  L.dg = take4(q, n * ld.g);
+  end = imax(end, q);
+  q = u0;  // the estimator
+  L.dst8 = take4(q, n * 8);
+  L.dza2 = take4(q, n * ld.u);
+  L.dza1 = take4(q, n * ld.u);
+  end = imax(end, q);
+  q = u0;  // the transition; glimpse 1's dhp (at u0) is formed from drnn
+  L.dzr = take4(q, n * imax(ld.u, ld.hp));
+  L.drnn = take4(q, n * ld.rnn);
+  end = imax(end, q);
+  q = u0;  // the where bias
+  L.dwb = take4(q, n * 4);
+  L.dwbh = take4(q, n * ld.wbh);
+  end = imax(end, q);
+  q = u0;  // the mask
+  L.dmz2 = take4(q, n * ld.g);
+  L.dmaskh = take4(q, n * ld.mh);
+  end = imax(end, q);
+  o = end;
   const CropDims cd{d.H, d.W, d.gh, d.gw};
-  L.crop = take(o, (int)CropSmem::floats(cd));
-  L.cropb = take(o, (int)CropSmem::bwd_floats(cd));
+  const int crop = (int)(CropSmem::floats(cd) + CropSmem::bwd_floats(cd)) + d.G;
+  L.ring = take4(o, imax(kRingT, crop));
+  L.parts = take4(o, kParts);
   L.total = o;
   return L;
 }
 
-// One glimpse's backward over the block's rows, from the head's gradient
-// dhp: the encoder chain (dz into the scratch fields s_dz2, s_dz1), the
-// crop recomputed at each row's where (res or output memory, stride ldwl),
-// dmask (set when `first`, else added), the masked glimpse into the scratch
-// field s_gfl, and the where gradient into dwl [4] per row.
-__device__ __forceinline__ void prop_glimpse_bwd(const PropBwdArgs& p, int row0, int rows,
-                                                 size_t slot, const float* wl, size_t ldwl,
-                                                 int o_e1, int o_e2, int s_dz2, int s_dz1,
-                                                 int s_gfl, bool first, const float* dhp,
-                                                 float* dz2, float* dz1, float* dg, float* g0,
-                                                 float* dmask, float* dwl, const CropSmem& cs,
-                                                 float* bw) {
+// One glimpse's backward over the tile's rows, from the head's gradient dhp
+// [8][ld hp] (t_head, its product with Wh^T, staged by the caller as
+// L_head): the encoder chain over the cluster (dz into the scratch
+// fields s_dz2, s_dz1), then the crops of the block's rows recomputed at
+// each row's where (res or output memory, stride ldwl), dmask (set when
+// `first`, else added and sent to every block), the masked glimpse into the
+// scratch field s_gfl, and the where gradient into dwl [4] per row, sent to
+// every block.  Every thread of every block calls it.
+__device__ __forceinline__ void prop_glimpse_bwd(const PropBwdArgs& p, const Peers& pe, int row0,
+                                                 int rows, size_t slot, const float* wl,
+                                                 size_t ldwl, int o_e1, int o_e2, int s_dz2,
+                                                 int s_dz1, int s_gfl, bool first,
+                                                 const TTerm (&t_head)[1],
+                                                 const ProductPlan& L_head, float* dz2, float* dz1,
+                                                 float* dg, float* dmask, float* dwl, float* ring,
+                                                 float* parts) {
   const PropDims& d = p.d;
   const PropWeights& w = p.w;
+  const BwdLds ld = bwd_lds(d);
   const CropDims cd{d.H, d.W, d.gh, d.gw};
-  const int G = d.G, R = d.R, Z = p.sc.Z;
+  const int G = d.G, R = d.R, Z = p.sc.Z, U = d.U;
   const float* res0 = p.res + slot * R;
   float* sc0 = p.scratch + slot * Z;
-  encode_rows_bwd<kPropRows>(dhp, 2 * d.nw, w.wh, w.we2, w.we1, d.U, d.U, G, res0 + o_e1,
-                             (size_t)R, res0 + o_e2, (size_t)R, dz2, dz1, dg, sc0 + s_dz2,
-                             (size_t)Z, sc0 + s_dz1, (size_t)Z, rows);
-  for (int r = 0; r < kPropRows; ++r) {
+  // encode_rows_bwd: dz2 = (dhp Wh^T) elu'(h2), dz1 = (dz2 We2^T) elu'(h1), dg = dz1 We1^T
+  const float* h1 = res0 + o_e1;
+  const float* h2 = res0 + o_e2;
+  cluster_dense_t(t_head, L_head, pe, ring, parts, [&](int r, int k, float v, float) {
+    float dz = 0.f;
+    if (r < rows) {
+      dz = v * act_grad_from_output(__ldg(&h2[(size_t)r * R + k]), kElu);
+      sc0[(size_t)r * Z + s_dz2 + k] = dz;
+    }
+    pe.put(dz2 + r * ld.u + k, dz);
+  });
+  {
+    const TTerm t[1] = {{dz2, ld.u, U, w.we2}};
+    cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k, float v, float) {
+      float dz = 0.f;
+      if (r < rows) {
+        dz = v * act_grad_from_output(__ldg(&h1[(size_t)r * R + k]), kElu);
+        sc0[(size_t)r * Z + s_dz1 + k] = dz;
+      }
+      pe.put(dz1 + r * ld.u + k, dz);
+    });
+  }
+  {
+    const TTerm t[1] = {{dz1, ld.u, U, w.we1}};
+    cluster_dense_t<1>(t, G, pe, ring, parts,
+                       [&](int r, int k, float v, float) { pe.put(dg + r * ld.g + k, v); });
+  }
+  // the crops, row r by block r mod C, in the ring
+  const CropSmem cs(ring, cd);
+  float* bw = ring + CropSmem::floats(cd);
+  float* g0 = bw + CropSmem::bwd_floats(cd);
+  for (int r = 0; r < kTileRows; ++r) {
     if (r >= rows) {
       for (int i = threadIdx.x; i < G; i += kThreads) {
         if (first) dmask[r * G + i] = 0.f;
@@ -570,72 +660,88 @@ __device__ __forceinline__ void prop_glimpse_bwd(const PropBwdArgs& p, int row0,
       for (int i = threadIdx.x; i < 4; i += kThreads) dwl[r * 4 + i] = 0.f;
       continue;
     }
+    if (r % pe.n != pe.rank) continue;
     float c[4];
     crop_setup(p.in.img + (size_t)(row0 + r) * d.H * d.W, wl + r * ldwl, cd, cs, c);
-    crop_glimpse(cd, cs, g0 + r * G, nullptr);
+    crop_glimpse(cd, cs, g0, nullptr);
     for (int i = threadIdx.x; i < G; i += kThreads) {
-      const float m = res0[r * R + d.mask + i], g = g0[r * G + i], dgv = dg[r * G + i];
+      const float m = __ldg(&res0[(size_t)r * R + d.mask + i]), g = g0[i], dgv = dg[r * ld.g + i];
       dmask[r * G + i] = first ? dgv * g : dmask[r * G + i] + dgv * g;
-      sc0[r * Z + s_gfl + i] = g * m;
-      dg[r * G + i] = dgv * m;
+      sc0[(size_t)r * Z + s_gfl + i] = g * m;
+      dg[r * ld.g + i] = dgv * m;
     }
     __syncthreads();
-    crop_bwd(cd, cs, c, dg + r * G, bw, dwl + r * 4);
+    crop_bwd(cd, cs, c, dg + r * ld.g, bw, dwl + r * 4);
+    for (int i = threadIdx.x; i < 4; i += kThreads) pe.put(dwl + r * 4 + i, dwl[r * 4 + i]);
+    if (!first) {
+      for (int i = threadIdx.x; i < G; i += kThreads) pe.put(dmask + r * G + i, dmask[r * G + i]);
+    }
   }
-  __syncthreads();
+  cluster_sync_all();
 }
 
-__global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) {
-  extern __shared__ float smem[];
-  constexpr int NR = kPropRows;
+__global__ void __launch_bounds__(kThreads, 1) prop_bwd_kernel(PropBwdArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int NR = kTileRows;
   const PropDims& d = p.d;
   const PropScratch& s = p.sc;
   const PropWeights& w = p.w;
   const PropInputs& in = p.in;
   const BwdSmem L = bwd_smem(d);
+  const BwdLds ld = bwd_lds(d);
   float *hts = smem + L.ht, *dsw = smem + L.dsw, *dswh = smem + L.dswh, *dsp = smem + L.dsp;
-  float *dhc = smem + L.dhc, *dlr = smem + L.dlr, *dsp1 = smem + L.dsp1, *dspf = smem + L.dspf;
-  float *dwt1 = smem + L.dwt1, *dwh1 = smem + L.dwh1, *dp1 = smem + L.dp1, *dg2 = smem + L.dg2;
+  float *dhc = smem + L.dhc, *dlr = smem + L.dlr, *dp1 = smem + L.dp1, *dspf = smem + L.dspf;
+  float *dwt1 = smem + L.dwt1, *dwh1 = smem + L.dwh1, *dg2 = smem + L.dg2, *dtin = smem + L.dtin;
+  float *dmask = smem + L.dmask, *dwl = smem + L.dwl, *dsp1 = smem + L.dsp1;
   float *dzg = smem + L.dzg, *dtd = smem + L.dtd, *dhtn = smem + L.dhtn, *dcin = smem + L.dcin;
-  float *drh = smem + L.drh, *da = smem + L.da, *dtin = smem + L.dtin, *dhp = smem + L.dhp;
-  float *dz2 = smem + L.dz2, *dz1 = smem + L.dz1, *dg = smem + L.dg, *g0 = smem + L.g0;
-  float *dmask = smem + L.dmask, *dwl = smem + L.dwl, *dst8 = smem + L.dst8;
-  float *dza2 = smem + L.dza2, *dza1 = smem + L.dza1, *dzr = smem + L.dzr, *drnn = smem + L.drnn;
-  float *dwb = smem + L.dwb, *dwbh = smem + L.dwbh, *dmz2 = smem + L.dmz2;
-  float* dmaskh = smem + L.dmaskh;
-  const CropSmem cs(smem + L.crop, CropDims{d.H, d.W, d.gh, d.gw});
-  float* bw = smem + L.cropb;
+  float *drh = smem + L.drh, *da = smem + L.da, *dhp = smem + L.dhp, *dz2 = smem + L.dz2;
+  float *dz1 = smem + L.dz1, *dg = smem + L.dg, *dst8 = smem + L.dst8, *dza2 = smem + L.dza2;
+  float *dza1 = smem + L.dza1, *dzr = smem + L.dzr, *drnn = smem + L.drnn, *dwb = smem + L.dwb;
+  float *dwbh = smem + L.dwbh, *dmz2 = smem + L.dmz2, *dmaskh = smem + L.dmaskh;
+  float *ring = smem + L.ring, *parts = smem + L.parts;
+  const Peers pe;
+  const int C = pe.n, rank = pe.rank;
   const int NW = d.nw, U = d.U, G = d.G, R = d.R, Z = s.Z;
   const int dsf = d.d_spf, dti = d.d_tin;
-  const int row0 = blockIdx.x * NR;
+  const int row0 = (blockIdx.x / C) * NR;
   const int rows = min(NR, d.B - row0);
+  // whether this block writes element i of a loop over kThreads-strided
+  // elements that every block computes (turns of kThreads, round robin)
+  auto mine = [&](int i) { return (i / kThreads) % C == rank; };
 
   for (int i = threadIdx.x; i < NR * U; i += kThreads) dhc[i] = 0.f;
   for (int i = threadIdx.x; i < NR * NW; i += kThreads) dsw[i] = 0.f;
   for (int i = threadIdx.x; i < NR * 4; i += kThreads) dswh[i] = 0.f;
   for (int i = threadIdx.x; i < NR; i += kThreads) dsp[i] = 0.f;
+  // every block of the cluster runs before any writes into its shared memory
+  cluster_sync_all();
 
   for (int k = d.S - 1; k >= 0; --k) {
     const size_t slot = (size_t)k * d.B + row0;
     const float* res0 = p.res + slot * R;  // row r at res0 + r * R
     float* sc0 = p.scratch + slot * Z;     // row r at sc0 + r * Z
     __syncthreads();
+    // each product's first round is staged before the elementwise step
+    // before it, where there is one (stage_product)
+    const TTerm t_sp[1] = {{dsp1, ld.sp, d.SP, w.sp1w}};
+    const ProductPlan L_sp = stage_product(t_sp, dsf, pe, ring);
     for (int i = threadIdx.x; i < NR * U; i += kThreads) {
       const int r = i / U, j = i - r * U;
-      hts[i] = r < rows ? in.th[(slot + r) * U + j] : 0.f;
+      hts[i] = r < rows ? __ldg(&in.th[(slot + r) * U + j]) : 0.f;
     }
     // the presence
     for (int r = threadIdx.x; r < NR; r += kThreads) {
       float dlraw = 0.f, dpv = 0.f;
       if (r < rows) {
         const size_t o = slot + r;
-        const float prob = p.prob[o], pk = in.p1[o], lraw = res0[r * R + d.lraw];
-        const float dpres = p.dpres[o] + dsp[r];
-        const float dlogit = p.dlogit[o] + p.dprob[o] * prob * (1.f - prob);
+        const float prob = __ldg(&p.prob[o]), pk = __ldg(&in.p1[o]);
+        const float lraw = __ldg(&res0[r * R + d.lraw]);
+        const float dpres = __ldg(&p.dpres[o]) + dsp[r];
+        const float dlogit = __ldg(&p.dlogit[o]) + __ldg(&p.dprob[o]) * prob * (1.f - prob);
         dlraw = dlogit * pk;
-        const float psamp = in.u[o] < prob ? 1.f : 0.f;
+        const float psamp = __ldg(&in.u[o]) < prob ? 1.f : 0.f;
         dpv = dpres * psamp + dlogit * (lraw + 88.f);
-        sc0[r * Z + s.dlraw] = dlraw;
+        if (mine(r)) sc0[r * Z + s.dlraw] = dlraw;
       }
       dlr[r] = dlraw;
       dp1[r] = dpv;
@@ -646,20 +752,22 @@ __global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) 
       const int r = i / d.SP, j = i - r * d.SP;
       float v = 0.f;
       if (r < rows) {
-        v = dlr[r] * w.sp2w[j] * act_grad_from_output(res0[r * R + d.s1 + j], kElu);
-        sc0[r * Z + s.dsp1 + j] = v;
+        v = dlr[r] * __ldg(&w.sp2w[j]) * act_grad_from_output(__ldg(&res0[r * R + d.s1 + j]), kElu);
+        if (mine(i)) sc0[r * Z + s.dsp1 + j] = v;
       }
-      dsp1[i] = v;
+      dsp1[r * ld.sp + j] = v;
     }
-    for (int i = threadIdx.x; i < rows * dsf; i += kThreads) {
+    for (int i = threadIdx.x + rank * kThreads; i < rows * dsf; i += C * kThreads) {
       const int r = i / dsf, j = i - r * dsf;
-      sc0[r * Z + s.spf + j] = j < U ? res0[r * R + d.h + j]
+      sc0[r * Z + s.spf + j] = j < U ? __ldg(&res0[r * R + d.h + j])
                                : j < 2 * U ? hts[r * U + j - U]
-                                           : p.what[(slot + r) * NW + j - 2 * U];
+                                           : __ldg(&p.what[(slot + r) * NW + j - 2 * U]);
     }
     __syncthreads();
-    dense_t<NR>(dsp1, d.SP, d.SP, w.sp1w, dsf,
-                [&](int r, int k2, float v) { dspf[r * dsf + k2] = v; });
+    cluster_dense_t(t_sp, L_sp, pe, ring, parts,
+                    [&](int r, int k2, float v, float) { pe.put(dspf + r * dsf + k2, v); });
+    const TTerm t_ga[2] = {{dzg, ld.zg, 3 * NW, w.gaw}, {dtd, ld.td, 2 * NW, w.tdw}};
+    const ProductPlan L_ga = stage_product(t_ga, U, pe, ring);
 
     // the what fusion and the gates
     for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
@@ -669,14 +777,15 @@ __global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) 
       if (r < rows) {
         const size_t o = (slot + r) * NW + j;
         const float* rr = res0 + r * R;
-        const float dwt = p.dwhat[o] + dsw[i] + dspf[r * dsf + 2 * U + j];
-        const float dwl_t = dwt + p.dwhat_loc[o];
-        const float dws_t = dwt * in.epsx[o] + p.dwhat_scale[o];
-        const float f = rr[d.gates + j], ig = rr[d.gates + NW + j], tg = rr[d.gates + 2 * NW + j];
-        const float g2l = rr[d.g2loc + j], g2s = rr[d.g2sc + j];
-        const float tl = rr[d.tloc + j], ts = rr[d.tsc + j];
+        const float dwt = __ldg(&p.dwhat[o]) + dsw[i] + dspf[r * dsf + 2 * U + j];
+        const float dwl_t = dwt + __ldg(&p.dwhat_loc[o]);
+        const float dws_t = dwt * __ldg(&in.epsx[o]) + __ldg(&p.dwhat_scale[o]);
+        const float f = __ldg(&rr[d.gates + j]), ig = __ldg(&rr[d.gates + NW + j]);
+        const float tg = __ldg(&rr[d.gates + 2 * NW + j]);
+        const float g2l = __ldg(&rr[d.g2loc + j]), g2s = __ldg(&rr[d.g2sc + j]);
+        const float tl = __ldg(&rr[d.tloc + j]), ts = __ldg(&rr[d.tsc + j]);
         const float gs[3] = {f, ig, tg};
-        const float dgt[3] = {dwl_t * in.wt1[o], -(dwl_t * g2l + dws_t * g2s),
+        const float dgt[3] = {dwl_t * __ldg(&in.wt1[o]), -(dwl_t * g2l + dws_t * g2s),
                               -(dwl_t * tl + dws_t * ts)};
         float dz[3];
         for (int q = 0; q < 3; ++q) {
@@ -691,28 +800,31 @@ __global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) 
         v_g2s = dws_t * (1.f - ig);
         v_tl = dwl_t * (1.f - tg);
         v_ts = dws_t * (1.f - tg) * (1.f - expf(-(ts - kMinStd)));
-        float* sr = sc0 + r * Z;
-        sr[s.dzg + j] = v_f;
-        sr[s.dzg + NW + j] = v_i;
-        sr[s.dzg + 2 * NW + j] = v_t;
-        sr[s.dtd + j] = v_tl;
-        sr[s.dtd + NW + j] = v_ts;
+        if (mine(i)) {
+          float* sr = sc0 + r * Z;
+          sr[s.dzg + j] = v_f;
+          sr[s.dzg + NW + j] = v_i;
+          sr[s.dzg + 2 * NW + j] = v_t;
+          sr[s.dtd + j] = v_tl;
+          sr[s.dtd + NW + j] = v_ts;
+        }
       }
       dwt1[i] = v_wt;
       dg2[r * 2 * NW + j] = v_g2l;
       dg2[r * 2 * NW + NW + j] = v_g2s;
-      dzg[r * 3 * NW + j] = v_f;
-      dzg[r * 3 * NW + NW + j] = v_i;
-      dzg[r * 3 * NW + 2 * NW + j] = v_t;
-      dtd[r * 2 * NW + j] = v_tl;
-      dtd[r * 2 * NW + NW + j] = v_ts;
+      dzg[r * ld.zg + j] = v_f;
+      dzg[r * ld.zg + NW + j] = v_i;
+      dzg[r * ld.zg + 2 * NW + j] = v_t;
+      dtd[r * ld.td + j] = v_tl;
+      dtd[r * ld.td + NW + j] = v_ts;
     }
     __syncthreads();
-    dense_t2<NR>(dzg, 3 * NW, 3 * NW, w.gaw, dtd, 2 * NW, 2 * NW, w.tdw, U,
-                 [&](int r, int k2, float v, float v2) {
-                   dhtn[r * U + k2] =
-                       r < rows ? (p.dtnew[(slot + r) * U + k2] + v) + v2 : 0.f;
-                 });
+    cluster_dense_t(t_ga, L_ga, pe, ring, parts, [&](int r, int k2, float v, float v2) {
+      pe.put(dhtn + r * ld.u + k2,
+             r < rows ? (__ldg(&p.dtnew[(slot + r) * U + k2]) + v) + v2 : 0.f);
+    });
+    const TTerm t_uc[1] = {{dcin, ld.u, U, w.guc}};
+    const ProductPlan L_uc = stage_product(t_uc, U, pe, ring);
 
     // the temporal GRU
     for (int i = threadIdx.x; i < NR * U; i += kThreads) {
@@ -720,45 +832,57 @@ __global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) 
       float vc = 0.f, vz = 0.f;
       if (r < rows) {
         const float* rr = res0 + r * R;
-        const float c = rr[d.c + j], z = rr[d.zr + j], dh = dhtn[i];
+        const float c = __ldg(&rr[d.c + j]), z = __ldg(&rr[d.zr + j]), dh = dhtn[r * ld.u + j];
         vz = dh * (c - hts[i]);
         vc = (dh * z) * (1.f - c * c);
-        sc0[r * Z + s.dcin + j] = vc;
-        sc0[r * Z + s.rh + j] = rr[d.zr + U + j] * hts[i];
+        if (mine(i)) {
+          sc0[r * Z + s.dcin + j] = vc;
+          sc0[r * Z + s.rh + j] = __ldg(&rr[d.zr + U + j]) * hts[i];
+        }
       }
-      dcin[i] = vc;
-      da[r * 2 * U + j] = vz;  // dz_g, times the sigmoid' below
+      dcin[r * ld.u + j] = vc;
+      da[r * ld.u2 + j] = vz;  // dz_g, times the sigmoid' below
     }
-    for (int i = threadIdx.x; i < rows * dti; i += kThreads) {
+    for (int i = threadIdx.x + rank * kThreads; i < rows * dti; i += C * kThreads) {
       const int r = i / dti, j = i - r * dti;
       const float* rr = res0 + r * R;
-      sc0[r * Z + s.tin + j] = j < U ? rr[d.h + j]
-                               : j < U + 4 ? p.where[(slot + r) * 4 + j - U]
-                               : j < U + 4 + NW ? rr[d.g2loc + j - U - 4]
-                                                : rr[d.g2sc + j - U - 4 - NW];
+      sc0[r * Z + s.tin + j] = j < U ? __ldg(&rr[d.h + j])
+                               : j < U + 4 ? __ldg(&p.where[(slot + r) * 4 + j - U])
+                               : j < U + 4 + NW ? __ldg(&rr[d.g2loc + j - U - 4])
+                                                : __ldg(&rr[d.g2sc + j - U - 4 - NW]);
     }
     __syncthreads();
-    dense_t<NR>(dcin, U, U, w.guc, U, [&](int r, int k2, float v) { drh[r * U + k2] = v; });
+    cluster_dense_t(t_uc, L_uc, pe, ring, parts,
+                    [&](int r, int k2, float v, float) { pe.put(drh + r * ld.u + k2, v); });
+    const TTerm t_in[2] = {{dcin, ld.u, U, w.gwc}, {da, ld.u2, 2 * U, w.gwg}};
+    const ProductPlan L_in = stage_product(t_in, dti, pe, ring);
     for (int i = threadIdx.x; i < NR * 2 * U; i += kThreads) {
       const int r = i / (2 * U), j = i - r * 2 * U;
       float v = 0.f;
       if (r < rows) {
-        const float zz = res0[r * R + d.zr + j];
-        const float pre = j < U ? da[i] : drh[r * U + j - U] * hts[r * U + j - U];
+        const float zz = __ldg(&res0[r * R + d.zr + j]);
+        const float pre = j < U ? da[r * ld.u2 + j] : drh[r * ld.u + j - U] * hts[r * U + j - U];
         v = pre * zz * (1.f - zz);
-        sc0[r * Z + s.da + j] = v;
+        if (mine(i)) sc0[r * Z + s.da + j] = v;
       }
-      da[i] = v;
+      da[r * ld.u2 + j] = v;
     }
     __syncthreads();
-    dense_t2<NR>(dcin, U, U, w.gwc, da, 2 * U, 2 * U, w.gwg, dti,
-                 [&](int r, int k2, float v, float v2) { dtin[r * dti + k2] = v + v2; });
-    dense_t<NR>(da, 2 * U, 2 * U, w.gug, U, [&](int r, int k2, float v) {
-      if (r >= rows) return;
-      const float z = res0[r * R + d.zr + k2], rg = res0[r * R + d.zr + U + k2];
-      float& dht = dspf[r * dsf + U + k2];
-      dht = ((dht + dhtn[r * U + k2] * (1.f - z)) + drh[r * U + k2] * rg) + v;
+    cluster_dense_t(t_in, L_in, pe, ring, parts, [&](int r, int k2, float v, float v2) {
+      pe.put(dtin + r * dti + k2, v + v2);
     });
+    {
+      const TTerm t[1] = {{da, ld.u2, 2 * U, w.gug}};
+      cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k2, float v, float) {
+        if (r >= rows) return;
+        const float z = __ldg(&res0[r * R + d.zr + k2]), rg = __ldg(&res0[r * R + d.zr + U + k2]);
+        const float dht = dspf[r * dsf + U + k2];
+        pe.put(dspf + r * dsf + U + k2,
+               ((dht + dhtn[r * ld.u + k2] * (1.f - z)) + drh[r * ld.u + k2] * rg) + v);
+      });
+    }
+    const TTerm t_head[1] = {{dhp, ld.hp, 2 * NW, w.wh}};
+    const ProductPlan L_head2 = stage_product(t_head, U, pe, ring);
     for (int i = threadIdx.x; i < NR * U; i += kThreads) {
       const int r = i / U, j = i - r * U;
       dspf[r * dsf + j] += dtin[r * dti + j];
@@ -775,15 +899,17 @@ __global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) 
       float v = 0.f;
       if (r < rows) {
         v = j < NW ? dg2[i]
-                   : dg2[i] * (1.f - expf(-(res0[r * R + d.g2sc + j - NW] - kMinStd)));
-        sc0[r * Z + s.dhp2 + j] = v;
+                   : dg2[i] * (1.f - expf(-(__ldg(&res0[r * R + d.g2sc + j - NW]) - kMinStd)));
+        if (mine(i)) sc0[r * Z + s.dhp2 + j] = v;
       }
-      dhp[i] = v;
+      dhp[r * ld.hp + j] = v;
     }
     __syncthreads();
-    prop_glimpse_bwd(p, row0, rows, slot, p.where + slot * 4, 4, d.e21, d.e22, s.dz22, s.dz21,
-                     s.gfl2, true, dhp, dz2, dz1, dg, g0, dmask, dwl, cs, bw);
+    prop_glimpse_bwd(p, pe, row0, rows, slot, p.where + slot * 4, 4, d.e21, d.e22, s.dz22, s.dz21,
+                     s.gfl2, true, t_head, L_head2, dz2, dz1, dg, dmask, dwl, ring, parts);
     keep_crop_grad<NR>(dwl, p.crop_keep, slot, rows);
+    const TTerm t_s3[1] = {{dst8, 8, 8, w.s3w}};
+    const ProductPlan L_s3 = stage_product(t_s3, U, pe, ring);
 
     // the where sample and the transform estimator
     for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
@@ -791,99 +917,117 @@ __global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) 
       float dloc = 0.f, dsc = 0.f;
       if (r < rows) {
         const size_t o = (slot + r) * 4 + j;
-        const float dwt = ((p.dwhere[o] + dswh[i]) + dtin[r * dti + U + j]) + dwl[i];
-        dloc = dwt + p.dwhere_loc[o];
+        const float dwt = ((__ldg(&p.dwhere[o]) + dswh[i]) + dtin[r * dti + U + j]) + dwl[i];
+        dloc = dwt + __ldg(&p.dwhere_loc[o]);
         const float* e = in.epsw + (slot + r) * 4;
         float m = 0.f;
-        for (int q = 0; q < 4; ++q) m += e[q] * w.tril[j * 4 + q];
-        const float wsc = p.where_scale[o];
-        const float dwscale = dwt * (m + e[j]) + p.dwhere_scale[o];
+        for (int q = 0; q < 4; ++q) m += __ldg(&e[q]) * __ldg(&w.tril[j * 4 + q]);
+        const float wsc = __ldg(&p.where_scale[o]);
+        const float dwscale = dwt * (m + __ldg(&e[j])) + __ldg(&p.dwhere_scale[o]);
         dsc = dwscale * (1.f - expf(-(wsc - kMinStd)));
-        float* sr = sc0 + r * Z;
-        sr[s.dwsc + j] = dwt * wsc;
-        sr[s.dstp8 + j] = dloc;
-        sr[s.dstp8 + 4 + j] = dsc;
+        if (mine(i)) {
+          float* sr = sc0 + r * Z;
+          sr[s.dwsc + j] = dwt * wsc;
+          sr[s.dstp8 + j] = dloc;
+          sr[s.dstp8 + 4 + j] = dsc;
+        }
       }
       dwh1[i] = dloc;
       dst8[r * 8 + j] = dloc;
       dst8[r * 8 + 4 + j] = dsc;
     }
-    for (int i = threadIdx.x; i < rows * d.d_stp; i += kThreads) {
+    for (int i = threadIdx.x + rank * kThreads; i < rows * d.d_stp; i += C * kThreads) {
       const int r = i / d.d_stp, j = i - r * d.d_stp;
-      sc0[r * Z + s.stp_in + j] = j < U ? res0[r * R + d.h + j]
-                                  : j < U + 4 ? in.wh1[(slot + r) * 4 + j - U]
+      sc0[r * Z + s.stp_in + j] = j < U ? __ldg(&res0[r * R + d.h + j])
+                                  : j < U + 4 ? __ldg(&in.wh1[(slot + r) * 4 + j - U])
                                               : hts[r * U + j - U - 4];
     }
     __syncthreads();
-    dense_t<NR>(dst8, 8, 8, w.s3w, U, [&](int r, int k2, float v) {
+    cluster_dense_t(t_s3, L_s3, pe, ring, parts, [&](int r, int k2, float v, float) {
       float dz = 0.f;
       if (r < rows) {
-        dz = v * act_grad_from_output(res0[r * R + d.a2 + k2], kElu);
+        dz = v * act_grad_from_output(__ldg(&res0[r * R + d.a2 + k2]), kElu);
         sc0[r * Z + s.dza2 + k2] = dz;
       }
-      dza2[r * U + k2] = dz;
+      pe.put(dza2 + r * ld.u + k2, dz);
     });
-    dense_t<NR>(dza2, U, U, w.s2w, U, [&](int r, int k2, float v) {
-      float dz = 0.f;
-      if (r < rows) {
-        dz = v * act_grad_from_output(res0[r * R + d.a1 + k2], kElu);
-        sc0[r * Z + s.dza1 + k2] = dz;
-      }
-      dza1[r * U + k2] = dz;
-    });
-    dense_t<NR>(dza1, U, U, w.s1w, d.d_stp, [&](int r, int k2, float v) {
-      if (k2 < U) {
-        dspf[r * dsf + k2] += v;
-      } else if (k2 < U + 4) {
-        dwh1[r * 4 + k2 - U] += v;
-      } else {
-        dspf[r * dsf + U + k2 - U - 4] += v;
-      }
-    });
+    {
+      const TTerm t[1] = {{dza2, ld.u, U, w.s2w}};
+      cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k2, float v, float) {
+        float dz = 0.f;
+        if (r < rows) {
+          dz = v * act_grad_from_output(__ldg(&res0[r * R + d.a1 + k2]), kElu);
+          sc0[r * Z + s.dza1 + k2] = dz;
+        }
+        pe.put(dza1 + r * ld.u + k2, dz);
+      });
+    }
+    {
+      const TTerm t[1] = {{dza1, ld.u, U, w.s1w}};
+      cluster_dense_t<1>(t, d.d_stp, pe, ring, parts, [&](int r, int k2, float v, float) {
+        if (k2 < U) {
+          pe.put(dspf + r * dsf + k2, dspf[r * dsf + k2] + v);
+        } else if (k2 < U + 4) {
+          pe.put(dwh1 + r * 4 + k2 - U, dwh1[r * 4 + k2 - U] + v);
+        } else {
+          pe.put(dspf + r * dsf + U + k2 - U - 4, dspf[r * dsf + U + k2 - U - 4] + v);
+        }
+      });
+    }
+    const TTerm t_rw[1] = {{dzr, ld.u, U, w.rw}};
+    const ProductPlan L_rw = stage_product(t_rw, d.d_rnn, pe, ring);
 
     // the transition
     for (int i = threadIdx.x; i < NR * U; i += kThreads) {
       const int r = i / U, j = i - r * U;
       float v = 0.f;
       if (r < rows) {
-        const float h = res0[r * R + d.h + j];
+        const float h = __ldg(&res0[r * R + d.h + j]);
         v = (dspf[r * dsf + j] + dhc[i]) * (1.f - h * h);
-        sc0[r * Z + s.dzr + j] = v;
-        sc0[r * Z + s.hprev + j] =
-            k > 0 ? res0[r * R - (ptrdiff_t)d.B * R + d.h + j] : in.h0b[(size_t)(row0 + r) * U + j];
+        if (mine(i)) {
+          sc0[r * Z + s.dzr + j] = v;
+          sc0[r * Z + s.hprev + j] = k > 0 ? __ldg(&res0[r * R - (ptrdiff_t)d.B * R + d.h + j])
+                                           : __ldg(&in.h0b[(size_t)(row0 + r) * U + j]);
+        }
       }
-      dzr[i] = v;
+      dzr[r * ld.u + j] = v;
     }
-    for (int i = threadIdx.x; i < rows * d.d_rnn; i += kThreads) {
+    for (int i = threadIdx.x + rank * kThreads; i < rows * d.d_rnn; i += C * kThreads) {
       const int r = i / d.d_rnn, j = i - r * d.d_rnn;
       const size_t o = slot + r, prev = o - d.B;
       float v;
       if (j < NW) {
-        v = res0[r * R + d.g1loc + j];
+        v = __ldg(&res0[r * R + d.g1loc + j]);
       } else if (j < 2 * NW) {
-        v = k > 0 ? p.what[prev * NW + j - NW] : 0.f;
+        v = k > 0 ? __ldg(&p.what[prev * NW + j - NW]) : 0.f;
       } else if (j < 2 * NW + 4) {
-        v = k > 0 ? p.where[prev * 4 + j - 2 * NW] : 0.f;
+        v = k > 0 ? __ldg(&p.where[prev * 4 + j - 2 * NW]) : 0.f;
       } else if (j < 2 * NW + 5) {
-        v = k > 0 ? p.pres[prev] : 0.f;
+        v = k > 0 ? __ldg(&p.pres[prev]) : 0.f;
       } else if (j < 3 * NW + 5) {
-        v = in.wt1[o * NW + j - 2 * NW - 5];
+        v = __ldg(&in.wt1[o * NW + j - 2 * NW - 5]);
       } else if (j < 3 * NW + 9) {
-        v = in.wh1[o * 4 + j - 3 * NW - 5];
+        v = __ldg(&in.wh1[o * 4 + j - 3 * NW - 5]);
       } else if (j < 3 * NW + 10) {
-        v = in.p1[o];
+        v = __ldg(&in.p1[o]);
       } else {
         v = hts[r * U + j - 3 * NW - 10];
       }
       sc0[r * Z + s.rnn_in + j] = v;
     }
     __syncthreads();
-    dense_t<NR>(dzr, U, U, w.rw, d.d_rnn,
-                [&](int r, int k2, float v) { drnn[r * d.d_rnn + k2] = v; });
-    dense_t<NR>(dzr, U, U, w.ru, U, [&](int r, int k2, float v) { dhc[r * U + k2] = v; });
+    cluster_dense_t(t_rw, L_rw, pe, ring, parts, [&](int r, int k2, float v, float) {
+      pe.put(drnn + r * ld.rnn + k2, v);
+    });
+    {
+      const TTerm t[1] = {{dzr, ld.u, U, w.ru}};
+      cluster_dense_t<1>(t, U, pe, ring, parts,
+                         [&](int r, int k2, float v, float) { pe.put(dhc + r * U + k2, v); });
+    }
+    const ProductPlan L_head1 = stage_product(t_head, U, pe, ring);
     for (int i = threadIdx.x; i < NR * d.d_rnn; i += kThreads) {
       const int r = i / d.d_rnn, j = i - r * d.d_rnn;
-      const float v = drnn[i];
+      const float v = drnn[r * ld.rnn + j];
       if (j < NW) {
         // d g1loc: the head's gradient of glimpse 1 (its scale feeds nothing)
       } else if (j < 2 * NW) {
@@ -904,74 +1048,89 @@ __global__ void __launch_bounds__(kThreads) prop_bwd_rows_kernel(PropBwdArgs p) 
     }
     for (int i = threadIdx.x; i < NR * 2 * NW; i += kThreads) {
       const int r = i / (2 * NW), j = i - r * 2 * NW;
-      const float v = j < NW && r < rows ? drnn[r * d.d_rnn + j] : 0.f;
-      dhp[i] = v;
-      if (r < rows) sc0[r * Z + s.dhp1 + j] = v;
+      const float v = j < NW && r < rows ? drnn[r * ld.rnn + j] : 0.f;
+      dhp[r * ld.hp + j] = v;
+      if (r < rows && mine(i)) sc0[r * Z + s.dhp1 + j] = v;
     }
     __syncthreads();
 
     // glimpse 1, at the where-bias location
-    prop_glimpse_bwd(p, row0, rows, slot, res0 + d.gwl, R, d.e11, d.e12, s.dz12, s.dz11, s.gfl1,
-                     false, dhp, dz2, dz1, dg, g0, dmask, dwl, cs, bw);
+    prop_glimpse_bwd(p, pe, row0, rows, slot, res0 + d.gwl, R, d.e11, d.e12, s.dz12, s.dz11,
+                     s.gfl1, false, t_head, L_head1, dz2, dz1, dg, dmask, dwl, ring, parts);
     keep_crop_grad<NR>(dwl, p.crop_keep, slot, rows);
+    const TTerm t_b2[1] = {{dwb, 4, 4, w.wb2w}};
+    const ProductPlan L_b2 = stage_product(t_b2, d.WB, pe, ring);
     for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
       const int r = i / 4, j = i - r * 4;
       dwh1[i] += dwl[i];
       const float v = dwl[i] * 0.1f;
       dwb[i] = v;
-      if (r < rows) sc0[r * Z + s.dwb + j] = v;
+      if (r < rows && mine(i)) sc0[r * Z + s.dwb + j] = v;
     }
     __syncthreads();
 
     // the where-bias MLP
-    dense_t<NR>(dwb, 4, 4, w.wb2w, d.WB, [&](int r, int k2, float v) {
+    cluster_dense_t(t_b2, L_b2, pe, ring, parts, [&](int r, int k2, float v, float) {
       float dz = 0.f;
       if (r < rows) {
-        dz = v * act_grad_from_output(res0[r * R + d.wbh + k2], kElu);
+        dz = v * act_grad_from_output(__ldg(&res0[r * R + d.wbh + k2]), kElu);
         sc0[r * Z + s.dwbh + k2] = dz;
       }
-      dwbh[r * d.WB + k2] = dz;
+      pe.put(dwbh + r * ld.wbh + k2, dz);
     });
-    dense_t<NR>(dwbh, d.WB, d.WB, w.wb1w, U,
-                [&](int r, int k2, float v) { dspf[r * dsf + U + k2] += v; });
+    {
+      const TTerm t[1] = {{dwbh, ld.wbh, d.WB, w.wb1w}};
+      cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k2, float v, float) {
+        pe.put(dspf + r * dsf + U + k2, dspf[r * dsf + U + k2] + v);
+      });
+    }
+    const TTerm t_m2[1] = {{dmz2, ld.g, G, w.m2w}};
+    const ProductPlan L_m2 = stage_product(t_m2, d.MH, pe, ring);
 
     // the mask MLP, for both glimpses' uses
     for (int i = threadIdx.x; i < NR * G; i += kThreads) {
       const int r = i / G, j = i - r * G;
       float v = 0.f;
       if (r < rows) {
-        const float m = res0[r * R + d.mask + j];
+        const float m = __ldg(&res0[r * R + d.mask + j]);
         v = dmask[i] * m * (1.f - m);
-        sc0[r * Z + s.dmz2 + j] = v;
+        if (mine(i)) sc0[r * Z + s.dmz2 + j] = v;
       }
-      dmz2[i] = v;
+      dmz2[r * ld.g + j] = v;
     }
     __syncthreads();
-    dense_t<NR>(dmz2, G, G, w.m2w, d.MH, [&](int r, int k2, float v) {
+    cluster_dense_t(t_m2, L_m2, pe, ring, parts, [&](int r, int k2, float v, float) {
       float dz = 0.f;
       if (r < rows) {
-        dz = v * act_grad_from_output(res0[r * R + d.maskh + k2], kElu);
+        dz = v * act_grad_from_output(__ldg(&res0[r * R + d.maskh + k2]), kElu);
         sc0[r * Z + s.dmaskh + k2] = dz;
       }
-      dmaskh[r * d.MH + k2] = dz;
+      pe.put(dmaskh + r * ld.mh + k2, dz);
     });
-    dense_t<NR>(dmaskh, d.MH, d.MH, w.m1w, U,
-                [&](int r, int k2, float v) { dspf[r * dsf + U + k2] += v; });
+    {
+      const TTerm t[1] = {{dmaskh, ld.mh, d.MH, w.m1w}};
+      cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k2, float v, float) {
+        pe.put(dspf + r * dsf + U + k2, dspf[r * dsf + U + k2] + v);
+      });
+    }
 
     // this slot's input gradients
-    for (int i = threadIdx.x; i < rows * U; i += kThreads) {
+    for (int i = threadIdx.x + rank * kThreads; i < rows * U; i += C * kThreads) {
       const int r = i / U, j = i - r * U;
       p.dth[(slot + r) * U + j] = dspf[r * dsf + U + j];
     }
-    for (int i = threadIdx.x; i < rows * NW; i += kThreads) {
+    for (int i = threadIdx.x + rank * kThreads; i < rows * NW; i += C * kThreads) {
       const int r = i / NW, j = i - r * NW;
       p.dwt1[(slot + r) * NW + j] = dwt1[i];
     }
-    for (int i = threadIdx.x; i < rows * 4; i += kThreads) p.dwh1[slot * 4 + i] = dwh1[i];
-    for (int r = threadIdx.x; r < rows; r += kThreads) p.dp1[slot + r] = dp1[r];
+    if (rank == 0) {
+      for (int i = threadIdx.x; i < rows * 4; i += kThreads) p.dwh1[slot * 4 + i] = dwh1[i];
+      for (int r = threadIdx.x; r < rows; r += kThreads) p.dp1[slot + r] = dp1[r];
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * U; i += kThreads) p.dh0[(size_t)row0 * U + i] = dhc[i];
+  for (int i = threadIdx.x + rank * kThreads; i < rows * U; i += C * kThreads)
+    p.dh0[(size_t)row0 * U + i] = dhc[i];
 }
 
 }  // namespace sqair
@@ -1022,9 +1181,13 @@ extern "C" int sqair_fused_prop_scratch_floats(const int* dims) {
 // full [4, 4] product for tril); then scratch of S B Z floats, Z as
 // sqair_fused_prop_scratch_floats gives it, and a factor [S, B] on each
 // row-slot's where-gradients through its two crops, or null (none).  dims
-// is the forward's.
+// is the forward's.  `geom` is the host's launch geometry
+// (ops/fused_cells.py prop_bwd_geometry): tile rows, cluster size and
+// phase A's blocks; the launch is refused unless they match this file's
+// tiles, or the tile's state (bwd_smem) does not fit a block's 227 KB.
 // Launches phase A and phase B.
-extern "C" int sqair_fused_prop_bwd(void* const* ptrs, const int* dims, void* stream) {
+extern "C" int sqair_fused_prop_bwd(void* const* ptrs, const int* dims, const int* geom,
+                                    void* stream) {
   using namespace sqair;
   PropBwdArgs p{};
   if (!read_prop_dims(dims, p.d)) return (int)cudaErrorInvalidValue;
@@ -1046,15 +1209,6 @@ extern "C" int sqair_fused_prop_bwd(void* const* ptrs, const int* dims, void* st
   p.scratch = o[5 + kPropWeights];
   p.crop_keep = o[6 + kPropWeights];
 
-  const size_t smem = sizeof(float) * (size_t)bwd_smem(p.d).total;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(prop_bwd_rows_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (p.d.B + kPropRows - 1) / kPropRows;
-  prop_bwd_rows_kernel<<<blocks, kThreads, smem, s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
   // phase B: every weight gradient over the S B row-slots, in fixed order
   const PropDims& d = p.d;
   const PropScratch& c = p.sc;
@@ -1067,10 +1221,7 @@ extern "C" int sqair_fused_prop_bwd(void* const* ptrs, const int* dims, void* st
   auto job = [&](const float* a, int lda, const float* dz, int ldz, int wi, bool bias, int K,
                  int J, const float* a2 = nullptr, const float* dz2 = nullptr) {
     OuterJob& jb = q.job[n++];
-    jb = OuterJob{a, dz, dw[wi], bias ? dw[wi + 1] : nullptr, lda, K, J};
-    jb.ldz = ldz;
-    jb.a2 = a2;
-    jb.dz2 = dz2;
+    jb = OuterJob{a, dz, dw[wi], bias ? dw[wi + 1] : nullptr, lda, ldz, K, J, a2, dz2};
   };
   // weight indices in `_prop_weights_flat` order (the bias follows its matrix)
   job(p.in.th, U, sc + c.dwbh, Z, 0, true, U, d.WB);                 // wb1
@@ -1098,5 +1249,31 @@ extern "C" int sqair_fused_prop_bwd(void* const* ptrs, const int* dims, void* st
   job(sc + c.spf, Z, sc + c.dsp1, Z, 34, true, d.d_spf, d.SP);        // sp1
   job(res + d.s1, R, sc + c.dlraw, Z, 36, true, d.SP, 1);             // sp2
   q.n_jobs = n;
-  return (int)launch_outer(q, s);
+
+  const int cluster = geom[1];
+  const int tiles = cdiv(d.B, kTileRows);
+  const size_t smem = sizeof(float) * (size_t)bwd_smem(d).total;
+  if (geom[0] != kTileRows || cluster < 1 || cluster > kMaxCluster ||
+      geom[2] != tiles * cluster || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(prop_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, prop_bwd_kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_tiles(q, s);
 }
+

@@ -1,6 +1,8 @@
 // The round of the kernels redesigned for Hopper that tile their rows by 8
-// and split K over the warps: the MLP forward (fused_mlp.cu) and the two
-// recurrent cells' forwards (fused_rnn.cu).
+// and split K over the warps: the MLP forward (fused_mlp.cu), the two
+// recurrent cells' forwards (fused_rnn.cu) and, through cluster_dense.cuh
+// (with the transposed unit of W's rows), the MLP and propagation
+// backwards.
 //
 // A block's 8 warps each take one unit a round: one 32-row block of K
 // (kBlockK) for one 32-column chunk of the outputs, over the tile's 8 rows.
@@ -85,19 +87,31 @@ __device__ __forceinline__ void unit_sums(float* out, const float* a, int lda, c
 // After a round whose unit u = (wk << wj_log) + i took K-block wk of the
 // pass's chunk i: thread (warp, lane) adds the round's nwk K-blocks of row
 // `warp`, column `lane` of each of the pass's jn chunks to acc[i], in K
-// order.
-__device__ __forceinline__ void add_round(float (&acc)[kWarps], const float* parts,
-                                          int wj_log, int jn, int nwk) {
-  const float* pr = parts + (threadIdx.x >> 5) * kChunk32 + (threadIdx.x & 31);
+// order.  One body per split (WJ = 2^wj_log chunks of 8 / WJ K-blocks), so
+// that a round reads at most the 8 sums it adds.
+template <int WJ>
+__device__ __forceinline__ void add_round_wj(float (&acc)[kWarps], const float* pr, int jn,
+                                             int nwk) {
 #pragma unroll
-  for (int i = 0; i < kWarps; ++i) {
+  for (int i = 0; i < WJ; ++i) {
     if (i < jn) {
       float sum = acc[i];
 #pragma unroll
-      for (int j = 0; j < kWarps; ++j)
-        if (j < nwk) sum += pr[((j << wj_log) + i) * kTileRows * kChunk32];
+      for (int j = 0; j < kWarps / WJ; ++j)
+        if (j < nwk) sum += pr[(j * WJ + i) * kTileRows * kChunk32];
       acc[i] = sum;
     }
+  }
+}
+
+__device__ __forceinline__ void add_round(float (&acc)[kWarps], const float* parts, int wj_log,
+                                          int jn, int nwk) {
+  const float* pr = parts + (threadIdx.x >> 5) * kChunk32 + (threadIdx.x & 31);
+  switch (wj_log) {
+    case 0: add_round_wj<1>(acc, pr, jn, nwk); break;
+    case 1: add_round_wj<2>(acc, pr, jn, nwk); break;
+    case 2: add_round_wj<4>(acc, pr, jn, nwk); break;
+    default: add_round_wj<8>(acc, pr, jn, nwk); break;
   }
 }
 

@@ -41,8 +41,8 @@ PROTOTYPES = {
     "sqair_fused_vanilla_rnn": (_P,) * 6 + (_I, _I, _I, _P, _P),
     # x, h, wg, ug, bg, wc, uc, bc, hn, zr, c, n, dx, units, geom*, stream
     "sqair_fused_gru": (_P,) * 11 + (_I, _I, _I, _P, _P),
-    # x, g, dx, n, n_layers, dims*, acts*, w**, a**, dz**, dw**, db**, stream
-    "sqair_fused_mlp_bwd": (_P, _P, _P, _I, _I) + (_P,) * 8,
+    # x, g, dx, n, n_layers, dims*, acts*, w**, a**, dz**, dw**, db**, geom*, stream
+    "sqair_fused_mlp_bwd": (_P, _P, _P, _I, _I) + (_P,) * 9,
     # x, h, w, u, hn, g, dx, dh, dw, du, db, n, dx, units, geom*, stream
     "sqair_fused_vanilla_rnn_bwd": (_P,) * 11 + (_I, _I, _I, _P, _P),
     # x, h, wg, ug, wc, uc, zr, c, g, dc_in, da, rh, dx, dh, dwg, dug, dbg,
@@ -51,9 +51,9 @@ PROTOTYPES = {
     # ptrs* (see csrc/fused_glimpse.cu), dims*, stream
     "sqair_fused_glimpse": (_P, _P, _P),
     "sqair_fused_glimpse_bwd": (_P, _P, _P),
-    # ptrs* (see csrc/fused_prop.cu), dims*, stream
+    # ptrs* (see csrc/fused_prop.cu), dims*, stream; the backward with geom*
     "sqair_fused_prop": (_P, _P, _P),
-    "sqair_fused_prop_bwd": (_P, _P, _P),
+    "sqair_fused_prop_bwd": (_P, _P, _P, _P),
     # ptrs* (see csrc/fused_disc.cu), dims*, stream
     "sqair_fused_disc": (_P, _P, _P),
     "sqair_fused_disc_bwd": (_P, _P, _P),

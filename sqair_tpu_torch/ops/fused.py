@@ -223,6 +223,26 @@ def mlp_fwd_geometry(n, dims):
                 wk=wk)
 
 
+def mlp_bwd_geometry(n, dims):
+    """The launch of the MLP backward's phase A (csrc/fused_bwd.cu), as the
+    host picks it for n rows and the layer widths ``dims`` (d_in first).
+
+    A cluster of ``cluster`` blocks shares a tile of ``tile_rows`` rows and
+    splits the 32-column chunks of each layer's transposed product;
+    ``cluster`` is the least of 1, 2, 4, 8 that gives ``SMS`` blocks (8
+    where none does), as the forward's.  ``smem`` is its dynamic shared
+    memory in bytes: two stages of a round's staged W tiles [8][32][36], the
+    partial sums [8][8][32] and two gradient buffers [8][widest layer output,
+    rounded up to 4].  Phase B, the weight-gradient reducer, plans its own
+    launch: one block per 32 x 32 tile of each dW.
+    """
+    tile_rows, ring, parts = 8, 2 * 8 * 32 * (32 + 4), 8 * 8 * 32
+    tiles = _cdiv(n, tile_rows)
+    cluster = next((c for c in (1, 2, 4, 8) if tiles * c >= SMS), 8)
+    smem = 4 * (ring + parts + 2 * tile_rows * _cdiv(max(dims[1:]), 4) * 4)
+    return dict(tile_rows=tile_rows, cluster=cluster, blocks=tiles * cluster, smem=smem)
+
+
 def _cell_fwd_geometry(n, d_x, units, gru):
     """The launch of a cell's forward kernel (csrc/fused_rnn.cu): see
     ``vrnn_fwd_geometry`` and ``gru_fwd_geometry``."""
@@ -369,11 +389,14 @@ def fused_mlp_bwd(x, params, transfers, acts, g, need_dx=True):
     for d in dims[1:]:
         dz.append(scratch[off:off + n * d])
         off += n * d
+    geom = mlp_bwd_geometry(n, dims)
     code = library().sqair_fused_mlp_bwd(
         _ptr(x), _ptr(g), _ptr(dx), n, n_layers, _ints(dims),
         _ints([ACTS.index(t) for t in transfers]), _ptrs([w for w, _ in params]),
         _ptrs(list(acts)), _ptrs(dz), _ptrs([dw for dw, _ in dparams]),
-        _ptrs([db for _, db in dparams]), _stream(x.device))
+        _ptrs([db for _, db in dparams]),
+        _ints([geom[k] for k in ("tile_rows", "cluster", "blocks", "smem")]),
+        _stream(x.device))
     _raise_on("fused_mlp_bwd", code)
     launches["fused_mlp_bwd"] += 1
     return dx, dparams

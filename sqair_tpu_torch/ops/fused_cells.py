@@ -64,8 +64,9 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from .fused import (_check, _empty, _ints, _needs_grad, _on_cuda, _ptrs, _raise_on, _stream,
-                    launches)
+from . import fused as _fused
+from .fused import (_cdiv, _check, _empty, _ints, _needs_grad, _on_cuda, _ptrs, _raise_on,
+                    _stream, launches)
 from .fused_glimpse import MIN_STD, _delu, _elu, _softplus, crop_plain, crop_plain_bwd
 
 
@@ -471,6 +472,25 @@ def _fwd_cuda(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, dims):
     return tuple(outs) + (res,)
 
 
+def prop_bwd_geometry(dims):
+    """The launch of the propagation backward's phase A (csrc/fused_prop.cu),
+    as the host picks it for the kernel dims [B, S, H, W, gh, gw, n_what, U,
+    SP, WB, MH].
+
+    A cluster of ``cluster`` blocks shares a tile of ``tile_rows`` rows,
+    every block holding the tile's whole backward state in its shared
+    memory (the kernel's bwd_smem, which the C entry works out and holds to
+    227 KB): one block an SM.  So a cluster runs only once all its blocks
+    have one, and ``cluster`` is the largest of 1, 2, 4, 8 whose blocks all
+    fit the ``SMS`` SMs at once (1 where none does).  Phase B, the
+    weight-gradient reducer, plans its own launch.
+    """
+    tile_rows = 8
+    tiles = _cdiv(dims[0], tile_rows)
+    cluster = max((c for c in (1, 2, 4, 8) if tiles * c <= _fused.SMS), default=1)
+    return dict(tile_rows=tile_rows, cluster=cluster, blocks=tiles * cluster)
+
+
 def _crop_keep(name, crop_keep, S, B):
     """[crop_keep] after checking its shape [S, B], or [] for None."""
     if crop_keep is None:
@@ -499,9 +519,11 @@ def _bwd_cuda(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, saved, res, 
     if Z < 0:
         raise ValueError(f"fused_prop_bwd: dims {kd} refused")
     scratch = _empty(S * B * Z, like=img)
+    geom = prop_bwd_geometry(kd)
     code = library().sqair_fused_prop_bwd(
         _ptrs(inputs + list(weights) + list(saved) + [res] + list(cots) + outs
-              + [scratch, crop_keep]), _ints(kd), _stream(img.device))
+              + [scratch, crop_keep]), _ints(kd),
+        _ints([geom["tile_rows"], geom["cluster"], geom["blocks"]]), _stream(img.device))
     _raise_on("fused_prop_bwd", code)
     launches["fused_prop_bwd"] += 1
     return tuple(outs)

@@ -427,3 +427,60 @@ def test_cell_forward_kernels_tiles_match_plain_on_cuda(n):
                 hn, zr, c = fused._gru_fwd_cuda(*g, save=False)
                 assert zr is None and c is None
                 assert torch.equal(hn, got[0]), f"gru {what}: save=False differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 9, 161, 4800])
+def test_mlp_backward_kernel_tiles_match_plain_on_cuda(n):
+    """The cluster MLP backward and its tile reducer against the plain
+    backward (1e-4 of each gradient's largest entry) at tile edges: d_in
+    2500 and 1, widths 1024 and 1, 1-4 layers (an 8-row tile, a 32-column
+    chunk, a cluster's share of chunks, a 32-wide block of j, a 32-row chunk
+    of the reducer), with and without dx; a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    rnd = _rnd_fn(gen)
+    with torch.inference_mode():
+        for d_in in (2500, 1):
+            x = torch.rand(n, d_in, generator=gen, device="cuda")
+            for widths, acts in _MLP_STACKS:
+                dims = [d_in] + widths
+                params = [(rnd(a, b), 0.1 * rnd(b)) for a, b in zip(dims[:-1], dims[1:])]
+                saved = fused.mlp_plain_acts(x, params, acts)
+                g = rnd(n, dims[-1])
+                want = fused.mlp_bwd_plain(x, params, acts, saved, g)
+                want = [want[0], *[t for p in want[1] for t in p]]
+                for need_dx in (True, False):
+                    what = f"n={n} dims={dims} dx={need_dx}"
+                    got, again = (fused.fused_mlp_bwd(x, params, acts, saved, g, need_dx=need_dx)
+                                  for _ in range(2))
+                    got = [got[0], *[t for p in got[1] for t in p]]
+                    again = [again[0], *[t for p in again[1] for t in p]]
+                    _assert_grads_close(got, [want[0] if need_dx else None, *want[1:]], what)
+                    for a, b in zip(got, again):
+                        assert (a is None and b is None) or torch.equal(a, b), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 161])
+def test_prop_backward_kernel_tiles_match_plain_on_cuda(n):
+    """The cluster propagation backward and its tile reducer against the
+    plain backward at row counts at the edges of the 8-row tiles and of the
+    cluster (1, 3: one tile, clusters of 8; 161: 21 tiles, clusters of 4),
+    with and without crop_keep; a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fc, args, weights, dims, gen = _prop_case(n)
+    with torch.inference_mode():
+        fwd = fc.prop_plain_fwd(*args, weights, dims)
+        cots = tuple(torch.randn(t.shape, generator=gen, device="cuda") for t in fwd[:10])
+        saved = (fwd[0], fwd[2], fwd[3], fwd[5], fwd[6], fwd[7], fwd[9])
+        bargs = (*args, weights, saved, fwd[10], cots, dims)
+        keep = (torch.rand((dims[0], n), generator=gen, device="cuda") < 0.5).float()
+        for kp in (None, keep):
+            got = fc._bwd_cuda(*bargs, crop_keep=kp)
+            again = fc._bwd_cuda(*bargs, crop_keep=kp)
+            what = f"prop n={n} crop_keep={kp is not None}"
+            _assert_grads_close(got, fc.prop_plain_bwd(*bargs, crop_keep=kp), what)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two runs differ"

@@ -206,9 +206,12 @@ def test_wrappers_call_the_c_prototypes(monkeypatch):
                 for a, t in zip(args, argtypes):
                     t.from_param(a)
                 calls.append(name)
+                if name == "sqair_fused_mlp_bwd":  # the launch geometry, before the stream
+                    seen_geom.append(args[-2])
                 return 0
             return call
 
+    seen_geom = []
     monkeypatch.setattr(build, "library", lambda: FakeLibrary())
     monkeypatch.setattr(fused, "_on_cuda", lambda name, x: True)
     monkeypatch.setattr(fused, "_stream", lambda device: ctypes.c_void_p(0))
@@ -226,6 +229,8 @@ def test_wrappers_call_the_c_prototypes(monkeypatch):
     hn, zr, c = fused._gru_fwd_cuda(*args, save=True)
     x_, h_, wg, ug, _, wc, uc, _ = args
     fused.fused_gru_bwd(x_, h_, wg, ug, wc, uc, zr, c, hn)
+    geom = fused.mlp_bwd_geometry(5, [7, 33, 17, 9])
+    assert list(seen_geom[0]) == [geom[k] for k in ("tile_rows", "cluster", "blocks", "smem")]
     assert calls == ["sqair_fused_mlp", "sqair_fused_mlp_bwd", "sqair_fused_vanilla_rnn",
                      "sqair_fused_vanilla_rnn_bwd", "sqair_fused_gru", "sqair_fused_gru_bwd"]
     assert all(fused.launches[n] >= 1 for n in ("fused_mlp_bwd", "fused_vanilla_rnn_bwd",

@@ -1,10 +1,12 @@
 """The host's launch geometry of the kernels redesigned for Hopper
 (``ops/fused.py``: ``mlp_fwd_geometry`` for csrc/fused_mlp.cu,
 ``vrnn_fwd_geometry`` and ``gru_fwd_geometry`` for the cells' forwards of
-csrc/fused_rnn.cu, ``vrnn_bwd_geometry`` for the vanilla-RNN backward of
-csrc/fused_bwd.cu), at every MLP, vanilla-RNN and GRU shape of
+csrc/fused_rnn.cu, ``vrnn_bwd_geometry`` and ``mlp_bwd_geometry`` for the
+vanilla-RNN and MLP backwards of csrc/fused_bwd.cu; ``ops/fused_cells.py``:
+``prop_bwd_geometry`` for the propagation backward of csrc/fused_prop.cu),
+at every MLP, vanilla-RNN, GRU and propagation shape of
 ``chip_smoke.main_path_shapes``: the release flags, with no switch and with
-both switches, eval and train.
+both switches, eval and train (and the propagation unroll at DISC_FLAGS).
 
 Each launch fills the card's 132 SMs wherever n allows it, takes a cluster
 (or column split) of 1-8 blocks and at most the 227 KB of shared memory a
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from sqair_tpu_torch.ops import build, fused
+from sqair_tpu_torch.ops import fused_cells as fc
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
@@ -217,3 +220,109 @@ def test_cell_wrappers_pass_the_geometry_to_the_c_entries(seen, save):
     assert list(args[14]) == [g["tile_rows"], g["split"], g["blocks"], g["smem"], *g["wk"]]
     assert (args[9].value is not None) == save and (args[10].value is not None) == save
     assert (zr is not None) == save and (c is not None) == save
+
+
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_mlp_backward_geometry_fills_the_card(train, fuse):
+    """Phase A: clusters of 1-8 blocks over 8-row tiles, the forward's rule
+    (160 blocks at 160 rows), two blocks an SM in shared memory."""
+    shapes = _shapes("fused_mlp", train, fuse)
+    assert shapes
+    for s in shapes:
+        dims = [s["d_in"]] + s["widths"]
+        g = fused.mlp_bwd_geometry(s["n"], dims)
+        tiles = math.ceil(s["n"] / 8)
+        assert g["tile_rows"] == 8 and 1 <= g["cluster"] <= 8, (s, g)
+        assert g["cluster"] == fused.mlp_fwd_geometry(s["n"], dims)["cluster"], (s, g)
+        assert g["blocks"] == tiles * g["cluster"], (s, g)
+        assert g["blocks"] >= min(fused.SMS, tiles * 8), (s, g)
+        if s["n"] == 160:
+            assert g["cluster"] == 8 and g["blocks"] >= fused.SMS, (s, g)
+        assert 2 * g["smem"] <= fused.MAX_SMEM, (s, g)  # two blocks an SM
+
+
+def _prop_bwd_smem(dims):
+    """Bytes of the propagation backward's shared memory, as csrc/fused_prop.cu
+    bwd_smem lays it out for the kernel dims (the C entry works them out
+    itself; this copy lets the CPU check that one block fits an SM): the
+    state that lives across a slot, the largest region a phase of a slot
+    lays out, the products' ring (which a crop borrows) and their partial
+    sums, each array rounded up to 4 floats."""
+    B, S, H, W, gh, gw, nw, U, SP, WB, MH = dims
+    G, d_rnn = gh * gw, 3 * nw + 10 + U
+    d_tin, d_spf = U + 4 + 2 * nw, 2 * U + nw
+    n = 8
+
+    def r4(v):
+        return -(-v // 4) * 4
+
+    lu, l2u, lg, lhp = r4(U), r4(2 * U), r4(G), r4(2 * nw)
+    live = sum(r4(n * w) for w in (U, nw, 4, 1, U, 1, 1, d_spf, nw, 4, 2 * nw, d_tin, G, 4))
+    phases = ([r4(SP)], [r4(3 * nw), r4(2 * nw), lu, lu, lu, l2u], [lhp, lu, lu, lg],
+              [8, lu, lu], [max(lu, lhp), r4(d_rnn)], [4, r4(WB)], [lg, r4(MH)])
+    region = max(sum(r4(n * w) for w in ph) for ph in phases)
+    crop = (H * W + gh * H + gw * W + H * gw + gh + gw) + (H * gw + gh * H + gw * W + gh + gw) + G
+    ring = r4(max(2 * 8 * 32 * (32 + 4), crop))
+    return 4 * (live + region + ring + 8 * 8 * 32)
+
+
+def _prop_kernel_dims(flags, n):
+    shape = chip_smoke.prop_shape(flags, n)
+    return [n, shape["S"], *shape["img"], *shape["glimpse"], shape["n_what"], shape["U"],
+            shape["SP"], shape["WB"], shape["MH"]]
+
+
+@pytest.mark.parametrize("disc", (False, True))
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_prop_backward_geometry_fills_the_card(train, fuse, disc):
+    """One block an SM (the tile's whole backward state in shared memory),
+    clusters of 1-8 blocks over 8-row tiles: the widest cluster whose blocks
+    all fit the card at once (4 at 160 rows: 80 blocks), at the main path's
+    propagation shape with both switches (release flags and DISC_FLAGS) and
+    at tile edges."""
+    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
+    if disc:
+        flags = dict(flags, **chip_smoke.DISC_LEVERS)
+    B, k = int(flags["batch_size"]), int(flags["k_particles"])
+    T = int(flags.get("font_timesteps", 10))
+    shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, fuse_glimpse=fuse,
+                                         fuse_cells=fuse)
+    prop = [s["n"] for kn, s, _ in shapes if kn == "fused_prop"]
+    assert bool(prop) == fuse
+    for n in prop + [1, 3, 8, 9, 161]:
+        g = fc.prop_bwd_geometry(_prop_kernel_dims(flags, n))
+        tiles = math.ceil(n / 8)
+        assert g["tile_rows"] == 8 and g["cluster"] in (1, 2, 4, 8), (n, g)
+        assert g["blocks"] == tiles * g["cluster"] <= fused.SMS, (n, g)
+        assert g["cluster"] == 8 or 2 * g["blocks"] > fused.SMS, (n, g)
+        smem = _prop_bwd_smem(_prop_kernel_dims(flags, n))
+        assert fused.MAX_SMEM // 2 < smem <= fused.MAX_SMEM, (n, smem)  # one block an SM
+        if n == 160:
+            assert g["cluster"] == 4 and g["blocks"] == 80, (n, g)
+
+
+def test_wrappers_pass_the_backward_geometry_to_the_c_entries(seen, monkeypatch):
+    """The MLP and propagation backwards hand the host's geometry to their C
+    entries (the library is a stand-in that records it)."""
+    gen = torch.Generator().manual_seed(0)
+    monkeypatch.setattr(fused, "_on_cuda", lambda name, t: True)
+    monkeypatch.setattr(fc, "_stream", lambda device: ctypes.c_void_p(0))
+    x = torch.rand(160, 54, generator=gen)
+    params = [(torch.rand(54, 256, generator=gen), torch.rand(256, generator=gen)),
+              (torch.rand(256, 4, generator=gen), torch.rand(4, generator=gen))]
+    acts = fused.mlp_plain_acts(x, params, ("elu", "id"))
+    fused.fused_mlp_bwd(x, params, ("elu", "id"), acts, torch.rand(160, 4, generator=gen))
+    g = fused.mlp_bwd_geometry(160, [54, 256, 4])
+    assert list(seen["sqair_fused_mlp_bwd"][12]) == [g["tile_rows"], g["cluster"], g["blocks"],
+                                                     g["smem"]]
+    shape = dict(n=13, S=2, img=[12, 12], glimpse=[5, 5], n_what=6, U=40, SP=20, WB=16, MH=12)
+    dims = chip_smoke.prop_dims(shape)
+    args, weights = chip_smoke.prop_inputs(torch, fc, shape, gen, "cpu")
+    fwd = fc.prop_plain_fwd(*args, weights, dims)
+    saved = (fwd[0], fwd[2], fwd[3], fwd[5], fwd[6], fwd[7], fwd[9])
+    fc._bwd_cuda(*args, weights, saved, fwd[10], tuple(torch.ones_like(t) for t in fwd[:10]),
+                 dims)
+    kd = [13, 2, 12, 12, 5, 5, 6, 40, 20, 16, 12]
+    assert list(seen["sqair_fused_prop_bwd"][1]) == kd
+    g = fc.prop_bwd_geometry(kd)
+    assert list(seen["sqair_fused_prop_bwd"][2]) == [g["tile_rows"], g["cluster"], g["blocks"]]
