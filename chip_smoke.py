@@ -74,7 +74,7 @@ Phases, one line each with its own numbers and seconds:
                  unfused path, and the bound) and of the train step
   train-profile  the device's busy time in one train step
   train-glimpse  3 train steps with SQAIR_FUSE_GLIMPSE=1 and their launch
-                 counts; the train step's time
+                 counts; the train step's time and busy time
   train-cells    3 train steps with both switches and their launch counts;
                  the train step's time and busy time
   train-disc     3 train steps at DISC_FLAGS with no switch and 3 with both
@@ -216,9 +216,10 @@ KERNELS = {
 # printed, and the wrappers whose two runs on the same inputs must give the
 # same bits (the kernels check)
 REDESIGNED = ("fused_mlp_kernel", "fused_vrnn_kernel", "fused_gru_kernel", "vrnn_bwd_kernel",
-              "mlp_bwd_kernel", "prop_bwd_kernel", "tile_reduce_kernel")
+              "mlp_bwd_kernel", "prop_bwd_kernel", "tile_reduce_kernel", "glimpse_bwd_kernel",
+              "prop_fwd_kernel")
 SAME_BITS = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_vanilla_rnn_bwd",
-             "fused_mlp_bwd", "fused_prop_bwd")
+             "fused_mlp_bwd", "fused_prop_bwd", "fused_glimpse_bwd", "fused_prop")
 GLIMPSE_SWITCH = SWITCHES["glimpse"]
 CELLS_SWITCH = SWITCHES["cells"]
 
@@ -504,14 +505,24 @@ def glimpse_dims(shape):
     return (shape["glimpse"][0], shape["glimpse"][1], shape["n_what"])
 
 
+def crop_macs(H, W, gh, gw, backward=False):
+    """Multiply-adds of one row's bilinear crop at the two non-zeros of each
+    interpolation row (a row of wy or wx weights at most two pixels):
+    A = img wx^T (2 per element of A [H, gw]) and g0 = wy A (2 per glimpse
+    pixel); the backward forms A again, dwy and dwx at the two pixels of
+    each row (gw- and H-long sums) and dA = wy^T dg0 (2 gw per row of wy)."""
+    if not backward:
+        return 2 * H * gw + 2 * gh * gw
+    return 2 * H * gw + 2 * gh * gw + 2 * gh * gw + 2 * gw * H
+
+
 def glimpse_work(shape, backward=False):
     """(bytes read once and written once, f32 FLOPs) of one fused glimpse
-    call.  Forward: the crop (img wx^T, then wy A), the mask MLP, the
-    encoder and the head; the outputs loc and scale.  Backward: twice the
-    products of the mask, the encoder and the head, and the crop's four
-    (A again, dwy, dA, dwx); it reads the saved tensors and the output
-    gradients and writes every parameter's gradient, where's and the mask
-    input's."""
+    call.  Forward: the crop (``crop_macs``), the mask MLP, the encoder and
+    the head; the outputs loc and scale.  Backward: twice the products of
+    the mask, the encoder and the head, and the crop's backward; it reads
+    the saved tensors and the output gradients and writes every parameter's
+    gradient, where's and the mask input's."""
     n, (H, W), (gh, gw) = shape["n"], shape["img"], shape["glimpse"]
     d1, d2, nw, d_mi, d_m = (shape[k] for k in ("d1", "d2", "n_what", "d_mi", "d_m"))
     G, D = gh * gw, 2 * nw
@@ -520,15 +531,14 @@ def glimpse_work(shape, backward=False):
     weights = sum(a * b for a, b in mats)
     biases = sum(b for _, b in mats)
     mlp_macs = n * weights
-    crop_macs = n * (H * W * gw + gh * H * gw)
+    crop = n * crop_macs(H, W, gh, gw)
     inputs = n * (H * W + 4 + d_mi)
     if not backward:
-        return 4 * (inputs + weights + biases + n * D), 2 * (crop_macs + mlp_macs)
+        return 4 * (inputs + weights + biases + n * D), 2 * (crop + mlp_macs)
     saved = n * (G + d1 + d2 + nw + ((G + d_m) if d_mi else 0))
     nbytes = 4 * (inputs + weights + saved + n * D            # in: img, wl, mi, W, saved, g
                   + n * (4 + d_mi) + weights + biases)       # out: dwl, dmi, dW, db
-    crop_bwd = n * (H * W * gw + 2 * gh * H * gw + gw * H * W)
-    return nbytes, 2 * (2 * mlp_macs + crop_bwd)
+    return nbytes, 2 * (2 * mlp_macs + n * crop_macs(H, W, gh, gw, backward=True))
 
 
 def glimpse_library_fn(torch, stn, shape):
@@ -625,8 +635,8 @@ def prop_work(shape, backward=False):
     estimator, the GRU, the temporal head and gates, the steps predictor;
     it reads the frames, the inputs and the weights and writes the outputs
     and the residual rows.  Backward: twice the dense products (the input's
-    and the weight's gradient of each), the two crops recomputed and their
-    backward (dwy, dA, dwx); it reads what the forward read, the saved
+    and the weight's gradient of each), the two crops' backward
+    (``crop_macs``); it reads what the forward read, the saved
     outputs, the residual rows and the output gradients, and writes the
     input and weight gradients."""
     S, gh, gw, nw, U, SP, WB, MH = prop_dims(shape)
@@ -636,7 +646,7 @@ def prop_work(shape, backward=False):
             (U, 2 * nw), (d_rnn, U), (U, U), (d_stp, U), (U, U), (U, 8), (d_tin, 2 * U),
             (U, 2 * U), (d_tin, U), (U, U), (U, 2 * nw), (U, 3 * nw), (d_spf, SP), (SP, 1)]
     dense = sum(a * b for a, b in mats)  # the encoder's products counted twice, once a glimpse
-    crop = H * W * gw + gh * H * gw
+    crop = crop_macs(H, W, gh, gw)
     weights = (dense - (G * U + U * U + U * 2 * nw)) + 16  # each matrix once, and tril
     biases = WB + 4 + MH + G + U + U + 2 * nw + U + U + U + 8 + 3 * U + 2 * nw + 3 * nw + SP + 1
     rows = S * n
@@ -646,7 +656,7 @@ def prop_work(shape, backward=False):
     R = residual_layout(prop_dims(shape))[1]
     if not backward:
         return 4 * (inputs + weights + biases + outputs + rows * R), 2 * rows * (dense + 2 * crop)
-    crop_bwd = 2 * (crop + gh * H * gw + H * gw * gh + gw * W * H)
+    crop_bwd = 2 * crop_macs(H, W, gh, gw, backward=True)
     saved = rows * (2 * nw + 2 * 4 + 2 + U)
     nbytes = 4 * (inputs + weights + saved + rows * R + outputs          # in
                   + rows * (nw + 4 + 1 + U) + n * U + weights + biases)  # out
@@ -739,8 +749,8 @@ def disc_work(shape, backward=False):
     encoder and head, the steps predictor; it reads the frames, the
     conditioning, h0, the noise and the weights and writes the outputs, the
     residual rows, the glimpses and the input encoder's layers.  Backward:
-    twice the dense products less the frames' gradient (none), the crop
-    recomputed and its backward (dwy, dA, dwx); it reads what the forward
+    twice the dense products less the frames' gradient (none), the crop's
+    backward (``crop_macs``); it reads what the forward
     read, the saved outputs, the residuals and the output gradients, and
     writes the conditioning's, h0's and the weights' gradients."""
     S, gh, gw, nw, U, SP = disc_dims(shape)
@@ -749,7 +759,7 @@ def disc_work(shape, backward=False):
     enc = HW * U + U * U
     slot = (d_rnn * U + U * U + U * U + U * U + U * 8 + G * U + U * U + U * 2 * nw
             + d_spf * SP + SP)
-    crop = HW * gw + gh * H * gw
+    crop = crop_macs(H, W, gh, gw)
     weights = enc + slot
     biases = 5 * U + 8 + 2 * U + 2 * nw + SP + 1
     rows = S * n
@@ -760,7 +770,7 @@ def disc_work(shape, backward=False):
     if not backward:
         return (4 * (inputs + weights + biases + outputs + saved),
                 2 * (n * enc + rows * (slot + crop)))
-    crop_bwd = crop + gh * H * gw + H * gw * gh + gw * W * H
+    crop_bwd = crop_macs(H, W, gh, gw, backward=True)
     nbytes = 4 * (inputs + weights + rows * (2 * nw + 2 * 4 + 2) + saved + outputs  # in
                   + n * (C + U) + weights + biases)                             # out
     return nbytes, 2 * (2 * (n * enc + rows * slot) - n * HW * U + rows * crop_bwd)
@@ -1394,6 +1404,7 @@ def run():
             dscale = torch.randn((n, nw), generator=gen, device=device)
             bargs = args[:6] + (saved, dloc, dscale, dims)
             got_b = fg.fused_glimpse_bwd(*bargs)
+            same_gb = all(torch.equal(a, b) for a, b in zip(got_b, fg.fused_glimpse_bwd(*bargs)))
             want_b = fg.glimpse_plain_bwd(*bargs)
             torch.cuda.synchronize()
             bnames = ["dwl"] + (["dmi", "dWm1", "dbm1", "dWm2", "dbm2"] if masked else []) + [
@@ -1412,7 +1423,10 @@ def run():
                 gradients=len(bnames), max_abs_err=f"{worst_b:.3e}",
                 max_err_share=f"{share_b:.3e}",
                 u_near_integer=near_integer_u(torch, fg, args[0], args[1], dims),
-                tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True)
+                tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True, same_bits=same_gb,
+                geometry=jdump(fg.glimpse_bwd_geometry([n])))
+            if "fused_glimpse_bwd" in SAME_BITS and not same_gb:
+                raise Failure(f"fused_glimpse_bwd {shape}: two runs of the kernel differ")
             glimpse_entries.append(dict(shape=shape, calls=calls, args=args, bargs=bargs,
                                         abs_err=worst, bwd_abs_err=worst_b))
 
@@ -1424,6 +1438,7 @@ def run():
     poffs = fc.residual_layout(pdims)[0]
     with torch.inference_mode():
         got = fc._fwd_cuda(*pargs, pweights, pdims)
+        same_p = all(torch.equal(a, b) for a, b in zip(got, fc._fwd_cuda(*pargs, pweights, pdims)))
         want = fc.prop_plain_fwd(*pargs, pweights, pdims)
         torch.cuda.synchronize()
         fields = list(zip(fc.OUT_FIELDS, got, want)) + [
@@ -1443,7 +1458,9 @@ def run():
         log("kernels", t0, kernel="fused_prop", shape=jdump(pshape), outputs=len(fields),
             presence=f"{float(want[7].sum()):.0f}/{want[7].numel()}",
             max_abs_err=f"{worst_p:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
-            ok=True)
+            ok=True, same_bits=same_p, geometry=jdump(fc.prop_fwd_geometry([B * k])))
+        if "fused_prop" in SAME_BITS and not same_p:
+            raise Failure(f"fused_prop {pshape}: two runs of the kernel differ")
 
         t0 = time.perf_counter()
         cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in want[:10])
@@ -1465,8 +1482,7 @@ def run():
         log("kernels-bwd", t0, kernel="fused_prop_bwd", shape=jdump(pshape),
             gradients=len(bnames), max_abs_err=f"{worst_pb:.3e}", max_err_share=f"{share_pb:.3e}",
             u_near_integer=near, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True,
-            same_bits=same_pb, geometry=jdump(fc.prop_bwd_geometry([B * k, *pdims[:1], *IMG,
-                                                                     *pdims[1:]])))
+            same_bits=same_pb, geometry=jdump(fc.prop_bwd_geometry([B * k])))
         if not same_pb:
             raise Failure(f"fused_prop_bwd {pshape}: two runs of the kernel differ")
     prop_entry = dict(calls=T, abs_err=worst_p, bwd_abs_err=worst_pb)
@@ -1955,10 +1971,14 @@ def run():
         train_glimpse_ms = step_ms(
             torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise),
             REPS)
+        busy_ms, _ = profile_device(
+            torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise))
     log("train-glimpse", t0, steps=N_TRAIN_STEPS, launches=jdump(glimpse_train_counts),
         expected=jdump(expected), target=f"{float(glimpse_metrics[-1]['target']):.4f}",
         train_step_ms=f"{train_glimpse_ms:.3f}",
-        train_step_ms_switch_off=f"{train_step_ms:.3f}", card=repr(card))
+        train_step_ms_switch_off=f"{train_step_ms:.3f}",
+        device_busy_ms="not-measured" if busy_ms is None else f"{busy_ms:.3f}",
+        card=repr(card))
 
     # ------------------------------------------------------- train-cells
     t0 = time.perf_counter()

@@ -1,6 +1,7 @@
-// The product of the backward kernels redesigned for Hopper: the MLP
-// backward (fused_bwd.cu) and the propagation unroll's backward
-// (fused_prop.cu).
+// The products of the kernels redesigned for Hopper that hold a tile's state
+// in every block of a thread block cluster: the MLP backward
+// (fused_bwd.cu), the glimpse encoder's backward (fused_glimpse.cu) and the
+// propagation unroll's forward and backward (fused_prop.cu).
 //
 // - cluster_dense_t: the product of a tile's 8 rows of a gradient with a
 //   weight's TRANSPOSE, out[r][k] = sum_j a[r][j] W[k][j] for the row-major
@@ -17,6 +18,13 @@
 //   W row by row per thread.  The owner then runs the caller's epilogue,
 //   which writes what every block needs into each block's shared memory
 //   (`Peers::put`, distributed shared memory).
+// - cluster_dense: the same for the product with W itself, out[r][j] =
+//   sum_k a[r][k] W[k][j] for the row-major W [K, n_cols] (the forward's
+//   dense / dense2 of glimpse_common.cuh): the tiles are W's [32 k][32 cols]
+//   blocks (a row of a tile again 128 contiguous bytes) and the unit is
+//   tile_sums.cuh's unit_sums, so every output is acc_smem's chain.
+// Both run the same plan, round loop and staging (the template flag T: the
+// transposed product or not).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -69,10 +77,15 @@ struct Peers {
   __device__ __forceinline__ void put(float* local, float v) const {
     for (int b = 0; b < n; ++b) *cl.map_shared_rank(local, b) = v;
   }
+  // the same place of block b's shared memory only
+  __device__ __forceinline__ void put_to(float* local, int b, float v) const {
+    *cl.map_shared_rank(local, b) = v;
+  }
 };
 
 // One left operand and its weight: a [8 rows][lda] (shared memory, lda a
-// multiple of 4, 16-byte aligned), J columns of it; w [n_cols, J].
+// multiple of 4, 16-byte aligned), J columns of it; w [n_cols, J] for the
+// transposed product, [J, n_cols] for the product with w itself.
 struct TTerm {
   const float* a;
   int lda, J;
@@ -175,9 +188,11 @@ __device__ __forceinline__ ProductPlan plan_product(const TTerm (&t)[NT], int n_
 }
 
 // Stages round i of a product into `stage`: unit u takes j-block
-// q WK + u / WJ of chunk pass WJ + u % WJ; thread t copies row t / 8 and
-// float4 t % 8 of every unit's [32 cols][32 j] tile of W.
-template <int NT>
+// q WK + u / WJ of chunk pass WJ + u % WJ.  Transposed (T): thread t copies
+// row t / 8 and float4 t % 8 of every unit's [32 cols][32 j] tile of W (row
+// stride kWLd); else row t / 8 and float4 t % 8 of its [32 j][32 cols]
+// tile (row stride kChunk32).  A unit's tile takes kUnitT floats either way.
+template <int NT, bool T>
 __device__ __forceinline__ void stage_round(const TTerm* t, const ProductPlan& L, int i,
                                             float* stage) {
   const int pass = i / L.QQ, rem = i - pass * L.QQ;
@@ -189,10 +204,19 @@ __device__ __forceinline__ void stage_round(const TTerm* t, const ProductPlan& L
 #pragma unroll
   for (int u = 0; u < kWarps; ++u) {
     const int chunk = pass * L.WJ + (u & (L.WJ - 1));
-    const int col = L.col0 + chunk * kChunk32 + kr;
-    const int j = (q * L.WK + (u >> L.wj_log)) * kBlockK + f4;
-    if (chunk < L.Jc && col < L.n_cols && j < J)
-      copy4_async(stage + u * kUnitT + kr * kWLd + f4, w + (size_t)col * J + j, J - j);
+    const int j0 = (q * L.WK + (u >> L.wj_log)) * kBlockK;
+    if constexpr (T) {
+      const int col = L.col0 + chunk * kChunk32 + kr;
+      const int j = j0 + f4;
+      if (chunk < L.Jc && col < L.n_cols && j < J)
+        copy4_async(stage + u * kUnitT + kr * kWLd + f4, w + (size_t)col * J + j, J - j);
+    } else {
+      const int col = L.col0 + chunk * kChunk32 + f4;
+      const int j = j0 + kr;
+      if (chunk < L.Jc && col < L.n_cols && j < J)
+        copy4_async(stage + u * kUnitT + kr * kChunk32 + f4, w + (size_t)j * L.n_cols + col,
+                    L.n_cols - col);
+    }
   }
 }
 
@@ -200,7 +224,7 @@ __device__ __forceinline__ void stage_round(const TTerm* t, const ProductPlan& L
 // i % 2, each round staging the next): acc[t kWarps + c] receives term t's
 // sum of the owner's output in chunk pass WJ + c.  One copy of this loop
 // serves every product of a kernel, so that its code is fetched once.
-template <int NT>
+template <int NT, bool T>
 __device__ __noinline__ void product_pass(const TTerm* t, const ProductPlan L, int pass,
                                           float* ring, float* parts, float* acc) {
   const int warp = threadIdx.x >> 5;
@@ -212,16 +236,20 @@ __device__ __noinline__ void product_pass(const TTerm* t, const ProductPlan L, i
     const int i = pass * L.QQ + rem;
     const bool second = NT > 1 && rem >= L.Q0;
     const int q = second ? rem - L.Q0 : rem;
-    if (i + 1 < L.rounds) stage_round<NT>(t, L, i + 1, ring + ((i + 1) & 1) * kStageT);
+    if (i + 1 < L.rounds) stage_round<NT, T>(t, L, i + 1, ring + ((i + 1) & 1) * kStageT);
     copy_commit();
     copy_wait<1>();
     __syncthreads();  // round i's tiles have landed for every thread
     const TTerm& tt = second ? t[NT - 1] : t[0];
     const int nkb = second ? L.nkb1 : L.nkb0;
     const int kb = q * L.WK + (warp >> L.wj_log), chunk = pass * L.WJ + (warp & (L.WJ - 1));
-    if (kb < nkb && chunk < L.Jc)
-      unit_sums_t(parts + warp * kTileRows * kChunk32, tt.a + kb * kBlockK, tt.lda,
-                  ring + (i & 1) * kStageT + warp * kUnitT, min(kBlockK, tt.J - kb * kBlockK));
+    if (kb < nkb && chunk < L.Jc) {
+      float* out = parts + warp * kTileRows * kChunk32;
+      const float* w = ring + (i & 1) * kStageT + warp * kUnitT;
+      const int kn = min(kBlockK, tt.J - kb * kBlockK);
+      if constexpr (T) unit_sums_t(out, tt.a + kb * kBlockK, tt.lda, w, kn);
+      else unit_sums(out, tt.a + kb * kBlockK, tt.lda, w, kn);
+    }
     __syncthreads();  // every unit's partial sums are in `parts`
     const int nwk = min(L.WK, nkb - q * L.WK);
     if (second) add_round(acc1, parts, L.wj_log, jn, nwk);
@@ -237,39 +265,43 @@ __device__ __noinline__ void product_pass(const TTerm* t, const ProductPlan L, i
 // Plans the block's share of a product of NT terms with n_cols outputs and
 // stages its first round into ring stage 0.  A caller may do this early,
 // before work that leaves the ring alone, so that the copies fly meanwhile.
-template <int NT>
-__device__ __forceinline__ ProductPlan stage_product(const TTerm (&t)[NT], int n_cols,
-                                                     const Peers& pe, float* ring) {
+// Not inlined, as product_pass: a kernel of ~20 products keeps one copy.
+template <int NT, bool T = true>
+__device__ __noinline__ ProductPlan stage_product(const TTerm (&t)[NT], int n_cols,
+                                                  const Peers& pe, float* ring) {
   const ProductPlan L = plan_product(t, n_cols, pe);
-  if (L.rounds > 0) stage_round<NT>(t, L, 0, ring);
+  if (L.rounds > 0) stage_round<NT, T>(t, L, 0, ring);
   copy_commit();
   return L;
 }
 
-// The transposed product of NT (1 or 2) terms over the cluster, for the
-// tile's 8 rows, staged by stage_product: epi(r, k, v0, v1) once for each
-// output column k < n_cols of the block's chunks and each row r < 8, by its
-// owner thread, with v_t = sum_j t.a[r][j] t.w[k][j] (v1 = 0 for one
-// term), each summed as acc_smem_t sums it.  `ring` holds kRingT floats and
-// `parts` kParts.  The cluster barrier brackets it: the block arrives
-// before its first round (relaxed: the caller's reads of what the
-// epilogues overwrite are behind a __syncthreads or a cluster barrier),
-// waits before its first epilogue, and after its last epilogue waits for
-// every block's, so that they are all seen on return.  Every thread of
-// every block calls it.
-template <int NT, typename Epi>
-__device__ __forceinline__ void cluster_dense_t(const TTerm (&t)[NT], const ProductPlan& L,
+// The product of NT (1 or 2) terms over the cluster, transposed (T) or
+// not, for the tile's 8 rows, staged by stage_product<NT, T>: epi(r, k, v0,
+// v1) once for each output column k < n_cols of the block's chunks and
+// each row r < 8, by its owner thread, with v_t = sum_j t.a[r][j] t.w[k][j]
+// (T) or sum_j t.a[r][j] t.w[j][k] (v1 = 0 for one term), each summed as
+// acc_smem_t or acc_smem sums it.  `ring` holds kRingT floats and `parts`
+// kParts.  The cluster barrier brackets it: the block arrives before its
+// first round (relaxed: the caller's reads of what the epilogues overwrite
+// are behind a __syncthreads or a cluster barrier), waits before its first
+// epilogue, and after its last epilogue waits for every block's, so that
+// they are all seen on return.  No epilogue may write what a block reads
+// in the product (its left operands).  Every thread of every block calls
+// it.
+template <int NT, bool T, typename Epi>
+__device__ __forceinline__ void cluster_product(const TTerm (&t)[NT], const ProductPlan& L,
                                                 const Peers& pe, float* ring, float* parts,
                                                 Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   cluster_arrive_relaxed();
   float acc[NT * kWarps];
   for (int pass = 0; pass * L.QQ < L.rounds; ++pass) {
-    product_pass<NT>(t, L, pass, ring, parts, acc);
+    product_pass<NT, T>(t, L, pass, ring, parts, acc);
     if (pass == 0) cluster_wait();
-    // the pass's outputs: row `warp`, column `lane` of each chunk
+    // the pass's outputs: row `warp`, column `lane` of each chunk (a rolled
+    // loop: one copy of the caller's epilogue, as acc is in memory anyway)
     const int jn = min(L.WJ, L.Jc - pass * L.WJ);
-#pragma unroll
+#pragma unroll 1
     for (int c = 0; c < kWarps; ++c) {
       const int col = L.col0 + (pass * L.WJ + c) * kChunk32 + lane;
       if (c < jn && col < L.n_cols)
@@ -280,11 +312,27 @@ __device__ __forceinline__ void cluster_dense_t(const TTerm (&t)[NT], const Prod
   cluster_sync_all();
 }
 
-// The same, staged at once.
+// The transposed product, staged by stage_product<NT> or at once.
+template <int NT, typename Epi>
+__device__ __forceinline__ void cluster_dense_t(const TTerm (&t)[NT], const ProductPlan& L,
+                                                const Peers& pe, float* ring, float* parts,
+                                                Epi epi) {
+  cluster_product<NT, true>(t, L, pe, ring, parts, epi);
+}
+
 template <int NT, typename Epi>
 __device__ __forceinline__ void cluster_dense_t(const TTerm (&t)[NT], int n_cols, const Peers& pe,
                                                 float* ring, float* parts, Epi epi) {
-  cluster_dense_t(t, stage_product(t, n_cols, pe, ring), pe, ring, parts, epi);
+  cluster_product<NT, true>(t, stage_product<NT, true>(t, n_cols, pe, ring), pe, ring, parts,
+                            epi);
+}
+
+// The product with W itself, staged at once.
+template <int NT, typename Epi>
+__device__ __forceinline__ void cluster_dense(const TTerm (&t)[NT], int n_cols, const Peers& pe,
+                                              float* ring, float* parts, Epi epi) {
+  cluster_product<NT, false>(t, stage_product<NT, false>(t, n_cols, pe, ring), pe, ring, parts,
+                             epi);
 }
 
 }  // namespace sqair

@@ -25,23 +25,34 @@
 // 400 -> 256 -> 256, head 256 -> 100): operations.  The forward does about
 // 111 MFLOP (crop 22.4, mask 26.9, encoder 53.7, head 8.2), 1.7 us at
 // 67 TFLOP/s off the tensor cores, against 1.1 MB of weights and 1.6 MB of
-// frames (0.8 us at 3.35 TB/s); the backward about twice that.  What the
-// design does: one block owns kRows rows, as in fused_mlp.cu; it crops its
-// rows one at a time with the interpolation matrices in shared memory,
-// keeps the glimpses and the layers' activations there, and streams the
-// weights through L2.  The crop products are plain f32 FMAs (the JAX
-// package runs them at Precision.HIGHEST; no TF32 here either).  At 160
-// rows that is 20 blocks on 132 SMs: the kernel is right, not fast.
+// frames (0.8 us at 3.35 TB/s); the backward about twice that.
 //
-// The backward is two launches, as fused_bwd.cu: phase A, row-parallel
-// (glimpse_bwd_rows_kernel), chains the row gradients from the head down to
-// the mask input and the where logits and writes each layer's dz to
-// scratch; phase B (tile_reduce_kernel) reduces dWh, dWe2, dWe1, dWm2 and
-// dWm1 with their biases over all rows in fixed order.  No atomics.
+// The forward keeps its first design: one block owns kRows rows, as the
+// first fused_mlp.cu did; it crops its rows one at a time with the
+// interpolation matrices in shared memory, keeps the glimpses and the
+// layers' activations there, and streams the weights through L2 (20 blocks
+// at 160 rows: right, not fast).  The crop products are plain f32 FMAs (the
+// JAX package runs them at Precision.HIGHEST; no TF32 here either).
 //
-// The crop, its backward and the encoder's layers are device code shared
-// with fused_prop.cu (glimpse_common.cuh).
+// The backward is two launches, as fused_bwd.cu, and was redesigned for
+// Hopper.  Phase A (glimpse_bwd_kernel, its own note below) chains the row
+// gradients from the head down to the mask input and the where logits and
+// writes each layer's dz to scratch; phase B (tile_reduce_kernel) reduces
+// dWh, dWe2, dWe1, dWm2 and dWm1 with their biases over all rows in fixed
+// order.  No atomics: two runs give the same bits, and they are the bits
+// of the first design (one block of 8 rows, each thread walking its own
+// row of W, the crops dense).  That design spent 0.288 of 0.299 ms in
+// phase A at 160 rows, 59% of it in the five transposed products (a warp
+// load touching 32 cache lines) and 38% in the crops (140k multiply-adds a
+// row, one row at a time); phase A now runs clusters of 4 blocks over
+// tiles of 8 rows, every product a cluster_dense_t (cluster_dense.cuh),
+// and crops at the two non-zeros of each interpolation row, two rows of a
+// block side by side.
+//
+// The crops and the encoder's layers are device code shared with
+// fused_prop.cu and fused_disc.cu (glimpse_common.cuh).
 
+#include "cluster_dense.cuh"
 #include "glimpse_common.cuh"
 
 namespace sqair {
@@ -167,114 +178,169 @@ struct GlimpseBwdArgs {
   float *dhp, *dz2, *dz1, *gflat, *dmz2, *dmz1;
 };
 
-// out[r * ld + col] = acc[c][r] * act'(saved[row0 + r, col]) for the block's
-// rows (0 past them), and the same into dz (global) for the valid rows.
-__device__ __forceinline__ void store_dz(const Acc& acc, const float* __restrict__ saved,
-                                         float* out, float* __restrict__ dz, int ld, int row0,
-                                         int rows) {
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int col = threadIdx.x + c * kThreads;
-    if (col < ld) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float v = 0.f;
-        if (r < rows) {
-          const size_t o = (size_t)(row0 + r) * ld + col;
-          v = acc[c][r] * act_grad_from_output(saved[o], kElu);
-          dz[o] = v;
-        }
-        out[r * ld + col] = v;
-      }
-    }
-  }
+// A thread block cluster of C blocks (ops/fused_glimpse.py
+// glimpse_bwd_geometry: C = 4 at 160 rows, 80 blocks, one an SM) shares a
+// tile of kTileRows = 8 rows.  Every block holds the tile's row gradients
+// (dhp, dz2, dz1 and, masked, dmz2 and dmz1) in its shared memory; each of
+// the five transposed products is a cluster_dense_t over the cluster, whose
+// owners apply elu' (or the mask's derivatives), write the row gradient
+// once to the phase-B scratch and into every block (`Peers::put`).  The
+// crops go row r to block r mod C, which receives that row's glimpse
+// gradient alone, crops its rows side by side in groups of threads at the
+// two non-zeros of each interpolation row (sparse_crop_*) and writes their
+// where-gradients.
+struct BwdSmem {
+  int ld_d, ld2, ld1, ldg, ldm;  // row strides (multiples of 4)
+  int dhp, dz2, dz1, dmz2, dmz1, dg0, ring, parts, total;
+};
+
+__host__ __device__ inline BwdSmem bwd_smem(const GlimpseDims& d, bool masked) {
+  BwdSmem L;
+  const int n = kTileRows, G = d.gh * d.gw;
+  L.ld_d = round4(2 * d.n_what);
+  L.ld2 = round4(d.d2);
+  L.ld1 = round4(d.d1);
+  L.ldg = round4(G);
+  L.ldm = round4(d.d_m);
+  int o = 0;
+  L.dhp = take(o, n * L.ld_d);
+  L.dz2 = take(o, n * L.ld2);
+  L.dz1 = take(o, n * L.ld1);
+  L.dmz2 = take(o, masked ? n * L.ldg : 0);
+  L.dmz1 = take(o, masked ? n * L.ldm : 0);
+  L.dg0 = take(o, n * L.ldg);  // the glimpse gradient of the block's crop rows
+  // the products' ring, which the crops borrow (one group's scratch at least)
+  const int crop = round4(SparseCrop::floats(CropDims{d.H, d.W, d.gh, d.gw}, true));
+  L.ring = take(o, crop > kRingT ? crop : kRingT);
+  L.parts = take(o, kParts);
+  L.total = o;
+  return L;
 }
 
-__global__ void __launch_bounds__(kThreads) glimpse_bwd_rows_kernel(GlimpseBwdArgs p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads, 1) glimpse_bwd_kernel(GlimpseBwdArgs p) {
+  extern __shared__ __align__(16) float smem[];
   const GlimpseDims& d = p.d;
   const int G = d.gh * d.gw, D = 2 * d.n_what;
   const bool masked = p.mi != nullptr;
-  float* dhs = smem;                     // kRows x D
-  float* dz2s = dhs + kRows * D;         // kRows x d2
-  float* dz1s = dz2s + kRows * d.d2;     // kRows x d1
-  float* dgs = dz1s + kRows * d.d1;      // kRows x G: d(masked glimpse), then dg0
-  float* dmz2s = dgs + kRows * G;        // kRows x G (masked)
-  float* dmz1s = dmz2s + (masked ? kRows * G : 0);  // kRows x d_m (masked)
-  const CropDims cd = crop_dims(d);
-  const CropSmem cs(dmz1s + kRows * d.d_m, cd);
-  float* bw = cs.u + d.gh + d.gw;        // CropSmem::bwd_floats
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, d.n - row0);
+  const BwdSmem L = bwd_smem(d, masked);
+  float *dhp = smem + L.dhp, *dz2 = smem + L.dz2, *dz1 = smem + L.dz1, *dmz2 = smem + L.dmz2;
+  float *dmz1 = smem + L.dmz1, *dg0 = smem + L.dg0, *ring = smem + L.ring;
+  float* parts = smem + L.parts;
+  const Peers pe;
+  const int C = pe.n, rank = pe.rank;
+  const int row0 = (blockIdx.x / C) * kTileRows;
+  const int rows = min(kTileRows, d.n - row0);
+  // whether this block writes element i of a loop over kThreads-strided
+  // elements that every block computes (turns of kThreads, round robin)
+  auto mine = [&](int i) { return (i / kThreads) % C == rank; };
 
+  const TTerm t_h[1] = {{dhp, L.ld_d, D, p.wh}};
+  const ProductPlan L_h = stage_product(t_h, d.d2, pe, ring);
   // the head: dhp = [dloc, dscale softplus'(z)], softplus' = 1 - exp(-(scale - 1e-2))
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+  for (int i = threadIdx.x; i < kTileRows * D; i += kThreads) {
     const int r = i / D, j = i - r * D;
     float v = 0.f;
     if (r < rows) {
       const size_t row = (size_t)(row0 + r);
       if (j < d.n_what) {
-        v = p.dloc[row * d.n_what + j];
+        v = __ldg(&p.dloc[row * d.n_what + j]);
       } else {
         const size_t o = row * d.n_what + j - d.n_what;
-        v = p.dscale[o] * (1.f - expf(-(p.scale[o] - kMinStd)));
+        v = __ldg(&p.dscale[o]) * (1.f - expf(-(__ldg(&p.scale[o]) - kMinStd)));
       }
-      p.dhp[row * D + j] = v;
+      if (mine(i)) p.dhp[row * D + j] = v;
     }
-    dhs[i] = v;
+    dhp[r * L.ld_d + j] = v;
   }
   __syncthreads();
-  encode_rows_bwd<kRows>(dhs, D, p.wh, p.we2, p.we1, d.d1, d.d2, G,
-                         p.h1 + (size_t)row0 * d.d1, d.d1, p.h2 + (size_t)row0 * d.d2, d.d2,
-                         dz2s, dz1s, dgs, p.dz2 + (size_t)row0 * d.d2, d.d2,
-                         p.dz1 + (size_t)row0 * d.d1, d.d1, rows);
-
-  if (masked) {
-    // dmask = dg g0, dg0 = dg mask, dmz2 = dmask mask (1 - mask); the masked
-    // glimpse g0 mask goes to phase B
-    for (int i = threadIdx.x; i < kRows * G; i += kThreads) {
-      const int r = i / G, j = i - r * G;
-      float v = 0.f;
-      if (r < rows) {
-        const size_t o = (size_t)(row0 + r) * G + j;
-        const float m = p.mask[o], g = p.g0[o], dg = dgs[i];
-        v = dg * g * m * (1.f - m);
-        p.dmz2[o] = v;
-        p.gflat[o] = g * m;
-        dgs[i] = dg * m;
-      }
-      dmz2s[i] = v;
+  // the encoder and the head: dz2 = (dhp Wh^T) elu'(h2), dz1 = (dz2 We2^T) elu'(h1)
+  cluster_dense_t(t_h, L_h, pe, ring, parts, [&](int r, int k, float v, float) {
+    float dz = 0.f;
+    if (r < rows) {
+      const size_t o = (size_t)(row0 + r) * d.d2 + k;
+      dz = v * act_grad_from_output(__ldg(&p.h2[o]), kElu);
+      p.dz2[o] = dz;
     }
-    __syncthreads();
-    Acc acc;
-    zero(acc);
-    acc_smem_t(acc, dmz2s, G, G, p.wm2, G, 0, d.d_m);  // dmhid = dmz2 Wm2^T
-    store_dz(acc, p.mhid, dmz1s, p.dmz1, d.d_m, row0, rows);
-    __syncthreads();
-    zero(acc);
-    acc_smem_t(acc, dmz1s, d.d_m, d.d_m, p.wm1, d.d_m, 0, d.d_mi);  // dmi = dmz1 Wm1^T
-    store_rows(acc, p.dmi, d.d_mi, row0, rows, 0, d.d_mi);
+    pe.put(dz2 + r * L.ld2 + k, dz);
+  });
+  {
+    const TTerm t[1] = {{dz2, L.ld2, d.d2, p.we2}};
+    cluster_dense_t<1>(t, d.d1, pe, ring, parts, [&](int r, int k, float v, float) {
+      float dz = 0.f;
+      if (r < rows) {
+        const size_t o = (size_t)(row0 + r) * d.d1 + k;
+        dz = v * act_grad_from_output(__ldg(&p.h1[o]), kElu);
+        p.dz1[o] = dz;
+      }
+      pe.put(dz1 + r * L.ld1 + k, dz);
+    });
+  }
+  // dg = dz1 We1^T, the (masked) glimpse's gradient; when masked, dmask =
+  // dg g0, dg0 = dg mask, dmz2 = dmask mask (1 - mask), and the masked
+  // glimpse g0 mask goes to phase B.  Row r's dg0 goes to block r mod C.
+  {
+    const TTerm t[1] = {{dz1, L.ld1, d.d1, p.we1}};
+    cluster_dense_t<1>(t, G, pe, ring, parts, [&](int r, int k, float v, float) {
+      if (!masked) {
+        if (r < rows) pe.put_to(dg0 + r * L.ldg + k, r % C, v);
+        return;
+      }
+      float vz = 0.f;
+      if (r < rows) {
+        const size_t o = (size_t)(row0 + r) * G + k;
+        const float m = __ldg(&p.mask[o]), g = __ldg(&p.g0[o]);
+        vz = v * g * m * (1.f - m);
+        p.dmz2[o] = vz;
+        p.gflat[o] = g * m;
+        pe.put_to(dg0 + r * L.ldg + k, r % C, v * m);
+      }
+      pe.put(dmz2 + r * L.ldg + k, vz);
+    });
+  }
+  if (masked) {
+    // dmhid = dmz2 Wm2^T, dmz1 = dmhid elu'(mhid); dmi = dmz1 Wm1^T
+    {
+      const TTerm t[1] = {{dmz2, L.ldg, G, p.wm2}};
+      cluster_dense_t<1>(t, d.d_m, pe, ring, parts, [&](int r, int k, float v, float) {
+        float dz = 0.f;
+        if (r < rows) {
+          const size_t o = (size_t)(row0 + r) * d.d_m + k;
+          dz = v * act_grad_from_output(__ldg(&p.mhid[o]), kElu);
+          p.dmz1[o] = dz;
+        }
+        pe.put(dmz1 + r * L.ldm + k, dz);
+      });
+    }
+    const TTerm t[1] = {{dmz1, L.ldm, d.d_m, p.wm1}};
+    cluster_dense_t<1>(t, d.d_mi, pe, ring, parts, [&](int r, int k, float v, float) {
+      if (r < rows) p.dmi[(size_t)(row0 + r) * d.d_mi + k] = v;
+    });
   }
 
-  // the crop backward and the where-gradient, one row at a time
-  for (int r = 0; r < rows; ++r) {
-    const int b = row0 + r;
+  // the crops of the block's rows r = rank + m C, ng side by side in the ring
+  const CropDims cd = crop_dims(d);
+  const int fl = round4(SparseCrop::floats(cd, true));
+  const int nr = rank < rows ? (rows - rank + C - 1) / C : 0;
+  int ng = 1;
+  while (ng < nr && ng < kMaxCropGroups && 2 * ng * fl <= L.parts - L.ring) ng *= 2;
+  const int nt = kThreads / ng, g = threadIdx.x / nt, t = threadIdx.x - g * nt;
+  const SparseCrop sc(ring + g * fl, cd, true);
+  for (int m0 = 0; m0 < nr; m0 += ng) {
+    const int m = m0 + g;
+    const bool active = m < nr;
+    const int r = active ? rank + m * C : 0;
+    const size_t b = (size_t)(row0 + r);
+    const float* frame = p.img + b * d.H * d.W;
     float c[4];
-    crop_setup(p.img + (size_t)b * d.H * d.W, p.wl + (size_t)b * 4, cd, cs, c);
-    crop_bwd(cd, cs, c, dgs + r * G, bw, p.dwl + (size_t)b * 4);
+    sparse_crop_setup(frame, p.wl + b * 4, cd, sc, c, active, t, nt);
+    sparse_crop_bwd(frame, cd, sc, c, dg0 + r * L.ldg, p.dwl + b * 4, active, t, nt);
+    __syncthreads();  // the next rows reuse the scratch
   }
 }
 
 size_t fwd_smem(const GlimpseDims& d) {
   return sizeof(float) * ((size_t)kRows * (d.gh * d.gw + d.d_m + d.d1 + d.d2 + kChunk) +
                           CropSmem::floats(crop_dims(d)));
-}
-
-size_t bwd_smem(const GlimpseDims& d, bool masked) {
-  const size_t G = (size_t)d.gh * d.gw;
-  return sizeof(float) * ((size_t)kRows * (2 * d.n_what + d.d2 + d.d1 + G +
-                                           (masked ? G + d.d_m : 0)) +
-                          CropSmem::floats(crop_dims(d)) + CropSmem::bwd_floats(crop_dims(d)));
 }
 
 bool read_dims(const int* dims, GlimpseDims& d) {
@@ -330,8 +396,13 @@ extern "C" int sqair_fused_glimpse(void* const* ptrs, const int* dims, void* str
 // then the outputs dwl [n, 4], dmi [n, d_mi], dWm1, dbm1, dWm2, dbm2 (null
 // when unmasked), dWe1, dbe1, dWe2, dbe2, dWh, dbh; then scratch of
 // n (2 n_what + d2 + d1) floats, plus n (2 G + d_m) when masked.  dims and
-// the contract are the forward's.  Launches phase A and phase B.
-extern "C" int sqair_fused_glimpse_bwd(void* const* ptrs, const int* dims, void* stream) {
+// the contract are the forward's.  `geom` is the host's launch geometry of
+// phase A (ops/fused_glimpse.py glimpse_bwd_geometry): tile rows, cluster
+// size and blocks; the launch is refused unless they match this file's
+// tiles, or the tile's state (bwd_smem) does not fit a block's 227 KB.
+// Launches phase A and phase B.
+extern "C" int sqair_fused_glimpse_bwd(void* const* ptrs, const int* dims, const int* geom,
+                                       void* stream) {
   using namespace sqair;
   GlimpseDims d;
   if (!read_dims(dims, d)) return (int)cudaErrorInvalidValue;
@@ -360,11 +431,28 @@ extern "C" int sqair_fused_glimpse_bwd(void* const* ptrs, const int* dims, void*
   p.dmz2 = masked ? p.gflat + (size_t)d.n * G : nullptr;
   p.dmz1 = masked ? p.dmz2 + (size_t)d.n * G : nullptr;
 
-  const size_t smem = bwd_smem(d, masked);
-  cudaError_t err = allow_smem(glimpse_bwd_rows_kernel, smem);
+  const int cluster = geom[1];
+  const int tiles = cdiv(d.n, kTileRows);
+  const size_t smem = sizeof(float) * (size_t)bwd_smem(d, masked).total;
+  if (geom[0] != kTileRows || cluster < 1 || cluster > kMaxCluster ||
+      geom[2] != tiles * cluster || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(glimpse_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (d.n + kRows - 1) / kRows;
-  glimpse_bwd_rows_kernel<<<blocks, kThreads, smem, s>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, glimpse_bwd_kernel, p);
+  if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -37,13 +37,19 @@
 // mask, the transition, the estimator, the GRU, the heads), 1.56 GFLOP a
 // call: 23 us at 67 TFLOP/s off the tensor cores, against ~14 MB of
 // weights, frames, outputs and residuals (4 us at 3.35 TB/s); the backward
-// about twice that.  What the forward does: one block of kThreads threads
-// owns kPropRows rows (80 blocks at 160 rows, so most SMs hold one) and
-// runs all slots for them with every activation in shared memory; the
-// weights stream through L2 once per block and slot.  That re-reads ~5 MB
-// of weights per block and slot, which a later PR can cut by giving a
-// block more rows or splitting the columns of the wide layers.  The crops
-// and encoders are glimpse_common.cuh's, shared with fused_glimpse.cu.
+// about twice that.
+//
+// The forward was redesigned for Hopper (prop_fwd_kernel, its own note
+// below) with the bits of its first design, in which one block owned 2 rows
+// and every thread walked K for its columns with each weight load feeding
+// 2 FMAs: 80 blocks each re-read the ~5.9 MB of a slot's weights from L2,
+// and 92% of its 1.29 ms went to the products (clock64 a block), bound by
+// L2 latency, not FLOPs.  It now runs clusters of 4 blocks over tiles of 8
+// rows: every product a cluster_dense (cluster_dense.cuh: W's tiles staged
+// coalesced, K split over the warps, columns over the cluster's blocks),
+// the rows' crops spread over the blocks at the two non-zeros of each
+// interpolation row.  The crops and encoders are glimpse_common.cuh's,
+// shared with fused_glimpse.cu.
 //
 // The backward is two launches, as fused_bwd.cu's MLP backward, and was
 // redesigned for Hopper: phase A (prop_bwd_kernel) chains the row
@@ -64,8 +70,6 @@
 #include "glimpse_common.cuh"
 
 namespace sqair {
-
-constexpr int kPropRows = 2;  // batch rows per block of the forward
 
 struct PropDims {
   int B, S, H, W, gh, gw, nw, U, SP, WB, MH;
@@ -185,95 +189,192 @@ struct PropFwdArgs {
       *tnew, *res;
 };
 
-// Shared memory of the forward: kPropRows rows of each buffer, then one
-// row's crop.
+// A thread block cluster of C blocks (ops/fused_cells.py prop_fwd_geometry:
+// C = 4 at 160 rows, 80 blocks, one an SM) shares a tile of kTileRows = 8
+// rows.  Every block holds the tile's forward state in its shared memory
+// and runs the elementwise steps (the where sample, the GRU's mix, the what
+// fusion and sample) for all 8 rows itself; each of the ~20 products of a
+// slot is a cluster_dense over the cluster (W's [32 k][32 cols] tiles staged
+// coalesced, K split over the warps, columns over the blocks), whose owners
+// write the outputs into every block's state (`Peers::put`) and the residual
+// fields once.  The crops go row r to block r mod C, at the two non-zeros
+// of each interpolation row (sparse_crop_*), each glimpse row put into
+// every block before the mask multiply and the encoder.  A global write of
+// a value every block computes is made by one block.
+__host__ __device__ inline int take4(int& off, int n) { return take(off, round4(n)); }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// Row strides of the forward's buffers (multiples of 4: the products read
+// their left operands as float4s).
+struct FwdLds {
+  int rin, stp, tin, spf, g, u, u2, hp, wb, mh, sp, td, ga;
+};
+
+__host__ __device__ inline FwdLds fwd_lds(const PropDims& d) {
+  return FwdLds{round4(d.d_rnn), round4(d.d_stp), round4(d.d_tin), round4(d.d_spf),
+                round4(d.G),     round4(d.U),     round4(2 * d.U), round4(2 * d.nw),
+                round4(d.WB),    round4(d.MH),    round4(d.SP),    round4(2 * d.nw),
+                round4(3 * d.nw)};
+}
+
+// Shared memory of the forward, [kTileRows][ld] each: the state that lives
+// across a slot (the concatenated rows rin, stp, tin, spf; the where-bias
+// location and the mask, which both glimpses read), then one region that
+// each phase of a slot lays out anew (the where bias and the mask MLP; a
+// glimpse and its encoder; the estimator; the GRU; the heads and the
+// presence, which keep the GRU's htn), then the products' ring (which the
+// crops borrow) and partial sums.  The estimator's st8 lies past the
+// glimpse's gbuf: the where sample reads it while peers' crops of glimpse
+// 2 already fill gbuf.
 struct FwdSmem {
-  int rin, stp, tin, spf, wbh, gwl, maskh, mask, gbuf, e1, e2, hp, a1, a2, st8, rh, zr, c, htn,
-      td, gates, s1, crop, total;
+  int rin, stp, tin, spf, gwl, mask;
+  int wbh, maskh, gbuf, e1, e2, hp, a1, a2, st8, htn, zr, rh, c, td, gates, s1;
+  int ring, parts, total;
 };
 
 __host__ __device__ inline FwdSmem fwd_smem(const PropDims& d) {
   FwdSmem L;
+  const FwdLds ld = fwd_lds(d);
+  const int n = kTileRows;
   int o = 0;
-  const int n = kPropRows;
-  L.rin = take(o, n * d.d_rnn);  // [g1loc, what, where, pres of slot k-1, what_tm1, where_tm1, pres_tm1, ht]
-  L.stp = take(o, n * d.d_stp);  // [h, where_tm1, ht]
-  L.tin = take(o, n * d.d_tin);  // [h, where, g2loc, g2scale]
-  L.spf = take(o, n * d.d_spf);  // [h, ht, what]
-  L.wbh = take(o, n * d.WB);
-  L.gwl = take(o, n * 4);
-  L.maskh = take(o, n * d.MH);
-  L.mask = take(o, n * d.G);
-  L.gbuf = take(o, n * d.G);
-  L.e1 = take(o, n * d.U);
-  L.e2 = take(o, n * d.U);
-  L.hp = take(o, n * 2 * d.nw);
-  L.a1 = take(o, n * d.U);
-  L.a2 = take(o, n * d.U);
-  L.st8 = take(o, n * 8);
-  L.rh = take(o, n * d.U);
-  L.zr = take(o, n * 2 * d.U);
-  L.c = take(o, n * d.U);
-  L.htn = take(o, n * d.U);
-  L.td = take(o, n * 2 * d.nw);
-  L.gates = take(o, n * 3 * d.nw);
-  L.s1 = take(o, n * d.SP);
-  L.crop = take(o, (int)CropSmem::floats(CropDims{d.H, d.W, d.gh, d.gw}));
+  L.rin = take4(o, n * ld.rin);  // [g1loc, what, where, pres of slot k-1, what_tm1, where_tm1, pres_tm1, ht]
+  L.stp = take4(o, n * ld.stp);  // [h, where_tm1, ht]; h is the transition's previous state
+  L.tin = take4(o, n * ld.tin);  // [h, where, g2loc, g2scale]
+  L.spf = take4(o, n * ld.spf);  // [h, ht, what]
+  L.gwl = take4(o, n * 4);
+  L.mask = take4(o, n * ld.g);
+  const int u0 = o;
+  int end = u0, q;
+  q = u0;  // the where bias and the mask MLP
+  L.wbh = take4(q, n * ld.wb);
+  L.maskh = take4(q, n * ld.mh);
+  end = imax(end, q);
+  q = u0;  // a glimpse and its encoder
+  L.gbuf = take4(q, n * ld.g);
+  L.e1 = take4(q, n * ld.u);
+  L.e2 = take4(q, n * ld.u);
+  L.hp = take4(q, n * ld.hp);
+  end = imax(end, q);
+  q = u0;  // the estimator
+  L.a1 = take4(q, n * ld.u);
+  L.a2 = take4(q, n * ld.u);
+  q = imax(q, L.gbuf + n * ld.g);
+  L.st8 = take4(q, n * 8);
+  end = imax(end, q);
+  q = u0;  // the GRU
+  L.htn = take4(q, n * ld.u);
+  L.zr = take4(q, n * ld.u2);
+  L.rh = take4(q, n * ld.u);
+  L.c = take4(q, n * ld.u);
+  end = imax(end, q);
+  q = L.htn + n * ld.u;  // the heads and the presence, after htn
+  L.td = take4(q, n * ld.td);
+  L.gates = take4(q, n * ld.ga);
+  L.s1 = take4(q, n * ld.sp);
+  end = imax(end, q);
+  o = end;
+  const int crop = round4(SparseCrop::floats(CropDims{d.H, d.W, d.gh, d.gw}, false));
+  L.ring = take4(o, imax(kRingT, crop));
+  L.parts = take4(o, kParts);
   L.total = o;
   return L;
 }
 
-// The masked glimpse of each row at its where logits wl + r * ldwl (shared
-// memory), encoded: e1, e2 (and their residual fields o1, o2) and the
-// head's pre-activation hp [2 nw].  Rows past `rows` get a zero glimpse.
-__device__ __forceinline__ void prop_glimpse(const PropDims& d, const PropWeights& w,
-                                             const float* __restrict__ img, int row0, int rows,
-                                             const float* wl, int ldwl, const float* mask,
-                                             float* gbuf, float* e1, float* e2, float* hp,
-                                             const CropSmem& cs, float* res0, int o1, int o2) {
+// The glimpse of each row of the tile at its where logits wl + r * ldwl
+// (shared memory), masked and encoded: e1, e2 (and their residual fields
+// o1, o2) and the head's pre-activation hp [2 nw].  Row r is cropped by
+// block r mod C and put into every block's gbuf; rows past `rows` get a
+// zero glimpse.  Every thread of every block calls it.
+__device__ __forceinline__ void prop_glimpse_fwd(const PropFwdArgs& p, const Peers& pe,
+                                                 const FwdSmem& L, int row0, int rows,
+                                                 const float* wl, int ldwl, float* smem,
+                                                 float* res0, int o1, int o2) {
+  const PropDims& d = p.d;
+  const PropWeights& w = p.w;
+  const FwdLds ld = fwd_lds(d);
   const CropDims cd{d.H, d.W, d.gh, d.gw};
-  const int G = d.G, NW = d.nw;
-  for (int r = 0; r < kPropRows; ++r) {
-    if (r < rows) {
-      float c[4];
-      crop_setup(img + (size_t)(row0 + r) * d.H * d.W, wl + r * ldwl, cd, cs, c);
-      crop_glimpse(cd, cs, gbuf + r * G, nullptr);
-    } else {
-      for (int i = threadIdx.x; i < G; i += kThreads) gbuf[r * G + i] = 0.f;
-    }
+  const int G = d.G, U = d.U, NW = d.nw, R = d.R, C = pe.n, rank = pe.rank;
+  float *gbuf = smem + L.gbuf, *mask = smem + L.mask, *e1 = smem + L.e1, *e2 = smem + L.e2;
+  float *hp = smem + L.hp, *ring = smem + L.ring;
+  const int fl = round4(SparseCrop::floats(cd, false));
+  const int nr = rank < rows ? (rows - rank + C - 1) / C : 0;
+  int ng = 1;
+  while (ng < nr && ng < kMaxCropGroups && 2 * ng * fl <= L.parts - L.ring) ng *= 2;
+  const int nt = kThreads / ng, g = threadIdx.x / nt, t = threadIdx.x - g * nt;
+  const SparseCrop sc(ring + g * fl, cd, false);
+  for (int m0 = 0; m0 < nr; m0 += ng) {
+    const int m = m0 + g;
+    const bool active = m < nr;
+    const int r = active ? rank + m * C : 0;
+    float c[4];
+    sparse_crop_setup(p.in.img + (size_t)(row0 + r) * d.H * d.W, wl + r * ldwl, cd, sc, c,
+                      active, t, nt);
+    sparse_crop_glimpse(cd, sc, active, t, nt,
+                        [&](int i, float v) { pe.put(gbuf + r * ld.g + i, v); });
+    __syncthreads();  // the next rows reuse the scratch
+  }
+  for (int i = threadIdx.x; i < (kTileRows - rows) * G; i += kThreads) {
+    const int r = rows + i / G, j = i - (r - rows) * G;
+    gbuf[r * ld.g + j] = 0.f;
+  }
+  cluster_sync_all();  // every row's glimpse is in every block
+  for (int i = threadIdx.x; i < kTileRows * G; i += kThreads) {
+    const int r = i / G, j = i - r * G;
+    gbuf[r * ld.g + j] *= mask[r * ld.g + j];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kPropRows * G; i += kThreads) gbuf[i] *= mask[i];
-  __syncthreads();
-  encode_rows<kPropRows>(gbuf, G, w.we1, w.be1, d.U, w.we2, w.be2, d.U, e1, e2, res0 + o1,
-                         (size_t)d.R, res0 + o2, (size_t)d.R, rows);
-  dense<kPropRows>(e2, d.U, d.U, w.wh, 2 * NW,
-                   [&](int r, int j, float z) { hp[r * 2 * NW + j] = z + w.bh[j]; });
+  // the encoder: two elu layers, then the head's pre-activation
+  {
+    const TTerm t1[1] = {{gbuf, ld.g, G, w.we1}};
+    cluster_dense<1>(t1, U, pe, ring, smem + L.parts, [&](int r, int j, float z, float) {
+      const float v = apply_act(z + w.be1[j], kElu);
+      if (r < rows) res0[r * R + o1 + j] = v;
+      pe.put(e1 + r * ld.u + j, v);
+    });
+  }
+  {
+    const TTerm t2[1] = {{e1, ld.u, U, w.we2}};
+    cluster_dense<1>(t2, U, pe, ring, smem + L.parts, [&](int r, int j, float z, float) {
+      const float v = apply_act(z + w.be2[j], kElu);
+      if (r < rows) res0[r * R + o2 + j] = v;
+      pe.put(e2 + r * ld.u + j, v);
+    });
+  }
+  const TTerm th[1] = {{e2, ld.u, U, w.wh}};
+  cluster_dense<1>(th, 2 * NW, pe, ring, smem + L.parts, [&](int r, int j, float z, float) {
+    pe.put(hp + r * ld.hp + j, z + w.bh[j]);
+  });
 }
 
-__global__ void __launch_bounds__(kThreads) prop_fwd_kernel(PropFwdArgs p) {
-  extern __shared__ float smem[];
-  constexpr int NR = kPropRows;
+__global__ void __launch_bounds__(kThreads, 1) prop_fwd_kernel(PropFwdArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int NR = kTileRows;
   const PropDims& d = p.d;
   const PropWeights& w = p.w;
   const PropInputs& in = p.in;
   const FwdSmem L = fwd_smem(d);
+  const FwdLds ld = fwd_lds(d);
   float *rin = smem + L.rin, *stp = smem + L.stp, *tin = smem + L.tin, *spf = smem + L.spf;
   float *wbh = smem + L.wbh, *gwl = smem + L.gwl, *maskh = smem + L.maskh, *mask = smem + L.mask;
-  float *gbuf = smem + L.gbuf, *e1 = smem + L.e1, *e2 = smem + L.e2, *hp = smem + L.hp;
-  float *a1 = smem + L.a1, *a2 = smem + L.a2, *st8 = smem + L.st8, *rh = smem + L.rh;
-  float *zr = smem + L.zr, *cc = smem + L.c, *htn = smem + L.htn, *td = smem + L.td;
-  float *gates = smem + L.gates, *s1 = smem + L.s1;
-  const CropSmem cs(smem + L.crop, CropDims{d.H, d.W, d.gh, d.gw});
+  float *hp = smem + L.hp, *a1 = smem + L.a1, *a2 = smem + L.a2, *st8 = smem + L.st8;
+  float *rh = smem + L.rh, *zr = smem + L.zr, *cc = smem + L.c, *htn = smem + L.htn;
+  float *td = smem + L.td, *gates = smem + L.gates, *s1 = smem + L.s1;
+  float *ring = smem + L.ring, *parts = smem + L.parts;
+  const Peers pe;
+  const int C = pe.n, rank = pe.rank;
   const int NW = d.nw, U = d.U, G = d.G, R = d.R;
-  const int drn = d.d_rnn, dst = d.d_stp, dti = d.d_tin, dsp = d.d_spf;
+  const int drn = ld.rin, dst = ld.stp, dti = ld.tin, dsp = ld.spf;  // row strides
   const int o_sw = NW, o_swh = 2 * NW, o_sp = 2 * NW + 4, o_wt = 2 * NW + 5, o_wh = 3 * NW + 5,
             o_p = 3 * NW + 9, o_ht = 3 * NW + 10;  // fields of rin
-  const int row0 = blockIdx.x * NR;
+  const int row0 = (blockIdx.x / C) * NR;
   const int rows = min(NR, d.B - row0);
-  const float* ht = rin + o_ht;  // row stride drn
+  const float* ht = rin + o_ht;     // row stride drn
+  const float* ht4 = spf + U;       // the same, 16-byte aligned rows: a product's operand
+  // whether this block writes element i of a loop over kThreads-strided
+  // elements that every block computes (turns of kThreads, round robin)
+  auto mine = [&](int i) { return (i / kThreads) % C == rank; };
 
-  // slot 0: no explaining-away inputs yet; h = h0
+  // slot 0: no explaining-away inputs yet; the transition's state is h0
   for (int i = threadIdx.x; i < NR * drn; i += kThreads) rin[i] = 0.f;
   for (int i = threadIdx.x; i < NR * U; i += kThreads) {
     const int r = i / U, j = i - r * U;
@@ -282,7 +383,7 @@ __global__ void __launch_bounds__(kThreads) prop_fwd_kernel(PropFwdArgs p) {
   __syncthreads();
 
   for (int k = 0; k < d.S; ++k) {
-    const size_t slot = (size_t)k * d.B + row0;  // the block's first row-slot
+    const size_t slot = (size_t)k * d.B + row0;  // the tile's first row-slot
     float* res0 = p.res + slot * R;              // row r at res0 + r * R
     for (int i = threadIdx.x; i < NR * U; i += kThreads) {
       const int r = i / U, j = i - r * U;
@@ -306,60 +407,89 @@ __global__ void __launch_bounds__(kThreads) prop_fwd_kernel(PropFwdArgs p) {
     __syncthreads();
 
     // the where bias and the glimpse mask, from the old temporal state
-    dense<NR>(ht, drn, U, w.wb1w, d.WB, [&](int r, int j, float z) {
-      const float v = apply_act(z + w.wb1b[j], kElu);
-      wbh[r * d.WB + j] = v;
-      if (r < rows) res0[r * R + d.wbh + j] = v;
-    });
-    dense<NR>(wbh, d.WB, d.WB, w.wb2w, 4, [&](int r, int j, float z) {
-      const float v = rin[r * drn + o_wh + j] + (z + w.wb2b[j]) * 0.1f;
-      gwl[r * 4 + j] = v;
-      if (r < rows) res0[r * R + d.gwl + j] = v;
-    });
-    dense<NR>(ht, drn, U, w.m1w, d.MH, [&](int r, int j, float z) {
-      const float v = apply_act(z + w.m1b[j], kElu);
-      maskh[r * d.MH + j] = v;
-      if (r < rows) res0[r * R + d.maskh + j] = v;
-    });
-    dense<NR>(maskh, d.MH, d.MH, w.m2w, G, [&](int r, int j, float z) {
-      const float v = sigmoidf(z + w.m2b[j]);
-      mask[r * G + j] = v;
-      if (r < rows) res0[r * R + d.mask + j] = v;
-    });
+    {
+      const TTerm t[1] = {{ht4, dsp, U, w.wb1w}};
+      cluster_dense<1>(t, d.WB, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = apply_act(z + w.wb1b[j], kElu);
+        if (r < rows) res0[r * R + d.wbh + j] = v;
+        pe.put(wbh + r * ld.wb + j, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{wbh, ld.wb, d.WB, w.wb2w}};
+      cluster_dense<1>(t, 4, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = rin[r * drn + o_wh + j] + (z + w.wb2b[j]) * 0.1f;
+        if (r < rows) res0[r * R + d.gwl + j] = v;
+        pe.put(gwl + r * 4 + j, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{ht4, dsp, U, w.m1w}};
+      cluster_dense<1>(t, d.MH, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = apply_act(z + w.m1b[j], kElu);
+        if (r < rows) res0[r * R + d.maskh + j] = v;
+        pe.put(maskh + r * ld.mh + j, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{maskh, ld.mh, d.MH, w.m2w}};
+      cluster_dense<1>(t, G, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = sigmoidf(z + w.m2b[j]);
+        if (r < rows) res0[r * R + d.mask + j] = v;
+        pe.put(mask + r * ld.g + j, v);
+      });
+    }
 
     // glimpse 1 at the where-bias location: its loc feeds the transition
-    prop_glimpse(d, w, in.img, row0, rows, gwl, 4, mask, gbuf, e1, e2, hp, cs, res0, d.e11,
-                 d.e12);
+    prop_glimpse_fwd(p, pe, L, row0, rows, gwl, 4, smem, res0, d.e11, d.e12);
     for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
       const int r = i / NW, j = i - r * NW;
-      const float v = hp[r * 2 * NW + j];
+      const float v = hp[r * ld.hp + j];
       rin[r * drn + j] = v;
-      if (r < rows) res0[r * R + d.g1loc + j] = v;
+      if (r < rows && mine(i)) res0[r * R + d.g1loc + j] = v;
     }
     __syncthreads();
 
-    // the transition: h = tanh(rin Wr + h Ur + br), h in stp[:U]
-    dense2<NR>(rin, drn, drn, w.rw, stp, dst, U, w.ru, U, [&](int r, int j, float z) {
-      const float v = tanhf(z + w.rb[j]);
-      stp[r * dst + j] = v;
-      tin[r * dti + j] = v;
-      spf[r * dsp + j] = v;
-      if (r < rows) res0[r * R + d.h + j] = v;
-    });
+    // the transition: h = tanh(rin Wr + h Ur + br), h into tin[:U] and spf[:U]
+    {
+      const TTerm t[2] = {{rin, drn, d.d_rnn, w.rw}, {stp, dst, U, w.ru}};
+      cluster_dense<2>(t, U, pe, ring, parts, [&](int r, int j, float z0, float z1) {
+        const float z = z0 + z1;
+        const float v = tanhf(z + w.rb[j]);
+        if (r < rows) res0[r * R + d.h + j] = v;
+        pe.put(tin + r * dti + j, v);
+        pe.put(spf + r * dsp + j, v);
+      });
+    }
+    for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      stp[r * dst + j] = tin[r * dti + j];
+    }
+    __syncthreads();
 
     // the relative where: estimator, then the full-covariance sample
-    dense<NR>(stp, dst, dst, w.s1w, U, [&](int r, int j, float z) {
-      const float v = apply_act(z + w.s1b[j], kElu);
-      a1[r * U + j] = v;
-      if (r < rows) res0[r * R + d.a1 + j] = v;
-    });
-    dense<NR>(a1, U, U, w.s2w, U, [&](int r, int j, float z) {
-      const float v = apply_act(z + w.s2b[j], kElu);
-      a2[r * U + j] = v;
-      if (r < rows) res0[r * R + d.a2 + j] = v;
-    });
-    dense<NR>(a2, U, U, w.s3w, 8,
-              [&](int r, int j, float z) { st8[r * 8 + j] = z + w.s3b[j]; });
+    {
+      const TTerm t[1] = {{stp, dst, d.d_stp, w.s1w}};
+      cluster_dense<1>(t, U, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = apply_act(z + w.s1b[j], kElu);
+        if (r < rows) res0[r * R + d.a1 + j] = v;
+        pe.put(a1 + r * ld.u + j, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{a1, ld.u, U, w.s2w}};
+      cluster_dense<1>(t, U, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = apply_act(z + w.s2b[j], kElu);
+        if (r < rows) res0[r * R + d.a2 + j] = v;
+        pe.put(a2 + r * ld.u + j, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{a2, ld.u, U, w.s3w}};
+      cluster_dense<1>(t, 8, pe, ring, parts, [&](int r, int j, float z, float) {
+        pe.put(st8 + r * 8 + j, z + w.s3b[j]);
+      });
+    }
     for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
       const int r = i / 4, j = i - r * 4;
       const float wloc = stp[r * dst + U + j] + st8[r * 8 + j];
@@ -370,81 +500,98 @@ __global__ void __launch_bounds__(kThreads) prop_fwd_kernel(PropFwdArgs p) {
         float m = 0.f;
         for (int q = 0; q < 4; ++q) m += e[q] * w.tril[j * 4 + q];
         where = wloc + wsc * (m + e[j]);
-        const size_t o = (slot + r) * 4 + j;
-        p.where[o] = where;
-        p.where_loc[o] = wloc;
-        p.where_scale[o] = wsc;
+        if (mine(i)) {
+          const size_t o = (slot + r) * 4 + j;
+          p.where[o] = where;
+          p.where_loc[o] = wloc;
+          p.where_scale[o] = wsc;
+        }
       }
       tin[r * dti + U + j] = where;
     }
     __syncthreads();
 
     // glimpse 2 at the sampled where
-    prop_glimpse(d, w, in.img, row0, rows, tin + U, dti, mask, gbuf, e1, e2, hp, cs, res0,
-                 d.e21, d.e22);
+    prop_glimpse_fwd(p, pe, L, row0, rows, tin + U, dti, smem, res0, d.e21, d.e22);
     for (int i = threadIdx.x; i < NR * 2 * NW; i += kThreads) {
       const int r = i / (2 * NW), j = i - r * 2 * NW;
-      const float z = hp[i];
+      const float z = hp[r * ld.hp + j];
       const float v = j < NW ? z : softplus(z) + kMinStd;
       tin[r * dti + U + 4 + j] = v;
-      if (r < rows) res0[r * R + (j < NW ? d.g2loc + j : d.g2sc + j - NW)] = v;
+      if (r < rows && mine(i)) res0[r * R + (j < NW ? d.g2loc + j : d.g2sc + j - NW)] = v;
     }
     __syncthreads();
 
     // the temporal GRU
-    dense2<NR>(tin, dti, dti, w.gwg, ht, drn, U, w.gug, 2 * U, [&](int r, int j, float z) {
-      const float v = sigmoidf(z + w.gbg[j]);
-      zr[r * 2 * U + j] = v;
-      if (r < rows) res0[r * R + d.zr + j] = v;
-    });
+    {
+      const TTerm t[2] = {{tin, dti, d.d_tin, w.gwg}, {ht4, dsp, U, w.gug}};
+      cluster_dense<2>(t, 2 * U, pe, ring, parts, [&](int r, int j, float z0, float z1) {
+        const float z = z0 + z1;
+        const float v = sigmoidf(z + w.gbg[j]);
+        if (r < rows) res0[r * R + d.zr + j] = v;
+        pe.put(zr + r * ld.u2 + j, v);
+      });
+    }
     for (int i = threadIdx.x; i < NR * U; i += kThreads) {
       const int r = i / U, j = i - r * U;
-      rh[i] = zr[r * 2 * U + U + j] * ht[r * drn + j];
+      rh[r * ld.u + j] = zr[r * ld.u2 + U + j] * ht[r * drn + j];
     }
     __syncthreads();
-    dense2<NR>(tin, dti, dti, w.gwc, rh, U, U, w.guc, U, [&](int r, int j, float z) {
-      const float v = tanhf(z + w.gbc[j]);
-      cc[r * U + j] = v;
-      if (r < rows) res0[r * R + d.c + j] = v;
-    });
+    {
+      const TTerm t[2] = {{tin, dti, d.d_tin, w.gwc}, {rh, ld.u, U, w.guc}};
+      cluster_dense<2>(t, U, pe, ring, parts, [&](int r, int j, float z0, float z1) {
+        const float z = z0 + z1;
+        const float v = tanhf(z + w.gbc[j]);
+        if (r < rows) res0[r * R + d.c + j] = v;
+        pe.put(cc + r * ld.u + j, v);
+      });
+    }
     for (int i = threadIdx.x; i < NR * U; i += kThreads) {
       const int r = i / U, j = i - r * U;
-      const float z = zr[r * 2 * U + j];
-      const float v = (1.f - z) * ht[r * drn + j] + z * cc[i];
-      htn[i] = v;
-      if (r < rows) p.tnew[(slot + r) * U + j] = v;
+      const float z = zr[r * ld.u2 + j];
+      const float v = (1.f - z) * ht[r * drn + j] + z * cc[r * ld.u + j];
+      htn[r * ld.u + j] = v;
+      if (r < rows && mine(i)) p.tnew[(slot + r) * U + j] = v;
     }
     __syncthreads();
 
     // the temporal what distribution and the gates
-    dense<NR>(htn, U, U, w.tdw, 2 * NW, [&](int r, int j, float z) {
-      float v = z + w.tdb[j];
-      if (j >= NW) v = softplus(v) + kMinStd;
-      td[r * 2 * NW + j] = v;
-      if (r < rows) res0[r * R + (j < NW ? d.tloc + j : d.tsc + j - NW)] = v;
-    });
-    dense<NR>(htn, U, U, w.gaw, 3 * NW, [&](int r, int j, float z) {
-      const float v = sigmoidf(z + w.gab[j]) * 0.9999f;
-      gates[r * 3 * NW + j] = v;
-      if (r < rows) res0[r * R + d.gates + j] = v;
-    });
+    {
+      const TTerm t[1] = {{htn, ld.u, U, w.tdw}};
+      cluster_dense<1>(t, 2 * NW, pe, ring, parts, [&](int r, int j, float z, float) {
+        float v = z + w.tdb[j];
+        if (j >= NW) v = softplus(v) + kMinStd;
+        if (r < rows) res0[r * R + (j < NW ? d.tloc + j : d.tsc + j - NW)] = v;
+        pe.put(td + r * ld.td + j, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{htn, ld.u, U, w.gaw}};
+      cluster_dense<1>(t, 3 * NW, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = sigmoidf(z + w.gab[j]) * 0.9999f;
+        if (r < rows) res0[r * R + d.gates + j] = v;
+        pe.put(gates + r * ld.ga + j, v);
+      });
+    }
 
     // the what fusion and sample; what is the next slot's explaining away
     for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
       const int r = i / NW, j = i - r * NW;
-      const float* g = gates + r * 3 * NW;
+      const float* g = gates + r * ld.ga;
       const float f = g[j], ig = g[NW + j], tg = g[2 * NW + j];
       const float g2l = tin[r * dti + U + 4 + j], g2s = tin[r * dti + U + 4 + NW + j];
-      const float tl = td[r * 2 * NW + j], ts = td[r * 2 * NW + NW + j];
+      const float tl = td[r * ld.td + j], ts = td[r * ld.td + NW + j];
       const float wl = f * rin[r * drn + o_wt + j] + (1.f - ig) * g2l + (1.f - tg) * tl;
       const float ws = (1.f - ig) * g2s + (1.f - tg) * ts;
       float what = 0.f;
       if (r < rows) {
         const size_t o = (slot + r) * NW + j;
         what = wl + ws * in.epsx[o];
-        p.what[o] = what;
-        p.what_loc[o] = wl;
-        p.what_scale[o] = ws;
+        if (mine(i)) {
+          p.what[o] = what;
+          p.what_loc[o] = wl;
+          p.what_scale[o] = ws;
+        }
       }
       spf[r * dsp + 2 * U + j] = what;
       rin[r * drn + o_sw + j] = what;
@@ -452,26 +599,32 @@ __global__ void __launch_bounds__(kThreads) prop_fwd_kernel(PropFwdArgs p) {
     __syncthreads();
 
     // the steps predictor (on the OLD temporal state) and the presence
-    dense<NR>(spf, dsp, dsp, w.sp1w, d.SP, [&](int r, int j, float z) {
-      const float v = apply_act(z + w.sp1b[j], kElu);
-      s1[r * d.SP + j] = v;
-      if (r < rows) res0[r * R + d.s1 + j] = v;
-    });
-    dense<NR>(s1, d.SP, d.SP, w.sp2w, 1, [&](int r, int, float z) {
-      const float lraw = z + w.sp2b[0];
-      const float pk = rin[r * drn + o_p];
-      const float logit = pk * lraw + (pk - 1.f) * 88.f;
-      const float prob = sigmoidf(logit);
-      float pres = 0.f;
-      if (r < rows) {
-        pres = (in.u[slot + r] < prob ? 1.f : 0.f) * pk;
-        res0[r * R + d.lraw] = lraw;
-        p.prob[slot + r] = prob;
-        p.pres[slot + r] = pres;
-        p.logit[slot + r] = logit;
-      }
-      rin[r * drn + o_sp] = pres;
-    });
+    {
+      const TTerm t[1] = {{spf, dsp, d.d_spf, w.sp1w}};
+      cluster_dense<1>(t, d.SP, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = apply_act(z + w.sp1b[j], kElu);
+        if (r < rows) res0[r * R + d.s1 + j] = v;
+        pe.put(s1 + r * ld.sp + j, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{s1, ld.sp, d.SP, w.sp2w}};
+      cluster_dense<1>(t, 1, pe, ring, parts, [&](int r, int, float z, float) {
+        const float lraw = z + w.sp2b[0];
+        const float pk = rin[r * drn + o_p];
+        const float logit = pk * lraw + (pk - 1.f) * 88.f;
+        const float prob = sigmoidf(logit);
+        float pres = 0.f;
+        if (r < rows) {
+          pres = (in.u[slot + r] < prob ? 1.f : 0.f) * pk;
+          res0[r * R + d.lraw] = lraw;
+          p.prob[slot + r] = prob;
+          p.pres[slot + r] = pres;
+          p.logit[slot + r] = logit;
+        }
+        pe.put(rin + r * drn + o_sp, pres);
+      });
+    }
     for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
       const int r = i / 4, j = i - r * 4;
       rin[r * drn + o_swh + j] = tin[r * dti + U + j];
@@ -530,9 +683,6 @@ struct BwdSmem {
       dwbh, dmz2, dmaskh;
   int ring, parts, total;
 };
-
-__host__ __device__ inline int take4(int& off, int n) { return take(off, round4(n)); }
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 __host__ __device__ inline BwdSmem bwd_smem(const PropDims& d) {
   BwdSmem L;
@@ -1143,10 +1293,15 @@ __global__ void __launch_bounds__(kThreads, 1) prop_bwd_kernel(PropBwdArgs p) {
 // what_scale [S, B, nw], where, where_loc, where_scale [S, B, 4], prob,
 // presence, logit [S, B, 1], the new temporal state [S, B, U] and the
 // residual rows [S, B, R].  dims is {B, S, H, W, gh, gw, nw, U, SP, WB,
-// MH}.  All f32, contiguous and on the device; ptrs and dims are host
-// arrays.  Launches on `stream`, does not synchronise, allocates nothing,
-// and returns the CUDA error code of the launch (0 on success).
-extern "C" int sqair_fused_prop(void* const* ptrs, const int* dims, void* stream) {
+// MH}.  `geom` is the host's launch geometry (ops/fused_cells.py
+// prop_fwd_geometry): tile rows, cluster size and blocks; the launch is
+// refused unless they match this file's tiles, or the tile's state
+// (fwd_smem) does not fit a block's 227 KB.  All f32, contiguous and on
+// the device; ptrs, dims and geom are host arrays.  Launches on `stream`,
+// does not synchronise, allocates nothing, and returns the CUDA error code
+// of the launch (0 on success).
+extern "C" int sqair_fused_prop(void* const* ptrs, const int* dims, const int* geom,
+                                void* stream) {
   using namespace sqair;
   PropFwdArgs p{};
   if (!read_prop_dims(dims, p.d)) return (int)cudaErrorInvalidValue;
@@ -1157,12 +1312,28 @@ extern "C" int sqair_fused_prop(void* const* ptrs, const int* dims, void* stream
   p.what = o[0]; p.what_loc = o[1]; p.what_scale = o[2];
   p.where = o[3]; p.where_loc = o[4]; p.where_scale = o[5];
   p.prob = o[6]; p.pres = o[7]; p.logit = o[8]; p.tnew = o[9]; p.res = o[10];
+  const int cluster = geom[1];
+  const int tiles = cdiv(p.d.B, kTileRows);
   const size_t smem = sizeof(float) * (size_t)fwd_smem(p.d).total;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (geom[0] != kTileRows || cluster < 1 || cluster > kMaxCluster ||
+      geom[2] != tiles * cluster || smem > 227 * 1024 || p.d.U % 4 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(prop_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (p.d.B + kPropRows - 1) / kPropRows;
-  prop_fwd_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, prop_fwd_kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

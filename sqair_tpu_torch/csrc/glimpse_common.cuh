@@ -1,9 +1,12 @@
 // Shared device code of the kernels that crop and encode glimpses
-// (fused_glimpse.cu, fused_prop.cu, fused_disc.cu): the bilinear crop at a where in logit
-// space and its where-gradient, one row at a time with the frame and the
-// interpolation matrices in shared memory, and dense layers over a block's
-// NR rows held in shared memory (the glimpse mask, the encoder, and the
-// transposed products of their backward).
+// (fused_glimpse.cu, fused_prop.cu, fused_disc.cu): the bilinear crop at a
+// where in logit space and its where-gradient, one row at a time with the
+// frame and the interpolation matrices in shared memory (crop_setup,
+// crop_glimpse, crop_bwd) or at the two non-zeros of each interpolation row
+// (sparse_crop_*, with the same bits: the glimpse encoder's backward and
+// the propagation forward), and dense layers over a block's NR rows held in
+// shared memory (the glimpse mask, the encoder, and the transposed products
+// of their backward).
 //
 //   s = sigmoid(wl[:2]), t = tanh(wl[2:]); s_c = max(s, 1e-4)
 //   u_i = (s_c t_i + t + 1)(src - 1) / 2, t_i = i 2/(dst - 1) - 1
@@ -211,6 +214,203 @@ __device__ __forceinline__ void keep_crop_grad(float* dwl, const float* __restri
     if (r < rows) dwl[i] *= keep[slot + r];
   }
   __syncthreads();
+}
+
+// ------------------------------------------- the crop at two pixels a row
+// A row of wy (or wx) has at most two non-zeros, at p = floor(u_i) and
+// floor(u_i) + 1 (max(0, 1 - |u_i - p|) is 0 at every other p, and exactly
+// 0 there in f32 too, since |u_i - p| >= 1 rounds to >= 1), and u_i rises
+// with i because the scale is clipped at >= 1e-4.  So the crop and its
+// backward need only those two pixels of each row: A[h, j] and g0[i, j]
+// take 2 terms, dA[h, :] the contiguous range of i whose two pixels hold h,
+// and dwy, dwx are needed only at the two pixels, where du reads them.
+// Dropping products whose weight is exactly 0 from an fmaf chain that starts
+// at +0 leaves every bit of the sum as it was (a +0 or -0 product added to a
+// sum that is never -0), given a finite frame and glimpse gradient: these
+// give the dense crop_setup / crop_glimpse / crop_bwd's bits.
+//
+// A group of nt threads (t its thread) crops one row; a block runs its
+// groups side by side, every thread calling each step (they synchronise
+// the block).  The frame is read from device memory.
+constexpr int kMaxCropGroups = 4;  // rows a block crops side by side
+
+struct SparseCrop {
+  float* u;   // [gh + gw]: uy then ux
+  float* w0;  // [gh + gw]: the weight at p0
+  float* w1;  // [gh + gw]: at p0 + 1
+  int* p0;    // [gh + gw]: floor(u)
+  float* A;   // [H, gw] = img wx^T
+  // the backward
+  float* dA;  // [H, gw] = wy^T dg0
+  float* dw;  // [gh + gw][2]: dwy, then dwx, at p0 and p0 + 1
+  float* du;  // [gh + gw]
+  int* lo;    // [H]: the rows of wy that hold h: [lo[h], hi[h])
+  int* hi;
+  __host__ __device__ static int floats(const CropDims& d, bool bwd) {
+    const int n = d.gh + d.gw, a = d.H * d.gw;
+    return 4 * n + a + (bwd ? a + 3 * n + 2 * d.H : 0);
+  }
+  __device__ SparseCrop(float* s, const CropDims& d, bool bwd) {
+    const int n = d.gh + d.gw;
+    u = s;
+    w0 = u + n;
+    w1 = w0 + n;
+    p0 = reinterpret_cast<int*>(w1 + n);
+    A = reinterpret_cast<float*>(p0 + n);
+    dA = A + d.H * d.gw;
+    dw = bwd ? dA + d.H * d.gw : nullptr;
+    du = bwd ? dw + 2 * n : nullptr;
+    lo = bwd ? reinterpret_cast<int*>(du + n) : nullptr;
+    hi = bwd ? lo + d.H : nullptr;
+  }
+};
+
+// The row's coordinates c = (sx, sy, tx, ty) (every thread), u, floor(u)
+// and the two weights of each row of wy and wx, then A; `frame` is the
+// row's [H, W] in device memory, `wl` its where logits (any memory).
+// Inactive groups (no row) only synchronise.
+__device__ __forceinline__ void sparse_crop_setup(const float* __restrict__ frame, const float* wl,
+                                                  const CropDims& d, const SparseCrop& s,
+                                                  float c[4], bool active, int t, int nt) {
+  const int n = d.gh + d.gw;
+  if (active) {
+    where_coords(wl, c);
+    const float sxc = fmaxf(c[0], kMinScale), syc = fmaxf(c[1], kMinScale);
+    for (int i = t; i < n; i += nt) {
+      const float u = i < d.gh ? grid_u(syc, c[3], i, d.gh, d.H)
+                               : grid_u(sxc, c[2], i - d.gh, d.gw, d.W);
+      const int p = (int)floorf(u);
+      s.u[i] = u;
+      s.p0[i] = p;
+      s.w0[i] = fmaxf(0.f, 1.f - fabsf(u - (float)p));
+      s.w1[i] = fmaxf(0.f, 1.f - fabsf(u - (float)(p + 1)));
+    }
+  }
+  __syncthreads();
+  if (active) {
+    for (int i = t; i < d.H * d.gw; i += nt) {
+      const int h = i / d.gw, j = i - h * d.gw, p = s.p0[d.gh + j];
+      const float* a = frame + (size_t)h * d.W;
+      float v = 0.f;
+      if (p >= 0 && p < d.W) v = fmaf(__ldg(a + p), s.w0[d.gh + j], v);
+      if (p + 1 >= 0 && p + 1 < d.W) v = fmaf(__ldg(a + p + 1), s.w1[d.gh + j], v);
+      s.A[i] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// out(i, g0[i]) for the gh gw values of the glimpse g0 = wy A of the row
+// set up in `s` (no synchronisation).
+template <typename Out>
+__device__ __forceinline__ void sparse_crop_glimpse(const CropDims& d, const SparseCrop& s,
+                                                    bool active, int t, int nt, Out out) {
+  if (!active) return;
+  for (int i = t; i < d.gh * d.gw; i += nt) {
+    const int gi = i / d.gw, j = i - gi * d.gw, p = s.p0[gi];
+    float v = 0.f;
+    if (p >= 0 && p < d.H) v = fmaf(s.w0[gi], s.A[p * d.gw + j], v);
+    if (p + 1 >= 0 && p + 1 < d.H) v = fmaf(s.w1[gi], s.A[(p + 1) * d.gw + j], v);
+    out(i, v);
+  }
+}
+
+// The where logits' gradient of the row set up in `s` (with c from
+// sparse_crop_setup, `s` laid out with the backward) for the glimpse
+// gradient dg0 [gh gw] (shared memory): the group's thread 0 writes
+// dwl[0..3] (any memory) after the last synchronisation.
+__device__ __forceinline__ void sparse_crop_bwd(const float* __restrict__ frame,
+                                                const CropDims& d, const SparseCrop& s,
+                                                const float c[4], const float* dg0, float* dwl,
+                                                bool active, int t, int nt) {
+  const int n = d.gh + d.gw;
+  if (active) {
+    // dwy at the two pixels of each row of wy: dg0 A^T
+    for (int i = t; i < 2 * d.gh; i += nt) {
+      const int gi = i >> 1, h = s.p0[gi] + (i & 1);
+      float v = 0.f;
+      if (h >= 0 && h < d.H) {
+        for (int j = 0; j < d.gw; ++j) v = fmaf(dg0[gi * d.gw + j], s.A[h * d.gw + j], v);
+      }
+      s.dw[i] = v;
+    }
+    // the rows of wy that hold pixel h
+    for (int h = t; h < d.H; h += nt) {
+      int lo = d.gh, hi = 0;
+      for (int gi = 0; gi < d.gh; ++gi) {
+        const int p = s.p0[gi];
+        if (p == h || p + 1 == h) {
+          lo = min(lo, gi);
+          hi = gi + 1;
+        }
+      }
+      s.lo[h] = lo;
+      s.hi[h] = hi;
+    }
+  }
+  __syncthreads();
+  if (active) {
+    // dA = wy^T dg0 [H, gw]
+    for (int i = t; i < d.H * d.gw; i += nt) {
+      const int h = i / d.gw, j = i - h * d.gw;
+      float v = 0.f;
+      for (int gi = s.lo[h]; gi < s.hi[h]; ++gi) {
+        const int p = s.p0[gi];
+        if (p == h) v = fmaf(s.w0[gi], dg0[gi * d.gw + j], v);
+        else if (p + 1 == h) v = fmaf(s.w1[gi], dg0[gi * d.gw + j], v);
+      }
+      s.dA[i] = v;
+    }
+  }
+  __syncthreads();
+  if (active) {
+    // dwx = dA^T img at the two pixels of each row of wx
+    for (int i = t; i < 2 * d.gw; i += nt) {
+      const int j = i >> 1, w = s.p0[d.gh + j] + (i & 1);
+      float v = 0.f;
+      if (w >= 0 && w < d.W) {
+        for (int h = 0; h < d.H; ++h)
+          v = fmaf(s.dA[h * d.gw + j], __ldg(frame + (size_t)h * d.W + w), v);
+      }
+      s.dw[2 * d.gh + i] = v;
+    }
+  }
+  __syncthreads();
+  if (active) {
+    // du_i = sum_p dw[i, p] (w[i, p] > 0 ? -sign(u_i - p) : 0), at the two pixels
+    for (int i = t; i < n; i += nt) {
+      const int src = i < d.gh ? d.H : d.W;
+      const float ui = s.u[i];
+      float sum = 0.f;
+      for (int e = 0; e < 2; ++e) {
+        const int q = s.p0[i] + e;
+        if (q < 0 || q >= src) continue;
+        const float diff = ui - (float)q;
+        const float sgn = diff > 0.f ? -1.f : (diff < 0.f ? 1.f : 0.f);
+        sum += s.dw[2 * i + e] * ((e ? s.w1[i] : s.w0[i]) > 0.f ? sgn : 0.f);
+      }
+      s.du[i] = sum;
+    }
+  }
+  __syncthreads();
+  if (active && t == 0) {
+    const float* du = s.du;
+    float st_y = 0.f, s_y = 0.f, st_x = 0.f, s_x = 0.f;
+    for (int i = 0; i < d.gh; ++i) {
+      st_y += du[i] * grid_t(i, d.gh);
+      s_y += du[i];
+    }
+    for (int j = 0; j < d.gw; ++j) {
+      st_x += du[d.gh + j] * grid_t(j, d.gw);
+      s_x += du[d.gh + j];
+    }
+    const float dsyc = st_y * (float)(d.H - 1) / 2.f, dty = s_y * (float)(d.H - 1) / 2.f;
+    const float dsxc = st_x * (float)(d.W - 1) / 2.f, dtx = s_x * (float)(d.W - 1) / 2.f;
+    dwl[0] = dsxc * c[0] * (1.f - c[0]);
+    dwl[1] = dsyc * c[1] * (1.f - c[1]);
+    dwl[2] = dtx * (1.f - c[2] * c[2]);
+    dwl[3] = dty * (1.f - c[3] * c[3]);
+  }
 }
 
 // ------------------------------------------------ dense layers over NR rows

@@ -191,6 +191,20 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+def tile_state_geometry(n):
+    """The launch of a kernel whose clusters hold a tile's whole state in
+    every block's shared memory, so one block an SM (the glimpse encoder's
+    backward, the propagation unroll's forward and backward): 8-row tiles,
+    each shared by a cluster of the largest of 1, 2, 4, 8 blocks whose
+    blocks all fit the ``SMS`` SMs at once (1 where none does; 4 at 160
+    rows: 80 blocks), since a cluster runs only once all its blocks have an
+    SM."""
+    tile_rows = 8
+    tiles = _cdiv(n, tile_rows)
+    cluster = max((c for c in (1, 2, 4, 8) if tiles * c <= SMS), default=1)
+    return dict(tile_rows=tile_rows, cluster=cluster, blocks=tiles * cluster)
+
+
 def mlp_fwd_geometry(n, dims):
     """The MLP forward kernel's launch (csrc/fused_mlp.cu), as the host
     picks it for n rows and the layer widths ``dims`` (d_in first).

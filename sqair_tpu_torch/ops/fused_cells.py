@@ -465,11 +465,24 @@ def _fwd_cuda(img, wt1, wh1, p1, th, h0b, eps_w, eps_x, u, weights, dims):
     outs = [_empty(S, B, d, like=img) for d in _out_widths(nw, U)]
     res = _empty(S, B, residual_layout(dims)[1], like=img)
     if B > 0:
+        geom = prop_fwd_geometry(kd)
         code = library().sqair_fused_prop(_ptrs(inputs + list(weights) + outs + [res]),
-                                          _ints(kd), _stream(img.device))
+                                          _ints(kd), _ints([geom["tile_rows"], geom["cluster"],
+                                                            geom["blocks"]]),
+                                          _stream(img.device))
         _raise_on("fused_prop", code)
         launches["fused_prop"] += 1
     return tuple(outs) + (res,)
+
+
+def prop_fwd_geometry(dims):
+    """The launch of the propagation forward (csrc/fused_prop.cu
+    prop_fwd_kernel), as the host picks it for the kernel dims [B, S, H, W,
+    gh, gw, n_what, U, SP, WB, MH]: a cluster of ``cluster`` blocks shares a
+    tile of ``tile_rows`` rows, every block holding the tile's forward state
+    (the kernel's fwd_smem, which the C entry works out and holds to 227
+    KB): ``fused.tile_state_geometry`` of the B rows."""
+    return _fused.tile_state_geometry(dims[0])
 
 
 def prop_bwd_geometry(dims):
@@ -480,15 +493,10 @@ def prop_bwd_geometry(dims):
     A cluster of ``cluster`` blocks shares a tile of ``tile_rows`` rows,
     every block holding the tile's whole backward state in its shared
     memory (the kernel's bwd_smem, which the C entry works out and holds to
-    227 KB): one block an SM.  So a cluster runs only once all its blocks
-    have one, and ``cluster`` is the largest of 1, 2, 4, 8 whose blocks all
-    fit the ``SMS`` SMs at once (1 where none does).  Phase B, the
+    227 KB): ``fused.tile_state_geometry`` of the B rows.  Phase B, the
     weight-gradient reducer, plans its own launch.
     """
-    tile_rows = 8
-    tiles = _cdiv(dims[0], tile_rows)
-    cluster = max((c for c in (1, 2, 4, 8) if tiles * c <= _fused.SMS), default=1)
-    return dict(tile_rows=tile_rows, cluster=cluster, blocks=tiles * cluster)
+    return _fused.tile_state_geometry(dims[0])
 
 
 def _crop_keep(name, crop_keep, S, B):

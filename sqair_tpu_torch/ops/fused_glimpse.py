@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import fused as _fused
 from .fused import (_check, _empty, _ints, _needs_grad, _on_cuda, _ptrs, _raise_on, _stream,
                     launches)
 
@@ -232,6 +233,20 @@ def _fwd_cuda(img, wl, mi, mask_params, enc_params, head_w, head_b, dims, save):
     return (loc, scale) + tuple(saved)
 
 
+def glimpse_bwd_geometry(dims):
+    """The launch of the glimpse backward's phase A (csrc/fused_glimpse.cu),
+    as the host picks it for the kernel dims [n, H, W, gh, gw, d_mi, d_m,
+    d1, d2, n_what].
+
+    A cluster of ``cluster`` blocks shares a tile of ``tile_rows`` rows,
+    every block holding the tile's row gradients in its shared memory (the
+    kernel's bwd_smem, which the C entry works out and holds to 227 KB):
+    ``fused.tile_state_geometry`` of the n rows.  Phase B, the
+    weight-gradient reducer, plans its own launch.
+    """
+    return _fused.tile_state_geometry(dims[0])
+
+
 def _bwd_cuda(img, wl, mi, mask_params, enc_params, head_w, saved, dloc, dscale, dims):
     """The backward kernels (phase A rows, phase B weight reductions)."""
     from .build import library
@@ -263,7 +278,10 @@ def _bwd_cuda(img, wl, mi, mask_params, enc_params, head_w, saved, dloc, dscale,
     mask_outs = outs[1:6] if masked else [None] * 5
     ptrs = [img, wl, mi, *mask_w, we1, we2, head_w, *saved[:4], *mask_saved, dloc, dscale,
             outs[0], *mask_outs, *outs[-6:], scratch]
-    code = library().sqair_fused_glimpse_bwd(_ptrs(ptrs), _ints(kd), _stream(img.device))
+    geom = glimpse_bwd_geometry(kd)
+    code = library().sqair_fused_glimpse_bwd(
+        _ptrs(ptrs), _ints(kd), _ints([geom["tile_rows"], geom["cluster"], geom["blocks"]]),
+        _stream(img.device))
     _raise_on("fused_glimpse_bwd", code)
     launches["fused_glimpse_bwd"] += 1
     return tuple(outs)

@@ -484,3 +484,50 @@ def test_prop_backward_kernel_tiles_match_plain_on_cuda(n):
             what = f"prop n={n} crop_keep={kp is not None}"
             _assert_grads_close(got, fc.prop_plain_bwd(*bargs, crop_keep=kp), what)
             assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", (True, False))
+@pytest.mark.parametrize("n", [1, 7, 9, 160, 161])
+def test_glimpse_backward_kernel_tiles_match_plain_on_cuda(n, masked):
+    """The cluster glimpse backward (its crops at the two non-zeros of each
+    interpolation row) and its tile reducer against the plain backward at
+    row counts at the edges of the 8-row tiles and of the cluster (1, 7:
+    one tile, clusters of 8; 9: two; 160, 161: clusters of 4), masked and
+    unmasked; a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sqair_tpu_torch.ops import fused_glimpse as fg
+
+    gen = torch.Generator(device="cuda").manual_seed(100 + n + masked)
+    args = _glimpse_case(gen, n, masked)
+    dims = (20, 20, 50)
+    with torch.inference_mode():
+        want = fg.glimpse_plain_fwd(*args, dims)
+        saved = want[2:5] + (want[1],) + tuple(want[5:])
+        dloc = torch.randn(n, 50, generator=gen, device="cuda")
+        dscale = torch.randn(n, 50, generator=gen, device="cuda")
+        bargs = (*args[:6], saved, dloc, dscale, dims)
+        got, again = (fg.fused_glimpse_bwd(*bargs) for _ in range(2))
+        what = f"glimpse n={n} masked={masked}"
+        _assert_grads_close(got, fg.glimpse_plain_bwd(*bargs), what)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 161])
+def test_prop_forward_kernel_tiles_match_plain_on_cuda(n):
+    """The cluster propagation forward (every output and residual field)
+    against the plain forward at row counts at the edges of the 8-row tiles
+    and of the cluster (1, 3: one tile, clusters of 8; 161: 21 tiles,
+    clusters of 4); a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fc, args, weights, dims, _ = _prop_case(n)
+    with torch.inference_mode():
+        got, again = (fc._fwd_cuda(*args, weights, dims) for _ in range(2))
+        want = fc.prop_plain_fwd(*args, weights, dims)
+        assert len(got) == len(want) == 11
+        for i, (a, b) in enumerate(zip(got, want)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=f"prop n={n} output {i}")
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"prop n={n}: two runs differ"

@@ -3,8 +3,10 @@
 ``vrnn_fwd_geometry`` and ``gru_fwd_geometry`` for the cells' forwards of
 csrc/fused_rnn.cu, ``vrnn_bwd_geometry`` and ``mlp_bwd_geometry`` for the
 vanilla-RNN and MLP backwards of csrc/fused_bwd.cu; ``ops/fused_cells.py``:
-``prop_bwd_geometry`` for the propagation backward of csrc/fused_prop.cu),
-at every MLP, vanilla-RNN, GRU and propagation shape of
+``prop_fwd_geometry`` and ``prop_bwd_geometry`` for the propagation forward
+and backward of csrc/fused_prop.cu; ``ops/fused_glimpse.py``:
+``glimpse_bwd_geometry`` for the glimpse backward of csrc/fused_glimpse.cu),
+at every MLP, vanilla-RNN, GRU, glimpse and propagation shape of
 ``chip_smoke.main_path_shapes``: the release flags, with no switch and with
 both switches, eval and train (and the propagation unroll at DISC_FLAGS).
 
@@ -24,6 +26,7 @@ import torch
 
 from sqair_tpu_torch.ops import build, fused
 from sqair_tpu_torch.ops import fused_cells as fc
+from sqair_tpu_torch.ops import fused_glimpse as fg
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
@@ -241,6 +244,52 @@ def test_mlp_backward_geometry_fills_the_card(train, fuse):
         assert 2 * g["smem"] <= fused.MAX_SMEM, (s, g)  # two blocks an SM
 
 
+def _r4(v):
+    return -(-v // 4) * 4
+
+
+_RING, _PARTS = 2 * 8 * 32 * (32 + 4), 8 * 8 * 32  # cluster_dense.cuh kRingT, kParts
+
+
+def _sparse_crop_floats(H, W, gh, gw, bwd):
+    """glimpse_common.cuh SparseCrop::floats: one row's two-non-zero crop."""
+    n, a = gh + gw, H * gw
+    return 4 * n + a + ((a + 3 * n + 2 * H) if bwd else 0)
+
+
+def _glimpse_bwd_smem(dims, masked):
+    """Bytes of the glimpse backward's shared memory, as csrc/fused_glimpse.cu
+    bwd_smem lays it out for the kernel dims [n, H, W, gh, gw, d_mi, d_m, d1,
+    d2, n_what] (a copy, as ``_prop_bwd_smem``): the tile's row gradients
+    dhp, dz2, dz1, (masked) dmz2, dmz1, and the crop rows' glimpse gradient,
+    [8][width rounded up to 4] each, then the products' ring (which the
+    crops borrow) and their partial sums."""
+    _, H, W, gh, gw, _, d_m, d1, d2, nw = dims
+    G = gh * gw
+    widths = [2 * nw, d2, d1] + ([G, d_m] if masked else []) + [G]
+    ring = max(_RING, _r4(_sparse_crop_floats(H, W, gh, gw, True)))
+    return 4 * (sum(8 * _r4(w) for w in widths) + ring + _PARTS)
+
+
+def _prop_fwd_smem(dims):
+    """Bytes of the propagation forward's shared memory, as csrc/fused_prop.cu
+    fwd_smem lays it out for the kernel dims (a copy, as ``_prop_bwd_smem``):
+    the state that lives across a slot (rin, stp, tin, spf, the where-bias
+    location, the mask), the largest region a phase of a slot lays out (the
+    estimator's st8 past the glimpse's gbuf; the heads after the GRU's
+    htn), the ring and the partial sums; [8][width rounded up to 4] each."""
+    _, _, H, W, gh, gw, nw, U, SP, WB, MH = dims
+    G = gh * gw
+    d_rnn, d_stp, d_tin, d_spf = 3 * nw + 10 + U, 2 * U + 4, U + 4 + 2 * nw, 2 * U + nw
+    live = sum(8 * _r4(w) for w in (d_rnn, d_stp, d_tin, d_spf, 4, G))
+    glimpse = [G, U, U, 2 * nw]
+    phases = [[WB, MH], glimpse, [U, U], [U, 2 * U, U, U], [U, 2 * nw, 3 * nw, SP]]
+    region = max(sum(8 * _r4(w) for w in ph) for ph in phases)
+    region = max(region, max(8 * 2 * _r4(U), 8 * _r4(G)) + 8 * 8)  # st8
+    ring = max(_RING, _r4(_sparse_crop_floats(H, W, gh, gw, False)))
+    return 4 * (live + region + ring + _PARTS)
+
+
 def _prop_bwd_smem(dims):
     """Bytes of the propagation backward's shared memory, as csrc/fused_prop.cu
     bwd_smem lays it out for the kernel dims (the C entry works them out
@@ -326,3 +375,98 @@ def test_wrappers_pass_the_backward_geometry_to_the_c_entries(seen, monkeypatch)
     assert list(seen["sqair_fused_prop_bwd"][1]) == kd
     g = fc.prop_bwd_geometry(kd)
     assert list(seen["sqair_fused_prop_bwd"][2]) == [g["tile_rows"], g["cluster"], g["blocks"]]
+
+
+def _glimpse_kernel_dims(shape):
+    return [shape["n"], *shape["img"], *shape["glimpse"], shape["d_mi"], shape["d_m"],
+            shape["d1"], shape["d2"], shape["n_what"]]
+
+
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_glimpse_backward_geometry_fills_the_card(train, fuse):
+    """One block an SM, clusters of 1-8 blocks over 8-row tiles: the widest
+    cluster whose blocks all fit the card at once (4 at 160 rows: 80
+    blocks), at the glimpse encoder's main-path shapes (masked and not) and
+    at tile edges; the tile's state fits a block's 227 KB."""
+    shapes = _shapes("fused_glimpse", train, fuse)
+    assert bool(shapes) == fuse
+    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
+    base = chip_smoke.glimpse_shapes(flags, 160, 10)
+    for s in shapes + [dict(sh, n=n) for sh, _ in base for n in (1, 3, 8, 9, 161)]:
+        dims = _glimpse_kernel_dims(s)
+        g = fg.glimpse_bwd_geometry(dims)
+        tiles = math.ceil(s["n"] / 8)
+        assert g["tile_rows"] == 8 and g["cluster"] in (1, 2, 4, 8), (s, g)
+        assert g["blocks"] == tiles * g["cluster"] <= fused.SMS, (s, g)
+        assert g["cluster"] == 8 or 2 * g["blocks"] > fused.SMS, (s, g)
+        assert _glimpse_bwd_smem(dims, bool(s["d_mi"])) <= fused.MAX_SMEM, s
+        if s["n"] == 160:
+            assert g["cluster"] == 4 and g["blocks"] == 80, (s, g)
+
+
+@pytest.mark.parametrize("disc", (False, True))
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_prop_forward_geometry_fills_the_card(train, fuse, disc):
+    """The propagation forward's clusters: the backward's rule (4 at 160
+    rows: 80 blocks), at the main path's propagation shape with both
+    switches (release flags and DISC_FLAGS) and at tile edges; the tile's
+    forward state fits a block's 227 KB, one block an SM."""
+    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
+    if disc:
+        flags = dict(flags, **chip_smoke.DISC_LEVERS)
+    B, k = int(flags["batch_size"]), int(flags["k_particles"])
+    T = int(flags.get("font_timesteps", 10))
+    shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, fuse_glimpse=fuse,
+                                         fuse_cells=fuse)
+    prop = [s["n"] for kn, s, _ in shapes if kn == "fused_prop"]
+    assert bool(prop) == fuse
+    for n in prop + [1, 3, 8, 9, 161]:
+        dims = _prop_kernel_dims(flags, n)
+        g = fc.prop_fwd_geometry(dims)
+        assert g == fc.prop_bwd_geometry(dims), (n, g)
+        assert g["blocks"] == math.ceil(n / 8) * g["cluster"] <= fused.SMS, (n, g)
+        assert g["cluster"] == 8 or 2 * g["blocks"] > fused.SMS, (n, g)
+        smem = _prop_fwd_smem(dims)
+        assert fused.MAX_SMEM // 2 < smem <= fused.MAX_SMEM, (n, smem)  # one block an SM
+        if n == 160:
+            assert g["cluster"] == 4 and g["blocks"] == 80, (n, g)
+
+
+def test_tile_state_geometry_at_the_edges():
+    """8 blocks a tile while the card holds them, then the widest cluster
+    that fits, 1 where even that does not."""
+    SMS = fused.SMS
+    for n, cluster in [(1, 8), (8, 8), (9, 8), (16 * 8, 8), (17 * 8, 4), (160, 4), (161, 4),
+                       (33 * 8, 4), (34 * 8, 2), (66 * 8 + 1, 1), (4800, 1)]:
+        g = fused.tile_state_geometry(n)
+        assert g["cluster"] == cluster, (n, g)
+        assert g["blocks"] == math.ceil(n / 8) * cluster
+        assert g["blocks"] <= SMS or cluster == 1
+
+
+def test_glimpse_and_prop_forward_wrappers_pass_the_geometry(seen, monkeypatch):
+    """The glimpse backward and the propagation forward hand the host's
+    geometry to their C entries (the library is a stand-in that records
+    it)."""
+    gen = torch.Generator().manual_seed(0)
+    monkeypatch.setattr(fused, "_on_cuda", lambda name, t: True)
+    monkeypatch.setattr(fg, "_on_cuda", lambda name, t: True)
+    monkeypatch.setattr(fg, "_stream", lambda device: ctypes.c_void_p(0))
+    monkeypatch.setattr(fc, "_stream", lambda device: ctypes.c_void_p(0))
+    shape = dict(n=13, img=[12, 12], glimpse=[5, 5], d1=16, d2=16, n_what=6, d_mi=8, d_m=4)
+    args = chip_smoke.glimpse_inputs(torch, shape, gen, "cpu")
+    dims = chip_smoke.glimpse_dims(shape)
+    want = fg.glimpse_plain_fwd(*args, dims)
+    saved = tuple(want[2:5]) + (want[1],) + tuple(want[5:])
+    fg.fused_glimpse_bwd(*args[:6], saved, torch.ones(13, 6), torch.ones(13, 6), dims)
+    kd = _glimpse_kernel_dims(shape)
+    assert list(seen["sqair_fused_glimpse_bwd"][1]) == kd
+    g = fg.glimpse_bwd_geometry(kd)
+    assert list(seen["sqair_fused_glimpse_bwd"][2]) == [g["tile_rows"], g["cluster"], g["blocks"]]
+    pshape = dict(n=13, S=2, img=[12, 12], glimpse=[5, 5], n_what=6, U=40, SP=20, WB=16, MH=12)
+    pargs, weights = chip_smoke.prop_inputs(torch, fc, pshape, gen, "cpu")
+    fc._fwd_cuda(*pargs, weights, chip_smoke.prop_dims(pshape))
+    kd = [13, 2, 12, 12, 5, 5, 6, 40, 20, 16, 12]
+    assert list(seen["sqair_fused_prop"][1]) == kd
+    g = fc.prop_fwd_geometry(kd)
+    assert list(seen["sqair_fused_prop"][2]) == [g["tile_rows"], g["cluster"], g["blocks"]]

@@ -11,7 +11,7 @@ of the same function where there is one.  The GRU forward runs as the
 train step calls it, saving zr and c.
 
     python3 tools/time_fused_kernels.py [--root DIR] [--save FILE] [--compare FILE]
-                                        [--sms N] [--profile]
+                                        [--sms N] [--profile] [--only K1,K2]
 
 ``--root`` is the checkout whose ``sqair_tpu_torch`` and ``chip_smoke.py``
 are used (default: this one); it builds that checkout's kernels.  The inputs
@@ -28,7 +28,7 @@ cells' column split, the vanilla-RNN backward's row tile, the propagation
 backward's cluster) as if the card had N SMs, e.g. 1 for one block a row
 tile.  ``--profile`` adds each shape's device time by CUDA kernel
 (torch.profiler over 10 calls, ms a call): the split of a backward between
-its launches.
+its launches.  ``--only`` times the kernels named (of ``KERNELS``) alone.
 """
 from __future__ import annotations
 
@@ -67,6 +67,7 @@ def main():
     ap.add_argument("--compare")
     ap.add_argument("--sms", type=int)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--only", help="comma-separated kernels of KERNELS to time")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -171,7 +172,7 @@ def main():
                         cs.work(base, shape, backward=True, need_dx=need_dx)))
         return out
 
-    for name in KERNELS:
+    for name in args.only.split(",") if args.only else KERNELS:
         entries = calls_of(name)
         rows, tot = [], dict(calls=0, ms=0.0, lib=0.0, bound=0.0)
         for shape, calls, fn, lib, (nbytes, flops) in entries:
