@@ -20,14 +20,15 @@ Phases, one line each with its own numbers and seconds:
                  frames (the nine outputs, every residual field, the
                  glimpses and the input encoder's layers); the GRU also
                  saving zr and c, as the train step calls it; the MLP,
-                 vanilla-RNN and GRU forwards run twice at each shape and
-                 must give the same bits
+                 vanilla-RNN, GRU, glimpse and propagation forwards run
+                 twice at each shape and must give the same bits
   kernels-bwd    every backward kernel against its plain version at the
                  shapes the train step gives it, the deferred pass's 1600
                  and 4800 rows included, the glimpse backward and the
                  propagation and discovery backwards (every input's and
-                 weight's gradient); the vanilla-RNN, MLP and propagation
-                 backwards run twice and must give the same bits
+                 weight's gradient); the vanilla-RNN, MLP, glimpse,
+                 propagation and discovery backwards run twice and must
+                 give the same bits
   eval           3 eval steps of the release model's flags at full width
                  (weights from a seed, data from the port's generator), with
                  the launch counts of every kernel
@@ -217,9 +218,10 @@ KERNELS = {
 # same bits (the kernels check)
 REDESIGNED = ("fused_mlp_kernel", "fused_vrnn_kernel", "fused_gru_kernel", "vrnn_bwd_kernel",
               "mlp_bwd_kernel", "prop_bwd_kernel", "tile_reduce_kernel", "glimpse_bwd_kernel",
-              "prop_fwd_kernel")
+              "prop_fwd_kernel", "glimpse_fwd_kernel", "disc_bwd_kernel")
 SAME_BITS = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_vanilla_rnn_bwd",
-             "fused_mlp_bwd", "fused_prop_bwd", "fused_glimpse_bwd", "fused_prop")
+             "fused_mlp_bwd", "fused_prop_bwd", "fused_glimpse_bwd", "fused_prop", "fused_glimpse",
+             "fused_disc_bwd")
 GLIMPSE_SWITCH = SWITCHES["glimpse"]
 CELLS_SWITCH = SWITCHES["cells"]
 
@@ -1382,6 +1384,8 @@ def run():
             dims, masked = glimpse_dims(shape), bool(shape["d_mi"])
             args = glimpse_inputs(torch, shape, gen, device)
             got = fg._fwd_cuda(*args, dims, save=True)
+            same_g = all(torch.equal(a, b)
+                         for a, b in zip(got, fg._fwd_cuda(*args, dims, save=True)))
             want = fg.glimpse_plain_fwd(*args, dims)
             torch.cuda.synchronize()
             names = ["loc", "scale", "g0", "h1", "h2"] + (["mask", "mhid"] if masked else [])
@@ -1395,7 +1399,10 @@ def run():
                 worst = max(worst, float(diff.max()))
             log("kernels", t0, kernel="fused_glimpse", shape=jdump(shape), outputs=len(names),
                 max_abs_err=f"{worst:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
-                ok=True)
+                ok=True, same_bits=same_g,
+                geometry=jdump(fg.glimpse_fwd_geometry([shape["n"]])))
+            if "fused_glimpse" in SAME_BITS and not same_g:
+                raise Failure(f"fused_glimpse {shape}: two runs of the kernel differ")
 
             t0 = time.perf_counter()
             saved = tuple(want[2:5]) + (want[1],) + tuple(want[5:])
@@ -1526,6 +1533,7 @@ def run():
         saved = (want[0], want[2], want[3], want[5], want[6], want[7])
         dbargs = (*dargs, dweights, saved, want[9], want[10], want[11], cots, ddims)
         got_b = fc._disc_bwd_cuda(*dbargs)
+        same_db = all(torch.equal(a, b) for a, b in zip(got_b, fc._disc_bwd_cuda(*dbargs)))
         want_b = fc.disc_plain_bwd(*dbargs)
         torch.cuda.synchronize()
         bnames = ["dcond", "dh0"] + ["d" + n for n in fc.DISC_WEIGHT_NAMES]
@@ -1538,7 +1546,10 @@ def run():
             worst_db, share_db = max(worst_db, err), max(share_db, err / (size + 1e-30))
         log("kernels-bwd", t0, kernel="fused_disc_bwd", shape=jdump(dshape),
             gradients=len(bnames), max_abs_err=f"{worst_db:.3e}", max_err_share=f"{share_db:.3e}",
-            u_near_integer=near_d, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True)
+            u_near_integer=near_d, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True,
+            same_bits=same_db, geometry=jdump(fc.disc_bwd_geometry([B * k])))
+        if "fused_disc_bwd" in SAME_BITS and not same_db:
+            raise Failure(f"fused_disc_bwd {dshape}: two runs of the kernel differ")
     disc_entry = dict(calls=T, abs_err=worst_d, bwd_abs_err=worst_db)
 
     # -------------------------------------------------------------- eval

@@ -1,8 +1,8 @@
 // Asynchronous global -> shared copies (cp.async) for the kernels
 // redesigned for Hopper: the MLP forward (fused_mlp.cu), the vanilla-RNN and
 // GRU forwards (fused_rnn.cu), the vanilla-RNN backward (fused_bwd.cu) and,
-// through cluster_dense.cuh, the MLP and propagation backwards.  The other
-// kernels keep their plain loads.
+// through cluster_dense.cuh, its cluster kernels.  The other kernels keep
+// their plain loads.
 #pragma once
 
 #include <cuda_runtime.h>

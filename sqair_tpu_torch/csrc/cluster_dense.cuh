@@ -1,7 +1,8 @@
 // The products of the kernels redesigned for Hopper that hold a tile's state
 // in every block of a thread block cluster: the MLP backward
-// (fused_bwd.cu), the glimpse encoder's backward (fused_glimpse.cu) and the
-// propagation unroll's forward and backward (fused_prop.cu).
+// (fused_bwd.cu), the glimpse encoder's forward and backward
+// (fused_glimpse.cu), the propagation unroll's forward and backward
+// (fused_prop.cu) and the discovery unroll's backward (fused_disc.cu).
 //
 // - cluster_dense_t: the product of a tile's 8 rows of a gradient with a
 //   weight's TRANSPOSE, out[r][k] = sum_j a[r][j] W[k][j] for the row-major
@@ -43,6 +44,8 @@ constexpr int kStageT = kWarps * kUnitT;      // a round's weights
 constexpr int kRingT = 2 * kStageT;           // the double-buffered ring
 
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
+// the offset of the next n floats of a layout, n rounded up to 4 (16 bytes)
+__host__ __device__ inline int take4(int& off, int n) { return take(off, round4(n)); }
 
 // The split arrive / wait of the cluster barrier: `arrive` once a block is
 // done reading what a peer may write next, `wait` before the first such
@@ -333,6 +336,27 @@ __device__ __forceinline__ void cluster_dense(const TTerm (&t)[NT], int n_cols, 
                                               float* ring, float* parts, Epi epi) {
   cluster_product<NT, false>(t, stage_product<NT, false>(t, n_cols, pe, ring), pe, ring, parts,
                              epi);
+}
+
+// Launches `kernel` (one argument struct) on `blocks` blocks of kThreads
+// threads in clusters of `cluster`, with `smem` bytes of dynamic shared
+// memory.
+template <typename Kernel, typename Args>
+__host__ cudaError_t launch_cluster(Kernel kernel, const Args& p, int blocks, int cluster,
+                                    size_t smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, p);
 }
 
 }  // namespace sqair

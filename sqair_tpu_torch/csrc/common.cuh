@@ -2,8 +2,8 @@
 // glimpse_common.cuh and tile_sums.cuh all of them).
 //
 // Every kernel but those that tile_sums.cuh serves (the MLP and cell
-// forwards, the MLP and propagation backwards, whose rounds split K over
-// the warps) has the same shape: one
+// forwards and the cluster kernels of cluster_dense.cuh, whose rounds split
+// K over the warps) has the same shape: one
 // block of kThreads threads owns kRows rows of the batch, and each thread
 // owns up to kMaxCols output columns (column j = threadIdx.x + c *
 // kThreads).  A thread keeps

@@ -47,13 +47,22 @@
 // the dense layers are glimpse_common.cuh's, shared with fused_glimpse.cu
 // and fused_prop.cu.
 //
-// The backward is three launches: phase A (disc_bwd_rows_kernel),
-// row-parallel, chains the row gradients through the slots in reverse and
-// then through the input encoder, and writes every layer's dz and the
-// weight products' left operands that the residual rows do not hold to
-// scratch; phase B (tile_reduce_kernel, twice) reduces the ten slot layers'
-// weight gradients over all S B row-slots and the input encoder's two over
-// the B rows, in fixed order.  No atomics: two runs give the same bits.
+// The backward is three launches: phase A (disc_bwd_kernel) chains the row
+// gradients through the slots in reverse and then through the input
+// encoder, and writes every layer's dz and the weight products' left
+// operands that the residual rows do not hold to scratch; phase B
+// (tile_reduce_kernel, twice) reduces the ten slot layers' weight
+// gradients over all S B row-slots and the input encoder's two over the B
+// rows, in fixed order.  No atomics: two runs give the same bits, and they
+// are the bits of phase A's first design, in which one block owned
+// kDiscRows rows (80 blocks at 160 rows), each thread walked its own row
+// of W for each transposed product (a warp load touching 32 cache lines)
+// and the crops were dense, one row at a time: on an H100 that phase took
+// 1.122 of the call's 1.171 ms, 88.6% of it in the products (clock64 a
+// block).  Phase A now runs clusters of 4 blocks over tiles of 8 rows,
+// every product a cluster_dense_t (cluster_dense.cuh) and the crops at the
+// two non-zeros of each interpolation row, the rows spread over the blocks
+// (its own note below).
 
 #include "glimpse_common.cuh"
 
@@ -375,45 +384,84 @@ struct DiscBwdArgs {
   const float* crop_keep;  // [S, B] or null: keep_crop_grad's factors
 };
 
+// A thread block cluster of C blocks (ops/fused_cells.py disc_bwd_geometry:
+// C = 4 at 160 rows, 80 blocks, one an SM) shares a tile of kTileRows = 8
+// rows.  Every block holds the tile's backward state in its shared memory
+// (the carried d presence, d what, d where and d h, the d enc and d cond
+// sums) and runs the elementwise steps for all 8 rows itself; each of the
+// transposed products of a slot, and the input encoder's, is a
+// cluster_dense_t over the cluster (W staged coalesced, j split over the
+// warps, columns over the blocks), whose owners write the scratch rows once
+// and what every block reads next into every block (`Peers::put`).  The
+// crops go row r to block r mod C, which alone receives that row's glimpse
+// gradient, crops its rows side by side in groups of threads at the two
+// non-zeros of each interpolation row (sparse_crop_*) and sends their
+// where-gradients to every block.  A global write of a value every block
+// computes is made by one block: the scratch rows are split over the
+// blocks in turns of kThreads elements.
 struct DiscBwdSmem {
-  int dpc, dpt, dlr, dwc, dwhc, dhc, denc, dcond, dsp1, dspf, dhp, dz2, dz1, dg, dwl, dst8, dza2,
-      dza1, dzr, drnn, crop, cropb, total;
+  int ldsp, ldhp, ldu, ldg, ldrnn;  // row strides of the products' left operands
+  int dpc, dpt, dlr, dwc, dwhc, dhc, denc, dcond, dspf, dwl;
+  int dsp1, dhp, dz2, dz1, dg, dst8, dza2, dza1, dzr, drnn;
+  int ring, parts, total;
 };
 
+// Shared memory of phase A, [kTileRows][width] each: the state that lives
+// across a slot, then one region that each phase of a slot lays out anew
+// (the steps predictor; the head, the glimpse encoder and the crop's
+// gradient; the estimator; the transition), then the products' ring (which
+// the crops borrow) and partial sums.  The input encoder's dz2 takes the
+// glimpse encoder's place after the last slot.
 __host__ __device__ inline DiscBwdSmem disc_bwd_smem(const DiscDims& d) {
   DiscBwdSmem L;
+  const int n = kTileRows, U = d.U;
+  L.ldsp = round4(d.SP);
+  L.ldhp = round4(2 * d.nw);
+  L.ldu = round4(U);
+  L.ldg = round4(d.G);
+  L.ldrnn = round4(d.d_rnn);
   int o = 0;
-  const int n = kDiscRows, U = d.U;
-  L.dpc = take(o, n);            // carried from slot k + 1: d presence_{k}
-  L.dpt = take(o, n);            // this slot's d pres_{k-1} before the transition's part
-  L.dlr = take(o, n);
-  L.dwc = take(o, n * d.nw);     // d what_{k}
-  L.dwhc = take(o, n * 4);       // d where_{k}
-  L.dhc = take(o, n * U);        // d h_{k}
-  L.denc = take(o, n * U);       // d enc, summed over the slots
-  L.dcond = take(o, n * d.C);    // d cond, summed over the slots
-  L.dsp1 = take(o, n * d.SP);
-  L.dspf = take(o, n * d.d_spf);  // [d h (accumulated), d what]
-  L.dhp = take(o, n * 2 * d.nw);
-  L.dz2 = take(o, n * U);
-  L.dz1 = take(o, n * U);
-  L.dg = take(o, n * d.G);
-  L.dwl = take(o, n * 4);
-  L.dst8 = take(o, n * 8);
-  L.dza2 = take(o, n * U);
-  L.dza1 = take(o, n * U);
-  L.dzr = take(o, n * U);
-  L.drnn = take(o, n * d.d_rnn);
-  const CropDims cd{d.H, d.W, d.gh, d.gw};
-  L.crop = take(o, (int)CropSmem::floats(cd));
-  L.cropb = take(o, (int)CropSmem::bwd_floats(cd));
+  L.dpc = take4(o, n);             // carried from slot k + 1: d presence_{k}
+  L.dpt = take4(o, n);             // this slot's d pres_{k-1} before the transition's part
+  L.dlr = take4(o, n);
+  L.dwc = take4(o, n * d.nw);      // d what_{k}
+  L.dwhc = take4(o, n * 4);        // d where_{k}
+  L.dhc = take4(o, n * U);         // d h_{k}
+  L.denc = take4(o, n * U);        // d enc, summed over the slots
+  L.dcond = take4(o, n * d.C);     // d cond, summed over the slots
+  L.dspf = take4(o, n * d.d_spf);  // [d h (accumulated), d what]
+  L.dwl = take4(o, n * 4);
+  const int u0 = o;
+  int end = u0, q;
+  q = u0;  // the steps predictor
+  L.dsp1 = take4(q, n * L.ldsp);
+  end = end > q ? end : q;
+  q = u0;  // the head, the glimpse encoder and the crop's gradient
+  L.dhp = take4(q, n * L.ldhp);
+  L.dz2 = take4(q, n * L.ldu);
+  L.dz1 = take4(q, n * L.ldu);
+  L.dg = take4(q, n * L.ldg);
+  end = end > q ? end : q;
+  q = u0;  // the estimator
+  L.dst8 = take4(q, n * 8);
+  L.dza2 = take4(q, n * L.ldu);
+  L.dza1 = take4(q, n * L.ldu);
+  end = end > q ? end : q;
+  q = u0;  // the transition
+  L.dzr = take4(q, n * L.ldu);
+  L.drnn = take4(q, n * L.ldrnn);
+  end = end > q ? end : q;
+  o = end;
+  const int crop = round4(SparseCrop::floats(CropDims{d.H, d.W, d.gh, d.gw}, true));
+  L.ring = take4(o, crop > kRingT ? crop : kRingT);
+  L.parts = take4(o, kParts);
   L.total = o;
   return L;
 }
 
-__global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) {
-  extern __shared__ float smem[];
-  constexpr int NR = kDiscRows;
+__global__ void __launch_bounds__(kThreads, 1) disc_bwd_kernel(DiscBwdArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int NR = kTileRows;
   const DiscDims& d = p.d;
   const DiscScratch& s = p.sc;
   const DiscWeights& w = p.w;
@@ -425,13 +473,17 @@ __global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) 
   float *dhp = smem + L.dhp, *dz2 = smem + L.dz2, *dz1 = smem + L.dz1, *dg = smem + L.dg;
   float *dwl = smem + L.dwl, *dst8 = smem + L.dst8, *dza2 = smem + L.dza2;
   float *dza1 = smem + L.dza1, *dzr = smem + L.dzr, *drnn = smem + L.drnn;
+  float *ring = smem + L.ring, *parts = smem + L.parts;
   const CropDims cd{d.H, d.W, d.gh, d.gw};
-  const CropSmem cs(smem + L.crop, cd);
-  float* bw = smem + L.cropb;
+  const Peers pe;
+  const int CL = pe.n, rank = pe.rank;
   const int NW = d.nw, U = d.U, C = d.C, G = d.G, R = d.R, Z = s.Z;
   const int dsf = d.d_spf, drn = d.d_rnn;
-  const int row0 = blockIdx.x * NR;
+  const int row0 = (blockIdx.x / CL) * NR;
   const int rows = min(NR, d.B - row0);
+  // whether this block writes element i of a loop over kThreads-strided
+  // elements that every block computes (turns of kThreads, round robin)
+  auto mine = [&](int i) { return (i / kThreads) % CL == rank; };
 
   for (int i = threadIdx.x; i < NR; i += kThreads) dpc[i] = 0.f;
   for (int i = threadIdx.x; i < NR * NW; i += kThreads) dwc[i] = 0.f;
@@ -441,6 +493,8 @@ __global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) 
     denc[i] = 0.f;
   }
   for (int i = threadIdx.x; i < NR * C; i += kThreads) dcond[i] = 0.f;
+  // every block of the cluster runs before any writes into its shared memory
+  cluster_sync_all();
 
   for (int k = d.S - 1; k >= 0; --k) {
     const size_t slot = (size_t)k * d.B + row0;
@@ -459,7 +513,7 @@ __global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) 
         dlraw = dlogit * pprev;
         const float psamp = in.u[o] < prob ? 1.f : 0.f;
         part = dpres * psamp + dlogit * (lraw + 88.f);
-        sc0[r * Z + s.dlraw] = dlraw;
+        if (mine(r)) sc0[r * Z + s.dlraw] = dlraw;
       }
       dlr[r] = dlraw;
       dpt[r] = part;
@@ -471,17 +525,20 @@ __global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) 
       float v = 0.f;
       if (r < rows) {
         v = dlr[r] * w.sp2w[j] * act_grad_from_output(res0[r * R + d.s1 + j], kElu);
-        sc0[r * Z + s.dsp1 + j] = v;
+        if (mine(i)) sc0[r * Z + s.dsp1 + j] = v;
       }
-      dsp1[i] = v;
+      dsp1[r * L.ldsp + j] = v;
     }
-    for (int i = threadIdx.x; i < rows * dsf; i += kThreads) {
+    for (int i = threadIdx.x + rank * kThreads; i < rows * dsf; i += CL * kThreads) {
       const int r = i / dsf, j = i - r * dsf;
       sc0[r * Z + s.spf + j] = j < U ? res0[r * R + d.h + j] : p.what[(slot + r) * NW + j - U];
     }
     __syncthreads();
-    dense_t<NR>(dsp1, d.SP, d.SP, w.sp1w, dsf,
-                [&](int r, int k2, float v) { dspf[r * dsf + k2] = v; });
+    {
+      const TTerm t[1] = {{dsp1, L.ldsp, d.SP, w.sp1w}};
+      cluster_dense_t<1>(t, dsf, pe, ring, parts,
+                         [&](int r, int k2, float v, float) { pe.put(dspf + r * dsf + k2, v); });
+    }
 
     // the what sample and the head
     for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
@@ -493,28 +550,73 @@ __global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) 
         vl = dwt + p.dwhat_loc[o];
         const float dgsc = dwt * in.epsx[o] + p.dwhat_scale[o];
         vs = dgsc * (1.f - expf(-(p.what_scale[o] - kMinStd)));
-        sc0[r * Z + s.dhp + j] = vl;
-        sc0[r * Z + s.dhp + NW + j] = vs;
+        if (mine(i)) {
+          sc0[r * Z + s.dhp + j] = vl;
+          sc0[r * Z + s.dhp + NW + j] = vs;
+        }
       }
-      dhp[r * 2 * NW + j] = vl;
-      dhp[r * 2 * NW + NW + j] = vs;
+      dhp[r * L.ldhp + j] = vl;
+      dhp[r * L.ldhp + NW + j] = vs;
     }
     __syncthreads();
 
-    // the glimpse encoder, then the crop at the saved where
-    encode_rows_bwd<NR>(dhp, 2 * NW, w.wh, w.we2, w.we1, U, U, G, res0 + d.e1, (size_t)R,
-                        res0 + d.e2, (size_t)R, dz2, dz1, dg, sc0 + s.dz2, (size_t)Z,
-                        sc0 + s.dz1, (size_t)Z, rows);
-    for (int r = 0; r < NR; ++r) {
-      if (r >= rows) {
-        for (int i = threadIdx.x; i < 4; i += kThreads) dwl[r * 4 + i] = 0.f;
-        continue;
-      }
-      float c[4];
-      crop_setup(in.img + (size_t)(row0 + r) * d.HW, p.where + (slot + r) * 4, cd, cs, c);
-      crop_bwd(cd, cs, c, dg + r * G, bw, dwl + r * 4);
+    // the glimpse encoder: dz2 = (dhp Wh^T) elu'(e2), dz1 = (dz2 We2^T)
+    // elu'(e1), dg = dz1 We1^T (row r's to block r mod C)
+    {
+      const TTerm t[1] = {{dhp, L.ldhp, 2 * NW, w.wh}};
+      cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k2, float v, float) {
+        float dz = 0.f;
+        if (r < rows) {
+          dz = v * act_grad_from_output(res0[r * R + d.e2 + k2], kElu);
+          sc0[r * Z + s.dz2 + k2] = dz;
+        }
+        pe.put(dz2 + r * L.ldu + k2, dz);
+      });
     }
-    __syncthreads();
+    {
+      const TTerm t[1] = {{dz2, L.ldu, U, w.we2}};
+      cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k2, float v, float) {
+        float dz = 0.f;
+        if (r < rows) {
+          dz = v * act_grad_from_output(res0[r * R + d.e1 + k2], kElu);
+          sc0[r * Z + s.dz1 + k2] = dz;
+        }
+        pe.put(dz1 + r * L.ldu + k2, dz);
+      });
+    }
+    {
+      const TTerm t[1] = {{dz1, L.ldu, U, w.we1}};
+      cluster_dense_t<1>(t, G, pe, ring, parts, [&](int r, int k2, float v, float) {
+        if (r < rows) pe.put_to(dg + r * L.ldg + k2, r % CL, v);
+      });
+    }
+
+    // the crops of the block's rows r = rank + m C at the saved where, ng
+    // side by side in the ring; their where-gradients go to every block
+    {
+      const int fl = round4(SparseCrop::floats(cd, true));
+      const int nr = rank < rows ? (rows - rank + CL - 1) / CL : 0;
+      int ng = 1;
+      while (ng < nr && ng < kMaxCropGroups && 2 * ng * fl <= L.parts - L.ring) ng *= 2;
+      const int nt = kThreads / ng, g = threadIdx.x / nt, t = threadIdx.x - g * nt;
+      const SparseCrop sc(ring + g * fl, cd, true);
+      for (int m0 = 0; m0 < nr; m0 += ng) {
+        const int m = m0 + g;
+        const bool active = m < nr;
+        const int r = active ? rank + m * CL : 0;
+        const float* frame = in.img + (size_t)(row0 + r) * d.HW;
+        float c[4];
+        sparse_crop_setup(frame, p.where + (slot + r) * 4, cd, sc, c, active, t, nt);
+        sparse_crop_bwd(frame, cd, sc, c, dg + r * L.ldg, dwl + r * 4, active, t, nt);
+        __syncthreads();  // the next rows reuse the scratch
+      }
+      for (int i = threadIdx.x; i < nr * 4; i += kThreads) {
+        const int r = rank + (i >> 2) * CL, j = i & 3;
+        pe.put(dwl + r * 4 + j, dwl[r * 4 + j]);
+      }
+      for (int i = threadIdx.x; i < (NR - rows) * 4; i += kThreads) dwl[rows * 4 + i] = 0.f;
+      cluster_sync_all();  // every row's where-gradient is in every block
+    }
     keep_crop_grad<NR>(dwl, p.crop_keep, slot, rows);
 
     // the where sample and the transform estimator
@@ -527,31 +629,43 @@ __global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) 
         dloc = dwt + p.dwhere_loc[o];
         const float dwscale = dwt * in.epsw[o] + p.dwhere_scale[o];
         dsc = dwscale * (1.f - expf(-(p.where_scale[o] - kMinStd)));
-        sc0[r * Z + s.dstp8 + j] = dloc;
-        sc0[r * Z + s.dstp8 + 4 + j] = dsc;
+        if (mine(i)) {
+          sc0[r * Z + s.dstp8 + j] = dloc;
+          sc0[r * Z + s.dstp8 + 4 + j] = dsc;
+        }
       }
       dst8[r * 8 + j] = dloc;
       dst8[r * 8 + 4 + j] = dsc;
     }
     __syncthreads();
-    dense_t<NR>(dst8, 8, 8, w.s3w, U, [&](int r, int k2, float v) {
-      float dz = 0.f;
-      if (r < rows) {
-        dz = v * act_grad_from_output(res0[r * R + d.a2 + k2], kElu);
-        sc0[r * Z + s.dza2 + k2] = dz;
-      }
-      dza2[r * U + k2] = dz;
-    });
-    dense_t<NR>(dza2, U, U, w.s2w, U, [&](int r, int k2, float v) {
-      float dz = 0.f;
-      if (r < rows) {
-        dz = v * act_grad_from_output(res0[r * R + d.a1 + k2], kElu);
-        sc0[r * Z + s.dza1 + k2] = dz;
-      }
-      dza1[r * U + k2] = dz;
-    });
-    dense_t<NR>(dza1, U, U, w.s1w, U,
-                [&](int r, int k2, float v) { dspf[r * dsf + k2] += v; });
+    {
+      const TTerm t[1] = {{dst8, 8, 8, w.s3w}};
+      cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k2, float v, float) {
+        float dz = 0.f;
+        if (r < rows) {
+          dz = v * act_grad_from_output(res0[r * R + d.a2 + k2], kElu);
+          sc0[r * Z + s.dza2 + k2] = dz;
+        }
+        pe.put(dza2 + r * L.ldu + k2, dz);
+      });
+    }
+    {
+      const TTerm t[1] = {{dza2, L.ldu, U, w.s2w}};
+      cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k2, float v, float) {
+        float dz = 0.f;
+        if (r < rows) {
+          dz = v * act_grad_from_output(res0[r * R + d.a1 + k2], kElu);
+          sc0[r * Z + s.dza1 + k2] = dz;
+        }
+        pe.put(dza1 + r * L.ldu + k2, dz);
+      });
+    }
+    {
+      const TTerm t[1] = {{dza1, L.ldu, U, w.s1w}};
+      cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k2, float v, float) {
+        pe.put(dspf + r * dsf + k2, dspf[r * dsf + k2] + v);
+      });
+    }
 
     // the transition
     for (int i = threadIdx.x; i < NR * U; i += kThreads) {
@@ -560,13 +674,15 @@ __global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) 
       if (r < rows) {
         const float h = res0[r * R + d.h + j];
         v = (dspf[r * dsf + j] + dhc[i]) * (1.f - h * h);
-        sc0[r * Z + s.dzr + j] = v;
-        sc0[r * Z + s.hprev + j] = k > 0 ? res0[r * R - (ptrdiff_t)d.B * R + d.h + j]
-                                         : in.h0b[(size_t)(row0 + r) * U + j];
+        if (mine(i)) {
+          sc0[r * Z + s.dzr + j] = v;
+          sc0[r * Z + s.hprev + j] = k > 0 ? res0[r * R - (ptrdiff_t)d.B * R + d.h + j]
+                                           : in.h0b[(size_t)(row0 + r) * U + j];
+        }
       }
-      dzr[i] = v;
+      dzr[r * L.ldu + j] = v;
     }
-    for (int i = threadIdx.x; i < rows * drn; i += kThreads) {
+    for (int i = threadIdx.x + rank * kThreads; i < rows * drn; i += CL * kThreads) {
       const int r = i / drn, j = i - r * drn;
       const size_t row = (size_t)row0 + r, prev = slot + r - d.B;
       float v;
@@ -584,11 +700,20 @@ __global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) 
       sc0[r * Z + s.rnn_in + j] = v;
     }
     __syncthreads();
-    dense_t<NR>(dzr, U, U, w.rw, drn, [&](int r, int k2, float v) { drnn[r * drn + k2] = v; });
-    dense_t<NR>(dzr, U, U, w.ru, U, [&](int r, int k2, float v) { dhc[r * U + k2] = v; });
+    {
+      const TTerm t[1] = {{dzr, L.ldu, U, w.rw}};
+      cluster_dense_t<1>(t, drn, pe, ring, parts, [&](int r, int k2, float v, float) {
+        pe.put(drnn + r * L.ldrnn + k2, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{dzr, L.ldu, U, w.ru}};
+      cluster_dense_t<1>(t, U, pe, ring, parts,
+                         [&](int r, int k2, float v, float) { pe.put(dhc + r * U + k2, v); });
+    }
     for (int i = threadIdx.x; i < NR * drn; i += kThreads) {
       const int r = i / drn, j = i - r * drn;
-      const float v = drnn[i];
+      const float v = drnn[r * L.ldrnn + j];
       if (j < U) {
         denc[r * U + j] += v;
       } else if (j < U + C) {
@@ -613,18 +738,23 @@ __global__ void __launch_bounds__(kThreads) disc_bwd_rows_kernel(DiscBwdArgs p) 
     if (r < rows) {
       const size_t o = (size_t)(row0 + r) * U + j;
       v = denc[i] * act_grad_from_output(p.fres[(size_t)(row0 + r) * 2 * U + U + j], kElu);
-      dz2e[o] = v;
+      if (mine(i)) dz2e[o] = v;
     }
-    dz2[i] = v;
+    dz2[r * L.ldu + j] = v;
   }
   __syncthreads();
-  dense_t<NR>(dz2, U, U, w.wi2, U, [&](int r, int k2, float v) {
-    if (r < rows)
-      dz1e[(size_t)(row0 + r) * U + k2] =
-          v * act_grad_from_output(p.fres[(size_t)(row0 + r) * 2 * U + k2], kElu);
-  });
-  for (int i = threadIdx.x; i < rows * C; i += kThreads) p.dcond[(size_t)row0 * C + i] = dcond[i];
-  for (int i = threadIdx.x; i < rows * U; i += kThreads) p.dh0[(size_t)row0 * U + i] = dhc[i];
+  {
+    const TTerm t[1] = {{dz2, L.ldu, U, w.wi2}};
+    cluster_dense_t<1>(t, U, pe, ring, parts, [&](int r, int k2, float v, float) {
+      if (r < rows)
+        dz1e[(size_t)(row0 + r) * U + k2] =
+            v * act_grad_from_output(p.fres[(size_t)(row0 + r) * 2 * U + k2], kElu);
+    });
+  }
+  for (int i = threadIdx.x + rank * kThreads; i < rows * C; i += CL * kThreads)
+    p.dcond[(size_t)row0 * C + i] = dcond[i];
+  for (int i = threadIdx.x + rank * kThreads; i < rows * U; i += CL * kThreads)
+    p.dh0[(size_t)row0 * U + i] = dhc[i];
 }
 
 }  // namespace sqair
@@ -686,9 +816,13 @@ extern "C" int sqair_fused_disc_scratch_floats(const int* dims) {
 // the outputs d cond, d h0 and the 23 weights' gradients (in their order);
 // then the scratch, as sqair_fused_disc_scratch_floats sizes it, and a
 // factor [S, B] on each row-slot's where-gradient through the crop, or
-// null (none).  dims is the forward's.  Launches phase A and phase B
-// (twice).
-extern "C" int sqair_fused_disc_bwd(void* const* ptrs, const int* dims, void* stream) {
+// null (none).  dims is the forward's.  `geom` is the host's launch
+// geometry of phase A (ops/fused_cells.py disc_bwd_geometry): tile rows,
+// cluster size and blocks; the launch is refused unless they match this
+// file's tiles, or the tile's state (disc_bwd_smem) does not fit a block's
+// 227 KB.  Launches phase A and phase B (twice).
+extern "C" int sqair_fused_disc_bwd(void* const* ptrs, const int* dims, const int* geom,
+                                    void* stream) {
   using namespace sqair;
   DiscBwdArgs p{};
   if (!read_disc_dims(dims, p.d)) return (int)cudaErrorInvalidValue;
@@ -710,11 +844,16 @@ extern "C" int sqair_fused_disc_bwd(void* const* ptrs, const int* dims, void* st
   p.scratch = o[2 + kDiscWeights];
   p.crop_keep = o[3 + kDiscWeights];
 
+  const int cluster = geom[1];
+  const int tiles = cdiv(p.d.B, kTileRows);
   const size_t smem = sizeof(float) * (size_t)disc_bwd_smem(p.d).total;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(disc_bwd_rows_kernel, smem);
+  if (geom[0] != kTileRows || cluster < 1 || cluster > kMaxCluster ||
+      geom[2] != tiles * cluster || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(disc_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  disc_bwd_rows_kernel<<<(p.d.B + kDiscRows - 1) / kDiscRows, kThreads, smem, s>>>(p);
+  err = launch_cluster(disc_bwd_kernel, p, tiles * cluster, cluster, smem, s);
+  if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -27,12 +27,17 @@
 // 67 TFLOP/s off the tensor cores, against 1.1 MB of weights and 1.6 MB of
 // frames (0.8 us at 3.35 TB/s); the backward about twice that.
 //
-// The forward keeps its first design: one block owns kRows rows, as the
-// first fused_mlp.cu did; it crops its rows one at a time with the
-// interpolation matrices in shared memory, keeps the glimpses and the
-// layers' activations there, and streams the weights through L2 (20 blocks
-// at 160 rows: right, not fast).  The crop products are plain f32 FMAs (the
-// JAX package runs them at Precision.HIGHEST; no TF32 here either).
+// The forward was redesigned for Hopper with the bits of its first design,
+// in which one block owned kRows = 8 rows (20 blocks at 160 rows), cropped
+// them one at a time with the dense interpolation matrices and streamed
+// every weight through L2 per block, each thread walking K for its columns
+// (acc_global, acc_smem): on an H100, 57.5% of its 0.137 ms went to the
+// products and 38.2% to the crops (clock64 a block).  It now runs clusters
+// of 4 blocks over tiles of 8 rows (glimpse_fwd_kernel, its own note
+// below), every product a cluster_dense, and crops at the two non-zeros of
+// each interpolation row, the rows spread over the blocks.  The crop
+// products are plain f32 FMAs (the JAX package runs them at
+// Precision.HIGHEST; no TF32 here either).
 //
 // The backward is two launches, as fused_bwd.cu, and was redesigned for
 // Hopper.  Phase A (glimpse_bwd_kernel, its own note below) chains the row
@@ -49,8 +54,8 @@
 // and crops at the two non-zeros of each interpolation row, two rows of a
 // block side by side.
 //
-// The crops and the encoder's layers are device code shared with
-// fused_prop.cu and fused_disc.cu (glimpse_common.cuh).
+// The crops and the glimpse encoder over a cluster are device code shared
+// with fused_prop.cu and fused_disc.cu (glimpse_common.cuh).
 
 #include "cluster_dense.cuh"
 #include "glimpse_common.cuh"
@@ -76,95 +81,116 @@ struct GlimpseFwdArgs {
   float *g0, *h1, *h2, *mask, *mhid;  // saved for the backward, or null
 };
 
-__global__ void __launch_bounds__(kThreads) glimpse_fwd_kernel(GlimpseFwdArgs p) {
-  extern __shared__ float smem[];
+// A thread block cluster of C blocks (ops/fused_glimpse.py
+// glimpse_fwd_geometry: C = 4 at 160 rows, 80 blocks, one an SM) shares a
+// tile of kTileRows = 8 rows.  Every block holds the tile's state in its
+// shared memory (fwd_smem); each product (the mask MLP's two, the
+// encoder's two and the head) is a cluster_dense, whose owners write the
+// global outputs once and what every block reads next into every block
+// (`Peers::put`).  The mask input's rows are staged into every block first,
+// so that Wm1 is a product like the others.  The crops go row r to block r
+// mod C at the two non-zeros of each interpolation row, each glimpse row
+// put into every block before the mask multiply (glimpse_encode_fwd,
+// shared with the propagation forward).
+struct FwdSmem {
+  int ldi, ldm, ldg, ld1, ld2;  // row strides (multiples of 4)
+  int mask, gbuf, mis, mh, e1, e2, ring, parts, total;
+};
+
+__host__ __device__ inline FwdSmem fwd_smem(const GlimpseDims& d, bool masked) {
+  FwdSmem L;
+  const int n = kTileRows, G = d.gh * d.gw;
+  L.ldi = round4(d.d_mi);
+  L.ldm = round4(d.d_m);
+  L.ldg = round4(G);
+  L.ld1 = round4(d.d1);
+  L.ld2 = round4(d.d2);
+  int o = 0;
+  L.mask = take(o, masked ? n * L.ldg : 0);
+  L.gbuf = take(o, n * L.ldg);
+  // the mask MLP's rows, then (once the mask is made) the encoder's
+  const int u0 = o;
+  L.mis = take(o, masked ? n * L.ldi : 0);
+  L.mh = take(o, masked ? n * L.ldm : 0);
+  int end = o;
+  o = u0;
+  L.e1 = take(o, n * L.ld1);
+  L.e2 = take(o, n * L.ld2);
+  o = o > end ? o : end;
+  // the products' ring, which the crops borrow (one group's scratch at least)
+  const int crop = round4(SparseCrop::floats(CropDims{d.H, d.W, d.gh, d.gw}, false));
+  L.ring = take(o, crop > kRingT ? crop : kRingT);
+  L.parts = take(o, kParts);
+  L.total = o;
+  return L;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) glimpse_fwd_kernel(GlimpseFwdArgs p) {
+  extern __shared__ __align__(16) float smem[];
   const GlimpseDims& d = p.d;
-  const int G = d.gh * d.gw;
+  const int G = d.gh * d.gw, D = 2 * d.n_what;
   const bool masked = p.mi != nullptr;
-  float* gs = smem;                     // kRows x G: the (masked) glimpses
-  float* mh = gs + kRows * G;           // kRows x d_m
-  float* h1s = mh + kRows * d.d_m;      // kRows x d1
-  float* h2s = h1s + kRows * d.d1;      // kRows x d2
-  float* stage = h2s + kRows * d.d2;    // kRows x kChunk
-  const CropDims cd = crop_dims(d);
-  const CropSmem cs(stage + kRows * kChunk, cd);
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, d.n - row0);
+  const FwdSmem L = fwd_smem(d, masked);
+  float *mask = masked ? smem + L.mask : nullptr, *gbuf = smem + L.gbuf, *mis = smem + L.mis;
+  float *mh = smem + L.mh, *e1 = smem + L.e1, *e2 = smem + L.e2;
+  float *ring = smem + L.ring, *parts = smem + L.parts;
+  const Peers pe;
+  const int row0 = (blockIdx.x / pe.n) * kTileRows;
+  const int rows = min(kTileRows, d.n - row0);
 
-  // the crop, one row at a time
-  for (int r = 0; r < kRows; ++r) {
-    if (r >= rows) {
-      for (int i = threadIdx.x; i < G; i += kThreads) gs[r * G + i] = 0.f;
-      continue;
-    }
-    const int b = row0 + r;
-    float c[4];
-    crop_setup(p.img + (size_t)b * d.H * d.W, p.wl + (size_t)b * 4, cd, cs, c);
-    crop_glimpse(cd, cs, gs + r * G, p.g0 == nullptr ? nullptr : p.g0 + (size_t)b * G);
-  }
-  __syncthreads();  // the zero rows of a ragged block are written too
-
-  Acc acc;
   if (masked) {
-    zero(acc);
-    acc_global(acc, p.mi + (size_t)row0 * d.d_mi, d.d_mi, rows, d.d_mi, p.wm1, d.d_m, d.d_m,
-               stage);
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int j = threadIdx.x + c * kThreads;
-      if (j < d.d_m) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float v = apply_act(acc[c][r] + p.bm1[j], kElu);
-          mh[r * d.d_m + j] = v;
-          if (r < rows && p.mhid != nullptr) p.mhid[(size_t)(row0 + r) * d.d_m + j] = v;
-        }
-      }
+    // mhid = elu(mi Wm1 + bm1), mask = sigmoid(mhid Wm2 + bm2)
+    for (int i = threadIdx.x; i < kTileRows * d.d_mi; i += kThreads) {
+      const int r = i / d.d_mi, k = i - r * d.d_mi;
+      mis[r * L.ldi + k] = r < rows ? __ldg(&p.mi[(size_t)(row0 + r) * d.d_mi + k]) : 0.f;
     }
     __syncthreads();
-    zero(acc);
-    acc_smem(acc, mh, d.d_m, d.d_m, p.wm2, G, G);
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int j = threadIdx.x + c * kThreads;
-      if (j < G) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float m = apply_act(acc[c][r] + p.bm2[j], kSigmoid);
-          gs[r * G + j] *= m;  // column j of every row is this thread's alone
-          if (r < rows && p.mask != nullptr) p.mask[(size_t)(row0 + r) * G + j] = m;
-        }
-      }
+    {
+      const TTerm t[1] = {{mis, L.ldi, d.d_mi, p.wm1}};
+      cluster_dense<1>(t, d.d_m, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = apply_act(z + p.bm1[j], kElu);
+        if (r < rows && p.mhid != nullptr) p.mhid[(size_t)(row0 + r) * d.d_m + j] = v;
+        pe.put(mh + r * L.ldm + j, v);
+      });
     }
-    __syncthreads();
+    const TTerm t[1] = {{mh, L.ldm, d.d_m, p.wm2}};
+    cluster_dense<1>(t, G, pe, ring, parts, [&](int r, int j, float z, float) {
+      const float m = apply_act(z + p.bm2[j], kSigmoid);
+      if (r < rows && p.mask != nullptr) p.mask[(size_t)(row0 + r) * G + j] = m;
+      pe.put(mask + r * L.ldg + j, m);
+    });
+  } else {
+    cluster_sync_all();  // every block runs before a peer's crop writes into it
   }
 
-  // encoder: two elu layers, activations in shared memory
-  encode_rows<kRows>(gs, G, p.we1, p.be1, d.d1, p.we2, p.be2, d.d2, h1s, h2s,
-                     p.h1 == nullptr ? nullptr : p.h1 + (size_t)row0 * d.d1, d.d1,
-                     p.h2 == nullptr ? nullptr : p.h2 + (size_t)row0 * d.d2, d.d2, rows);
-
-  // the Gaussian head: loc, softplus(z) + 1e-2 with the JAX package's softplus
-  const int D = 2 * d.n_what;
-  zero(acc);
-  acc_smem(acc, h2s, d.d2, d.d2, p.wh, D, D);
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int j = threadIdx.x + c * kThreads;
-    if (j < D) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r >= rows) continue;
-        const float z = acc[c][r] + p.bh[j];
+  // the crops, the mask multiply, the encoder and the Gaussian head: loc,
+  // softplus(z) + 1e-2 with the JAX package's softplus
+  glimpse_encode_fwd(
+      p.img, crop_dims(d), p.wl + (size_t)row0 * 4, 4, pe, row0, rows, gbuf, L.ldg, mask, p.we1,
+      e1, d.d1, L.ld1, p.we2, e2, d.d2, L.ld2, p.wh, D, ring, L.parts - L.ring, parts,
+      [&](int r, int i, float v) {
+        if (p.g0 != nullptr) p.g0[(size_t)(row0 + r) * G + i] = v;
+      },
+      [&](int r, int j, float z) {
+        const float v = apply_act(z + p.be1[j], kElu);
+        if (r < rows && p.h1 != nullptr) p.h1[(size_t)(row0 + r) * d.d1 + j] = v;
+        pe.put(e1 + r * L.ld1 + j, v);
+      },
+      [&](int r, int j, float z) {
+        const float v = apply_act(z + p.be2[j], kElu);
+        if (r < rows && p.h2 != nullptr) p.h2[(size_t)(row0 + r) * d.d2 + j] = v;
+        pe.put(e2 + r * L.ld2 + j, v);
+      },
+      [&](int r, int j, float z) {
+        if (r >= rows) return;
+        const float v = z + p.bh[j];
         const size_t row = (size_t)(row0 + r);
         if (j < d.n_what) {
-          p.loc[row * d.n_what + j] = z;
+          p.loc[row * d.n_what + j] = v;
         } else {
-          p.scale[row * d.n_what + j - d.n_what] = softplus(z) + kMinStd;
+          p.scale[row * d.n_what + j - d.n_what] = softplus(v) + kMinStd;
         }
-      }
-    }
-  }
+      });
 }
 
 // --------------------------------------------------- backward, phase A
@@ -338,11 +364,6 @@ __global__ void __launch_bounds__(kThreads, 1) glimpse_bwd_kernel(GlimpseBwdArgs
   }
 }
 
-size_t fwd_smem(const GlimpseDims& d) {
-  return sizeof(float) * ((size_t)kRows * (d.gh * d.gw + d.d_m + d.d1 + d.d2 + kChunk) +
-                          CropSmem::floats(crop_dims(d)));
-}
-
 bool read_dims(const int* dims, GlimpseDims& d) {
   d = GlimpseDims{dims[0], dims[1], dims[2], dims[3], dims[4],
                   dims[5], dims[6], dims[7], dims[8], dims[9]};
@@ -360,11 +381,15 @@ bool read_dims(const int* dims, GlimpseDims& d) {
 // unmasked), We1 [G, d1], be1, We2 [d1, d2], be2, Wh [d2, 2 n_what], bh, then
 // the outputs loc and scale [n, n_what] and the saved g0 [n, gh, gw], h1
 // [n, d1], h2 [n, d2], mask [n, G] and mhid [n, d_m] (each may be null).
-// dims is {n, H, W, gh, gw, d_mi, d_m, d1, d2, n_what}.  All f32,
-// contiguous and on the device; ptrs and dims are host arrays.  Launches on
-// `stream`, does not synchronise, allocates nothing, and returns the CUDA
-// error code of the launch (0 on success).
-extern "C" int sqair_fused_glimpse(void* const* ptrs, const int* dims, void* stream) {
+// dims is {n, H, W, gh, gw, d_mi, d_m, d1, d2, n_what}.  `geom` is the
+// host's launch geometry (ops/fused_glimpse.py glimpse_fwd_geometry): tile
+// rows, cluster size and blocks; the launch is refused unless they match
+// this file's tiles, or the tile's state (fwd_smem) does not fit a block's
+// 227 KB.  All f32, contiguous and on the device; ptrs, dims and geom are
+// host arrays.  Launches on `stream`, does not synchronise, allocates
+// nothing, and returns the CUDA error code of the launch (0 on success).
+extern "C" int sqair_fused_glimpse(void* const* ptrs, const int* dims, const int* geom,
+                                   void* stream) {
   using namespace sqair;
   GlimpseDims d;
   if (!read_dims(dims, d)) return (int)cudaErrorInvalidValue;
@@ -377,16 +402,23 @@ extern "C" int sqair_fused_glimpse(void* const* ptrs, const int* dims, void* str
   float* const* o = reinterpret_cast<float* const*>(ptrs + 13);
   p.loc = o[0]; p.scale = o[1];
   p.g0 = o[2]; p.h1 = o[3]; p.h2 = o[4]; p.mask = o[5]; p.mhid = o[6];
-  if (p.mi == nullptr) {
+  const bool masked = p.mi != nullptr;
+  if (!masked) {
     p.d.d_mi = p.d.d_m = 0;
   } else if (d.d_mi < 1 || d.d_m < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = fwd_smem(p.d);
+  const int cluster = geom[1];
+  const int tiles = cdiv(d.n, kTileRows);
+  const size_t smem = sizeof(float) * (size_t)fwd_smem(p.d, masked).total;
+  if (geom[0] != kTileRows || cluster < 1 || cluster > kMaxCluster ||
+      geom[2] != tiles * cluster || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(glimpse_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (d.n + kRows - 1) / kRows;
-  glimpse_fwd_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  err = launch_cluster(glimpse_fwd_kernel, p, tiles * cluster, cluster, smem,
+                       static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -439,19 +471,7 @@ extern "C" int sqair_fused_glimpse_bwd(void* const* ptrs, const int* dims, const
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(glimpse_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, glimpse_bwd_kernel, p);
+  err = launch_cluster(glimpse_bwd_kernel, p, tiles * cluster, cluster, smem, s);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

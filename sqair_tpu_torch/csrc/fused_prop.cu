@@ -201,7 +201,6 @@ struct PropFwdArgs {
 // of each interpolation row (sparse_crop_*), each glimpse row put into
 // every block before the mask multiply and the encoder.  A global write of
 // a value every block computes is made by one block.
-__host__ __device__ inline int take4(int& off, int n) { return take(off, round4(n)); }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 // Row strides of the forward's buffers (multiples of 4: the products read
@@ -281,10 +280,10 @@ __host__ __device__ inline FwdSmem fwd_smem(const PropDims& d) {
 }
 
 // The glimpse of each row of the tile at its where logits wl + r * ldwl
-// (shared memory), masked and encoded: e1, e2 (and their residual fields
-// o1, o2) and the head's pre-activation hp [2 nw].  Row r is cropped by
-// block r mod C and put into every block's gbuf; rows past `rows` get a
-// zero glimpse.  Every thread of every block calls it.
+// (shared memory), masked and encoded (glimpse_encode_fwd): e1, e2 (and
+// their residual fields o1, o2) and the head's pre-activation hp [2 nw].
+// Row r is cropped by block r mod C and put into every block's gbuf; rows
+// past `rows` get a zero glimpse.  Every thread of every block calls it.
 __device__ __forceinline__ void prop_glimpse_fwd(const PropFwdArgs& p, const Peers& pe,
                                                  const FwdSmem& L, int row0, int rows,
                                                  const float* wl, int ldwl, float* smem,
@@ -292,58 +291,23 @@ __device__ __forceinline__ void prop_glimpse_fwd(const PropFwdArgs& p, const Pee
   const PropDims& d = p.d;
   const PropWeights& w = p.w;
   const FwdLds ld = fwd_lds(d);
-  const CropDims cd{d.H, d.W, d.gh, d.gw};
-  const int G = d.G, U = d.U, NW = d.nw, R = d.R, C = pe.n, rank = pe.rank;
-  float *gbuf = smem + L.gbuf, *mask = smem + L.mask, *e1 = smem + L.e1, *e2 = smem + L.e2;
-  float *hp = smem + L.hp, *ring = smem + L.ring;
-  const int fl = round4(SparseCrop::floats(cd, false));
-  const int nr = rank < rows ? (rows - rank + C - 1) / C : 0;
-  int ng = 1;
-  while (ng < nr && ng < kMaxCropGroups && 2 * ng * fl <= L.parts - L.ring) ng *= 2;
-  const int nt = kThreads / ng, g = threadIdx.x / nt, t = threadIdx.x - g * nt;
-  const SparseCrop sc(ring + g * fl, cd, false);
-  for (int m0 = 0; m0 < nr; m0 += ng) {
-    const int m = m0 + g;
-    const bool active = m < nr;
-    const int r = active ? rank + m * C : 0;
-    float c[4];
-    sparse_crop_setup(p.in.img + (size_t)(row0 + r) * d.H * d.W, wl + r * ldwl, cd, sc, c,
-                      active, t, nt);
-    sparse_crop_glimpse(cd, sc, active, t, nt,
-                        [&](int i, float v) { pe.put(gbuf + r * ld.g + i, v); });
-    __syncthreads();  // the next rows reuse the scratch
-  }
-  for (int i = threadIdx.x; i < (kTileRows - rows) * G; i += kThreads) {
-    const int r = rows + i / G, j = i - (r - rows) * G;
-    gbuf[r * ld.g + j] = 0.f;
-  }
-  cluster_sync_all();  // every row's glimpse is in every block
-  for (int i = threadIdx.x; i < kTileRows * G; i += kThreads) {
-    const int r = i / G, j = i - r * G;
-    gbuf[r * ld.g + j] *= mask[r * ld.g + j];
-  }
-  __syncthreads();
-  // the encoder: two elu layers, then the head's pre-activation
-  {
-    const TTerm t1[1] = {{gbuf, ld.g, G, w.we1}};
-    cluster_dense<1>(t1, U, pe, ring, smem + L.parts, [&](int r, int j, float z, float) {
-      const float v = apply_act(z + w.be1[j], kElu);
-      if (r < rows) res0[r * R + o1 + j] = v;
-      pe.put(e1 + r * ld.u + j, v);
-    });
-  }
-  {
-    const TTerm t2[1] = {{e1, ld.u, U, w.we2}};
-    cluster_dense<1>(t2, U, pe, ring, smem + L.parts, [&](int r, int j, float z, float) {
-      const float v = apply_act(z + w.be2[j], kElu);
-      if (r < rows) res0[r * R + o2 + j] = v;
-      pe.put(e2 + r * ld.u + j, v);
-    });
-  }
-  const TTerm th[1] = {{e2, ld.u, U, w.wh}};
-  cluster_dense<1>(th, 2 * NW, pe, ring, smem + L.parts, [&](int r, int j, float z, float) {
-    pe.put(hp + r * ld.hp + j, z + w.bh[j]);
-  });
+  const int R = d.R;
+  float *e1 = smem + L.e1, *e2 = smem + L.e2, *hp = smem + L.hp;
+  glimpse_encode_fwd(
+      p.in.img, CropDims{d.H, d.W, d.gh, d.gw}, wl, ldwl, pe, row0, rows, smem + L.gbuf, ld.g,
+      smem + L.mask, w.we1, e1, d.U, ld.u, w.we2, e2, d.U, ld.u, w.wh, 2 * d.nw, smem + L.ring,
+      L.parts - L.ring, smem + L.parts, [](int, int, float) {},
+      [&](int r, int j, float z) {
+        const float v = apply_act(z + w.be1[j], kElu);
+        if (r < rows) res0[r * R + o1 + j] = v;
+        pe.put(e1 + r * ld.u + j, v);
+      },
+      [&](int r, int j, float z) {
+        const float v = apply_act(z + w.be2[j], kElu);
+        if (r < rows) res0[r * R + o2 + j] = v;
+        pe.put(e2 + r * ld.u + j, v);
+      },
+      [&](int r, int j, float z) { pe.put(hp + r * ld.hp + j, z + w.bh[j]); });
 }
 
 __global__ void __launch_bounds__(kThreads, 1) prop_fwd_kernel(PropFwdArgs p) {
@@ -771,7 +735,7 @@ __device__ __forceinline__ void prop_glimpse_bwd(const PropBwdArgs& p, const Pee
   const int G = d.G, R = d.R, Z = p.sc.Z, U = d.U;
   const float* res0 = p.res + slot * R;
   float* sc0 = p.scratch + slot * Z;
-  // encode_rows_bwd: dz2 = (dhp Wh^T) elu'(h2), dz1 = (dz2 We2^T) elu'(h1), dg = dz1 We1^T
+  // the encoder's backward: dz2 = (dhp Wh^T) elu'(h2), dz1 = (dz2 We2^T) elu'(h1), dg = dz1 We1^T
   const float* h1 = res0 + o_e1;
   const float* h2 = res0 + o_e2;
   cluster_dense_t(t_head, L_head, pe, ring, parts, [&](int r, int k, float v, float) {
@@ -1320,19 +1284,8 @@ extern "C" int sqair_fused_prop(void* const* ptrs, const int* dims, const int* g
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(prop_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, prop_fwd_kernel, p);
+  err = launch_cluster(prop_fwd_kernel, p, tiles * cluster, cluster, smem,
+                       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1429,19 +1382,7 @@ extern "C" int sqair_fused_prop_bwd(void* const* ptrs, const int* dims, const in
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(prop_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, prop_bwd_kernel, p);
+  err = launch_cluster(prop_bwd_kernel, p, tiles * cluster, cluster, smem, s);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -2,11 +2,14 @@
 // (fused_glimpse.cu, fused_prop.cu, fused_disc.cu): the bilinear crop at a
 // where in logit space and its where-gradient, one row at a time with the
 // frame and the interpolation matrices in shared memory (crop_setup,
-// crop_glimpse, crop_bwd) or at the two non-zeros of each interpolation row
-// (sparse_crop_*, with the same bits: the glimpse encoder's backward and
-// the propagation forward), and dense layers over a block's NR rows held in
-// shared memory (the glimpse mask, the encoder, and the transposed products
-// of their backward).
+// crop_glimpse, crop_bwd: the discovery forward and the propagation
+// backward) or at the two non-zeros of each interpolation row
+// (sparse_crop_*, with the same bits: the glimpse encoder's forward and
+// backward, the propagation forward, the discovery backward), a tile's
+// glimpses masked and encoded over a thread block cluster
+// (glimpse_encode_fwd: the glimpse encoder's forward and the propagation
+// forward), and dense layers over a block's NR rows held in shared memory
+// (the discovery forward's).
 //
 //   s = sigmoid(wl[:2]), t = tanh(wl[2:]); s_c = max(s, 1e-4)
 //   u_i = (s_c t_i + t + 1)(src - 1) / 2, t_i = i 2/(dst - 1) - 1
@@ -24,6 +27,7 @@
 #pragma once
 
 #include "bwd_common.cuh"
+#include "cluster_dense.cuh"
 
 namespace sqair {
 
@@ -413,6 +417,73 @@ __device__ __forceinline__ void sparse_crop_bwd(const float* __restrict__ frame,
   }
 }
 
+// ------------------------------------------ a tile's glimpses over a cluster
+// The glimpse of each of a tile's kTileRows rows over a thread block
+// cluster, masked and encoded (the glimpse encoder's forward, fused_glimpse.cu,
+// and each glimpse of the propagation forward, fused_prop.cu).  Row r <
+// rows is cropped at its where logits wl + r * ldwl (any memory) by block
+// r mod C, a block's rows side by side in groups of threads at the two
+// non-zeros of each interpolation row, with the crop's scratch in `ring`
+// (`room` floats); each value is put into every block's gbuf [8][ldg] and
+// handed to save(r, i, v) in the cropping block; rows past `rows` are zero.
+// Once every row is in every block, gbuf is multiplied by mask [8][ldg]
+// (unless null) and the encoder's two layers and the head's pre-activation
+// follow, each a cluster_dense: epi1(r, j, z), epi2(r, j, z) and epih(r, j,
+// z) receive the pre-bias sums of e1 = gbuf We1, e2 = e1 We2 (which the
+// first two write into every block's e1 [8][ld1] and e2 [8][ld2]) and e2
+// Wh.  Every thread of every block calls it.
+template <typename Save, typename Epi1, typename Epi2, typename EpiH>
+__device__ __forceinline__ void glimpse_encode_fwd(
+    const float* __restrict__ img, const CropDims& cd, const float* wl, int ldwl, const Peers& pe,
+    int row0, int rows, float* gbuf, int ldg, const float* mask, const float* __restrict__ we1,
+    float* e1, int d1, int ld1, const float* __restrict__ we2, float* e2, int d2, int ld2,
+    const float* __restrict__ wh, int D, float* ring, int room, float* parts, Save save,
+    Epi1 epi1, Epi2 epi2, EpiH epih) {
+  const int G = cd.gh * cd.gw, C = pe.n, rank = pe.rank;
+  const int fl = round4(SparseCrop::floats(cd, false));
+  const int nr = rank < rows ? (rows - rank + C - 1) / C : 0;
+  int ng = 1;
+  while (ng < nr && ng < kMaxCropGroups && 2 * ng * fl <= room) ng *= 2;
+  const int nt = kThreads / ng, g = threadIdx.x / nt, t = threadIdx.x - g * nt;
+  const SparseCrop sc(ring + g * fl, cd, false);
+  for (int m0 = 0; m0 < nr; m0 += ng) {
+    const int m = m0 + g;
+    const bool active = m < nr;
+    const int r = active ? rank + m * C : 0;
+    float c[4];
+    sparse_crop_setup(img + (size_t)(row0 + r) * cd.H * cd.W, wl + r * ldwl, cd, sc, c, active,
+                      t, nt);
+    sparse_crop_glimpse(cd, sc, active, t, nt, [&](int i, float v) {
+      pe.put(gbuf + r * ldg + i, v);
+      save(r, i, v);
+    });
+    __syncthreads();  // the next rows reuse the scratch
+  }
+  for (int i = threadIdx.x; i < (kTileRows - rows) * G; i += kThreads) {
+    const int r = rows + i / G, j = i - (r - rows) * G;
+    gbuf[r * ldg + j] = 0.f;
+  }
+  cluster_sync_all();  // every row's glimpse is in every block
+  if (mask != nullptr) {
+    for (int i = threadIdx.x; i < kTileRows * G; i += kThreads) {
+      const int r = i / G, j = i - r * G;
+      gbuf[r * ldg + j] *= mask[r * ldg + j];
+    }
+    __syncthreads();
+  }
+  // the encoder: two elu layers, then the head's pre-activation
+  {
+    const TTerm t1[1] = {{gbuf, ldg, G, we1}};
+    cluster_dense<1>(t1, d1, pe, ring, parts, [&](int r, int j, float z, float) { epi1(r, j, z); });
+  }
+  {
+    const TTerm t2[1] = {{e1, ld1, d1, we2}};
+    cluster_dense<1>(t2, d2, pe, ring, parts, [&](int r, int j, float z, float) { epi2(r, j, z); });
+  }
+  const TTerm th[1] = {{e2, ld2, d2, wh}};
+  cluster_dense<1>(th, D, pe, ring, parts, [&](int r, int j, float z, float) { epih(r, j, z); });
+}
+
 // ------------------------------------------------ dense layers over NR rows
 // epi(r, j, a[r] W[:, j]) for the block's NR rows of `a` (shared memory, row
 // stride lda, K columns) and the D columns of the row-major W [K, D].  The
@@ -459,51 +530,6 @@ __device__ __forceinline__ void dense2(const float* a, int lda, int K,
   __syncthreads();
 }
 
-// epi(r, k, dz[r] W[k, :]) for the rows of dz (shared memory, row stride
-// ldz, J columns) and the n_cols rows of the row-major W [n_cols, J]: the
-// product with W's transpose.  Synchronises after the epilogues.
-template <int NR, typename Epi>
-__device__ __forceinline__ void dense_t(const float* dz, int ldz, int J,
-                                        const float* __restrict__ w, int n_cols, Epi epi) {
-  float acc[kMaxCols][NR];
-  zero(acc);
-  acc_smem_t(acc, dz, ldz, J, w, J, 0, n_cols);
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int k = threadIdx.x + c * kThreads;
-    if (k < n_cols) {
-#pragma unroll
-      for (int r = 0; r < NR; ++r) epi(r, k, acc[c][r]);
-    }
-  }
-  __syncthreads();
-}
-
-// epi(r, k, dz[r] W[k, :], dz2[r] W2[k, :]): two transposed products, for
-// an epilogue that adds them in the plain version's order.
-template <int NR, typename Epi>
-__device__ __forceinline__ void dense_t2(const float* dz, int ldz, int J,
-                                         const float* __restrict__ w, const float* dz2,
-                                         int ldz2, int J2, const float* __restrict__ w2,
-                                         int n_cols, Epi epi) {
-  float acc[kMaxCols][NR], acc2[kMaxCols][NR];
-  zero(acc);
-  zero(acc2);
-  acc_smem_t(acc, dz, ldz, J, w, J, 0, n_cols);
-  acc_smem_t(acc2, dz2, ldz2, J2, w2, J2, 0, n_cols);
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int k = threadIdx.x + c * kThreads;
-    if (k < n_cols) {
-#pragma unroll
-      for (int r = 0; r < NR; ++r) epi(r, k, acc[c][r], acc2[c][r]);
-    }
-  }
-  __syncthreads();
-}
-
 // The glimpse encoder over NR rows: h1 = elu(g We1 + be1) [d1],
 // h2 = elu(h1 We2 + be2) [d2] into shared memory, and into the global rows
 // h1_out + r * ld1, h2_out + r * ld2 (each unless null) for r < rows.
@@ -524,43 +550,6 @@ __device__ __forceinline__ void encode_rows(const float* g, int G, const float* 
     h2[r * d2 + j] = v;
     if (h2_out != nullptr && r < rows) h2_out[r * ld2 + j] = v;
   });
-}
-
-// The encoder's and head's backward over NR rows, from the head's
-// pre-activation gradient dhp [2 n_what] (shared memory): dz2 = (dhp Wh^T)
-// elu'(h2), dz1 = (dz2 We2^T) elu'(h1), dg = dz1 We1^T [G], each into
-// shared memory; dz2 and dz1 also into the global rows dz2_out + r * ld2,
-// dz1_out + r * ld1 for r < rows (0 in shared memory past them).  h1 and h2
-// are the saved activations' global rows (row strides ldh1, ldh2).
-template <int NR>
-__device__ __forceinline__ void encode_rows_bwd(const float* dhp, int D,
-                                                const float* __restrict__ wh,
-                                                const float* __restrict__ we2,
-                                                const float* __restrict__ we1, int d1, int d2,
-                                                int G, const float* __restrict__ h1,
-                                                size_t ldh1, const float* __restrict__ h2,
-                                                size_t ldh2,
-                                                float* dz2, float* dz1, float* dg,
-                                                float* __restrict__ dz2_out, size_t ld2,
-                                                float* __restrict__ dz1_out, size_t ld1,
-                                                int rows) {
-  dense_t<NR>(dhp, D, D, wh, d2, [&](int r, int k, float v) {
-    float dz = 0.f;
-    if (r < rows) {
-      dz = v * act_grad_from_output(h2[r * ldh2 + k], kElu);
-      dz2_out[r * ld2 + k] = dz;
-    }
-    dz2[r * d2 + k] = dz;
-  });
-  dense_t<NR>(dz2, d2, d2, we2, d1, [&](int r, int k, float v) {
-    float dz = 0.f;
-    if (r < rows) {
-      dz = v * act_grad_from_output(h1[r * ldh1 + k], kElu);
-      dz1_out[r * ld1 + k] = dz;
-    }
-    dz1[r * d1 + k] = dz;
-  });
-  dense_t<NR>(dz1, d1, d1, we1, G, [&](int r, int k, float v) { dg[r * G + k] = v; });
 }
 
 }  // namespace sqair

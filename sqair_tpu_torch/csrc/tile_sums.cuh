@@ -1,8 +1,8 @@
 // The round of the kernels redesigned for Hopper that tile their rows by 8
 // and split K over the warps: the MLP forward (fused_mlp.cu), the two
 // recurrent cells' forwards (fused_rnn.cu) and, through cluster_dense.cuh
-// (with the transposed unit of W's rows), the MLP and propagation
-// backwards.
+// (with the transposed unit of W's rows for the backwards), its cluster
+// kernels.
 //
 // A block's 8 warps each take one unit a round: one 32-row block of K
 // (kBlockK) for one 32-column chunk of the outputs, over the tile's 8 rows.

@@ -871,6 +871,20 @@ def _disc_fwd_cuda(img, imgf, cond, h0b, eps_w, eps_x, u, weights, dims):
     return tuple(outs)
 
 
+def disc_bwd_geometry(dims):
+    """The launch of the discovery backward's phase A (csrc/fused_disc.cu
+    disc_bwd_kernel), as the host picks it for the kernel dims [B, S, H, W,
+    gh, gw, n_what, U, SP, C].
+
+    A cluster of ``cluster`` blocks shares a tile of ``tile_rows`` rows,
+    every block holding the tile's backward state in its shared memory (the
+    kernel's disc_bwd_smem, which the C entry works out and holds to 227
+    KB): ``fused.tile_state_geometry`` of the B rows.  Phase B, the
+    weight-gradient reducer, plans its own launches.
+    """
+    return _fused.tile_state_geometry(dims[0])
+
+
 def _disc_bwd_cuda(img, imgf, cond, h0b, eps_w, eps_x, u, weights, saved, res, g0s, fres,
                    cots, dims, crop_keep=None):
     from .build import library
@@ -889,9 +903,11 @@ def _disc_bwd_cuda(img, imgf, cond, h0b, eps_w, eps_x, u, weights, saved, res, g
     if n_scratch < 0:
         raise ValueError(f"fused_disc_bwd: dims {kd} refused")
     scratch = _empty(n_scratch, like=img)
+    geom = disc_bwd_geometry(kd)
     code = library().sqair_fused_disc_bwd(
         _ptrs(inputs + list(weights) + list(saved) + [res, g0s, fres] + list(cots) + outs
-              + [scratch, crop_keep]), _ints(kd), _stream(img.device))
+              + [scratch, crop_keep]), _ints(kd),
+        _ints([geom["tile_rows"], geom["cluster"], geom["blocks"]]), _stream(img.device))
     _raise_on("fused_disc_bwd", code)
     launches["fused_disc_bwd"] += 1
     return tuple(outs)

@@ -227,10 +227,23 @@ def _fwd_cuda(img, wl, mi, mask_params, enc_params, head_w, head_b, dims, save):
     if n > 0:
         mp = params[:4] if masked else [None] * 4
         ptrs = [img, wl, mi, *mp, *params[-6:], loc, scale] + saved + [None] * (5 - len(saved))
-        code = library().sqair_fused_glimpse(_ptrs(ptrs), _ints(kd), _stream(img.device))
+        geom = glimpse_fwd_geometry(kd)
+        code = library().sqair_fused_glimpse(
+            _ptrs(ptrs), _ints(kd), _ints([geom["tile_rows"], geom["cluster"], geom["blocks"]]),
+            _stream(img.device))
         _raise_on("fused_glimpse", code)
         launches["fused_glimpse"] += 1
     return (loc, scale) + tuple(saved)
+
+
+def glimpse_fwd_geometry(dims):
+    """The launch of the glimpse forward (csrc/fused_glimpse.cu
+    glimpse_fwd_kernel), as the host picks it for the kernel dims [n, H, W,
+    gh, gw, d_mi, d_m, d1, d2, n_what]: a cluster of ``cluster`` blocks
+    shares a tile of ``tile_rows`` rows, every block holding the tile's
+    state (the kernel's fwd_smem, which the C entry works out and holds to
+    227 KB): ``fused.tile_state_geometry`` of the n rows."""
+    return _fused.tile_state_geometry(dims[0])
 
 
 def glimpse_bwd_geometry(dims):

@@ -531,3 +531,54 @@ def test_prop_forward_kernel_tiles_match_plain_on_cuda(n):
         for i, (a, b) in enumerate(zip(got, want)):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=f"prop n={n} output {i}")
         assert all(torch.equal(a, b) for a, b in zip(got, again)), f"prop n={n}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", (True, False))
+@pytest.mark.parametrize("n", [1, 7, 9, 160, 161])
+def test_glimpse_forward_kernel_tiles_match_plain_on_cuda(n, masked):
+    """The cluster glimpse forward (its crops at the two non-zeros of each
+    interpolation row; every output, the saved tensors included) against
+    the plain forward at row counts at the edges of the 8-row tiles and of
+    the cluster (1, 7: one tile, clusters of 8; 9: two; 160, 161: clusters
+    of 4), masked and unmasked; a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sqair_tpu_torch.ops import fused_glimpse as fg
+
+    gen = torch.Generator(device="cuda").manual_seed(200 + n + masked)
+    args = _glimpse_case(gen, n, masked)
+    dims = (20, 20, 50)
+    with torch.inference_mode():
+        got, again = (fg._fwd_cuda(*args, dims, save=True) for _ in range(2))
+        want = fg.glimpse_plain_fwd(*args, dims)
+        assert len(got) == len(want)
+        what = f"glimpse n={n} masked={masked}"
+        for i, (a, b) in enumerate(zip(got, want)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=f"{what} output {i}")
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 9, 160, 161])
+def test_disc_backward_kernel_tiles_match_plain_on_cuda(n):
+    """The cluster discovery backward (its crops at the two non-zeros of
+    each interpolation row) and its tile reducer against the plain backward
+    at row counts at the edges of the 8-row tiles and of the cluster (1, 3:
+    one tile, clusters of 8; 9: two; 160, 161: clusters of 4), with and
+    without crop_keep; a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fc, args, weights, dims, gen = _disc_case(n)
+    with torch.inference_mode():
+        fwd = fc.disc_plain_fwd(*args, weights, dims)
+        cots = tuple(torch.randn(t.shape, generator=gen, device="cuda") for t in fwd[:9])
+        saved = (fwd[0], fwd[2], fwd[3], fwd[5], fwd[6], fwd[7])
+        bargs = (*args, weights, saved, fwd[9], fwd[10], fwd[11], cots, dims)
+        keep = (torch.rand((dims[0], n), generator=gen, device="cuda") < 0.5).float()
+        for kp in (None, keep):
+            got = fc._disc_bwd_cuda(*bargs, crop_keep=kp)
+            again = fc._disc_bwd_cuda(*bargs, crop_keep=kp)
+            what = f"disc n={n} crop_keep={kp is not None}"
+            _assert_grads_close(got, fc.disc_plain_bwd(*bargs, crop_keep=kp), what)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two runs differ"

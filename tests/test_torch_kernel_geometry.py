@@ -4,11 +4,14 @@
 csrc/fused_rnn.cu, ``vrnn_bwd_geometry`` and ``mlp_bwd_geometry`` for the
 vanilla-RNN and MLP backwards of csrc/fused_bwd.cu; ``ops/fused_cells.py``:
 ``prop_fwd_geometry`` and ``prop_bwd_geometry`` for the propagation forward
-and backward of csrc/fused_prop.cu; ``ops/fused_glimpse.py``:
-``glimpse_bwd_geometry`` for the glimpse backward of csrc/fused_glimpse.cu),
-at every MLP, vanilla-RNN, GRU, glimpse and propagation shape of
+and backward of csrc/fused_prop.cu, ``disc_bwd_geometry`` for the discovery
+backward of csrc/fused_disc.cu; ``ops/fused_glimpse.py``:
+``glimpse_fwd_geometry`` and ``glimpse_bwd_geometry`` for the glimpse
+forward and backward of csrc/fused_glimpse.cu), at every MLP, vanilla-RNN,
+GRU, glimpse, propagation and discovery shape of
 ``chip_smoke.main_path_shapes``: the release flags, with no switch and with
-both switches, eval and train (and the propagation unroll at DISC_FLAGS).
+both switches, eval and train (and the propagation and discovery unrolls
+at DISC_FLAGS).
 
 Each launch fills the card's 132 SMs wherever n allows it, takes a cluster
 (or column split) of 1-8 blocks and at most the 227 KB of shared memory a
@@ -470,3 +473,121 @@ def test_glimpse_and_prop_forward_wrappers_pass_the_geometry(seen, monkeypatch):
     assert list(seen["sqair_fused_prop"][1]) == kd
     g = fc.prop_fwd_geometry(kd)
     assert list(seen["sqair_fused_prop"][2]) == [g["tile_rows"], g["cluster"], g["blocks"]]
+
+
+def _glimpse_fwd_smem(dims, masked):
+    """Bytes of the glimpse forward's shared memory, as csrc/fused_glimpse.cu
+    fwd_smem lays it out for the kernel dims (a copy, as ``_prop_bwd_smem``):
+    the mask and the glimpses, which live through the call, then one region
+    for the mask MLP's rows (mask input, hidden) and, after it, the
+    encoder's (e1, e2), [8][width rounded up to 4] each, then the products'
+    ring (which the crops borrow) and their partial sums."""
+    _, H, W, gh, gw, d_mi, d_m, d1, d2, _ = dims
+    G = gh * gw
+    live = 8 * _r4(G) * (2 if masked else 1)
+    region = max(8 * (_r4(d_mi) + _r4(d_m)) if masked else 0, 8 * (_r4(d1) + _r4(d2)))
+    ring = max(_RING, _r4(_sparse_crop_floats(H, W, gh, gw, False)))
+    return 4 * (live + region + ring + _PARTS)
+
+
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_glimpse_forward_geometry_fills_the_card(train, fuse):
+    """The glimpse forward's clusters: the backward's rule (4 at 160 rows: 80
+    blocks), at the glimpse encoder's main-path shapes (masked and not) and
+    at tile edges; the tile's state fits a block's 227 KB, one block an
+    SM."""
+    shapes = _shapes("fused_glimpse", train, fuse)
+    assert bool(shapes) == fuse
+    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
+    base = chip_smoke.glimpse_shapes(flags, 160, 10)
+    for s in shapes + [dict(sh, n=n) for sh, _ in base for n in (1, 3, 8, 9, 161)]:
+        dims = _glimpse_kernel_dims(s)
+        g = fg.glimpse_fwd_geometry(dims)
+        assert g == fg.glimpse_bwd_geometry(dims), (s, g)
+        tiles = math.ceil(s["n"] / 8)
+        assert g["tile_rows"] == 8 and g["cluster"] in (1, 2, 4, 8), (s, g)
+        assert g["blocks"] == tiles * g["cluster"] <= fused.SMS, (s, g)
+        assert g["cluster"] == 8 or 2 * g["blocks"] > fused.SMS, (s, g)
+        assert _glimpse_fwd_smem(dims, bool(s["d_mi"])) <= fused.MAX_SMEM, s
+        if s["n"] == 160:
+            assert g["cluster"] == 4 and g["blocks"] == 80, (s, g)
+
+
+def _disc_kernel_dims(flags, n):
+    shape = chip_smoke.disc_shape(flags, n)
+    return [n, shape["S"], *shape["img"], *shape["glimpse"], shape["n_what"], shape["U"],
+            shape["SP"], shape["C"]]
+
+
+def _disc_bwd_smem(dims):
+    """Bytes of the discovery backward's shared memory, as csrc/fused_disc.cu
+    disc_bwd_smem lays it out for the kernel dims (a copy, as
+    ``_prop_bwd_smem``): the state that lives across a slot, the largest
+    region a phase of a slot lays out (the steps predictor; the head, the
+    glimpse encoder and the crop's gradient; the estimator; the
+    transition), the products' ring (which the crops borrow) and their
+    partial sums, each array rounded up to 4 floats."""
+    _, _, H, W, gh, gw, nw, U, SP, C = dims
+    G, d_rnn, d_spf = gh * gw, U + C + nw + 5, U + nw
+    n = 8
+    lu = _r4(U)
+    live = sum(_r4(n * w) for w in (1, 1, 1, nw, 4, U, U, C, d_spf, 4))
+    phases = ([n * _r4(SP)], [n * _r4(2 * nw), n * lu, n * lu, n * _r4(G)],
+              [n * 8, n * lu, n * lu], [n * lu, n * _r4(d_rnn)])
+    region = max(sum(_r4(w) for w in ph) for ph in phases)
+    ring = max(_RING, _r4(_sparse_crop_floats(H, W, gh, gw, True)))
+    return 4 * (live + region + ring + _PARTS)
+
+
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_disc_backward_geometry_fills_the_card(train, fuse):
+    """The discovery backward's clusters at DISC_FLAGS: the widest cluster
+    whose blocks all fit the card at once (4 at 160 rows: 80 blocks), at the
+    main path's discovery shape with both switches and at tile edges; the
+    tile's state fits a block's 227 KB, one block an SM."""
+    flags = dict(json.loads(chip_smoke.RELEASE_FLAGS.read_text()), **chip_smoke.DISC_LEVERS)
+    B, k = int(flags["batch_size"]), int(flags["k_particles"])
+    T = int(flags.get("font_timesteps", 10))
+    shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, fuse_glimpse=fuse,
+                                         fuse_cells=fuse)
+    disc = [s["n"] for kn, s, _ in shapes if kn == "fused_disc"]
+    assert bool(disc) == fuse
+    for n in disc + [1, 3, 8, 9, 161]:
+        dims = _disc_kernel_dims(flags, n)
+        g = fc.disc_bwd_geometry(dims)
+        tiles = math.ceil(n / 8)
+        assert g["tile_rows"] == 8 and g["cluster"] in (1, 2, 4, 8), (n, g)
+        assert g["blocks"] == tiles * g["cluster"] <= fused.SMS, (n, g)
+        assert g["cluster"] == 8 or 2 * g["blocks"] > fused.SMS, (n, g)
+        smem = _disc_bwd_smem(dims)
+        assert fused.MAX_SMEM // 2 < smem <= fused.MAX_SMEM, (n, smem)  # one block an SM
+        if n == 160:
+            assert g["cluster"] == 4 and g["blocks"] == 80, (n, g)
+
+
+def test_glimpse_forward_and_disc_backward_wrappers_pass_the_geometry(seen, monkeypatch):
+    """The glimpse forward and the discovery backward hand the host's
+    geometry to their C entries (the library is a stand-in that records
+    it)."""
+    gen = torch.Generator().manual_seed(0)
+    monkeypatch.setattr(fg, "_stream", lambda device: ctypes.c_void_p(0))
+    monkeypatch.setattr(fc, "_stream", lambda device: ctypes.c_void_p(0))
+    shape = dict(n=13, img=[12, 12], glimpse=[5, 5], d1=16, d2=16, n_what=6, d_mi=8, d_m=4)
+    args = chip_smoke.glimpse_inputs(torch, shape, gen, "cpu")
+    fg._fwd_cuda(*args, chip_smoke.glimpse_dims(shape), save=True)
+    kd = _glimpse_kernel_dims(shape)
+    assert list(seen["sqair_fused_glimpse"][1]) == kd
+    g = fg.glimpse_fwd_geometry(kd)
+    assert list(seen["sqair_fused_glimpse"][2]) == [g["tile_rows"], g["cluster"], g["blocks"]]
+    dshape = dict(n=13, S=2, img=[12, 12], glimpse=[5, 5], n_what=6, U=40, SP=20, C=24)
+    frames = torch.rand((13, 12, 12), generator=gen)
+    dargs, dweights = chip_smoke.disc_inputs(torch, fc, dshape, gen, "cpu", frames)
+    ddims = chip_smoke.disc_dims(dshape)
+    fwd = fc.disc_plain_fwd(*dargs, dweights, ddims)
+    saved = (fwd[0], fwd[2], fwd[3], fwd[5], fwd[6], fwd[7])
+    fc._disc_bwd_cuda(*dargs, dweights, saved, fwd[9], fwd[10], fwd[11],
+                      tuple(torch.ones_like(t) for t in fwd[:9]), ddims)
+    kd = [13, 2, 12, 12, 5, 5, 6, 40, 20, 24]
+    assert list(seen["sqair_fused_disc_bwd"][1]) == kd
+    g = fc.disc_bwd_geometry(kd)
+    assert list(seen["sqair_fused_disc_bwd"][2]) == [g["tile_rows"], g["cluster"], g["blocks"]]

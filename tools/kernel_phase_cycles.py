@@ -4,9 +4,11 @@ and the rest, with clock64, on one CUDA card.
 
     python3 tools/kernel_phase_cycles.py KERNEL [--root DIR] [--calls N]
 
-KERNEL is ``glimpse_bwd`` (the glimpse encoder's backward, phase A, at the
-train step's masked shape: 160 rows) or ``prop_fwd`` (the propagation
-unroll's forward at 160 rows, S = 3).  The tool copies the checkout's
+KERNEL is ``glimpse_fwd`` or ``glimpse_bwd`` (the glimpse encoder's forward,
+or its backward's phase A, at the train step's masked shape: 160 rows),
+``prop_fwd`` (the propagation unroll's forward at 160 rows, S = 3) or
+``disc_bwd`` (the discovery unroll's backward, phase A, at DISC_FLAGS: 160
+rows, S = 3).  The tool copies the checkout's
 ``csrc`` (``--root``, default this one) into a temporary directory and, in
 the copy only, puts a mark before and after every call of a product
 (``dense``, ``acc_smem``, ``cluster_dense``...) and of a crop step
@@ -49,13 +51,20 @@ CALLS = {**{c: 1 for c in ("dense", "dense2", "dense_t", "dense_t2", "acc_smem",
 # hold their products and crops
 _PRODUCT = ("cluster_dense.cuh", (("cluster_product", 1),))
 FUNCTIONS = {
+    "glimpse_fwd": (_PRODUCT,
+                    ("fused_glimpse.cu", (("glimpse_fwd_kernel", 0),)),
+                    ("glimpse_common.cuh", (("glimpse_encode_fwd", 0),))),
     "glimpse_bwd": (_PRODUCT,
                     ("fused_glimpse.cu", (("glimpse_bwd_rows_kernel", 0),
                                           ("glimpse_bwd_kernel", 0))),
                     ("glimpse_common.cuh", (("encode_rows_bwd", 0),))),
     "prop_fwd": (_PRODUCT,
                  ("fused_prop.cu", (("prop_fwd_kernel", 0), ("prop_glimpse", 0),
-                                    ("prop_glimpse_fwd", 0)))),
+                                    ("prop_glimpse_fwd", 0))),
+                 ("glimpse_common.cuh", (("glimpse_encode_fwd", 0),))),
+    "disc_bwd": (_PRODUCT,
+                 ("fused_disc.cu", (("disc_bwd_rows_kernel", 0), ("disc_bwd_kernel", 0))),
+                 ("glimpse_common.cuh", (("encode_rows_bwd", 0),))),
 }
 MARK_DEFS = r"""
 #ifndef SQP_MARKS
@@ -195,6 +204,15 @@ def main():
                 pdims = cs.prop_dims(shape)
                 pargs, pw = cs.prop_inputs(torch, fc, shape, gen, device)
                 fn = lambda: fc._fwd_cuda(*pargs, pw, pdims)  # noqa: E731
+            elif args.kernel == "disc_bwd":
+                from time_fused_kernels import disc_bwd_call
+
+                shape, dbargs = disc_bwd_call(torch, cs, fc, flags, B * k, T, gen, device)
+                fn = lambda: fc._disc_bwd_cuda(*dbargs)  # noqa: E731
+            elif args.kernel == "glimpse_fwd":
+                shape = cs.glimpse_shapes(flags, B * k, T)[0][0]
+                gargs = cs.glimpse_inputs(torch, shape, gen, device)
+                fn = lambda: fg._fwd_cuda(*gargs, cs.glimpse_dims(shape), save=True)  # noqa
             else:
                 shape = cs.glimpse_shapes(flags, B * k, T)[0][0]
                 dims = cs.glimpse_dims(shape)
@@ -231,12 +249,15 @@ def main():
 
 def _blocks(kernel, shape, fc, fg):
     """Blocks of one launch of the marked kernel, as the checkout's host
-    picks them (the parent designs: 2 and 8 rows a block)."""
+    picks them (the parent designs: 2 rows a block for prop_fwd and
+    disc_bwd, 8 for the glimpse kernels)."""
     n = shape["n"]
-    geom = getattr(fc, "prop_fwd_geometry", None) if kernel == "prop_fwd" else getattr(
-        fg, "glimpse_bwd_geometry", None)
+    home, name = {"prop_fwd": (fc, "prop_fwd_geometry"), "disc_bwd": (fc, "disc_bwd_geometry"),
+                  "glimpse_fwd": (fg, "glimpse_fwd_geometry"),
+                  "glimpse_bwd": (fg, "glimpse_bwd_geometry")}[kernel]
+    geom = getattr(home, name, None)
     if geom is None:
-        return -(-n // (2 if kernel == "prop_fwd" else 8))
+        return -(-n // (2 if kernel in ("prop_fwd", "disc_bwd") else 8))
     return geom([n])["blocks"]
 
 

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Times the kernels redesigned for Hopper of a checkout of this repository
 (the MLP forward and backward, the vanilla-RNN and GRU forwards, the
-vanilla-RNN backward, the propagation unroll's forward and backward), and
-the other backwards that share their weight-gradient reducer (GRU, glimpse
-encoder, discovery unroll), on one CUDA card, at every shape a train step
-gives them (release flags; the MLP and cells with no switch, the glimpse
-encoder and the propagation unroll with both switches, the discovery
-unroll with both at DISC_FLAGS, one call a frame), beside one PyTorch call
-of the same function where there is one.  The GRU forward runs as the
-train step calls it, saving zr and c.
+vanilla-RNN backward, the glimpse encoder's forward and backward, the
+propagation unroll's forward and backward, the discovery unroll's
+backward), and the GRU backward, which shares their weight-gradient
+reducer, on one CUDA card, at every shape a train step gives them (release
+flags; the MLP and cells with no switch, the glimpse encoder with the
+glimpse switch, masked and unmasked, the propagation unroll with both
+switches, the discovery unroll with both at DISC_FLAGS, one call a frame),
+beside one PyTorch call of the same function where there is one.  The GRU
+forward runs as the train step calls it, saving zr and c; the glimpse
+forward saving what its backward reads.
 
     python3 tools/time_fused_kernels.py [--root DIR] [--save FILE] [--compare FILE]
                                         [--sms N] [--profile] [--only K1,K2]
@@ -23,12 +25,13 @@ Prints one JSON line per kernel: the call-weighted ms, library ms and bound
 ms over the train step's shapes, each shape's numbers, and the card's name
 and power limit.  Run two checkouts in turns (A, B, B, A) in one call to
 compare them.  ``--sms`` makes the host pick its launch geometry
-(``ops/fused.py``, ``ops/fused_cells.py``: the MLP's cluster sizes, the
-cells' column split, the vanilla-RNN backward's row tile, the propagation
-backward's cluster) as if the card had N SMs, e.g. 1 for one block a row
-tile.  ``--profile`` adds each shape's device time by CUDA kernel
-(torch.profiler over 10 calls, ms a call): the split of a backward between
-its launches.  ``--only`` times the kernels named (of ``KERNELS``) alone.
+(``ops/fused.py``, ``ops/fused_cells.py``, ``ops/fused_glimpse.py``: the
+MLP's cluster sizes, the cells' column split, the vanilla-RNN backward's row
+tile, the clusters of the kernels that hold a tile's state in every block)
+as if the card had N SMs, e.g. 1 for one block a row tile.  ``--profile``
+adds each shape's device time by CUDA kernel (torch.profiler over 10 calls,
+ms a call): the split of a backward between its launches.  ``--only`` times
+the kernels named (of ``KERNELS``) alone.
 """
 from __future__ import annotations
 
@@ -41,8 +44,31 @@ from pathlib import Path
 SEED = 0
 UNROLLS = ("fused_prop", "fused_prop_bwd", "fused_disc_bwd")  # timed over 10 calls
 KERNELS = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_vanilla_rnn_bwd",
-           "fused_mlp_bwd", "fused_prop", "fused_prop_bwd", "fused_gru_bwd",
+           "fused_mlp_bwd", "fused_prop", "fused_prop_bwd", "fused_gru_bwd", "fused_glimpse",
            "fused_glimpse_bwd", "fused_disc_bwd")
+
+
+def disc_bwd_call(torch, cs, fc, flags, rows, T, gen, device):
+    """(shape, arguments of ``fc._disc_bwd_cuda``) of the discovery backward
+    at DISC_FLAGS: the frames of the port's data generator, the inputs from
+    ``gen``, the saved tensors of the plain forward and random output
+    gradients."""
+    from sqair_tpu_torch.data import create_seq_dataset, make_template_bank
+
+    dflags = dict(flags, **cs.DISC_LEVERS)
+    dshape = cs.disc_shape(dflags, rows)
+    ddims = cs.disc_dims(dshape)
+    frames = create_seq_dataset(
+        n_samples=-(-rows // T), n_timesteps=T, canvas_size=cs.IMG, obj_size=(28, 28),
+        n_objects=(0, 2), seed=SEED + 8,
+        templates=make_template_bank(256, 28, seed=SEED))["imgs"]
+    frames = torch.from_numpy(frames.reshape(-1, *cs.IMG).astype("float32") / 255.0)
+    dargs, dweights = cs.disc_inputs(torch, fc, dshape, gen, device, frames)
+    with torch.inference_mode():
+        want = fc.disc_plain_fwd(*dargs, dweights, ddims)
+        cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in want[:9])
+    saved = (want[0], want[2], want[3], want[5], want[6], want[7])
+    return dshape, (*dargs, dweights, saved, want[9], want[10], want[11], cots, ddims)
 
 
 def profile_split(torch, fn, calls=10):
@@ -77,7 +103,6 @@ def main():
         print("time_fused_kernels: needs a CUDA card", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from sqair_tpu_torch.data import create_seq_dataset, make_template_bank
     from sqair_tpu_torch.ops import build, fused, stn
     from sqair_tpu_torch.ops import fused_cells as fc
     from sqair_tpu_torch.ops import fused_glimpse as fg
@@ -133,22 +158,16 @@ def main():
                 out.append((shape, calls, lambda b=gbargs: fg.fused_glimpse_bwd(*b), lib,
                             cs.glimpse_work(shape, backward=True)))
             return out
+        if kernel == "fused_glimpse":
+            for shape, calls in cs.glimpse_shapes(flags, B * k, T):
+                dims = cs.glimpse_dims(shape)
+                gargs = cs.glimpse_inputs(torch, shape, gen, device)
+                lib = cs.glimpse_library_fn(torch, stn, shape)
+                out.append((shape, calls, lambda a=gargs, d=dims: fg._fwd_cuda(*a, d, save=True),
+                            lambda a=gargs, f=lib: f(*a), cs.glimpse_work(shape)))
+            return out
         if kernel == "fused_disc_bwd":
-            dflags = dict(flags, **cs.DISC_LEVERS)
-            dshape = cs.disc_shape(dflags, B * k)
-            ddims = cs.disc_dims(dshape)
-            frames = create_seq_dataset(
-                n_samples=-(-B * k // T), n_timesteps=T, canvas_size=cs.IMG, obj_size=(28, 28),
-                n_objects=(0, 2), seed=SEED + 8,
-                templates=make_template_bank(256, 28, seed=SEED))["imgs"]
-            frames = torch.from_numpy(frames.reshape(-1, *cs.IMG).astype("float32") / 255.0)
-            dargs, dweights = cs.disc_inputs(torch, fc, dshape, gen, device, frames)
-            with torch.inference_mode():
-                want = fc.disc_plain_fwd(*dargs, dweights, ddims)
-                cots = tuple(torch.randn(t.shape, generator=gen, device=device)
-                             for t in want[:9])
-            saved = (want[0], want[2], want[3], want[5], want[6], want[7])
-            dbargs = (*dargs, dweights, saved, want[9], want[10], want[11], cots, ddims)
+            dshape, dbargs = disc_bwd_call(torch, cs, fc, flags, B * k, T, gen, device)
             return [(dshape, T, lambda: fc._disc_bwd_cuda(*dbargs), None,
                      cs.disc_work(dshape, backward=True))]
         base = kernel.removesuffix("_bwd")
