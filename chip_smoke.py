@@ -218,10 +218,11 @@ KERNELS = {
 # same bits (the kernels check)
 REDESIGNED = ("fused_mlp_kernel", "fused_vrnn_kernel", "fused_gru_kernel", "vrnn_bwd_kernel",
               "mlp_bwd_kernel", "prop_bwd_kernel", "tile_reduce_kernel", "glimpse_bwd_kernel",
-              "prop_fwd_kernel", "glimpse_fwd_kernel", "disc_bwd_kernel")
+              "prop_fwd_kernel", "glimpse_fwd_kernel", "disc_bwd_kernel", "gru_bwd_kernel",
+              "disc_fwd_kernel")
 SAME_BITS = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_vanilla_rnn_bwd",
              "fused_mlp_bwd", "fused_prop_bwd", "fused_glimpse_bwd", "fused_prop", "fused_glimpse",
-             "fused_disc_bwd")
+             "fused_disc_bwd", "fused_gru_bwd", "fused_disc")
 GLIMPSE_SWITCH = SWITCHES["glimpse"]
 CELLS_SWITCH = SWITCHES["cells"]
 
@@ -1362,9 +1363,14 @@ def run():
             extra = {}
             if kernel + "_bwd" in SAME_BITS:
                 again = flat_grads(kernel, bwd_wrappers[kernel](*bargs, need_dx=need_dx))
-                geometry = (fused.mlp_bwd_geometry(shape["n"], [shape["d_in"]] + shape["widths"])
-                            if kernel == "fused_mlp" else fused.vrnn_bwd_geometry(
-                                shape["n"], shape["dx"], shape["units"], need_dx))
+                if kernel == "fused_mlp":
+                    geometry = fused.mlp_bwd_geometry(shape["n"],
+                                                      [shape["d_in"]] + shape["widths"])
+                elif kernel == "fused_gru":
+                    geometry = fused.gru_bwd_geometry(shape["n"], shape["dx"], shape["units"])
+                else:
+                    geometry = fused.vrnn_bwd_geometry(shape["n"], shape["dx"], shape["units"],
+                                                       need_dx)
                 extra = dict(same_bits=all((a is None and b is None) or torch.equal(a, b)
                                            for a, b in zip(got, again)),
                              geometry=jdump(geometry))
@@ -1508,6 +1514,8 @@ def run():
     doffs = fc.disc_residual_layout(ddims)[0]
     with torch.inference_mode():
         got = fc._disc_fwd_cuda(*dargs, dweights, ddims)
+        same_d = all(torch.equal(a, b)
+                     for a, b in zip(got, fc._disc_fwd_cuda(*dargs, dweights, ddims)))
         want = fc.disc_plain_fwd(*dargs, dweights, ddims)
         torch.cuda.synchronize()
         fields = list(zip(fc.DISC_OUT_FIELDS, got, want)) + [
@@ -1526,7 +1534,10 @@ def run():
         log("kernels", t0, kernel="fused_disc", shape=jdump(dshape), outputs=len(fields),
             presence=f"{float(want[7].sum()):.0f}/{want[7].numel()}",
             max_abs_err=f"{worst_d:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
-            ok=True)
+            ok=True, same_bits=same_d, geometry=jdump(fc.disc_fwd_geometry(
+                [B * k, ddims[0], *dshape["img"], *ddims[1:], dshape["C"]])))
+        if "fused_disc" in SAME_BITS and not same_d:
+            raise Failure(f"fused_disc {dshape}: two runs of the kernel differ")
 
         t0 = time.perf_counter()
         cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in want[:9])

@@ -1,8 +1,9 @@
 // The products of the kernels redesigned for Hopper that hold a tile's state
-// in every block of a thread block cluster: the MLP backward
+// in every block of a thread block cluster: the MLP and GRU backwards
 // (fused_bwd.cu), the glimpse encoder's forward and backward
 // (fused_glimpse.cu), the propagation unroll's forward and backward
-// (fused_prop.cu) and the discovery unroll's backward (fused_disc.cu).
+// (fused_prop.cu) and the discovery unroll's forward and backward
+// (fused_disc.cu).
 //
 // - cluster_dense_t: the product of a tile's 8 rows of a gradient with a
 //   weight's TRANSPOSE, out[r][k] = sum_j a[r][j] W[k][j] for the row-major
@@ -14,16 +15,16 @@
 //   32-wide block of j for one chunk, as tile_sums.cuh).  Each output's
 //   owner (warp = row, lane = column of the chunk) adds the round's
 //   partial sums in j order, so every output is the chain
-//   acc = ((p_0 + p_1) + p_2) + ... of 32-product partial sums that
-//   bwd_common.cuh's acc_smem_t forms: the bits of the kernels that walked
-//   W row by row per thread.  The owner then runs the caller's epilogue,
-//   which writes what every block needs into each block's shared memory
-//   (`Peers::put`, distributed shared memory).
+//   acc = ((p_0 + p_1) + p_2) + ... of 32-product partial sums that one
+//   thread walking j in order forms: the bits of the first designs, in
+//   which each thread walked its own row of W.  The owner then runs the
+//   caller's epilogue, which writes what every block needs into each
+//   block's shared memory (`Peers::put`, distributed shared memory).
 // - cluster_dense: the same for the product with W itself, out[r][j] =
-//   sum_k a[r][k] W[k][j] for the row-major W [K, n_cols] (the forward's
-//   dense / dense2 of glimpse_common.cuh): the tiles are W's [32 k][32 cols]
-//   blocks (a row of a tile again 128 contiguous bytes) and the unit is
-//   tile_sums.cuh's unit_sums, so every output is acc_smem's chain.
+//   sum_k a[r][k] W[k][j] for the row-major W [K, n_cols] (the forwards'
+//   products): the tiles are W's [32 k][32 cols] blocks (a row of a tile
+//   again 128 contiguous bytes) and the unit is tile_sums.cuh's unit_sums,
+//   so every output is the same chain over k.
 // Both run the same plan, round loop and staging (the template flag T: the
 // transposed product or not).
 #pragma once
@@ -158,8 +159,12 @@ __device__ __forceinline__ void unit_sums_t(float* out, const float* a, int lda,
 // chunks, each of QQ rounds (term 0's Q0 rounds of WK blocks of j, then
 // term 1's), so that a round puts WK blocks of j of 8 / WK chunks on the 8
 // warps: the split with the fewest rounds, the fewer j-blocks on a tie.
+// `chain`: term 1's blocks of j go on adding to term 0's sum (one chain
+// over both terms, as the GRU backward's first design summed dx's two
+// products into one accumulator), not to a sum of their own.
 struct ProductPlan {
   int n_cols, Jc, col0, WK, WJ, wj_log, nkb0, nkb1, Q0, QQ, rounds;
+  bool chain;
 };
 
 template <int NT>
@@ -187,6 +192,7 @@ __device__ __forceinline__ ProductPlan plan_product(const TTerm (&t)[NT], int n_
   L.Q0 = cdiv(L.nkb0, L.WK);
   L.QQ = L.Q0 + cdiv(L.nkb1, L.WK);
   L.rounds = cdiv(L.Jc, L.WJ) * L.QQ;
+  L.chain = false;
   return L;
 }
 
@@ -255,7 +261,7 @@ __device__ __noinline__ void product_pass(const TTerm* t, const ProductPlan L, i
     }
     __syncthreads();  // every unit's partial sums are in `parts`
     const int nwk = min(L.WK, nkb - q * L.WK);
-    if (second) add_round(acc1, parts, L.wj_log, jn, nwk);
+    if (second && !L.chain) add_round(acc1, parts, L.wj_log, jn, nwk);
     else add_round(acc0, parts, L.wj_log, jn, nwk);
   }
 #pragma unroll
@@ -265,14 +271,17 @@ __device__ __noinline__ void product_pass(const TTerm* t, const ProductPlan L, i
   }
 }
 
-// Plans the block's share of a product of NT terms with n_cols outputs and
-// stages its first round into ring stage 0.  A caller may do this early,
-// before work that leaves the ring alone, so that the copies fly meanwhile.
-// Not inlined, as product_pass: a kernel of ~20 products keeps one copy.
+// Plans the block's share of a product of NT terms with n_cols outputs
+// (the two terms in one chain if `chain`) and stages its first round into
+// ring stage 0.  A caller may do this early, before work that leaves the
+// ring alone, so that the copies fly meanwhile.  Not inlined, as
+// product_pass: a kernel of ~20 products keeps one copy.
 template <int NT, bool T = true>
 __device__ __noinline__ ProductPlan stage_product(const TTerm (&t)[NT], int n_cols,
-                                                  const Peers& pe, float* ring) {
-  const ProductPlan L = plan_product(t, n_cols, pe);
+                                                  const Peers& pe, float* ring,
+                                                  bool chain = false) {
+  ProductPlan L = plan_product(t, n_cols, pe);
+  L.chain = NT > 1 && chain;
   if (L.rounds > 0) stage_round<NT, T>(t, L, 0, ring);
   copy_commit();
   return L;
@@ -282,15 +291,15 @@ __device__ __noinline__ ProductPlan stage_product(const TTerm (&t)[NT], int n_co
 // not, for the tile's 8 rows, staged by stage_product<NT, T>: epi(r, k, v0,
 // v1) once for each output column k < n_cols of the block's chunks and
 // each row r < 8, by its owner thread, with v_t = sum_j t.a[r][j] t.w[k][j]
-// (T) or sum_j t.a[r][j] t.w[j][k] (v1 = 0 for one term), each summed as
-// acc_smem_t or acc_smem sums it.  `ring` holds kRingT floats and `parts`
-// kParts.  The cluster barrier brackets it: the block arrives before its
-// first round (relaxed: the caller's reads of what the epilogues overwrite
-// are behind a __syncthreads or a cluster barrier), waits before its first
-// epilogue, and after its last epilogue waits for every block's, so that
-// they are all seen on return.  No epilogue may write what a block reads
-// in the product (its left operands).  Every thread of every block calls
-// it.
+// (T) or sum_j t.a[r][j] t.w[j][k] (v1 = 0 for one term; v0 the sum of both
+// and v1 = 0 for a chained plan), each a chain of 32-product partial sums
+// in j order.  `ring` holds kRingT floats and `parts` kParts.  The cluster
+// barrier brackets it: the block arrives before its first round (relaxed:
+// the caller's reads of what the epilogues overwrite are behind a
+// __syncthreads or a cluster barrier), waits before its first epilogue, and
+// after its last epilogue waits for every block's, so that they are all
+// seen on return.  No epilogue may write what a block reads in the product
+// (its left operands).  Every thread of every block calls it.
 template <int NT, bool T, typename Epi>
 __device__ __forceinline__ void cluster_product(const TTerm (&t)[NT], const ProductPlan& L,
                                                 const Peers& pe, float* ring, float* parts,

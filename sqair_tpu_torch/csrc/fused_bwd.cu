@@ -16,13 +16,12 @@
 // One TPU kernel saw every row, so it chained the layers and reduced the
 // weight gradients over the rows in one body.  On the card the MLP and the
 // GRU backward are two phases, two launches per call:
-//   A. row-parallel.  The GRU's (`gru_bwd_rows_kernel`): one block of
-//      kThreads threads owns kRows rows, as the first forward kernels did;
-//      it writes dc_in, da and r h to scratch that the wrapper allocates,
-//      and dx and dh.  The MLP's (`mlp_bwd_kernel`, redesigned for Hopper):
-//      a thread block cluster shares a tile of 8 rows and splits each
-//      layer's transposed product over its blocks (cluster_dense.cuh), and
-//      writes each layer's dz to scratch and dx.
+//   A. row-parallel, redesigned for Hopper: a thread block cluster shares
+//      a tile of 8 rows and splits each transposed product over its blocks
+//      (cluster_dense.cuh).  The MLP's (`mlp_bwd_kernel`) writes each
+//      layer's dz to scratch and dx; the GRU's (`gru_bwd_kernel`) writes
+//      dc_in, da and r h to scratch that the wrapper allocates, and dx and
+//      dh.
 //   B. column-parallel, summing the rows in fixed order
 //      (`tile_reduce_kernel`, which the glimpse, discovery and propagation
 //      backwards launch too): each block owns a 32 x 32 tile of one dW (and,
@@ -38,12 +37,12 @@
 // deferred pass; weights up to 2500 x 256): not the card's rates, at most
 // ~3.5 GFLOP for the glimpse decoder at 4800 rows (~52 us at 67 TFLOP/s)
 // and well under a microsecond for most calls, but latency.  The first MLP
-// backward lost its time in phase A, where each thread walked its own row
-// of W through L1 (a warp load touching 32 cache lines) in 20 blocks at
-// 160 rows; the cluster kernel stages W's rows in coalesced tiles, splits
-// each product's j over the warps and its columns over 8 blocks (160 at
-// 160 rows).  The GRU keeps the first design (phase B: 14 blocks over 4800
-// rows for a small dW would be its weak spot; it runs at 160 and 480).
+// and GRU backwards lost their time in phase A, where each thread walked
+// its own row of W through L1 (a warp load touching 32 cache lines) in 20
+// blocks at 160 rows (the GRU's took 0.286 ms a call on an H100, 0.057
+// now); the cluster kernels stage W's rows in coalesced tiles, split each
+// product's j over the warps and its columns over 8 blocks (160 at 160
+// rows), and keep the first design's bits.
 //
 // The vanilla RNN's backward at the release shapes (N = 160, d_x 567 or 416
 // -> 256 units, 60 of its 63 calls a train step; the where prior's 4 -> 4
@@ -284,7 +283,8 @@ __global__ void __launch_bounds__(kThreads, 2) mlp_bwd_kernel(MlpBwdArgs p) {
 //   aligned; the rows padded to kVLd floats, so that a warp's float4 reads
 //   of 32 rows hit every bank once), forms the rows' dz for them, and sums
 //   the 32 products of each output (a lane owns 2 columns x 8 rows).  The
-//   owners add the round's partial sums in K order, as acc_smem_t does.
+//   owners add the round's partial sums in K order, as one thread walking
+//   K would.
 constexpr int kVTileCols = 64;                  // [dx | dh] columns of a block
 constexpr int kVLd = kBlockK + 4;               // row stride of a staged [W; U] slice
 constexpr int kVWarpM = kVTileCols * kVLd;      // a warp's staged slice
@@ -464,7 +464,7 @@ __device__ void vrnn_bwd_inputs(const VrnnBwdArgs& p, int tile, float* smem) {
         dzw[r * kVRoundJ + lane] = (r < nr && lane < jn) ? vrnn_dz(p, row0 + r, j0 + lane) : 0.f;
       copy_wait<0>();
       __syncwarp();
-      // as acc_smem_t: the K-block's products in order into partial sums
+      // the K-block's products in order into partial sums
       float part[2][kVRowsMax];
 #pragma unroll
       for (int r = 0; r < kVRowsMax; ++r) part[0][r] = part[1][r] = 0.f;
@@ -523,98 +523,123 @@ __global__ void __launch_bounds__(kThreads) vrnn_bwd_kernel(VrnnBwdArgs p) {
 }
 
 // -------------------------------------------------------- phase A: GRU
-__global__ void __launch_bounds__(kThreads)
-gru_bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ wg,
-                    const float* __restrict__ ug, const float* __restrict__ wc,
-                    const float* __restrict__ uc, const float* __restrict__ zr,
-                    const float* __restrict__ c, const float* __restrict__ g,
-                    float* __restrict__ dc_in, float* __restrict__ da,
-                    float* __restrict__ rh, float* __restrict__ dx,
-                    float* __restrict__ dh, int n, int d_x, int units) {
-  extern __shared__ float smem[];
-  const int u2 = 2 * units;
-  float* dcs = smem;                  // kRows * units: dc_in
-  float* drh = dcs + kRows * units;   // kRows * units: dc_in Uc^T
-  float* das = drh + kRows * units;   // kRows * 2 units: da
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, n - row0);
+// A cluster of C blocks (ops/fused.py gru_bwd_geometry: C = 8 at 160 rows,
+// 4 at 480) shares a tile of kTileRows rows.  Every block forms the tile's
+// dc_in = (g z)(1 - c^2); drh = dc_in Uc^T is a cluster_dense_t whose
+// owners put it into every block; every block then forms da = [g (c - h),
+// drh h] zr (1 - zr) for the tile, and the two input gradients are
+// cluster_dense_t's: dx = dc_in Wc^T + da Wg^T, both terms in one chain (as
+// the first design summed them into one accumulator), and dh = g (1 - z) +
+// drh r + da Ug^T.  Row r's scratch for phase B (dc_in, da, r h) is written
+// by block r mod C; dx and dh by the owner of each column.
+struct GruBwdArgs {
+  const float *h, *wg, *ug, *wc, *uc, *zr, *c, *g;
+  float *dc_in, *da, *rh, *dx, *dh;  // dx, dh null to skip
+  int n, d_x, units;
+  int ldu, ldu2;  // row strides of the tile's [8][units] and [8][2 units] buffers
+};
 
-  for (int i = threadIdx.x; i < kRows * units; i += kThreads) {
-    const int r = i / units, j = i - r * units;
-    float v = 0.f;
-    if (r < rows) {
-      const size_t o = (size_t)(row0 + r) * units + j;
-      const float z = zr[(size_t)(row0 + r) * u2 + j], cv = c[o];
-      v = (g[o] * z) * (1.f - cv * cv);
-      dc_in[o] = v;
-    }
-    dcs[i] = v;
-  }
-  __syncthreads();
-  {
-    Acc acc;
-    zero(acc);
-    acc_smem_t(acc, dcs, units, units, uc, units, 0, units);
+__host__ __device__ inline int gru_bwd_smem_floats(int units) {
+  return kRingT + kParts + kTileRows * (2 * round4(units) + round4(2 * units));
+}
+
+__global__ void __launch_bounds__(kThreads, 2) gru_bwd_kernel(GruBwdArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                       // kRingT
+  float* parts = ring + kRingT;             // kParts
+  float* dcs = parts + kParts;              // [8][ldu]: dc_in
+  float* drh = dcs + kTileRows * p.ldu;     // [8][ldu]: dc_in Uc^T
+  float* das = drh + kTileRows * p.ldu;     // [8][ldu2]: da
+  const Peers pe;
+  const int U = p.units, u2 = 2 * U, C = pe.n, rank = pe.rank;
+  const int row0 = (blockIdx.x / C) * kTileRows;
+  const int rows = min(kTileRows, p.n - row0);
+
+  // drh's first round flies while dc_in is formed (thread t takes columns
+  // t + i kThreads of the tile's 8 rows, each column's loads issued at once)
+  const TTerm t_drh[1] = {{dcs, p.ldu, U, p.uc}};
+  ProductPlan plan = stage_product(t_drh, U, pe, ring);
+  for (int j = threadIdx.x; j < U; j += kThreads) {
+    float z[kTileRows], cv[kTileRows], gv[kTileRows];
 #pragma unroll
-    for (int cc = 0; cc < kMaxCols; ++cc) {
-      const int col = threadIdx.x + cc * kThreads;
-      if (col < units) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) drh[r * units + col] = acc[cc][r];
+    for (int r = 0; r < kTileRows; ++r) {
+      if (r < rows) {
+        const size_t row = (size_t)(row0 + r);
+        z[r] = p.zr[row * u2 + j];
+        cv[r] = p.c[row * U + j];
+        gv[r] = p.g[row * U + j];
       }
     }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * u2; i += kThreads) {
-    const int r = i / u2, j = i - r * u2;
-    float v = 0.f;
-    if (r < rows) {
-      const size_t row = (size_t)(row0 + r);
-      const float s = zr[row * u2 + j];
-      float d;
-      if (j < units) {  // update gate: g (c - h)
-        const size_t o = row * units + j;
-        d = g[o] * (c[o] - h[o]);
-      } else {          // reset gate: (dc_in Uc^T) h; also r h for phase B
-        const int jj = j - units;
-        const float hv = h[row * units + jj];
-        d = drh[r * units + jj] * hv;
-        rh[row * units + jj] = s * hv;
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) {
+      float v = 0.f;
+      if (r < rows) {
+        v = (gv[r] * z[r]) * (1.f - cv[r] * cv[r]);
+        if (r % C == rank) p.dc_in[(size_t)(row0 + r) * U + j] = v;
       }
-      v = d * s * (1.f - s);
-      da[row * u2 + j] = v;
-    }
-    das[i] = v;
-  }
-  __syncthreads();
-  if (dx != nullptr) {
-    for (int col0 = 0; col0 < d_x; col0 += kMaxWidth) {
-      Acc acc;
-      zero(acc);
-      acc_smem_t(acc, dcs, units, units, wc, units, col0, d_x);
-      acc_smem_t(acc, das, u2, u2, wg, u2, col0, d_x);
-      store_rows(acc, dx, d_x, row0, rows, col0, d_x);
+      dcs[r * p.ldu + j] = v;
     }
   }
-  if (dh != nullptr) {
-    Acc acc;
-    zero(acc);
-    acc_smem_t(acc, das, u2, u2, ug, u2, 0, units);
+  cluster_dense_t(t_drh, plan, pe, ring, parts,
+                  [&](int r, int k, float v, float) { pe.put(drh + r * p.ldu + k, v); });
+
+  // the first input gradient's first round flies while da is formed: its
+  // update-gate half g (c - h) z (1 - z) and its reset-gate half
+  // (dc_in Uc^T) h r (1 - r), column j of each; also r h for phase B
+  const TTerm t_dx[2] = {{dcs, p.ldu, U, p.wc}, {das, p.ldu2, u2, p.wg}};
+  const TTerm t_dh[1] = {{das, p.ldu2, u2, p.ug}};
+  if (p.dx != nullptr) plan = stage_product(t_dx, p.d_x, pe, ring, true);
+  else if (p.dh != nullptr) plan = stage_product(t_dh, U, pe, ring);
+  constexpr int kHalf = kTileRows / 2;  // rows whose loads fly at once (no spills)
+  for (int i = threadIdx.x; i < 2 * U; i += kThreads) {
+    const int r0 = i < U ? 0 : kHalf, j = i < U ? i : i - U;
+    float z[kHalf], rg[kHalf], cv[kHalf], gv[kHalf], hv[kHalf];
 #pragma unroll
-    for (int cc = 0; cc < kMaxCols; ++cc) {
-      const int col = threadIdx.x + cc * kThreads;
-      if (col < units) {
+    for (int q = 0; q < kHalf; ++q) {
+      if (r0 + q < rows) {
+        const size_t row = (size_t)(row0 + r0 + q);
+        z[q] = p.zr[row * u2 + j];
+        rg[q] = p.zr[row * u2 + U + j];
+        cv[q] = p.c[row * U + j];
+        gv[q] = p.g[row * U + j];
+        hv[q] = p.h[row * U + j];
+      }
+    }
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (r < rows) {
-            const size_t row = (size_t)(row0 + r);
-            const size_t o = row * units + col;
-            const float z = zr[row * u2 + col], rg = zr[row * u2 + units + col];
-            dh[o] = g[o] * (1.f - z) + drh[r * units + col] * rg + acc[cc][r];
-          }
+    for (int q = 0; q < kHalf; ++q) {
+      const int r = r0 + q;
+      float vz = 0.f, vr = 0.f;
+      if (r < rows) {
+        const size_t row = (size_t)(row0 + r);
+        const float dz = gv[q] * (cv[q] - hv[q]);
+        vz = dz * z[q] * (1.f - z[q]);
+        const float dr = drh[r * p.ldu + j] * hv[q];
+        vr = dr * rg[q] * (1.f - rg[q]);
+        if (r % C == rank) {
+          p.da[row * u2 + j] = vz;
+          p.da[row * u2 + U + j] = vr;
+          p.rh[row * U + j] = rg[q] * hv[q];
         }
       }
+      das[r * p.ldu2 + j] = vz;
+      das[r * p.ldu2 + U + j] = vr;
     }
+  }
+  if (p.dx != nullptr) {
+    cluster_dense_t(t_dx, plan, pe, ring, parts, [&](int r, int k, float v, float) {
+      if (r < rows) p.dx[(size_t)(row0 + r) * p.d_x + k] = v;
+    });
+    if (p.dh != nullptr) plan = stage_product(t_dh, U, pe, ring);
+  }
+  if (p.dh != nullptr) {
+    cluster_dense_t(t_dh, plan, pe, ring, parts, [&](int r, int k, float v, float) {
+      if (r < rows) {
+        const size_t row = (size_t)(row0 + r);
+        const size_t o = row * U + k;
+        const float z = p.zr[row * u2 + k], rg = p.zr[row * u2 + U + k];
+        p.dh[o] = p.g[o] * (1.f - z) + drh[r * p.ldu + k] * rg + v;
+      }
+    });
   }
 }
 
@@ -749,28 +774,48 @@ extern "C" int sqair_fused_vanilla_rnn_bwd(const void* x, const void* h, const v
 // zr [n, 2 units] and candidate c [n, units], and the output's gradient
 // g [n, units] -> dx [n, d_x] and dh [n, units] (either null to skip),
 // dwg, dug, dbg [2 units], dwc, duc, dbc [units].  dc_in [n, units],
-// da [n, 2 units] and rh [n, units] are scratch.  Same contract as above.
+// da [n, 2 units] and rh [n, units] are scratch.  `geom` is the host's
+// launch geometry of phase A (ops/fused.py gru_bwd_geometry): tile rows,
+// cluster size, blocks and dynamic shared memory bytes; the launch is
+// refused unless it matches this file's.  Same contract as above.
 extern "C" int sqair_fused_gru_bwd(const void* x, const void* h, const void* wg,
                                    const void* ug, const void* wc, const void* uc,
                                    const void* zr, const void* c, const void* g, void* dc_in,
                                    void* da, void* rh, void* dx, void* dh, void* dwg,
                                    void* dug, void* dbg, void* dwc, void* duc, void* dbc,
-                                   int n, int d_x, int units, void* stream) {
+                                   int n, int d_x, int units, const int* geom, void* stream) {
   using namespace sqair;
-  if (n <= 0 || d_x < 1 || units < 1 || 2 * units > kMaxWidth)
-    return (int)cudaErrorInvalidValue;
+  if (n <= 0 || d_x < 1 || units < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * (size_t)kRows * 4 * units;
-  cudaError_t err = allow_smem(gru_bwd_rows_kernel, smem);
+  GruBwdArgs p{};
+  p.h = static_cast<const float*>(h);
+  p.wg = static_cast<const float*>(wg);
+  p.ug = static_cast<const float*>(ug);
+  p.wc = static_cast<const float*>(wc);
+  p.uc = static_cast<const float*>(uc);
+  p.zr = static_cast<const float*>(zr);
+  p.c = static_cast<const float*>(c);
+  p.g = static_cast<const float*>(g);
+  p.dc_in = static_cast<float*>(dc_in);
+  p.da = static_cast<float*>(da);
+  p.rh = static_cast<float*>(rh);
+  p.dx = static_cast<float*>(dx);
+  p.dh = static_cast<float*>(dh);
+  p.n = n;
+  p.d_x = d_x;
+  p.units = units;
+  p.ldu = round4(units);
+  p.ldu2 = round4(2 * units);
+  const int cluster = geom[1];
+  const int tiles = cdiv(n, kTileRows);
+  const size_t smem = sizeof(float) * (size_t)gru_bwd_smem_floats(units);
+  if (geom[0] != kTileRows || cluster < 1 || cluster > kMaxCluster ||
+      geom[2] != tiles * cluster || (size_t)geom[3] != smem || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(gru_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + kRows - 1) / kRows;
-  gru_bwd_rows_kernel<<<blocks, kThreads, smem, s>>>(
-      static_cast<const float*>(h), static_cast<const float*>(wg),
-      static_cast<const float*>(ug), static_cast<const float*>(wc),
-      static_cast<const float*>(uc), static_cast<const float*>(zr),
-      static_cast<const float*>(c), static_cast<const float*>(g),
-      static_cast<float*>(dc_in), static_cast<float*>(da), static_cast<float*>(rh),
-      static_cast<float*>(dx), static_cast<float*>(dh), n, d_x, units);
+  err = launch_cluster(gru_bwd_kernel, p, tiles * cluster, cluster, smem, s);
+  if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const float* xp = static_cast<const float*>(x);

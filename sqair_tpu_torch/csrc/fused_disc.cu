@@ -38,15 +38,22 @@
 // transition, 567 + 256 wide; the estimator; the crop; the glimpse encoder
 // and head; the steps predictor), 0.85 GFLOP a call: 13 us at 67 TFLOP/s
 // off the tensor cores, against ~13 MB of frames, weights, outputs and
-// residuals (4 us at 3.35 TB/s); the backward about twice that.  What the design
-// does: the input encoder is a first launch of kRows rows a block (its
-// weights streamed once per block, as fused_mlp.cu); the slots are a second
-// launch in which one block of kThreads threads owns kDiscRows rows and runs
-// all slots for them with every activation in shared memory, the weights
-// streaming through L2 once per block and slot.  The crop, the encoder and
-// the dense layers are glimpse_common.cuh's, shared with fused_glimpse.cu
-// and fused_prop.cu.
+// residuals (4 us at 3.35 TB/s); the backward about twice that.
 //
+// The forward was redesigned for Hopper with the bits of its first design,
+// in which the input encoder was a launch of 8 rows a block (each thread
+// walking K = 2500 for its columns) and the slots a launch of 2 rows a
+// block, every product a per-thread walk over W's columns (each weight load
+// feeding 2 FMAs, the slot's weights re-read from L2 by all 80 blocks) and
+// the crops dense, one row at a time: 0.717 ms a call on an H100.  The
+// input encoder now runs fused_mlp.cu's kernel (clusters of 8 blocks over
+// 8-row tiles at 160 rows, its outputs written side by side into the
+// layers' [B, 2U]), and the slots run clusters of 4 blocks over tiles of 8
+// rows (disc_fwd_kernel, its own note below): every product a
+// cluster_dense (cluster_dense.cuh), the glimpse and its encoder
+// glimpse_common.cuh's glimpse_encode_fwd, shared with fused_glimpse.cu and
+// fused_prop.cu.
+
 // The backward is three launches: phase A (disc_bwd_kernel) chains the row
 // gradients through the slots in reverse and then through the input
 // encoder, and writes every layer's dz and the weight products' left
@@ -54,8 +61,8 @@
 // (tile_reduce_kernel, twice) reduces the ten slot layers' weight
 // gradients over all S B row-slots and the input encoder's two over the B
 // rows, in fixed order.  No atomics: two runs give the same bits, and they
-// are the bits of phase A's first design, in which one block owned
-// kDiscRows rows (80 blocks at 160 rows), each thread walked its own row
+// are the bits of phase A's first design, in which one block owned 2
+// rows (80 blocks at 160 rows), each thread walked its own row
 // of W for each transposed product (a warp load touching 32 cache lines)
 // and the crops were dense, one row at a time: on an H100 that phase took
 // 1.122 of the call's 1.171 ms, 88.6% of it in the products (clock64 a
@@ -67,8 +74,6 @@
 #include "glimpse_common.cuh"
 
 namespace sqair {
-
-constexpr int kDiscRows = 2;  // batch rows per block of the slot kernels
 
 struct DiscDims {
   int B, S, H, W, gh, gw, nw, U, SP, C;
@@ -161,96 +166,101 @@ struct DiscFwdArgs {
       *res, *g0s, *fres;
 };
 
-// The input encoder: kRows rows a block, layer 1 staged from the frames,
-// layer 2 from shared memory; both layers into fres.
-__global__ void __launch_bounds__(kThreads) disc_encoder_kernel(DiscFwdArgs p) {
-  extern __shared__ float smem[];
-  const DiscDims& d = p.d;
-  const int U = d.U;
-  float* stage = smem;                 // kRows * kChunk
-  float* h1 = smem + kRows * kChunk;   // kRows * U
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, d.B - row0);
-  Acc acc;
-  zero(acc);
-  acc_global(acc, p.in.imgf + (size_t)row0 * d.HW, d.HW, rows, d.HW, p.w.wi1, U, U, stage);
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int j = threadIdx.x + c * kThreads;
-    if (j < U) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float v = apply_act(acc[c][r] + p.w.bi1[j], kElu);
-        h1[r * U + j] = v;
-        if (r < rows) p.fres[(size_t)(row0 + r) * 2 * U + j] = v;
-      }
-    }
-  }
-  __syncthreads();
-  zero(acc);
-  acc_smem(acc, h1, U, U, p.w.wi2, U, U);
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int j = threadIdx.x + c * kThreads;
-    if (j < U) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < rows)
-          p.fres[(size_t)(row0 + r) * 2 * U + U + j] = apply_act(acc[c][r] + p.w.bi2[j], kElu);
-    }
-  }
+// A thread block cluster of C blocks (ops/fused_cells.py disc_fwd_geometry:
+// C = 4 at 160 rows, 80 blocks, one an SM) shares a tile of kTileRows = 8
+// rows and runs its S slots; the input encoder is the launch before it
+// (fused_mlp.cu's kernel), which writes fres.  Every block holds the tile's
+// forward state in its shared memory and runs the elementwise steps (the
+// where, what and presence samples) for all 8 rows itself; each product of
+// a slot is a cluster_dense (the transition's two terms summed apart and
+// then added, as the first design did), whose owners write the outputs
+// into every block's state (`Peers::put`) and the residual fields once.
+// The glimpse and its encoder are glimpse_encode_fwd's, unmasked: row r
+// cropped by block r mod C at the two non-zeros of each interpolation row.
+// A global write of a value every block computes is made by one block.
+
+// Row strides of the forward's buffers (multiples of 4: the products read
+// their left operands as float4s).
+struct DiscFwdLds {
+  int rin, spf, u, g, hp, sp;
+};
+
+__host__ __device__ inline DiscFwdLds disc_fwd_lds(const DiscDims& d) {
+  return DiscFwdLds{round4(d.d_rnn), round4(d.d_spf), round4(d.U), round4(d.G),
+                    round4(2 * d.nw), round4(d.SP)};
 }
 
-__host__ __device__ inline size_t disc_encoder_smem(const DiscDims& d) {
-  return sizeof(float) * (size_t)kRows * (kChunk + d.U);
-}
-
-// Shared memory of the slot forward: kDiscRows rows of each buffer, then
-// one row's crop.
+// Shared memory of the forward, [kTileRows][ld] each: the state that lives
+// across slots (rin, spf and the transition's previous h), then one region
+// that each phase of a slot lays out anew (the estimator; the glimpse and
+// its encoder; the steps predictor), then the products' ring (which the
+// crops borrow) and partial sums.  The estimator's st8 lies past the
+// glimpse's gbuf: the where sample reads it while peers' crops already
+// fill gbuf.
 struct DiscFwdSmem {
-  int rin, spf, a1, a2, st8, gbuf, e1, e2, hp, s1, crop, total;
+  int rin, spf, hprev, a1, a2, st8, gbuf, e1, e2, hp, s1, ring, parts, total;
 };
 
 __host__ __device__ inline DiscFwdSmem disc_fwd_smem(const DiscDims& d) {
   DiscFwdSmem L;
+  const DiscFwdLds ld = disc_fwd_lds(d);
+  const int n = kTileRows;
   int o = 0;
-  const int n = kDiscRows;
-  L.rin = take(o, n * d.d_rnn);  // [enc, cond, what, where, pres of slot k - 1]
-  L.spf = take(o, n * d.d_spf);  // [h, what]
-  L.a1 = take(o, n * d.U);
-  L.a2 = take(o, n * d.U);
-  L.st8 = take(o, n * 8);
-  L.gbuf = take(o, n * d.G);
-  L.e1 = take(o, n * d.U);
-  L.e2 = take(o, n * d.U);
-  L.hp = take(o, n * 2 * d.nw);
-  L.s1 = take(o, n * d.SP);
-  L.crop = take(o, (int)CropSmem::floats(CropDims{d.H, d.W, d.gh, d.gw}));
+  L.rin = take4(o, n * ld.rin);  // [enc, cond, what, where, pres of slot k - 1]
+  L.spf = take4(o, n * ld.spf);  // [h, what]
+  L.hprev = take4(o, n * ld.u);  // the transition's state before the slot
+  const int u0 = o;
+  int end = u0, q;
+  q = u0;  // the glimpse and its encoder
+  L.gbuf = take4(q, n * ld.g);
+  L.e1 = take4(q, n * ld.u);
+  L.e2 = take4(q, n * ld.u);
+  L.hp = take4(q, n * ld.hp);
+  end = end > q ? end : q;
+  q = u0;  // the estimator, st8 past gbuf
+  L.a1 = take4(q, n * ld.u);
+  L.a2 = take4(q, n * ld.u);
+  q = q > L.gbuf + n * ld.g ? q : L.gbuf + n * ld.g;
+  L.st8 = take4(q, n * 8);
+  end = end > q ? end : q;
+  q = u0;  // the steps predictor
+  L.s1 = take4(q, n * ld.sp);
+  end = end > q ? end : q;
+  o = end;
+  const int crop = round4(SparseCrop::floats(CropDims{d.H, d.W, d.gh, d.gw}, false));
+  L.ring = take4(o, crop > kRingT ? crop : kRingT);
+  L.parts = take4(o, kParts);
   L.total = o;
   return L;
 }
 
-__global__ void __launch_bounds__(kThreads) disc_fwd_kernel(DiscFwdArgs p) {
-  extern __shared__ float smem[];
-  constexpr int NR = kDiscRows;
+__global__ void __launch_bounds__(kThreads, 1) disc_fwd_kernel(DiscFwdArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int NR = kTileRows;
   const DiscDims& d = p.d;
   const DiscWeights& w = p.w;
   const DiscInputs& in = p.in;
   const DiscFwdSmem L = disc_fwd_smem(d);
-  float *rin = smem + L.rin, *spf = smem + L.spf, *a1 = smem + L.a1, *a2 = smem + L.a2;
-  float *st8 = smem + L.st8, *gbuf = smem + L.gbuf, *e1 = smem + L.e1, *e2 = smem + L.e2;
-  float *hp = smem + L.hp, *s1 = smem + L.s1;
+  const DiscFwdLds ld = disc_fwd_lds(d);
+  float *rin = smem + L.rin, *spf = smem + L.spf, *hprev = smem + L.hprev;
+  float *a1 = smem + L.a1, *a2 = smem + L.a2, *st8 = smem + L.st8, *gbuf = smem + L.gbuf;
+  float *e1 = smem + L.e1, *e2 = smem + L.e2, *hp = smem + L.hp, *s1 = smem + L.s1;
+  float *ring = smem + L.ring, *parts = smem + L.parts;
   const CropDims cd{d.H, d.W, d.gh, d.gw};
-  const CropSmem cs(smem + L.crop, cd);
+  const Peers pe;
+  const int CL = pe.n, rank = pe.rank;
   const int NW = d.nw, U = d.U, C = d.C, G = d.G, R = d.R;
-  const int drn = d.d_rnn, dsp = d.d_spf;
+  const int drn = ld.rin, dsp = ld.spf;  // row strides
   const int o_what = U + C, o_where = U + C + NW, o_pres = U + C + NW + 4;  // fields of rin
-  const int row0 = blockIdx.x * NR;
+  const int row0 = (blockIdx.x / CL) * NR;
   const int rows = min(NR, d.B - row0);
+  // whether this block writes element i of a loop over kThreads-strided
+  // elements that every block computes (turns of kThreads, round robin)
+  auto mine = [&](int i) { return (i / kThreads) % CL == rank; };
 
   // slot 0: the frame's code and conditioning, no object yet, h = h0
-  for (int i = threadIdx.x; i < NR * drn; i += kThreads) {
-    const int r = i / drn, j = i - r * drn;
+  for (int i = threadIdx.x; i < NR * d.d_rnn; i += kThreads) {
+    const int r = i / d.d_rnn, j = i - r * d.d_rnn;
     const size_t row = (size_t)row0 + r;
     float v = 0.f;
     if (j >= o_pres) {
@@ -260,38 +270,56 @@ __global__ void __launch_bounds__(kThreads) disc_fwd_kernel(DiscFwdArgs p) {
     } else if (r < rows && j < U + C) {
       v = in.cond[row * C + j - U];
     }
-    rin[i] = v;
+    rin[r * drn + j] = v;
   }
   for (int i = threadIdx.x; i < NR * U; i += kThreads) {
     const int r = i / U, j = i - r * U;
-    spf[r * dsp + j] = r < rows ? in.h0b[(size_t)(row0 + r) * U + j] : 0.f;
+    hprev[r * ld.u + j] = r < rows ? in.h0b[(size_t)(row0 + r) * U + j] : 0.f;
   }
   __syncthreads();
 
   for (int k = 0; k < d.S; ++k) {
-    const size_t slot = (size_t)k * d.B + row0;  // the block's first row-slot
+    const size_t slot = (size_t)k * d.B + row0;  // the tile's first row-slot
     float* res0 = p.res + slot * R;              // row r at res0 + r * R
 
-    // the transition: h = tanh(rin Wr + h Ur + br), h in spf[:U]
-    dense2<NR>(rin, drn, drn, w.rw, spf, dsp, U, w.ru, U, [&](int r, int j, float z) {
-      const float v = tanhf(z + w.rb[j]);
-      spf[r * dsp + j] = v;
-      if (r < rows) res0[r * R + d.h + j] = v;
-    });
+    // the transition: h = tanh(rin Wr + h Ur + br), h into spf[:U]
+    {
+      const TTerm t[2] = {{rin, drn, d.d_rnn, w.rw}, {hprev, ld.u, U, w.ru}};
+      cluster_dense<2>(t, U, pe, ring, parts, [&](int r, int j, float z0, float z1) {
+        const float z = z0 + z1;
+        const float v = tanhf(z + w.rb[j]);
+        if (r < rows) res0[r * R + d.h + j] = v;
+        pe.put(spf + r * dsp + j, v);
+      });
+    }
+    for (int i = threadIdx.x; i < NR * U; i += kThreads) {
+      const int r = i / U, j = i - r * U;
+      hprev[r * ld.u + j] = spf[r * dsp + j];
+    }
 
     // the transform estimator and the where sample
-    dense<NR>(spf, dsp, U, w.s1w, U, [&](int r, int j, float z) {
-      const float v = apply_act(z + w.s1b[j], kElu);
-      a1[r * U + j] = v;
-      if (r < rows) res0[r * R + d.a1 + j] = v;
-    });
-    dense<NR>(a1, U, U, w.s2w, U, [&](int r, int j, float z) {
-      const float v = apply_act(z + w.s2b[j], kElu);
-      a2[r * U + j] = v;
-      if (r < rows) res0[r * R + d.a2 + j] = v;
-    });
-    dense<NR>(a2, U, U, w.s3w, 8,
-              [&](int r, int j, float z) { st8[r * 8 + j] = z + w.s3b[j]; });
+    {
+      const TTerm t[1] = {{spf, dsp, U, w.s1w}};
+      cluster_dense<1>(t, U, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = apply_act(z + w.s1b[j], kElu);
+        if (r < rows) res0[r * R + d.a1 + j] = v;
+        pe.put(a1 + r * ld.u + j, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{a1, ld.u, U, w.s2w}};
+      cluster_dense<1>(t, U, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = apply_act(z + w.s2b[j], kElu);
+        if (r < rows) res0[r * R + d.a2 + j] = v;
+        pe.put(a2 + r * ld.u + j, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{a2, ld.u, U, w.s3w}};
+      cluster_dense<1>(t, 8, pe, ring, parts, [&](int r, int j, float z, float) {
+        pe.put(st8 + r * 8 + j, z + w.s3b[j]);
+      });
+    }
     for (int i = threadIdx.x; i < NR * 4; i += kThreads) {
       const int r = i / 4, j = i - r * 4;
       const float wloc = st8[r * 8 + j];
@@ -301,42 +329,47 @@ __global__ void __launch_bounds__(kThreads) disc_fwd_kernel(DiscFwdArgs p) {
         const size_t o = (slot + r) * 4 + j;
         // the plain version's order, unfused: the crop turns at integers
         where = __fadd_rn(wloc, __fmul_rn(wsc, in.epsw[o]));
-        p.where[o] = where;
-        p.where_loc[o] = wloc;
-        p.where_scale[o] = wsc;
+        if (mine(i)) {
+          p.where[o] = where;
+          p.where_loc[o] = wloc;
+          p.where_scale[o] = wsc;
+        }
       }
       rin[r * drn + o_where + j] = where;
     }
     __syncthreads();
 
-    // the unmasked glimpse at the sampled where, encoded
-    for (int r = 0; r < NR; ++r) {
-      if (r < rows) {
-        float c[4];
-        crop_setup(in.img + (size_t)(row0 + r) * d.HW, rin + r * drn + o_where, cd, cs, c);
-        crop_glimpse(cd, cs, gbuf + r * G, p.g0s + (slot + r) * G);
-      } else {
-        for (int i = threadIdx.x; i < G; i += kThreads) gbuf[r * G + i] = 0.f;
-      }
-    }
-    __syncthreads();
-    encode_rows<NR>(gbuf, G, w.we1, w.be1, U, w.we2, w.be2, U, e1, e2, res0 + d.e1, (size_t)R,
-                    res0 + d.e2, (size_t)R, rows);
-    dense<NR>(e2, U, U, w.wh, 2 * NW,
-              [&](int r, int j, float z) { hp[r * 2 * NW + j] = z + w.bh[j]; });
+    // the unmasked glimpse at the sampled where, encoded, and the head
+    glimpse_encode_fwd(
+        in.img, cd, rin + o_where, drn, pe, row0, rows, gbuf, ld.g, nullptr, w.we1, e1, U, ld.u,
+        w.we2, e2, U, ld.u, w.wh, 2 * NW, ring, L.parts - L.ring, parts,
+        [&](int r, int i, float v) { p.g0s[(slot + r) * G + i] = v; },
+        [&](int r, int j, float z) {
+          const float v = apply_act(z + w.be1[j], kElu);
+          if (r < rows) res0[r * R + d.e1 + j] = v;
+          pe.put(e1 + r * ld.u + j, v);
+        },
+        [&](int r, int j, float z) {
+          const float v = apply_act(z + w.be2[j], kElu);
+          if (r < rows) res0[r * R + d.e2 + j] = v;
+          pe.put(e2 + r * ld.u + j, v);
+        },
+        [&](int r, int j, float z) { pe.put(hp + r * ld.hp + j, z + w.bh[j]); });
 
     // the what sample; what is the next slot's explaining away
     for (int i = threadIdx.x; i < NR * NW; i += kThreads) {
       const int r = i / NW, j = i - r * NW;
-      const float gloc = hp[r * 2 * NW + j];
-      const float gsc = softplus(hp[r * 2 * NW + NW + j]) + kMinStd;
+      const float gloc = hp[r * ld.hp + j];
+      const float gsc = softplus(hp[r * ld.hp + NW + j]) + kMinStd;
       float what = 0.f;
       if (r < rows) {
         const size_t o = (slot + r) * NW + j;
         what = __fadd_rn(gloc, __fmul_rn(gsc, in.epsx[o]));
-        p.what[o] = what;
-        p.what_loc[o] = gloc;
-        p.what_scale[o] = gsc;
+        if (mine(i)) {
+          p.what[o] = what;
+          p.what_loc[o] = gloc;
+          p.what_scale[o] = gsc;
+        }
       }
       spf[r * dsp + U + j] = what;
       rin[r * drn + o_what + j] = what;
@@ -344,26 +377,32 @@ __global__ void __launch_bounds__(kThreads) disc_fwd_kernel(DiscFwdArgs p) {
     __syncthreads();
 
     // the steps predictor on [h, what] and the presence
-    dense<NR>(spf, dsp, dsp, w.sp1w, d.SP, [&](int r, int j, float z) {
-      const float v = apply_act(z + w.sp1b[j], kElu);
-      s1[r * d.SP + j] = v;
-      if (r < rows) res0[r * R + d.s1 + j] = v;
-    });
-    dense<NR>(s1, d.SP, d.SP, w.sp2w, 1, [&](int r, int, float z) {
-      const float lraw = z + w.sp2b[0];
-      const float pk = rin[r * drn + o_pres];
-      const float logit = pk * lraw + (pk - 1.f) * 88.f;
-      const float prob = sigmoidf(logit);
-      float pres = 0.f;
-      if (r < rows) {
-        pres = (in.u[slot + r] < prob ? 1.f : 0.f) * pk;
-        res0[r * R + d.lraw] = lraw;
-        p.prob[slot + r] = prob;
-        p.pres[slot + r] = pres;
-        p.logit[slot + r] = logit;
-      }
-      rin[r * drn + o_pres] = pres;
-    });
+    {
+      const TTerm t[1] = {{spf, dsp, d.d_spf, w.sp1w}};
+      cluster_dense<1>(t, d.SP, pe, ring, parts, [&](int r, int j, float z, float) {
+        const float v = apply_act(z + w.sp1b[j], kElu);
+        if (r < rows) res0[r * R + d.s1 + j] = v;
+        pe.put(s1 + r * ld.sp + j, v);
+      });
+    }
+    {
+      const TTerm t[1] = {{s1, ld.sp, d.SP, w.sp2w}};
+      cluster_dense<1>(t, 1, pe, ring, parts, [&](int r, int, float z, float) {
+        const float lraw = z + w.sp2b[0];
+        const float pk = rin[r * drn + o_pres];
+        const float logit = pk * lraw + (pk - 1.f) * 88.f;
+        const float prob = sigmoidf(logit);
+        float pres = 0.f;
+        if (r < rows) {
+          pres = (in.u[slot + r] < prob ? 1.f : 0.f) * pk;
+          res0[r * R + d.lraw] = lraw;
+          p.prob[slot + r] = prob;
+          p.pres[slot + r] = pres;
+          p.logit[slot + r] = logit;
+        }
+        pe.put(rin + r * drn + o_pres, pres);
+      });
+    }
   }
 }
 
@@ -767,11 +806,18 @@ __global__ void __launch_bounds__(kThreads, 1) disc_bwd_kernel(DiscBwdArgs p) {
 // [S, B, nw], where, where_loc, where_scale [S, B, 4], prob, presence,
 // logit [S, B, 1], the residual rows [S, B, R], the glimpses [S, B, gh gw]
 // and the input encoder's layers [B, 2U].  dims is {B, S, H, W, gh, gw, nw,
-// U, SP, C}.  All f32, contiguous and on the device; ptrs and dims are host
-// arrays.  Launches the input encoder, then the slots, on `stream`; does
-// not synchronise, allocates nothing, and returns the CUDA error code of
-// the launches (0 on success).
-extern "C" int sqair_fused_disc(void* const* ptrs, const int* dims, void* stream) {
+// U, SP, C}.  `geom` is the host's launch geometry (ops/fused_cells.py
+// disc_fwd_geometry): the slots' tile rows, cluster size and blocks, then
+// the input encoder's (ops/fused.py mlp_fwd_geometry of B rows, [H W, U,
+// U]): tile rows, cluster size, blocks, dynamic shared memory bytes and
+// each layer's K-blocks a round; the launches are refused unless they
+// match this file's tiles and fused_mlp.cu's, or the tile's state
+// (disc_fwd_smem) does not fit a block's 227 KB.  All f32, contiguous and
+// on the device; ptrs, dims and geom are host arrays.  Launches the input
+// encoder, then the slots, on `stream`; does not synchronise, allocates
+// nothing, and returns the CUDA error code of the launches (0 on success).
+extern "C" int sqair_fused_disc(void* const* ptrs, const int* dims, const int* geom,
+                                void* stream) {
   using namespace sqair;
   DiscFwdArgs p{};
   if (!read_disc_dims(dims, p.d)) return (int)cudaErrorInvalidValue;
@@ -784,19 +830,28 @@ extern "C" int sqair_fused_disc(void* const* ptrs, const int* dims, void* stream
   p.prob = o[6]; p.pres = o[7]; p.logit = o[8];
   p.res = o[9]; p.g0s = o[10]; p.fres = o[11];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  const size_t smem_enc = disc_encoder_smem(p.d);
-  cudaError_t err = allow_smem(disc_encoder_kernel, smem_enc);
-  if (err != cudaSuccess) return (int)err;
-  disc_encoder_kernel<<<(p.d.B + kRows - 1) / kRows, kThreads, smem_enc, s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
+  const int cluster = geom[1];
+  const int tiles = cdiv(p.d.B, kTileRows);
   const size_t smem = sizeof(float) * (size_t)disc_fwd_smem(p.d).total;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (geom[0] != kTileRows || cluster < 1 || cluster > kMaxCluster ||
+      geom[2] != tiles * cluster || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+
+  // the input encoder, both layers into fres [B, 2U]
+  const int U = p.d.U;
+  const int enc_dims[3] = {p.d.HW, U, U};
+  const int enc_acts[2] = {kElu, kElu};
+  const float* enc_w[2] = {p.w.wi1, p.w.wi2};
+  const float* enc_b[2] = {p.w.bi1, p.w.bi2};
+  float* enc_saved[2] = {p.fres, nullptr};
+  cudaError_t err = launch_mlp_fwd(p.in.imgf, p.fres + U, p.d.B, 2, enc_dims, enc_acts, enc_w,
+                                   enc_b, enc_saved, 2 * U, geom + 3, s);
+  if (err != cudaSuccess) return (int)err;
+
   err = allow_smem(disc_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  disc_fwd_kernel<<<(p.d.B + kDiscRows - 1) / kDiscRows, kThreads, smem, s>>>(p);
+  err = launch_cluster(disc_fwd_kernel, p, tiles * cluster, cluster, smem, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -28,10 +28,10 @@
 // frames (0.8 us at 3.35 TB/s); the backward about twice that.
 //
 // The forward was redesigned for Hopper with the bits of its first design,
-// in which one block owned kRows = 8 rows (20 blocks at 160 rows), cropped
-// them one at a time with the dense interpolation matrices and streamed
-// every weight through L2 per block, each thread walking K for its columns
-// (acc_global, acc_smem): on an H100, 57.5% of its 0.137 ms went to the
+// in which one block owned 8 rows (20 blocks at 160 rows), cropped them
+// one at a time with the dense interpolation matrices and streamed every
+// weight through L2 per block, each thread walking K for its columns: on
+// an H100, 57.5% of its 0.137 ms went to the
 // products and 38.2% to the crops (clock64 a block).  It now runs clusters
 // of 4 blocks over tiles of 8 rows (glimpse_fwd_kernel, its own note
 // below), every product a cluster_dense, and crops at the two non-zeros of

@@ -73,6 +73,7 @@ struct MlpArgs {
   int n_layers;
   int cluster;  // blocks of a cluster, splitting each layer's columns
   int act_ld;   // row stride of the activation buffers (0 with one layer)
+  int out_ld;   // row stride of y and the saved layers (0: each its own width)
   int dims[kMaxLayers + 1];
   int acts[kMaxLayers];
   int wk[kMaxLayers];  // K-blocks a round of layer l takes at once (1, 2, 4, 8)
@@ -214,6 +215,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mlp_kernel(MlpArgs p) {
       }
       // the pass's outputs: row `warp`, column `lane` of each chunk
       const int r = warp;
+      const size_t out_ld = p.out_ld > 0 ? p.out_ld : L.D;
 #pragma unroll
       for (int i = 0; i < kWarps; ++i) {
         const int chunk = pass * L.WJ + i;
@@ -221,8 +223,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mlp_kernel(MlpArgs p) {
         if (i < L.WJ && chunk < L.J && col < L.D) {
           const float v = apply_act(acc[i] + p.b[l][col], p.acts[l]);
           if (r < rows) {
-            if (last) p.y[(size_t)(row0 + r) * L.D + col] = v;
-            if (p.saved[l] != nullptr) p.saved[l][(size_t)(row0 + r) * L.D + col] = v;
+            if (last) p.y[(row0 + r) * out_ld + col] = v;
+            if (p.saved[l] != nullptr) p.saved[l][(row0 + r) * out_ld + col] = v;
           }
           if (!last) {
             for (int peer = 0; peer < p.cluster; ++peer)
@@ -235,6 +237,62 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mlp_kernel(MlpArgs p) {
     // layer read is written by the layer after next, past this barrier
     if (!last) cluster.sync();
   }
+}
+
+cudaError_t launch_mlp_fwd(const float* x, float* y, int n, int n_layers, const int* dims,
+                           const int* acts, const float* const* w, const float* const* b,
+                           float* const* saved, int out_ld, const int* geom,
+                           cudaStream_t stream) {
+  if (n <= 0 || n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
+  MlpArgs p{};
+  p.x = x;
+  p.y = y;
+  p.n = n;
+  p.n_layers = n_layers;
+  p.cluster = geom[1];
+  p.out_ld = out_ld;
+  int max_hidden = 0;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1 || (l > 0 && dims[l] > kMaxWidth)) return cudaErrorInvalidValue;
+    if (l > 0 && out_ld != 0 && out_ld < dims[l]) return cudaErrorInvalidValue;
+    p.dims[l] = dims[l];
+  }
+  for (int l = 0; l < n_layers; ++l) {
+    if (acts[l] < kId || acts[l] > kTanh) return cudaErrorInvalidValue;
+    const int wk = geom[4 + l];
+    if (wk != 1 && wk != 2 && wk != 4 && wk != 8) return cudaErrorInvalidValue;
+    p.acts[l] = acts[l];
+    p.wk[l] = wk;
+    p.w[l] = w[l];
+    p.b[l] = b[l];
+    p.saved[l] = saved == nullptr ? nullptr : saved[l];
+    if (l < n_layers - 1 && dims[l + 1] > max_hidden) max_hidden = dims[l + 1];
+  }
+  // a multiple of 4 floats (float4 reads) that is 4 past a multiple of 32:
+  // the 4 rows a warp's float4 reads touch at once fall in other banks
+  p.act_ld = max_hidden > 0 ? (max_hidden + 31) / 32 * 32 + 4 : 0;
+  const int tiles = cdiv(n, kTileRows);
+  const size_t smem = sizeof(float) * (2 * (size_t)kStage + kParts + 2 * kTileRows * p.act_ld);
+  if (geom[0] != kTileRows || p.cluster < 1 || p.cluster > kMaxCluster ||
+      geom[2] != tiles * p.cluster || (size_t)geom[3] != smem)
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(fused_mlp_kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * p.cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_mlp_kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace sqair
@@ -253,52 +311,9 @@ extern "C" int sqair_fused_mlp(const void* x, void* y, int n, int n_layers,
                                const void* const* w, const void* const* b,
                                void* const* saved, const int* geom, void* stream) {
   using namespace sqair;
-  if (n <= 0 || n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
-  MlpArgs p{};
-  p.x = static_cast<const float*>(x);
-  p.y = static_cast<float*>(y);
-  p.n = n;
-  p.n_layers = n_layers;
-  p.cluster = geom[1];
-  int max_hidden = 0;
-  for (int l = 0; l <= n_layers; ++l) {
-    if (dims[l] < 1 || (l > 0 && dims[l] > kMaxWidth)) return (int)cudaErrorInvalidValue;
-    p.dims[l] = dims[l];
-  }
-  for (int l = 0; l < n_layers; ++l) {
-    if (acts[l] < kId || acts[l] > kTanh) return (int)cudaErrorInvalidValue;
-    const int wk = geom[4 + l];
-    if (wk != 1 && wk != 2 && wk != 4 && wk != 8) return (int)cudaErrorInvalidValue;
-    p.acts[l] = acts[l];
-    p.wk[l] = wk;
-    p.w[l] = static_cast<const float*>(w[l]);
-    p.b[l] = static_cast<const float*>(b[l]);
-    p.saved[l] = saved == nullptr ? nullptr : static_cast<float*>(saved[l]);
-    if (l < n_layers - 1 && dims[l + 1] > max_hidden) max_hidden = dims[l + 1];
-  }
-  // a multiple of 4 floats (float4 reads) that is 4 past a multiple of 32:
-  // the 4 rows a warp's float4 reads touch at once fall in other banks
-  p.act_ld = max_hidden > 0 ? (max_hidden + 31) / 32 * 32 + 4 : 0;
-  const int tiles = cdiv(n, kTileRows);
-  const size_t smem = sizeof(float) * (2 * (size_t)kStage + kParts + 2 * kTileRows * p.act_ld);
-  if (geom[0] != kTileRows || p.cluster < 1 || p.cluster > kMaxCluster ||
-      geom[2] != tiles * p.cluster || (size_t)geom[3] != smem)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(fused_mlp_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * p.cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fused_mlp_kernel, p);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)launch_mlp_fwd(static_cast<const float*>(x), static_cast<float*>(y), n, n_layers,
+                             dims, acts, reinterpret_cast<const float* const*>(w),
+                             reinterpret_cast<const float* const*>(b),
+                             reinterpret_cast<float* const*>(saved), 0, geom,
+                             static_cast<cudaStream_t>(stream));
 }

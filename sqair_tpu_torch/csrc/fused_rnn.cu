@@ -38,8 +38,8 @@
 //   with the weights staged by cp.async into a double-buffered ring one
 //   round ahead, and each output's owner adds the partial sums in K order:
 //   the x-blocks from 0 (the last one short), then the h-blocks from 0, as
-//   the one-block-per-8-rows kernels summed them (common.cuh acc_global
-//   over x, then over h).  So the kernels give those kernels' bits.
+//   the one-block-per-8-rows kernels summed them (one chain over x, then
+//   over h).  So the kernels give those kernels' bits.
 // - The GRU's blocks form a thread block cluster and run three stages: the
 //   gates over [x | h], then the candidate's x Wc over the same staged x,
 //   whose sums each block holds in shared memory, then, after one

@@ -2,14 +2,12 @@
 // (fused_glimpse.cu, fused_prop.cu, fused_disc.cu): the bilinear crop at a
 // where in logit space and its where-gradient, one row at a time with the
 // frame and the interpolation matrices in shared memory (crop_setup,
-// crop_glimpse, crop_bwd: the discovery forward and the propagation
-// backward) or at the two non-zeros of each interpolation row
-// (sparse_crop_*, with the same bits: the glimpse encoder's forward and
-// backward, the propagation forward, the discovery backward), a tile's
-// glimpses masked and encoded over a thread block cluster
-// (glimpse_encode_fwd: the glimpse encoder's forward and the propagation
-// forward), and dense layers over a block's NR rows held in shared memory
-// (the discovery forward's).
+// crop_glimpse, crop_bwd: the propagation backward) or at the two non-zeros
+// of each interpolation row (sparse_crop_*, with the same bits: the glimpse
+// encoder's forward and backward, the propagation forward, the discovery
+// forward and backward), and a tile's glimpses masked (or not) and encoded
+// over a thread block cluster (glimpse_encode_fwd: the glimpse encoder's
+// forward, the propagation forward and the discovery forward).
 //
 //   s = sigmoid(wl[:2]), t = tanh(wl[2:]); s_c = max(s, 1e-4)
 //   u_i = (s_c t_i + t + 1)(src - 1) / 2, t_i = i 2/(dst - 1) - 1
@@ -420,7 +418,8 @@ __device__ __forceinline__ void sparse_crop_bwd(const float* __restrict__ frame,
 // ------------------------------------------ a tile's glimpses over a cluster
 // The glimpse of each of a tile's kTileRows rows over a thread block
 // cluster, masked and encoded (the glimpse encoder's forward, fused_glimpse.cu,
-// and each glimpse of the propagation forward, fused_prop.cu).  Row r <
+// each glimpse of the propagation forward, fused_prop.cu, and, unmasked,
+// each slot's glimpse of the discovery forward, fused_disc.cu).  Row r <
 // rows is cropped at its where logits wl + r * ldwl (any memory) by block
 // r mod C, a block's rows side by side in groups of threads at the two
 // non-zeros of each interpolation row, with the crop's scratch in `ring`
@@ -482,74 +481,6 @@ __device__ __forceinline__ void glimpse_encode_fwd(
   }
   const TTerm th[1] = {{e2, ld2, d2, wh}};
   cluster_dense<1>(th, D, pe, ring, parts, [&](int r, int j, float z, float) { epih(r, j, z); });
-}
-
-// ------------------------------------------------ dense layers over NR rows
-// epi(r, j, a[r] W[:, j]) for the block's NR rows of `a` (shared memory, row
-// stride lda, K columns) and the D columns of the row-major W [K, D].  The
-// products are all taken before any epilogue runs, so an epilogue may
-// overwrite `a`.  Synchronises after the epilogues.
-template <int NR, typename Epi>
-__device__ __forceinline__ void dense(const float* a, int lda, int K,
-                                      const float* __restrict__ w, int D, Epi epi) {
-  float acc[kMaxCols][NR];
-  zero(acc);
-  acc_smem(acc, a, lda, K, w, D, D);
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int j = threadIdx.x + c * kThreads;
-    if (j < D) {
-#pragma unroll
-      for (int r = 0; r < NR; ++r) epi(r, j, acc[c][r]);
-    }
-  }
-  __syncthreads();
-}
-
-// epi(r, j, a[r] W[:, j] + a2[r] W2[:, j]): two products summed, as
-// `a @ W + a2 @ W2`.
-template <int NR, typename Epi>
-__device__ __forceinline__ void dense2(const float* a, int lda, int K,
-                                       const float* __restrict__ w, const float* a2, int lda2,
-                                       int K2, const float* __restrict__ w2, int D, Epi epi) {
-  float acc[kMaxCols][NR], acc2[kMaxCols][NR];
-  zero(acc);
-  zero(acc2);
-  acc_smem(acc, a, lda, K, w, D, D);
-  acc_smem(acc2, a2, lda2, K2, w2, D, D);
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int j = threadIdx.x + c * kThreads;
-    if (j < D) {
-#pragma unroll
-      for (int r = 0; r < NR; ++r) epi(r, j, acc[c][r] + acc2[c][r]);
-    }
-  }
-  __syncthreads();
-}
-
-// The glimpse encoder over NR rows: h1 = elu(g We1 + be1) [d1],
-// h2 = elu(h1 We2 + be2) [d2] into shared memory, and into the global rows
-// h1_out + r * ld1, h2_out + r * ld2 (each unless null) for r < rows.
-template <int NR>
-__device__ __forceinline__ void encode_rows(const float* g, int G, const float* __restrict__ we1,
-                                            const float* __restrict__ be1, int d1,
-                                            const float* __restrict__ we2,
-                                            const float* __restrict__ be2, int d2, float* h1,
-                                            float* h2, float* __restrict__ h1_out, size_t ld1,
-                                            float* __restrict__ h2_out, size_t ld2, int rows) {
-  dense<NR>(g, G, G, we1, d1, [&](int r, int j, float z) {
-    const float v = apply_act(z + be1[j], kElu);
-    h1[r * d1 + j] = v;
-    if (h1_out != nullptr && r < rows) h1_out[r * ld1 + j] = v;
-  });
-  dense<NR>(h1, d1, d1, we2, d2, [&](int r, int j, float z) {
-    const float v = apply_act(z + be2[j], kElu);
-    h2[r * d2 + j] = v;
-    if (h2_out != nullptr && r < rows) h2_out[r * ld2 + j] = v;
-  });
 }
 
 }  // namespace sqair

@@ -11,8 +11,9 @@
 // too.  Each unit writes its 8 x 32 partial sums to `parts`, and each
 // output's owner then adds the round's K-blocks to its sum in K order
 // (`add_round`).  So every output is the chain acc = ((p_0 + p_1) + p_2)
-// + ... of 32-product partial sums that one thread walking K would form
-// (common.cuh acc_smem): the bits of the one-block-per-8-rows kernels.
+// + ... of 32-product partial sums that one thread walking K would form:
+// the bits of the first designs, one block per 8 rows, in which each
+// thread walked K for its columns.
 #pragma once
 
 #include "common.cuh"
@@ -114,5 +115,14 @@ __device__ __forceinline__ void add_round(float (&acc)[kWarps], const float* par
     default: add_round_wj<8>(acc, pr, jn, nwk); break;
   }
 }
+
+// The MLP forward of fused_mlp.cu (defined there), launched on `stream` as
+// sqair_fused_mlp launches it, with `out_ld` the row stride of y and of the
+// saved layers (0: each its own width), so that a caller may write the
+// layers side by side (the discovery unroll's input encoder, fused_disc.cu).
+cudaError_t launch_mlp_fwd(const float* x, float* y, int n, int n_layers, const int* dims,
+                           const int* acts, const float* const* w, const float* const* b,
+                           float* const* saved, int out_ld, const int* geom,
+                           cudaStream_t stream);
 
 }  // namespace sqair

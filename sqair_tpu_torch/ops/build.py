@@ -46,16 +46,16 @@ PROTOTYPES = {
     # x, h, w, u, hn, g, dx, dh, dw, du, db, n, dx, units, geom*, stream
     "sqair_fused_vanilla_rnn_bwd": (_P,) * 11 + (_I, _I, _I, _P, _P),
     # x, h, wg, ug, wc, uc, zr, c, g, dc_in, da, rh, dx, dh, dwg, dug, dbg,
-    # dwc, duc, dbc, n, dx, units, stream
-    "sqair_fused_gru_bwd": (_P,) * 20 + (_I, _I, _I, _P),
+    # dwc, duc, dbc, n, dx, units, geom*, stream
+    "sqair_fused_gru_bwd": (_P,) * 20 + (_I, _I, _I, _P, _P),
     # ptrs* (see csrc/fused_glimpse.cu), dims*, geom*, stream
     "sqair_fused_glimpse": (_P, _P, _P, _P),
     "sqair_fused_glimpse_bwd": (_P, _P, _P, _P),
     # ptrs* (see csrc/fused_prop.cu), dims*, geom*, stream
     "sqair_fused_prop": (_P, _P, _P, _P),
     "sqair_fused_prop_bwd": (_P, _P, _P, _P),
-    # ptrs* (see csrc/fused_disc.cu), dims*, stream; the backward with geom*
-    "sqair_fused_disc": (_P, _P, _P),
+    # ptrs* (see csrc/fused_disc.cu), dims*, geom*, stream
+    "sqair_fused_disc": (_P, _P, _P, _P),
     "sqair_fused_disc_bwd": (_P, _P, _P, _P),
     # dims*
     "sqair_fused_prop_scratch_floats": (_P,),

@@ -257,6 +257,25 @@ def mlp_bwd_geometry(n, dims):
     return dict(tile_rows=tile_rows, cluster=cluster, blocks=tiles * cluster, smem=smem)
 
 
+def gru_bwd_geometry(n, d_x, units):
+    """The launch of the GRU backward's phase A (csrc/fused_bwd.cu
+    gru_bwd_kernel), as the host picks it for n rows, d_x inputs and
+    ``units``: a cluster of ``cluster`` blocks shares a tile of
+    ``tile_rows`` rows and splits the 32-column chunks of each transposed
+    product (drh, dx and dh; d_x changes nothing: dx's columns are split
+    like the others), ``cluster`` picked as ``mlp_bwd_geometry`` picks it
+    (8 at 160 rows, 4 at 480).  ``smem`` is its dynamic shared memory in
+    bytes: two stages of a round's staged W tiles [8][32][36], the partial
+    sums [8][8][32] and the tile's dc_in, drh [8][units] and da [8][2
+    units], widths rounded up to 4.  Phase B plans its own launch."""
+    tile_rows, ring, parts = 8, 2 * 8 * 32 * (32 + 4), 8 * 8 * 32
+    tiles = _cdiv(n, tile_rows)
+    cluster = next((c for c in (1, 2, 4, 8) if tiles * c >= SMS), 8)
+    state = tile_rows * (2 * _cdiv(units, 4) * 4 + _cdiv(2 * units, 4) * 4)
+    return dict(tile_rows=tile_rows, cluster=cluster, blocks=tiles * cluster,
+                smem=4 * (ring + parts + state))
+
+
 def _cell_fwd_geometry(n, d_x, units, gru):
     """The launch of a cell's forward kernel (csrc/fused_rnn.cu): see
     ``vrnn_fwd_geometry`` and ``gru_fwd_geometry``."""
@@ -615,10 +634,13 @@ def fused_gru_bwd(x, h, wg, ug, wc, uc, zr, c, g, need_dx=True, need_dh=True):
         return (dx, dh, *grads)
     dc_in, da, rh = _empty(n, units, like=x), _empty(n, 2 * units, like=x), \
         _empty(n, units, like=x)
+    geom = gru_bwd_geometry(n, d_x, units)
     code = library().sqair_fused_gru_bwd(
         _ptr(x), _ptr(h), _ptr(wg), _ptr(ug), _ptr(wc), _ptr(uc), _ptr(zr), _ptr(c),
         _ptr(g), _ptr(dc_in), _ptr(da), _ptr(rh), _ptr(dx), _ptr(dh),
-        *[_ptr(t) for t in grads], n, d_x, units, _stream(x.device))
+        *[_ptr(t) for t in grads], n, d_x, units,
+        _ints([geom[k] for k in ("tile_rows", "cluster", "blocks", "smem")]),
+        _stream(x.device))
     _raise_on("fused_gru_bwd", code)
     launches["fused_gru_bwd"] += 1
     return (dx, dh, *grads)

@@ -864,11 +864,29 @@ def _disc_fwd_cuda(img, imgf, cond, h0b, eps_w, eps_x, u, weights, dims):
     outs += [_empty(S, B, disc_residual_layout(dims)[1], like=img),
              _empty(S, B, gh * gw, like=img), _empty(B, 2 * U, like=img)]
     if B > 0:
-        code = library().sqair_fused_disc(_ptrs(inputs + list(weights) + outs), _ints(kd),
-                                          _stream(img.device))
+        geom = disc_fwd_geometry(kd)
+        enc = geom["encoder"]
+        code = library().sqair_fused_disc(
+            _ptrs(inputs + list(weights) + outs), _ints(kd),
+            _ints([geom["tile_rows"], geom["cluster"], geom["blocks"], enc["tile_rows"],
+                   enc["cluster"], enc["blocks"], enc["smem"], *enc["wk"]]),
+            _stream(img.device))
         _raise_on("fused_disc", code)
         launches["fused_disc"] += 1
     return tuple(outs)
+
+
+def disc_fwd_geometry(dims):
+    """The launches of the discovery forward (csrc/fused_disc.cu), as the
+    host picks them for the kernel dims [B, S, H, W, gh, gw, n_what, U, SP,
+    C]: the slots' clusters of ``cluster`` blocks share a tile of
+    ``tile_rows`` rows, every block holding the tile's forward state (the
+    kernel's disc_fwd_smem, which the C entry works out and holds to 227
+    KB), ``fused.tile_state_geometry`` of the B rows; ``encoder`` is the
+    input encoder's launch before them, ``fused.mlp_fwd_geometry`` of the B
+    rows and the widths [H W, U, U]."""
+    B, H, W, U = dims[0], dims[2], dims[3], dims[7]
+    return dict(_fused.tile_state_geometry(B), encoder=_fused.mlp_fwd_geometry(B, [H * W, U, U]))
 
 
 def disc_bwd_geometry(dims):

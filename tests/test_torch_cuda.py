@@ -582,3 +582,60 @@ def test_disc_backward_kernel_tiles_match_plain_on_cuda(n):
             what = f"disc n={n} crop_keep={kp is not None}"
             _assert_grads_close(got, fc.disc_plain_bwd(*bargs, crop_keep=kp), what)
             assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_dx,need_dh", [(True, True), (True, False), (False, True),
+                                             (False, False)])
+@pytest.mark.parametrize("n", [1, 7, 9, 160, 161, 480, 481])
+def test_gru_backward_kernel_tiles_match_plain_on_cuda(n, need_dx, need_dh):
+    """The cluster GRU backward and its tile reducer against the plain
+    backward (1e-4 of each gradient's largest entry) at row counts at the
+    edges of the 8-row tiles and of the cluster (1, 7: one tile; 9: two;
+    160, 161: clusters of 8; 480, 481: clusters of 4), at the temporal
+    cell's widths (d_x 360) and the propagation prior's (d_x 54, at 480
+    rows), each of dx and dh asked or not; a second run gives the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(300 + n)
+    rnd = _rnd_fn(gen)
+    d_x, units = (54 if n >= 480 else 360), 256
+    x = torch.rand(n, d_x, generator=gen, device="cuda")
+    h = 2 * torch.rand(n, units, generator=gen, device="cuda") - 1
+    wg, ug, bg = rnd(d_x, 2 * units), rnd(units, 2 * units), rnd(2 * units)
+    wc, uc, bc = rnd(d_x, units), rnd(units, units), rnd(units)
+    with torch.inference_mode():
+        _, zr, c = fused.gru_plain_saving(x, h, wg, ug, bg, wc, uc, bc)
+        g = rnd(n, units)
+        bargs = (x, h, wg, ug, wc, uc, zr, c, g)
+        want = list(fused.gru_bwd_plain(*bargs))
+        want[0] = want[0] if need_dx else None
+        want[1] = want[1] if need_dh else None
+        got, again = (fused.fused_gru_bwd(*bargs, need_dx=need_dx, need_dh=need_dh)
+                      for _ in range(2))
+        what = f"gru n={n} dx={need_dx} dh={need_dh}"
+        _assert_grads_close(got, want, what)
+        for a, b in zip(got, again):
+            assert (a is None and b is None) or torch.equal(a, b), f"{what}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 9, 160, 161])
+def test_disc_forward_kernel_tiles_match_plain_on_cuda(n):
+    """The cluster discovery forward (its input encoder fused_mlp.cu's
+    kernel; its crops at the two non-zeros of each interpolation row; the
+    nine outputs, the residual rows, the glimpses and the input encoder's
+    layers) against the plain forward at row counts at the edges of the
+    8-row tiles and of the cluster (1, 3: one tile, clusters of 8; 9: two;
+    160, 161: clusters of 4); a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fc, args, weights, dims, _ = _disc_case(n)
+    with torch.inference_mode():
+        got, again = (fc._disc_fwd_cuda(*args, weights, dims) for _ in range(2))
+        want = fc.disc_plain_fwd(*args, weights, dims)
+        assert len(got) == len(want) == 12
+        for i, (a, b) in enumerate(zip(got, want)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=f"disc n={n} output {i}")
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"disc n={n}: two runs differ"

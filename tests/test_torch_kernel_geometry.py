@@ -1,11 +1,12 @@
 """The host's launch geometry of the kernels redesigned for Hopper
 (``ops/fused.py``: ``mlp_fwd_geometry`` for csrc/fused_mlp.cu,
 ``vrnn_fwd_geometry`` and ``gru_fwd_geometry`` for the cells' forwards of
-csrc/fused_rnn.cu, ``vrnn_bwd_geometry`` and ``mlp_bwd_geometry`` for the
-vanilla-RNN and MLP backwards of csrc/fused_bwd.cu; ``ops/fused_cells.py``:
-``prop_fwd_geometry`` and ``prop_bwd_geometry`` for the propagation forward
-and backward of csrc/fused_prop.cu, ``disc_bwd_geometry`` for the discovery
-backward of csrc/fused_disc.cu; ``ops/fused_glimpse.py``:
+csrc/fused_rnn.cu, ``vrnn_bwd_geometry``, ``mlp_bwd_geometry`` and
+``gru_bwd_geometry`` for the vanilla-RNN, MLP and GRU backwards of
+csrc/fused_bwd.cu; ``ops/fused_cells.py``: ``prop_fwd_geometry`` and
+``prop_bwd_geometry`` for the propagation forward and backward of
+csrc/fused_prop.cu, ``disc_fwd_geometry`` and ``disc_bwd_geometry`` for the
+discovery forward and backward of csrc/fused_disc.cu; ``ops/fused_glimpse.py``:
 ``glimpse_fwd_geometry`` and ``glimpse_bwd_geometry`` for the glimpse
 forward and backward of csrc/fused_glimpse.cu), at every MLP, vanilla-RNN,
 GRU, glimpse, propagation and discovery shape of
@@ -591,3 +592,125 @@ def test_glimpse_forward_and_disc_backward_wrappers_pass_the_geometry(seen, monk
     assert list(seen["sqair_fused_disc_bwd"][1]) == kd
     g = fc.disc_bwd_geometry(kd)
     assert list(seen["sqair_fused_disc_bwd"][2]) == [g["tile_rows"], g["cluster"], g["blocks"]]
+
+
+def _flags_shapes(kernel, train, fuse):
+    """``kernel``'s shapes in a step at the release flags and at DISC_FLAGS."""
+    release = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
+    out = []
+    for flags in (release, dict(release, **chip_smoke.DISC_LEVERS)):
+        B, k = int(flags["batch_size"]), int(flags["k_particles"])
+        T = int(flags.get("font_timesteps", 10))
+        shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, fuse_glimpse=fuse,
+                                             fuse_cells=fuse)
+        out += [(flags, s) for kn, s, _ in shapes if kn == kernel]
+    return out
+
+
+def _gru_bwd_smem(units):
+    """Bytes of the GRU backward's shared memory, as csrc/fused_bwd.cu
+    gru_bwd_smem_floats lays it out (a copy, as ``_prop_bwd_smem``): the
+    products' ring and partial sums, then the tile's dc_in, drh [8][units]
+    and da [8][2 units], widths rounded up to 4."""
+    return 4 * (_RING + _PARTS + 8 * (2 * _r4(units) + _r4(2 * units)))
+
+
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_gru_backward_geometry_fills_the_card(train, fuse):
+    """Phase A of the GRU backward at every GRU shape of a step (release
+    flags and DISC_FLAGS) and at tile edges: clusters of 1-8 blocks over
+    8-row tiles that fill the card where n allows (8 at 160 rows: 160
+    blocks; 4 at 480: 240), two blocks an SM in shared memory."""
+    shapes = _flags_shapes("fused_gru", train, fuse)
+    assert shapes
+    edges = [dict(n=n, dx=360, units=256) for n in (1, 7, 9, 161, 481)]
+    for s in [s for _, s in shapes] + edges:
+        g = fused.gru_bwd_geometry(s["n"], s["dx"], s["units"])
+        tiles = math.ceil(s["n"] / 8)
+        assert g["tile_rows"] == 8 and g["cluster"] in (1, 2, 4, 8), (s, g)
+        assert g["blocks"] == tiles * g["cluster"], (s, g)
+        assert g["blocks"] >= min(fused.SMS, tiles * 8), (s, g)
+        assert g["smem"] == _gru_bwd_smem(s["units"]), (s, g)
+        assert 2 * g["smem"] <= fused.MAX_SMEM, (s, g)  # two blocks an SM
+        if s["n"] == 160:
+            assert g["cluster"] == 8 and g["blocks"] == 160, (s, g)
+        if s["n"] == 480:
+            assert g["cluster"] == 4 and g["blocks"] == 240, (s, g)
+
+
+def _disc_fwd_smem(dims):
+    """Bytes of the discovery forward's shared memory, as csrc/fused_disc.cu
+    disc_fwd_smem lays it out for the kernel dims (a copy, as
+    ``_prop_fwd_smem``): the state that lives across slots (rin, spf, the
+    transition's previous h), the largest region a phase of a slot lays out
+    (the glimpse and its encoder; the estimator, its st8 past the glimpse's
+    gbuf; the steps predictor), the ring and the partial sums; [8][width
+    rounded up to 4] each."""
+    _, _, H, W, gh, gw, nw, U, SP, C = dims
+    G, d_rnn, d_spf = gh * gw, U + C + nw + 5, U + nw
+    live = sum(8 * _r4(w) for w in (d_rnn, d_spf, U))
+    glimpse = sum(8 * _r4(w) for w in (G, U, U, 2 * nw))
+    estimator = max(2 * 8 * _r4(U), 8 * _r4(G)) + 8 * 8
+    region = max(glimpse, estimator, 8 * _r4(SP))
+    ring = max(_RING, _r4(_sparse_crop_floats(H, W, gh, gw, False)))
+    return 4 * (live + region + ring + _PARTS)
+
+
+@pytest.mark.parametrize("train,fuse", SETTINGS)
+def test_disc_forward_geometry_fills_the_card(train, fuse):
+    """The discovery forward's launches at DISC_FLAGS, at the main path's
+    discovery shape with both switches and at tile edges: the slots' widest
+    cluster whose blocks all fit the card at once (4 at 160 rows: 80
+    blocks), one block an SM, the tile's state within 227 KB; the input
+    encoder's launch the MLP forward's at [H W, U, U], filling the card where
+    n allows."""
+    shapes = _flags_shapes("fused_disc", train, fuse)
+    assert bool(shapes) == fuse
+    flags = dict(json.loads(chip_smoke.RELEASE_FLAGS.read_text()), **chip_smoke.DISC_LEVERS)
+    for n in [s["n"] for _, s in shapes] + [1, 3, 8, 9, 161]:
+        dims = _disc_kernel_dims(flags, n)
+        g = fc.disc_fwd_geometry(dims)
+        tiles = math.ceil(n / 8)
+        assert g["tile_rows"] == 8 and g["cluster"] in (1, 2, 4, 8), (n, g)
+        assert g["blocks"] == tiles * g["cluster"] <= fused.SMS, (n, g)
+        assert g["cluster"] == 8 or 2 * g["blocks"] > fused.SMS, (n, g)
+        smem = _disc_fwd_smem(dims)
+        assert fused.MAX_SMEM // 2 < smem <= fused.MAX_SMEM, (n, smem)  # one block an SM
+        enc = g["encoder"]
+        assert enc == fused.mlp_fwd_geometry(n, [dims[2] * dims[3], dims[7], dims[7]]), (n, g)
+        assert 1 <= enc["cluster"] <= 8 and enc["blocks"] >= min(fused.SMS, tiles * 8), (n, g)
+        assert 2 * enc["smem"] <= fused.MAX_SMEM, (n, g)
+        if n == 160:
+            assert g["cluster"] == 4 and g["blocks"] == 80, (n, g)
+            assert enc["cluster"] == 8 and enc["blocks"] == 160, (n, g)
+
+
+def test_gru_backward_and_disc_forward_wrappers_pass_the_geometry(seen, monkeypatch):
+    """The GRU backward and the discovery forward hand the host's geometry
+    to their C entries (the library is a stand-in that records it), the
+    GRU's with dx and dh skipped or not."""
+    gen = torch.Generator().manual_seed(0)
+    monkeypatch.setattr(fused, "_on_cuda", lambda name, t: True)
+    n, d_x, units = 13, 7, 12
+    x, h = torch.rand(n, d_x, generator=gen), torch.rand(n, units, generator=gen)
+    mats = [torch.rand(*s, generator=gen) for s in ((d_x, 2 * units), (units, 2 * units),
+                                                    (d_x, units), (units, units),
+                                                    (n, 2 * units), (n, units), (n, units))]
+    g = fused.gru_bwd_geometry(n, d_x, units)
+    for need_dx, need_dh in ((True, True), (False, True), (True, False)):
+        fused.fused_gru_bwd(x, h, *mats, need_dx=need_dx, need_dh=need_dh)
+        args = seen["sqair_fused_gru_bwd"]
+        assert list(args[23]) == [g["tile_rows"], g["cluster"], g["blocks"], g["smem"]]
+        assert (args[12].value is not None) == need_dx and (args[13].value is not None) == need_dh
+    monkeypatch.setattr(fc, "_stream", lambda device: ctypes.c_void_p(0))
+    dshape = dict(n=13, S=2, img=[12, 12], glimpse=[5, 5], n_what=6, U=40, SP=20, C=24)
+    frames = torch.rand((13, 12, 12), generator=gen)
+    dargs, dweights = chip_smoke.disc_inputs(torch, fc, dshape, gen, "cpu", frames)
+    fc._disc_fwd_cuda(*dargs, dweights, chip_smoke.disc_dims(dshape))
+    kd = [13, 2, 12, 12, 5, 5, 6, 40, 20, 24]
+    assert list(seen["sqair_fused_disc"][1]) == kd
+    g = fc.disc_fwd_geometry(kd)
+    enc = g["encoder"]
+    assert list(seen["sqair_fused_disc"][2]) == [
+        g["tile_rows"], g["cluster"], g["blocks"], enc["tile_rows"], enc["cluster"],
+        enc["blocks"], enc["smem"], *enc["wk"]]

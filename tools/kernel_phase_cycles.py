@@ -6,19 +6,21 @@ and the rest, with clock64, on one CUDA card.
 
 KERNEL is ``glimpse_fwd`` or ``glimpse_bwd`` (the glimpse encoder's forward,
 or its backward's phase A, at the train step's masked shape: 160 rows),
-``prop_fwd`` (the propagation unroll's forward at 160 rows, S = 3) or
-``disc_bwd`` (the discovery unroll's backward, phase A, at DISC_FLAGS: 160
-rows, S = 3).  The tool copies the checkout's
-``csrc`` (``--root``, default this one) into a temporary directory and, in
-the copy only, puts a mark before and after every call of a product
-(``dense``, ``acc_smem``, ``cluster_dense``...) and of a crop step
-(``crop_*``) in the kernel's functions (those of ``FUNCTIONS`` that the
-source defines): thread 0 of each block reads clock64 at each mark and adds
-the cycles since the last mark to the category of the code they cover.  It
-builds the copy with nvcc, runs the checkout's wrapper ``--calls`` times on
-the inputs of ``chip_smoke.py`` and prints one JSON line: the mean cycles of
-a block by category, their shares, the blocks a call, the SM clock that
-nvidia-smi reads and the card's name and power limit.  The marks serialise
+``prop_fwd`` (the propagation unroll's forward at 160 rows, S = 3),
+``disc_fwd`` or ``disc_bwd`` (the discovery unroll's slots forward, or its
+backward's phase A, at DISC_FLAGS: 160 rows, S = 3) or ``gru_bwd`` (the GRU
+backward's phase A at the temporal cell's shape: 160 rows, d_x 360, 256
+units).  The tool copies the checkout's ``csrc`` (``--root``, default this
+one) into a temporary directory and, in the copy only, puts a mark before
+and after every call of a product (``cluster_dense``..., or a first
+design's ``dense``, ``acc_smem``...) and of a crop step (``crop_*``) in the
+kernel's functions (those of ``FUNCTIONS`` that the source defines): thread
+0 of each block reads clock64 at each mark and adds the cycles since the
+last mark to the category of the code they cover.  It builds the copy with
+nvcc (one process a source), runs the checkout's wrapper ``--calls`` times
+on the inputs of ``chip_smoke.py`` and prints one JSON line: the mean
+cycles of a block by category, their shares, the blocks a call, the SM
+clock that nvidia-smi reads and the card's name and power limit.  The marks serialise
 nothing, so they cost a few cycles each; a block's threads run ahead of
 thread 0 between barriers, so a share is that of thread 0's time.
 """
@@ -35,10 +37,12 @@ import tempfile
 from pathlib import Path
 
 # the calls that are marked, by the category of the time they take: a
-# product (dense, cluster_dense...: in a cluster kernel its plan, its first
-# staging and its epilogues, as the rounds and barriers inside are marked on
-# their own), a crop step, a product's rounds (cluster_dense.cuh's
-# product_pass) and its cluster barriers
+# product (cluster_dense...: its plan, its first staging and its epilogues,
+# as the rounds and barriers inside are marked on their own; and the first
+# designs' per-thread products, dense, acc_smem..., which this tree no
+# longer has, for a checkout of them given by --root), a crop step, a
+# product's rounds (cluster_dense.cuh's product_pass) and its cluster
+# barriers
 CATEGORIES = ("other", "product", "crop", "rounds", "barrier")
 CALLS = {**{c: 1 for c in ("dense", "dense2", "dense_t", "dense_t2", "acc_smem", "acc_smem_t",
                            "acc_global", "cluster_dense", "cluster_dense_t", "store_dz",
@@ -47,8 +51,8 @@ CALLS = {**{c: 1 for c in ("dense", "dense2", "dense_t", "dense_t2", "acc_smem",
                            "sparse_crop_glimpse", "sparse_crop_bwd")},
          "product_pass": 3, "cluster_wait": 4, "cluster_sync_all": 4}
 # the functions whose calls are marked, with the category of the time
-# between their marks: the kernels of both designs and the helpers that
-# hold their products and crops
+# between their marks: the kernels of both designs (the first designs' for
+# an older checkout) and the helpers that hold their products and crops
 _PRODUCT = ("cluster_dense.cuh", (("cluster_product", 1),))
 FUNCTIONS = {
     "glimpse_fwd": (_PRODUCT,
@@ -62,9 +66,14 @@ FUNCTIONS = {
                  ("fused_prop.cu", (("prop_fwd_kernel", 0), ("prop_glimpse", 0),
                                     ("prop_glimpse_fwd", 0))),
                  ("glimpse_common.cuh", (("glimpse_encode_fwd", 0),))),
+    "disc_fwd": (_PRODUCT,
+                 ("fused_disc.cu", (("disc_fwd_kernel", 0),)),
+                 ("glimpse_common.cuh", (("glimpse_encode_fwd", 0),))),
     "disc_bwd": (_PRODUCT,
                  ("fused_disc.cu", (("disc_bwd_rows_kernel", 0), ("disc_bwd_kernel", 0))),
                  ("glimpse_common.cuh", (("encode_rows_bwd", 0),))),
+    "gru_bwd": (_PRODUCT,
+                ("fused_bwd.cu", (("gru_bwd_rows_kernel", 0), ("gru_bwd_kernel", 0)))),
 }
 MARK_DEFS = r"""
 #ifndef SQP_MARKS
@@ -174,7 +183,7 @@ def main():
         nvcc = build.find_nvcc()
         objs = []
         procs = []
-        for src in (main_src, "fused_bwd.cu"):
+        for src in sorted(f.name for f in tmp.glob("*.cu")):
             objs.append(str(tmp / (src + ".o")))
             procs.append(subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-c", "-o", objs[-1],
                                            str(tmp / src)], stdout=subprocess.PIPE,
@@ -199,7 +208,19 @@ def main():
         device = torch.device("cuda")
         gen = torch.Generator(device=device).manual_seed(cs.SEED)
         with torch.inference_mode():
-            if args.kernel == "prop_fwd":
+            if args.kernel == "gru_bwd":
+                shape = next(s for kn, s, _ in cs.main_path_shapes(flags, B, k, T, train=True)
+                             if kn == "fused_gru" and s["n"] == B * k)
+                bargs = cs.make_bwd_inputs(torch, fused, "fused_gru",
+                                           cs.make_inputs(torch, "fused_gru", shape, gen, device),
+                                           gen)
+                fn = lambda: fused.fused_gru_bwd(*bargs)  # noqa: E731
+            elif args.kernel == "disc_fwd":
+                from time_fused_kernels import disc_fwd_call
+
+                shape, dfargs = disc_fwd_call(torch, cs, fc, flags, B * k, T, gen, device)
+                fn = lambda: fc._disc_fwd_cuda(*dfargs)  # noqa: E731
+            elif args.kernel == "prop_fwd":
                 shape = cs.prop_shape(flags, B * k)
                 pdims = cs.prop_dims(shape)
                 pargs, pw = cs.prop_inputs(torch, fc, shape, gen, device)
@@ -234,7 +255,7 @@ def main():
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                               "--format=csv,noheader"], capture_output=True, text=True)
         card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
-        blocks = _blocks(args.kernel, shape, fc, fg)
+        blocks = _blocks(args.kernel, shape, fused, fc, fg)
         per_block = {c: buf[i] / args.calls / blocks for i, c in enumerate(CATEGORIES)}
         total = sum(per_block.values())
         print(json.dumps(dict(kernel=args.kernel, root=str(root), marked=marked,
@@ -247,17 +268,24 @@ def main():
     return 0
 
 
-def _blocks(kernel, shape, fc, fg):
+def _blocks(kernel, shape, fused, fc, fg):
     """Blocks of one launch of the marked kernel, as the checkout's host
-    picks them (the parent designs: 2 rows a block for prop_fwd and
-    disc_bwd, 8 for the glimpse kernels)."""
+    picks them (the first designs: 2 rows a block for prop_fwd, disc_fwd
+    and disc_bwd, 8 for the glimpse kernels and gru_bwd)."""
     n = shape["n"]
     home, name = {"prop_fwd": (fc, "prop_fwd_geometry"), "disc_bwd": (fc, "disc_bwd_geometry"),
+                  "disc_fwd": (fc, "disc_fwd_geometry"),
+                  "gru_bwd": (fused, "gru_bwd_geometry"),
                   "glimpse_fwd": (fg, "glimpse_fwd_geometry"),
                   "glimpse_bwd": (fg, "glimpse_bwd_geometry")}[kernel]
     geom = getattr(home, name, None)
     if geom is None:
-        return -(-n // (2 if kernel in ("prop_fwd", "disc_bwd") else 8))
+        return -(-n // (2 if kernel in ("prop_fwd", "disc_fwd", "disc_bwd") else 8))
+    if kernel == "gru_bwd":
+        return geom(n, shape["dx"], shape["units"])["blocks"]
+    if kernel == "disc_fwd":
+        return geom([n, shape["S"], *shape["img"], *shape["glimpse"], shape["n_what"],
+                     shape["U"], shape["SP"], shape["C"]])["blocks"]
     return geom([n])["blocks"]
 
 

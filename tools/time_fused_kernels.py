@@ -3,8 +3,8 @@
 (the MLP forward and backward, the vanilla-RNN and GRU forwards, the
 vanilla-RNN backward, the glimpse encoder's forward and backward, the
 propagation unroll's forward and backward, the discovery unroll's
-backward), and the GRU backward, which shares their weight-gradient
-reducer, on one CUDA card, at every shape a train step gives them (release
+forward and backward, the GRU backward) on one CUDA card, at every shape a
+train step gives them (release
 flags; the MLP and cells with no switch, the glimpse encoder with the
 glimpse switch, masked and unmasked, the propagation unroll with both
 switches, the discovery unroll with both at DISC_FLAGS, one call a frame),
@@ -42,28 +42,35 @@ import sys
 from pathlib import Path
 
 SEED = 0
-UNROLLS = ("fused_prop", "fused_prop_bwd", "fused_disc_bwd")  # timed over 10 calls
+UNROLLS = ("fused_prop", "fused_prop_bwd", "fused_disc", "fused_disc_bwd")  # 10 calls
 KERNELS = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_vanilla_rnn_bwd",
            "fused_mlp_bwd", "fused_prop", "fused_prop_bwd", "fused_gru_bwd", "fused_glimpse",
-           "fused_glimpse_bwd", "fused_disc_bwd")
+           "fused_glimpse_bwd", "fused_disc", "fused_disc_bwd")
 
 
-def disc_bwd_call(torch, cs, fc, flags, rows, T, gen, device):
-    """(shape, arguments of ``fc._disc_bwd_cuda``) of the discovery backward
-    at DISC_FLAGS: the frames of the port's data generator, the inputs from
-    ``gen``, the saved tensors of the plain forward and random output
-    gradients."""
+def disc_fwd_call(torch, cs, fc, flags, rows, T, gen, device):
+    """(shape, arguments of ``fc._disc_fwd_cuda``) of the discovery forward
+    at DISC_FLAGS: the frames of the port's data generator and the inputs
+    from ``gen``."""
     from sqair_tpu_torch.data import create_seq_dataset, make_template_bank
 
     dflags = dict(flags, **cs.DISC_LEVERS)
     dshape = cs.disc_shape(dflags, rows)
-    ddims = cs.disc_dims(dshape)
     frames = create_seq_dataset(
         n_samples=-(-rows // T), n_timesteps=T, canvas_size=cs.IMG, obj_size=(28, 28),
         n_objects=(0, 2), seed=SEED + 8,
         templates=make_template_bank(256, 28, seed=SEED))["imgs"]
     frames = torch.from_numpy(frames.reshape(-1, *cs.IMG).astype("float32") / 255.0)
     dargs, dweights = cs.disc_inputs(torch, fc, dshape, gen, device, frames)
+    return dshape, (*dargs, dweights, cs.disc_dims(dshape))
+
+
+def disc_bwd_call(torch, cs, fc, flags, rows, T, gen, device):
+    """(shape, arguments of ``fc._disc_bwd_cuda``) of the discovery backward
+    at DISC_FLAGS: ``disc_fwd_call``'s inputs, the saved tensors of the
+    plain forward and random output gradients."""
+    dshape, (*dargs, dweights, ddims) = disc_fwd_call(torch, cs, fc, flags, rows, T, gen,
+                                                      device)
     with torch.inference_mode():
         want = fc.disc_plain_fwd(*dargs, dweights, ddims)
         cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in want[:9])
@@ -166,6 +173,9 @@ def main():
                 out.append((shape, calls, lambda a=gargs, d=dims: fg._fwd_cuda(*a, d, save=True),
                             lambda a=gargs, f=lib: f(*a), cs.glimpse_work(shape)))
             return out
+        if kernel == "fused_disc":
+            dshape, dfargs = disc_fwd_call(torch, cs, fc, flags, B * k, T, gen, device)
+            return [(dshape, T, lambda: fc._disc_fwd_cuda(*dfargs), None, cs.disc_work(dshape))]
         if kernel == "fused_disc_bwd":
             dshape, dbargs = disc_bwd_call(torch, cs, fc, flags, B * k, T, gen, device)
             return [(dshape, T, lambda: fc._disc_bwd_cuda(*dbargs), None,
