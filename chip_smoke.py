@@ -91,11 +91,28 @@ Phases, one line each with its own numbers and seconds:
                  files, its resume and its launch counts; the two sweeps'
                  metrics agree
 
+  experiment     the training CLI (python -m sqair_tpu_torch.scripts.experiment)
+                 in this process at the release flags (the synthetic data
+                 config's 2048 sequences, T = 10, the device-resident
+                 sampler, B = 32, k = 5, full width), 20 steps a run: 10
+                 steps a call (one captured CUDA graph of 10 train steps,
+                 replayed) against 1 a call; a run killed right after its
+                 save at step 10, resumed, against the uninterrupted one; a
+                 captured chain of 10 steps against 10 eager train steps; each
+                 gate bit-identical, or within twice the distance of two
+                 eager runs of the same steps (printed).  Then, with no
+                 switch and both at the release flags and both at DISC_FLAGS:
+                 one capture launches N times an eager step's kernels (N = 1,
+                 10); the train step's wall ms (median, min, max of repeats),
+                 frames/s and device-busy share of eager steps and of N = 1
+                 and N = 10 graphs
+
 It exits non-zero on any failure.  The last two lines are a JSON object of
 the kernels' numbers and the JSON result line.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -225,6 +242,12 @@ SAME_BITS = ("fused_mlp", "fused_vanilla_rnn", "fused_gru", "fused_vanilla_rnn_b
              "fused_disc_bwd", "fused_gru_bwd", "fused_disc")
 GLIMPSE_SWITCH = SWITCHES["glimpse"]
 CELLS_SWITCH = SWITCHES["cells"]
+# the experiment phase: a CLI run's steps, the graphed chain's steps a call,
+# the timing's repeats; the release flags the phase sets itself
+CLI_STEPS, CHAIN_STEPS, TIMING_REPEATS = 20, 10, 5
+CLI_SET = {"git_commit", "resume", "results_dir", "run_name", "data_config", "seq_len",
+           "stage_itr", "train_itr", "save_itr", "report_loss_every", "log_itr", "fig_itr",
+           "steps_per_call", "on_device_data"}
 
 
 def log(phase, t0, **fields):
@@ -1226,6 +1249,70 @@ def train_check(torch, model, disc_model, batch, flags, disc_flags, l2, device):
                for run, plain in REFEREE_GATE.items()})
 
 
+def cli_argv(release, root, run_name, steps_per_call):
+    """The training CLI's arguments: the release flags (its font data
+    switched to the synthetic config, whose 2048 sequences are bench.py's),
+    T = 10 with no curriculum, the device-resident sampler, 20 steps with a
+    heartbeat and a save every 10 and an eval at 0 and 20."""
+    argv = [f"--{k}={v}" for k, v in release.items()
+            if k not in CLI_SET and not k.startswith("font_")]
+    return argv + ["--data_config=sqair_tpu/configs/synth_seq_mnist_data.py", "--seq_len=10",
+                   "--stage_itr=0", "--on_device_data", f"--train_itr={CLI_STEPS}",
+                   "--save_itr=10", "--report_loss_every=10", f"--log_itr={CLI_STEPS}",
+                   f"--fig_itr={CLI_STEPS}", f"--steps_per_call={steps_per_call}",
+                   f"--results_dir={root}", f"--run_name={run_name}", "--device=cuda"]
+
+
+def run_cli(pexp, pflags, argv):
+    """The CLI's main() from a clean flag registry, its output kept aside:
+    (run dir, model, train state, output)."""
+    import io
+
+    saved = sys.argv
+    pflags.reset()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            logdir, model, state = pexp.main(argv)
+    finally:
+        sys.argv = saved
+        pflags.reset()
+    return logdir, model, state, out.getvalue()
+
+
+def cli_records(logdir):
+    """metrics.jsonl without the host's frames_per_sec."""
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [{k: v for k, v in json.loads(line).items() if k != "frames_per_sec"}
+                for line in f]
+
+
+def params_distance(torch, a, b):
+    """The largest |a - b| over two modules' parameters (and mean_img)."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return max(float(torch.max(torch.abs(sa[n] - sb[n]))) for n in sa)
+
+
+def records_distance(got, want):
+    """The largest |a - b| / (|b| + 1) over two runs' metrics.jsonl records."""
+    if [sorted(r) for r in got] != [sorted(r) for r in want]:
+        raise Failure(f"the runs' records differ in steps or keys: {len(got)} vs {len(want)}")
+    return max((abs(g[k] - w[k]) / (abs(w[k]) + 1.0) for g, w in zip(got, want) for k in w),
+               default=0.0)
+
+
+def walls_ms(torch, fn, repeats, steps=1):
+    """Wall ms a train step of ``fn`` (``steps`` steps a call), host clock
+    around each call and a synchronize: each repeat's, sorted."""
+    out = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t) / steps)
+    return sorted(out)
+
+
 def run():
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -2145,6 +2232,9 @@ def run():
     print(f"[eval-cli] sweeps_agree worst={worst:.3e} worst_file={worst_key} tol={METRIC_TOL}",
           flush=True)
 
+    # -------------------------------------------------------- experiment
+    experiment_phase(torch, flags, disc_flags, data, B, k, T, card, device)
+
     kernels = []
     for name, meta in KERNELS.items():
         r = rows[name]
@@ -2163,6 +2253,188 @@ def run():
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def experiment_phase(torch, flags, disc_flags, data, B, k, T, card, device):
+    """The training CLI and its graphed train step on the card (see the
+    module's docstring)."""
+    from sqair_tpu_torch.configs import mlp_mnist_model
+    from sqair_tpu_torch.data import DeviceDatasetSampler
+    from sqair_tpu_torch.experiment import flags as pflags
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops.noise import GeneratorNoise
+    from sqair_tpu_torch.scripts import experiment as pexp
+    from sqair_tpu_torch.training import init_train, make_train_step
+    from sqair_tpu_torch.training.graph import make_chained_train_step
+
+    release = json.loads(RELEASE_FLAGS.read_text())
+    sampler = DeviceDatasetSampler(data, device)
+
+    def fresh(run_flags):
+        return mlp_mnist_model.load(run_flags, IMG, mean_img=data["imgs"].mean((0, 1)) / 255.0,
+                                    device=device, seed=SEED)
+
+    def eager_run(run_flags, steps):
+        """(model, last metrics) of ``steps`` eager train steps."""
+        model = fresh(run_flags)
+        factory, l2 = mlp_mnist_model.make_optimizer(run_flags)
+        step = make_train_step(model, factory, l2)
+        g_data = torch.Generator(device=device).manual_seed(SEED + 8)
+        g_noise = torch.Generator(device=device).manual_seed(SEED + 9)
+        for _ in range(steps):
+            b = sampler.sample(g_data, B)
+            metrics = step(b["imgs"], b["nums"], GeneratorNoise(g_noise, device))
+        return model, {key: v.clone() for key, v in metrics.items()}
+
+    def chained(run_flags, steps):
+        """(model, chain) of a chain of ``steps`` train steps a call, from
+        eager_run's weights and seeds."""
+        model = fresh(run_flags)
+        factory, l2 = mlp_mnist_model.make_optimizer(run_flags)
+        state = init_train(model, factory)
+        g_data = torch.Generator(device=device).manual_seed(SEED + 8)
+        g_noise = torch.Generator(device=device).manual_seed(SEED + 9)
+        chain = make_chained_train_step(model, state, lambda: sampler.sample(g_data, B), steps,
+                                        T, l2, lambda itr: GeneratorNoise(g_noise, device),
+                                        [g_data, g_noise])
+        return model, chain
+
+    # the allowance of the bit gates: two eager runs of the same steps
+    t0 = time.perf_counter()
+    eager_a, m_a = eager_run(flags, CHAIN_STEPS)
+    eager_b, m_b = eager_run(flags, CHAIN_STEPS)
+    ee_params = params_distance(torch, eager_a.sequence, eager_b.sequence)
+    ee_metrics = metric_distance(torch, m_b, m_a)[0]
+    graph_model, chain = chained(flags, CHAIN_STEPS)
+    m_graph = {key: v.clone() for key, v in chain().items()}
+    ge_params = params_distance(torch, graph_model.sequence, eager_a.sequence)
+    ge_metrics = metric_distance(torch, m_graph, m_a)[0]
+    log("experiment", t0, gate="graph_vs_eager", steps=CHAIN_STEPS,
+        params=f"{ge_params:.3e}", metrics=f"{ge_metrics:.3e}",
+        eager_vs_eager_params=f"{ee_params:.3e}", eager_vs_eager_metrics=f"{ee_metrics:.3e}",
+        bit_identical=ge_params == 0.0 and ge_metrics == 0.0)
+    if ge_params > 2 * ee_params or ge_metrics > 2 * ee_metrics:
+        raise Failure(f"experiment: a graph of {CHAIN_STEPS} steps lies {ge_params:.3g} "
+                      f"(parameters) / {ge_metrics:.3g} (metrics) from the eager steps, over "
+                      f"twice the eager runs' {ee_params:.3g} / {ee_metrics:.3g}")
+    chain.release()
+    del eager_a, eager_b, graph_model, chain
+
+    # the CLI: 10 steps a call against 1, and a killed and resumed run
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sqair_experiment_")
+
+    class Killed(Exception):
+        pass
+
+    real_save = pexp.save_checkpoint
+
+    def save_then_die(run_dir, step, *args, **kwargs):
+        real_save(run_dir, step, *args, **kwargs)
+        if step == 10:
+            raise Killed
+
+    try:
+        runs = {}
+        for name, n in (("n10", CHAIN_STEPS), ("n1", 1)):
+            fused.reset_launches()
+            runs[name] = run_cli(pexp, pflags, cli_argv(release, root, name, n))
+            runs[name] += (dict(fused.launches),)
+        with mock.patch.object(pexp, "save_checkpoint", save_then_die):
+            try:
+                run_cli(pexp, pflags, cli_argv(release, root, "cut", CHAIN_STEPS))
+                raise Failure("experiment: the run to be cut at step 10 was not")
+            except Killed:
+                pass
+        runs["resumed"] = run_cli(pexp, pflags, [f"--results_dir={root}", "--run_name=cut",
+                                                  "--resume"])
+        records = {name: cli_records(r[0]) for name, r in runs.items()}
+        n_params = params_distance(torch, runs["n10"][1].sequence, runs["n1"][1].sequence)
+        n_records = records_distance(records["n10"], records["n1"])
+        r_params = params_distance(torch, runs["resumed"][1].sequence, runs["n10"][1].sequence)
+        r_records = records_distance([r for r in records["resumed"] if r["step"] > 10],
+                                     [r for r in records["n10"] if r["step"] > 10])
+        heartbeats = {name: [dict(step=r["step"], target=f"{r['target']:.4f}")
+                             for r in recs if "target" in r] for name, recs in records.items()}
+        steps = {name: r[2].step for name, r in runs.items()}
+    finally:
+        shutil.rmtree(root)
+    counts = runs["n10"][4]
+    log("experiment", t0, gate="cli", steps=jdump(steps), n10_vs_n1_params=f"{n_params:.3e}",
+        n10_vs_n1_records=f"{n_records:.3e}", resumed_vs_uninterrupted_params=f"{r_params:.3e}",
+        resumed_vs_uninterrupted_records=f"{r_records:.3e}",
+        eager_vs_eager_params=f"{ee_params:.3e}", eager_vs_eager_metrics=f"{ee_metrics:.3e}",
+        heartbeats=jdump(heartbeats), launches_n10_run=jdump(counts), card=repr(card))
+    if steps != {"n10": CLI_STEPS, "n1": CLI_STEPS, "resumed": CLI_STEPS}:
+        raise Failure(f"experiment: the CLI runs ended at {steps}")
+    if n_params > 2 * ee_params or n_records > 2 * ee_metrics:
+        raise Failure(f"experiment: 10 steps a call and 1 a call differ by {n_params:.3g} "
+                      f"(parameters) / {n_records:.3g} (records), over twice the eager runs'")
+    if r_params > 2 * ee_params or r_records > 2 * ee_metrics:
+        raise Failure(f"experiment: the resumed run differs from the uninterrupted one by "
+                      f"{r_params:.3g} (parameters) / {r_records:.3g} (records)")
+    # the run's launches: the evals at steps 0 and 20 (the 256 valid
+    # sequences each), the graph's warm-up step and its capture of 10 steps
+    # (each replay launches the capture's kernels again, uncounted)
+    evals = 2 * (int(release["synth_valid_samples"]) // B)
+    expected = collections.Counter(expected_launches(main_path_shapes(flags, B, k, T), evals))
+    expected.update(expected_launches(main_path_shapes(flags, B, k, T, train=True),
+                                      1 + CHAIN_STEPS, backward=True))
+    if counts != dict(expected) or any(v == 0 for v in counts.values()):
+        raise Failure(f"experiment: the CLI's run launched {counts}, not {dict(expected)}")
+
+    # timing and launch counts: eager steps and graphs of 1 and 10 steps
+    settings = (("release_no_switch", flags, {}), ("release_both", flags, CELLS_SWITCH),
+                ("disc_both", disc_flags, CELLS_SWITCH))
+    for label, run_flags, switches in settings:
+        t0 = time.perf_counter()
+        with switched(switches):
+            model = fresh(run_flags)
+            factory, l2 = mlp_mnist_model.make_optimizer(run_flags)
+            step = make_train_step(model, factory, l2)
+            g_data = torch.Generator(device=device).manual_seed(SEED + 8)
+            g_noise = torch.Generator(device=device).manual_seed(SEED + 9)
+
+            def eager():
+                b = sampler.sample(g_data, B)
+                step(b["imgs"], b["nums"], GeneratorNoise(g_noise, device))
+
+            eager()
+            torch.cuda.synchronize()
+            fused.reset_launches()
+            eager()
+            torch.cuda.synchronize()
+            one_step = dict(fused.launches)
+            expected = expected_launches(main_path_shapes(
+                run_flags, B, k, T, train=True, fuse_glimpse=bool(switches),
+                fuse_cells=bool(switches)), 1, backward=True)
+            if one_step != expected:
+                raise Failure(f"experiment {label}: an eager step launched {one_step}, "
+                              f"not {expected}")
+            timing = {"eager": (walls_ms(torch, eager, TIMING_REPEATS),
+                                profile_device(torch, eager)[0], 1)}
+            captures = {}
+            for n in (1, CHAIN_STEPS):
+                _, chain = chained(run_flags, n)
+                chain()
+                torch.cuda.synchronize()
+                captures[n] = chain.launches
+                if chain.launches != {name: n * c for name, c in one_step.items()}:
+                    raise Failure(f"experiment {label}: a capture of {n} steps launched "
+                                  f"{chain.launches}, not {n} x {one_step}")
+                timing[f"graph_n{n}"] = (walls_ms(torch, chain, TIMING_REPEATS, n),
+                                         profile_device(torch, chain)[0], n)
+                chain.release()
+        out = {}
+        for mode, (walls, busy, n) in timing.items():
+            median = statistics.median(walls)
+            out[mode] = dict(
+                step_ms=f"{median:.3f}", min_ms=f"{walls[0]:.3f}", max_ms=f"{walls[-1]:.3f}",
+                frames_per_s=f"{B * T / (median / 1e3):.1f}",
+                busy_ms_a_call="not-measured" if busy is None else f"{busy:.3f}",
+                busy_share="not-measured" if busy is None else f"{busy / (median * n):.3f}")
+        log("experiment", t0, setting=label, repeats=TIMING_REPEATS, B=B, T=T, k=k,
+            eager_step_launches=jdump(one_step), timing=jdump(out), card=repr(card))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,53 @@
+"""Data config: moving sequences of font-rendered digit glyphs (the port of
+sqair_tpu/configs/font_seq_mnist_data.py: the same flags, the same bytes).
+
+The glyphs are rendered with matplotlib, which must be installed: the
+config raises where it is not (e.g. on a card's machine without it); build
+the dataset on the CPU there, or take the synthetic stroke digits
+(``synth_seq_mnist_data``).
+"""
+from __future__ import annotations
+
+import importlib.util
+
+import numpy as np
+
+from .. import common_model_flags  # noqa: F401  (defines output_std)
+from ..data import create_seq_dataset
+from ..data.mnist_tools import load as _load
+from ..data.synthetic import make_font_digit_bank
+from ..experiment import flags
+
+flags.DEFINE_integer("font_train_samples", 2048, "#train sequences")
+flags.DEFINE_integer("font_valid_samples", 256, "#valid sequences")
+flags.DEFINE_integer("font_timesteps", 10, "sequence length")
+flags.DEFINE_integer("font_seed", 0, "dataset seed")
+flags.DEFINE_integer("font_bank_size", 256, "#distinct digit glyphs")
+flags.DEFINE_integer("font_obj_size", 28, "digit size in pixels")
+
+# same rationale as synth_seq_mnist_data.py: retune the likelihood width
+# for the synthetic contrast
+flags.set_default("output_std", 0.15)
+
+
+def load(batch_size: int, n_timesteps=None):
+    if importlib.util.find_spec("matplotlib") is None:
+        raise RuntimeError("font_seq_mnist_data renders its glyphs with matplotlib, which "
+                           "is not installed; take synth_seq_mnist_data, or run on a "
+                           "machine that has matplotlib")
+    F = flags.FLAGS
+    bank, _ = make_font_digit_bank(F.font_bank_size, F.font_obj_size,
+                                   seed=F.font_seed)
+    obj = (F.font_obj_size, F.font_obj_size)
+    train = create_seq_dataset(
+        n_samples=F.font_train_samples, n_timesteps=F.font_timesteps,
+        obj_size=obj, seed=F.font_seed, templates=bank,
+    )
+    valid = create_seq_dataset(
+        n_samples=F.font_valid_samples, n_timesteps=F.font_timesteps,
+        obj_size=obj, seed=F.font_seed + 1, templates=bank,
+    )
+    for d in (train, valid):
+        d["imgs"] = d["imgs"].astype(np.float32) / 255.0
+        d["nums"] = d["nums"].astype(np.float32)
+    return _load(batch_size, n_timesteps, train_data=train, valid_data=valid)

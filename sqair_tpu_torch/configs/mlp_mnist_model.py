@@ -2,9 +2,12 @@
 sqair_tpu/configs/mlp_mnist_model.py and common_model_flags.py).
 
 ``load(flags, img_shape)`` takes the flags as a dict, e.g. a parsed
-``flags.json`` of a run of the JAX package; a missing flag takes the JAX
-package's default.  ``train_settings(flags)`` reads the training flags and
-``make_optimizer(flags)`` builds the optimizer they name.
+``flags.json`` of a run of the JAX package; a missing flag, or one that is
+null (a run that predates the flag), takes the JAX package's default.
+``train_settings(flags)`` reads the training flags and
+``make_optimizer(flags)`` builds the optimizer they name.  Importing the
+module defines the model's flags in the port's registry
+(``experiment/flags.py``), from the same tables as ``DEFAULTS``.
 """
 from __future__ import annotations
 
@@ -13,27 +16,67 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import common_model_flags
 from ..device import resolve_device
+from ..experiment import flags
 from ..models import AIRDecoder, Model, SequentialAIR, SQAIRTimestep
 from ..nn.layers import init_params
 from ..training import train as training
 
-# the JAX package's training flag defaults (scripts/experiment.py)
+# the training flags the model config reads (sqair_tpu/scripts/experiment.py
+# defines them; the port's CLI defines them from this table)
 TRAIN_DEFAULTS = dict(opt="rmsprop", learning_rate=1e-5, schedule="4,6,10",
                       train_itr=int(2e6), l2=0.0)
 
-# the JAX package's flag defaults (common_model_flags.py, configs/mlp_mnist_model.py)
-DEFAULTS = dict(
-    transform_var_bias=-3.0, output_scale=0.25, scale_prior="-2", glimpse_size=20,
-    prop_prior_step_bias=10.0, prop_prior_type="rnn", masked_glimpse=True,
-    k_particles=5, n_steps_per_image=3, transition="VanillaRNN", time_transition="GRU",
-    prior_transition="GRU", output_std=0.3, n_units=8, n_what=50, aspect_penalty=0.0,
-    disc_prior_type="cat", step_success_prob=0.75, disc_step_bias=1.0,
-    prop_step_bias=5.0, early_disc_step_bias=0.0, early_disc_horizon=2,
-    early_disc_logit_bias=0.0, transient_disc_penalty=0.0, transient_penalty_temp=1.0,
-    early_disc_logit_scale=1.0, early_disc_logit_clamp=0.0, disc_coverage_signal=False,
-    sample_from_prior=False, rec_where_prior=True, generate_after=-1,
-)
+# the model config's own flags (sqair_tpu/configs/mlp_mnist_model.py), defined
+# under the JAX package's names and defaults.  The port raises where
+# disc_coverage_signal, sample_from_prior or generate_after leave their
+# defaults (coverage_lr_mult: the CLI raises)
+MODEL_DEFAULTS = flags.define_all((
+    (str, "disc_prior_type", "cat", "Prior for #discovery steps: {geom, cat}."),
+    (float, "step_success_prob", 0.75,
+     "Step success prob for the geometric discovery prior."),
+    (float, "disc_step_bias", 1.0, "Added to the logit of discovering a new object."),
+    (float, "prop_step_bias", 5.0, "Added to the logit of propagating an existing object."),
+    (float, "early_disc_step_bias", 0.0,
+     "Extra per-object prior cost (nats) on discovery counts for frames t < "
+     "early_disc_horizon (0 = off)."),
+    (int, "early_disc_horizon", 2, "Frames the early discovery suppression applies to."),
+    (float, "early_disc_logit_bias", 0.0,
+     "Subtracted from the discovery presence logit for frames t < early_disc_horizon "
+     "(0 = off)."),
+    (float, "transient_disc_penalty", 0.0,
+     "Weight of the transient-discovery penalty: expected counts at frames t < "
+     "early_disc_horizon in excess of the count at t = horizon, in nats each."),
+    (float, "transient_penalty_temp", 1.0,
+     "Temperature of the sigmoid inside the transient penalty (1 = exact expected "
+     "counts)."),
+    (float, "early_disc_logit_scale", 1.0,
+     "Multiplies the discovery presence logit for frames t < early_disc_horizon "
+     "(1 = off)."),
+    (float, "early_disc_logit_clamp", 0.0,
+     "Straight-through |logit| cap on the discovery presence logit for frames t < "
+     "early_disc_horizon (0 = off)."),
+    (bool, "disc_coverage_signal", False,
+     "Feed the discovery steps predictor an explained-so-far coverage signal "
+     "(not ported yet)."),
+    (float, "coverage_lr_mult", 1.0,
+     "Update multiplier for the 16 coverage input-rows of the discovery steps "
+     "predictor (not ported yet; 1 = off)."),
+    (bool, "sample_from_prior", False, "Sample from the prior instead of q (not ported yet)."),
+    (bool, "rec_where_prior", True, "Recurrent prior for where in discovery."),
+    (int, "generate_after", -1,
+     "Switch to generation after this frame (if >= 0; not ported yet)."),
+))
+
+# every flag the model reads, at the JAX package's defaults
+DEFAULTS = dict(common_model_flags.DEFAULTS, **MODEL_DEFAULTS)
+
+
+def given(flags: Mapping) -> dict:
+    """The flags that have a value: a null in a flags.json means the run
+    predates the flag, which then takes its default."""
+    return {k: v for k, v in flags.items() if v is not None}
 
 
 def parse_string_flag(flag, num_elements=-1):
@@ -64,7 +107,7 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
     :param mean_img: [H, W] background added where nothing is written
     """
     F = dict(DEFAULTS)
-    F.update(flags)
+    F.update(given(flags))
     unported = [name for name, off in (("disc_coverage_signal", False),
                                        ("sample_from_prior", False), ("generate_after", -1))
                 if F[name] != off]
@@ -112,7 +155,7 @@ def train_settings(flags: Mapping) -> dict:
     missing ones at the JAX package's defaults.  Raises on an optimizer
     that is not ported."""
     F = dict(TRAIN_DEFAULTS)
-    F.update({k: flags[k] for k in TRAIN_DEFAULTS if k in flags})
+    F.update({k: v for k, v in given(flags).items() if k in TRAIN_DEFAULTS})
     if str(F["opt"]).lower() not in training.OPTIMIZERS:
         raise ValueError(f"optimizer '{F['opt']}' is not ported yet "
                          f"(ported: {training.OPTIMIZERS})")

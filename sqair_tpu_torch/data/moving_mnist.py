@@ -168,18 +168,20 @@ class DeviceDatasetSampler:
     it per step (the counterpart of the JAX package's
     OnDeviceDatasetSampler): no host round trip, no per-step rendering.
 
-    The frames stay uint8 on the device, sample-major ([N, T, H, W]); a
-    batch is gathered with indices drawn from an explicit
-    ``torch.Generator`` and scaled to [0, 1] on the device.
+    The frames stay on the device sample-major ([N, T, H, W]) in the type
+    they come in: uint8 frames (the generator's) are scaled to [0, 1] on
+    the device at each gather; float32 frames (a data config's data_dict,
+    already in [0, 1]) are gathered as they are, so that a batch holds the
+    very values of the host path's batches.  A batch is gathered with
+    indices drawn from an explicit ``torch.Generator``.
 
-    :param data: a generator output dict: imgs [T, N, H, W] uint8, nums
-        [T or 1, N, C]
+    :param data: imgs [T, N, H, W] uint8 or float32, nums [T or 1, N, C]
     """
 
     def __init__(self, data: Dict[str, np.ndarray], device):
         imgs = np.asarray(data["imgs"])
-        if imgs.dtype != np.uint8:
-            raise TypeError(f"expected uint8 frames, got {imgs.dtype}")
+        if imgs.dtype not in (np.uint8, np.float32):
+            raise TypeError(f"expected uint8 or float32 frames, got {imgs.dtype}")
         nums = np.asarray(data["nums"], np.float32)
         if nums.shape[0] == 1:  # [1, N, C]: the same counts in every frame
             nums = np.broadcast_to(nums, (imgs.shape[0],) + nums.shape[1:])
@@ -194,7 +196,9 @@ class DeviceDatasetSampler:
         """:return: dict(imgs [T, B, H, W] float32 in [0, 1], nums [T, B, C])"""
         idx = torch.randint(0, self.n, (batch_size,), generator=generator,
                             device=self.device)
-        imgs = self.imgs.index_select(0, idx).to(torch.float32) / 255.0
+        imgs = self.imgs.index_select(0, idx)
+        if imgs.dtype == torch.uint8:
+            imgs = imgs.to(torch.float32) / 255.0
         nums = self.nums.index_select(0, idx)
         return dict(imgs=imgs.transpose(0, 1).contiguous(),
                     nums=nums.transpose(0, 1).contiguous())

@@ -53,6 +53,20 @@ class Discover(Module):
             # propagated count]
             self._where_prior = RecurrentNormalImpl(
                 4, 128, d_cond=d_cond + 1, output_bias_init=lambda t, g: t.copy_(bias))
+        # the per-frame constants, made once on the model's device (no host
+        # copy inside a step: a captured CUDA graph cannot take one); not
+        # in the state_dict.  Each is cast to the type of the step's tensors
+        # where it is used, to the value it had when it was made from a
+        # python float there; the geometric prior's stop probability is
+        # float32 whatever the model's type
+        self.register_buffer("_one", torch.tensor(1.0), persistent=False)
+        self.register_buffer("_zero", torch.tensor(0.0), persistent=False)
+        self.register_buffer("_where_mean", torch.tensor(self.where_mean, dtype=torch.float64),
+                             persistent=False)
+        self.register_buffer("_where_std", torch.tensor(self.where_std, dtype=torch.float64),
+                             persistent=False)
+        self.register_buffer("_geom_probs", torch.tensor(1.0 - step_success_prob),
+                             persistent=False)
         if disc_prior_type == "cat":
             self.add_param("step_prior_bias", (n_steps + 1,), zeros)
             init = torch.tensor([10.0] + [0.0] * n_steps)
@@ -88,8 +102,7 @@ class Discover(Module):
                 or self.early_disc_logit_scale != 1.0):
             # a tensor of the frames' type (f32, as in the JAX package), so
             # that the blends below round the same way
-            is_early = torch.tensor(float(time_step < self.early_disc_horizon),
-                                    dtype=img.dtype, device=img.device)
+            is_early = self._indicator(time_step < self.early_disc_horizon, img.dtype)
             if self.early_disc_logit_bias:
                 extra_steps_logit = -self.early_disc_logit_bias * is_early
             if self.early_disc_logit_scale != 1.0:
@@ -107,6 +120,10 @@ class Discover(Module):
                                                    conditioning_from_prop,
                                                    prior_conditioning))
         return outputs
+
+    def _indicator(self, cond: bool, dtype) -> torch.Tensor:
+        """1.0 or 0.0 as a 0-dim tensor of ``dtype`` on the model's device."""
+        return (self._one if cond else self._zero).to(dtype)
 
     def fused_disc_eligible(self) -> bool:
         """Whether the JAX package's ``Discover._fused_disc_params`` would run
@@ -188,17 +205,19 @@ class Discover(Module):
             them (the deferred pass); both give the same logits
         """
         if self.disc_prior_type == "geom":
-            return D.Geometric(probs=torch.tensor(1.0 - self.step_success_prob,
-                                                  device=prior_conditioning.device))
-        time_step = torch.as_tensor(time_step, device=prior_conditioning.device)
-        is_first = (time_step == 0).to(prior_conditioning.dtype)
+            return D.Geometric(probs=self._geom_probs.float())
+        dtype = prior_conditioning.dtype
+        in_loop = not isinstance(time_step, torch.Tensor)
+        is_first = (self._indicator(time_step == 0, dtype) if in_loop
+                    else (time_step == 0).to(dtype))
         step_logits = self.step_prior_bias + (1.0 - is_first) * self.step_prior_timestep_bias
         if step_logits.ndim == 1:
             step_logits = step_logits[None]
         step_logits = F.elu(step_logits + self._step_cond_mlp(prior_conditioning))
         if self.early_disc_step_bias:
             # after the elu, so that the ramp keeps its full size
-            is_early = (time_step < self.early_disc_horizon).to(prior_conditioning.dtype)
+            is_early = (self._indicator(time_step < self.early_disc_horizon, dtype) if in_loop
+                        else (time_step < self.early_disc_horizon).to(dtype))
             ramp = -self.early_disc_step_bias * torch.arange(
                 self.n_steps + 1, dtype=step_logits.dtype, device=step_logits.device)
             step_logits = step_logits + is_early * ramp
@@ -207,9 +226,8 @@ class Discover(Module):
     def _where_prior_log_prob(self, where, conditioning):
         if self.rec_where_prior:
             return self._where_prior.log_prob(where, conditioning)
-        mean = where.new_tensor(self.where_mean)
-        std = where.new_tensor(self.where_std)
-        return D.Normal(mean, std).log_prob(where)
+        return D.Normal(self._where_mean.to(where.dtype),
+                        self._where_std.to(where.dtype)).log_prob(where)
 
     def _compute_log_probs(self, hidden_outputs, num_steps, time_step,
                            conditioning_from_prop, prior_conditioning):
@@ -225,7 +243,7 @@ class Discover(Module):
         where_lp = torch.sum(where_post.log_prob(hidden_outputs["where"]), -1) * presence
         steps_lp = steps_post.log_prob(num_steps)
 
-        std_normal = D.Normal(presence.new_tensor(0.0), presence.new_tensor(1.0))
+        std_normal = D.Normal(self._zero.to(presence.dtype), self._one.to(presence.dtype))
         what_prior_lp = torch.sum(std_normal.log_prob(hidden_outputs["what"]), -1) * presence
         where_prior_lp = torch.sum(
             self._where_prior_log_prob(hidden_outputs["where"], where_conditioning),

@@ -7,10 +7,14 @@ A checkpoint is one file written by ``torch.save`` and read back with
   {"step": int,
    "params": {state_dict key: tensor},          # mean_img included
    "optimizer": {"count": int,                  # TFRMSProp's schedule count
-                 "nu": {key: tensor}, "trace": {key: tensor}}}   # optional
+                 "nu": {key: tensor}, "trace": {key: tensor}},   # optional
+   "rng": {name: generator state}}              # optional
 
 The optimizer's state is kept per parameter name; a parameter that never
-had a gradient (the decoder's two stds) has none.
+had a gradient (the decoder's two stds) has none.  ``rng`` holds the
+states of the training's ``torch.Generator``s (the experiment CLI's batch
+indices and model noise), so that a resumed run draws what an
+uninterrupted one would.
 ``tools/jax_ckpt_to_torch.py`` writes this format from an orbax checkpoint.
 """
 from __future__ import annotations
@@ -18,7 +22,7 @@ from __future__ import annotations
 import os
 import re
 import tempfile
-from typing import Dict
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -40,6 +44,15 @@ def find_checkpoints(run_dir: str) -> Dict[int, str]:
     return out
 
 
+def latest_checkpoint(run_dir: str) -> Optional[Tuple[int, str]]:
+    """(step, path) of the run dir's latest checkpoint, or None."""
+    ckpts = find_checkpoints(run_dir)
+    if not ckpts:
+        return None
+    step = max(ckpts)
+    return step, ckpts[step]
+
+
 def _optimizer_state(sequence: torch.nn.Module, optimizer) -> Dict:
     """A TFRMSProp's state keyed by the parameters' names in ``sequence``."""
     names = {id(p): n for n, p in sequence.named_parameters()}
@@ -54,13 +67,16 @@ def _optimizer_state(sequence: torch.nn.Module, optimizer) -> Dict:
 
 
 def save_checkpoint(run_dir: str, step: int, sequence: torch.nn.Module,
-                    optimizer=None) -> str:
+                    optimizer=None,
+                    generators: Optional[Mapping[str, torch.Generator]] = None) -> str:
     """Writes ``<run_dir>/ckpt-<step>`` (under a temporary name first, so a
     reader never sees half a file) and returns its path."""
     state = dict(step=int(step),
                  params={k: v.detach().cpu().clone() for k, v in sequence.state_dict().items()})
     if optimizer is not None:
         state["optimizer"] = _optimizer_state(sequence, optimizer)
+    if generators:
+        state["rng"] = {name: g.get_state() for name, g in generators.items()}
     path = os.path.abspath(os.path.join(run_dir, f"{CKPT_PREFIX}{int(step)}"))
     os.makedirs(run_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=".ckpt-", dir=run_dir)
@@ -86,11 +102,17 @@ def restore_params(path: str, sequence: torch.nn.Module) -> int:
     return int(state["step"])
 
 
-def restore_train_state(path: str, sequence: torch.nn.Module,
-                        train_state: TrainState) -> TrainState:
+def restore_train_state(path: str, sequence: torch.nn.Module, train_state: TrainState,
+                        generators: Optional[Mapping[str, torch.Generator]] = None
+                        ) -> TrainState:
     """Loads parameters, the optimizer's state and the step into a train
-    state bound to ``sequence``'s parameters (``training.init_train``)."""
+    state bound to ``sequence``'s parameters (``training.init_train``), and
+    the saved state of each of ``generators`` that the checkpoint holds
+    (one without keeps its seed)."""
     state = load_checkpoint(path)
+    for name, g in (generators or {}).items():
+        if name in state.get("rng", {}):
+            g.set_state(state["rng"][name])
     sequence.load_state_dict(state["params"], strict=True)
     opt = train_state.optimizer
     saved = state.get("optimizer")

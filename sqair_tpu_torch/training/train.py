@@ -46,7 +46,10 @@ class TFRMSProp(torch.optim.Optimizer):
       p  <- p + m
 
     ``lr`` is a rate or a schedule count -> rate; the count starts at 0 and
-    advances once per step, as optax's.
+    advances once per step, as optax's.  ``step(lr=t)`` takes the step's
+    rate from a 0-dim float32 tensor on the parameters' device instead of
+    the schedule (what a captured CUDA graph reads at each replay,
+    ``training/graph.py``); holding f32(rate), it gives the same bits.
     """
 
     DECAY, EPS, MOMENTUM = 0.9, 1e-10, 0.9
@@ -56,10 +59,20 @@ class TFRMSProp(torch.optim.Optimizer):
         self.count = 0
 
     def rate(self, lr: Schedule) -> float:
-        return lr(self.count) if callable(lr) else lr
+        return self.rate_at(lr, self.count)
+
+    @staticmethod
+    def initial_state(p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """A parameter's state before its first update: nu ones, trace zeros."""
+        return dict(nu=torch.ones_like(p), trace=torch.zeros_like(p))
+
+    @staticmethod
+    def rate_at(lr: Schedule, count: int) -> float:
+        return lr(count) if callable(lr) else lr
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, lr: Optional[torch.Tensor] = None):
+        """One update; ``lr``: this step's rate as a tensor (see above)."""
         if closure is not None:
             raise ValueError("TFRMSProp takes no closure")
         for group in self.param_groups:
@@ -69,7 +82,7 @@ class TFRMSProp(torch.optim.Optimizer):
             grads = [p.grad for p in params]
             for p in params:
                 if not self.state[p]:
-                    self.state[p] = dict(nu=torch.ones_like(p), trace=torch.zeros_like(p))
+                    self.state[p] = self.initial_state(p)
             nu = [self.state[p]["nu"] for p in params]
             trace = [self.state[p]["trace"] for p in params]
             # nu <- (1 - decay) g^2 + decay nu
@@ -81,7 +94,7 @@ class TFRMSProp(torch.optim.Optimizer):
             upd = torch._foreach_add(nu, self.EPS)
             torch._foreach_rsqrt_(upd)
             torch._foreach_mul_(upd, grads)
-            torch._foreach_mul_(upd, -self.rate(group["lr"]))
+            torch._foreach_mul_(upd, -self.rate(group["lr"]) if lr is None else torch.neg(lr))
             # m <- u + momentum m; p <- p + m
             torch._foreach_mul_(trace, self.MOMENTUM)
             torch._foreach_add_(trace, upd)
@@ -115,6 +128,54 @@ def init_train(model: Model, optimizer) -> TrainState:
     parameter of the model, once each (shared modules are registered under
     one owner, and ``parameters()`` skips repeats by identity)."""
     return TrainState(optimizer(list(model.sequence.parameters())))
+
+
+def gradient_summaries(grads: Dict[str, torch.Tensor], updates: Dict[str, torch.Tensor],
+                       params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Gradient and update diagnostics under the JAX package's names
+    (sqair_tpu/training/train.py ``gradient_summaries``): the global
+    gradient and update norms, the update-to-weight norm ratio, and each
+    top-level module's gradient norm.  Each dict maps a parameter's
+    state_dict name to a tensor (``updates``: what the step added;
+    ``params``: the parameters before it)."""
+    def gnorm(tensors):
+        return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+
+    out = {"grads/global_norm": gnorm(grads.values()),
+           "grads/update_norm": gnorm(updates.values())}
+    out["grads/update_to_weight_ratio"] = out["grads/update_norm"] / (
+        gnorm(params.values()) + 1e-12)
+    tops = sorted({name.split(".")[0] for name in grads})
+    for top in tops:
+        out[f"grads/norm/{top}.params"] = gnorm(
+            g for name, g in grads.items() if name.split(".")[0] == top)
+    return out
+
+
+def make_grad_fn(model: Model, l2_weight: float = 0.0) -> Callable:
+    """(obs, nums, noise) -> {parameter name: gradient} of the train-record
+    loss, zeros for a parameter that gets none; the parameters' ``.grad``
+    fields are left alone.  For the gradient histograms at the log cadence."""
+    named = list(model.sequence.named_parameters())
+
+    def grad_fn(obs, nums, noise: NoiseSource) -> Dict[str, torch.Tensor]:
+        obs = torch.as_tensor(obs, dtype=model.dtype, device=model.device)
+        nums = torch.as_tensor(nums, dtype=model.dtype, device=model.device)
+        target, _ = model.loss_and_metrics(obs, noise, nums, l2_weight=l2_weight,
+                                           record_mode="train")
+        grads = torch.autograd.grad(target, [p for _, p in named], allow_unused=True)
+        return {n: torch.zeros_like(p) if g is None else g
+                for (n, p), g in zip(named, grads)}
+
+    return grad_fn
+
+
+def named_grad_leaves(grads: Dict[str, torch.Tensor]):
+    """('top.params.sub.param', tensor) pairs: the JAX package's histogram
+    tags (its flax tree's path) for the port's parameter names."""
+    for name, leaf in grads.items():
+        top, _, rest = name.partition(".")
+        yield f"{top}.params.{rest}", leaf
 
 
 def make_train_step(model: Model, optimizer, l2_weight: float = 0.0) -> Callable:
