@@ -106,6 +106,41 @@ Phases, one line each with its own numbers and seconds:
                  10); the train step's wall ms (median, min, max of repeats),
                  frames/s and device-busy share of eager steps and of N = 1
                  and N = 10 graphs
+  ped-kernels    the pedestrian configuration (``ped_flags``: 64x48 frames,
+                 32x12 glimpses, the MLP model's module defaults, B = 32,
+                 k = 5, T = 10; no early-discovery lever, so that both
+                 switches fuse discovery too): every forward and backward
+                 kernel against its plain version at each shape of its train
+                 step, the glimpse kernels masked and unmasked, the 4800-row
+                 decoder, the frame kernels on frames of the port's
+                 pedestrian data (their forwards' fields that cross the
+                 kernels' own crops held to the float64 plain version where
+                 over the fixed bound: ``frame_fields_check``); each kernel's
+                 device ms a call there
+  ped-eval       3 eval steps of the pedestrian model (weights from a seed,
+                 batches of the device sampler over the pedestrian data
+                 config's 2048 sequences) with no switch, the glimpse switch
+                 and both: launch counts, metrics against no switch
+  ped-train      3 train steps in each setting: launch counts, the first
+                 step's metrics against no switch
+  ped-train-check  one train step's gradients: the kernels with no switch
+                 and with both, the plain versions on the card with each and
+                 on the CPU, against float64 referees, kinks masked, gated as
+                 train-check
+  ped-experiment a 10-step graph against 10 eager steps (both switches); the
+                 training CLI on the pedestrian data and model configs with
+                 --on_device_data --steps_per_call 10 and from the host (10
+                 steps, an eval at 0 and 10, launch counts); then the three
+                 settings timed as the experiment phase times its settings
+  font-data      the font glyph banks read from the port's glyph file (their
+                 SHA-256), then the training CLI for 10 steps at the small-digit
+                 data and model configs and at the release flags with their
+                 own font data config (a render of a glyph bank fails the
+                 phase): the retuned flags, finite losses, the step-10 eval
+  on-device-data OnDeviceSeqMNIST renders bench.py's set on the card (64
+                 stroke templates, 50x50, T = 10, 2048 sequences, generator
+                 seed 42); the same draws rendered on the CPU agree to 1e-5;
+                 counts within n_objects, pixels within [0, 1]; render ms
 
 It exits non-zero on any failure.  The last two lines are a JSON object of
 the kernels' numbers and the JSON result line.
@@ -124,6 +159,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -183,9 +219,9 @@ REFEREES = {"off": "referee", "glimpse": "referee_on", "cells": "referee_cells",
 # from the referee in a kernel-free run; a bound on a pair of f32 runs
 # cannot tell that from a kernel's fault, one on the distance to the
 # referee can.  The CPU run, with no kernel at all, is held to it too.
-REFEREE_GATE = {"kernels": "plain_on_card", "cpu": "plain_on_card",
-                "glimpse_kernels": "glimpse_plain", "cells_kernels": "cells_plain",
-                "disc_kernels": "disc_plain"}
+REFEREE_GATE = {"kernels": ("plain_on_card",), "cpu": ("plain_on_card",),
+                "glimpse_kernels": ("glimpse_plain",), "cells_kernels": ("cells_plain",),
+                "disc_kernels": ("disc_plain",)}
 # pairs of runs whose distances are printed (not gated)
 GRADIENT_PAIRS = {"kernels_vs_plain_on_card": ("kernels", "plain_on_card"),
                   "kernels_vs_cpu": ("kernels", "cpu"),
@@ -245,6 +281,8 @@ CELLS_SWITCH = SWITCHES["cells"]
 # the experiment phase: a CLI run's steps, the graphed chain's steps a call,
 # the timing's repeats; the release flags the phase sets itself
 CLI_STEPS, CHAIN_STEPS, TIMING_REPEATS = 20, 10, 5
+# on-device-data: bench.py's fixed set of sequences
+ON_DEVICE_SEQUENCES = 2048
 CLI_SET = {"git_commit", "resume", "results_dir", "run_name", "data_config", "seq_len",
            "stage_itr", "train_itr", "save_itr", "report_loss_every", "log_itr", "fig_itr",
            "steps_per_call", "on_device_data"}
@@ -263,13 +301,23 @@ class Failure(Exception):
     pass
 
 
+def glimpse_hw(F):
+    """(gh, gw) of the flags' glimpse: ``glimpse_hw`` "h,w" where the flags
+    have it (the pedestrian model config), else the square glimpse_size."""
+    if F.get("glimpse_hw"):
+        gh, gw = (int(v) for v in str(F["glimpse_hw"]).split(","))
+        return gh, gw
+    g = int(F["glimpse_size"])
+    return g, g
+
+
 def glimpse_shapes(F, rows, T, img=IMG):
-    """The fused glimpse encoder's calls of one step, as (shape, calls):
-    twice per propagation slot with the mask (when masked_glimpse), once per
-    discovery slot without it."""
+    """The fused glimpse encoder's calls of one step on frames of ``img``,
+    as (shape, calls): twice per propagation slot with the mask (when
+    masked_glimpse), once per discovery slot without it."""
     h, w = 32 * int(F["n_units"]), int(F["n_what"])
-    S, g = int(F["n_steps_per_image"]), int(F["glimpse_size"])
-    base = dict(n=rows, img=list(img), glimpse=[g, g], d1=h, d2=h, n_what=w)
+    S = int(F["n_steps_per_image"])
+    base = dict(n=rows, img=list(img), glimpse=list(glimpse_hw(F)), d1=h, d2=h, n_what=w)
     masked = F.get("masked_glimpse", True)
     prop = dict(base, d_mi=h if masked else 0, d_m=128 if masked else 0)
     return [(prop, 2 * S * T), (dict(base, d_mi=0, d_m=0), S * T)]
@@ -277,9 +325,10 @@ def glimpse_shapes(F, rows, T, img=IMG):
 
 def prop_shape(F, rows, img=IMG):
     """The fused propagation kernel's shape at the flags ``F``."""
-    h, g = 32 * int(F["n_units"]), int(F["glimpse_size"])
-    return dict(n=rows, S=int(F["n_steps_per_image"]), img=list(img), glimpse=[g, g],
-                n_what=int(F["n_what"]), U=h, SP=h // 2, WB=128, MH=128)
+    h = 32 * int(F["n_units"])
+    return dict(n=rows, S=int(F["n_steps_per_image"]), img=list(img),
+                glimpse=list(glimpse_hw(F)), n_what=int(F["n_what"]), U=h, SP=h // 2, WB=128,
+                MH=128)
 
 
 def disc_fusable(F):
@@ -295,14 +344,14 @@ def disc_fusable(F):
 def disc_shape(F, rows, img=IMG):
     """The fused discovery kernel's shape at the flags ``F`` (the
     conditioning is the propagation summary, n_hidden wide)."""
-    h, g = 32 * int(F["n_units"]), int(F["glimpse_size"])
-    return dict(n=rows, S=int(F["n_steps_per_image"]), img=list(img), glimpse=[g, g],
-                n_what=int(F["n_what"]), U=h, SP=h // 2, C=h)
+    h = 32 * int(F["n_units"])
+    return dict(n=rows, S=int(F["n_steps_per_image"]), img=list(img),
+                glimpse=list(glimpse_hw(F)), n_what=int(F["n_what"]), U=h, SP=h // 2, C=h)
 
 
 def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_cells=False):
-    """Every forward kernel call of one eval or train step, as
-    (kernel, shape, calls per step).  In the train record the decode, the
+    """Every forward kernel call of one eval or train step on frames of
+    ``img``, as (kernel, shape, calls per step).  In the train record the decode, the
     discovery where prior and the count prior leave the time loop and run
     once over all T frames (rows T*B*k, or T*B*k*S for the decode).  With
     ``fuse_glimpse`` (SQAIR_FUSE_GLIMPSE) the glimpse encoder and its mask
@@ -313,7 +362,8 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_
     leave the other kernels."""
     h = 32 * int(F["n_units"])
     w, S = int(F["n_what"]), int(F["n_steps_per_image"])
-    g = int(F["glimpse_size"]) ** 2
+    gh, gw = glimpse_hw(F)
+    g = gh * gw
     rows = B * k
     slots = rows * S
     sp = h // 2
@@ -1134,20 +1184,21 @@ def step_gradients(torch, model, obs, nums, noise, l2):
     return grads, float(target.detach())
 
 
-def train_check(torch, model, disc_model, batch, flags, disc_flags, l2, device):
-    """One train step's parameter gradients, run by run, with the same
-    noise: every kernel with no switch, the glimpse switch and both
+def train_check(torch, model, disc_model, batch, flags, disc_flags, l2, device, img=IMG,
+                runs=TRAIN_RUNS, referees=REFEREES, gates=REFEREE_GATE, pairs=GRADIENT_PAIRS):
+    """One train step's parameter gradients, run by run (``runs``; by
+    default every kernel with no switch, the glimpse switch and both
     switches, and with both switches on ``disc_model`` (DISC_FLAGS, where
     discovery runs fused too); the plain versions on the card with each and
     on the CPU; and a float64 referee for each switch setting (the plain
-    versions on the card).  f32 rounding moves a run across a kink of the
+    versions on the card)), with the same noise, on frames of ``img``.  f32 rounding moves a run across a kink of the
     step's gradient now and then, and one crossing can move a parameter's
     gradient by 10% (PERF.md); so every run goes twice, the second time
     with the gradient through the kinks at which some run lies on another
     side than its referee zeroed, in every run whose calls line up with it
     (``KINK_GROUPS``: the cells and disc switches make other calls).  The gate and
-    the printed pairs are those of the second pass: each gated run
-    (``REFEREE_GATE``) lies, on every parameter, at most
+    the printed ``pairs`` are those of the second pass: each gated run
+    (``gates``) lies, on every parameter, at most
     max(GRAD_TOL, 2 x its plain run's distance) of that parameter's largest
     referee gradient from its referee."""
     from sqair_tpu_torch.models.air import AIRDecoder, AIREncoder
@@ -1157,23 +1208,26 @@ def train_check(torch, model, disc_model, batch, flags, disc_flags, l2, device):
     from sqair_tpu_torch.ops import fused_glimpse as fg
     from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
 
-    cpu_model = copy.copy(model)
-    cpu_model.sequence = copy.deepcopy(model.sequence).cpu()
-    ref_model = copy.copy(model)
-    ref_model.sequence = copy.deepcopy(model.sequence).double()
-    disc_ref = copy.copy(disc_model)
-    disc_ref.sequence = copy.deepcopy(disc_model.sequence).double()
+    def copied(m, to):
+        out = copy.copy(m)
+        out.sequence = to(copy.deepcopy(m.sequence))
+        return out
+
+    wheres = {where for where, _, _ in runs.values()}
+    models = {"card": model, "disc_card": disc_model}
+    for where, base, to in (("cpu", model, lambda s: s.cpu()), ("f64", model, lambda s: s.double()),
+                            ("disc_f64", disc_model, lambda s: s.double())):
+        if where in wheres:
+            models[where] = copied(base, to)
     B, k = int(flags["batch_size"]), int(flags["k_particles"])
-    T = int(flags.get("font_timesteps", 10))
-    referee = {name: REFEREES[sw] for name, (_, sw, _) in TRAIN_RUNS.items()}
-    models = {"card": model, "cpu": cpu_model, "f64": ref_model, "disc_card": disc_model,
-              "disc_f64": disc_ref}
+    T = int(batch["imgs"].shape[0])
+    referee = {name: referees[sw] for name, (_, sw, _) in runs.items()}
     run_flags = {where: disc_flags if where.startswith("disc") else flags for where in models}
     noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 6), device,
                            record=True)
 
     def gradients(name, keep=None):
-        where, sw, plain = TRAIN_RUNS[name]
+        where, sw, plain = runs[name]
         m, switches = models[where], SWITCHES[sw]
         with contextlib.ExitStack() as stack:
             stack.enter_context(switched(switches))
@@ -1190,7 +1244,7 @@ def train_check(torch, model, disc_model, batch, flags, disc_flags, l2, device):
             raise Failure(f"the plain train re-run {name} launched a kernel: {launched}")
         if not plain and device.type == "cuda":
             want = expected_launches(main_path_shapes(
-                run_flags[where], B, k, T, train=True,
+                run_flags[where], B, k, T, train=True, img=img,
                 fuse_glimpse="SQAIR_FUSE_GLIMPSE" in switches,
                 fuse_cells="SQAIR_FUSE_CELLS" in switches), 1, backward=True)
             if launched != want:
@@ -1201,11 +1255,11 @@ def train_check(torch, model, disc_model, batch, flags, disc_flags, l2, device):
         """Per group of runs whose calls line up (``KINK_GROUPS``): the union
         of the kinks that any of its runs crossed against its referee."""
         out, crossed, flips = {}, {}, {}
-        for name, (_, sw, _) in TRAIN_RUNS.items():
-            if name in REFEREES.values():
+        for name, (_, sw, _) in runs.items():
+            if name in referees.values():
                 continue
             c, flips[name] = kinks_crossed(torch, fg, stn, records[name], records[referee[name]],
-                                           sw != "off", IMG, [int(flags["glimpse_size"])] * 2)
+                                           sw != "off", img, glimpse_hw(flags))
             crossed[name] = {kind: int(sum(int(x.sum()) for x in v)) for kind, v in c.items()}
             group = KINK_GROUPS[sw]
             u = out.get(group)
@@ -1213,26 +1267,26 @@ def train_check(torch, model, disc_model, batch, flags, disc_flags, l2, device):
                                               for kd in c}
         return out, crossed, flips
 
-    first = {name: gradients(name) for name in TRAIN_RUNS}
+    first = {name: gradients(name) for name in runs}
     union, crossed, flips = masks({n: r[2] for n, r in first.items()})
     keep = {group: {kind: [~m for m in v] for kind, v in u.items()}
             for group, u in union.items()}
     second = {name: gradients(name, keep[KINK_GROUPS[sw]])[0]
-              for name, (_, sw, _) in TRAIN_RUNS.items()}
+              for name, (_, sw, _) in runs.items()}
 
     def pairs_of(g):
-        return {pair: grad_errors(torch, g[a], g[b], pair)
-                for pair, (a, b) in GRADIENT_PAIRS.items()}
+        return {pair: grad_errors(torch, g[a], g[b], pair) for pair, (a, b) in pairs.items()}
 
     def distances(g):
         return {name: grad_errors(torch, g[name], g[referee[name]], name)
-                for name in TRAIN_RUNS if name not in REFEREES.values()}
+                for name in runs if name not in referees.values()}
 
     dist = distances(second)
     # the gate: per parameter, err <= max(GRAD_TOL largest, 2 err of the plain run) + 1e-6
     gate = {}
-    for run, plain in REFEREE_GATE.items():
-        plain_err = {n: e for _, n, e, _ in dist[plain]}
+    for run, plains in gates.items():
+        plain_err = {n: max(e for p in plains for _, m, e, _ in dist[p] if m == n)
+                     for _, n, _, _ in dist[run]}
         rows = []
         for _, n, e, size in dist[run]:
             bound = max(GRAD_TOL * size, 2.0 * plain_err[n]) + 1e-6
@@ -1245,8 +1299,45 @@ def train_check(torch, model, disc_model, batch, flags, disc_flags, l2, device):
         errors=pairs_of(second), unmasked=pairs_of({n: r[0] for n, r in first.items()}),
         distance=dist, unmasked_distance=distances({n: r[0] for n, r in first.items()}),
         gate=gate,
-        ratio={run: dist[run][-1][0] / (dist[plain][-1][0] + 1e-30)
-               for run, plain in REFEREE_GATE.items()})
+        ratio={run: dist[run][-1][0] / (max(dist[p][-1][0] for p in plains) + 1e-30)
+               for run, plains in gates.items()})
+
+
+def report_train_check(tc, phase, t0, gates=REFEREE_GATE):
+    """Prints ``train_check``'s result ``tc`` as three ``phase`` lines and
+    fails where a gated run lies over its bound."""
+    errors, dist = tc["errors"], tc["distance"]
+    gmax = max(size for _, _, _, size in errors[next(iter(errors))])
+
+    def worst(errs):
+        return [dict(name=n, share=f"{sh:.2e}", err=f"{e:.2e}", largest=f"{sz:.2e}")
+                for sh, n, e, sz in errs[-3:]]
+
+    log(phase, t0, params=len(errors[next(iter(errors))]),
+        largest_grad=f"{gmax:.3e}", targets=jdump({n: f"{v:.5f}" for n, v in tc["targets"].items()}),
+        kinks_crossed=jdump(tc["crossed"]), kinks_masked=jdump(tc["masked"]),
+        presence_flips=jdump(tc["flips"]),
+        pairs_unmasked=jdump({pair: f"{errs[-1][0]:.3e}" for pair, errs in tc["unmasked"].items()}),
+        pairs=jdump({pair: worst(errs) for pair, errs in errors.items()}))
+    log(phase, t0, referee="float64 plain versions on the card, per switch setting",
+        distance=jdump({run: f"{errs[-1][0]:.3e}" for run, errs in dist.items()}),
+        unmasked=jdump({run: f"{errs[-1][0]:.3e}" for run, errs in tc["unmasked_distance"].items()}),
+        worst=jdump({run: worst(errs) for run, errs in dist.items()}),
+        where_bias_mlp=jdump({run: f"{max(sh for sh, n, _, _ in errs if '_where_bias_mlp' in n):.3e}"
+                              for run, errs in dist.items()}),
+        kernels_over_plain=jdump({run: f"{v:.3f}" for run, v in tc["ratio"].items()}))
+    log(phase, t0, gate=jdump({run: [dict(name=n, of_bound=f"{r:.3f}", err=f"{e:.2e}",
+                                                  bound=f"{b:.2e}") for r, n, e, b in gated[-2:]]
+                                       for run, gated in tc["gate"].items()}),
+        tol=f"|g-g64|<=max({GRAD_TOL:g}max|g64|,2|g_plain-g64|)+1e-6 per parameter")
+    for run, gated in tc["gate"].items():
+        for of_bound, name, err, bound in gated:
+            if of_bound > 1.0:
+                raise Failure(f"{phase}: train gradients, {run}: {name} lies {err:.3g} from its float64 "
+                              f"referee, over the bound {bound:.3g} (tol {GRAD_TOL:g} of its "
+                              f"largest gradient, or twice the distance of "
+                              f"{' / '.join(gates[run])})")
+
 
 
 def cli_argv(release, root, run_name, steps_per_call):
@@ -1313,6 +1404,353 @@ def walls_ms(torch, fn, repeats, steps=1):
     return sorted(out)
 
 
+def kernel_tables(fused):
+    """(forward wrappers, plain forwards, backward wrappers, plain backwards)
+    of the MLP and cell kernels, by kernel name."""
+    names = ("fused_mlp", "fused_vanilla_rnn", "fused_gru")
+    plain = ("mlp", "vanilla_rnn", "gru")
+    return ({n: getattr(fused, n) for n in names},
+            {n: getattr(fused, p + "_plain") for n, p in zip(names, plain)},
+            {n: getattr(fused, n + "_bwd") for n in names},
+            {n: getattr(fused, p + "_bwd_plain") for n, p in zip(names, plain)})
+
+
+def frame_fields_check(torch, what, fields, referee_fields, referee=False):
+    """(largest |kernel - plain|, refereed) over the (name, kernel, plain)
+    ``fields`` of a frame kernel's forward, each of which must lie within
+    |d| <= KERNEL_ATOL + KERNEL_RTOL |plain|.  With ``referee``, a field
+    over that bound is held instead to the plain version's float64 value
+    (``referee_fields()``, in the order of ``fields``): max |kernel - f64|
+    <= max(KERNEL_ATOL, 2 max |plain - f64|), the rule of train-check.  The frame kernels crop the frame at a where that
+    they compute themselves, so a rounding difference of the where moves
+    the glimpse by the frame's contrast between neighbouring pixels: on the
+    pedestrian frames (textured silhouettes) the float32 plain version
+    itself lies over the fixed bound from float64.  ``refereed`` holds each
+    refereed field's distances."""
+    worst, refereed, ref = 0.0, {}, None
+    for i, (name, a, b) in enumerate(fields):
+        diff = torch.abs(a - b)
+        if a.shape == b.shape:
+            worst = max(worst, float(diff.max()))
+        if a.shape == b.shape and torch.all(diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)):
+            continue
+        if a.shape != b.shape or not referee:
+            raise Failure(f"{what}: {name} disagrees with the plain version "
+                          f"(max |d| {float(diff.max()):.3g})")
+        ref = referee_fields() if ref is None else ref
+        r = ref[i]
+        err_k = float(torch.max(torch.abs(a.double() - r)))
+        err_p = float(torch.max(torch.abs(b.double() - r)))
+        bound = max(KERNEL_ATOL, 2.0 * err_p)
+        refereed[name] = dict(vs_plain=f"{float(diff.max()):.3e}", kernel_vs_f64=f"{err_k:.3e}",
+                              plain_vs_f64=f"{err_p:.3e}", bound=f"{bound:.3e}")
+        if err_k > bound:
+            raise Failure(f"{what}: {name} lies {err_k:.3g} from its float64 value, over the "
+                          f"bound {bound:.3g} (twice the plain version's {err_p:.3g})")
+    return worst, refereed
+
+
+def check_kernels(torch, flags, disc_flags, B, k, T, img, frames, gen, device,
+                  phase="kernels", modes=("eval", "train"), referee=False):
+    """Every kernel against its plain version on the card, with seeded
+    inputs from ``gen``, at the shapes of ``modes`` steps at ``flags`` on
+    frames of ``img`` (see the module's docstring: the phases ``phase`` and
+    ``phase``-bwd): the MLP and cell forwards, and their backwards at the
+    train step's shapes; the fused glimpse encoder masked and unmasked; the
+    fused propagation unroll at ``flags`` and the fused discovery unroll at
+    ``disc_flags`` on ``frames`` [n, H, W] of a data generator (with
+    ``referee``, their forwards' fields as ``frame_fields_check`` says).
+    Returns the entries, with their inputs and errors, for the timing."""
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops import fused_cells as fc
+    from sqair_tpu_torch.ops import fused_glimpse as fg
+
+    # every distinct forward shape, with its calls per step of each mode
+    shapes = {}
+    for mode in modes:
+        for kernel, shape, calls in main_path_shapes(flags, B, k, T, train=mode == "train",
+                                                     img=img):
+            key = (kernel, jdump(shape))
+            entry = shapes.setdefault(key, dict(kernel=kernel, shape=shape, eval=0, train=0))
+            entry[mode] += calls
+    wrappers, plains, bwd_wrappers, bwd_plains = kernel_tables(fused)
+    with torch.inference_mode():
+        for entry in shapes.values():
+            t0 = time.perf_counter()
+            kernel, shape = entry["kernel"], entry["shape"]
+            args = make_inputs(torch, kernel, shape, gen, device)
+            got = wrappers[kernel](*args)
+            want = plains[kernel](*args)
+            pairs = [(got, want)]
+            if kernel == "fused_gru":  # and as the train step calls it, saving zr and c
+                saved = fused._gru_fwd_cuda(*args, save=True)
+                pairs += list(zip(saved, fused.gru_plain_saving(*args)))
+            torch.cuda.synchronize()
+            abs_err, rel_err, ok = 0.0, 0.0, True
+            for a, b in pairs:
+                diff = torch.abs(a - b)
+                abs_err = max(abs_err, float(torch.max(diff)))
+                # relative error where the value is not near 0 (|value| >= 1e-2)
+                big = torch.abs(b) >= 1e-2
+                if big.any():
+                    rel_err = max(rel_err, float(torch.max(diff[big] / torch.abs(b[big]))))
+                ok = ok and a.shape == b.shape and bool(
+                    torch.all(diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)))
+            extra = {}
+            if kernel in SAME_BITS:
+                same = torch.equal(got, wrappers[kernel](*args))
+                if kernel == "fused_gru":
+                    same = same and torch.equal(saved[0], got) and all(
+                        torch.equal(a, b) for a, b in zip(saved, fused._gru_fwd_cuda(*args,
+                                                                                     save=True)))
+                extra = dict(same_bits=bool(same),
+                             geometry=jdump(fwd_geometry(fused, kernel, shape)))
+            log(phase, t0, kernel=kernel, shape=jdump(shape),
+                max_abs_err=f"{abs_err:.3e}", max_rel_err=f"{rel_err:.3e}",
+                tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|", ok=ok, **extra)
+            if not ok:
+                raise Failure(f"{kernel} {shape}: kernel disagrees with its plain version")
+            if not extra.get("same_bits", True):
+                raise Failure(f"{kernel} {shape}: two runs of the kernel differ")
+            entry.update(args=args, abs_err=abs_err)
+
+    # ------------------------------------------------------- kernels-bwd
+    bwd_entries = [e for e in shapes.values() if e["train"]]
+    with torch.inference_mode():
+        for entry in bwd_entries:
+            t0 = time.perf_counter()
+            kernel, shape = entry["kernel"], entry["shape"]
+            need_dx = needs_dx(kernel, shape, img)
+            bargs = make_bwd_inputs(torch, fused, kernel, entry["args"], gen)
+            got = flat_grads(kernel, bwd_wrappers[kernel](*bargs, need_dx=need_dx))
+            want = flat_grads(kernel, bwd_plains[kernel](*bargs))
+            if not need_dx:
+                want[0] = None
+            torch.cuda.synchronize()
+            worst_abs, worst_share = 0.0, 0.0
+            for i, (a, b) in enumerate(zip(got, want)):
+                if b is None:
+                    if a is not None:
+                        raise Failure(f"{kernel}_bwd {shape}: gradient {i} was not skipped")
+                    continue
+                if a.shape != b.shape:
+                    raise Failure(f"{kernel}_bwd {shape}: gradient {i} has shape "
+                                  f"{tuple(a.shape)}, expected {tuple(b.shape)}")
+                err, size = scaled_err(torch, a, b)
+                if not err <= BWD_TOL * size + 1e-6:
+                    raise Failure(f"{kernel}_bwd {shape}: gradient {i} differs by {err:.3g} "
+                                  f"(largest {size:.3g})")
+                worst_abs = max(worst_abs, err)
+                worst_share = max(worst_share, err / (size + 1e-30))
+            extra = {}
+            if kernel + "_bwd" in SAME_BITS:
+                again = flat_grads(kernel, bwd_wrappers[kernel](*bargs, need_dx=need_dx))
+                if kernel == "fused_mlp":
+                    geometry = fused.mlp_bwd_geometry(shape["n"],
+                                                      [shape["d_in"]] + shape["widths"])
+                elif kernel == "fused_gru":
+                    geometry = fused.gru_bwd_geometry(shape["n"], shape["dx"], shape["units"])
+                else:
+                    geometry = fused.vrnn_bwd_geometry(shape["n"], shape["dx"], shape["units"],
+                                                       need_dx)
+                extra = dict(same_bits=all((a is None and b is None) or torch.equal(a, b)
+                                           for a, b in zip(got, again)),
+                             geometry=jdump(geometry))
+            log(phase + "-bwd", t0, kernel=kernel + "_bwd", shape=jdump(shape),
+                need_dx=need_dx, max_abs_err=f"{worst_abs:.3e}",
+                max_err_share=f"{worst_share:.3e}",
+                tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True, **extra)
+            if not extra.get("same_bits", True):
+                raise Failure(f"{kernel}_bwd {shape}: two runs of the kernel differ")
+            entry.update(bwd_args=bargs, bwd_abs_err=worst_abs, need_dx=need_dx)
+
+    # the fused glimpse encoder, masked (propagation) and unmasked (discovery)
+    glimpse_entries = []
+    with torch.inference_mode():
+        for shape, calls in glimpse_shapes(flags, B * k, T, img):
+            t0 = time.perf_counter()
+            dims, masked = glimpse_dims(shape), bool(shape["d_mi"])
+            args = glimpse_inputs(torch, shape, gen, device)
+            got = fg._fwd_cuda(*args, dims, save=True)
+            same_g = all(torch.equal(a, b)
+                         for a, b in zip(got, fg._fwd_cuda(*args, dims, save=True)))
+            want = fg.glimpse_plain_fwd(*args, dims)
+            torch.cuda.synchronize()
+            names = ["loc", "scale", "g0", "h1", "h2"] + (["mask", "mhid"] if masked else [])
+            worst = 0.0
+            for name, a, b in zip(names, got, want, strict=True):
+                diff = torch.abs(a - b)
+                if a.shape != b.shape or not torch.all(
+                        diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)):
+                    raise Failure(f"fused_glimpse {shape}: output {name} disagrees with the "
+                                  f"plain version (max |d| {float(diff.max()):.3g})")
+                worst = max(worst, float(diff.max()))
+            log(phase, t0, kernel="fused_glimpse", shape=jdump(shape), outputs=len(names),
+                max_abs_err=f"{worst:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
+                ok=True, same_bits=same_g,
+                geometry=jdump(fg.glimpse_fwd_geometry([shape["n"]])))
+            if "fused_glimpse" in SAME_BITS and not same_g:
+                raise Failure(f"fused_glimpse {shape}: two runs of the kernel differ")
+
+            t0 = time.perf_counter()
+            saved = tuple(want[2:5]) + (want[1],) + tuple(want[5:])
+            n, nw = shape["n"], shape["n_what"]
+            dloc = torch.randn((n, nw), generator=gen, device=device)
+            dscale = torch.randn((n, nw), generator=gen, device=device)
+            bargs = args[:6] + (saved, dloc, dscale, dims)
+            got_b = fg.fused_glimpse_bwd(*bargs)
+            same_gb = all(torch.equal(a, b) for a, b in zip(got_b, fg.fused_glimpse_bwd(*bargs)))
+            want_b = fg.glimpse_plain_bwd(*bargs)
+            torch.cuda.synchronize()
+            bnames = ["dwl"] + (["dmi", "dWm1", "dbm1", "dWm2", "dbm2"] if masked else []) + [
+                "dWe1", "dbe1", "dWe2", "dbe2", "dWh", "dbh"]
+            worst_b, share_b = 0.0, 0.0
+            for name, a, b in zip(bnames, got_b, want_b, strict=True):
+                err, size = scaled_err(torch, a, b)
+                if a.shape != b.shape or not err <= BWD_TOL * size + 1e-6:
+                    if name == "dwl":
+                        print(f"[{phase}-bwd] u within 1e-5 of an integer: "
+                              f"{near_integer_u(torch, fg, args[0], args[1], dims)}", flush=True)
+                    raise Failure(f"fused_glimpse_bwd {shape}: {name} differs by {err:.3g} "
+                                  f"(largest {size:.3g})")
+                worst_b, share_b = max(worst_b, err), max(share_b, err / (size + 1e-30))
+            log(phase + "-bwd", t0, kernel="fused_glimpse_bwd", shape=jdump(shape),
+                gradients=len(bnames), max_abs_err=f"{worst_b:.3e}",
+                max_err_share=f"{share_b:.3e}",
+                u_near_integer=near_integer_u(torch, fg, args[0], args[1], dims),
+                tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True, same_bits=same_gb,
+                geometry=jdump(fg.glimpse_bwd_geometry([n])))
+            if "fused_glimpse_bwd" in SAME_BITS and not same_gb:
+                raise Failure(f"fused_glimpse_bwd {shape}: two runs of the kernel differ")
+            glimpse_entries.append(dict(shape=shape, calls=calls, args=args, bargs=bargs,
+                                        abs_err=worst, bwd_abs_err=worst_b))
+
+    # the fused propagation unroll (SQAIR_FUSE_CELLS), one call per frame
+    t0 = time.perf_counter()
+    pshape = prop_shape(flags, B * k, img)
+    pdims = prop_dims(pshape)
+    pargs, pweights = prop_inputs(torch, fc, pshape, gen, device)
+    poffs = fc.residual_layout(pdims)[0]
+    with torch.inference_mode():
+        got = fc._fwd_cuda(*pargs, pweights, pdims)
+        same_p = all(torch.equal(a, b) for a, b in zip(got, fc._fwd_cuda(*pargs, pweights, pdims)))
+        want = fc.prop_plain_fwd(*pargs, pweights, pdims)
+        torch.cuda.synchronize()
+        fields = list(zip(fc.OUT_FIELDS, got, want)) + [
+            (f"residual.{name}", got[10][..., lo:hi], want[10][..., lo:hi])
+            for name, (lo, hi) in poffs.items()]
+
+        def prop_referee():
+            w64 = fc.prop_plain_fwd(*(a.double() for a in pargs),
+                                    tuple(t.double() for t in pweights), pdims)
+            return list(w64[:10]) + [w64[10][..., lo:hi] for lo, hi in poffs.values()]
+
+        worst_p, refereed_p = frame_fields_check(torch, f"fused_prop {pshape}", fields,
+                                                 prop_referee, referee)
+        lo, hi = poffs["gwl"]
+        near = sum(near_integer_u(torch, fg, pargs[0], w.reshape(-1, 4), pdims[1:4])
+                   for w in (want[10][..., lo:hi], want[3]))
+        log(phase, t0, kernel="fused_prop", shape=jdump(pshape), outputs=len(fields),
+            presence=f"{float(want[7].sum()):.0f}/{want[7].numel()}",
+            max_abs_err=f"{worst_p:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
+            ok=True, same_bits=same_p, geometry=jdump(fc.prop_fwd_geometry([B * k])),
+            **({"referee": jdump(refereed_p)} if refereed_p else {}))
+        if "fused_prop" in SAME_BITS and not same_p:
+            raise Failure(f"fused_prop {pshape}: two runs of the kernel differ")
+
+        t0 = time.perf_counter()
+        cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in want[:10])
+        saved = (want[0], want[2], want[3], want[5], want[6], want[7], want[9])
+        pbargs = (*pargs, pweights, saved, want[10], cots, pdims)
+        got_b = fc._bwd_cuda(*pbargs)
+        same_pb = all(torch.equal(a, b) for a, b in zip(got_b, fc._bwd_cuda(*pbargs)))
+        want_b = fc.prop_plain_bwd(*pbargs)
+        torch.cuda.synchronize()
+        bnames = ["dwhat_tm1", "dwhere_tm1", "dpres_tm1", "dtemporal_h", "dh0"] + [
+            "d" + n for n in fc.WEIGHT_NAMES]
+        worst_pb, share_pb = 0.0, 0.0
+        for name, a, b in zip(bnames, got_b, want_b, strict=True):
+            err, size = scaled_err(torch, a, b)
+            if a.shape != b.shape or not err <= BWD_TOL * size + 1e-6:
+                raise Failure(f"fused_prop_bwd {pshape}: {name} differs by {err:.3g} "
+                              f"(largest {size:.3g}; u within 1e-5 of an integer: {near})")
+            worst_pb, share_pb = max(worst_pb, err), max(share_pb, err / (size + 1e-30))
+        log(phase + "-bwd", t0, kernel="fused_prop_bwd", shape=jdump(pshape),
+            gradients=len(bnames), max_abs_err=f"{worst_pb:.3e}", max_err_share=f"{share_pb:.3e}",
+            u_near_integer=near, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True,
+            same_bits=same_pb, geometry=jdump(fc.prop_bwd_geometry([B * k])))
+        if not same_pb:
+            raise Failure(f"fused_prop_bwd {pshape}: two runs of the kernel differ")
+    prop_entry = dict(calls=T, abs_err=worst_p, bwd_abs_err=worst_pb)
+
+    # the fused discovery unroll (SQAIR_FUSE_CELLS where discovery fuses),
+    # one call per frame, on frames of the port's data generators
+    t0 = time.perf_counter()
+    dshape = disc_shape(disc_flags, B * k, img)
+    ddims = disc_dims(dshape)
+    dargs, dweights = disc_inputs(torch, fc, dshape, gen, device, frames)
+    doffs = fc.disc_residual_layout(ddims)[0]
+    with torch.inference_mode():
+        got = fc._disc_fwd_cuda(*dargs, dweights, ddims)
+        same_d = all(torch.equal(a, b)
+                     for a, b in zip(got, fc._disc_fwd_cuda(*dargs, dweights, ddims)))
+        want = fc.disc_plain_fwd(*dargs, dweights, ddims)
+        torch.cuda.synchronize()
+        fields = list(zip(fc.DISC_OUT_FIELDS, got, want)) + [
+            (f"residual.{name}", got[9][..., lo:hi], want[9][..., lo:hi])
+            for name, (lo, hi) in doffs.items()] + [
+            ("glimpses", got[10], want[10]), ("input_encoder", got[11], want[11])]
+
+        def disc_referee():
+            w64 = fc.disc_plain_fwd(*(a.double() for a in dargs),
+                                    tuple(t.double() for t in dweights), ddims)
+            return (list(w64[:9]) + [w64[9][..., lo:hi] for lo, hi in doffs.values()]
+                    + [w64[10], w64[11]])
+
+        worst_d, refereed_d = frame_fields_check(torch, f"fused_disc {dshape}", fields,
+                                                 disc_referee, referee)
+        near_d = near_integer_u(torch, fg, dargs[0], want[3].reshape(-1, 4), ddims[1:4])
+        log(phase, t0, kernel="fused_disc", shape=jdump(dshape), outputs=len(fields),
+            presence=f"{float(want[7].sum()):.0f}/{want[7].numel()}",
+            max_abs_err=f"{worst_d:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
+            ok=True, same_bits=same_d, geometry=jdump(fc.disc_fwd_geometry(
+                [B * k, ddims[0], *dshape["img"], *ddims[1:], dshape["C"]])),
+            **({"referee": jdump(refereed_d)} if refereed_d else {}))
+        if "fused_disc" in SAME_BITS and not same_d:
+            raise Failure(f"fused_disc {dshape}: two runs of the kernel differ")
+
+        t0 = time.perf_counter()
+        cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in want[:9])
+        saved = (want[0], want[2], want[3], want[5], want[6], want[7])
+        dbargs = (*dargs, dweights, saved, want[9], want[10], want[11], cots, ddims)
+        got_b = fc._disc_bwd_cuda(*dbargs)
+        same_db = all(torch.equal(a, b) for a, b in zip(got_b, fc._disc_bwd_cuda(*dbargs)))
+        want_b = fc.disc_plain_bwd(*dbargs)
+        torch.cuda.synchronize()
+        bnames = ["dcond", "dh0"] + ["d" + n for n in fc.DISC_WEIGHT_NAMES]
+        worst_db, share_db = 0.0, 0.0
+        for name, a, b in zip(bnames, got_b, want_b, strict=True):
+            err, size = scaled_err(torch, a, b)
+            if a.shape != b.shape or not err <= BWD_TOL * size + 1e-6:
+                raise Failure(f"fused_disc_bwd {dshape}: {name} differs by {err:.3g} "
+                              f"(largest {size:.3g}; u within 1e-5 of an integer: {near_d})")
+            worst_db, share_db = max(worst_db, err), max(share_db, err / (size + 1e-30))
+        log(phase + "-bwd", t0, kernel="fused_disc_bwd", shape=jdump(dshape),
+            gradients=len(bnames), max_abs_err=f"{worst_db:.3e}", max_err_share=f"{share_db:.3e}",
+            u_near_integer=near_d, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True,
+            same_bits=same_db, geometry=jdump(fc.disc_bwd_geometry([B * k])))
+        if "fused_disc_bwd" in SAME_BITS and not same_db:
+            raise Failure(f"fused_disc_bwd {dshape}: two runs of the kernel differ")
+    disc_entry = dict(calls=T, abs_err=worst_d, bwd_abs_err=worst_db)
+    return types.SimpleNamespace(
+        shapes=shapes, bwd_entries=bwd_entries, glimpse_entries=glimpse_entries,
+        prop=dict(shape=pshape, dims=pdims, args=pargs, weights=pweights, bargs=pbargs,
+                  **prop_entry),
+        disc=dict(shape=dshape, dims=ddims, args=dargs, weights=dweights, bargs=dbargs,
+                  **disc_entry))
+
+
+
 def run():
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -1357,298 +1795,24 @@ def run():
 
     # ----------------------------------------------------------- kernels
     flags = json.loads(RELEASE_FLAGS.read_text())
+    disc_flags = dict(flags, **DISC_LEVERS)
     B, k = int(flags["batch_size"]), int(flags["k_particles"])
     T = int(flags.get("font_timesteps", 10))
     eval_shapes = main_path_shapes(flags, B, k, T)
     train_shapes = main_path_shapes(flags, B, k, T, train=True)
-    # every distinct forward shape, with its calls per eval and per train step
-    shapes = {}
-    for mode, group in (("eval", eval_shapes), ("train", train_shapes)):
-        for kernel, shape, calls in group:
-            key = (kernel, jdump(shape))
-            entry = shapes.setdefault(key, dict(kernel=kernel, shape=shape, eval=0, train=0))
-            entry[mode] += calls
-    wrappers = {"fused_mlp": fused.fused_mlp, "fused_vanilla_rnn": fused.fused_vanilla_rnn,
-                "fused_gru": fused.fused_gru}
-    plains = {"fused_mlp": fused.mlp_plain, "fused_vanilla_rnn": fused.vanilla_rnn_plain,
-              "fused_gru": fused.gru_plain}
-    bwd_wrappers = {"fused_mlp": fused.fused_mlp_bwd,
-                    "fused_vanilla_rnn": fused.fused_vanilla_rnn_bwd,
-                    "fused_gru": fused.fused_gru_bwd}
-    bwd_plains = {"fused_mlp": fused.mlp_bwd_plain,
-                  "fused_vanilla_rnn": fused.vanilla_rnn_bwd_plain,
-                  "fused_gru": fused.gru_bwd_plain}
+    wrappers, plains, bwd_wrappers, bwd_plains = kernel_tables(fused)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    with torch.inference_mode():
-        for entry in shapes.values():
-            t0 = time.perf_counter()
-            kernel, shape = entry["kernel"], entry["shape"]
-            args = make_inputs(torch, kernel, shape, gen, device)
-            got = wrappers[kernel](*args)
-            want = plains[kernel](*args)
-            pairs = [(got, want)]
-            if kernel == "fused_gru":  # and as the train step calls it, saving zr and c
-                saved = fused._gru_fwd_cuda(*args, save=True)
-                pairs += list(zip(saved, fused.gru_plain_saving(*args)))
-            torch.cuda.synchronize()
-            abs_err, rel_err, ok = 0.0, 0.0, True
-            for a, b in pairs:
-                diff = torch.abs(a - b)
-                abs_err = max(abs_err, float(torch.max(diff)))
-                # relative error where the value is not near 0 (|value| >= 1e-2)
-                big = torch.abs(b) >= 1e-2
-                if big.any():
-                    rel_err = max(rel_err, float(torch.max(diff[big] / torch.abs(b[big]))))
-                ok = ok and a.shape == b.shape and bool(
-                    torch.all(diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)))
-            extra = {}
-            if kernel in SAME_BITS:
-                same = torch.equal(got, wrappers[kernel](*args))
-                if kernel == "fused_gru":
-                    same = same and torch.equal(saved[0], got) and all(
-                        torch.equal(a, b) for a, b in zip(saved, fused._gru_fwd_cuda(*args,
-                                                                                     save=True)))
-                extra = dict(same_bits=bool(same),
-                             geometry=jdump(fwd_geometry(fused, kernel, shape)))
-            log("kernels", t0, kernel=kernel, shape=jdump(shape),
-                max_abs_err=f"{abs_err:.3e}", max_rel_err=f"{rel_err:.3e}",
-                tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|", ok=ok, **extra)
-            if not ok:
-                raise Failure(f"{kernel} {shape}: kernel disagrees with its plain version")
-            if not extra.get("same_bits", True):
-                raise Failure(f"{kernel} {shape}: two runs of the kernel differ")
-            entry.update(args=args, abs_err=abs_err)
-
-    # ------------------------------------------------------- kernels-bwd
-    bwd_entries = [e for e in shapes.values() if e["train"]]
-    with torch.inference_mode():
-        for entry in bwd_entries:
-            t0 = time.perf_counter()
-            kernel, shape = entry["kernel"], entry["shape"]
-            need_dx = needs_dx(kernel, shape)
-            bargs = make_bwd_inputs(torch, fused, kernel, entry["args"], gen)
-            got = flat_grads(kernel, bwd_wrappers[kernel](*bargs, need_dx=need_dx))
-            want = flat_grads(kernel, bwd_plains[kernel](*bargs))
-            if not need_dx:
-                want[0] = None
-            torch.cuda.synchronize()
-            worst_abs, worst_share = 0.0, 0.0
-            for i, (a, b) in enumerate(zip(got, want)):
-                if b is None:
-                    if a is not None:
-                        raise Failure(f"{kernel}_bwd {shape}: gradient {i} was not skipped")
-                    continue
-                if a.shape != b.shape:
-                    raise Failure(f"{kernel}_bwd {shape}: gradient {i} has shape "
-                                  f"{tuple(a.shape)}, expected {tuple(b.shape)}")
-                err, size = scaled_err(torch, a, b)
-                if not err <= BWD_TOL * size + 1e-6:
-                    raise Failure(f"{kernel}_bwd {shape}: gradient {i} differs by {err:.3g} "
-                                  f"(largest {size:.3g})")
-                worst_abs = max(worst_abs, err)
-                worst_share = max(worst_share, err / (size + 1e-30))
-            extra = {}
-            if kernel + "_bwd" in SAME_BITS:
-                again = flat_grads(kernel, bwd_wrappers[kernel](*bargs, need_dx=need_dx))
-                if kernel == "fused_mlp":
-                    geometry = fused.mlp_bwd_geometry(shape["n"],
-                                                      [shape["d_in"]] + shape["widths"])
-                elif kernel == "fused_gru":
-                    geometry = fused.gru_bwd_geometry(shape["n"], shape["dx"], shape["units"])
-                else:
-                    geometry = fused.vrnn_bwd_geometry(shape["n"], shape["dx"], shape["units"],
-                                                       need_dx)
-                extra = dict(same_bits=all((a is None and b is None) or torch.equal(a, b)
-                                           for a, b in zip(got, again)),
-                             geometry=jdump(geometry))
-            log("kernels-bwd", t0, kernel=kernel + "_bwd", shape=jdump(shape),
-                need_dx=need_dx, max_abs_err=f"{worst_abs:.3e}",
-                max_err_share=f"{worst_share:.3e}",
-                tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True, **extra)
-            if not extra.get("same_bits", True):
-                raise Failure(f"{kernel}_bwd {shape}: two runs of the kernel differ")
-            entry.update(bwd_args=bargs, bwd_abs_err=worst_abs, need_dx=need_dx)
-
-    # the fused glimpse encoder, masked (propagation) and unmasked (discovery)
-    glimpse_entries = []
-    with torch.inference_mode():
-        for shape, calls in glimpse_shapes(flags, B * k, T):
-            t0 = time.perf_counter()
-            dims, masked = glimpse_dims(shape), bool(shape["d_mi"])
-            args = glimpse_inputs(torch, shape, gen, device)
-            got = fg._fwd_cuda(*args, dims, save=True)
-            same_g = all(torch.equal(a, b)
-                         for a, b in zip(got, fg._fwd_cuda(*args, dims, save=True)))
-            want = fg.glimpse_plain_fwd(*args, dims)
-            torch.cuda.synchronize()
-            names = ["loc", "scale", "g0", "h1", "h2"] + (["mask", "mhid"] if masked else [])
-            worst = 0.0
-            for name, a, b in zip(names, got, want, strict=True):
-                diff = torch.abs(a - b)
-                if a.shape != b.shape or not torch.all(
-                        diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)):
-                    raise Failure(f"fused_glimpse {shape}: output {name} disagrees with the "
-                                  f"plain version (max |d| {float(diff.max()):.3g})")
-                worst = max(worst, float(diff.max()))
-            log("kernels", t0, kernel="fused_glimpse", shape=jdump(shape), outputs=len(names),
-                max_abs_err=f"{worst:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
-                ok=True, same_bits=same_g,
-                geometry=jdump(fg.glimpse_fwd_geometry([shape["n"]])))
-            if "fused_glimpse" in SAME_BITS and not same_g:
-                raise Failure(f"fused_glimpse {shape}: two runs of the kernel differ")
-
-            t0 = time.perf_counter()
-            saved = tuple(want[2:5]) + (want[1],) + tuple(want[5:])
-            n, nw = shape["n"], shape["n_what"]
-            dloc = torch.randn((n, nw), generator=gen, device=device)
-            dscale = torch.randn((n, nw), generator=gen, device=device)
-            bargs = args[:6] + (saved, dloc, dscale, dims)
-            got_b = fg.fused_glimpse_bwd(*bargs)
-            same_gb = all(torch.equal(a, b) for a, b in zip(got_b, fg.fused_glimpse_bwd(*bargs)))
-            want_b = fg.glimpse_plain_bwd(*bargs)
-            torch.cuda.synchronize()
-            bnames = ["dwl"] + (["dmi", "dWm1", "dbm1", "dWm2", "dbm2"] if masked else []) + [
-                "dWe1", "dbe1", "dWe2", "dbe2", "dWh", "dbh"]
-            worst_b, share_b = 0.0, 0.0
-            for name, a, b in zip(bnames, got_b, want_b, strict=True):
-                err, size = scaled_err(torch, a, b)
-                if a.shape != b.shape or not err <= BWD_TOL * size + 1e-6:
-                    if name == "dwl":
-                        print(f"[kernels-bwd] u within 1e-5 of an integer: "
-                              f"{near_integer_u(torch, fg, args[0], args[1], dims)}", flush=True)
-                    raise Failure(f"fused_glimpse_bwd {shape}: {name} differs by {err:.3g} "
-                                  f"(largest {size:.3g})")
-                worst_b, share_b = max(worst_b, err), max(share_b, err / (size + 1e-30))
-            log("kernels-bwd", t0, kernel="fused_glimpse_bwd", shape=jdump(shape),
-                gradients=len(bnames), max_abs_err=f"{worst_b:.3e}",
-                max_err_share=f"{share_b:.3e}",
-                u_near_integer=near_integer_u(torch, fg, args[0], args[1], dims),
-                tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True, same_bits=same_gb,
-                geometry=jdump(fg.glimpse_bwd_geometry([n])))
-            if "fused_glimpse_bwd" in SAME_BITS and not same_gb:
-                raise Failure(f"fused_glimpse_bwd {shape}: two runs of the kernel differ")
-            glimpse_entries.append(dict(shape=shape, calls=calls, args=args, bargs=bargs,
-                                        abs_err=worst, bwd_abs_err=worst_b))
-
-    # the fused propagation unroll (SQAIR_FUSE_CELLS), one call per frame
-    t0 = time.perf_counter()
-    pshape = prop_shape(flags, B * k)
-    pdims = prop_dims(pshape)
-    pargs, pweights = prop_inputs(torch, fc, pshape, gen, device)
-    poffs = fc.residual_layout(pdims)[0]
-    with torch.inference_mode():
-        got = fc._fwd_cuda(*pargs, pweights, pdims)
-        same_p = all(torch.equal(a, b) for a, b in zip(got, fc._fwd_cuda(*pargs, pweights, pdims)))
-        want = fc.prop_plain_fwd(*pargs, pweights, pdims)
-        torch.cuda.synchronize()
-        fields = list(zip(fc.OUT_FIELDS, got, want)) + [
-            (f"residual.{name}", got[10][..., lo:hi], want[10][..., lo:hi])
-            for name, (lo, hi) in poffs.items()]
-        worst_p = 0.0
-        for name, a, b in fields:
-            diff = torch.abs(a - b)
-            if a.shape != b.shape or not torch.all(
-                    diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)):
-                raise Failure(f"fused_prop {pshape}: {name} disagrees with the plain version "
-                              f"(max |d| {float(diff.max()):.3g})")
-            worst_p = max(worst_p, float(diff.max()))
-        lo, hi = poffs["gwl"]
-        near = sum(near_integer_u(torch, fg, pargs[0], w.reshape(-1, 4), pdims[1:4])
-                   for w in (want[10][..., lo:hi], want[3]))
-        log("kernels", t0, kernel="fused_prop", shape=jdump(pshape), outputs=len(fields),
-            presence=f"{float(want[7].sum()):.0f}/{want[7].numel()}",
-            max_abs_err=f"{worst_p:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
-            ok=True, same_bits=same_p, geometry=jdump(fc.prop_fwd_geometry([B * k])))
-        if "fused_prop" in SAME_BITS and not same_p:
-            raise Failure(f"fused_prop {pshape}: two runs of the kernel differ")
-
-        t0 = time.perf_counter()
-        cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in want[:10])
-        saved = (want[0], want[2], want[3], want[5], want[6], want[7], want[9])
-        pbargs = (*pargs, pweights, saved, want[10], cots, pdims)
-        got_b = fc._bwd_cuda(*pbargs)
-        same_pb = all(torch.equal(a, b) for a, b in zip(got_b, fc._bwd_cuda(*pbargs)))
-        want_b = fc.prop_plain_bwd(*pbargs)
-        torch.cuda.synchronize()
-        bnames = ["dwhat_tm1", "dwhere_tm1", "dpres_tm1", "dtemporal_h", "dh0"] + [
-            "d" + n for n in fc.WEIGHT_NAMES]
-        worst_pb, share_pb = 0.0, 0.0
-        for name, a, b in zip(bnames, got_b, want_b, strict=True):
-            err, size = scaled_err(torch, a, b)
-            if a.shape != b.shape or not err <= BWD_TOL * size + 1e-6:
-                raise Failure(f"fused_prop_bwd {pshape}: {name} differs by {err:.3g} "
-                              f"(largest {size:.3g}; u within 1e-5 of an integer: {near})")
-            worst_pb, share_pb = max(worst_pb, err), max(share_pb, err / (size + 1e-30))
-        log("kernels-bwd", t0, kernel="fused_prop_bwd", shape=jdump(pshape),
-            gradients=len(bnames), max_abs_err=f"{worst_pb:.3e}", max_err_share=f"{share_pb:.3e}",
-            u_near_integer=near, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True,
-            same_bits=same_pb, geometry=jdump(fc.prop_bwd_geometry([B * k])))
-        if not same_pb:
-            raise Failure(f"fused_prop_bwd {pshape}: two runs of the kernel differ")
-    prop_entry = dict(calls=T, abs_err=worst_p, bwd_abs_err=worst_pb)
-
-    # the fused discovery unroll (SQAIR_FUSE_CELLS at DISC_FLAGS), one call
-    # per frame, on frames of the port's data generator
-    t0 = time.perf_counter()
-    disc_flags = dict(flags, **DISC_LEVERS)
-    dshape = disc_shape(disc_flags, B * k)
-    ddims = disc_dims(dshape)
     frames = create_seq_dataset(n_samples=-(-B * k // T), n_timesteps=T, canvas_size=IMG,
                                 obj_size=(28, 28), n_objects=(0, 2), seed=SEED + 8,
                                 templates=make_template_bank(256, 28, seed=SEED))["imgs"]
     frames = torch.from_numpy(frames.reshape(-1, *IMG).astype("float32") / 255.0)
-    dargs, dweights = disc_inputs(torch, fc, dshape, gen, device, frames)
-    doffs = fc.disc_residual_layout(ddims)[0]
-    with torch.inference_mode():
-        got = fc._disc_fwd_cuda(*dargs, dweights, ddims)
-        same_d = all(torch.equal(a, b)
-                     for a, b in zip(got, fc._disc_fwd_cuda(*dargs, dweights, ddims)))
-        want = fc.disc_plain_fwd(*dargs, dweights, ddims)
-        torch.cuda.synchronize()
-        fields = list(zip(fc.DISC_OUT_FIELDS, got, want)) + [
-            (f"residual.{name}", got[9][..., lo:hi], want[9][..., lo:hi])
-            for name, (lo, hi) in doffs.items()] + [
-            ("glimpses", got[10], want[10]), ("input_encoder", got[11], want[11])]
-        worst_d = 0.0
-        for name, a, b in fields:
-            diff = torch.abs(a - b)
-            if a.shape != b.shape or not torch.all(
-                    diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)):
-                raise Failure(f"fused_disc {dshape}: {name} disagrees with the plain version "
-                              f"(max |d| {float(diff.max()):.3g})")
-            worst_d = max(worst_d, float(diff.max()))
-        near_d = near_integer_u(torch, fg, dargs[0], want[3].reshape(-1, 4), ddims[1:4])
-        log("kernels", t0, kernel="fused_disc", shape=jdump(dshape), outputs=len(fields),
-            presence=f"{float(want[7].sum()):.0f}/{want[7].numel()}",
-            max_abs_err=f"{worst_d:.3e}", tol=f"|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|value|",
-            ok=True, same_bits=same_d, geometry=jdump(fc.disc_fwd_geometry(
-                [B * k, ddims[0], *dshape["img"], *ddims[1:], dshape["C"]])))
-        if "fused_disc" in SAME_BITS and not same_d:
-            raise Failure(f"fused_disc {dshape}: two runs of the kernel differ")
-
-        t0 = time.perf_counter()
-        cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in want[:9])
-        saved = (want[0], want[2], want[3], want[5], want[6], want[7])
-        dbargs = (*dargs, dweights, saved, want[9], want[10], want[11], cots, ddims)
-        got_b = fc._disc_bwd_cuda(*dbargs)
-        same_db = all(torch.equal(a, b) for a, b in zip(got_b, fc._disc_bwd_cuda(*dbargs)))
-        want_b = fc.disc_plain_bwd(*dbargs)
-        torch.cuda.synchronize()
-        bnames = ["dcond", "dh0"] + ["d" + n for n in fc.DISC_WEIGHT_NAMES]
-        worst_db, share_db = 0.0, 0.0
-        for name, a, b in zip(bnames, got_b, want_b, strict=True):
-            err, size = scaled_err(torch, a, b)
-            if a.shape != b.shape or not err <= BWD_TOL * size + 1e-6:
-                raise Failure(f"fused_disc_bwd {dshape}: {name} differs by {err:.3g} "
-                              f"(largest {size:.3g}; u within 1e-5 of an integer: {near_d})")
-            worst_db, share_db = max(worst_db, err), max(share_db, err / (size + 1e-30))
-        log("kernels-bwd", t0, kernel="fused_disc_bwd", shape=jdump(dshape),
-            gradients=len(bnames), max_abs_err=f"{worst_db:.3e}", max_err_share=f"{share_db:.3e}",
-            u_near_integer=near_d, tol=f"|d|<={BWD_TOL:g}max|value|+1e-6", ok=True,
-            same_bits=same_db, geometry=jdump(fc.disc_bwd_geometry([B * k])))
-        if "fused_disc_bwd" in SAME_BITS and not same_db:
-            raise Failure(f"fused_disc_bwd {dshape}: two runs of the kernel differ")
-    disc_entry = dict(calls=T, abs_err=worst_d, bwd_abs_err=worst_db)
+    kc = check_kernels(torch, flags, disc_flags, B, k, T, IMG, frames, gen, device)
+    shapes, bwd_entries, glimpse_entries = kc.shapes, kc.bwd_entries, kc.glimpse_entries
+    pshape, pdims, pargs, pweights, pbargs = (kc.prop[key] for key in
+                                              ("shape", "dims", "args", "weights", "bargs"))
+    dshape, ddims, dargs, dweights, dbargs = (kc.disc[key] for key in
+                                              ("shape", "dims", "args", "weights", "bargs"))
+    prop_entry, disc_entry = kc.prop, kc.disc
 
     # -------------------------------------------------------------- eval
     t0 = time.perf_counter()
@@ -1939,36 +2103,7 @@ def run():
     # ------------------------------------------------------- train-check
     t0 = time.perf_counter()
     tc = train_check(torch, model, disc_model, train_batches[0], flags, disc_flags, l2, device)
-    errors, dist = tc["errors"], tc["distance"]
-    gmax = max(size for _, _, _, size in errors["kernels_vs_plain_on_card"])
-
-    def worst(errs):
-        return [dict(name=n, share=f"{sh:.2e}", err=f"{e:.2e}", largest=f"{sz:.2e}")
-                for sh, n, e, sz in errs[-3:]]
-
-    log("train-check", t0, params=len(errors["kernels_vs_plain_on_card"]),
-        largest_grad=f"{gmax:.3e}", targets=jdump({n: f"{v:.5f}" for n, v in tc["targets"].items()}),
-        kinks_crossed=jdump(tc["crossed"]), kinks_masked=jdump(tc["masked"]),
-        presence_flips=jdump(tc["flips"]),
-        pairs_unmasked=jdump({pair: f"{errs[-1][0]:.3e}" for pair, errs in tc["unmasked"].items()}),
-        pairs=jdump({pair: worst(errs) for pair, errs in errors.items()}))
-    log("train-check", t0, referee="float64 plain versions on the card, per switch setting",
-        distance=jdump({run: f"{errs[-1][0]:.3e}" for run, errs in dist.items()}),
-        unmasked=jdump({run: f"{errs[-1][0]:.3e}" for run, errs in tc["unmasked_distance"].items()}),
-        worst=jdump({run: worst(errs) for run, errs in dist.items()}),
-        where_bias_mlp=jdump({run: f"{max(sh for sh, n, _, _ in errs if '_where_bias_mlp' in n):.3e}"
-                              for run, errs in dist.items()}),
-        kernels_over_plain=jdump({run: f"{v:.3f}" for run, v in tc["ratio"].items()}))
-    log("train-check", t0, gate=jdump({run: [dict(name=n, of_bound=f"{r:.3f}", err=f"{e:.2e}",
-                                                  bound=f"{b:.2e}") for r, n, e, b in gated[-2:]]
-                                       for run, gated in tc["gate"].items()}),
-        tol=f"|g-g64|<=max({GRAD_TOL:g}max|g64|,2|g_plain-g64|)+1e-6 per parameter")
-    for run, gated in tc["gate"].items():
-        for of_bound, name, err, bound in gated:
-            if of_bound > 1.0:
-                raise Failure(f"train gradients, {run}: {name} lies {err:.3g} from its float64 "
-                              f"referee, over the bound {bound:.3g} (tol {GRAD_TOL:g} of its "
-                              f"largest gradient, or twice {REFEREE_GATE[run]}'s distance)")
+    report_train_check(tc, "train-check", t0)
 
     # ------------------------------------------------------ train-timing
     with torch.inference_mode():
@@ -2235,6 +2370,11 @@ def run():
     # -------------------------------------------------------- experiment
     experiment_phase(torch, flags, disc_flags, data, B, k, T, card, device)
 
+    # ---------------- the pedestrian configuration, the font data, on-device data
+    pedestrian_phases(torch, card, device)
+    font_data_phase(torch, card, device)
+    on_device_data_phase(torch, card, device)
+
     kernels = []
     for name, meta in KERNELS.items():
         r = rows[name]
@@ -2255,6 +2395,131 @@ def run():
     return 0
 
 
+def step_runners(torch, load, sampler, B, T, device):
+    """Models of one configuration (``load(run_flags)``: weights from SEED),
+    and their eager train steps and captured chains on batches of the
+    device ``sampler``, all from the same data and noise seeds."""
+    from sqair_tpu_torch.configs.mlp_mnist_model import make_optimizer
+    from sqair_tpu_torch.ops.noise import GeneratorNoise
+    from sqair_tpu_torch.training import init_train, make_train_step
+    from sqair_tpu_torch.training.graph import make_chained_train_step
+
+    def seeds():
+        return (torch.Generator(device=device).manual_seed(SEED + 8),
+                torch.Generator(device=device).manual_seed(SEED + 9))
+
+    def eager_step(run_flags):
+        """(model, step(): one eager train step on the next batch)."""
+        model = load(run_flags)
+        factory, l2 = make_optimizer(run_flags)
+        step = make_train_step(model, factory, l2)
+        g_data, g_noise = seeds()
+
+        def one():
+            b = sampler.sample(g_data, B)
+            return step(b["imgs"], b["nums"], GeneratorNoise(g_noise, device))
+        return model, one
+
+    def eager_run(run_flags, steps):
+        """(model, last metrics) of ``steps`` eager train steps."""
+        model, one = eager_step(run_flags)
+        for _ in range(steps):
+            metrics = one()
+        return model, {key: v.clone() for key, v in metrics.items()}
+
+    def chained(run_flags, steps):
+        """(model, chain) of a chain of ``steps`` train steps a call, from
+        eager_run's weights and seeds."""
+        model = load(run_flags)
+        factory, l2 = make_optimizer(run_flags)
+        state = init_train(model, factory)
+        g_data, g_noise = seeds()
+        chain = make_chained_train_step(model, state, lambda: sampler.sample(g_data, B), steps,
+                                        T, l2, lambda itr: GeneratorNoise(g_noise, device),
+                                        [g_data, g_noise])
+        return model, chain
+
+    return types.SimpleNamespace(eager_step=eager_step, eager_run=eager_run, chained=chained)
+
+
+def graph_gate(torch, runners, run_flags, phase, switches=None):
+    """A captured chain of CHAIN_STEPS train steps against as many eager
+    steps from the same weights, data and noise: bit-identical, or within
+    twice the distance of two eager runs of the same steps.  Returns that
+    eager-vs-eager distance (parameters, metrics)."""
+    t0 = time.perf_counter()
+    with switched(switches or {}):
+        eager_a, m_a = runners.eager_run(run_flags, CHAIN_STEPS)
+        eager_b, m_b = runners.eager_run(run_flags, CHAIN_STEPS)
+        ee_params = params_distance(torch, eager_a.sequence, eager_b.sequence)
+        ee_metrics = metric_distance(torch, m_b, m_a)[0]
+        graph_model, chain = runners.chained(run_flags, CHAIN_STEPS)
+        m_graph = {key: v.clone() for key, v in chain().items()}
+        ge_params = params_distance(torch, graph_model.sequence, eager_a.sequence)
+        ge_metrics = metric_distance(torch, m_graph, m_a)[0]
+        chain.release()
+    log(phase, t0, gate="graph_vs_eager", steps=CHAIN_STEPS,
+        switches=jdump(sorted(switches or {})), params=f"{ge_params:.3e}",
+        metrics=f"{ge_metrics:.3e}", eager_vs_eager_params=f"{ee_params:.3e}",
+        eager_vs_eager_metrics=f"{ee_metrics:.3e}",
+        bit_identical=ge_params == 0.0 and ge_metrics == 0.0)
+    if ge_params > 2 * ee_params or ge_metrics > 2 * ee_metrics:
+        raise Failure(f"{phase}: a graph of {CHAIN_STEPS} steps lies {ge_params:.3g} "
+                      f"(parameters) / {ge_metrics:.3g} (metrics) from the eager steps, over "
+                      f"twice the eager runs' {ee_params:.3g} / {ee_metrics:.3g}")
+    return ee_params, ee_metrics
+
+
+def time_settings(torch, runners, settings, B, k, T, img, card, phase):
+    """For each (label, flags, switches) of ``settings``: one eager train
+    step's launches against ``main_path_shapes``; a capture of N = 1 and N =
+    CHAIN_STEPS steps launches N times as many; the wall ms a step (median,
+    min, max of TIMING_REPEATS calls), frames/s and device-busy share of
+    eager steps and of both graphs."""
+    from sqair_tpu_torch.ops import fused
+
+    for label, run_flags, switches in settings:
+        t0 = time.perf_counter()
+        with switched(switches):
+            _, eager = runners.eager_step(run_flags)
+            eager()
+            torch.cuda.synchronize()
+            fused.reset_launches()
+            eager()
+            torch.cuda.synchronize()
+            one_step = dict(fused.launches)
+            expected = expected_launches(main_path_shapes(
+                run_flags, B, k, T, train=True, img=img,
+                fuse_glimpse="SQAIR_FUSE_GLIMPSE" in switches,
+                fuse_cells="SQAIR_FUSE_CELLS" in switches), 1, backward=True)
+            if one_step != expected:
+                raise Failure(f"{phase} {label}: an eager step launched {one_step}, "
+                              f"not {expected}")
+            timing = {"eager": (walls_ms(torch, eager, TIMING_REPEATS),
+                                profile_device(torch, eager)[0], 1)}
+            for n in (1, CHAIN_STEPS):
+                _, chain = runners.chained(run_flags, n)
+                chain()
+                torch.cuda.synchronize()
+                if chain.launches != {name: n * c for name, c in one_step.items()}:
+                    raise Failure(f"{phase} {label}: a capture of {n} steps launched "
+                                  f"{chain.launches}, not {n} x {one_step}")
+                timing[f"graph_n{n}"] = (walls_ms(torch, chain, TIMING_REPEATS, n),
+                                         profile_device(torch, chain)[0], n)
+                chain.release()
+        out = {}
+        for mode, (walls, busy, n) in timing.items():
+            median = statistics.median(walls)
+            out[mode] = dict(
+                step_ms=f"{median:.3f}", min_ms=f"{walls[0]:.3f}", max_ms=f"{walls[-1]:.3f}",
+                frames_per_s=f"{B * T / (median / 1e3):.1f}",
+                busy_ms_a_call="not-measured" if busy is None else f"{busy:.3f}",
+                busy_share="not-measured" if busy is None else f"{busy / (median * n):.3f}")
+        log(phase, t0, setting=label, repeats=TIMING_REPEATS, B=B, T=T, k=k,
+            img=jdump(list(img)), eager_step_launches=jdump(one_step), timing=jdump(out),
+            card=repr(card))
+
+
 def experiment_phase(torch, flags, disc_flags, data, B, k, T, card, device):
     """The training CLI and its graphed train step on the card (see the
     module's docstring)."""
@@ -2262,63 +2527,16 @@ def experiment_phase(torch, flags, disc_flags, data, B, k, T, card, device):
     from sqair_tpu_torch.data import DeviceDatasetSampler
     from sqair_tpu_torch.experiment import flags as pflags
     from sqair_tpu_torch.ops import fused
-    from sqair_tpu_torch.ops.noise import GeneratorNoise
     from sqair_tpu_torch.scripts import experiment as pexp
-    from sqair_tpu_torch.training import init_train, make_train_step
-    from sqair_tpu_torch.training.graph import make_chained_train_step
 
     release = json.loads(RELEASE_FLAGS.read_text())
     sampler = DeviceDatasetSampler(data, device)
-
-    def fresh(run_flags):
-        return mlp_mnist_model.load(run_flags, IMG, mean_img=data["imgs"].mean((0, 1)) / 255.0,
-                                    device=device, seed=SEED)
-
-    def eager_run(run_flags, steps):
-        """(model, last metrics) of ``steps`` eager train steps."""
-        model = fresh(run_flags)
-        factory, l2 = mlp_mnist_model.make_optimizer(run_flags)
-        step = make_train_step(model, factory, l2)
-        g_data = torch.Generator(device=device).manual_seed(SEED + 8)
-        g_noise = torch.Generator(device=device).manual_seed(SEED + 9)
-        for _ in range(steps):
-            b = sampler.sample(g_data, B)
-            metrics = step(b["imgs"], b["nums"], GeneratorNoise(g_noise, device))
-        return model, {key: v.clone() for key, v in metrics.items()}
-
-    def chained(run_flags, steps):
-        """(model, chain) of a chain of ``steps`` train steps a call, from
-        eager_run's weights and seeds."""
-        model = fresh(run_flags)
-        factory, l2 = mlp_mnist_model.make_optimizer(run_flags)
-        state = init_train(model, factory)
-        g_data = torch.Generator(device=device).manual_seed(SEED + 8)
-        g_noise = torch.Generator(device=device).manual_seed(SEED + 9)
-        chain = make_chained_train_step(model, state, lambda: sampler.sample(g_data, B), steps,
-                                        T, l2, lambda itr: GeneratorNoise(g_noise, device),
-                                        [g_data, g_noise])
-        return model, chain
+    mean_img = data["imgs"].mean((0, 1)) / 255.0
+    runners = step_runners(torch, lambda run_flags: mlp_mnist_model.load(
+        run_flags, IMG, mean_img=mean_img, device=device, seed=SEED), sampler, B, T, device)
 
     # the allowance of the bit gates: two eager runs of the same steps
-    t0 = time.perf_counter()
-    eager_a, m_a = eager_run(flags, CHAIN_STEPS)
-    eager_b, m_b = eager_run(flags, CHAIN_STEPS)
-    ee_params = params_distance(torch, eager_a.sequence, eager_b.sequence)
-    ee_metrics = metric_distance(torch, m_b, m_a)[0]
-    graph_model, chain = chained(flags, CHAIN_STEPS)
-    m_graph = {key: v.clone() for key, v in chain().items()}
-    ge_params = params_distance(torch, graph_model.sequence, eager_a.sequence)
-    ge_metrics = metric_distance(torch, m_graph, m_a)[0]
-    log("experiment", t0, gate="graph_vs_eager", steps=CHAIN_STEPS,
-        params=f"{ge_params:.3e}", metrics=f"{ge_metrics:.3e}",
-        eager_vs_eager_params=f"{ee_params:.3e}", eager_vs_eager_metrics=f"{ee_metrics:.3e}",
-        bit_identical=ge_params == 0.0 and ge_metrics == 0.0)
-    if ge_params > 2 * ee_params or ge_metrics > 2 * ee_metrics:
-        raise Failure(f"experiment: a graph of {CHAIN_STEPS} steps lies {ge_params:.3g} "
-                      f"(parameters) / {ge_metrics:.3g} (metrics) from the eager steps, over "
-                      f"twice the eager runs' {ee_params:.3g} / {ee_metrics:.3g}")
-    chain.release()
-    del eager_a, eager_b, graph_model, chain
+    ee_params, ee_metrics = graph_gate(torch, runners, flags, "experiment")
 
     # the CLI: 10 steps a call against 1, and a killed and resumed run
     t0 = time.perf_counter()
@@ -2384,57 +2602,398 @@ def experiment_phase(torch, flags, disc_flags, data, B, k, T, card, device):
         raise Failure(f"experiment: the CLI's run launched {counts}, not {dict(expected)}")
 
     # timing and launch counts: eager steps and graphs of 1 and 10 steps
-    settings = (("release_no_switch", flags, {}), ("release_both", flags, CELLS_SWITCH),
-                ("disc_both", disc_flags, CELLS_SWITCH))
-    for label, run_flags, switches in settings:
+    time_settings(torch, runners, (("release_no_switch", flags, {}),
+                                   ("release_both", flags, CELLS_SWITCH),
+                                   ("disc_both", disc_flags, CELLS_SWITCH)),
+                  B, k, T, IMG, card, "experiment")
+
+
+def ped_flags():
+    """The pedestrian configuration's flags: the JAX package's module
+    defaults of mlp_mnist_model, pedestrian_model and pedestrian_data (the
+    port's tables of them: 64x48 frames, 32x12 glimpses, 256 wide, n_what
+    50, k 5, 3 slots, T 10), its training defaults (RMSProp at 1e-5) and the
+    CLI's batch size, 32.  No early-discovery lever: with both switches the
+    discovery runs fused too."""
+    from sqair_tpu_torch.configs import mlp_mnist_model, pedestrian_data, pedestrian_model
+
+    return dict(mlp_mnist_model.DEFAULTS, **mlp_mnist_model.TRAIN_DEFAULTS,
+                **pedestrian_data.PED_DEFAULTS, **pedestrian_model.PED_MODEL_DEFAULTS,
+                batch_size=32)
+
+
+def ped_kernel_times(torch, kc, card, phase="ped-kernels"):
+    """Device ms a call of every kernel, forward and backward, at the shapes
+    of ``kc`` (``check_kernels``' entries), beside its bound; one line a
+    shape, then each kernel's ms weighted by its calls a train step (the
+    glimpse kernels at the glimpse switch's calls, the frame kernels at one
+    call a frame)."""
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops import fused_cells as fc
+    from sqair_tpu_torch.ops import fused_glimpse as fg
+
+    wrappers, _, bwd_wrappers, _ = kernel_tables(fused)
+    rows = collections.defaultdict(lambda: [0, 0.0, 0.0])
+
+    def timed(name, shape, calls, fn, nbytes_flops, n_calls=20):
+        t0 = time.perf_counter()
+        ms = device_ms(torch, fn, calls=n_calls, reps=5)
+        nbytes, flops = nbytes_flops
+        bound = 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_F32)
+        log(phase, t0, timing=name, shape=jdump(shape), calls_per_train_step=calls,
+            ms=f"{ms:.5f}", bound_ms=f"{bound:.5f}", card=repr(card))
+        r = rows[name]
+        r[0] += calls
+        r[1] += calls * ms
+        r[2] += calls * bound
+
+    with torch.inference_mode():
+        for e in kc.shapes.values():
+            kernel, shape, args = e["kernel"], e["shape"], e["args"]
+            timed(kernel, shape, e["train"], lambda: wrappers[kernel](*args), work(kernel, shape))
+        for e in kc.bwd_entries:
+            kernel, shape, bargs, need_dx = e["kernel"], e["shape"], e["bwd_args"], e["need_dx"]
+            timed(kernel + "_bwd", shape, e["train"],
+                  lambda: bwd_wrappers[kernel](*bargs, need_dx=need_dx),
+                  work(kernel, shape, backward=True, need_dx=need_dx))
+        for e in kc.glimpse_entries:
+            shape, args, bargs = e["shape"], e["args"], e["bargs"]
+            timed("fused_glimpse", shape, e["calls"], lambda: fg.fused_glimpse_encoder(
+                *args, shape["glimpse"], shape["n_what"]), glimpse_work(shape))
+            timed("fused_glimpse_bwd", shape, e["calls"], lambda: fg.fused_glimpse_bwd(*bargs),
+                  glimpse_work(shape, backward=True))
+        p, d = kc.prop, kc.disc
+        timed("fused_prop", p["shape"], p["calls"],
+              lambda: fc._fwd_cuda(*p["args"], p["weights"], p["dims"]), prop_work(p["shape"]),
+              n_calls=5)
+        timed("fused_prop_bwd", p["shape"], p["calls"], lambda: fc._bwd_cuda(*p["bargs"]),
+              prop_work(p["shape"], backward=True), n_calls=5)
+        timed("fused_disc", d["shape"], d["calls"],
+              lambda: fc._disc_fwd_cuda(*d["args"], d["weights"], d["dims"]),
+              disc_work(d["shape"]), n_calls=5)
+        timed("fused_disc_bwd", d["shape"], d["calls"], lambda: fc._disc_bwd_cuda(*d["bargs"]),
+              disc_work(d["shape"], backward=True), n_calls=5)
+    out = {name: (r[1] / r[0], r[2] / r[0]) for name, r in rows.items() if r[0]}
+    print(f"[{phase}] ms_a_call_weighted=" + jdump({n: f"{v[0]:.5f}" for n, v in out.items()})
+          + " bound_ms_weighted=" + jdump({n: f"{v[1]:.5f}" for n, v in out.items()})
+          + f" card={card!r}", flush=True)
+    if set(out) != set(KERNELS):
+        raise Failure(f"{phase}: timed {sorted(out)}, not the twelve kernels")
+
+
+# ped-train-check's runs: the kernels with no switch and with both (where
+# the discovery fuses too at these flags), the plain versions on the card
+# and on the CPU with each, and a float64 referee for each setting.  The
+# gate holds each run on the card to its referee at max(GRAD_TOL, 2 x the
+# farther of the setting's two kernel-free runs, card and CPU), per
+# parameter: on the textured pedestrian frames a kernel-free f32 run lies
+# 2-5% of a parameter's largest gradient from float64 (10x the release
+# flags'), and one kernel-free run alone gave a bound that another
+# kernel-free run (the CPU's) exceeded on the card (PERF.md)
+PED_TRAIN_RUNS = {"kernels": ("card", "off", False), "plain_on_card": ("card", "off", True),
+                  "cpu": ("cpu", "off", True), "both_kernels": ("card", "disc", False),
+                  "both_plain": ("card", "disc", True), "both_cpu": ("cpu", "disc", True),
+                  "referee": ("f64", "off", True), "referee_both": ("f64", "disc", True)}
+PED_REFEREES = {"off": "referee", "disc": "referee_both"}
+PED_GATE = {"kernels": ("plain_on_card", "cpu"), "plain_on_card": ("plain_on_card", "cpu"),
+            "both_kernels": ("both_plain", "both_cpu"), "both_plain": ("both_plain", "both_cpu")}
+PED_PAIRS = {"kernels_vs_plain_on_card": ("kernels", "plain_on_card"),
+             "kernels_vs_cpu": ("kernels", "cpu"),
+             "plain_on_card_vs_cpu": ("plain_on_card", "cpu"),
+             "both_kernels_vs_both_plain": ("both_kernels", "both_plain"),
+             "both_plain_vs_both_cpu": ("both_plain", "both_cpu"),
+             "both_kernels_vs_switch_off_plain": ("both_kernels", "plain_on_card")}
+PED_SETTINGS = (("no_switch", {}), ("glimpse", GLIMPSE_SWITCH), ("both", CELLS_SWITCH))
+
+
+def pedestrian_phases(torch, card, device):
+    """ped-kernels, ped-eval, ped-train, ped-train-check and ped-experiment
+    (see the module's docstring)."""
+    from sqair_tpu_torch.configs import pedestrian_data, pedestrian_model
+    from sqair_tpu_torch.data import DeviceDatasetSampler, create_pedestrian_dataset
+    from sqair_tpu_torch.experiment import flags as pflags
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops.noise import GeneratorNoise
+    from sqair_tpu_torch.scripts import experiment as pexp
+    from sqair_tpu_torch.training import make_eval_step, make_train_step
+
+    flags = ped_flags()
+    B, k, T = int(flags["batch_size"]), int(flags["k_particles"]), int(flags["ped_timesteps"])
+    t0 = time.perf_counter()
+    data = create_pedestrian_dataset(
+        n_samples=int(flags["ped_train_samples"]), n_timesteps=T,
+        canvas_size=pedestrian_data.parse_hw(flags["ped_canvas"]),
+        obj_size=pedestrian_data.parse_hw(flags["ped_obj"]), seed=int(flags["ped_seed"]))
+    img = tuple(int(v) for v in data["imgs"].shape[2:])
+    mean_img = data["imgs"].mean((0, 1)) / 255.0
+    sampler = DeviceDatasetSampler(data, device)
+
+    def load(run_flags=flags):
+        return pedestrian_model.load(run_flags, img, mean_img=mean_img, device=device, seed=SEED)
+
+    log("ped-setup", t0, sequences=sampler.n, T=T, B=B, k=k, img=jdump(list(img)),
+        glimpse=jdump(list(glimpse_hw(flags))), n_what=flags["n_what"],
+        n_hidden=32 * int(flags["n_units"]), disc_fusable=disc_fusable(flags))
+
+    # -------------------------------------------------------- ped-kernels
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    frames = data["imgs"][:, :-(-B * k // T)].reshape(-1, *img)[:B * k]
+    frames = torch.from_numpy(frames.astype("float32") / 255.0)
+    kc = check_kernels(torch, flags, flags, B, k, T, img, frames, gen, device,
+                       phase="ped-kernels", modes=("train",), referee=True)
+    ped_kernel_times(torch, kc, card)
+
+    # ----------------------------------------------------------- ped-eval
+    data_gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    batches = [sampler.sample(data_gen, B) for _ in range(N_BATCHES)]
+    model = load()
+    eval_step = make_eval_step(model)
+    evals = {}
+    for label, switches in PED_SETTINGS:
         t0 = time.perf_counter()
         with switched(switches):
-            model = fresh(run_flags)
-            factory, l2 = mlp_mnist_model.make_optimizer(run_flags)
-            step = make_train_step(model, factory, l2)
-            g_data = torch.Generator(device=device).manual_seed(SEED + 8)
-            g_noise = torch.Generator(device=device).manual_seed(SEED + 9)
-
-            def eager():
-                b = sampler.sample(g_data, B)
-                step(b["imgs"], b["nums"], GeneratorNoise(g_noise, device))
-
-            eager()
-            torch.cuda.synchronize()
+            replay_gen = torch.Generator(device=device).manual_seed(SEED + 12)
             fused.reset_launches()
-            eager()
+            res = [eval_step(b["imgs"], b["nums"], GeneratorNoise(replay_gen, device))
+                   for b in batches]
             torch.cuda.synchronize()
-            one_step = dict(fused.launches)
+            counts = dict(fused.launches)
             expected = expected_launches(main_path_shapes(
-                run_flags, B, k, T, train=True, fuse_glimpse=bool(switches),
-                fuse_cells=bool(switches)), 1, backward=True)
-            if one_step != expected:
-                raise Failure(f"experiment {label}: an eager step launched {one_step}, "
-                              f"not {expected}")
-            timing = {"eager": (walls_ms(torch, eager, TIMING_REPEATS),
-                                profile_device(torch, eager)[0], 1)}
-            captures = {}
-            for n in (1, CHAIN_STEPS):
-                _, chain = chained(run_flags, n)
-                chain()
-                torch.cuda.synchronize()
-                captures[n] = chain.launches
-                if chain.launches != {name: n * c for name, c in one_step.items()}:
-                    raise Failure(f"experiment {label}: a capture of {n} steps launched "
-                                  f"{chain.launches}, not {n} x {one_step}")
-                timing[f"graph_n{n}"] = (walls_ms(torch, chain, TIMING_REPEATS, n),
-                                         profile_device(torch, chain)[0], n)
-                chain.release()
-        out = {}
-        for mode, (walls, busy, n) in timing.items():
-            median = statistics.median(walls)
-            out[mode] = dict(
-                step_ms=f"{median:.3f}", min_ms=f"{walls[0]:.3f}", max_ms=f"{walls[-1]:.3f}",
-                frames_per_s=f"{B * T / (median / 1e3):.1f}",
-                busy_ms_a_call="not-measured" if busy is None else f"{busy:.3f}",
-                busy_share="not-measured" if busy is None else f"{busy / (median * n):.3f}")
-        log("experiment", t0, setting=label, repeats=TIMING_REPEATS, B=B, T=T, k=k,
-            eager_step_launches=jdump(one_step), timing=jdump(out), card=repr(card))
+                flags, B, k, T, img=img, fuse_glimpse="SQAIR_FUSE_GLIMPSE" in switches,
+                fuse_cells="SQAIR_FUSE_CELLS" in switches), N_BATCHES)
+            for i, m in enumerate(res):
+                for key, v in m.items():
+                    if not torch.isfinite(v).all():
+                        raise Failure(f"ped-eval {label} batch {i}: metric {key} is not finite")
+            if counts != expected:
+                raise Failure(f"ped-eval {label}: launch counts {counts} differ from the eval "
+                              f"path's {expected}")
+            err, worst_metric = (0.0, None) if label == "no_switch" else max(
+                compare_metrics(torch, got, want, f"ped-eval batch {i}, {label} vs no switch")
+                for i, (got, want) in enumerate(zip(res, evals["no_switch"])))
+        evals[label] = res
+        log("ped-eval", t0, setting=label, steps=N_BATCHES, launches=jdump(counts),
+            expected=jdump(expected), vs_switch_off=f"{err:.3e}", worst_metric=worst_metric,
+            tol=METRIC_TOL, iwae=f"{float(res[0]['iwae']):.4f}",
+            num_step_accuracy=f"{float(res[0]['num_step_accuracy']):.4f}")
+
+    # ---------------------------------------------------------- ped-train
+    trained = {}
+    for label, switches in PED_SETTINGS:
+        t0 = time.perf_counter()
+        m = load()
+        factory, l2 = pedestrian_model.make_optimizer(flags)
+        step = make_train_step(m, factory, l2_weight=l2)
+        noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 13), device)
+        with switched(switches):
+            fused.reset_launches()
+            metrics = [step(b["imgs"], b["nums"], noise) for b in batches]
+            torch.cuda.synchronize()
+            counts = dict(fused.launches)
+            expected = expected_launches(main_path_shapes(
+                flags, B, k, T, train=True, img=img,
+                fuse_glimpse="SQAIR_FUSE_GLIMPSE" in switches,
+                fuse_cells="SQAIR_FUSE_CELLS" in switches), N_TRAIN_STEPS, backward=True)
+        for i, mt in enumerate(metrics):
+            for key, v in mt.items():
+                if not torch.isfinite(v).all():
+                    raise Failure(f"ped-train {label} step {i}: metric {key} is not finite")
+        if counts != expected:
+            raise Failure(f"ped-train {label}: launch counts {counts} differ from the train "
+                          f"path's {expected}")
+        # the first step's metrics come from the same weights, batch and noise
+        err, worst_metric = (0.0, None) if label == "no_switch" else compare_metrics(
+            torch, metrics[0], trained["no_switch"][0], f"ped-train step 0, {label} vs no switch")
+        trained[label] = metrics
+        log("ped-train", t0, setting=label, steps=N_TRAIN_STEPS, launches=jdump(counts),
+            expected=jdump(expected), step0_vs_switch_off=f"{err:.3e}",
+            worst_metric=worst_metric, tol=METRIC_TOL,
+            target=f"{float(metrics[-1]['target']):.4f}")
+
+    t0 = time.perf_counter()
+    _, l2 = pedestrian_model.make_optimizer(flags)
+    tc = train_check(torch, load(), None, batches[0], flags, flags, l2, device, img=img,
+                     runs=PED_TRAIN_RUNS, referees=PED_REFEREES, gates=PED_GATE,
+                     pairs=PED_PAIRS)
+    report_train_check(tc, "ped-train-check", t0, PED_GATE)
+
+    # ----------------------------------------------------- ped-experiment
+    runners = step_runners(torch, load, sampler, B, T, device)
+    graph_gate(torch, runners, flags, "ped-experiment", CELLS_SWITCH)
+    root = tempfile.mkdtemp(prefix="sqair_ped_experiment_")
+    try:
+        for on_device in (True, False):
+            t0 = time.perf_counter()
+            name = "on_device" if on_device else "host"
+            argv = ["--data_config=sqair_tpu/configs/pedestrian_data.py",
+                    "--model_config=sqair_tpu/configs/pedestrian_model.py", "--seq_len=10",
+                    "--stage_itr=0", "--eval_on_train=false", f"--train_itr={CHAIN_STEPS}",
+                    f"--save_itr={CHAIN_STEPS}", f"--report_loss_every={CHAIN_STEPS}",
+                    f"--log_itr={CHAIN_STEPS}", f"--fig_itr={CHAIN_STEPS}",
+                    f"--results_dir={root}", f"--run_name={name}", "--device=cuda"]
+            if on_device:
+                argv += ["--on_device_data", f"--steps_per_call={CHAIN_STEPS}"]
+            fused.reset_launches()
+            logdir, _, state, _ = run_cli(pexp, pflags, argv)
+            counts = dict(fused.launches)
+            check_cli_run(logdir, state.step, "ped-experiment " + name)
+            # the evals at steps 0 and 10, and the train steps' captures (on the
+            # device: the warm-up step and one capture of 10 steps; from the
+            # host: the warm-up and the capture of a step of 1)
+            ev = 2 * (int(flags["ped_valid_samples"]) // B)
+            expected = collections.Counter(expected_launches(
+                main_path_shapes(flags, B, k, T, img=img), ev))
+            expected.update(expected_launches(
+                main_path_shapes(flags, B, k, T, train=True, img=img),
+                1 + (CHAIN_STEPS if on_device else 1), backward=True))
+            log("ped-experiment", t0, cli=name, argv=jdump(argv[:2] + argv[-2:]),
+                steps=state.step, launches=jdump(counts), expected=jdump(dict(expected)))
+            if counts != dict(expected):
+                raise Failure(f"ped-experiment {name}: the CLI launched {counts}, not "
+                              f"{dict(expected)}")
+    finally:
+        shutil.rmtree(root)
+    time_settings(torch, runners, [("ped_" + label, flags, switches)
+                                   for label, switches in PED_SETTINGS],
+                  B, k, T, img, card, "ped-experiment")
+
+
+def check_cli_run(logdir, step, what):
+    """A CLI run reached CHAIN_STEPS steps (``step``), its heartbeat there is
+    finite and its eval there ran, with finite metrics."""
+    steps = CHAIN_STEPS
+    records = cli_records(logdir)
+    if step != steps:
+        raise Failure(f"{what}: the CLI stopped at step {step}, not {steps}")
+    beats = [r for r in records if r["step"] == steps and "target" in r]
+    evals = [r for r in records if r["step"] == steps and any(
+        key.endswith("/test") for key in r)]
+    if not beats or not evals:
+        raise Failure(f"{what}: no heartbeat or no eval at step {steps}: {records}")
+    bad = [(key, v) for r in beats + evals for key, v in r.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        raise Failure(f"{what}: metrics not finite: {bad}")
+    return beats[0], evals[0]
+
+
+# a CLI run of the font-data phase in an interpreter of its own (the data
+# configs' retunes hold for a whole process, the first one winning, so a run
+# sees only its own configs' as a user's run does), with any render of a
+# glyph bank an error: the banks must come from the glyph file
+FONT_CLI = """
+import json, sys
+from sqair_tpu_torch.data import synthetic
+from sqair_tpu_torch.scripts import experiment
+
+def rendered(*args):
+    raise RuntimeError("a glyph bank was rendered, not read from the glyph file")
+
+synthetic.render_font_digit_bank = rendered
+_, _, state = experiment.main(json.loads(sys.argv[1]))
+print(json.dumps(dict(step=state.step)))
+"""
+
+
+def font_data_phase(torch, card, device):
+    """font-data (see the module's docstring)."""
+    import hashlib
+    import importlib.util
+
+    from sqair_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    banks = {}
+    for n, size, seed in ((256, 28, 0), (256, 20, 0)):
+        if (n, size, seed) not in synthetic.stored_font_banks():
+            raise Failure(f"font-data: the glyph file holds no bank {(n, size, seed)}")
+        bank, labels = synthetic.make_font_digit_bank(n, size, seed)
+        banks[f"{n}x{size}px_seed{seed}"] = hashlib.sha256(
+            bank.tobytes() + labels.tobytes()).hexdigest()
+    log("font-data", t0, glyph_file=str(synthetic.GLYPH_FILE.relative_to(REPO)),
+        sha256=jdump(banks),
+        matplotlib_installed=importlib.util.find_spec("matplotlib") is not None)
+
+    release = json.loads(RELEASE_FLAGS.read_text())
+    common = ["--seq_len=10", "--stage_itr=0", "--on_device_data",
+              f"--steps_per_call={CHAIN_STEPS}", f"--train_itr={CHAIN_STEPS}",
+              f"--save_itr={CHAIN_STEPS}", f"--report_loss_every={CHAIN_STEPS}",
+              f"--log_itr={CHAIN_STEPS}", f"--fig_itr={CHAIN_STEPS}", "--device=cuda"]
+    # the release flags, less the synthetic data config's (which the font
+    # config does not define); the small-digit pair's retunes are left to
+    # its configs, and its sequences at the config's default
+    given = {k: v for k, v in release.items() if k not in CLI_SET and not k.startswith("synth_")}
+    retuned = {"output_std", "disc_step_bias", "font_obj_size", "font_train_samples",
+               "model_config"}
+    runs = (("release_font", [f"--{k}={v}" for k, v in given.items()]
+             + [f"--data_config={release['data_config']}"]),
+            ("small_digit", [f"--{k}={v}" for k, v in given.items() if k not in retuned]
+             + ["--data_config=sqair_tpu/configs/small_digit_seq_mnist_data.py",
+                "--model_config=sqair_tpu/configs/small_digit_mnist_model.py"]))
+    want = dict(release_font=tuple(release[f] for f in ("font_obj_size", "output_std",
+                                                        "disc_step_bias")),
+                small_digit=(20, 0.1, 2.0))
+    root = tempfile.mkdtemp(prefix="sqair_font_data_")
+    try:
+        for name, argv in runs:
+            t0 = time.perf_counter()
+            argv = argv + common + [f"--results_dir={root}", f"--run_name={name}"]
+            out = subprocess.run([sys.executable, "-c", FONT_CLI, json.dumps(argv)], cwd=REPO,
+                                 capture_output=True, text=True, timeout=900)
+            if out.returncode != 0:
+                raise Failure(f"font-data {name}: the CLI failed: {out.stderr[-3000:]}")
+            step = json.loads(out.stdout.strip().splitlines()[-1])["step"]
+            logdir = os.path.join(root, name, "1")
+            beat, ev = check_cli_run(logdir, step, f"font-data {name}")
+            with open(os.path.join(logdir, "flags.json")) as f:
+                used = json.load(f)
+            got = (used["font_obj_size"], used["output_std"], used["disc_step_bias"])
+            log("font-data", t0, run=name, data_config=used["data_config"],
+                model_config=used["model_config"], train_samples=used["font_train_samples"],
+                obj_size=got[0], output_std=got[1], disc_step_bias=got[2], steps=step,
+                target=f"{beat['target']:.4f}",
+                eval=jdump({key: f"{ev[key]:.4f}" for key in
+                            ("iwae/test", "num_step_accuracy/test", "target/test")}),
+                card=repr(card))
+            if got != want[name]:
+                raise Failure(f"font-data {name}: font_obj_size, output_std and "
+                              f"disc_step_bias are {got}, not {want[name]}")
+    finally:
+        shutil.rmtree(root)
+
+
+def on_device_data_phase(torch, card, device):
+    """on-device-data (see the module's docstring)."""
+    from sqair_tpu_torch.data import DeviceDatasetSampler, OnDeviceSeqMNIST, make_template_bank
+
+    t0 = time.perf_counter()
+    templates = make_template_bank(64, 28)
+    kw = dict(canvas_size=(50, 50), n_timesteps=10)
+    gen = OnDeviceSeqMNIST(templates, device=device, **kw)
+    draws = gen.draw(torch.Generator(device=device).manual_seed(42), ON_DEVICE_SEQUENCES)
+    out = gen.render(draws)
+    torch.cuda.synchronize()
+    walls = walls_ms(torch, lambda: gen.render(draws), TIMING_REPEATS)
+    cpu = OnDeviceSeqMNIST(templates, device="cpu", **kw).render(
+        {key: v.cpu() for key, v in draws.items()})
+    errs = {key: float(torch.max(torch.abs(out[key].cpu() - cpu[key]))) for key in cpu}
+    counts = out["nums"][0].sum(-1)
+    imgs = out["imgs"]
+    sampler = DeviceDatasetSampler(out, device)
+    batch = sampler.sample(torch.Generator(device=device).manual_seed(0), 32)
+    log("on-device-data", t0, sequences=ON_DEVICE_SEQUENCES, T=kw["n_timesteps"],
+        shape=jdump(list(imgs.shape)), card_vs_cpu=jdump({k: f"{v:.3e}" for k, v in errs.items()}),
+        tol=1e-5, objects=jdump({int(c): int((counts == c).sum()) for c in counts.unique()}),
+        pixels=f"[{float(imgs.min()):.3f}, {float(imgs.max()):.3f}]",
+        render_ms=f"{statistics.median(walls):.3f}", render_ms_min=f"{walls[0]:.3f}",
+        render_ms_max=f"{walls[-1]:.3f}", batch=jdump(list(batch["imgs"].shape)),
+        card=repr(card))
+    if max(errs.values()) > 1e-5:
+        raise Failure(f"on-device-data: the card's render differs from the CPU's: {errs}")
+    if not (bool((counts >= 0).all()) and bool((counts <= 2).all())):
+        raise Failure("on-device-data: object counts outside n_objects (0, 2)")
+    if not (float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0 + 1e-6):
+        raise Failure("on-device-data: pixels outside [0, 1]")
 
 
 if __name__ == "__main__":

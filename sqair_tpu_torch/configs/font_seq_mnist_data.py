@@ -1,14 +1,12 @@
 """Data config: moving sequences of font-rendered digit glyphs (the port of
 sqair_tpu/configs/font_seq_mnist_data.py: the same flags, the same bytes).
 
-The glyphs are rendered with matplotlib, which must be installed: the
-config raises where it is not (e.g. on a card's machine without it); build
-the dataset on the CPU there, or take the synthetic stroke digits
-(``synth_seq_mnist_data``).
+The glyph banks at the defaults (and at the small-digit config's
+``font_obj_size`` 20) are read from the port's stored glyph file
+(``data/synthetic.py``), so the config needs no matplotlib; another bank
+size or seed is rendered with matplotlib.
 """
 from __future__ import annotations
-
-import importlib.util
 
 import numpy as np
 
@@ -31,10 +29,6 @@ flags.set_default("output_std", 0.15)
 
 
 def load(batch_size: int, n_timesteps=None):
-    if importlib.util.find_spec("matplotlib") is None:
-        raise RuntimeError("font_seq_mnist_data renders its glyphs with matplotlib, which "
-                           "is not installed; take synth_seq_mnist_data, or run on a "
-                           "machine that has matplotlib")
     F = flags.FLAGS
     bank, _ = make_font_digit_bank(F.font_bank_size, F.font_obj_size,
                                    seed=F.font_seed)

@@ -99,12 +99,15 @@ def get_params(F: Mapping):
 
 
 def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray] = None,
-         device="cuda", seed: int = 0) -> Model:
+         device="cuda", seed: int = 0, **param_overrides) -> Model:
     """Builds the model with weights drawn from ``seed``.
 
     :param flags: flag values by name
     :param img_shape: (H, W) of a frame
     :param mean_img: [H, W] background added where nothing is written
+    :param param_overrides: overrides of ``get_params`` entries, for config
+        variants (e.g. the pedestrian config's non-square glimpse_size
+        [gh, gw])
     """
     F = dict(DEFAULTS)
     F.update(given(flags))
@@ -115,6 +118,7 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
         raise ValueError(f"flags not ported yet: {unported}")
     device = resolve_device(device)
     params = get_params(F)
+    params.update(param_overrides)
     img_size = tuple(int(s) for s in img_shape)
     timestep = SQAIRTimestep(
         n_steps=int(F["n_steps_per_image"]), img_size=img_size,

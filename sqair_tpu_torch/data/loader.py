@@ -6,6 +6,7 @@ device-resident sampler is ``moving_mnist.DeviceDatasetSampler``.
 """
 from __future__ import annotations
 
+import os
 import pickle
 from typing import Dict, Iterator, Optional
 
@@ -23,6 +24,13 @@ def load_pickle(path: str) -> Dict[str, np.ndarray]:
     data["imgs"] = data["imgs"].astype(np.float32) / 255.0
     data["nums"] = data["nums"].astype(np.float32)
     return dict(data)
+
+
+def save_pickle(path: str, data: Dict) -> None:
+    """Writes a dataset dict as a pickle that ``load_pickle`` reads."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(data, f, pickle.HIGHEST_PROTOCOL)
 
 
 def process_data(data: Dict, n_timesteps: Optional[int]) -> Dict:

@@ -66,4 +66,5 @@ def _resolve(path: str) -> str:
         return candidate
     raise FileNotFoundError(
         f"Dataset '{path}' not found. Pass the path of a dataset pickle (imgs uint8 "
-        f"[T, N, H, W], nums, coords); the port has no dataset writer yet.")
+        f"[T, N, H, W], nums, coords), e.g. one that python -m "
+        f"sqair_tpu_torch.scripts.create_seq_mnist wrote.")

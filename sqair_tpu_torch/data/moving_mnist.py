@@ -1,7 +1,8 @@
 """Moving-multi-digit sequence data (the port of
 sqair_tpu/data/moving_mnist.py): static canvases, trajectories seeded at
 the static positions and max-composited rendering (numpy, a copy of the
-JAX package's host path), and a device-resident minibatch sampler."""
+JAX package's host path); a device-resident minibatch sampler; and
+``OnDeviceSeqMNIST``, which renders whole batches on the device."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -9,8 +10,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..ops import stn
 from .synthetic import make_template_bank, template_dimensions
-from .trajectory import NoisyAccelerationTrajectory
+from .trajectory import NoisyAccelerationTrajectory, draw_noisy_acceleration, noisy_acceleration
 
 
 def create_static(templates: np.ndarray, labels: Optional[np.ndarray] = None,
@@ -175,21 +178,21 @@ class DeviceDatasetSampler:
     very values of the host path's batches.  A batch is gathered with
     indices drawn from an explicit ``torch.Generator``.
 
-    :param data: imgs [T, N, H, W] uint8 or float32, nums [T or 1, N, C]
+    :param data: imgs [T, N, H, W] uint8 or float32, nums [T or 1, N, C]:
+        numpy arrays, or tensors (e.g. ``OnDeviceSeqMNIST``'s output on the
+        device, which stays there)
     """
 
-    def __init__(self, data: Dict[str, np.ndarray], device):
-        imgs = np.asarray(data["imgs"])
-        if imgs.dtype not in (np.uint8, np.float32):
-            raise TypeError(f"expected uint8 or float32 frames, got {imgs.dtype}")
-        nums = np.asarray(data["nums"], np.float32)
-        if nums.shape[0] == 1:  # [1, N, C]: the same counts in every frame
-            nums = np.broadcast_to(nums, (imgs.shape[0],) + nums.shape[1:])
+    def __init__(self, data: Dict, device):
         self.device = torch.device(device)
-        self.imgs = torch.from_numpy(np.ascontiguousarray(np.swapaxes(imgs, 0, 1))).to(
-            self.device)
-        self.nums = torch.from_numpy(np.ascontiguousarray(np.swapaxes(nums, 0, 1))).to(
-            self.device)
+        imgs, nums = (torch.as_tensor(data[key]) for key in ("imgs", "nums"))
+        if imgs.dtype not in (torch.uint8, torch.float32):
+            raise TypeError(f"expected uint8 or float32 frames, got {imgs.dtype}")
+        nums = nums.to(torch.float32)
+        if nums.shape[0] == 1:  # [1, N, C]: the same counts in every frame
+            nums = nums.expand((imgs.shape[0],) + tuple(nums.shape[1:]))
+        self.imgs = imgs.to(self.device).transpose(0, 1).contiguous()
+        self.nums = nums.to(self.device).transpose(0, 1).contiguous()
         self.n = self.imgs.shape[0]
 
     def sample(self, generator: torch.Generator, batch_size: int) -> Dict[str, torch.Tensor]:
@@ -202,3 +205,88 @@ class DeviceDatasetSampler:
         nums = self.nums.index_select(0, idx)
         return dict(imgs=imgs.transpose(0, 1).contiguous(),
                     nums=nums.transpose(0, 1).contiguous())
+
+
+class OnDeviceSeqMNIST:
+    """Moving-digit batches rendered on the device (the port of the JAX
+    package's ``OnDeviceSeqMNIST``).
+
+    The template bank lives on the device.  A call draws the object counts,
+    each object's template and first position and its trajectory's draws
+    from an explicit ``torch.Generator`` (``draw``), then renders the batch
+    from those draws (``render``): the trajectories, a bilinear paste of
+    each template at its positions, the max over the objects, the
+    cumulative one-hot counts and the boxes.  ``render`` holds all the
+    arithmetic, so that draws made elsewhere render the same way.
+    """
+
+    def __init__(self, templates: np.ndarray, canvas_size=(50, 50), n_timesteps: int = 10,
+                 n_objects=(0, 2), max_speed: float = 10.0, max_acc: float = 3.0,
+                 noise_std: float = 0.01, device="cuda"):
+        self.device = resolve_device(device)
+        self.templates = torch.from_numpy(np.asarray(templates, np.float32)).to(
+            self.device) / 255.0  # [N, th, tw]
+        self.canvas_size = tuple(int(v) for v in canvas_size)
+        self.n_timesteps = n_timesteps
+        self.min_obj, self.max_obj = sorted(n_objects)
+        self.max_speed = max_speed
+        self.max_acc = max_acc
+        self.noise_std = noise_std
+
+    def draw(self, generator: torch.Generator, batch_size: int) -> Dict[str, torch.Tensor]:
+        """The random draws of one batch, on the generator's device: nums [B]
+        object counts, idx [B, M] template indices, init_pos [B M, 2] first
+        positions, and the trajectories' vel, acc [B M, 2] and noise
+        [T - 1, B M, 2] (``draw_noisy_acceleration``)."""
+        (H, W), (th, tw) = self.canvas_size, self.templates.shape[1:3]
+        B, M = batch_size, max(self.max_obj, 1)  # keep one (masked) slot if 0
+        device = generator.device
+
+        nums = torch.randint(self.min_obj, self.max_obj + 1, (B,), generator=generator,
+                             device=device)
+        idx = torch.randint(0, self.templates.shape[0], (B, M), generator=generator,
+                            device=device)
+        span = torch.tensor([H - th, W - tw], dtype=torch.float32, device=device)
+        init_pos = torch.rand((B * M, 2), generator=generator, device=device) * span
+        return dict(nums=nums, idx=idx, init_pos=init_pos,
+                    **draw_noisy_acceleration(generator, self.n_timesteps, B * M,
+                                              self.max_speed, self.max_acc))
+
+    def render(self, draws: Dict) -> Dict[str, torch.Tensor]:
+        """The batch of ``draws`` (tensors or arrays, moved to the bank's
+        device).
+
+        :return: dict(imgs [T, B, H, W] float32 in [0, 1], nums [T, B, M + 1]
+            cumulative one-hot counts, coords [T, B, M, 4] (y, x, h, w) boxes,
+            zero for absent objects)
+        """
+        d = {k: torch.as_tensor(v).to(self.device) for k, v in draws.items()}
+        T, (H, W) = self.n_timesteps, self.canvas_size
+        th, tw = self.templates.shape[1:3]
+        B, M = d["idx"].shape
+        nums = d["nums"].to(torch.int64)
+        obj_mask = (torch.arange(M, device=self.device)[None] < nums[:, None]).to(torch.float32)
+        obj_templates = self.templates[d["idx"].to(torch.int64)]  # [B, M, th, tw]
+
+        pos_bounds = [[0.0, float(H - th)], [0.0, float(W - tw)]]
+        tjs = noisy_acceleration(d["init_pos"], d["vel"], d["acc"], d["noise"], pos_bounds,
+                                 self.max_speed, self.max_acc, self.noise_std)
+        tjs = tjs.reshape(T, B, M, 2)
+
+        # an axis-aligned paste of a [th, tw] template at pixel (y, x): the ST
+        # coords of the (y, x, th, tw) box
+        size = torch.tensor([float(th), float(tw)], device=self.device)
+        boxes = torch.cat([tjs, size.expand(T, B, M, 2)], -1)
+        coords_stn = stn.pixel_to_stn_coords(boxes, (H, W))  # [T, B, M, 4]
+        pasted = stn.paste_glimpse(obj_templates[None].expand(T, B, M, th, tw), coords_stn,
+                                   (H, W))  # [T, B, M, H, W]
+        pasted = pasted * obj_mask[None, :, :, None, None]
+        imgs = torch.amax(pasted, 2)
+
+        cum_onehot = (torch.arange(M + 1, device=self.device)[None] < nums[:, None]).to(
+            torch.float32)
+        return dict(imgs=imgs, nums=cum_onehot[None].expand(T, B, M + 1),
+                    coords=boxes * obj_mask[..., None])
+
+    def __call__(self, generator: torch.Generator, batch_size: int) -> Dict[str, torch.Tensor]:
+        return self.render(self.draw(generator, batch_size))

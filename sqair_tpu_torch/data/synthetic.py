@@ -1,8 +1,20 @@
 """Procedural digit-like templates (a copy of sqair_tpu/data/synthetic.py,
-numpy only)."""
+numpy only), and the font glyph banks of the font data configs.
+
+The two glyph banks that the data configs use at their defaults (256
+glyphs of 28 px and of 20 px, seed 0) are stored, rendered once, in
+``font_glyphs.npz`` beside this module: ``make_font_digit_bank`` reads
+them from there on every machine, so that the same arguments give the same
+bytes whatever is installed.  Any other bank is rendered with matplotlib.
+"""
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import numpy as np
+
+GLYPH_FILE = Path(__file__).with_name("font_glyphs.npz")
 
 
 def _stamp(canvas: np.ndarray, y: float, x: float, intensity: float, radius: float):
@@ -34,11 +46,34 @@ def make_template_bank(n: int, size: int = 28, seed: int = 0) -> np.ndarray:
     return np.stack([make_stroke_template(rng, size) for _ in range(n)])
 
 
+def stored_font_banks():
+    """The (n, size, seed) of every bank in ``GLYPH_FILE``."""
+    with np.load(GLYPH_FILE) as f:
+        found = [re.fullmatch(r"bank_n(\d+)_size(\d+)_seed(\d+)", k) for k in f.files]
+    return sorted(tuple(int(v) for v in m.groups()) for m in found if m)
+
+
 def make_font_digit_bank(n: int, size: int = 28, seed: int = 0):
-    """[n, size, size] uint8 bank of REAL digit glyphs rendered from system
-    fonts via matplotlib, with random scale/shift/rotation jitter — a much
-    closer MNIST stand-in than the stroke blobs (no network in this image,
-    so true MNIST is unavailable).
+    """[n, size, size] uint8 bank of REAL digit glyphs, with random
+    scale/shift/rotation jitter — a much closer MNIST stand-in than the
+    stroke blobs (no network in this image, so true MNIST is unavailable).
+
+    A bank stored in ``GLYPH_FILE`` is read from it; any other is rendered
+    from system fonts via matplotlib (which must be installed), as
+    ``render_font_digit_bank``.
+
+    :return: (bank [n, size, size] uint8, labels [n] uint8)
+    """
+    key = f"n{n}_size{size}_seed{seed}"
+    with np.load(GLYPH_FILE) as f:
+        if "bank_" + key in f.files:
+            return f["bank_" + key], f["labels_" + key]
+    return render_font_digit_bank(n, size, seed)
+
+
+def render_font_digit_bank(n: int, size: int = 28, seed: int = 0):
+    """``make_font_digit_bank``'s glyphs rendered with matplotlib: the JAX
+    package's renderer.
 
     :return: (bank [n, size, size] uint8, labels [n] uint8)
     """

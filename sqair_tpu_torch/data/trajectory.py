@@ -1,8 +1,14 @@
-"""Object trajectory simulation (a copy of the numpy
-``NoisyAccelerationTrajectory`` of sqair_tpu/data/trajectory.py)."""
+"""Object trajectory simulation (the port of sqair_tpu/data/trajectory.py):
+``NoisyAccelerationTrajectory`` on the host (a copy of the numpy class,
+the same bytes) and ``noisy_acceleration``, the same dynamics on the
+device for the on-device data pipeline, with its draws
+(``draw_noisy_acceleration``) taken apart from the arithmetic."""
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
+import torch
 
 
 class NoisyAccelerationTrajectory:
@@ -62,3 +68,56 @@ class NoisyAccelerationTrajectory:
         for t in range(1, n_timesteps):
             tjs[t], state = self.forward(state, rng)
         return tjs
+
+
+def draw_noisy_acceleration(generator: torch.Generator, n_timesteps: int, n: int,
+                            max_speed: float, max_acc: float) -> Dict:
+    """The random draws of ``noisy_acceleration`` for ``n`` trajectories,
+    from ``generator`` on its device: vel and acc [n, 2] uniform in
+    [-max_speed, max_speed] and [-max_acc, max_acc], and the acceleration
+    noise [n_timesteps - 1, n, 2], standard normal."""
+    device = generator.device
+
+    def uniform(bound):
+        return (2.0 * torch.rand((n, 2), generator=generator, device=device) - 1.0) * bound
+
+    vel, acc = uniform(max_speed), uniform(max_acc)
+    noise = torch.randn((n_timesteps - 1, n, 2), generator=generator, device=device)
+    return dict(vel=vel, acc=acc, noise=noise)
+
+
+def noisy_acceleration(init_pos: torch.Tensor, vel: torch.Tensor, acc: torch.Tensor,
+                       noise: torch.Tensor, pos_bounds, max_speed: float, max_acc: float,
+                       noise_std: float = 0.01) -> torch.Tensor:
+    """The device trajectory (the port of the JAX package's
+    ``jax_noisy_acceleration``): the same (pos, vel, acc) dynamics with
+    elastic bounces and clamps, on the draws' device.
+
+    :param init_pos: [N, 2] initial positions (y, x)
+    :param vel, acc: [N, 2] initial velocity and acceleration
+    :param noise: [T - 1, N, 2] standard-normal acceleration noise
+    :param pos_bounds: [2, 2] per-dimension (lo, hi)
+    :return: [T, N, 2] float32 positions
+    """
+    bounds = torch.tensor(pos_bounds, dtype=torch.float32, device=init_pos.device)
+    lo, hi = bounds[:, 0], bounds[:, 1]
+    pos = init_pos.to(torch.float32)
+    vel, acc = vel.to(torch.float32), acc.to(torch.float32)
+    out = [pos]
+    for eps in noise.to(torch.float32):
+        pos = pos + vel
+        vel = vel + acc
+        acc = acc + noise_std * eps
+        # elastic bounce off the bounds
+        too_small, too_big = pos < lo, pos > hi
+        pos = torch.where(too_small, 2 * lo - pos, pos)
+        pos = torch.where(too_big, 2 * hi - pos, pos)
+        flip = too_small | too_big
+        vel = torch.where(flip, -vel, vel)
+        acc = torch.where(flip, -acc, acc)
+        # clamps
+        pos = torch.minimum(torch.maximum(pos, lo), hi)
+        vel = torch.clamp(vel, -max_speed, max_speed)
+        acc = torch.clamp(acc, -max_acc, max_acc)
+        out.append(pos)
+    return torch.stack(out, 0)

@@ -49,6 +49,33 @@ def to_logits(coords: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     return torch.cat([scale_logit, shift_logit], -1)
 
 
+def stn_to_pixel_coords(stn_coords: torch.Tensor, img_size: Sequence[int]) -> torch.Tensor:
+    """ST coords [..., 4] -> pixel (y, x, h, w) boxes [..., 4], with the
+    reference's (length + 1) size convention."""
+    sx, sy, tx, ty = torch.chunk(stn_coords, 4, -1)
+
+    def one(scale, translation, length):
+        size = (length + 1.0) * scale
+        shift = 0.5 * (length - 1.0) * (translation - scale + 1.0)
+        return shift, size
+
+    y, h = one(sy, ty, img_size[0])
+    x, w = one(sx, tx, img_size[1])
+    return torch.cat([y, x, h, w], -1)
+
+
+def pixel_to_stn_coords(yxhw: torch.Tensor, img_size: Sequence[int]) -> torch.Tensor:
+    """Pixel (y, x, h, w) boxes [..., 4] -> ST coords [..., 4] (float32), the
+    inverse of ``stn_to_pixel_coords``."""
+    yxhw = torch.as_tensor(yxhw, dtype=torch.float32)
+    size = torch.tensor([float(v) for v in img_size], dtype=torch.float32, device=yxhw.device)
+    scale = yxhw[..., 2:] / (size + 1.0)
+    shift = 2.0 * yxhw[..., :2] / (size - 1.0) + scale - 1.0
+    sy, sx = torch.chunk(scale, 2, -1)
+    ty, tx = torch.chunk(shift, 2, -1)
+    return torch.cat([sx, sy, tx, ty], -1)
+
+
 def _interp_coords(scale, shift, src_len: int, dst_len: int) -> torch.Tensor:
     """u_i = (scale t_i + shift + 1) (src_len - 1) / 2, t_i = linspace(-1, 1):
     the source coordinate of each of the dst_len outputs."""

@@ -4,13 +4,13 @@ Walks every nth checkpoint of a run dir, restores its parameters, averages
 the metrics over the whole valid (or train) set and appends ``itr: value``
 lines to ``<metric>_<dataset>.txt`` in the run dir, as the JAX package's
 script does; a step already in the iwae file is skipped, so a sweep can be
-resumed.  The run's ``flags.json`` gives the model; a model flag given on
-the command line wins over it.
+resumed.  The run's ``flags.json`` gives the model and its model config
+(``--model_config`` when given wins, as does a model flag given on the
+command line).
 
 The frames come from ``--data_npz``, an ``.npz`` with ``imgs`` (uint8
-[T, N, H, W]) and ``nums`` ([T or 1, N, C] counts one-hot), written on a
-machine that can build the dataset (the font glyphs need matplotlib) or by
-the port's stroke-digit generator.
+[T, N, H, W]) and ``nums`` ([T or 1, N, C] counts one-hot), e.g. a data
+config's valid set written with numpy.
 
 Run (on the card unless ``--device cpu``):
 
@@ -36,8 +36,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..configs import mlp_mnist_model
 from ..device import resolve_device
+from ..experiment import experiment_tools
 from ..ops.noise import GeneratorNoise, NoiseSource
 from ..training import make_eval_step
 from ..training.checkpoint import find_checkpoints, restore_params
@@ -164,8 +164,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--every_nth_checkpoint", type=int, default=1)
     p.add_argument("--eval_batch_size", type=int, default=32)
     p.add_argument("--data_config", default="", help="accepted; the data is --data_npz")
-    p.add_argument("--model_config", default="sqair_tpu/configs/mlp_mnist_model.py",
-                   help="accepted; the port has the MLP model only")
+    p.add_argument("--model_config", default=None,
+                   help="model config (default: the run's, else mlp_mnist_model)")
     p.add_argument("--device", default="cuda")
     args, rest = p.parse_known_args(argv)
     overrides, i = {}, 0
@@ -208,9 +208,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[int]:
     n_batches = max(1, imgs.shape[1] // args.eval_batch_size)
     batcher = WindowBatcher(imgs, nums, args.eval_batch_size)
     next(batcher)  # the JAX script draws its example batch first
+    model_config = (args.model_config or flags.get("model_config")
+                    or "sqair_tpu/configs/mlp_mnist_model.py")
     # mean_img is a parameter that every checkpoint holds
-    model = mlp_mnist_model.load(flags, imgs.shape[2:], mean_img=np.zeros(imgs.shape[2:]),
-                                 device=device)
+    model = experiment_tools.load(model_config, flags, imgs.shape[2:],
+                                  mean_img=np.zeros(imgs.shape[2:]), device=device)
     return sweep(args.checkpoint_dir, model, batcher, n_batches, dataset=args.dataset,
                  every_nth_checkpoint=args.every_nth_checkpoint)
 

@@ -155,6 +155,9 @@ def test_resume_cli_flags_override_snapshot(tmp_path, clean_registries):
      "sqair_tpu_torch.configs.font_seq_mnist_data"),
     ("sqair_tpu_torch/configs/seq_mnist_data.py", "sqair_tpu_torch.configs.seq_mnist_data"),
     ("sqair_tpu.configs.synth_seq_mnist_data", "sqair_tpu_torch.configs.synth_seq_mnist_data"),
+    ("sqair_tpu/configs/pedestrian_model.py", "sqair_tpu_torch.configs.pedestrian_model"),
+    ("sqair_tpu.configs.small_digit_seq_mnist_data",
+     "sqair_tpu_torch.configs.small_digit_seq_mnist_data"),
 ])
 def test_jax_config_paths_map_to_the_port(given, module):
     assert ptools.resolve_config(given) == module
@@ -163,7 +166,7 @@ def test_jax_config_paths_map_to_the_port(given, module):
 
 
 @pytest.mark.parametrize("given", ["sqair_tpu/configs/conv_mnist_model.py",
-                                   "sqair_tpu/data/loader.py", "sqair_tpu.configs.pedestrian_model",
+                                   "sqair_tpu/data/loader.py", "sqair_tpu.configs.conv_mnist_model",
                                    "sqair_tpu.data.loader"])
 def test_jax_paths_without_a_counterpart_raise(given):
     with pytest.raises(ValueError, match="counterpart"):

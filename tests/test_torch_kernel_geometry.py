@@ -35,21 +35,39 @@ from sqair_tpu_torch.ops import fused_glimpse as fg
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 
-SETTINGS = [(train, fuse) for train in (False, True) for fuse in (False, True)]
+# (configuration, train, fuse): the release flags on 50x50 frames and the
+# pedestrian configuration on 64x48 frames with 32x12 glimpses
+SETTINGS = [pytest.param(config, train, fuse,
+                         id=("" if config == "release" else config + "-") + f"{train}-{fuse}")
+            for config in ("release", "pedestrian") for train in (False, True)
+            for fuse in (False, True)]
+PED_IMG = (64, 48)
 
 
-def _shapes(kernel, train, fuse):
-    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
-    B, k = int(flags["batch_size"]), int(flags["k_particles"])
-    T = int(flags.get("font_timesteps", 10))
-    shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, fuse_glimpse=fuse,
-                                         fuse_cells=fuse)
+def _config(config, disc=False):
+    """(flags, B, k, T, img) of a configuration; ``disc``: with DISC_LEVERS."""
+    if config == "release":
+        flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
+        T, img = int(flags.get("font_timesteps", 10)), chip_smoke.IMG
+    else:
+        flags = chip_smoke.ped_flags()
+        T, img = int(flags["ped_timesteps"]), PED_IMG
+        assert tuple(int(v) for v in flags["ped_canvas"].split(",")) == img
+    if disc:
+        flags = dict(flags, **chip_smoke.DISC_LEVERS)
+    return flags, int(flags["batch_size"]), int(flags["k_particles"]), T, img
+
+
+def _shapes(kernel, config, train, fuse, disc=False):
+    flags, B, k, T, img = _config(config, disc)
+    shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, img=img,
+                                         fuse_glimpse=fuse, fuse_cells=fuse)
     return [s for kn, s, _ in shapes if kn == kernel]
 
 
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_mlp_forward_geometry_fills_the_card(train, fuse):
-    shapes = _shapes("fused_mlp", train, fuse)
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_mlp_forward_geometry_fills_the_card(config, train, fuse):
+    shapes = _shapes("fused_mlp", config, train, fuse)
     assert shapes
     for s in shapes:
         dims = [s["d_in"]] + s["widths"]
@@ -65,9 +83,9 @@ def test_mlp_forward_geometry_fills_the_card(train, fuse):
             assert g["cluster"] == 8 and g["blocks"] >= fused.SMS, (s, g)
 
 
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_vrnn_backward_geometry_fills_the_card(train, fuse):
-    shapes = _shapes("fused_vanilla_rnn", train, fuse)
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_vrnn_backward_geometry_fills_the_card(config, train, fuse):
+    shapes = _shapes("fused_vanilla_rnn", config, train, fuse)
     assert shapes
     for s in shapes:
         n, d_x, units = s["n"], s["dx"], s["units"]
@@ -157,9 +175,9 @@ CELL_GEOMETRY = {"fused_vanilla_rnn": fused.vrnn_fwd_geometry,
 
 
 @pytest.mark.parametrize("kernel", sorted(CELL_GEOMETRY))
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_cell_forward_geometry_fills_the_card(kernel, train, fuse):
-    shapes = _shapes(kernel, train, fuse)
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_cell_forward_geometry_fills_the_card(kernel, config, train, fuse):
+    shapes = _shapes(kernel, config, train, fuse)
     assert shapes
     for s in shapes:
         n, d_x, units = s["n"], s["dx"], s["units"]
@@ -229,11 +247,11 @@ def test_cell_wrappers_pass_the_geometry_to_the_c_entries(seen, save):
     assert (zr is not None) == save and (c is not None) == save
 
 
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_mlp_backward_geometry_fills_the_card(train, fuse):
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_mlp_backward_geometry_fills_the_card(config, train, fuse):
     """Phase A: clusters of 1-8 blocks over 8-row tiles, the forward's rule
     (160 blocks at 160 rows), two blocks an SM in shared memory."""
-    shapes = _shapes("fused_mlp", train, fuse)
+    shapes = _shapes("fused_mlp", config, train, fuse)
     assert shapes
     for s in shapes:
         dims = [s["d_in"]] + s["widths"]
@@ -319,36 +337,30 @@ def _prop_bwd_smem(dims):
     return 4 * (live + region + ring + 8 * 8 * 32)
 
 
-def _prop_kernel_dims(flags, n):
-    shape = chip_smoke.prop_shape(flags, n)
+def _prop_kernel_dims(flags, n, img=chip_smoke.IMG):
+    shape = chip_smoke.prop_shape(flags, n, img)
     return [n, shape["S"], *shape["img"], *shape["glimpse"], shape["n_what"], shape["U"],
             shape["SP"], shape["WB"], shape["MH"]]
 
 
 @pytest.mark.parametrize("disc", (False, True))
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_prop_backward_geometry_fills_the_card(train, fuse, disc):
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_prop_backward_geometry_fills_the_card(config, train, fuse, disc):
     """One block an SM (the tile's whole backward state in shared memory),
     clusters of 1-8 blocks over 8-row tiles: the widest cluster whose blocks
     all fit the card at once (4 at 160 rows: 80 blocks), at the main path's
     propagation shape with both switches (release flags and DISC_FLAGS) and
     at tile edges."""
-    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
-    if disc:
-        flags = dict(flags, **chip_smoke.DISC_LEVERS)
-    B, k = int(flags["batch_size"]), int(flags["k_particles"])
-    T = int(flags.get("font_timesteps", 10))
-    shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, fuse_glimpse=fuse,
-                                         fuse_cells=fuse)
-    prop = [s["n"] for kn, s, _ in shapes if kn == "fused_prop"]
+    flags, _, _, _, img = _config(config, disc)
+    prop = [s["n"] for s in _shapes("fused_prop", config, train, fuse, disc)]
     assert bool(prop) == fuse
     for n in prop + [1, 3, 8, 9, 161]:
-        g = fc.prop_bwd_geometry(_prop_kernel_dims(flags, n))
+        g = fc.prop_bwd_geometry(_prop_kernel_dims(flags, n, img))
         tiles = math.ceil(n / 8)
         assert g["tile_rows"] == 8 and g["cluster"] in (1, 2, 4, 8), (n, g)
         assert g["blocks"] == tiles * g["cluster"] <= fused.SMS, (n, g)
         assert g["cluster"] == 8 or 2 * g["blocks"] > fused.SMS, (n, g)
-        smem = _prop_bwd_smem(_prop_kernel_dims(flags, n))
+        smem = _prop_bwd_smem(_prop_kernel_dims(flags, n, img))
         assert fused.MAX_SMEM // 2 < smem <= fused.MAX_SMEM, (n, smem)  # one block an SM
         if n == 160:
             assert g["cluster"] == 4 and g["blocks"] == 80, (n, g)
@@ -386,16 +398,17 @@ def _glimpse_kernel_dims(shape):
             shape["d1"], shape["d2"], shape["n_what"]]
 
 
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_glimpse_backward_geometry_fills_the_card(train, fuse):
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_glimpse_backward_geometry_fills_the_card(config, train, fuse):
     """One block an SM, clusters of 1-8 blocks over 8-row tiles: the widest
     cluster whose blocks all fit the card at once (4 at 160 rows: 80
     blocks), at the glimpse encoder's main-path shapes (masked and not) and
     at tile edges; the tile's state fits a block's 227 KB."""
-    shapes = _shapes("fused_glimpse", train, fuse)
-    assert bool(shapes) == fuse
-    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
-    base = chip_smoke.glimpse_shapes(flags, 160, 10)
+    shapes = _shapes("fused_glimpse", config, train, fuse)
+    flags, _, _, T, img = _config(config)
+    # both switches fuse discovery at the pedestrian flags: no glimpse calls
+    assert bool(shapes) == (fuse and not chip_smoke.disc_fusable(flags))
+    base = chip_smoke.glimpse_shapes(flags, 160, T, img)
     for s in shapes + [dict(sh, n=n) for sh, _ in base for n in (1, 3, 8, 9, 161)]:
         dims = _glimpse_kernel_dims(s)
         g = fg.glimpse_bwd_geometry(dims)
@@ -409,23 +422,17 @@ def test_glimpse_backward_geometry_fills_the_card(train, fuse):
 
 
 @pytest.mark.parametrize("disc", (False, True))
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_prop_forward_geometry_fills_the_card(train, fuse, disc):
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_prop_forward_geometry_fills_the_card(config, train, fuse, disc):
     """The propagation forward's clusters: the backward's rule (4 at 160
     rows: 80 blocks), at the main path's propagation shape with both
     switches (release flags and DISC_FLAGS) and at tile edges; the tile's
     forward state fits a block's 227 KB, one block an SM."""
-    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
-    if disc:
-        flags = dict(flags, **chip_smoke.DISC_LEVERS)
-    B, k = int(flags["batch_size"]), int(flags["k_particles"])
-    T = int(flags.get("font_timesteps", 10))
-    shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, fuse_glimpse=fuse,
-                                         fuse_cells=fuse)
-    prop = [s["n"] for kn, s, _ in shapes if kn == "fused_prop"]
+    flags, _, _, _, img = _config(config, disc)
+    prop = [s["n"] for s in _shapes("fused_prop", config, train, fuse, disc)]
     assert bool(prop) == fuse
     for n in prop + [1, 3, 8, 9, 161]:
-        dims = _prop_kernel_dims(flags, n)
+        dims = _prop_kernel_dims(flags, n, img)
         g = fc.prop_fwd_geometry(dims)
         assert g == fc.prop_bwd_geometry(dims), (n, g)
         assert g["blocks"] == math.ceil(n / 8) * g["cluster"] <= fused.SMS, (n, g)
@@ -491,16 +498,17 @@ def _glimpse_fwd_smem(dims, masked):
     return 4 * (live + region + ring + _PARTS)
 
 
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_glimpse_forward_geometry_fills_the_card(train, fuse):
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_glimpse_forward_geometry_fills_the_card(config, train, fuse):
     """The glimpse forward's clusters: the backward's rule (4 at 160 rows: 80
     blocks), at the glimpse encoder's main-path shapes (masked and not) and
     at tile edges; the tile's state fits a block's 227 KB, one block an
     SM."""
-    shapes = _shapes("fused_glimpse", train, fuse)
-    assert bool(shapes) == fuse
-    flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
-    base = chip_smoke.glimpse_shapes(flags, 160, 10)
+    shapes = _shapes("fused_glimpse", config, train, fuse)
+    flags, _, _, T, img = _config(config)
+    # both switches fuse discovery at the pedestrian flags: no glimpse calls
+    assert bool(shapes) == (fuse and not chip_smoke.disc_fusable(flags))
+    base = chip_smoke.glimpse_shapes(flags, 160, T, img)
     for s in shapes + [dict(sh, n=n) for sh, _ in base for n in (1, 3, 8, 9, 161)]:
         dims = _glimpse_kernel_dims(s)
         g = fg.glimpse_fwd_geometry(dims)
@@ -514,8 +522,8 @@ def test_glimpse_forward_geometry_fills_the_card(train, fuse):
             assert g["cluster"] == 4 and g["blocks"] == 80, (s, g)
 
 
-def _disc_kernel_dims(flags, n):
-    shape = chip_smoke.disc_shape(flags, n)
+def _disc_kernel_dims(flags, n, img=chip_smoke.IMG):
+    shape = chip_smoke.disc_shape(flags, n, img)
     return [n, shape["S"], *shape["img"], *shape["glimpse"], shape["n_what"], shape["U"],
             shape["SP"], shape["C"]]
 
@@ -540,21 +548,17 @@ def _disc_bwd_smem(dims):
     return 4 * (live + region + ring + _PARTS)
 
 
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_disc_backward_geometry_fills_the_card(train, fuse):
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_disc_backward_geometry_fills_the_card(config, train, fuse):
     """The discovery backward's clusters at DISC_FLAGS: the widest cluster
     whose blocks all fit the card at once (4 at 160 rows: 80 blocks), at the
     main path's discovery shape with both switches and at tile edges; the
     tile's state fits a block's 227 KB, one block an SM."""
-    flags = dict(json.loads(chip_smoke.RELEASE_FLAGS.read_text()), **chip_smoke.DISC_LEVERS)
-    B, k = int(flags["batch_size"]), int(flags["k_particles"])
-    T = int(flags.get("font_timesteps", 10))
-    shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, fuse_glimpse=fuse,
-                                         fuse_cells=fuse)
-    disc = [s["n"] for kn, s, _ in shapes if kn == "fused_disc"]
+    flags, _, _, _, img = _config(config, disc=True)
+    disc = [s["n"] for s in _shapes("fused_disc", config, train, fuse, disc=True)]
     assert bool(disc) == fuse
     for n in disc + [1, 3, 8, 9, 161]:
-        dims = _disc_kernel_dims(flags, n)
+        dims = _disc_kernel_dims(flags, n, img)
         g = fc.disc_bwd_geometry(dims)
         tiles = math.ceil(n / 8)
         assert g["tile_rows"] == 8 and g["cluster"] in (1, 2, 4, 8), (n, g)
@@ -594,16 +598,13 @@ def test_glimpse_forward_and_disc_backward_wrappers_pass_the_geometry(seen, monk
     assert list(seen["sqair_fused_disc_bwd"][2]) == [g["tile_rows"], g["cluster"], g["blocks"]]
 
 
-def _flags_shapes(kernel, train, fuse):
-    """``kernel``'s shapes in a step at the release flags and at DISC_FLAGS."""
-    release = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
+def _flags_shapes(kernel, config, train, fuse):
+    """``kernel``'s shapes in a step of the configuration, with and without
+    DISC_LEVERS (at the release flags: the release flags and DISC_FLAGS)."""
     out = []
-    for flags in (release, dict(release, **chip_smoke.DISC_LEVERS)):
-        B, k = int(flags["batch_size"]), int(flags["k_particles"])
-        T = int(flags.get("font_timesteps", 10))
-        shapes = chip_smoke.main_path_shapes(flags, B, k, T, train=train, fuse_glimpse=fuse,
-                                             fuse_cells=fuse)
-        out += [(flags, s) for kn, s, _ in shapes if kn == kernel]
+    for disc in (False, True):
+        flags = _config(config, disc)[0]
+        out += [(flags, s) for s in _shapes(kernel, config, train, fuse, disc)]
     return out
 
 
@@ -615,13 +616,13 @@ def _gru_bwd_smem(units):
     return 4 * (_RING + _PARTS + 8 * (2 * _r4(units) + _r4(2 * units)))
 
 
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_gru_backward_geometry_fills_the_card(train, fuse):
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_gru_backward_geometry_fills_the_card(config, train, fuse):
     """Phase A of the GRU backward at every GRU shape of a step (release
     flags and DISC_FLAGS) and at tile edges: clusters of 1-8 blocks over
     8-row tiles that fill the card where n allows (8 at 160 rows: 160
     blocks; 4 at 480: 240), two blocks an SM in shared memory."""
-    shapes = _flags_shapes("fused_gru", train, fuse)
+    shapes = _flags_shapes("fused_gru", config, train, fuse)
     assert shapes
     edges = [dict(n=n, dx=360, units=256) for n in (1, 7, 9, 161, 481)]
     for s in [s for _, s in shapes] + edges:
@@ -656,19 +657,19 @@ def _disc_fwd_smem(dims):
     return 4 * (live + region + ring + _PARTS)
 
 
-@pytest.mark.parametrize("train,fuse", SETTINGS)
-def test_disc_forward_geometry_fills_the_card(train, fuse):
+@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def test_disc_forward_geometry_fills_the_card(config, train, fuse):
     """The discovery forward's launches at DISC_FLAGS, at the main path's
     discovery shape with both switches and at tile edges: the slots' widest
     cluster whose blocks all fit the card at once (4 at 160 rows: 80
     blocks), one block an SM, the tile's state within 227 KB; the input
     encoder's launch the MLP forward's at [H W, U, U], filling the card where
     n allows."""
-    shapes = _flags_shapes("fused_disc", train, fuse)
+    shapes = _flags_shapes("fused_disc", config, train, fuse)
     assert bool(shapes) == fuse
-    flags = dict(json.loads(chip_smoke.RELEASE_FLAGS.read_text()), **chip_smoke.DISC_LEVERS)
+    flags, _, _, _, img = _config(config, disc=True)
     for n in [s["n"] for _, s in shapes] + [1, 3, 8, 9, 161]:
-        dims = _disc_kernel_dims(flags, n)
+        dims = _disc_kernel_dims(flags, n, img)
         g = fc.disc_fwd_geometry(dims)
         tiles = math.ceil(n / 8)
         assert g["tile_rows"] == 8 and g["cluster"] in (1, 2, 4, 8), (n, g)

@@ -11,7 +11,10 @@ slot.  With SQAIR_FUSE_CELLS each frame's propagation is one fused_prop
 call, and its slots' MLPs, cells and glimpses leave the other kernels; at
 these flags (early_disc_logit_scale 0.15) discovery stays unfused, as in the
 JAX package, and at DISC_FLAGS (the same with early_disc_logit_scale 1) each
-frame's discovery, the input encoder included, is one fused_disc call."""
+frame's discovery, the input encoder included, is one fused_disc call.
+Each test also runs at the pedestrian configuration (``pedestrian_model``:
+a non-square glimpse, here 10x4, on non-square 24x18 frames, at the
+module defaults, where discovery fuses with both switches)."""
 import collections
 import sys
 from pathlib import Path
@@ -21,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from sqair_tpu_torch.configs import mlp_mnist_model
+from sqair_tpu_torch.configs import mlp_mnist_model, pedestrian_model
 from sqair_tpu_torch.ops import fused, fused_cells, fused_glimpse
 from sqair_tpu_torch.ops.noise import GeneratorNoise
 from torch_parity import B, H, S, T, golden_batch
@@ -32,6 +35,18 @@ import chip_smoke  # noqa: E402
 FLAGS = dict(n_units=1, n_what=8, n_steps_per_image=S, glimpse_size=8, k_particles=2,
              early_disc_logit_scale=0.15, transient_disc_penalty=2.0)
 DISC_FLAGS = dict(FLAGS, **chip_smoke.DISC_LEVERS)
+PED_FLAGS = dict(n_units=1, n_what=8, n_steps_per_image=S, k_particles=2, glimpse_hw="10,4",
+                 transient_disc_penalty=2.0)
+PED_IMG = (H, 18)
+
+
+def _modes(*extra):
+    """(mode, *extra, config) cases: the release-like flags keep their ids,
+    the pedestrian configuration's are marked."""
+    cases = [(mode, *extra, config) for config in ("release", "pedestrian")
+             for mode in ("full", "train")]
+    return [pytest.param(*c, id="-".join([c[0]] + [str(e) for e in c[1:-1]])
+                         + ("" if c[-1] == "release" else "-pedestrian")) for c in cases]
 FORWARD = ("fused_mlp", "fused_vanilla_rnn", "fused_gru")
 
 
@@ -98,37 +113,47 @@ def _backward_spy(calls, name, fn):
     return spy
 
 
-@pytest.mark.parametrize("mode", ("full", "train"))
-def test_main_path_shapes_match_the_calls_of_a_step(mode, monkeypatch):
-    _check_calls_of_a_step(mode, False, monkeypatch)
+@pytest.mark.parametrize("mode,config", _modes())
+def test_main_path_shapes_match_the_calls_of_a_step(mode, config, monkeypatch):
+    _check_calls_of_a_step(mode, False, monkeypatch, config=config)
 
 
-@pytest.mark.parametrize("mode", ("full", "train"))
-def test_main_path_shapes_match_the_calls_of_a_step_with_the_glimpse_switch(mode, monkeypatch):
-    _check_calls_of_a_step(mode, True, monkeypatch)
+@pytest.mark.parametrize("mode,config", _modes())
+def test_main_path_shapes_match_the_calls_of_a_step_with_the_glimpse_switch(mode, config,
+                                                                            monkeypatch):
+    _check_calls_of_a_step(mode, True, monkeypatch, config=config)
 
 
-@pytest.mark.parametrize("fuse_glimpse", (False, True))
-@pytest.mark.parametrize("mode", ("full", "train"))
+@pytest.mark.parametrize("mode,fuse_glimpse,config", _modes(False) + _modes(True))
 def test_main_path_shapes_match_the_calls_of_a_step_with_the_cells_switch(
-        mode, fuse_glimpse, monkeypatch):
-    _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=True)
+        mode, fuse_glimpse, config, monkeypatch):
+    _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=True, config=config)
 
 
-@pytest.mark.parametrize("mode", ("full", "train"))
-def test_main_path_shapes_match_the_calls_of_a_step_with_fused_discovery(mode, monkeypatch):
-    """Both switches at DISC_FLAGS: discovery fused too."""
-    _check_calls_of_a_step(mode, True, monkeypatch, fuse_cells=True, flags=DISC_FLAGS)
+@pytest.mark.parametrize("mode,config", _modes())
+def test_main_path_shapes_match_the_calls_of_a_step_with_fused_discovery(mode, config,
+                                                                         monkeypatch):
+    """Both switches at DISC_FLAGS: discovery fused too (the pedestrian
+    configuration's own flags have no early-discovery lever)."""
+    _check_calls_of_a_step(mode, True, monkeypatch, fuse_cells=True,
+                           flags=DISC_FLAGS if config == "release" else PED_FLAGS, config=config)
 
 
-def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, flags=FLAGS):
+def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, flags=FLAGS,
+                           config="release"):
     for name, on in (("SQAIR_FUSE_GLIMPSE", fuse_glimpse), ("SQAIR_FUSE_CELLS", fuse_cells)):
         if on:
             monkeypatch.setenv(name, "1")
         else:
             monkeypatch.delenv(name, raising=False)
-    model = mlp_mnist_model.load(flags, (H, H), device="cpu", seed=0)
     obs, nums = golden_batch()
+    if config == "release":
+        img = (H, H)
+        model = mlp_mnist_model.load(flags, img, device="cpu", seed=0)
+    else:
+        flags, img = PED_FLAGS, PED_IMG
+        obs = np.ascontiguousarray(obs[..., :img[1]])
+        model = pedestrian_model.load(flags, img, device="cpu", seed=0)
     calls = collections.Counter()
     spies = {n: _forward_spy(calls, n, getattr(fused, n)) for n in FORWARD}
     spies.update({n + "_bwd": _backward_spy(calls, n + "_bwd", getattr(fused, n + "_bwd"))
@@ -153,7 +178,7 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, fl
             target.backward()
 
     shapes = chip_smoke.main_path_shapes(flags, B, flags["k_particles"], T,
-                                         train=mode == "train", img=(H, H),
+                                         train=mode == "train", img=img,
                                          fuse_glimpse=fuse_glimpse, fuse_cells=fuse_cells)
     want = collections.Counter()
     for kernel, shape, n_calls in shapes:
@@ -164,8 +189,9 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, fl
         k: c for k, c in expected.items() if k.endswith("_bwd")}
     # only the input encoder's input (the frames) carries no gradient; the
     # fused discovery runs the input encoder itself
-    no_dx = [s for kn, s, _ in shapes if not chip_smoke.needs_dx(kn, s, img=(H, H))]
+    no_dx = [s for kn, s, _ in shapes if not chip_smoke.needs_dx(kn, s, img=img)]
     fused_disc = any(kn == "fused_disc" for kn, _, _ in shapes)
-    assert fused_disc == (fuse_cells and flags is DISC_FLAGS)
+    assert fused_disc == (fuse_cells and (flags is DISC_FLAGS or config == "pedestrian"))
     assert no_dx == ([] if fused_disc else
-                     [dict(d_in=H * H, widths=[32, 32], acts=["elu", "elu"], n=B * 2)])
+                     [dict(d_in=img[0] * img[1], widths=[32, 32], acts=["elu", "elu"],
+                           n=B * 2)])

@@ -12,7 +12,10 @@ each range must hold every row with a non-zero weight at h: then the
 kernels' sums, which drop only products whose weight is exactly 0, keep
 the dense sums' bits.  Cases: many where logits drawn from a seed, a u on
 an integer, a scale clipped at 1e-4, wheres that put part of the glimpse
-outside the frame, and glimpses wider than the frame.
+outside the frame, and glimpses wider than the frame; at square shapes and
+at the pedestrian configuration's non-square 64x48 frames and 32x12
+glimpses (and with H and W, gh and gw swapped, where a swap of the two
+would show).
 """
 import numpy as np
 import pytest
@@ -73,7 +76,8 @@ def _where_logits(n, seed):
     return torch.from_numpy(np.concatenate([special, wl]))
 
 
-@pytest.mark.parametrize("H,W,gh,gw", [(50, 50, 20, 20), (12, 17, 5, 7), (8, 8, 20, 20)])
+@pytest.mark.parametrize("H,W,gh,gw", [(50, 50, 20, 20), (12, 17, 5, 7), (8, 8, 20, 20),
+                                      (64, 48, 32, 12), (48, 64, 12, 32), (40, 30, 16, 6)])
 def test_two_nonzero_crop_indices_match_the_dense_interpolation(H, W, gh, gw):
     wl = _where_logits(500, seed=H * 100 + gh)
     _, (wy, uy, _), (wx, ux, _) = fg.coords_and_interp(wl, H, W, gh, gw)
