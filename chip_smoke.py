@@ -91,6 +91,37 @@ Phases, one line each with its own numbers and seconds:
                  files, its resume and its launch counts; the two sweeps'
                  metrics agree
 
+  release-eval   the release checkpoint in the port's format
+                 (sqair_tpu_torch/release/mnist_mlp/1) swept by
+                 sqair_tpu_torch.scripts.eval on the card over the 256-sequence
+                 font valid set of its flags.json (8 batches of 32, T = 10):
+                 launch counts; its nine metrics printed beside the release
+                 run's own files (other noise: not gated); batch 0 again with
+                 its noise recorded and the render tensors, and on the CPU
+                 with that noise: metrics within METRIC_TOL, the resampled
+                 particle the same where the two largest perturbed
+                 log-weights lie more than 1e-3 apart, and those examples'
+                 render tensors within METRIC_TOL
+  rollout        sqair_tpu_torch.scripts.rollout on the release checkpoint, 32
+                 examples, 100 frames, 5 conditioning frames, with no switch,
+                 the glimpse switch and both: launch counts (a generated frame
+                 also runs the where prior's cell once a slot), finite
+                 outputs, rollout.npz's shapes, discovery's presence 0 in
+                 every generated frame; every kernel call of the rollout held
+                 against its plain version on the same inputs on the card
+                 (checked_calls: within KERNEL_ATOL + KERNEL_RTOL |plain|; the
+                 frame kernels under the flip rule below and with a float64
+                 referee, as ped-kernels); the same rollout through the plain
+                 versions on the card under the recorded noise: the first
+                 presence draw that it samples otherwise than the kernels'
+                 must have its uniform within FLIP_MARGIN of both
+                 probabilities; the two rollouts' distances (generation
+                 amplifies the calls' rounding differences: reported, not
+                 gated) and the first frame at which they lie PART_AT apart;
+                 wall ms and frames/s of the rollout (median of 3)
+  rollout-disc   a 10-frame rollout at DISC_FLAGS with both switches and
+                 weights from a seed (fused_disc on the generation path),
+                 gated as rollout
   experiment     the training CLI (python -m sqair_tpu_torch.scripts.experiment)
                  in this process at the release flags (the synthetic data
                  config's 2048 sequences, T = 10, the device-resident
@@ -163,8 +194,14 @@ import types
 from pathlib import Path
 from unittest import mock
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parent
 RELEASE_FLAGS = REPO / "release_models" / "mnist_mlp" / "1" / "flags.json"
+# the release checkpoint in the port's format, and the JAX package's run dir
+# whose metric files it reproduces
+PORT_RELEASE = REPO / "sqair_tpu_torch" / "release" / "mnist_mlp" / "1"
+RELEASE_RUN = REPO / "release_models" / "mnist_mlp" / "1"
 SEED = 0
 N_BATCHES = 3
 N_TRAIN_STEPS = 3
@@ -185,6 +222,15 @@ KERNEL_ATOL, KERNEL_RTOL = 1e-5, 1e-4
 BWD_TOL = 1e-4  # |d| <= BWD_TOL max|value| + 1e-6, per gradient tensor
 # the eval metrics sum the forward differences over T x 2S dependent cell steps
 METRIC_TOL = 1e-4  # on |a - b| / (|b| + 1)
+# a presence draw that two runs sample differently counts as crossed only
+# where its uniform lies within this of both runs' probabilities (the f32
+# differences of a kernel and its plain version move a probability by
+# ~1e-6); any other flip fails, and frames from the first crossed flip on
+# are reported, not gated
+FLIP_MARGIN = 1e-4
+# two rollouts count as parted from the first frame at which a field lies
+# this far apart (scaled as METRIC_TOL); reported, not gated
+PART_AT = 1e-2
 # a whole step's parameter gradients: every f32 difference of the step,
 # carried through T x 2S dependent cells, VIMCO and the transient penalty,
 # and summed over up to 4800 rows with cancellation.  A run of the plain
@@ -283,6 +329,11 @@ CELLS_SWITCH = SWITCHES["cells"]
 CLI_STEPS, CHAIN_STEPS, TIMING_REPEATS = 20, 10, 5
 # on-device-data: bench.py's fixed set of sequences
 ON_DEVICE_SEQUENCES = 2048
+# the rollout phase: scripts/rollout.py on the release checkpoint
+ROLLOUT = dict(n_examples=32, rollout_len=100, condition_frames=5)
+ROLLOUT_SETTINGS = (("no_switch", {}), ("glimpse", GLIMPSE_SWITCH), ("both", CELLS_SWITCH))
+ROLLOUT_REPEATS = 3
+DISC_ROLLOUT_LEN = 10
 CLI_SET = {"git_commit", "resume", "results_dir", "run_name", "data_config", "seq_len",
            "stage_itr", "train_itr", "save_itr", "report_loss_every", "log_itr", "fig_itr",
            "steps_per_call", "on_device_data"}
@@ -349,7 +400,8 @@ def disc_shape(F, rows, img=IMG):
                 glimpse=list(glimpse_hw(F)), n_what=int(F["n_what"]), U=h, SP=h // 2, C=h)
 
 
-def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_cells=False):
+def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_cells=False,
+                     generate=False):
     """Every forward kernel call of one eval or train step on frames of
     ``img``, as (kernel, shape, calls per step).  In the train record the decode, the
     discovery where prior and the count prior leave the time loop and run
@@ -359,7 +411,10 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_
     (SQAIR_FUSE_CELLS) each frame's propagation slots are one fused_prop
     call, and where the flags let it (``disc_fusable``) its input encoder and
     discovery slots one fused_disc call; their MLPs, cells and glimpses
-    leave the other kernels."""
+    leave the other kernels.  With ``generate`` (sample_from_prior: a
+    rollout) the train record keeps its log-probs and decode in the loop,
+    and every frame also samples discovery's where prior, its cell once a
+    slot."""
     h = 32 * int(F["n_units"])
     w, S = int(F["n_what"]), int(F["n_steps_per_image"])
     gh, gw = glimpse_hw(F)
@@ -367,8 +422,8 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_
     rows = B * k
     slots = rows * S
     sp = h // 2
-    deferred = T if train else 1  # rows factor of the out-of-loop calls
-    per_call = 1 if train else T  # calls factor of the same calls
+    deferred = T if train and not generate else 1  # rows factor of the out-of-loop calls
+    per_call = T // deferred  # calls factor of the same calls
     prop = 0 if fuse_cells else 1  # calls factor of the propagation slots' calls
     fuse_disc = fuse_cells and disc_fusable(F)
     disc = 0 if fuse_disc else 1  # calls factor of the discovery's calls
@@ -390,7 +445,7 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_
     vrnn = [  # (d_x, units, rows, calls per step)
         (h + h + w + 5, h, rows, disc * S * T),   # discovery transition
         (3 * w + 10 + h, h, rows, prop * S * T),  # propagation transition
-        (4, 4, rows * deferred, S * per_call),    # discovery where prior
+        (4, 4, rows * deferred, (2 if generate else 1) * S * per_call),  # where prior
     ]
     gru = [
         (w + 4, h, slots, T),                     # propagation prior
@@ -1040,6 +1095,70 @@ def switched(switches):
 
 
 @contextlib.contextmanager
+def presence_sites(torch, model):
+    """Records the probability of every presence draw of each frame the
+    model's timestep runs, as float64 numpy [B, S] on the CPU:
+    {t: {"prop": propagation's posterior, "prop_prior": its prior (drawn
+    under sample_from_prior), "disc": discovery's posterior}}."""
+    sites = {}
+
+    def hook(module, args, out):
+        prop, disc = out["prop"], out["disc"]
+        probs = dict(prop=prop["presence_prob"][..., 0], disc=disc["presence_prob"][..., 0],
+                     prop_prior=torch.sigmoid(prop["prior_stats"][-1][..., 0]))
+        sites[args[6]] = {key: v.detach().double().cpu().numpy() for key, v in probs.items()}
+
+    handle = model.sequence.timestep.register_forward_hook(hook)
+    try:
+        yield sites
+    finally:
+        handle.remove()
+
+
+def site_uniforms(table, t, n_slots):
+    """The uniforms [B, S] of frame t's presence draws, keyed as
+    ``presence_sites`` keys their probabilities (the prior's where the
+    noise table has it)."""
+    def arr(v):
+        return v.double().cpu().numpy() if hasattr(v, "cpu") else np.asarray(v, np.float64)
+
+    out = {kind: np.concatenate([arr(table[(t, kind, k, "presence")]) for k in range(n_slots)],
+                                -1) for kind in ("prop", "disc")}
+    if (t, "prop", "prior", "presence") in table:
+        out["prop_prior"] = arr(table[(t, "prop", "prior", "presence")])
+    return out
+
+
+def first_flip(sites_a, sites_b, table, margin=None):
+    """(frame of the first presence draw that two runs under the same noise
+    sample differently, or None; whether each such draw of that frame is
+    crossed, its uniform within ``margin`` of both runs' probabilities)."""
+    margin = FLIP_MARGIN if margin is None else margin
+    for t in sorted(sites_a):
+        flips, crossed = 0, True
+        for key, u in site_uniforms(table, t, sites_a[t]["prop"].shape[-1]).items():
+            pa, pb = sites_a[t][key], sites_b[t][key]
+            differ = (u < pa) != (u < pb)
+            flips += int(differ.sum())
+            near = (np.abs(u - pa) < margin) & (np.abs(u - pb) < margin)
+            crossed = crossed and bool(np.all(near[differ]))
+        if flips:
+            return t, crossed
+    return None, True
+
+
+def frame_errors(torch, got, ref):
+    """{field: [T] largest |a - b| / (|b| + 1) of each frame} of two records
+    (float64, on the referee's device; numpy on the CPU)."""
+    out = {}
+    for key, b in ref.items():
+        a, b = got[key].to(b.device).double(), b.double()
+        err = torch.abs(a - b) / (torch.abs(b) + 1.0)
+        out[key] = err.reshape(err.shape[0], -1).max(-1).values.cpu().numpy()
+    return out
+
+
+@contextlib.contextmanager
 def kinks(torch, AIREncoder, AIRDecoder, D, keep=None, fc=None):
     """Records where one train step meets the kinks of its gradient: the
     where of every glimpse crop and paste (their interpolation weights
@@ -1415,9 +1534,9 @@ def kernel_tables(fused):
             {n: getattr(fused, p + "_bwd_plain") for n, p in zip(names, plain)})
 
 
-def frame_fields_check(torch, what, fields, referee_fields, referee=False):
+def frame_fields_check(torch, what, fields, referee_fields, referee=False, stats=None):
     """(largest |kernel - plain|, refereed) over the (name, kernel, plain)
-    ``fields`` of a frame kernel's forward, each of which must lie within
+    ``fields`` of a kernel's forward, each of which must lie within
     |d| <= KERNEL_ATOL + KERNEL_RTOL |plain|.  With ``referee``, a field
     over that bound is held instead to the plain version's float64 value
     (``referee_fields()``, in the order of ``fields``): max |kernel - f64|
@@ -1426,14 +1545,19 @@ def frame_fields_check(torch, what, fields, referee_fields, referee=False):
     the glimpse by the frame's contrast between neighbouring pixels: on the
     pedestrian frames (textured silhouettes) the float32 plain version
     itself lies over the fixed bound from float64.  ``refereed`` holds each
-    refereed field's distances."""
+    refereed field's distances; ``stats``, where given, keeps the largest
+    |d| over its fixed bound ("of_tol") and distance to float64 over its
+    bound ("of_referee")."""
     worst, refereed, ref = 0.0, {}, None
+    stats = {} if stats is None else stats
     for i, (name, a, b) in enumerate(fields):
         diff = torch.abs(a - b)
         if a.shape == b.shape:
             worst = max(worst, float(diff.max()))
-        if a.shape == b.shape and torch.all(diff <= KERNEL_ATOL + KERNEL_RTOL * torch.abs(b)):
-            continue
+            of_tol = float(torch.max(diff / (KERNEL_ATOL + KERNEL_RTOL * torch.abs(b))))
+            stats["of_tol"] = max(stats.get("of_tol", 0.0), of_tol)
+            if of_tol <= 1.0:
+                continue
         if a.shape != b.shape or not referee:
             raise Failure(f"{what}: {name} disagrees with the plain version "
                           f"(max |d| {float(diff.max()):.3g})")
@@ -1442,9 +1566,10 @@ def frame_fields_check(torch, what, fields, referee_fields, referee=False):
         err_k = float(torch.max(torch.abs(a.double() - r)))
         err_p = float(torch.max(torch.abs(b.double() - r)))
         bound = max(KERNEL_ATOL, 2.0 * err_p)
+        stats["of_referee"] = max(stats.get("of_referee", 0.0), err_k / bound)
         refereed[name] = dict(vs_plain=f"{float(diff.max()):.3e}", kernel_vs_f64=f"{err_k:.3e}",
                               plain_vs_f64=f"{err_p:.3e}", bound=f"{bound:.3e}")
-        if err_k > bound:
+        if not err_k <= bound:
             raise Failure(f"{what}: {name} lies {err_k:.3g} from its float64 value, over the "
                           f"bound {bound:.3g} (twice the plain version's {err_p:.3g})")
     return worst, refereed
@@ -2367,6 +2492,10 @@ def run():
     print(f"[eval-cli] sweeps_agree worst={worst:.3e} worst_file={worst_key} tol={METRIC_TOL}",
           flush=True)
 
+    # ---------------------- the release checkpoint: its eval sweep, rollouts
+    release_eval_phase(torch, card, device)
+    rollout_phases(torch, card, device)
+
     # -------------------------------------------------------- experiment
     experiment_phase(torch, flags, disc_flags, data, B, k, T, card, device)
 
@@ -2994,6 +3123,416 @@ def on_device_data_phase(torch, card, device):
         raise Failure("on-device-data: object counts outside n_objects (0, 2)")
     if not (float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0 + 1e-6):
         raise Failure("on-device-data: pixels outside [0, 1]")
+
+
+def font_valid_set(flags):
+    """The font data config's valid set at ``flags`` (a dict), raw (imgs
+    uint8 [T, N, H, W], nums [1, N, C]), made as the config makes it."""
+    from sqair_tpu_torch.configs.font_seq_mnist_data import make_sets
+
+    return make_sets(types.SimpleNamespace(**flags), ("valid",))["valid"]
+
+
+def release_eval_phase(torch, card, device):
+    """release-eval (see the module's docstring)."""
+    from sqair_tpu_torch.models.model import resampling_index
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
+    from sqair_tpu_torch.scripts import eval as port_eval
+    from sqair_tpu_torch.training import make_eval_step
+    from sqair_tpu_torch.training.checkpoint import find_checkpoints, restore_params
+
+    t0 = time.perf_counter()
+    flags = json.loads((PORT_RELEASE / "flags.json").read_text())
+    valid = font_valid_set(flags)
+    B, k, T = int(flags["batch_size"]), int(flags["k_particles"]), valid["imgs"].shape[0]
+    n_batches = valid["imgs"].shape[1] // B
+    root = tempfile.mkdtemp(prefix="sqair_release_eval_")
+    try:
+        run_dir = os.path.join(root, "1")
+        os.makedirs(run_dir)
+        (step, ckpt), = find_checkpoints(str(PORT_RELEASE)).items()
+        shutil.copyfile(ckpt, os.path.join(run_dir, os.path.basename(ckpt)))
+        shutil.copyfile(PORT_RELEASE / "flags.json", os.path.join(run_dir, "flags.json"))
+        npz = os.path.join(root, "valid.npz")
+        np.savez(npz, imgs=valid["imgs"], nums=valid["nums"])
+        fused.reset_launches()
+        done = port_eval.main(["--checkpoint_dir", run_dir, "--data_npz", npz,
+                               "--eval_batch_size", str(B), "--device", device.type])
+        torch.cuda.synchronize()
+        counts = dict(fused.launches)
+        files = {}
+        for m in port_eval.METRICS:
+            name = f"{port_eval.METRIC_FILES[m]}_valid.txt"
+            rows = {}
+            for path, key in ((os.path.join(run_dir, name), "card"),
+                              (RELEASE_RUN / name, "release")):
+                with open(path) as f:
+                    line = f.read().splitlines()[0]
+                rows[key] = [float(v) for v in line.split(":")[1].split()]
+            if not all(math.isfinite(v) for v in rows["card"]):
+                raise Failure(f"release-eval: {name} is not finite: {rows['card']}")
+            files[port_eval.METRIC_FILES[m]] = rows
+    finally:
+        shutil.rmtree(root)
+    expected = expected_launches(main_path_shapes(flags, B, k, T), n_batches)
+    if done != [step]:
+        raise Failure(f"release-eval: evaluated {done}, expected [{step}]")
+    if counts != expected:
+        raise Failure(f"release-eval: launch counts {counts} differ from {expected}")
+
+    # batch 0 again, its noise recorded (each batch's noise is a generator
+    # seeded with NOISE_SEED), with the render tensors; then on the CPU
+    imgs = valid["imgs"][:, :B].astype(np.float32) / 255.0
+    nums = valid["nums"][:, :B].astype(np.float32).repeat(T, 0)
+    model = mlp_model_load(flags, imgs.shape[2:], device)
+    restore_params(ckpt, model.sequence)
+    noise = GeneratorNoise(torch.Generator(device=device).manual_seed(port_eval.NOISE_SEED),
+                           device, record=True)
+    card_aux = render_step(torch, model, imgs, nums, noise)
+    table = {key: v.cpu() for key, v in noise.table.items()}
+    cpu_model = copy.copy(model)
+    cpu_model.sequence = copy.deepcopy(model.sequence).cpu()
+    cpu_aux = render_step(torch, cpu_model, imgs, nums, ReplayNoise(table, "cpu"))
+    err_cpu, worst = compare_metrics(torch, card_aux["metrics"], cpu_aux["metrics"],
+                                     "release-eval batch 0, card vs the CPU")
+    # the resampled particle: the same where the two largest perturbed
+    # log-weights lie more than 1e-3 apart
+    weights = torch.softmax(cpu_aux["log_weights"].double(), -1)
+    u = table[("resample",)].double().clamp(min=torch.finfo(torch.float32).tiny)
+    perturbed = torch.sort(-torch.log(-torch.log(u)) + torch.log(weights + 1e-38), -1).values
+    clear = (perturbed[:, -1] - perturbed[:, -2] > 1e-3).numpy()
+    card_idx = resampling_index(torch.softmax(card_aux["log_weights"], -1),
+                                ReplayNoise(noise.table, device)).cpu().numpy()
+    cpu_idx = resampling_index(torch.softmax(cpu_aux["log_weights"], -1),
+                               ReplayNoise(table, "cpu")).numpy()
+    if not np.array_equal(card_idx[clear], cpu_idx[clear]):
+        raise Failure(f"release-eval: resampled particles differ: {card_idx} vs {cpu_idx}")
+    # their render tensors, as the CPU tests hold them: |a - b| / (|b| + 1)
+    render_err = {}
+    for key, v in cpu_aux["render"].items():
+        a = card_aux["render"][key].cpu().double()[:, torch.from_numpy(clear)]
+        b = v.double()[:, torch.from_numpy(clear)]
+        render_err[key] = float(torch.max(torch.abs(a - b) / (torch.abs(b) + 1.0)))
+    worst_render = max(render_err, key=render_err.get)
+    if not render_err[worst_render] <= METRIC_TOL:
+        raise Failure(f"release-eval: render tensor {worst_render} of the card lies "
+                      f"{render_err[worst_render]:.3g} from the CPU's, over {METRIC_TOL} "
+                      f"(each: {jdump(render_err)})")
+    log("release-eval", t0, checkpoint=str(PORT_RELEASE.relative_to(REPO)), step=step,
+        sequences=valid["imgs"].shape[1], batches=n_batches, T=T, launches=jdump(counts),
+        expected=jdump(expected),
+        metrics=jdump({name: dict(card=r["card"], release_run=r["release"])
+                       for name, r in files.items()}),
+        batch0_card_vs_cpu=f"{err_cpu:.3e}", worst_metric=worst, tol=METRIC_TOL,
+        resampled_index_equal=f"{int(clear.sum())}/{B}",
+        render_vs_cpu=jdump({key: f"{v:.3e}" for key, v in render_err.items()}),
+        card=repr(card))
+
+
+def mlp_model_load(flags, img_shape, device, seed=SEED):
+    """The MLP model of ``flags``, weights from ``seed``."""
+    from sqair_tpu_torch.configs import mlp_mnist_model
+
+    return mlp_mnist_model.load(flags, img_shape, mean_img=np.zeros(img_shape, np.float32),
+                                device=device, seed=seed)
+
+
+def render_step(torch, model, imgs, nums, noise):
+    """(record "full") aux of loss_and_metrics with the render tensors,
+    without autograd, the metrics finalised."""
+    from sqair_tpu_torch.models import Model
+
+    with torch.inference_mode():
+        obs = torch.as_tensor(imgs, device=model.device)
+        gt = torch.as_tensor(nums, device=model.device)
+        _, aux = model.loss_and_metrics(obs, noise, gt, render=True)
+    aux["metrics"] = Model.finalize_metrics(aux["metrics"])
+    return aux
+
+
+def kernel_calls(fused, fg, fc):
+    """{kernel: (module, the function that launches it, its plain version on
+    the same positional arguments)}: the six forward kernels of an eval step
+    or a rollout.  Each launching function takes its wrapper's arguments and
+    a ``save`` flag; the plain versions return everything the kernel can."""
+    return {
+        "fused_mlp": (fused, "_mlp_fwd_cuda", fused.mlp_plain_acts),
+        "fused_vanilla_rnn": (fused, "_vrnn_fwd_cuda", fused.vanilla_rnn_plain),
+        "fused_gru": (fused, "_gru_fwd_cuda", fused.gru_plain_saving),
+        "fused_glimpse": (fg, "_fwd_cuda", fg.glimpse_plain_fwd),
+        "fused_prop": (fc, "_fwd_cuda", fc.prop_plain_fwd),
+        "fused_disc": (fc, "_disc_fwd_cuda", fc.disc_plain_fwd),
+    }
+
+
+def as_tuple(out):
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def to_double(torch, args):
+    """The arguments with every float tensor (also inside tuples) in float64."""
+    def conv(a):
+        if isinstance(a, torch.Tensor):
+            return a.double() if a.is_floating_point() else a
+        if isinstance(a, (tuple, list)):
+            return type(a)(conv(t) for t in a)
+        return a
+    return tuple(conv(a) for a in args)
+
+
+def frame_fields(fc, kernel, outs):
+    """(name, tensor) of each output field of a frame kernel's forward, its
+    residual blob split by field."""
+    if kernel == "fused_prop":
+        offs = fc.residual_layout(outs["dims"])[0]
+        return (list(zip(fc.OUT_FIELDS, outs["out"][:10])) + [
+            (f"residual.{n}", outs["out"][10][..., lo:hi]) for n, (lo, hi) in offs.items()])
+    offs = fc.disc_residual_layout(outs["dims"])[0]
+    return (list(zip(fc.DISC_OUT_FIELDS, outs["out"][:9])) + [
+        (f"residual.{n}", outs["out"][9][..., lo:hi]) for n, (lo, hi) in offs.items()] + [
+        ("glimpses", outs["out"][10]), ("input_encoder", outs["out"][11])])
+
+
+@contextlib.contextmanager
+def checked_calls(torch, label):
+    """Every kernel launch inside the block held against its plain version
+    on the same inputs, on the card, call by call (the plain versions launch
+    nothing, so the launch counts stay the block's, and the block gets the
+    kernels' outputs).  Each output (a frame kernel's: each field) lies
+    within |d| <= KERNEL_ATOL + KERNEL_RTOL |plain|, or else within
+    max(KERNEL_ATOL, 2x the plain version's distance) of the plain version
+    in float64 on the same inputs: the rule of ``frame_fields_check``, for
+    sums whose terms are far larger than their result (cancellation), where
+    the fixed bound is below float32's own error.  The frame kernels draw
+    presences inside: the first presence of a row that the kernel draws
+    otherwise than its plain version must have its uniform within
+    FLIP_MARGIN of both probabilities (such a call is counted as crossed,
+    not gated; any other flip fails).  Yields {kernel: dict(calls,
+    max_abs_err, of_tol: the largest |d| over its fixed bound, refereed:
+    calls held to float64, of_referee: the largest distance to float64 over
+    its bound, crossed)}, filled as the block runs."""
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops import fused_cells as fc
+    from sqair_tpu_torch.ops import fused_glimpse as fg
+
+    table = kernel_calls(fused, fg, fc)
+    plain = {kernel: fn for kernel, (_, _, fn) in table.items()}
+    report = {}
+
+    def held(kernel, st, fields, referee):
+        worst, refereed = frame_fields_check(torch, f"{label}: {kernel} call {st['calls']}",
+                                             fields, referee, referee=True, stats=st)
+        st["max_abs_err"] = max(st["max_abs_err"], worst)
+        st["refereed"] += bool(refereed)
+
+    def flipped(kernel, st, args, got, want):
+        """Whether a frame kernel drew a presence otherwise than its plain
+        version, at a near-tie (else this fails)."""
+        u = args[8] if kernel == "fused_prop" else args[6]
+        S = u.shape[0]
+        differ = (got[7] != want[7]).reshape(S, -1)  # [S, B]
+        if not bool(differ.any()):
+            return False
+        rows = torch.nonzero(differ.any(0))[:, 0]
+        first = differ.int().argmax(0)[rows]  # each row's first slot that differs
+        u_, pk, pp = (t.reshape(S, -1)[first, rows] for t in (u, got[6], want[6]))
+        near = (torch.abs(u_ - pk) < FLIP_MARGIN) & (torch.abs(u_ - pp) < FLIP_MARGIN)
+        if not bool(near.all()):
+            raise Failure(f"{label}: {kernel} call {st['calls']} draws a presence otherwise "
+                          f"than its plain version, its uniform over {FLIP_MARGIN} from the "
+                          "probabilities")
+        st["crossed"] += 1
+        return True
+
+    def checking(kernel, real):
+        def call(*args, **kw):
+            out = real(*args, **kw)
+            got, want = as_tuple(out), as_tuple(plain[kernel](*args))
+            st = report.setdefault(kernel, dict(calls=0, max_abs_err=0.0, of_tol=0.0,
+                                                refereed=0, of_referee=0.0, crossed=0))
+            st["calls"] += 1
+
+            def ref_out():
+                return as_tuple(plain[kernel](*to_double(torch, args)))
+
+            if kernel in ("fused_prop", "fused_disc"):
+                if flipped(kernel, st, args, got, want):
+                    return out
+                named = [frame_fields(fc, kernel, dict(out=o, dims=args[-1]))
+                         for o in (got, want)]
+                fields = [(n, a, b) for (n, a), (_, b) in zip(*named)]
+                held(kernel, st, fields, lambda: [t for _, t in frame_fields(
+                    fc, kernel, dict(out=ref_out(), dims=args[-1]))])
+            else:
+                keep = [i for i, a in enumerate(got) if a is not None and a.numel()]
+
+                def referee():
+                    ref = ref_out()
+                    return [ref[i] for i in keep]
+
+                held(kernel, st, [(f"output {i}", got[i], want[i]) for i in keep], referee)
+            return out
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for kernel, (module, name, _) in table.items():
+            stack.enter_context(mock.patch.object(module, name,
+                                                  checking(kernel, getattr(module, name))))
+        yield report
+    for st in report.values():
+        st.update(max_abs_err=f"{st['max_abs_err']:.3e}", of_tol=f"{st['of_tol']:.3f}",
+                  of_referee=f"{st['of_referee']:.3f}")
+
+
+def rollout_vs_plain(torch, model, obs, cond, table, out, sites, switches, label):
+    """The kernels' rollout ``out`` (its presence probabilities ``sites``)
+    against the same rollout through the plain versions on the card under
+    the recorded noise ``table``.  The first presence draw that the two
+    sample otherwise must be crossed (FLIP_MARGIN).  Generation amplifies
+    the calls' rounding differences frame by frame (PERF.md §6), so the
+    distances are reported, not gated (``checked_calls`` gates the calls):
+    returns the frame of the first flip, the largest distance of each
+    window (the inferred frames, then the generated ones before the first
+    flip), the first frame at which the two lie PART_AT apart, and the
+    distance at every tenth frame."""
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops import fused_cells as fc
+    from sqair_tpu_torch.ops import fused_glimpse as fg
+    from sqair_tpu_torch.ops.noise import ReplayNoise
+    from sqair_tpu_torch.scripts import rollout
+
+    with switched(switches), plain_versions(fused, fg, fc):
+        fused.reset_launches()
+        with presence_sites(torch, model) as plain_sites:
+            plain = rollout.generate(model, obs, ReplayNoise(table, obs.device))
+        if sum(fused.launches.values()):
+            raise Failure(f"{label}: the plain run launched a kernel")
+    T = obs.shape[0]
+    t, crossed = first_flip(sites, plain_sites, table)
+    if not crossed:
+        raise Failure(f"{label}: the kernels draw a presence at frame {t} otherwise than the "
+                      f"plain versions, its uniform over {FLIP_MARGIN} from the probabilities")
+    errs = frame_errors(torch, out, plain)
+    worst = np.max(np.stack(list(errs.values())), 0)  # [T]
+    flip = T if t is None else t
+    over = np.nonzero(worst > PART_AT)[0]
+
+    def window(frames):
+        if frames.start >= frames.stop:
+            return None
+        field = max(errs, key=lambda n: float(np.max(errs[n][frames])))
+        return dict(field=field, distance=f"{float(np.max(errs[field][frames])):.3e}")
+
+    return dict(first_flip=t, inferred=window(slice(0, min(cond, flip))),
+                generated=window(slice(cond, flip)),
+                parted_at=int(over[0]) if over.size else None,
+                every_10th={int(i): f"{float(worst[i]):.2e}" for i in range(0, T, 10)})
+
+
+def rollout_phases(torch, card, device):
+    """rollout and rollout-disc (see the module's docstring)."""
+    from sqair_tpu_torch.experiment import flags as pflags
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
+    from sqair_tpu_torch.scripts import rollout
+
+    release = json.loads((PORT_RELEASE / "flags.json").read_text())
+    B, T, cond = ROLLOUT["n_examples"], ROLLOUT["rollout_len"], ROLLOUT["condition_frames"]
+    k = int(release["k_particles"])
+    argv = [f"--checkpoint_dir={PORT_RELEASE}", f"--device={device.type}"] + [
+        f"--{key}={v}" for key, v in ROLLOUT.items()]
+    for label, switches in ROLLOUT_SETTINGS:
+        t0 = time.perf_counter()
+        captured = {}
+        real_generate = rollout.generate
+
+        def generate(model, obs, noise):
+            captured.update(model=model, obs=obs)
+            with presence_sites(torch, model) as sites:
+                out = real_generate(model, obs, noise)
+            captured["sites"] = sites
+            return out
+
+        noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED), device,
+                               record=True)
+        out_dir = tempfile.mkdtemp(prefix="sqair_rollout_")
+        try:
+            pflags.reset()
+            with switched(switches), mock.patch.object(rollout, "generate", generate):
+                fused.reset_launches()
+                with checked_calls(torch, f"rollout ({label})") as calls:
+                    result = rollout.main(argv + [f"--out_dir={out_dir}"], noise=noise)
+                    torch.cuda.synchronize()
+                    counts = dict(fused.launches)
+            with np.load(result["npz"]) as f:
+                npz = {key: f[key].shape for key in f.files}
+        finally:
+            pflags.reset()
+            shutil.rmtree(out_dir)
+        model, obs, out = captured["model"], captured["obs"], result["outputs"]
+        expected = expected_launches(main_path_shapes(
+            release, B, k, T, fuse_glimpse=bool(switches), fuse_cells=label == "both",
+            generate=True), 1)
+        if counts != expected:
+            raise Failure(f"rollout ({label}): launch counts {counts} differ from {expected}")
+        for key, v in out.items():
+            if not bool(torch.isfinite(v).all()):
+                raise Failure(f"rollout ({label}): {key} is not finite")
+        disc_pres = float(out["disc_pres"][cond:].abs().max())
+        if disc_pres != 0.0:
+            raise Failure(f"rollout ({label}): discovery's presence is {disc_pres} in a "
+                          "generated frame")
+        if npz["canvas"] != (T, B) + IMG or npz["conditioned"] != (cond, B) + IMG:
+            raise Failure(f"rollout ({label}): rollout.npz holds {npz}")
+        vs_plain = rollout_vs_plain(torch, model, obs, cond, noise.table, out,
+                                    captured["sites"], switches, f"rollout ({label})")
+        table = noise.table
+        with switched(switches):
+            walls = walls_ms(torch, lambda: rollout.generate(model, obs, ReplayNoise(
+                table, device)), ROLLOUT_REPEATS)
+        ms = statistics.median(walls)
+        log("rollout", t0, setting=label, checkpoint=str(PORT_RELEASE.relative_to(REPO)),
+            examples=B, frames=T, conditioned=cond, launches=jdump(counts),
+            expected=jdump(expected), npz=jdump({key: list(v) for key, v in npz.items()}),
+            generated_disc_pres=disc_pres, calls=jdump(calls), vs_plain=jdump(vs_plain),
+            mean_objects=f"{float(out['presence'][cond:].sum(-1).mean()):.3f}",
+            wall_ms=f"{ms:.3f}", wall_ms_min=f"{walls[0]:.3f}", wall_ms_max=f"{walls[-1]:.3f}",
+            frames_per_s=f"{B * T / (ms / 1e3):.1f}", card=repr(card))
+        del model, obs, out, result, captured
+
+    # kernel #7 on the generation path: DISC_FLAGS, both switches, seed weights
+    t0 = time.perf_counter()
+    disc_flags = dict(release, sample_from_prior=True, generate_after=cond - 1, **DISC_LEVERS)
+    valid = font_valid_set(release)
+    frames = valid["imgs"][:cond, :B].astype(np.float32) / 255.0
+    padded = np.zeros((DISC_ROLLOUT_LEN,) + frames.shape[1:], np.float32)
+    padded[:cond] = frames
+    model = mlp_model_load(disc_flags, IMG, device)
+    obs = torch.from_numpy(padded).to(device)
+    noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED), device, record=True)
+    with switched(CELLS_SWITCH), presence_sites(torch, model) as sites:
+        fused.reset_launches()
+        with checked_calls(torch, "rollout-disc") as calls:
+            out = rollout.generate(model, obs, noise)
+            torch.cuda.synchronize()
+            counts = dict(fused.launches)
+    expected = expected_launches(main_path_shapes(
+        disc_flags, B, k, DISC_ROLLOUT_LEN, fuse_glimpse=True, fuse_cells=True, generate=True), 1)
+    if counts != expected or not counts.get("fused_disc"):
+        raise Failure(f"rollout-disc: launch counts {counts} differ from {expected}")
+    if float(out["disc_pres"][cond:].abs().max()) != 0.0:
+        raise Failure("rollout-disc: discovery's presence is not 0 in a generated frame")
+    vs_plain = rollout_vs_plain(torch, model, obs, cond, noise.table, out, sites,
+                                CELLS_SWITCH, "rollout-disc")
+    with switched(CELLS_SWITCH):
+        walls = walls_ms(torch, lambda: rollout.generate(model, obs, ReplayNoise(
+            noise.table, device)), ROLLOUT_REPEATS)
+    ms = statistics.median(walls)
+    log("rollout-disc", t0, examples=B, frames=DISC_ROLLOUT_LEN, conditioned=cond,
+        launches=jdump(counts), expected=jdump(expected), calls=jdump(calls),
+        vs_plain=jdump(vs_plain), wall_ms=f"{ms:.3f}",
+        frames_per_s=f"{B * DISC_ROLLOUT_LEN / (ms / 1e3):.1f}", card=repr(card))
 
 
 if __name__ == "__main__":

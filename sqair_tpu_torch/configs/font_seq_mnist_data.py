@@ -28,20 +28,21 @@ flags.DEFINE_integer("font_obj_size", 28, "digit size in pixels")
 flags.set_default("output_std", 0.15)
 
 
-def load(batch_size: int, n_timesteps=None):
-    F = flags.FLAGS
-    bank, _ = make_font_digit_bank(F.font_bank_size, F.font_obj_size,
-                                   seed=F.font_seed)
+def make_sets(F, splits=("train", "valid")):
+    """{split: its raw data dict (imgs uint8 [T, N, H, W], nums [1, N, C])}
+    at the font flags of ``F`` (an object with them as attributes): the
+    train set from font_seed, the valid set from font_seed + 1."""
+    bank, _ = make_font_digit_bank(F.font_bank_size, F.font_obj_size, seed=F.font_seed)
     obj = (F.font_obj_size, F.font_obj_size)
-    train = create_seq_dataset(
-        n_samples=F.font_train_samples, n_timesteps=F.font_timesteps,
-        obj_size=obj, seed=F.font_seed, templates=bank,
-    )
-    valid = create_seq_dataset(
-        n_samples=F.font_valid_samples, n_timesteps=F.font_timesteps,
-        obj_size=obj, seed=F.font_seed + 1, templates=bank,
-    )
-    for d in (train, valid):
+    return {split: create_seq_dataset(
+        n_samples=getattr(F, f"font_{split}_samples"), n_timesteps=F.font_timesteps,
+        obj_size=obj, seed=F.font_seed + (split == "valid"), templates=bank)
+        for split in splits}
+
+
+def load(batch_size: int, n_timesteps=None):
+    sets = make_sets(flags.FLAGS)
+    for d in sets.values():
         d["imgs"] = d["imgs"].astype(np.float32) / 255.0
         d["nums"] = d["nums"].astype(np.float32)
-    return _load(batch_size, n_timesteps, train_data=train, valid_data=valid)
+    return _load(batch_size, n_timesteps, train_data=sets["train"], valid_data=sets["valid"])

@@ -30,8 +30,7 @@ TRAIN_DEFAULTS = dict(opt="rmsprop", learning_rate=1e-5, schedule="4,6,10",
 
 # the model config's own flags (sqair_tpu/configs/mlp_mnist_model.py), defined
 # under the JAX package's names and defaults.  The port raises where
-# disc_coverage_signal, sample_from_prior or generate_after leave their
-# defaults (coverage_lr_mult: the CLI raises)
+# disc_coverage_signal leaves its default (coverage_lr_mult: the CLI raises)
 MODEL_DEFAULTS = flags.define_all((
     (str, "disc_prior_type", "cat", "Prior for #discovery steps: {geom, cat}."),
     (float, "step_success_prob", 0.75,
@@ -63,10 +62,10 @@ MODEL_DEFAULTS = flags.define_all((
     (float, "coverage_lr_mult", 1.0,
      "Update multiplier for the 16 coverage input-rows of the discovery steps "
      "predictor (not ported yet; 1 = off)."),
-    (bool, "sample_from_prior", False, "Sample from the prior instead of q (not ported yet)."),
+    (bool, "sample_from_prior", False, "Sample from the prior instead of q."),
     (bool, "rec_where_prior", True, "Recurrent prior for where in discovery."),
     (int, "generate_after", -1,
-     "Switch to generation after this frame (if >= 0; not ported yet)."),
+     "Switch to generation after this frame (if >= 0)."),
 ))
 
 # every flag the model reads, at the JAX package's defaults
@@ -111,11 +110,8 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
     """
     F = dict(DEFAULTS)
     F.update(given(flags))
-    unported = [name for name, off in (("disc_coverage_signal", False),
-                                       ("sample_from_prior", False), ("generate_after", -1))
-                if F[name] != off]
-    if unported:
-        raise ValueError(f"flags not ported yet: {unported}")
+    if F["disc_coverage_signal"]:
+        raise ValueError("flags not ported yet: ['disc_coverage_signal']")
     device = resolve_device(device)
     params = get_params(F)
     params.update(param_overrides)
@@ -145,7 +141,8 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
         glimpse_output_scale=F["output_scale"], mean_img=mean_img,
         output_std=F["output_std"],
     )
-    seq = SequentialAIR(timestep, decoder)
+    seq = SequentialAIR(timestep, decoder, sample_from_prior=bool(F["sample_from_prior"]),
+                        generate_after=int(F["generate_after"]))
     init_params(seq, torch.Generator().manual_seed(seed))
     seq.to(device)
     return Model(seq, k_particles=int(F["k_particles"]), aspect_penalty=F["aspect_penalty"],

@@ -2,13 +2,13 @@
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from ..nn.layers import MLP, Module, VanillaRNN, zeros
-from ..nn.stochastic import RecurrentNormalImpl
+from ..nn.stochastic import ConditionedNormalAdaptor, RecurrentNormal, RecurrentNormalImpl
 from ..ops import distributions as D
 from ..ops import fused_cells
 from ..ops.noise import NoiseSource
@@ -83,10 +83,11 @@ class Discover(Module):
         :param time_step: [T*B, 1] frame index of each row
         """
         return self._compute_log_probs(hidden_outputs, num_steps, time_step,
-                                       conditioning_from_prop, prior_conditioning)
+                                       conditioning_from_prop, prior_conditioning)[1]
 
     def forward(self, img, conditioning_from_prop, time_step: int, prior_conditioning,
-                noise: NoiseSource, compute_log_probs: bool = True) -> Dict:
+                noise: NoiseSource, compute_log_probs: bool = True,
+                sample_from_prior: bool = False, do_generate: float = 0.0) -> Dict:
         """Runs discovery for one frame.
 
         :param img: [B, H, W]
@@ -96,6 +97,10 @@ class Discover(Module):
         :param noise: source scoped to this frame's discovery
         :param compute_log_probs: False leaves the log-probs to
             ``log_probs_only`` (the draws are the same either way)
+        :param sample_from_prior: also draw what and where from the prior
+            (noise under "prior"); the prior's presence is 0
+        :param do_generate: 1 puts the prior's samples in place of the
+            posterior's (0 keeps the posterior's)
         """
         extra_steps_logit, steps_logit_scale, steps_logit_clamp = 0.0, 1.0, None
         if (self.early_disc_logit_bias or self.early_disc_logit_clamp
@@ -113,12 +118,17 @@ class Discover(Module):
         hidden_outputs, num_steps = self._discover(
             img, conditioning_from_prop, noise, extra_steps_logit, steps_logit_scale,
             steps_logit_clamp)
+        log_probs = {}
+        if compute_log_probs:
+            hidden_outputs, log_probs = self._compute_log_probs(
+                hidden_outputs, num_steps, time_step, conditioning_from_prop,
+                prior_conditioning, noise.scope("prior") if sample_from_prior else None,
+                do_generate)
+        elif sample_from_prior:
+            raise ValueError("sampling from the prior needs the in-loop log-probs")
         outputs = dict(hidden_outputs=hidden_outputs, num_steps=num_steps)
         outputs.update(hidden_outputs)
-        if compute_log_probs:
-            outputs.update(self._compute_log_probs(hidden_outputs, num_steps, time_step,
-                                                   conditioning_from_prop,
-                                                   prior_conditioning))
+        outputs.update(log_probs)
         return outputs
 
     def _indicator(self, cond: bool, dtype) -> torch.Tensor:
@@ -223,16 +233,44 @@ class Discover(Module):
             step_logits = step_logits + is_early * ramp
         return D.Categorical(logits=step_logits)
 
-    def _where_prior_log_prob(self, where, conditioning):
+    def _where_prior_dist(self, dtype):
+        """The where prior behind one interface: the recurrent prior, or
+        N(where_mean, where_std) that ignores the conditioning."""
         if self.rec_where_prior:
-            return self._where_prior.log_prob(where, conditioning)
-        return D.Normal(self._where_mean.to(where.dtype),
-                        self._where_std.to(where.dtype)).log_prob(where)
+            return RecurrentNormal(self._where_prior)
+        return ConditionedNormalAdaptor(self._where_mean.to(dtype), self._where_std.to(dtype))
+
+    def _where_prior_log_prob(self, where, conditioning):
+        return self._where_prior_dist(where.dtype).log_prob(where, conditioning)
+
+    def _where_prior_sample(self, noise: NoiseSource, batch_size, conditioning):
+        """[B, S, 4] where samples of the prior: the recurrent prior's (step
+        i's noise under ("where", i)), else one draw under "where"."""
+        return self._where_prior_dist(conditioning.dtype).sample(
+            noise, "where", (batch_size, self.n_steps), conditioning)
 
     def _compute_log_probs(self, hidden_outputs, num_steps, time_step,
-                           conditioning_from_prop, prior_conditioning):
+                           conditioning_from_prop, prior_conditioning,
+                           prior_noise: Optional[NoiseSource] = None,
+                           do_generate: float = 0.0):
+        """(hidden outputs, log-probs).  With ``prior_noise`` what ~ N(0, 1)
+        and where from the where prior are drawn, the presence is 0, and
+        ``do_generate`` blends them in; as in the JAX package the counts'
+        log-probs keep the posterior's ``num_steps``, and the masks take the
+        blended presence."""
         where_conditioning = torch.cat([conditioning_from_prop, prior_conditioning], -1)
         steps_prior = self._make_steps_prior(time_step, prior_conditioning)
+        if prior_noise is not None:
+            B, S = hidden_outputs["what"].shape[:2]
+            dtype = where_conditioning.dtype
+            what_p = D.Normal(self._zero.to(dtype), self._one.to(dtype)).sample(
+                prior_noise.normal("what", (B, S, self.cell.n_what)))
+            where_p = self._where_prior_sample(prior_noise, B, where_conditioning)
+            dg, ndg = do_generate, 1.0 - do_generate
+            hidden_outputs = dict(hidden_outputs)
+            hidden_outputs["what"] = dg * what_p + ndg * hidden_outputs["what"]
+            hidden_outputs["where"] = dg * where_p + ndg * hidden_outputs["where"]
+            hidden_outputs["presence"] = dg * 0.0 + ndg * hidden_outputs["presence"]
         presence = hidden_outputs["presence"][..., 0]  # [B, S]
 
         what_post = D.Normal(hidden_outputs["what_loc"], hidden_outputs["what_scale"])
@@ -250,7 +288,7 @@ class Discover(Module):
             -1) * presence
         steps_prior_lp = steps_prior.log_prob(num_steps)
 
-        return dict(
+        return hidden_outputs, dict(
             q_z_given_x=torch.sum(what_lp + where_lp, -1) + steps_lp,
             p_z=torch.sum(what_prior_lp + where_prior_lp, -1) + steps_prior_lp,
             what_log_prob=what_lp,

@@ -13,6 +13,23 @@ from ..ops.noise import NoiseSource
 from .seq import SequentialAIR
 
 
+# the record's fields that the figures read, one particle an example
+RENDERED = ("obj_id", "canvas", "glimpse", "presence_prob", "presence", "presence_logit",
+            "where")
+
+
+def resampling_index(importance_weights, noise: NoiseSource) -> torch.Tensor:
+    """[B] particle index drawn from the [B, k] normalised importance
+    weights: the Gumbel-max draw of the JAX package's
+    ``jax.random.categorical(fold_in(rng, 0x5e5a), log(w + 1e-38))``, its
+    uniform [B, k] under the key "resample" (as JAX's gumbel takes it, in
+    [tiny, 1))."""
+    tiny = torch.finfo(importance_weights.dtype).tiny
+    u = torch.clamp(noise.uniform("resample", importance_weights.shape), min=tiny)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(gumbel + torch.log(importance_weights + 1e-38), -1)
+
+
 class Model:
     """IWAE/VIMCO wrapper around SequentialAIR.
 
@@ -54,8 +71,8 @@ class Model:
         return outputs
 
     def loss_and_metrics(self, obs, noise: NoiseSource, gt_presence=None,
-                         l2_weight: float = 0.0,
-                         record_mode: str = "full") -> Tuple[torch.Tensor, Dict]:
+                         l2_weight: float = 0.0, record_mode: str = "full",
+                         render: bool = False) -> Tuple[torch.Tensor, Dict]:
         """The VIMCO target and the JAX package's metric set.
 
         :param obs: [T, B, H, W]
@@ -64,7 +81,10 @@ class Model:
         :param record_mode: "full", or "train" (the same target and metrics,
             without the per-frame count metrics ``num_step_acc_per_t`` and
             ``num_steps_per_t``)
-        :return: (target, dict(metrics=..., log_weights=[B, k]))
+        :param render: (record_mode "full") also draw one particle of each
+            example by its importance weight (``resampling_index``) and
+            return the figures' tensors under "render"
+        :return: (target, dict(metrics=..., log_weights=[B, k][, render=...]))
         """
         k = self.k_particles
         T, B = obs.shape[0], obs.shape[1]
@@ -147,4 +167,13 @@ class Model:
                 pen = transient if self.transient_temp == 1.0 else _excess(self.transient_temp)
                 target = target + self.transient_penalty * pen
         metrics["target"] = target
-        return target, dict(metrics=metrics, log_weights=log_weights)
+        aux = dict(metrics=metrics, log_weights=log_weights)
+        if render:
+            if record_mode != "full":
+                raise ValueError("the render tensors need record_mode='full'")
+            idx = resampling_index(importance_weights, noise) + k * torch.arange(
+                B, device=obs.device)
+            aux["render"] = {"resampled_" + name: torch.index_select(outputs[name], 1, idx)
+                             for name in RENDERED}
+            aux["render"]["obs"] = obs
+        return target, aux

@@ -77,27 +77,38 @@ class Propagate(Module):
         the deferred pass of the train record, over [T*B, ...] stacks, with
         the same math as the in-loop path."""
         return self._compute_log_probs(presence_tm1, hidden_outputs, prior_stats,
-                                       delta_what, delta_where)
+                                       delta_what, delta_where)[1]
 
     def forward(self, img, z_tm1, temporal_state, prior_state, noise: NoiseSource,
-                compute_log_probs: bool = True) -> Dict:
+                compute_log_probs: bool = True, sample_from_prior: bool = False,
+                do_generate: float = 0.0) -> Dict:
         """:param img: [B, H, W]
         :param z_tm1: (what, where, presence, presence_logit), each [B, S, d]
         :param temporal_state, prior_state: state tuples of [B, S, U]
         :param noise: source scoped to this frame's propagation
         :param compute_log_probs: False leaves the log-probs to
-            ``log_probs_only``"""
+            ``log_probs_only``
+        :param sample_from_prior: also draw what, where and presence from
+            the prior (noise under "prior"), and take the posterior's
+            log-probs at those samples
+        :param do_generate: 1 puts the prior samples in place of the
+            posterior's (0 keeps the posterior's)"""
         presence_tm1 = z_tm1[2]
         prior_stats, prior_state = self.prior(z_tm1, prior_state)
         hidden_outputs, num_steps, delta_what, delta_where, temporal_state = self._ssm(
             img, z_tm1, temporal_state, noise)
+        log_probs = {}
+        if compute_log_probs:
+            hidden_outputs, log_probs = self._compute_log_probs(
+                presence_tm1, hidden_outputs, prior_stats, delta_what, delta_where,
+                noise.scope("prior") if sample_from_prior else None, do_generate)
+        elif sample_from_prior:
+            raise ValueError("sampling from the prior needs the in-loop log-probs")
         outputs = dict(prior_stats=prior_stats, prior_state=prior_state,
                        hidden_outputs=hidden_outputs, num_steps=num_steps,
                        temporal_state=temporal_state)
         outputs.update(hidden_outputs)
-        if compute_log_probs:
-            outputs.update(self._compute_log_probs(presence_tm1, hidden_outputs,
-                                                   prior_stats, delta_what, delta_where))
+        outputs.update(log_probs)
         return outputs
 
     def _fused_prop_params(self) -> Optional[Tuple[fused_cells.PropParams, torch.Tensor]]:
@@ -185,7 +196,12 @@ class Propagate(Module):
         return stacked, num_steps, delta_what, delta_where, temporal_state
 
     def _compute_log_probs(self, presence_tm1, hidden_outputs, prior_stats, delta_what,
-                           delta_where):
+                           delta_where, prior_noise: Optional[NoiseSource] = None,
+                           do_generate: float = 0.0):
+        """(hidden outputs, log-probs).  With ``prior_noise`` the prior's
+        samples are drawn and blended in by ``do_generate``; as in the JAX
+        package the posterior's log-probs are then taken at the prior's
+        samples, and the masks keep the posterior's presence."""
         presence = hidden_outputs["presence"][..., 0]  # [B, S]
         presence_tm1 = presence_tm1[..., 0]
 
@@ -195,9 +211,23 @@ class Propagate(Module):
         pres_post = D.Bernoulli(logits=hidden_outputs["presence_logit"][..., 0])
         what_prior, where_prior, pres_prior = PropagatePrior.make_distribs(prior_stats)
 
+        samples = (delta_what, delta_where, presence)
+        if prior_noise is not None:
+            samples = (what_prior.sample(prior_noise.normal("what", what_prior.shape)),
+                       where_prior.sample(prior_noise.normal("where", where_prior.shape)),
+                       pres_prior.sample(prior_noise.uniform("presence",
+                                                             pres_prior.logits.shape)))
+            dg, ndg = do_generate, 1.0 - do_generate
+            hidden_outputs = dict(hidden_outputs)
+            hidden_outputs["what"] = dg * samples[0] + ndg * hidden_outputs["what"]
+            hidden_outputs["where"] = dg * samples[1] + ndg * hidden_outputs["where"]
+            hidden_outputs["presence"] = (dg * samples[2][..., None]
+                                          + ndg * hidden_outputs["presence"])
+        delta_what, delta_where, pres_sample = samples
+
         what_lp = torch.sum(what_post.log_prob(delta_what), -1)
         where_lp = where_post.log_prob(delta_where)  # event already reduced
-        pres_lp = pres_post.log_prob(presence)
+        pres_lp = pres_post.log_prob(pres_sample)
 
         prop_prob = torch.exp(pres_lp) * presence_tm1
         mask = presence_tm1 * presence
@@ -209,7 +239,7 @@ class Propagate(Module):
         where_prior_lp = torch.sum(where_prior.log_prob(hidden_outputs["where"]), -1) * mask
         pres_prior_lp = torch.sum(pres_prior.log_prob(presence) * presence_tm1, -1)
 
-        return dict(
+        return hidden_outputs, dict(
             prop_prob=prop_prob,
             q_z_given_x=torch.sum(what_lp + where_lp, -1) + pres_lp,
             p_z=torch.sum(what_prior_lp + where_prior_lp, -1) + pres_prior_lp,

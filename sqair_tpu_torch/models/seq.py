@@ -9,7 +9,9 @@ Two record modes, as in the JAX package:
            then runs one decode over all [T*B] frames and one batched
            log-prob pass (the decode, the discovery where prior and the
            count prior leave the loop).  The target and the metrics are the
-           same as "full"'s.
+           same as "full"'s.  Under ``sample_from_prior`` the log-probs and
+           the decode stay in the loop and the record keeps the fields the
+           loss and the metrics read.
 """
 from __future__ import annotations
 
@@ -52,33 +54,47 @@ def _flatten_time(nest):
 
 class SequentialAIR(Module):
     """Owns the two parameter trees of the JAX package, ``timestep`` and
-    ``decoder``; its state_dict keys are the flax paths (convert.py)."""
+    ``decoder``; its state_dict keys are the flax paths (convert.py).
 
-    def __init__(self, timestep: SQAIRTimestep, decoder: AIRDecoder):
+    :param sample_from_prior: every frame also draws its latents from the
+        priors (generation); the "train" record then keeps its log-probs and
+        decode in the loop, as the JAX package does
+    :param generate_after: from frame ``generate_after + 1`` on, the prior
+        samples take the posterior's place (if >= 0)
+    """
+
+    def __init__(self, timestep: SQAIRTimestep, decoder: AIRDecoder,
+                 sample_from_prior: bool = False, generate_after: int = -1):
         super().__init__()
         stn.full_fp32_matmul()
         self.timestep, self.decoder = timestep, decoder
+        self.sample_from_prior, self.generate_after = sample_from_prior, generate_after
 
     def forward(self, obs, noise: NoiseSource, record_mode: str = "full") -> Dict:
         """:param obs: [T, B, H, W]
-        :param noise: source of every draw, keyed (t, "prop"|"disc", slot, name);
-            both record modes draw the same keys
+        :param noise: source of every draw, keyed (t, "prop"|"disc", slot, name),
+            and under sample_from_prior (t, "prop"|"disc", "prior", ...); both
+            record modes draw the same keys
         :param record_mode: "full" or "train" (see the module's docstring)
         :return: dict of stacked per-frame records [T, ...]"""
         if record_mode not in RECORD_MODES:
             raise ValueError(f"record_mode must be one of {RECORD_MODES}, got {record_mode!r}")
-        train = record_mode == "train"
+        deferred = record_mode == "train" and not self.sample_from_prior
         T, B = obs.shape[0], obs.shape[1]
         carry = self.timestep.initial_carry(B, obs.device, obs.dtype)
         records = []
         for t in range(T):
             img = obs[t]
+            do_generate = (float(t > self.generate_after) if self.generate_after >= 0
+                           else 0.0)
             out = self.timestep(img, carry["z"], carry["time_state"], carry["prior_state"],
                                 carry["last_used_id"], carry["prev_ids"], t, noise.scope(t),
-                                compute_log_probs=not train)
+                                compute_log_probs=not deferred,
+                                sample_from_prior=self.sample_from_prior,
+                                do_generate=do_generate)
             z_t = out["z_t"]
             prop, disc = out["prop"], out["disc"]
-            if train:
+            if deferred:
                 # neither the decode nor the log-probs feed the carry: both
                 # run after the loop, batched over [T*B]
                 records.append(dict(
@@ -87,14 +103,38 @@ class SequentialAIR(Module):
                     disc_h=disc["hidden_outputs"], prior_stats=prop["prior_stats"],
                     presence_tm1=carry["z"][2], cond_prop=out["conditioning_from_prop"],
                     prior_cond=out["expected_prop_prior_num_step"]))
-                carry = dict(z=z_t, time_state=out["temporal_hidden_state"],
-                             prior_state=out["prop_prior_state"], prev_ids=out["ids"],
-                             last_used_id=out["highest_used_ids"])
-                continue
-            p_x_given_z, glimpse = self.decoder(z_t[0], z_t[1], z_t[2])
+            else:
+                records.append(self._record(img, out, z_t, prop, disc, record_mode))
+            carry = dict(z=z_t, time_state=out["temporal_hidden_state"],
+                         prior_state=out["prop_prior_state"], prev_ids=out["ids"],
+                         last_used_id=out["highest_used_ids"])
+        if deferred:
+            return self._deferred(obs, _stack(records))
+        return {k: torch.stack([r[k] for r in records], 0) for k in records[0]}
 
-            data_ll = torch.sum(p_x_given_z.log_prob(img), dim=(1, 2))
-            kl = out["q_z_given_x"] - out["p_z"]
+    def _record(self, img, out, z_t, prop, disc, record_mode) -> Dict:
+        """One frame's record, decoded in the loop: the whole record, or
+        under "train" (sample_from_prior) the fields the loss and the
+        metrics read."""
+        p_x_given_z, glimpse = self.decoder(z_t[0], z_t[1], z_t[2])
+        data_ll = torch.sum(p_x_given_z.log_prob(img), dim=(1, 2))
+        kl = out["q_z_given_x"] - out["p_z"]
+        common = dict(
+            discrete_log_prob=prop["prop_log_prob"] + disc["num_step_log_prob"],
+            num_prop_steps_per_sample=prop["num_steps"],
+            num_disc_steps_per_sample=disc["num_steps"],
+            num_steps_per_sample=out["num_steps"],
+            data_ll_per_sample=data_ll,
+            kl_per_sample=kl,
+            log_q_z_given_x_per_sample=out["q_z_given_x"],
+            log_p_z_per_sample=out["p_z"],
+            log_weights_per_timestep=data_ll - kl,
+        )
+        if record_mode == "train":
+            record = dict(where=z_t[1], presence=z_t[2], presence_logit=z_t[3],
+                          mse_per_timestep=torch.mean((img - p_x_given_z.mean) ** 2,
+                                                      dim=(1, 2)), **common)
+        else:
             record = dict(
                 what=out["what"], what_loc=out["what_loc"], what_scale=out["what_scale"],
                 where=out["where"], where_loc=out["where_loc"],
@@ -118,25 +158,11 @@ class SequentialAIR(Module):
                 prop_log_prob=prop["prop_log_prob"],
                 prop_prior_log_prob=prop["prop_prior_log_prob"],
                 prop_prob=prop["prop_prob"],
-                discrete_log_prob=prop["prop_log_prob"] + disc["num_step_log_prob"],
-                num_prop_steps_per_sample=prop["num_steps"],
-                num_disc_steps_per_sample=disc["num_steps"],
-                num_steps_per_sample=out["num_steps"],
                 prop_pres=prop["hidden_outputs"]["presence"],
                 disc_pres=disc["hidden_outputs"]["presence"],
-                data_ll_per_sample=data_ll,
-                kl_per_sample=kl,
-                log_q_z_given_x_per_sample=out["q_z_given_x"],
-                log_p_z_per_sample=out["p_z"],
-                log_weights_per_timestep=data_ll - kl,
+                **common,
             )
-            records.append({k: _squeeze_last(v) for k, v in record.items()})
-            carry = dict(z=z_t, time_state=out["temporal_hidden_state"],
-                         prior_state=out["prop_prior_state"], prev_ids=out["ids"],
-                         last_used_id=out["highest_used_ids"])
-        if train:
-            return self._deferred(obs, _stack(records))
-        return {k: torch.stack([r[k] for r in records], 0) for k in records[0]}
+        return {k: _squeeze_last(v) for k, v in record.items()}
 
     def _deferred(self, obs, rec) -> Dict:
         """The train record's batched decode and log-prob pass over the

@@ -111,14 +111,19 @@ class SQAIRTimestep(Module):
     # -------------------------------------------------------------- step
     def forward(self, img, z_tm1, temporal_hidden_state, prop_prior_state,
                 highest_used_ids, prev_ids, time_step: int, noise: NoiseSource,
-                compute_log_probs: bool = True) -> Dict:
+                compute_log_probs: bool = True, sample_from_prior: bool = False,
+                do_generate: float = 0.0) -> Dict:
         """:param noise: source scoped to this frame
         :param compute_log_probs: False returns the samples and stats only,
             with the conditioning that ``batched_log_probs`` needs to
             evaluate the log-probs later, batched over time (they never feed
-            the recurrence)"""
+            the recurrence)
+        :param sample_from_prior: both modules also draw from their priors
+        :param do_generate: 1 puts the prior samples in place of the
+            posterior's (generation), 0 keeps the posterior's"""
         prop_output = self.propagate(img, z_tm1, temporal_hidden_state, prop_prior_state,
-                                     noise.scope("prop"), compute_log_probs)
+                                     noise.scope("prop"), compute_log_probs,
+                                     sample_from_prior, do_generate)
         conditioning_from_prop = self._encode_latents(
             prop_output["what"], prop_output["where"], prop_output["presence"])
 
@@ -130,7 +135,7 @@ class SQAIRTimestep(Module):
 
         disc_output = self.discover(img, conditioning_from_prop, time_step,
                                     expected_prop_prior_num_step, noise.scope("disc"),
-                                    compute_log_probs)
+                                    compute_log_probs, sample_from_prior, do_generate)
 
         (hidden_outputs, z_t, obj_ids, prop_prior_state, temporal_hidden_state,
          highest_used_ids) = self._choose_latents(prop_output, disc_output,

@@ -7,6 +7,7 @@ import torch
 
 from ..ops import distributions as D
 from ..ops.math import softplus
+from ..ops.noise import NoiseSource
 from .layers import (MLP, Dense, Module, VanillaRNN, const, glorot_uniform,
                      truncated_normal, zeros)
 
@@ -105,17 +106,63 @@ class RecurrentNormalImpl(Module):
         self._cond_hidden = Dense(n_dim + d_cond, n_hidden)
         self._cond_out = Dense(n_hidden, n_dim)
 
-    def log_prob(self, samples, conditioning):
-        """log-probs [B, L, n_dim] of given samples [B, L, n_dim]."""
-        batch_size = samples.shape[0]
+    def _initial(self, batch_size, conditioning):
         sample = self.init_sample.expand(batch_size, self.n_dim)
         (state,) = self._rnn.initial_state(batch_size)
         h = torch.cat([state, conditioning], -1)
-        state = self._cond_out(torch.nn.functional.elu(self._cond_hidden(h)))
+        return sample, self._cond_out(torch.nn.functional.elu(self._cond_hidden(h)))
+
+    def _step(self, sample_m1, state):
+        """(the next step's Normal, the new state)"""
+        (state,), out = self._rnn((state,), sample_m1)
+        loc, scale = torch.chunk(self._readout(out), 2, -1)
+        return D.Normal(loc, softplus(scale) + 1e-2), state
+
+    def log_prob(self, samples, conditioning):
+        """log-probs [B, L, n_dim] of given samples [B, L, n_dim]."""
+        sample, state = self._initial(samples.shape[0], conditioning)
         logps = []
         for i in range(samples.shape[-2]):
-            (state,), out = self._rnn((state,), sample)
-            loc, scale = torch.chunk(self._readout(out), 2, -1)
+            pdf, state = self._step(sample, state)
             sample = samples[..., i, :]
-            logps.append(D.Normal(loc, softplus(scale) + 1e-2).log_prob(sample))
+            logps.append(pdf.log_prob(sample))
         return torch.stack(logps, -2)
+
+    def sample(self, noise: NoiseSource, batch_size: int, seq_len: int, conditioning):
+        """Samples [B, L, n_dim], each step's fed back into the RNN; step i
+        takes its standard-normal noise from ``noise.normal(i, [B, n_dim])``
+        (the JAX package draws it under ``fold_in(rng, i)``)."""
+        sample, state = self._initial(batch_size, conditioning)
+        samples = []
+        for i in range(seq_len):
+            pdf, state = self._step(sample, state)
+            sample = pdf.sample(noise.normal(i, (batch_size, self.n_dim)))
+            samples.append(sample)
+        return torch.stack(samples, -2)
+
+
+class RecurrentNormal:
+    """The distribution's interface over a ``RecurrentNormalImpl``."""
+
+    def __init__(self, impl: RecurrentNormalImpl):
+        self._impl = impl
+
+    def log_prob(self, samples, conditioning):
+        return self._impl.log_prob(samples, conditioning)
+
+    def sample(self, noise: NoiseSource, name, sample_size=(1, 1), conditioning=None):
+        """Samples [n, length, n_dim]; step i's noise under (name, i)."""
+        n, length = sample_size
+        return self._impl.sample(noise.scope(name), n, length, conditioning)
+
+
+class ConditionedNormalAdaptor(D.Normal):
+    """A Normal that ignores a ``conditioning`` argument, so that it stands
+    where a ``RecurrentNormal`` would."""
+
+    def log_prob(self, x, conditioning=None):
+        return super().log_prob(x)
+
+    def sample(self, noise: NoiseSource, name, sample_size=(), conditioning=None):
+        """Samples [*sample_size, *shape], one draw of noise under ``name``."""
+        return super().sample(noise.normal(name, tuple(sample_size) + tuple(self.shape)))

@@ -26,9 +26,18 @@ host minibatcher starts again from its seed, as the JAX package's does).
 Each eval batch takes the noise of a generator seeded with 1, as the JAX
 package passes PRNGKey(1) (``scripts/eval.py`` ``default_noise``).
 
+At the start, every ``--fig_itr`` steps and at the end the progress figures
+(``eval_tools.ProgressFig``: still_fig_<itr>.png, seq_fig_<itr>.png) are
+drawn from a valid batch, with the noise of a generator seeded with 2 (the
+JAX package's PRNGKey(2)), where matplotlib is installed; a figure that
+fails falls back to the raw render tensors as tensorboard images.  The
+figures' batches come from a valid-set iterator of their own, so a figure
+moves no eval's batches (in the JAX package each figure takes the eval
+iterator's next batch).
+
 Not ported yet, and raising: multi-host training (``--coordinator_address``,
 ``--num_processes`` > 1; ROADMAP Queue 1 item 8), ``--coverage_lr_mult``
-(item 5); the figures (item 4) are not drawn.
+(item 5).
 """
 from __future__ import annotations
 
@@ -43,10 +52,10 @@ import numpy as np
 import torch
 
 from ..configs.mlp_mnist_model import TRAIN_DEFAULTS, make_optimizer
-from ..data.loader import curriculum_seq_len, truncate_batch
+from ..data.loader import Minibatcher, curriculum_seq_len, truncate_batch
 from ..data.moving_mnist import DeviceDatasetSampler
 from ..device import resolve_device
-from ..eval_tools import MetricWriter, make_logger
+from ..eval_tools import MetricWriter, ProgressFig, make_logger
 from ..experiment import flags
 from ..experiment.experiment_tools import (init_checkpoint, load, parse_flags, print_flags,
                                            print_num_params)
@@ -57,6 +66,7 @@ from ..training.graph import TrainSnapshot, make_chained_train_step
 from .eval import default_noise
 
 DATA_SEED, NOISE_SEED = 0, 2
+RENDER_SEED = 2  # the JAX package renders its figures with PRNGKey(2)
 PROFILED_CALLS = 3
 
 flags.define_all((
@@ -70,7 +80,7 @@ flags.define_all((
     (int, "log_itr", int(1e4), "Iters between full evals."),
     (int, "report_loss_every", int(1e3), "Iters between heartbeats."),
     (int, "save_itr", int(1e5), "Iters between checkpoints."),
-    (int, "fig_itr", int(1e4), "Iters between figures (figures are not ported yet)."),
+    (int, "fig_itr", int(1e4), "Iters between figures."),
     (int, "train_itr", TRAIN_DEFAULTS["train_itr"], "Max training iterations."),
     (bool, "resume", False, "Resume the previous run."),
     (bool, "log_at_start", False, "Evaluate before training."),
@@ -143,7 +153,6 @@ def main(argv: Optional[Sequence[str]] = None,
     if F.coverage_lr_mult != 1.0:
         raise NotImplementedError("--coverage_lr_mult is not ported yet "
                                   "(ROADMAP Queue 1 item 5)")
-    print("figures are not ported yet (ROADMAP Queue 1 item 4): none is written")
 
     # ------------------------------------------------------------- data
     data_dict = load(F.data_config, F.batch_size)
@@ -233,6 +242,30 @@ def main(argv: Optional[Sequence[str]] = None,
                       data_dict["train_iter"], train_batches, data_dict["valid_iter"],
                       valid_batches, F.eval_on_train, seq_len_fn=stage_len)
 
+    def render_fn(obs, nums):
+        with torch.inference_mode():
+            gen = torch.Generator(device=device).manual_seed(RENDER_SEED)
+            _, aux = model.loss_and_metrics(
+                torch.as_tensor(obs, device=device), GeneratorNoise(gen, device),
+                torch.as_tensor(nums, device=device), render=True)
+        return aux["render"]
+
+    progress_fig = ProgressFig(render_fn, logdir, img_size=mean_img.shape,
+                               glimpse_size=[int(F.glimpse_size)] * 2, seq_n_samples=4)
+    fig_iter = Minibatcher(data_dict["valid_data"], F.batch_size, data_dict["axes"])
+
+    def try_plot(itr):
+        batch = truncate_batch(next(fig_iter), stage_len(itr))
+        try:
+            progress_fig.plot_all(itr, batch)
+        except Exception as e:  # noqa: BLE001 - a figure must never stop training
+            print(f"figure plotting failed: {e}")
+            # the raw render tensors as tensorboard images instead
+            render = render_fn(batch["imgs"], batch["nums"])
+            for name in ("obs", "resampled_canvas"):
+                frames = render[name][:, 0].cpu().numpy()
+                writer.write_image(itr, f"render/{name}", np.concatenate(list(frames), -1))
+
     grad_fn = None
 
     def log_grad_histograms(itr):
@@ -273,6 +306,7 @@ def main(argv: Optional[Sequence[str]] = None,
     print(f"Starting training at iter = {train_itr}")
     if F.log_at_start or train_itr == 0:
         log(train_itr)
+        try_plot(train_itr)
 
     report_every = F.report_loss_every
     last_saved_itr = -1
@@ -337,9 +371,12 @@ def main(argv: Optional[Sequence[str]] = None,
             if train_itr % F.save_itr == 0:
                 save(train_itr)
                 last_saved_itr = train_itr
-            if train_itr % F.log_itr == 0 or train_itr % F.save_itr == 0:
-                # evals and saves ran inside the next heartbeat's window:
-                # frames_per_sec measures training only
+            if train_itr % F.fig_itr == 0:
+                try_plot(train_itr)
+            if (train_itr % F.log_itr == 0 or train_itr % F.save_itr == 0
+                    or train_itr % F.fig_itr == 0):
+                # evals, saves and figures ran inside the next heartbeat's
+                # window: frames_per_sec measures training only
                 t0, frames_done = time.time(), 0
             # train_itr advances in steps_per_call blocks: fire on the
             # first boundary at or past profile_itr
@@ -348,6 +385,7 @@ def main(argv: Optional[Sequence[str]] = None,
 
         if last_saved_itr != train_itr:
             save(train_itr)
+        try_plot(train_itr)
         writer.close()
     finally:
         for s, h in prev_handlers.items():

@@ -30,6 +30,7 @@ import torch
 
 from sqair_tpu.experiment import flags as jflags
 from sqair_tpu.scripts import experiment as jexp
+from sqair_tpu_torch import eval_tools
 from sqair_tpu_torch.experiment import flags as pflags
 from sqair_tpu_torch.ops.noise import ReplayNoise
 from sqair_tpu_torch.scripts import experiment as pexp
@@ -124,9 +125,14 @@ def runs(tmp_path_factory):
 def test_test_run_end_to_end(tmp_path):
     logdir, model, state = _main(["--test_run", "--device=cpu", f"--results_dir={tmp_path}"])
     assert logdir == str(tmp_path / "mnist_test" / "1") and state.step == 200
+    # the figures at the start, every fig_itr (100) and the end, where
+    # matplotlib is installed
+    figures = [f"{kind}_fig_{itr}.png" for kind in ("still", "seq") for itr in (0, 100, 200)
+               if eval_tools._HAS_MPL]
     assert sorted(os.listdir(logdir)) == sorted(
         ["flags.json", "metrics.jsonl", "ckpt-200", "mlp_mnist_model.py",
-         "synth_seq_mnist_data.py"] + [f for f in os.listdir(logdir) if f.startswith("events")])
+         "synth_seq_mnist_data.py"] + figures
+        + [f for f in os.listdir(logdir) if f.startswith("events")])
     with open(os.path.join(logdir, "flags.json")) as f:
         flags = json.load(f)
     assert flags["test_run"] is True and flags["n_units"] == 4 and flags["train_itr"] == 200
@@ -206,7 +212,8 @@ def _jax_main(argv):
 
 def test_cli_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setenv("SQAIR_NO_COMPILE_CACHE", "1")
-    monkeypatch.setattr(jexp, "ProgressFig", _NoFigures)  # figures: not ported
+    # no figures from JAX (tests/test_torch_render.py holds the port's to JAX's)
+    monkeypatch.setattr(jexp, "ProgressFig", _NoFigures)
     jroot, proot = str(tmp_path / "jax"), str(tmp_path / "port")
     # one device: the test session's JAX has eight CPU devices (conftest.py),
     # over which the JAX CLI would shard the batch

@@ -28,8 +28,11 @@ def test_port_imports_no_jax():
 
 
 # the modules of the data pipeline and the configurations that the
-# pedestrian and small-digit slice ported
-NEW_MODULES = ("sqair_tpu_torch.data.pedestrian", "sqair_tpu_torch.data.trajectory",
+# pedestrian and small-digit slice ported, and the rollout script and the
+# figures (without matplotlib the figures are not drawn)
+NEW_MODULES = ("sqair_tpu_torch.scripts.rollout", "sqair_tpu_torch.eval_tools",
+               "sqair_tpu_torch.scripts.experiment",
+               "sqair_tpu_torch.data.pedestrian", "sqair_tpu_torch.data.trajectory",
                "sqair_tpu_torch.data.moving_mnist", "sqair_tpu_torch.data.synthetic",
                "sqair_tpu_torch.configs.pedestrian_data", "sqair_tpu_torch.configs.pedestrian_model",
                "sqair_tpu_torch.configs.small_digit_mnist_model",

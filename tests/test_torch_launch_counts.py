@@ -14,7 +14,10 @@ JAX package, and at DISC_FLAGS (the same with early_disc_logit_scale 1) each
 frame's discovery, the input encoder included, is one fused_disc call.
 Each test also runs at the pedestrian configuration (``pedestrian_model``:
 a non-square glimpse, here 10x4, on non-square 24x18 frames, at the
-module defaults, where discovery fuses with both switches)."""
+module defaults, where discovery fuses with both switches).  Under
+generation (sample_from_prior with generate_after, the rollout's model) the
+train record keeps its log-probs and decode in the loop and every frame
+samples discovery's where prior, one more call of its cell a slot."""
 import collections
 import sys
 from pathlib import Path
@@ -139,8 +142,19 @@ def test_main_path_shapes_match_the_calls_of_a_step_with_fused_discovery(mode, c
                            flags=DISC_FLAGS if config == "release" else PED_FLAGS, config=config)
 
 
+@pytest.mark.parametrize("mode", ["full", "train"])
+@pytest.mark.parametrize("setting", ["off", "glimpse", "both", "both_disc"])
+def test_main_path_shapes_match_the_calls_of_generation(mode, setting, monkeypatch):
+    """The rollout's model (generation after frame 1) in each switch
+    setting; "both_disc" at DISC_FLAGS, where discovery fuses."""
+    flags = dict(DISC_FLAGS if setting == "both_disc" else FLAGS, sample_from_prior=True,
+                 generate_after=1)
+    _check_calls_of_a_step(mode, setting != "off", monkeypatch,
+                           fuse_cells=setting.startswith("both"), flags=flags, generate=True)
+
+
 def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, flags=FLAGS,
-                           config="release"):
+                           config="release", generate=False):
     for name, on in (("SQAIR_FUSE_GLIMPSE", fuse_glimpse), ("SQAIR_FUSE_CELLS", fuse_cells)):
         if on:
             monkeypatch.setenv(name, "1")
@@ -179,7 +193,8 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, fl
 
     shapes = chip_smoke.main_path_shapes(flags, B, flags["k_particles"], T,
                                          train=mode == "train", img=img,
-                                         fuse_glimpse=fuse_glimpse, fuse_cells=fuse_cells)
+                                         fuse_glimpse=fuse_glimpse, fuse_cells=fuse_cells,
+                                         generate=generate)
     want = collections.Counter()
     for kernel, shape, n_calls in shapes:
         want[_key(kernel, shape)] += n_calls
@@ -191,7 +206,8 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, fl
     # fused discovery runs the input encoder itself
     no_dx = [s for kn, s, _ in shapes if not chip_smoke.needs_dx(kn, s, img=img)]
     fused_disc = any(kn == "fused_disc" for kn, _, _ in shapes)
-    assert fused_disc == (fuse_cells and (flags is DISC_FLAGS or config == "pedestrian"))
+    assert fused_disc == (fuse_cells and (flags.get("early_disc_logit_scale") == 1.0
+                                          or config == "pedestrian"))
     assert no_dx == ([] if fused_disc else
                      [dict(d_in=img[0] * img[1], widths=[32, 32], acts=["elu", "elu"],
                            n=B * 2)])

@@ -8,6 +8,8 @@ port asks for it, so the port can replay it.
 import contextlib
 import copy
 import functools
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -21,6 +23,9 @@ from sqair_tpu.ops import fused_cells as jfused_cells
 from sqair_tpu_torch.models import AIRDecoder, SequentialAIR, SQAIRTimestep
 from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
 from sqair_tpu_torch.training import make_eval_step
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 # the golden config of tests/test_golden.py
 B, T, S, H, G, NWHAT, NH = 4, 3, 2, 24, 8, 8, 32
@@ -53,7 +58,7 @@ def to_numpy(tree):
 
 
 def jax_noise_table(rng, n_frames, n_slots, n_rows, n_what, fused_prop=False,
-                    fused_disc=False):
+                    fused_disc=False, prior=False, rec_where_prior=True):
     """The noise of sqair_tpu's SequentialAIR(rng) under the port's keys
     (t, "prop"|"disc", slot, "where"|"what"|"presence").
 
@@ -61,6 +66,12 @@ def jax_noise_table(rng, n_frames, n_slots, n_rows, n_what, fused_prop=False,
         JAX package's fused path (SQAIR_FUSE_CELLS) draws it: slot-major
         [S, B, d] from ``jax.random.split(rng, 3)`` of the module's key, each
         slot's row under its key
+    :param prior: also the prior samples of ``sample_from_prior``, under
+        (t, "prop"|"disc", "prior", ...): propagation's what, where and
+        presence from ``split(split(rng_prop)[0], 3)``; discovery's what
+        and where from ``split(split(rng_disc)[0], 4)[:2]``, the recurrent
+        where prior's step i under ``fold_in(key, i)`` (key ("where", i)),
+        else one [B, S, 4] draw
     """
     table = {}
 
@@ -89,7 +100,49 @@ def jax_noise_table(rng, n_frames, n_slots, n_rows, n_what, fused_prop=False,
             else:
                 for k in range(n_slots):
                     slot(jax.random.fold_in(key, k), (t, kind, k))
+        if prior:
+            rows = (n_rows, n_slots)
+            r = jax.random.split(jax.random.split(rng_prop)[0], 3)
+            table[(t, "prop", "prior", "what")] = np.asarray(
+                jax.random.normal(r[0], rows + (n_what,)))
+            table[(t, "prop", "prior", "where")] = np.asarray(jax.random.normal(r[1], rows + (4,)))
+            table[(t, "prop", "prior", "presence")] = np.asarray(jax.random.uniform(r[2], rows))
+            r = jax.random.split(jax.random.split(rng_disc)[0], 4)
+            table[(t, "disc", "prior", "what")] = np.asarray(
+                jax.random.normal(r[0], rows + (n_what,)))
+            if rec_where_prior:
+                for i in range(n_slots):
+                    table[(t, "disc", "prior", "where", i)] = np.asarray(
+                        jax.random.normal(jax.random.fold_in(r[1], i), (n_rows, 4)))
+            else:
+                table[(t, "disc", "prior", "where")] = np.asarray(
+                    jax.random.normal(r[1], rows + (4,)))
     return table
+
+
+def jax_resample_noise(rng, n_examples, k):
+    """{("resample",): the uniform [B, k] of the resampling draw of
+    sqair_tpu's ``Model.loss_and_metrics(params, rng, ...)``}:
+    ``jax.random.categorical(fold_in(rng, 0x5e5a), ...)`` is the Gumbel-max
+    draw over ``uniform(key, (B, k), minval=tiny, maxval=1)``."""
+    key = jax.random.fold_in(rng, 0x5E5A)
+    u = jax.random.uniform(key, (n_examples, k), minval=np.finfo(np.float32).tiny, maxval=1.0)
+    return {("resample",): np.asarray(u)}
+
+
+def near_tie_frame(sites, table):
+    """The first frame with a presence draw whose uniform lies within
+    chip_smoke.FLIP_MARGIN of its probability in the port's run, or None:
+    from there on a run of other numerics (JAX's) may draw another presence.
+
+    :param sites: ``chip_smoke.presence_sites`` of the port's run
+    :param table: the noise it ran with
+    """
+    for t in sorted(sites):
+        for key, u in chip_smoke.site_uniforms(table, t, sites[t]["prop"].shape[-1]).items():
+            if np.any(np.abs(u - sites[t][key]) < chip_smoke.FLIP_MARGIN):
+                return t
+    return None
 
 
 def assert_close(got, want, tol, what):
