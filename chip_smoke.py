@@ -118,7 +118,7 @@ Phases, one line each with its own numbers and seconds:
                  probabilities; the two rollouts' distances (generation
                  amplifies the calls' rounding differences: reported, not
                  gated) and the first frame at which they lie PART_AT apart;
-                 wall ms and frames/s of the rollout (median of 3)
+                 wall ms and frames/s of one rollout
   rollout-disc   a 10-frame rollout at DISC_FLAGS with both switches and
                  weights from a seed (fused_disc on the generation path),
                  gated as rollout
@@ -161,17 +161,61 @@ Phases, one line each with its own numbers and seconds:
   ped-experiment a 10-step graph against 10 eager steps (both switches); the
                  training CLI on the pedestrian data and model configs with
                  --on_device_data --steps_per_call 10 and from the host (10
-                 steps, an eval at 0 and 10, launch counts); then the three
-                 settings timed as the experiment phase times its settings
+                 steps, an eval at 0 and 10, launch counts); then both
+                 switches timed as the experiment phase times its settings
   font-data      the font glyph banks read from the port's glyph file (their
                  SHA-256), then the training CLI for 10 steps at the small-digit
                  data and model configs and at the release flags with their
-                 own font data config (a render of a glyph bank fails the
-                 phase): the retuned flags, finite losses, the step-10 eval
+                 own font data config, on FONT_TRAIN_SEQUENCES sequences (a
+                 render of a glyph bank fails the phase): the retuned flags,
+                 finite losses, the step-10 eval
   on-device-data OnDeviceSeqMNIST renders bench.py's set on the card (64
                  stroke templates, 50x50, T = 10, 2048 sequences, generator
                  seed 42); the same draws rendered on the CPU agree to 1e-5;
                  counts within n_objects, pixels within [0, 1]; render ms
+  conv-setup     the conv configuration (``conv_flags``: conv_mnist_model's
+                 module defaults, conv channels 32,64, 256 wide, n_what 50,
+                 20x20 glimpses, B = 32, k = 5, T = 10 on 50x50 frames of the
+                 stroke-digit data the release phases use; weights from a
+                 seed): its feature widths (10816 and 1600) and cuDNN's
+                 settings after the model is loaded (deterministic, no TF32)
+  conv-kernels   the MLP kernel at the conv shapes (one linear layer: the
+                 input encoder's 10816 -> 256, the glimpse encoder's 1600 ->
+                 256, the subpixel decoder's seed 50 -> 400), forward and
+                 backward (the encoders' dx included): device ms a call, the
+                 plain version's, the library call's and the bound
+  conv-eval      3 eval steps with no switch and with both switches (the
+                 conv model fuses nothing: the same launches and metrics),
+                 every kernel call held to its plain version (checked_calls)
+  conv-train     3 train steps in each setting, every forward and backward
+                 call held to its plain version (checked_bwd_calls; the input
+                 encoder's 10816-wide dx must be among them), launch counts
+  conv-train-check  one train step's gradients, the kernels and the plain
+                 versions on the card, against the float64 referee, gated as
+                 train-check
+  conv-profile   the train step's time and its device time by group
+                 (convolutions, the twelve kernels, the rest) in one step
+  conv-experiment  a 10-step graph against 10 eager steps; eager and N = 1
+                 and N = 10 graphs timed as the experiment phase times its
+                 settings; the training CLI on the conv config with
+                 --on_device_data --steps_per_call 10
+  conv-eval-cli, conv-rollout  a conv checkpoint swept by scripts/eval.py
+                 and rolled out for 10 frames by scripts/rollout.py (both
+                 build the model from its flags.json), every kernel call of
+                 the rollout held to its plain version
+  options        the release flags with LSTM cells in all three roles, with
+                 the rw prior and with the guided prior: 3 eval and 3 train
+                 steps each, no switch and both, every call held to its plain
+                 version, launch counts (LSTM cells keep the frame kernels off)
+  options-optimizers  3 graphed train steps of adam, sgd and momentum
+                 against as many eager steps, bit for bit
+  options-coverage  the training CLI for 3 steps with --disc_coverage_signal
+                 --coverage_lr_mult 10 at DISC_FLAGS with both switches: no
+                 fused discovery launch, the coverage rows' updates scaled
+
+Each phase group prints its seconds (``seconds=``), and the last phase
+line the total.  ``--only=conv,options`` runs those phase groups alone
+after the build, for development, and prints no result lines.
 
 It exits non-zero on any failure.  The last two lines are a JSON object of
 the kernels' numbers and the JSON result line.
@@ -207,6 +251,7 @@ N_BATCHES = 3
 N_TRAIN_STEPS = 3
 CLI_SEQUENCES = 64  # eval-cli: two batches of 32
 REPS = 10
+STEP_REPS = 5  # timed repeats of a whole eval or train step
 IMG = (50, 50)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the tensor cores
@@ -326,13 +371,18 @@ GLIMPSE_SWITCH = SWITCHES["glimpse"]
 CELLS_SWITCH = SWITCHES["cells"]
 # the experiment phase: a CLI run's steps, the graphed chain's steps a call,
 # the timing's repeats; the release flags the phase sets itself
-CLI_STEPS, CHAIN_STEPS, TIMING_REPEATS = 20, 10, 5
+CLI_STEPS, CHAIN_STEPS, TIMING_REPEATS = 20, 10, 3
+# the valid sequences of the CLI runs (evals at their first and last step)
+CLI_VALID = 64
+# font-data: the release font run's train sequences (its flags.json has 16384;
+# the host renders each call)
+FONT_TRAIN_SEQUENCES = 2048
 # on-device-data: bench.py's fixed set of sequences
 ON_DEVICE_SEQUENCES = 2048
 # the rollout phase: scripts/rollout.py on the release checkpoint
 ROLLOUT = dict(n_examples=32, rollout_len=100, condition_frames=5)
 ROLLOUT_SETTINGS = (("no_switch", {}), ("glimpse", GLIMPSE_SWITCH), ("both", CELLS_SWITCH))
-ROLLOUT_REPEATS = 3
+ROLLOUT_REPEATS = 1
 DISC_ROLLOUT_LEN = 10
 CLI_SET = {"git_commit", "resume", "results_dir", "run_name", "data_config", "seq_len",
            "stage_itr", "train_itr", "save_itr", "report_loss_every", "log_itr", "fig_itr",
@@ -382,14 +432,50 @@ def prop_shape(F, rows, img=IMG):
                 MH=128)
 
 
+# the kernel of a cell of each flag name (the LSTM runs in plain PyTorch, as
+# the JAX package runs it in XLA)
+CELL_KERNELS = {"VanillaRNN": "fused_vanilla_rnn", "GRU": "fused_gru", "LSTM": None}
+
+
+def is_conv(F):
+    """Whether the flags' model is the conv model (``conv_mnist_model``)."""
+    return str(F.get("model_config", "")).endswith("conv_mnist_model.py")
+
+
+def conv_features(F, size):
+    """The width of a ConvEncoder's flattened features on a side-``size``
+    input: one stride-2 SAME conv a channel count of ``conv_channels``."""
+    channels = [int(c) for c in str(F.get("conv_channels", "32,64")).split(",")]
+    h, w = size
+    for _ in channels:
+        h, w = -(-h // 2), -(-w // 2)
+    return h * w * channels[-1]
+
+
+def coverage_on(F):
+    """The coverage signal is on (the conv config leaves it off)."""
+    return bool(F.get("disc_coverage_signal")) and not is_conv(F)
+
+
+def prop_fusable(F):
+    """Whether the JAX package fuses propagation under SQAIR_FUSE_CELLS at
+    the flags ``F``: a VanillaRNN transition, a GRU temporal cell, and the
+    MLP glimpse encoder (a ConvEncoder's MLP_0 has one layer)."""
+    return (not is_conv(F) and F.get("transition", "VanillaRNN") == "VanillaRNN"
+            and F.get("time_transition", "GRU") == "GRU")
+
+
 def disc_fusable(F):
     """Whether the JAX package fuses discovery under SQAIR_FUSE_CELLS at the
-    flags ``F``: no early-discovery logit lever (the flags' other gates, a
-    VanillaRNN transition and the kernel's MLP depths, hold for every flags
-    file this script loads)."""
+    flags ``F``: no early-discovery logit lever, no coverage signal, a
+    VanillaRNN transition and the MLP encoders (the kernel's MLP depths
+    hold for every MLP model this script loads)."""
+    if is_conv(F):
+        return False
     return not (float(F.get("early_disc_logit_bias", 0.0))
                 or float(F.get("early_disc_logit_clamp", 0.0))
-                or float(F.get("early_disc_logit_scale", 1.0)) != 1.0)
+                or float(F.get("early_disc_logit_scale", 1.0)) != 1.0
+                or coverage_on(F) or F.get("transition", "VanillaRNN") != "VanillaRNN")
 
 
 def disc_shape(F, rows, img=IMG):
@@ -409,12 +495,20 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_
     ``fuse_glimpse`` (SQAIR_FUSE_GLIMPSE) the glimpse encoder and its mask
     leave fused_mlp for the fused glimpse kernel.  With ``fuse_cells``
     (SQAIR_FUSE_CELLS) each frame's propagation slots are one fused_prop
-    call, and where the flags let it (``disc_fusable``) its input encoder and
-    discovery slots one fused_disc call; their MLPs, cells and glimpses
-    leave the other kernels.  With ``generate`` (sample_from_prior: a
-    rollout) the train record keeps its log-probs and decode in the loop,
-    and every frame also samples discovery's where prior, its cell once a
-    slot."""
+    call where the flags let it (``prop_fusable``), and where they let it
+    (``disc_fusable``) its input encoder and discovery slots one fused_disc
+    call; their MLPs, cells and glimpses leave the other kernels.  With
+    ``generate`` (sample_from_prior: a rollout) the train record keeps its
+    log-probs and decode in the loop, and every frame also samples
+    discovery's where prior, its cell once a slot.
+
+    The conv model (``is_conv``) fuses nothing under either switch (JAX's
+    gates refuse its one-layer encoder MLPs): its encoders' and its
+    subpixel decoder's seed MLPs are one linear fused_mlp layer each, its
+    convolutions cuDNN's.  A cell flag of LSTM takes the cell's calls out
+    of the kernels (``CELL_KERNELS``) and keeps the frame kernels off; the
+    coverage signal widens the discovery presence MLP by 16 and keeps the
+    discovery unfused."""
     h = 32 * int(F["n_units"])
     w, S = int(F["n_what"]), int(F["n_steps_per_image"])
     gh, gw = glimpse_hw(F)
@@ -422,43 +516,56 @@ def main_path_shapes(F, B, k, T, train=False, img=IMG, fuse_glimpse=False, fuse_
     rows = B * k
     slots = rows * S
     sp = h // 2
+    conv = is_conv(F)
+    cov = 16 if coverage_on(F) else 0
+    fuse_glimpse = fuse_glimpse and not conv
     deferred = T if train and not generate else 1  # rows factor of the out-of-loop calls
     per_call = T // deferred  # calls factor of the same calls
-    prop = 0 if fuse_cells else 1  # calls factor of the propagation slots' calls
+    fuse_prop = fuse_cells and prop_fusable(F)
+    prop = 0 if fuse_prop else 1  # calls factor of the propagation slots' calls
     fuse_disc = fuse_cells and disc_fusable(F)
     disc = 0 if fuse_disc else 1  # calls factor of the discovery's calls
-    mlp = [  # (d_in, widths, transfers, rows, calls per step)
-        (img[0] * img[1], [h, h], ["elu", "elu"], rows, disc * T),  # input encoder
-        (g, [h, h], ["elu", "elu"], rows,                      # glimpse encoder
-         0 if fuse_glimpse else (disc + 2 * prop) * S * T),
+    if conv:
+        encoders = [(conv_features(F, img), [h], ["id"], rows, T),  # input encoder
+                    (conv_features(F, (gh, gw)), [h], ["id"], rows, 3 * S * T)]  # glimpse
+        decoder = (w, [400], ["id"], slots * deferred, per_call)  # subpixel decoder's seed
+    else:
+        encoders = [(img[0] * img[1], [h, h], ["elu", "elu"], rows, disc * T),
+                    (g, [h, h], ["elu", "elu"], rows,
+                     0 if fuse_glimpse else (disc + 2 * prop) * S * T)]
+        decoder = (w, [h, h, g], ["elu", "elu", "id"], slots * deferred, per_call)
+    mlp = encoders + [  # (d_in, widths, transfers, rows, calls per step)
         (h, [128, g], ["elu", "sigmoid"], rows, 0 if fuse_glimpse else 2 * prop * S * T),  # mask
         (h, [h, h, 8], ["elu", "elu", "id"], rows, disc * S * T),  # disc where
         (2 * h + 4, [h, h, 8], ["elu", "elu", "id"], rows, prop * S * T),  # prop where
-        (h + w, [sp, 1], ["elu", "id"], rows, disc * S * T),  # disc presence
+        (h + w + cov, [sp, 1], ["elu", "id"], rows, disc * S * T),  # disc presence
         (2 * h + w, [sp, 1], ["elu", "id"], rows, prop * S * T),  # prop presence
         (h, [128, 4], ["elu", "id"], rows, prop * S * T),     # where bias
         (h, [3 * w], ["sigmoid"], rows, prop * S * T),        # what gates
         (w + 4, [h, h], ["elu", "elu"], slots, T),            # latent encoder
         (1, [10, S + 1], ["elu", "id"], rows * deferred, per_call),       # count prior
-        (w, [h, h, g], ["elu", "elu", "id"], slots * deferred, per_call),  # decoder
+        decoder,
     ]
-    vrnn = [  # (d_x, units, rows, calls per step)
-        (h + h + w + 5, h, rows, disc * S * T),   # discovery transition
-        (3 * w + 10 + h, h, rows, prop * S * T),  # propagation transition
-        (4, 4, rows * deferred, (2 if generate else 1) * S * per_call),  # where prior
-    ]
-    gru = [
-        (w + 4, h, slots, T),                     # propagation prior
-        (h + 4 + 2 * w, h, rows, prop * S * T),   # temporal cell
+    cells = [  # (kernel, d_x, units, rows, calls per step)
+        (CELL_KERNELS[F.get("transition", "VanillaRNN")], h + h + w + 5, h, rows,
+         disc * S * T),  # discovery transition
+        (CELL_KERNELS[F.get("transition", "VanillaRNN")], 3 * w + 10 + h, h, rows,
+         prop * S * T),  # propagation transition
+        ("fused_vanilla_rnn", 4, 4, rows * deferred,
+         (2 if generate else 1) * S * per_call),  # where prior
+        (CELL_KERNELS[F.get("prior_transition", "GRU")], w + 4, h, slots, T),  # prop prior
+        (CELL_KERNELS[F.get("time_transition", "GRU")], h + 4 + 2 * w, h, rows,
+         prop * S * T),  # temporal cell
     ]
     out = [("fused_mlp", dict(d_in=d, widths=ws, acts=a, n=n), c) for d, ws, a, n, c in mlp
            if c]
-    out += [("fused_vanilla_rnn", dict(dx=d, units=u, n=n), c) for d, u, n, c in vrnn if c]
-    out += [("fused_gru", dict(dx=d, units=u, n=n), c) for d, u, n, c in gru if c]
+    for kernel in ("fused_vanilla_rnn", "fused_gru"):
+        out += [(kernel, dict(dx=d, units=u, n=n), c) for kn, d, u, n, c in cells
+                if c and kn == kernel]
     if fuse_glimpse:
         out += [("fused_glimpse", shape, c) for shape, c in glimpse_shapes(F, rows, T, img)
-                if c and not (fuse_cells if shape["d_mi"] else fuse_disc)]
-    if fuse_cells:
+                if c and not (fuse_prop if shape["d_mi"] else fuse_disc)]
+    if fuse_prop:
         out += [("fused_prop", prop_shape(F, rows, img), T)]
     if fuse_disc:
         out += [("fused_disc", disc_shape(F, rows, img), T)]
@@ -477,8 +584,9 @@ def expected_launches(shapes, steps, backward=False):
 
 
 def needs_dx(kernel, shape, img=IMG):
-    """False for the one call whose input carries no gradient: the input
-    encoder reads the frames."""
+    """False for the one call whose input carries no gradient: the MLP
+    input encoder reads the frames (the conv input encoder's MLP reads the
+    convolutions' features, whose gradient it gives)."""
     return not (kernel == "fused_mlp" and shape["d_in"] == img[0] * img[1])
 
 
@@ -986,22 +1094,38 @@ def profile_device(torch, fn):
     """Device time of one call of ``fn`` under torch.profiler (ms, summed over
     the device's own activities: kernels, copies, sets), and the eight
     largest of them by name, followed by the kernels of ``REDESIGNED``
-    where they are not among them.  A CPU op's self device time repeats the
-    kernels it launched, so CPU ops are not summed."""
+    where they are not among them.  Only the device's activities are
+    recorded: a CPU op's self device time repeats the kernels it launched,
+    and recording the CPU ops of an eager step (~10^4) took ~10x the step."""
+    busy, top, _ = profile_groups(torch, fn)
+    return busy, top
+
+
+def profile_groups(torch, fn):
+    """``profile_device`` of one call of ``fn``, and its device time summed
+    by group: "kernels" (the port's CUDA kernels), "convolutions" (cuDNN's)
+    and "other" (PyTorch's elementwise and reduction kernels, copies)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
-        return None, []
+        return None, [], {}
+    groups = collections.Counter()
+    for key, ms, _ in rows:
+        low = key.lower()
+        groups["kernels" if "sqair::" in key else
+               "convolutions" if any(w in low for w in ("cudnn", "conv", "wgrad", "dgrad",
+                                                         "fprop", "xmma", "implicit_gemm"))
+               else "other"] += ms
     rows.sort(key=lambda r: -r[1])
     top = [dict(name=k[:60], ms=round(ms, 3), count=c) for i, (k, ms, c) in enumerate(rows)
            if i < 8 or any(name in k for name in REDESIGNED)]
-    return sum(ms for _, ms, _ in rows), top
+    return sum(ms for _, ms, _ in rows), top, dict(groups)
 
 
 def metric_distance(torch, got, want, what="metrics"):
@@ -1465,8 +1589,9 @@ def cli_argv(release, root, run_name, steps_per_call):
     T = 10 with no curriculum, the device-resident sampler, 20 steps with a
     heartbeat and a save every 10 and an eval at 0 and 20."""
     argv = [f"--{k}={v}" for k, v in release.items()
-            if k not in CLI_SET and not k.startswith("font_")]
+            if k not in CLI_SET and not k.startswith("font_") and k != "synth_valid_samples"]
     return argv + ["--data_config=sqair_tpu/configs/synth_seq_mnist_data.py", "--seq_len=10",
+                   f"--synth_valid_samples={CLI_VALID}",
                    "--stage_itr=0", "--on_device_data", f"--train_itr={CLI_STEPS}",
                    "--save_itr=10", "--report_loss_every=10", f"--log_itr={CLI_STEPS}",
                    f"--fig_itr={CLI_STEPS}", f"--steps_per_call={steps_per_call}",
@@ -1917,6 +2042,14 @@ def run():
     log("build", t0, cached=build.last_build["cached"],
         build_seconds=f"{build.last_build['seconds']:.3f}",
         library=Path(build.last_build["path"]).name)
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--only=")]
+    if only:
+        # a development run of some phase groups: no result lines
+        groups = {"conv": conv_phases, "options": options_phases}
+        for name in only[0]:
+            groups[name](torch, card, device)
+        log("total", t_all, ok=True, only=jdump(only[0]))
+        return 0
 
     # ----------------------------------------------------------- kernels
     flags = json.loads(RELEASE_FLAGS.read_text())
@@ -2078,9 +2211,9 @@ def run():
 
     t0 = time.perf_counter()
     step_noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 3), device)
-    eval_step_ms = step_ms(torch, lambda: eval_step(obs0, gt0, step_noise), 2 * REPS)
+    eval_step_ms = step_ms(torch, lambda: eval_step(obs0, gt0, step_noise), 2 * STEP_REPS)
     log("timing", t0, eval_step_ms=f"{eval_step_ms:.3f}",
-        frames_per_s=f"{B * T / (eval_step_ms / 1e3):.1f}", reps=2 * REPS, B=B, T=T, k=k,
+        frames_per_s=f"{B * T / (eval_step_ms / 1e3):.1f}", reps=2 * STEP_REPS, B=B, T=T, k=k,
         card=repr(card))
 
     t0 = time.perf_counter()
@@ -2109,7 +2242,7 @@ def run():
         err_switch, worst_metric = max(
             compare_metrics(torch, got, want, f"eval batch {i}, switch on vs off")
             for i, (got, want) in enumerate(zip(glimpse_results, results)))
-        eval_glimpse_ms = step_ms(torch, lambda: eval_step(obs0, gt0, step_noise), 2 * REPS)
+        eval_glimpse_ms = step_ms(torch, lambda: eval_step(obs0, gt0, step_noise), 2 * STEP_REPS)
     log("eval-glimpse", t0, steps=N_BATCHES, launches=jdump(glimpse_eval_counts),
         expected=jdump(expected), vs_switch_off=f"{err_switch:.3e}",
         worst_metric=worst_metric, tol=METRIC_TOL,
@@ -2133,7 +2266,7 @@ def run():
         err_cells, worst_metric = max(
             compare_metrics(torch, got, want, f"eval batch {i}, cells switch on vs off")
             for i, (got, want) in enumerate(zip(cells_results, results)))
-        eval_cells_ms = step_ms(torch, lambda: eval_step(obs0, gt0, step_noise), 2 * REPS)
+        eval_cells_ms = step_ms(torch, lambda: eval_step(obs0, gt0, step_noise), 2 * STEP_REPS)
         busy_ms, _ = profile_device(torch, lambda: eval_step(obs0, gt0, step_noise))
     log("eval-cells", t0, steps=N_BATCHES, launches=jdump(cells_eval_counts),
         expected=jdump(expected), vs_switch_off=f"{err_cells:.3e}", worst_metric=worst_metric,
@@ -2169,7 +2302,7 @@ def run():
             if counts != expected:
                 raise Failure(f"launch counts {counts} at DISC_FLAGS, switches {switches}, "
                               f"differ from the eval path's {expected}")
-            ms = step_ms(torch, lambda: disc_eval(obs0, gt0, step_noise), 2 * REPS)
+            ms = step_ms(torch, lambda: disc_eval(obs0, gt0, step_noise), 2 * STEP_REPS)
             busy_ms, _ = profile_device(torch, lambda: disc_eval(obs0, gt0, step_noise))
         disc_runs[label] = dict(results=res_d, counts=counts, ms=ms, busy=busy_ms)
     err_disc, worst_metric = max(
@@ -2305,9 +2438,9 @@ def run():
     timing_batch = train_batches[-1]
     train_step_ms = step_ms(
         torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise),
-        REPS)
+        STEP_REPS)
     log("train-timing", t0, train_step_ms=f"{train_step_ms:.3f}",
-        frames_per_s=f"{B * T / (train_step_ms / 1e3):.1f}", reps=REPS, B=B, T=T, k=k,
+        frames_per_s=f"{B * T / (train_step_ms / 1e3):.1f}", reps=STEP_REPS, B=B, T=T, k=k,
         card=repr(card))
 
     t0 = time.perf_counter()
@@ -2339,7 +2472,7 @@ def run():
                           f"from the train path's {expected}")
         train_glimpse_ms = step_ms(
             torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise),
-            REPS)
+            STEP_REPS)
         busy_ms, _ = profile_device(
             torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise))
     log("train-glimpse", t0, steps=N_TRAIN_STEPS, launches=jdump(glimpse_train_counts),
@@ -2368,7 +2501,7 @@ def run():
                           f"from the train path's {expected}")
         train_cells_ms = step_ms(
             torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise),
-            REPS)
+            STEP_REPS)
         busy_ms, _ = profile_device(
             torch, lambda: train_step(timing_batch["imgs"], timing_batch["nums"], train_noise))
     log("train-cells", t0, steps=N_TRAIN_STEPS, launches=jdump(cells_train_counts),
@@ -2403,7 +2536,7 @@ def run():
                 raise Failure(f"launch counts {counts} of the train step at DISC_FLAGS, "
                               f"switches {switches}, differ from {expected}")
             ms = step_ms(torch, lambda: step_d(timing_batch["imgs"], timing_batch["nums"],
-                                               noise_d), REPS)
+                                               noise_d), STEP_REPS)
             busy_ms, _ = profile_device(
                 torch, lambda: step_d(timing_batch["imgs"], timing_batch["nums"], noise_d))
         disc_runs["train_" + label] = dict(metrics=metrics_d, counts=counts, ms=ms, busy=busy_ms)
@@ -2504,6 +2637,10 @@ def run():
     font_data_phase(torch, card, device)
     on_device_data_phase(torch, card, device)
 
+    # ------------------------------- the conv model, the model and optimizer options
+    conv_phases(torch, card, device)
+    options_phases(torch, card, device)
+
     kernels = []
     for name, meta in KERNELS.items():
         r = rows[name]
@@ -2571,29 +2708,29 @@ def step_runners(torch, load, sampler, B, T, device):
     return types.SimpleNamespace(eager_step=eager_step, eager_run=eager_run, chained=chained)
 
 
-def graph_gate(torch, runners, run_flags, phase, switches=None):
-    """A captured chain of CHAIN_STEPS train steps against as many eager
+def graph_gate(torch, runners, run_flags, phase, switches=None, steps=CHAIN_STEPS):
+    """A captured chain of ``steps`` train steps against as many eager
     steps from the same weights, data and noise: bit-identical, or within
     twice the distance of two eager runs of the same steps.  Returns that
     eager-vs-eager distance (parameters, metrics)."""
     t0 = time.perf_counter()
     with switched(switches or {}):
-        eager_a, m_a = runners.eager_run(run_flags, CHAIN_STEPS)
-        eager_b, m_b = runners.eager_run(run_flags, CHAIN_STEPS)
+        eager_a, m_a = runners.eager_run(run_flags, steps)
+        eager_b, m_b = runners.eager_run(run_flags, steps)
         ee_params = params_distance(torch, eager_a.sequence, eager_b.sequence)
         ee_metrics = metric_distance(torch, m_b, m_a)[0]
-        graph_model, chain = runners.chained(run_flags, CHAIN_STEPS)
+        graph_model, chain = runners.chained(run_flags, steps)
         m_graph = {key: v.clone() for key, v in chain().items()}
         ge_params = params_distance(torch, graph_model.sequence, eager_a.sequence)
         ge_metrics = metric_distance(torch, m_graph, m_a)[0]
         chain.release()
-    log(phase, t0, gate="graph_vs_eager", steps=CHAIN_STEPS,
+    log(phase, t0, gate="graph_vs_eager", steps=steps, opt=run_flags.get("opt", "rmsprop"),
         switches=jdump(sorted(switches or {})), params=f"{ge_params:.3e}",
         metrics=f"{ge_metrics:.3e}", eager_vs_eager_params=f"{ee_params:.3e}",
         eager_vs_eager_metrics=f"{ee_metrics:.3e}",
         bit_identical=ge_params == 0.0 and ge_metrics == 0.0)
     if ge_params > 2 * ee_params or ge_metrics > 2 * ee_metrics:
-        raise Failure(f"{phase}: a graph of {CHAIN_STEPS} steps lies {ge_params:.3g} "
+        raise Failure(f"{phase}: a graph of {steps} steps lies {ge_params:.3g} "
                       f"(parameters) / {ge_metrics:.3g} (metrics) from the eager steps, over "
                       f"twice the eager runs' {ee_params:.3g} / {ee_metrics:.3g}")
     return ee_params, ee_metrics
@@ -2720,10 +2857,10 @@ def experiment_phase(torch, flags, disc_flags, data, B, k, T, card, device):
     if r_params > 2 * ee_params or r_records > 2 * ee_metrics:
         raise Failure(f"experiment: the resumed run differs from the uninterrupted one by "
                       f"{r_params:.3g} (parameters) / {r_records:.3g} (records)")
-    # the run's launches: the evals at steps 0 and 20 (the 256 valid
+    # the run's launches: the evals at steps 0 and 20 (the CLI_VALID valid
     # sequences each), the graph's warm-up step and its capture of 10 steps
     # (each replay launches the capture's kernels again, uncounted)
-    evals = 2 * (int(release["synth_valid_samples"]) // B)
+    evals = 2 * (CLI_VALID // B)
     expected = collections.Counter(expected_launches(main_path_shapes(flags, B, k, T), evals))
     expected.update(expected_launches(main_path_shapes(flags, B, k, T, train=True),
                                       1 + CHAIN_STEPS, backward=True))
@@ -2982,9 +3119,10 @@ def pedestrian_phases(torch, card, device):
                               f"{dict(expected)}")
     finally:
         shutil.rmtree(root)
-    time_settings(torch, runners, [("ped_" + label, flags, switches)
-                                   for label, switches in PED_SETTINGS],
-                  B, k, T, img, card, "ped-experiment")
+    # timed with both switches only: the other two settings run the kernels
+    # that the release flags time
+    time_settings(torch, runners, [("ped_both", flags, CELLS_SWITCH)], B, k, T, img, card,
+                  "ped-experiment")
 
 
 def check_cli_run(logdir, step, what):
@@ -3054,8 +3192,10 @@ def font_data_phase(torch, card, device):
     given = {k: v for k, v in release.items() if k not in CLI_SET and not k.startswith("synth_")}
     retuned = {"output_std", "disc_step_bias", "font_obj_size", "font_train_samples",
                "model_config"}
-    runs = (("release_font", [f"--{k}={v}" for k, v in given.items()]
-             + [f"--data_config={release['data_config']}"]),
+    runs = (("release_font", [f"--{k}={v}" for k, v in given.items()
+                              if k != "font_train_samples"]
+             + [f"--data_config={release['data_config']}",
+                f"--font_train_samples={FONT_TRAIN_SEQUENCES}"]),
             ("small_digit", [f"--{k}={v}" for k, v in given.items() if k not in retuned]
              + ["--data_config=sqair_tpu/configs/small_digit_seq_mnist_data.py",
                 "--model_config=sqair_tpu/configs/small_digit_mnist_model.py"]))
@@ -3533,6 +3673,504 @@ def rollout_phases(torch, card, device):
         launches=jdump(counts), expected=jdump(expected), calls=jdump(calls),
         vs_plain=jdump(vs_plain), wall_ms=f"{ms:.3f}",
         frames_per_s=f"{B * DISC_ROLLOUT_LEN / (ms / 1e3):.1f}", card=repr(card))
+
+
+# ---------------------------------------------------------------- the conv model
+# conv-train-check's runs: the kernels, the plain versions on the card, and
+# the float64 referee; no switch (the conv model fuses nothing).  No CPU run:
+# a full-width conv train step on the host's cores took ~10x the card's
+# whole run of it
+CONV_TRAIN_RUNS = {"kernels": ("card", "off", False), "plain_on_card": ("card", "off", True),
+                   "referee": ("f64", "off", True)}
+CONV_GATE = {"kernels": ("plain_on_card",)}
+CONV_PAIRS = {"kernels_vs_plain_on_card": ("kernels", "plain_on_card")}
+CONV_SEQUENCES = 256
+CONV_ROLLOUT_LEN = 10
+# the options phase: the graphed optimizers' steps, the coverage CLI's steps
+OPTION_CHAIN_STEPS, COVERAGE_CLI_STEPS = 3, 3
+OPTION_MODELS = (("lstm_cells", dict(transition="LSTM", time_transition="LSTM",
+                                     prior_transition="LSTM")),
+                 ("prior_rw", dict(prop_prior_type="rw")),
+                 ("prior_guided", dict(prop_prior_type="guided")))
+BWD_KERNELS = ("fused_mlp_bwd", "fused_vanilla_rnn_bwd", "fused_gru_bwd")
+
+
+def conv_flags():
+    """The conv configuration's flags: the JAX package's module defaults of
+    mlp_mnist_model and conv_mnist_model (the port's tables of them:
+    conv_channels 32,64, conv_kernel 3, 256 wide, n_what 50, k 5, 3 slots,
+    20x20 glimpses), its training defaults (RMSProp at 1e-5) and the CLI's
+    batch size, 32; T 10 on 50x50 frames."""
+    from sqair_tpu_torch.configs import conv_mnist_model, mlp_mnist_model
+
+    return dict(mlp_mnist_model.DEFAULTS, **mlp_mnist_model.TRAIN_DEFAULTS,
+                **conv_mnist_model.CONV_DEFAULTS, batch_size=32,
+                model_config="sqair_tpu/configs/conv_mnist_model.py")
+
+
+@contextlib.contextmanager
+def checked_bwd_calls(torch, label):
+    """Every call of the MLP, vanilla-RNN and GRU backward wrappers inside
+    the block held against its plain version on the same inputs, on the
+    card: each gradient within |d| <= BWD_TOL max|plain| + 1e-6, or else
+    within max(that, 2x the plain version's distance) of the plain version
+    in float64 (the rule of ``frame_fields_check``).  Yields {kernel:
+    dict(calls, max_abs_err, of_tol, refereed, shapes: {shape: calls})}."""
+    from sqair_tpu_torch.ops import fused
+
+    plains = {"fused_mlp_bwd": fused.mlp_bwd_plain,
+              "fused_vanilla_rnn_bwd": fused.vanilla_rnn_bwd_plain,
+              "fused_gru_bwd": fused.gru_bwd_plain}
+    n_args = {"fused_mlp_bwd": 5, "fused_vanilla_rnn_bwd": 6, "fused_gru_bwd": 9}
+    report = {}
+
+    def flat(kernel, out):
+        return flat_grads("fused_mlp", out) if kernel == "fused_mlp_bwd" else list(out)
+
+    def checking(kernel, real):
+        def call(*args, **kw):
+            out = real(*args, **kw)
+            inputs = args[:n_args[kernel]]
+            got, want = flat(kernel, out), flat(kernel, plains[kernel](*inputs))
+            st = report.setdefault(kernel, dict(calls=0, max_abs_err=0.0, of_tol=0.0,
+                                                refereed=0, shapes=collections.Counter()))
+            st["calls"] += 1
+            x = inputs[0]
+            widths = ([w.shape[1] for w, _ in inputs[1]] if kernel == "fused_mlp_bwd"
+                      else [inputs[1].shape[1]])
+            st["shapes"][jdump([x.shape[0], x.shape[1]] + widths + [got[0] is not None])] += 1
+            ref = None
+            for i, (a, b) in enumerate(zip(got, want)):
+                if a is None:
+                    continue
+                d = float(torch.max(torch.abs(a - b))) if a.numel() else 0.0
+                bound = BWD_TOL * (float(torch.max(torch.abs(b))) if b.numel() else 0.0) + 1e-6
+                st["max_abs_err"] = max(st["max_abs_err"], d)
+                st["of_tol"] = max(st["of_tol"], d / bound)
+                if d <= bound:
+                    continue
+                if ref is None:
+                    ref = flat(kernel, plains[kernel](*to_double(torch, inputs)))
+                err_k = float(torch.max(torch.abs(a.double() - ref[i])))
+                err_p = float(torch.max(torch.abs(b.double() - ref[i])))
+                st["refereed"] += 1
+                if not err_k <= max(bound, 2.0 * err_p):
+                    raise Failure(f"{label}: {kernel} call {st['calls']} gradient {i} lies "
+                                  f"{err_k:.3g} from its float64 value (plain {err_p:.3g}, "
+                                  f"bound {bound:.3g})")
+            return out
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for kernel in BWD_KERNELS:
+            stack.enter_context(mock.patch.object(fused, kernel,
+                                                  checking(kernel, getattr(fused, kernel))))
+        yield report
+    for st in report.values():
+        st.update(max_abs_err=f"{st['max_abs_err']:.3e}", of_tol=f"{st['of_tol']:.3f}",
+                  shapes=dict(st["shapes"]))
+
+
+def finite(metrics, what):
+    for i, m in enumerate(metrics):
+        for key, v in m.items():
+            if not bool(v.isfinite().all()):
+                raise Failure(f"{what} {i}: metric {key} is not finite")
+
+
+def conv_kernel_times(torch, F, B, k, T, card, phase="conv-kernels"):
+    """Device ms a call of the MLP kernel's conv shapes (one linear layer: the
+    input encoder's, the glimpse encoder's and the subpixel decoder's seed
+    MLP), forward and backward (the encoders' dx included), beside the plain
+    version, the library call and the bound, with their calls a train step."""
+    from sqair_tpu_torch.ops import fused
+
+    wrappers, plains, bwd_wrappers, bwd_plains = kernel_tables(fused)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    for kernel, shape, calls in main_path_shapes(F, B, k, T, train=True):
+        if kernel != "fused_mlp" or shape["acts"] != ["id"] or len(shape["widths"]) != 1:
+            continue
+        if shape["widths"] == [3 * int(F["n_what"])]:
+            continue  # the what gates are one sigmoid layer of the MLP model too
+        t0 = time.perf_counter()
+        args = make_inputs(torch, kernel, shape, gen, torch.device("cuda"))
+        need_dx = needs_dx(kernel, shape)
+        with torch.inference_mode():
+            ms = device_ms(torch, lambda: wrappers[kernel](*args), calls=20, reps=5)
+            plain_ms = device_ms(torch, lambda: plains[kernel](*args), calls=20, reps=5)
+            lib = library_fn(torch, kernel)
+            lib_ms = device_ms(torch, lambda: lib(*args), calls=20, reps=5)
+            bargs = make_bwd_inputs(torch, fused, kernel, args, gen)
+            bwd_ms = device_ms(torch, lambda: bwd_wrappers[kernel](*bargs, need_dx=need_dx),
+                               calls=20, reps=5)
+            bwd_plain_ms = device_ms(torch, lambda: bwd_plains[kernel](*bargs), calls=20, reps=5)
+            got = flat_grads(kernel, bwd_wrappers[kernel](*bargs, need_dx=need_dx))
+            want = flat_grads(kernel, bwd_plains[kernel](*bargs))
+        err = max(float(torch.max(torch.abs(a - b))) for a, b in zip(got, want) if a is not None)
+        with torch.inference_mode(False):
+            lib_b = library_bwd_fn(torch, kernel, args, need_dx, gen)
+            bwd_lib_ms = device_ms(torch, lib_b, calls=20, reps=5)
+        out = {}
+        for label, backward in (("fwd", False), ("bwd", True)):
+            nbytes, flops = work(kernel, shape, backward=backward, need_dx=need_dx)
+            t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+            out[label] = dict(bound=max(t_bytes, t_ops),
+                              by="bytes" if t_bytes >= t_ops else "operations")
+        log(phase, t0, shape=jdump(shape), need_dx=need_dx, calls_per_train_step=calls,
+            ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+            bound_ms=f"{out['fwd']['bound']:.5f}", bound_by=out["fwd"]["by"],
+            bwd_ms=f"{bwd_ms:.5f}", bwd_plain_ms=f"{bwd_plain_ms:.5f}",
+            bwd_library_ms=f"{bwd_lib_ms:.5f}", bwd_bound_ms=f"{out['bwd']['bound']:.5f}",
+            bwd_bound_by=out["bwd"]["by"], bwd_max_abs_err=f"{err:.3e}", card=repr(card))
+
+
+def conv_phases(torch, card, device):
+    """conv-setup, conv-kernels, conv-eval, conv-train, conv-train-check,
+    conv-profile, conv-experiment and conv-rollout (see the module's
+    docstring)."""
+    from sqair_tpu_torch.configs import conv_mnist_model
+    from sqair_tpu_torch.data import (DeviceDatasetSampler, create_seq_dataset,
+                                      make_template_bank)
+    from sqair_tpu_torch.experiment import flags as pflags
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
+    from sqair_tpu_torch.scripts import experiment as pexp
+    from sqair_tpu_torch.scripts import rollout
+    from sqair_tpu_torch.training import make_eval_step, make_train_step
+
+    flags = conv_flags()
+    B, k, T = int(flags["batch_size"]), int(flags["k_particles"]), 10
+    t0 = time.perf_counter()
+    data = create_seq_dataset(n_samples=CONV_SEQUENCES, n_timesteps=T, canvas_size=IMG,
+                              obj_size=(28, 28), n_objects=(0, 2), seed=SEED + 21,
+                              templates=make_template_bank(256, 28, seed=SEED))
+    mean_img = data["imgs"].mean((0, 1)) / 255.0
+    sampler = DeviceDatasetSampler(data, device)
+
+    def load(run_flags=flags):
+        return conv_mnist_model.load(run_flags, IMG, mean_img=mean_img, device=device, seed=SEED)
+
+    model = load()
+    ts = model.sequence.timestep
+    deterministic = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+                     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    if deterministic != (True, False, False, False):
+        raise Failure(f"conv: the cuDNN settings after loading the conv model are {deterministic}")
+    log("conv-setup", t0, sequences=sampler.n, T=T, B=B, k=k, img=jdump(list(IMG)),
+        conv_channels=flags["conv_channels"], conv_kernel=flags["conv_kernel"],
+        n_hidden=32 * int(flags["n_units"]), n_what=flags["n_what"],
+        glimpse=flags["glimpse_size"], input_features=ts._input_encoder.MLP_0.w_0.shape[0],
+        glimpse_features=ts._glimpse_encoder.glimpse_encoder.MLP_0.w_0.shape[0],
+        params=sum(p.numel() for p in model.sequence.parameters()),
+        cudnn_deterministic=True)
+
+    conv_kernel_times(torch, flags, B, k, T, card)
+
+    # ---------------------------------------------------------- conv-eval
+    data_gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    batches = [sampler.sample(data_gen, B) for _ in range(N_BATCHES)]
+    eval_step = make_eval_step(model)
+    evals = {}
+    for label, switches in (("no_switch", {}), ("both", CELLS_SWITCH)):
+        t0 = time.perf_counter()
+        with switched(switches):
+            replay_gen = torch.Generator(device=device).manual_seed(SEED + 23)
+            fused.reset_launches()
+            with checked_calls(torch, f"conv-eval ({label})") as calls:
+                res = [eval_step(b["imgs"], b["nums"], GeneratorNoise(replay_gen, device))
+                       for b in batches]
+                torch.cuda.synchronize()
+                counts = dict(fused.launches)
+        expected = expected_launches(main_path_shapes(flags, B, k, T), N_BATCHES)
+        finite(res, f"conv-eval {label} batch")
+        if counts != expected:
+            raise Failure(f"conv-eval {label}: launch counts {counts} differ from {expected}")
+        err, worst_metric = (0.0, None) if label == "no_switch" else max(
+            compare_metrics(torch, got, want, f"conv-eval batch {i}, both switches vs none")
+            for i, (got, want) in enumerate(zip(res, evals["no_switch"])))
+        evals[label] = res
+        with switched(switches):
+            ms = step_ms(torch, lambda: eval_step(batches[0]["imgs"], batches[0]["nums"],
+                                                  GeneratorNoise(replay_gen, device)), STEP_REPS)
+        log("conv-eval", t0, setting=label, steps=N_BATCHES, launches=jdump(counts),
+            expected=jdump(expected), calls=jdump(calls), vs_switch_off=f"{err:.3e}",
+            worst_metric=worst_metric, tol=METRIC_TOL, iwae=f"{float(res[0]['iwae']):.4f}",
+            eval_step_ms=f"{ms:.3f}", frames_per_s=f"{B * T / (ms / 1e3):.1f}", card=repr(card))
+
+    # --------------------------------------------------------- conv-train
+    trained = {}
+    for label, switches in (("no_switch", {}), ("both", CELLS_SWITCH)):
+        t0 = time.perf_counter()
+        m = load()
+        factory, l2 = conv_mnist_model.make_optimizer(flags)
+        step = make_train_step(m, factory, l2_weight=l2)
+        params = dict(m.sequence.named_parameters())
+        before = {n: p.detach().clone() for n, p in params.items()}
+        noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 24), device)
+        with switched(switches):
+            fused.reset_launches()
+            with checked_calls(torch, f"conv-train ({label})") as calls, \
+                    checked_bwd_calls(torch, f"conv-train ({label})") as bwd_calls:
+                metrics = [step(b["imgs"], b["nums"], noise) for b in batches]
+                torch.cuda.synchronize()
+                counts = dict(fused.launches)
+        expected = expected_launches(main_path_shapes(flags, B, k, T, train=True),
+                                     N_TRAIN_STEPS, backward=True)
+        finite(metrics, f"conv-train {label} step")
+        if counts != expected:
+            raise Failure(f"conv-train {label}: launch counts {counts} differ from {expected}")
+        wide = [sh for sh in bwd_calls["fused_mlp_bwd"]["shapes"]
+                if json.loads(sh)[1] == ts._input_encoder.MLP_0.w_0.shape[0]
+                and json.loads(sh)[-1]]
+        if not wide:
+            raise Failure(f"conv-train {label}: no MLP backward wrote the input encoder's dx")
+        frozen = sorted(n for n, p in params.items() if torch.equal(p.detach(), before[n]))
+        if frozen != ["decoder.background_std", "decoder.output_std"]:
+            raise Failure(f"conv-train {label}: parameters that did not change: {frozen}")
+        err, worst_metric = (0.0, None) if label == "no_switch" else compare_metrics(
+            torch, metrics[0], trained["no_switch"][0], "conv-train step 0, both vs none")
+        trained[label] = metrics
+        log("conv-train", t0, setting=label, steps=N_TRAIN_STEPS, launches=jdump(counts),
+            expected=jdump(expected), calls=jdump(calls), bwd_calls=jdump(bwd_calls),
+            step0_vs_switch_off=f"{err:.3e}", worst_metric=worst_metric, tol=METRIC_TOL,
+            target=f"{float(metrics[-1]['target']):.4f}")
+
+    t0 = time.perf_counter()
+    _, l2 = conv_mnist_model.make_optimizer(flags)
+    tc = train_check(torch, load(), None, batches[0], flags, flags, l2, device,
+                     runs=CONV_TRAIN_RUNS, referees={"off": "referee"}, gates=CONV_GATE,
+                     pairs=CONV_PAIRS)
+    report_train_check(tc, "conv-train-check", t0, CONV_GATE)
+
+    # ------------------------------------------------------- conv-profile
+    # where one eager train step's device time goes: the convolutions
+    # (cuDNN), the twelve kernels, the rest (the step's time: conv-experiment)
+    t0 = time.perf_counter()
+    m = load()
+    factory, l2 = conv_mnist_model.make_optimizer(flags)
+    step = make_train_step(m, factory, l2_weight=l2)
+    noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 25), device)
+    b = batches[0]
+    step(b["imgs"], b["nums"], noise)
+    busy_ms, top, groups = profile_groups(torch, lambda: step(b["imgs"], b["nums"], noise))
+    log("conv-profile", t0,
+        device_busy_ms="not-measured" if busy_ms is None else f"{busy_ms:.3f}",
+        by_group=jdump({g: f"{v:.3f} ms ({v / busy_ms:.3f})" for g, v in groups.items()}
+                       if busy_ms else {}), top=jdump(top), card=repr(card))
+
+    # ---------------------------------------------------- conv-experiment
+    runners = step_runners(torch, load, sampler, B, T, device)
+    graph_gate(torch, runners, flags, "conv-experiment")
+    time_settings(torch, runners, (("conv_no_switch", flags, {}),), B, k, T, IMG, card,
+                  "conv-experiment")
+    root = tempfile.mkdtemp(prefix="sqair_conv_experiment_")
+    try:
+        t0 = time.perf_counter()
+        argv = ["--model_config=sqair_tpu/configs/conv_mnist_model.py",
+                "--data_config=sqair_tpu/configs/synth_seq_mnist_data.py", "--seq_len=10",
+                "--stage_itr=0", "--eval_on_train=false", f"--synth_valid_samples={CLI_VALID}",
+                f"--train_itr={CHAIN_STEPS}", f"--save_itr={CHAIN_STEPS}",
+                f"--report_loss_every={CHAIN_STEPS}", f"--log_itr={CHAIN_STEPS}",
+                f"--fig_itr={CHAIN_STEPS}", "--on_device_data",
+                f"--steps_per_call={CHAIN_STEPS}", f"--results_dir={root}",
+                "--run_name=conv", "--device=cuda"]
+        fused.reset_launches()
+        logdir, _, state, _ = run_cli(pexp, pflags, argv)
+        counts = dict(fused.launches)
+        check_cli_run(logdir, state.step, "conv-experiment")
+        ev = 2 * (CLI_VALID // B)
+        expected = collections.Counter(expected_launches(main_path_shapes(flags, B, k, T), ev))
+        expected.update(expected_launches(main_path_shapes(flags, B, k, T, train=True),
+                                          1 + CHAIN_STEPS, backward=True))
+        log("conv-experiment", t0, cli="on_device", steps=state.step, launches=jdump(counts),
+            expected=jdump(dict(expected)))
+        if counts != dict(expected):
+            raise Failure(f"conv-experiment: the CLI launched {counts}, not {dict(expected)}")
+    finally:
+        shutil.rmtree(root)
+
+    # ------------------------------------------ conv-eval-cli, conv-rollout
+    # a checkpoint of the conv model swept by scripts/eval.py and rolled out
+    # by scripts/rollout.py, both building the model from its flags.json
+    from sqair_tpu_torch.scripts import eval as port_eval
+    from sqair_tpu_torch.training.checkpoint import save_checkpoint
+
+    cond = ROLLOUT["condition_frames"]
+    run_root = tempfile.mkdtemp(prefix="sqair_conv_run_")
+    try:
+        t0 = time.perf_counter()
+        run_dir = os.path.join(run_root, "1")
+        save_checkpoint(run_dir, 7, model.sequence)
+        with open(os.path.join(run_dir, "flags.json"), "w") as f:
+            json.dump(dict(flags, data_config="sqair_tpu/configs/synth_seq_mnist_data.py",
+                           synth_valid_samples=B, synth_train_samples=B), f)
+        npz = os.path.join(run_root, "valid.npz")
+        np.savez(npz, imgs=data["imgs"][:, :CLI_SEQUENCES], nums=data["nums"][:, :CLI_SEQUENCES])
+        fused.reset_launches()
+        done = port_eval.main(["--checkpoint_dir", run_dir, "--data_npz", npz,
+                               "--eval_batch_size", str(B)])
+        torch.cuda.synchronize()
+        counts = dict(fused.launches)
+        expected = expected_launches(main_path_shapes(flags, B, k, T), CLI_SEQUENCES // B)
+        with open(os.path.join(run_dir, "logpx_valid.txt")) as f:
+            logpx = f.read().split()
+        log("conv-eval-cli", t0, evaluated=done, launches=jdump(counts),
+            expected=jdump(expected), logpx=logpx)
+        if done != [7] or counts != expected or not math.isfinite(float(logpx[-1])):
+            raise Failure(f"conv-eval-cli: evaluated {done}, launched {counts}, logpx {logpx}")
+
+        t0 = time.perf_counter()
+        captured = {}
+        real_generate = rollout.generate
+
+        def generate(m, obs, noise):
+            captured.update(model=m, obs=obs)
+            return real_generate(m, obs, noise)
+
+        noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED), device,
+                               record=True)
+        out_dir = os.path.join(run_root, "rollout")
+        pflags.reset()
+        try:
+            with mock.patch.object(rollout, "generate", generate):
+                fused.reset_launches()
+                with checked_calls(torch, "conv-rollout") as calls:
+                    result = rollout.main(
+                        [f"--checkpoint_dir={run_dir}", f"--out_dir={out_dir}", "--device=cuda",
+                         f"--n_examples={B}", f"--rollout_len={CONV_ROLLOUT_LEN}",
+                         f"--condition_frames={cond}"], noise=noise)
+                    torch.cuda.synchronize()
+                    counts = dict(fused.launches)
+        finally:
+            pflags.reset()
+        out, gm, obs = result["outputs"], captured["model"], captured["obs"]
+        gen_flags = dict(flags, sample_from_prior=True, generate_after=cond - 1)
+        expected = expected_launches(main_path_shapes(gen_flags, B, k, CONV_ROLLOUT_LEN,
+                                                      generate=True), 1)
+        if counts != expected:
+            raise Failure(f"conv-rollout: launch counts {counts} differ from {expected}")
+        for key, v in out.items():
+            if not bool(torch.isfinite(v).all()):
+                raise Failure(f"conv-rollout: {key} is not finite")
+        if float(out["disc_pres"][cond:].abs().max()) != 0.0:
+            raise Failure("conv-rollout: discovery's presence is not 0 in a generated frame")
+        walls = walls_ms(torch, lambda: rollout.generate(gm, obs, ReplayNoise(
+            noise.table, device)), ROLLOUT_REPEATS)
+        ms = statistics.median(walls)
+        log("conv-rollout", t0, examples=B, frames=CONV_ROLLOUT_LEN, conditioned=cond,
+            launches=jdump(counts), expected=jdump(expected), calls=jdump(calls),
+            canvas=jdump(list(out["canvas"].shape)), wall_ms=f"{ms:.3f}",
+            frames_per_s=f"{B * CONV_ROLLOUT_LEN / (ms / 1e3):.1f}", card=repr(card))
+    finally:
+        shutil.rmtree(run_root)
+
+
+def options_phases(torch, card, device):
+    """options-eval, options-train, options-optimizers and options-coverage
+    (see the module's docstring)."""
+    from sqair_tpu_torch.configs import mlp_mnist_model
+    from sqair_tpu_torch.data import DeviceDatasetSampler, create_seq_dataset, make_template_bank
+    from sqair_tpu_torch.experiment import flags as pflags
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops.noise import GeneratorNoise
+    from sqair_tpu_torch.scripts import experiment as pexp
+    from sqair_tpu_torch.training import make_eval_step, make_train_step
+
+    release = json.loads(RELEASE_FLAGS.read_text())
+    B, k, T = int(release["batch_size"]), int(release["k_particles"]), 10
+    data = create_seq_dataset(n_samples=CONV_SEQUENCES, n_timesteps=T, canvas_size=IMG,
+                              obj_size=(28, 28), n_objects=(0, 2), seed=SEED + 31,
+                              templates=make_template_bank(256, 28, seed=SEED))
+    sampler = DeviceDatasetSampler(data, device)
+    mean_img = data["imgs"].mean((0, 1)) / 255.0
+
+    def load(run_flags):
+        return mlp_mnist_model.load(run_flags, IMG, mean_img=mean_img, device=device, seed=SEED)
+
+    data_gen = torch.Generator(device=device).manual_seed(SEED + 32)
+    batches = [sampler.sample(data_gen, B) for _ in range(N_BATCHES)]
+    for name, options in OPTION_MODELS:
+        run_flags = dict(release, **options)
+        for label, switches in (("no_switch", {}), ("both", CELLS_SWITCH)):
+            t0 = time.perf_counter()
+            model = load(run_flags)
+            eval_step = make_eval_step(model)
+            factory, l2 = mlp_mnist_model.make_optimizer(run_flags)
+            step = make_train_step(model, factory, l2_weight=l2)
+            noise = GeneratorNoise(torch.Generator(device=device).manual_seed(SEED + 33), device)
+            with switched(switches):
+                fused.reset_launches()
+                with checked_calls(torch, f"options-eval ({name}, {label})") as calls:
+                    res = [eval_step(b["imgs"], b["nums"], noise) for b in batches]
+                    torch.cuda.synchronize()
+                eval_counts = dict(fused.launches)
+                fused.reset_launches()
+                with checked_bwd_calls(torch, f"options-train ({name}, {label})") as bwd:
+                    metrics = [step(b["imgs"], b["nums"], noise) for b in batches]
+                    torch.cuda.synchronize()
+                train_counts = dict(fused.launches)
+            sw = dict(fuse_glimpse=bool(switches), fuse_cells=bool(switches))
+            want_eval = expected_launches(main_path_shapes(run_flags, B, k, T, **sw), N_BATCHES)
+            want_train = expected_launches(main_path_shapes(run_flags, B, k, T, train=True, **sw),
+                                           N_TRAIN_STEPS, backward=True)
+            finite(res, f"options-eval {name} {label} batch")
+            finite(metrics, f"options-train {name} {label} step")
+            if eval_counts != want_eval or train_counts != want_train:
+                raise Failure(f"options {name} {label}: launch counts {eval_counts} / "
+                              f"{train_counts} differ from {want_eval} / {want_train}")
+            log("options", t0, model=name, setting=label, steps=N_BATCHES,
+                eval_launches=jdump(eval_counts), train_launches=jdump(train_counts),
+                calls=jdump(calls), bwd_calls=jdump(bwd),
+                iwae=f"{float(res[0]['iwae']):.4f}",
+                target=f"{float(metrics[-1]['target']):.4f}", card=repr(card))
+
+    # 3 graphed steps of each optimizer against as many eager steps
+    runners = step_runners(torch, load, sampler, B, T, device)
+    for opt in ("adam", "sgd", "momentum"):
+        graph_gate(torch, runners, dict(release, opt=opt), f"options-optimizers ({opt})",
+                   steps=OPTION_CHAIN_STEPS)
+
+    # the coverage signal through the CLI, at DISC_FLAGS with both switches
+    root = tempfile.mkdtemp(prefix="sqair_coverage_")
+    try:
+        t0 = time.perf_counter()
+        n = COVERAGE_CLI_STEPS
+        argv = [f"--{k_}={v}" for k_, v in release.items()
+                if k_ not in CLI_SET and not k_.startswith("font_")
+                and k_ != "synth_valid_samples"] + [
+            "--data_config=sqair_tpu/configs/synth_seq_mnist_data.py", "--seq_len=10",
+            "--stage_itr=0", "--eval_on_train=false", f"--synth_valid_samples={CLI_VALID}",
+            "--early_disc_logit_scale=1.0", "--disc_coverage_signal", "--coverage_lr_mult=10",
+            f"--train_itr={n}", f"--save_itr={n}", f"--report_loss_every={n}",
+            f"--log_itr={n}", f"--fig_itr={n}", "--on_device_data", f"--steps_per_call={n}",
+            f"--results_dir={root}", "--run_name=coverage", "--device=cuda"]
+        cov_flags = dict(release, early_disc_logit_scale=1.0, disc_coverage_signal=True)
+        with switched(CELLS_SWITCH):
+            fused.reset_launches()
+            logdir, model, state, _ = run_cli(pexp, pflags, argv)
+            counts = dict(fused.launches)
+        records = cli_records(logdir)
+        beats = [r for r in records if r["step"] == n and "target" in r]
+        if state.step != n or not beats or not all(math.isfinite(r["target"]) for r in beats):
+            raise Failure(f"options-coverage: the CLI ended at {state.step} with {beats}")
+        ev = 2 * (CLI_VALID // B)
+        sw = dict(fuse_glimpse=True, fuse_cells=True)
+        expected = collections.Counter(expected_launches(
+            main_path_shapes(cov_flags, B, k, T, **sw), ev))
+        expected.update(expected_launches(main_path_shapes(cov_flags, B, k, T, train=True, **sw),
+                                          1 + n, backward=True))
+        rows = model.sequence.timestep.discover.cell.steps_predictor.MLP_0.w_0
+        scaled = [p for p in state.optimizer.row_scales]
+        log("options-coverage", t0, steps=state.step, launches=jdump(counts),
+            expected=jdump(dict(expected)), steps_predictor_rows=rows.shape[0],
+            scaled_parameters=len(scaled), target=f"{beats[-1]['target']:.4f}",
+            card=repr(card))
+        if counts != dict(expected) or counts.get("fused_disc") or counts.get("fused_disc_bwd"):
+            raise Failure(f"options-coverage: the CLI launched {counts}, not {dict(expected)}")
+        if len(scaled) != 1 or scaled[0] is not rows:
+            raise Failure("options-coverage: the coverage rows' update is not scaled")
+    finally:
+        shutil.rmtree(root)
 
 
 if __name__ == "__main__":

@@ -29,8 +29,7 @@ TRAIN_DEFAULTS = dict(opt="rmsprop", learning_rate=1e-5, schedule="4,6,10",
                       train_itr=int(2e6), l2=0.0)
 
 # the model config's own flags (sqair_tpu/configs/mlp_mnist_model.py), defined
-# under the JAX package's names and defaults.  The port raises where
-# disc_coverage_signal leaves its default (coverage_lr_mult: the CLI raises)
+# under the JAX package's names and defaults
 MODEL_DEFAULTS = flags.define_all((
     (str, "disc_prior_type", "cat", "Prior for #discovery steps: {geom, cat}."),
     (float, "step_success_prob", 0.75,
@@ -57,11 +56,13 @@ MODEL_DEFAULTS = flags.define_all((
      "Straight-through |logit| cap on the discovery presence logit for frames t < "
      "early_disc_horizon (0 = off)."),
     (bool, "disc_coverage_signal", False,
-     "Feed the discovery steps predictor an explained-so-far coverage signal "
-     "(not ported yet)."),
+     "Feed the discovery steps predictor an explained-so-far coverage signal: a "
+     "low-res ST crop of a canvas of the propagated boxes and this frame's earlier "
+     "discoveries (adds 16 first-layer rows: warm-start old checkpoints with "
+     "tools/pad_coverage_params_torch.py)."),
     (float, "coverage_lr_mult", 1.0,
      "Update multiplier for the 16 coverage input-rows of the discovery steps "
-     "predictor (not ported yet; 1 = off)."),
+     "predictor (requires --disc_coverage_signal; 1 = off)."),
     (bool, "sample_from_prior", False, "Sample from the prior instead of q."),
     (bool, "rec_where_prior", True, "Recurrent prior for where in discovery."),
     (int, "generate_after", -1,
@@ -108,15 +109,39 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
         variants (e.g. the pedestrian config's non-square glimpse_size
         [gh, gw])
     """
-    F = dict(DEFAULTS)
-    F.update(given(flags))
-    if F["disc_coverage_signal"]:
-        raise ValueError("flags not ported yet: ['disc_coverage_signal']")
-    device = resolve_device(device)
+    F = resolved(flags)
     params = get_params(F)
     params.update(param_overrides)
+    return assemble(
+        F, img_shape, params, mean_img, device, seed,
+        timestep=dict(early_disc_step_bias=F["early_disc_step_bias"],
+                      early_disc_horizon=int(F["early_disc_horizon"]),
+                      early_disc_logit_bias=F["early_disc_logit_bias"],
+                      early_disc_logit_scale=F["early_disc_logit_scale"],
+                      early_disc_logit_clamp=F["early_disc_logit_clamp"],
+                      disc_coverage_signal=bool(F["disc_coverage_signal"])),
+        model=dict(transient_penalty=F["transient_disc_penalty"],
+                   transient_horizon=int(F["early_disc_horizon"]),
+                   transient_temp=F["transient_penalty_temp"]))
+
+
+def resolved(flags: Mapping) -> dict:
+    """Every flag the model reads: the given ones, the rest at the JAX
+    package's defaults."""
+    F = dict(DEFAULTS)
+    F.update(given(flags))
+    return F
+
+
+def assemble(F: Mapping, img_shape: Sequence[int], params: Mapping,
+             mean_img: Optional[np.ndarray], device, seed: int, timestep: Mapping = (),
+             decoder: Mapping = (), model: Mapping = ()) -> Model:
+    """The model of the flags ``F`` and the sizes ``params`` (``get_params``),
+    with the config's own ``SQAIRTimestep``, ``AIRDecoder`` and ``Model``
+    arguments, weights drawn from ``seed``, on ``device``."""
+    device = resolve_device(device)
     img_size = tuple(int(s) for s in img_shape)
-    timestep = SQAIRTimestep(
+    ts = SQAIRTimestep(
         n_steps=int(F["n_steps_per_image"]), img_size=img_size,
         glimpse_size=tuple(params["glimpse_size"]), n_what=int(F["n_what"]),
         n_hidden=params["n_hidden"], n_layers=params["n_layers"],
@@ -127,39 +152,30 @@ def load(flags: Mapping, img_shape: Sequence[int], mean_img: Optional[np.ndarray
         prop_step_bias=F["prop_step_bias"], prop_prior_step_bias=F["prop_prior_step_bias"],
         prop_prior_type=F["prop_prior_type"], step_success_prob=F["step_success_prob"],
         disc_prior_type=F["disc_prior_type"], rec_where_prior=F["rec_where_prior"],
-        early_disc_step_bias=F["early_disc_step_bias"],
-        early_disc_horizon=int(F["early_disc_horizon"]),
-        early_disc_logit_bias=F["early_disc_logit_bias"],
-        early_disc_logit_scale=F["early_disc_logit_scale"],
-        early_disc_logit_clamp=F["early_disc_logit_clamp"],
         scale_prior=tuple(parse_string_flag(F["scale_prior"], num_elements=2)),
-        masked_glimpse=F["masked_glimpse"],
-    )
-    decoder = AIRDecoder(
+        masked_glimpse=F["masked_glimpse"], **dict(timestep))
+    dec = AIRDecoder(
         img_size=img_size, glimpse_size=tuple(params["glimpse_size"]),
         n_what=int(F["n_what"]), glimpse_n_hiddens=tuple(params["n_hiddens"]),
         glimpse_output_scale=F["output_scale"], mean_img=mean_img,
-        output_std=F["output_std"],
-    )
-    seq = SequentialAIR(timestep, decoder, sample_from_prior=bool(F["sample_from_prior"]),
+        output_std=F["output_std"], **dict(decoder))
+    seq = SequentialAIR(ts, dec, sample_from_prior=bool(F["sample_from_prior"]),
                         generate_after=int(F["generate_after"]))
     init_params(seq, torch.Generator().manual_seed(seed))
     seq.to(device)
     return Model(seq, k_particles=int(F["k_particles"]), aspect_penalty=F["aspect_penalty"],
-                 transient_penalty=F["transient_disc_penalty"],
-                 transient_horizon=int(F["early_disc_horizon"]),
-                 transient_temp=F["transient_penalty_temp"])
+                 **dict(model))
 
 
 def train_settings(flags: Mapping) -> dict:
     """The training flags (opt, learning_rate, schedule, train_itr, l2),
-    missing ones at the JAX package's defaults.  Raises on an optimizer
-    that is not ported."""
+    missing ones at the JAX package's defaults.  Raises on an unknown
+    optimizer."""
     F = dict(TRAIN_DEFAULTS)
     F.update({k: v for k, v in given(flags).items() if k in TRAIN_DEFAULTS})
     if str(F["opt"]).lower() not in training.OPTIMIZERS:
-        raise ValueError(f"optimizer '{F['opt']}' is not ported yet "
-                         f"(ported: {training.OPTIMIZERS})")
+        raise ValueError(f"Unknown optimizer '{F['opt']}' "
+                         f"(choose from {sorted(training.OPTIMIZERS)})")
     return dict(opt=str(F["opt"]), learning_rate=float(F["learning_rate"]),
                 schedule=str(F["schedule"] or ""), train_itr=int(F["train_itr"]),
                 l2=float(F["l2"]))

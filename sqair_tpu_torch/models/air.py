@@ -7,7 +7,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..nn.layers import MLP, Decoder, Module, const
+from ..nn.layers import MLP, Decoder, Module, SubpixelDecoder, const
 from ..nn.stochastic import GaussianFromParamVec
 from ..ops import distributions as D
 from ..ops import fused_glimpse, stn
@@ -17,7 +17,8 @@ class AIREncoder(Module):
     """ST crop at ``where`` (logit space), an optional soft mask from
     ``mask_inpt``, and an MLP -> what posterior.
 
-    :param glimpse_encoder: Encoder over the flattened glimpse
+    :param glimpse_encoder: Encoder or ConvEncoder over the flattened
+        glimpse (``d_out`` wide)
     """
 
     def __init__(self, img_size, glimpse_size, n_what, glimpse_encoder, d_mask=0,
@@ -34,7 +35,8 @@ class AIREncoder(Module):
     def _fused_params(self):
         """(mask_params, enc_params, head_w, head_b) for the fused glimpse
         kernel, or None where the JAX package's ``_fused_param_tree`` gives
-        None: a glimpse encoder of other than two layers, or no head."""
+        None: a glimpse encoder of other than two layers (a ConvEncoder's
+        MLP_0 has one), or no head."""
         mlp = self.glimpse_encoder.MLP_0
         if mlp.n_layers != 2 or not hasattr(self._what_distrib, "Dense_0"):
             return None
@@ -77,29 +79,66 @@ class AIRDecoder(Module):
     the written-to mask, whose all-ones paste is the rank-1 outer product
     of the matrices' row sums.
 
-    The fg / bg stds are parameters (kept in the state_dict under their flax
-    names) that receive no gradient: as in the JAX package with ``learn_std``
-    and ``learn_bg_std`` False, their defaults and the only setting any
-    config uses.  Learnable stds are not ported and raise.
+    The glimpse decoder is the MLP ``Decoder`` (``decoder_type`` "mlp") or
+    the ``SubpixelDecoder`` (``"subpixel"``: channels [16, 16], the glimpse
+    size, ``glimpse_output_scale``).
+
+    The stds, the JAX package's machinery: each is a parameter under its
+    flax name (``output_std``, ``background_std``) holding sqrt(std) with a
+    ``min_std`` lower bound reparametrised as std = raw^2 + offset
+    (raw = sqrt(value - min_std), offset = 2 value min_std - min_std^2);
+    the background's value is ``bg_std`` or else ``output_std``.  A std gets
+    a gradient only where it is learnable (``learn_std``,
+    ``learn_bg_std``); ``bg_bigger_than_fg_std`` keeps the background's std
+    at least the foreground's + 1e-4.
     """
 
     def __init__(self, img_size, glimpse_size, n_what, glimpse_n_hiddens,
                  glimpse_output_scale=0.25, mean_img: Optional[np.ndarray] = None,
-                 output_std=0.3, learn_std=False, learn_bg_std=False):
+                 output_std=0.3, learn_std=False, bg_std: Optional[float] = None,
+                 learn_bg_std=False, min_std=0.0, bg_bigger_than_fg_std=False,
+                 decoder_type="mlp"):
         super().__init__()
-        if learn_std or learn_bg_std:
-            raise ValueError("learnable decoder stds (learn_std, learn_bg_std) are not "
-                             "ported yet")
+        if decoder_type not in ("mlp", "subpixel"):
+            raise ValueError(f"Unknown decoder_type '{decoder_type}'")
         self.img_size, self.glimpse_size = tuple(img_size), tuple(glimpse_size)
-        self._glimpse_decoder = Decoder(n_what, glimpse_n_hiddens, self.glimpse_size,
-                                        glimpse_output_scale)
+        if decoder_type == "subpixel":
+            self._glimpse_decoder = SubpixelDecoder(n_what, [16, 16], self.glimpse_size,
+                                                    glimpse_output_scale)
+        else:
+            self._glimpse_decoder = Decoder(n_what, glimpse_n_hiddens, self.glimpse_size,
+                                            glimpse_output_scale)
         if mean_img is not None:
             mean = torch.as_tensor(np.asarray(mean_img, np.float32))
             self.add_param("mean_img", mean.shape, lambda t, g: t.copy_(mean))
         self.has_mean_img = mean_img is not None
-        # sqrt reparametrisation of the stds (learn_std and min_std are off)
-        self.add_param("output_std", (), const(math.sqrt(output_std)))
-        self.add_param("background_std", (), const(math.sqrt(output_std)))
+        self.learn_std, self.learn_bg_std = learn_std, learn_bg_std
+        self.bg_bigger_than_fg_std = bg_bigger_than_fg_std
+        self._fg_offset = self._std_param("output_std", output_std, min_std)
+        self._bg_offset = self._std_param("background_std",
+                                          output_std if bg_std is None else bg_std, min_std)
+
+    def _std_param(self, name, value, min_std) -> float:
+        """Adds the std parameter ``name`` (sqrt reparametrisation); returns
+        its offset."""
+        offset = 0.0
+        if min_std != 0.0:
+            if not 0.0 < min_std <= value:
+                raise ValueError(f"min_std {min_std} must lie in (0, {name} {value}]")
+            offset = 2 * value * min_std - min_std**2
+            value = value - min_std
+        self.add_param(name, (), const(math.sqrt(value)))
+        return offset
+
+    def stds(self):
+        """(foreground std, background std)."""
+        fg_raw = self.output_std if self.learn_std else self.output_std.detach()
+        bg_raw = self.background_std if self.learn_bg_std else self.background_std.detach()
+        fg = fg_raw**2 + self._fg_offset
+        bg = bg_raw**2 + self._bg_offset
+        if self.bg_bigger_than_fg_std:
+            bg = torch.maximum(bg, fg + 1e-4)
+        return fg, bg
 
     def forward(self, what, where, presence=None):
         """:param what: [B, S, n_what]; where: [B, S, 4]; presence: [B, S, 1]
@@ -116,8 +155,6 @@ class AIRDecoder(Module):
         written_to_mask = torch.sigmoid(-10.0 + torch.sum(ones_paste, 1) * 20.0)
         if self.has_mean_img:
             canvas = canvas + self.mean_img[None] * written_to_mask
-        # the JAX package stops the gradient of both stds (learn_std and
-        # learn_bg_std are False)
-        fg, bg = self.output_std.detach()**2, self.background_std.detach()**2
+        fg, bg = self.stds()
         std = written_to_mask * fg + (1.0 - written_to_mask) * bg
         return D.Normal(canvas, std), glimpse

@@ -10,6 +10,7 @@ import torch
 from ..nn.layers import MLP, Module, state_feature
 from ..nn.stochastic import AffineDiagNormal, GaussianFromParamVec
 from ..ops import distributions as D
+from ..ops import stn
 from ..ops.math import softplus
 from ..ops.noise import NoiseSource
 
@@ -27,17 +28,46 @@ HIDDEN_OUTPUT_FIELDS = (
 )
 
 
+def coverage_paste(coverage, coords, presence, glimpse_size):
+    """Max-composites presence-weighted all-ones box pastes onto a canvas.
+    The paste of a glimpse of ones is the rank-1 outer product of the paste
+    matrices' row sums, so a box costs two small products.
+
+    :param coverage: [B, H, W]
+    :param coords: [B, 4] or slotted [B, S, 4] ST coords
+    :param presence: [B, 1] or [B, S, 1]
+    :return: [B, H, W] canvas in [0, 1]
+    """
+    uy, ux = stn.paste_matrices(coords, glimpse_size, tuple(coverage.shape[-2:]))
+    ones = torch.ones((), dtype=coverage.dtype, device=coverage.device)
+    box = torch.minimum(uy.sum(-1)[..., :, None] * ux.sum(-1)[..., None, :], ones)
+    box = box * presence[..., None]
+    if box.ndim == coverage.ndim + 1:  # slotted: compose over S
+        # amax, as jnp.max, splits the gradient evenly between ties
+        box = torch.amax(box, -3)
+    return torch.maximum(coverage, box)
+
+
 class DiscoveryCore(Module):
     """One discovery step for one new object.
 
     ``input_encoder`` and ``glimpse_encoder`` are shared with propagation and
     owned by the timestep; this core holds them without registering them.
+
+    With ``coverage_signal`` the steps predictor also reads a COVERAGE_RES x
+    COVERAGE_RES crop, at the candidate box, of a canvas of the boxes
+    claimed so far in the frame (the propagated objects' and this frame's
+    earlier discoveries'); the core then carries the canvas in its state and
+    pastes each discovery's box onto it, weighted by its presence.
     """
 
+    COVERAGE_RES = 4
+
     def __init__(self, img_size, glimpse_size, n_what, transition, input_encoder,
-                 glimpse_encoder, transform_estimator, steps_predictor):
+                 glimpse_encoder, transform_estimator, steps_predictor, coverage_signal=False):
         super().__init__()
         self.img_size, self.glimpse_size, self.n_what = img_size, glimpse_size, n_what
+        self.coverage_signal = coverage_signal
         self.transition = transition
         self.transform_estimator = transform_estimator
         self.steps_predictor = steps_predictor
@@ -47,14 +77,19 @@ class DiscoveryCore(Module):
     def encode_img(self, img):
         return self.input_encoder(img.reshape(img.shape[0], -1))
 
-    def initial_state(self, img, encoded_img):
+    def initial_state(self, img, encoded_img, coverage=None):
+        """:param coverage: [B, H, W] starting canvas of the coverage signal
+            (zeros if None)"""
         B = img.shape[0]
-        return dict(
+        state = dict(
             img=img, encoded_img=encoded_img,
             what=img.new_zeros((B, self.n_what)), where=img.new_zeros((B, 4)),
             presence=img.new_ones((B, 1)),  # discovery starts "present"
             rnn_state=self.transition.initial_state(B),
         )
+        if self.coverage_signal:
+            state["coverage"] = torch.zeros_like(img) if coverage is None else coverage
+        return state
 
     def forward(self, state, conditioning, noise: NoiseSource, extra_steps_logit=0.0,
                 steps_logit_scale=1.0, steps_logit_clamp=None) -> Tuple[Dict, Dict]:
@@ -74,9 +109,19 @@ class DiscoveryCore(Module):
         what_distrib, _ = self.glimpse_encoder(img, where)
         what = what_distrib.sample(noise.normal("what", what_distrib.shape))
 
+        cov_feats = ()
+        if self.coverage_signal:
+            # the canvas resampled over the candidate box: the low output
+            # resolution is the pooling
+            coords = stn.to_coords(where)
+            res = self.COVERAGE_RES
+            cov = stn.extract_glimpse(state["coverage"], coords, (res, res))
+            cov_feats = (cov.reshape(cov.shape[0], -1),)
+
         pres_distrib = self.steps_predictor(
-            state["presence"], None, hidden_output, what, extra_logit=extra_steps_logit,
-            logit_scale=steps_logit_scale, logit_clamp=steps_logit_clamp)
+            state["presence"], None, hidden_output, what, *cov_feats,
+            extra_logit=extra_steps_logit, logit_scale=steps_logit_scale,
+            logit_clamp=steps_logit_clamp)
         presence = pres_distrib.sample(
             noise.uniform("presence", pres_distrib.logits.shape)) * state["presence"]
 
@@ -88,6 +133,9 @@ class DiscoveryCore(Module):
         )
         new_state = dict(img=img, encoded_img=encoded_img, what=what, where=where,
                          presence=presence, rnn_state=rnn_state)
+        if self.coverage_signal:
+            new_state["coverage"] = coverage_paste(state["coverage"], coords, presence,
+                                                   self.glimpse_size)
         return outputs, new_state
 
 

@@ -10,9 +10,9 @@ import torch.nn.functional as F
 from ..nn.layers import MLP, Module, VanillaRNN, zeros
 from ..nn.stochastic import ConditionedNormalAdaptor, RecurrentNormal, RecurrentNormalImpl
 from ..ops import distributions as D
-from ..ops import fused_cells
+from ..ops import fused_cells, stn
 from ..ops.noise import NoiseSource
-from .core import HIDDEN_OUTPUT_FIELDS, DiscoveryCore
+from .core import HIDDEN_OUTPUT_FIELDS, DiscoveryCore, coverage_paste
 
 
 class Discover(Module):
@@ -25,6 +25,10 @@ class Discover(Module):
     cost (cat prior only), ``early_disc_logit_bias`` is subtracted from the
     presence logit, ``early_disc_logit_scale`` multiplies it and
     ``early_disc_logit_clamp`` caps it straight-through.
+
+    With the cell's ``coverage_signal``, each frame's coverage canvas starts
+    from the propagated objects' boxes (``prop_boxes``), and the cell adds
+    this frame's discoveries slot by slot.
     """
 
     def __init__(self, n_steps: int, cell: DiscoveryCore, d_cond: int,
@@ -47,6 +51,7 @@ class Discover(Module):
         self.early_disc_logit_bias = early_disc_logit_bias
         self.early_disc_logit_scale = early_disc_logit_scale
         self.early_disc_logit_clamp = early_disc_logit_clamp
+        self.coverage_signal = cell.coverage_signal
         if rec_where_prior:
             bias = torch.tensor(list(where_mean) + list(where_std))
             # the where prior is conditioned on [propagation summary, expected
@@ -87,7 +92,8 @@ class Discover(Module):
 
     def forward(self, img, conditioning_from_prop, time_step: int, prior_conditioning,
                 noise: NoiseSource, compute_log_probs: bool = True,
-                sample_from_prior: bool = False, do_generate: float = 0.0) -> Dict:
+                sample_from_prior: bool = False, do_generate: float = 0.0,
+                prop_boxes=None) -> Dict:
         """Runs discovery for one frame.
 
         :param img: [B, H, W]
@@ -101,6 +107,8 @@ class Discover(Module):
             (noise under "prior"); the prior's presence is 0
         :param do_generate: 1 puts the prior's samples in place of the
             posterior's (0 keeps the posterior's)
+        :param prop_boxes: (where [B, S, 4], presence [B, S, 1]) of the
+            propagated objects: they seed the coverage signal's canvas
         """
         extra_steps_logit, steps_logit_scale, steps_logit_clamp = 0.0, 1.0, None
         if (self.early_disc_logit_bias or self.early_disc_logit_clamp
@@ -115,9 +123,16 @@ class Discover(Module):
             if self.early_disc_logit_clamp:
                 steps_logit_clamp = self.early_disc_logit_clamp + (1.0 - is_early) * 1e4
 
+        coverage = None
+        if self.coverage_signal:
+            coverage = torch.zeros_like(img)
+            if prop_boxes is not None:
+                where, presence = prop_boxes
+                coverage = coverage_paste(coverage, stn.to_coords(where), presence,
+                                          self.cell.glimpse_size)
         hidden_outputs, num_steps = self._discover(
             img, conditioning_from_prop, noise, extra_steps_logit, steps_logit_scale,
-            steps_logit_clamp)
+            steps_logit_clamp, coverage)
         log_probs = {}
         if compute_log_probs:
             hidden_outputs, log_probs = self._compute_log_probs(
@@ -139,14 +154,15 @@ class Discover(Module):
         """Whether the JAX package's ``Discover._fused_disc_params`` would run
         its fused discovery kernel (TPU kernels #7/#8) with
         ``SQAIR_FUSE_CELLS`` set: no early-discovery logit lever, a
-        VanillaRNN transition, uncapped presence logits, and MLPs of the
-        kernel's depths (input encoder 2, estimator 3, steps predictor 2,
-        glimpse encoder 2 with a head).  The port has no coverage signal and
-        no glimpse scale offset."""
+        VanillaRNN transition, uncapped presence logits, no coverage signal
+        (the kernel's steps predictor has no coverage input), and MLPs of
+        the kernel's depths (input encoder 2, estimator 3, steps predictor 2,
+        glimpse encoder 2 with a head: a ConvEncoder's MLP_0 has one
+        layer).  The port has no glimpse scale offset."""
         cell = self.cell
         sp = cell.steps_predictor
         return not (self.early_disc_logit_bias or self.early_disc_logit_clamp
-                    or self.early_disc_logit_scale != 1.0
+                    or self.early_disc_logit_scale != 1.0 or self.coverage_signal
                     or not isinstance(cell.transition, VanillaRNN)
                     or sp.max_rel_logit_change != math.inf
                     or sp.max_logit_change != math.inf
@@ -190,13 +206,13 @@ class Discover(Module):
         return hidden_outputs, num_steps
 
     def _discover(self, img, conditioning, noise, extra_steps_logit=0.0,
-                  steps_logit_scale=1.0, steps_logit_clamp=None):
+                  steps_logit_scale=1.0, steps_logit_clamp=None, coverage=None):
         """Unrolls the discovery core over the object slots: one fused kernel
         where the JAX package would run its kernel, else slot by slot."""
         fp = self._fused_disc_params()
         if fp is not None:
             return self._discover_fused(fp, img, conditioning, noise)
-        state = self.cell.initial_state(img, self.cell.encode_img(img))
+        state = self.cell.initial_state(img, self.cell.encode_img(img), coverage)
         per_slot = []
         for k in range(self.n_steps):
             outputs, state = self.cell(state, conditioning, noise.scope(k),

@@ -1,5 +1,5 @@
 """Propagation: the per-object prior and the Propagate module (the port of
-sqair_tpu/models/propagate.py; the prior's "rnn" mode)."""
+sqair_tpu/models/propagate.py)."""
 from __future__ import annotations
 
 import math
@@ -15,16 +15,24 @@ from ..ops.noise import NoiseSource
 from .core import HIDDEN_OUTPUT_FIELDS, PropagationCore
 
 
+PRIOR_MODES = ("rnn", "rw", "guided")
+
+
 class PropagatePrior(Module):
     """Per-object RNN prior: (what_tm1, where_tm1) -> cell -> Dense ->
     (where loc/scale, what loc/scale, propagation logit).  Dead objects
-    stay dead through the -88 logit lock."""
+    stay dead through the -88 logit lock.
+
+    ``mode`` "rw" (random walk) centres what and where on their previous
+    values and takes the previous presence logit + 0.1 the readout's;
+    "guided" adds 0.1 the readout's locs to the previous values, with the
+    same presence logit."""
 
     def __init__(self, n_what: int, cell, prop_logit_bias=10.0, mode="rnn"):
         super().__init__()
-        if mode != "rnn":
-            raise ValueError(f"propagation prior mode '{mode}' is not ported; use 'rnn'")
-        self.n_what, self.prop_logit_bias = n_what, prop_logit_bias
+        if mode not in PRIOR_MODES:
+            raise ValueError(f"propagation prior mode '{mode}': choose from {PRIOR_MODES}")
+        self.n_what, self.prop_logit_bias, self.mode = n_what, prop_logit_bias, mode
         self.cell = cell
         self._readout = Dense(cell.units, 2 * (4 + n_what) + 1)
 
@@ -36,7 +44,7 @@ class PropagatePrior(Module):
             presence_logit [B,S,1])
         :param prior_rnn_hidden_state: state tuple of [B,S,U]
         :return: (prior stats 5-tuple, new state)"""
-        what_tm1, where_tm1, presence_tm1, _ = z_tm1
+        what_tm1, where_tm1, presence_tm1, presence_logit_tm1 = z_tm1
         B, S = what_tm1.shape[:2]
         flat_inpt = torch.cat([what_tm1, where_tm1], -1).reshape(B * S, -1)
         flat_state = tuple(s.reshape(B * S, -1) for s in prior_rnn_hidden_state)
@@ -52,6 +60,13 @@ class PropagatePrior(Module):
         where_loc, what_loc = locs[..., :4], locs[..., 4:]
         where_scale = softplus(scales[..., :4]) + 1e-2
         what_scale = softplus(scales[..., 4:]) + 1e-2
+        if self.mode == "rw":
+            where_loc, what_loc = where_tm1, what_tm1
+            prop_logit = presence_logit_tm1 + 0.1 * prop_logit
+        elif self.mode == "guided":
+            where_loc = where_tm1 + 0.1 * where_loc
+            what_loc = what_tm1 + 0.1 * what_loc
+            prop_logit = presence_logit_tm1 + 0.1 * prop_logit
         return (where_loc, where_scale, what_loc, what_scale, prop_logit), new_state
 
     @staticmethod

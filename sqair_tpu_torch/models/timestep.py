@@ -1,14 +1,15 @@
 """SQAIRTimestep: one Propagate-then-Discover step and the latent merge
 (the port of sqair_tpu/models/timestep.py).  It owns the modules that
 discovery and propagation share: the input and glimpse encoders and the
-temporal cell."""
+temporal cell.  The encoders are MLPs (``encoder_type`` "mlp") or
+ConvEncoders (``"conv"``, ``conv_channels`` and ``conv_kernel``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
 import torch
 
-from ..nn.layers import MLP, Encoder, Module, make_cell
+from ..nn.layers import MLP, ConvEncoder, Encoder, Module, make_cell
 from ..nn.stochastic import StepsPredictor, StochasticTransformParam
 from ..ops import indexing
 from ..ops.noise import NoiseSource
@@ -19,7 +20,12 @@ from .propagate import Propagate, PropagatePrior
 
 
 class SQAIRTimestep(Module):
-    """One time step of the full model (MLP encoders)."""
+    """One time step of the full model.
+
+    :param disc_coverage_signal: the discovery steps predictor also reads a
+        COVERAGE_RES^2 crop of a canvas of the boxes claimed so far in the
+        frame (``DiscoveryCore``), seeded with the propagated objects' boxes
+    """
 
     def __init__(self, n_steps: int, img_size: Sequence[int], glimpse_size: Sequence[int],
                  n_what: int, n_hidden: int = 256, n_layers: int = 2,
@@ -30,7 +36,9 @@ class SQAIRTimestep(Module):
                  disc_prior_type="cat", rec_where_prior=True, early_disc_step_bias=0.0,
                  early_disc_horizon=2, early_disc_logit_bias=0.0,
                  early_disc_logit_scale=1.0, early_disc_logit_clamp=0.0,
-                 scale_prior: Sequence[float] = (-2.0, -2.0), masked_glimpse=True):
+                 disc_coverage_signal=False, scale_prior: Sequence[float] = (-2.0, -2.0),
+                 masked_glimpse=True, encoder_type="mlp", conv_channels=(32, 64),
+                 conv_kernel=3):
         super().__init__()
         self.n_steps, self.n_what, self.n_hidden = n_steps, n_what, n_hidden
         img_size, glimpse_size = tuple(img_size), tuple(glimpse_size)
@@ -39,11 +47,20 @@ class SQAIRTimestep(Module):
         n_img = img_size[0] * img_size[1]
         n_glimpse = glimpse_size[0] * glimpse_size[1]
 
-        self._input_encoder = Encoder(n_img, n_hiddens)
-        self._glimpse_encoder = AIREncoder(
-            img_size, glimpse_size, n_what, Encoder(n_glimpse, n_hiddens),
-            d_mask=n_hidden, masked_glimpse=masked_glimpse)
+        if encoder_type == "conv":
+            self._input_encoder = ConvEncoder(img_size, list(conv_channels), n_features=n_hidden,
+                                              kernel_shape=conv_kernel)
+            glimpse_enc = ConvEncoder(glimpse_size, list(conv_channels), n_features=n_hidden,
+                                      kernel_shape=conv_kernel)
+        elif encoder_type == "mlp":
+            self._input_encoder = Encoder(n_img, n_hiddens)
+            glimpse_enc = Encoder(n_glimpse, n_hiddens)
+        else:
+            raise ValueError(f"Unknown encoder_type '{encoder_type}'")
+        self._glimpse_encoder = AIREncoder(img_size, glimpse_size, n_what, glimpse_enc,
+                                           d_mask=n_hidden, masked_glimpse=masked_glimpse)
         d_enc = self._input_encoder.d_out
+        d_cov = DiscoveryCore.COVERAGE_RES**2 if disc_coverage_signal else 0
 
         # discovery RNN input: [image code, propagation summary, what, where, presence]
         disc_cell = DiscoveryCore(
@@ -53,8 +70,9 @@ class SQAIRTimestep(Module):
             glimpse_encoder=self._glimpse_encoder,
             transform_estimator=StochasticTransformParam(n_hidden, n_hiddens,
                                                          transform_var_bias),
-            steps_predictor=StepsPredictor(n_hidden + n_what, steps_hidden,
+            steps_predictor=StepsPredictor(n_hidden + n_what + d_cov, steps_hidden,
                                            disc_step_bias),
+            coverage_signal=disc_coverage_signal,
         )
         self.discover = Discover(
             n_steps, disc_cell, d_cond=n_hidden, step_success_prob=step_success_prob,
@@ -133,9 +151,10 @@ class SQAIRTimestep(Module):
         prop_prior_step_probs = (torch.sigmoid(prop_prior_step_logits) - 0.5) / self.n_steps
         expected_prop_prior_num_step = torch.sum(prop_prior_step_probs, -1, keepdim=True)
 
-        disc_output = self.discover(img, conditioning_from_prop, time_step,
-                                    expected_prop_prior_num_step, noise.scope("disc"),
-                                    compute_log_probs, sample_from_prior, do_generate)
+        disc_output = self.discover(
+            img, conditioning_from_prop, time_step, expected_prop_prior_num_step,
+            noise.scope("disc"), compute_log_probs, sample_from_prior, do_generate,
+            prop_boxes=(prop_output["where"], prop_output["presence"]))
 
         (hidden_outputs, z_t, obj_ids, prop_prior_state, temporal_hidden_state,
          highest_used_ids) = self._choose_latents(prop_output, disc_output,

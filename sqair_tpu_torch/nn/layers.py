@@ -7,8 +7,18 @@ so a flax parameter tree converts to a ``state_dict`` by renaming
 PyTorch creates parameters eagerly.
 
 Cells follow the JAX interface ``cell(state, x) -> (new_state, output)``
-with ``state`` a tuple ``(h,)``; ``initial_state(batch)`` tiles the
-trainable ``h0``.
+with ``state`` a tuple: ``(h,)`` for VanillaRNN and GRU, ``(c, h)`` for
+the LSTM; ``state_feature(state)`` is h.  ``initial_state(batch)`` tiles
+the trainable initial state.
+
+The conv modules (ConvNet, UpConvNet, ConvEncoder, SubpixelDecoder) take
+and give NHWC tensors, as flax's ``nn.Conv``.  A conv kernel is stored as
+flax stores it, HWIO [kh, kw, c_in, c_out], so that convert.py stays a
+renaming, and is permuted to OIHW at the call (``conv2d_same``), which runs
+``F.conv2d`` on a channels-last view: cuDNN on the card, as the JAX package
+runs its convolutions in XLA, outside any Pallas kernel.  flax's SAME
+padding is asymmetric at stride 2 (50 -> 25 pads (0, 1)), so the padding is
+computed from its rule and applied explicitly.
 
 Each parameter records its flax initialiser; ``init_params(module,
 generator)`` draws them all.
@@ -19,9 +29,11 @@ import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fused
+from ..ops.stn import deterministic_convolutions
 
 State = Tuple[torch.Tensor, ...]
 
@@ -41,7 +53,9 @@ def const(value):
 
 
 def lecun_normal(t, g):
-    std = math.sqrt(1.0 / t.shape[0]) / _TRUNC_STD
+    # fan-in: every axis but the output's (a Dense kernel's d_in, a conv
+    # kernel's kh kw c_in), as flax's variance_scaling counts it
+    std = math.sqrt(1.0 / math.prod(t.shape[:-1])) / _TRUNC_STD
     nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
 
 
@@ -188,6 +202,179 @@ class Decoder(Module):
         return out.reshape(out.shape[:-1] + self.output_size) * self.output_scale
 
 
+def _per_layer(param, n: int) -> int:
+    """A per-layer setting: the n-th of a sequence, or the one value."""
+    if isinstance(param, (list, tuple)):
+        return int(param[n] if len(param) > 1 else param[0])
+    return int(param)
+
+
+def same_padding(size: int, kernel: int, stride: int, dilation: int = 1):
+    """flax's SAME padding of one axis: (low, high), the odd pixel high."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_same(x, kernel, bias, stride=1, dilation=1):
+    """flax ``nn.Conv`` with SAME padding on NHWC ``x`` [N, H, W, C] and an
+    HWIO ``kernel`` [kh, kw, C, C_out]: [N, H', W', C_out]."""
+    kh, kw = kernel.shape[:2]
+    (t, b), (l, r) = (same_padding(x.shape[1], kh, stride, dilation),
+                      same_padding(x.shape[2], kw, stride, dilation))
+    xc = x.permute(0, 3, 1, 2)  # NCHW, channels-last in memory
+    if (t, l) == (b, r):
+        pad = (t, l)
+    else:
+        xc, pad = F.pad(xc, (l, r, t, b)), 0
+    y = F.conv2d(xc, kernel.permute(3, 2, 0, 1), bias, stride=stride, padding=pad,
+                 dilation=dilation)
+    return y.permute(0, 2, 3, 1)
+
+
+class Conv(Module):
+    """flax nn.Conv (SAME): ``kernel`` HWIO [k, k, c_in, c_out], ``bias``."""
+
+    def __init__(self, c_in, c_out, kernel_shape, stride=1, dilation=1):
+        super().__init__()
+        deterministic_convolutions()
+        self.stride, self.dilation = stride, dilation
+        self.add_param("kernel", (kernel_shape, kernel_shape, c_in, c_out), lecun_normal)
+        self.add_param("bias", (c_out,), zeros)
+
+    def forward(self, x):
+        return conv2d_same(x, self.kernel, self.bias, self.stride, self.dilation)
+
+
+def _depth_to_space(x, block: int):
+    """[..., H, W, b b c] -> [..., H b, W b, c], the channels read as
+    (b1, b2, c) with c innermost (the JAX package's layout, not
+    ``F.pixel_shuffle``'s (c, b1, b2))."""
+    lead, (H, W, C) = x.shape[:-3], x.shape[-3:]
+    c_out = C // (block * block)
+    x = x.reshape(lead + (H, W, block, block, c_out)).transpose(-4, -3)
+    return x.reshape(lead + (H * block, W * block, c_out))
+
+
+class ConvNet(Module):
+    """Elu ConvNet with an optional linear conv output head; ``stride`` and
+    ``rate`` (dilation) are one value or one per layer.  NHWC."""
+
+    def __init__(self, c_in, kernel_shape, n_hiddens, n_out=None, hidden_transfer=F.elu,
+                 transfer=None, stride=1, rate=1):
+        super().__init__()
+        self.hidden_transfer, self.transfer = hidden_transfer, transfer
+        dims = [int(h) for h in n_hiddens] + ([n_out] if n_out is not None else [])
+        self.n_convs, self.has_out = len(dims), n_out is not None
+        for n, d in enumerate(dims):
+            setattr(self, f"Conv_{n}", Conv(c_in, d, kernel_shape, _per_layer(stride, n),
+                                            _per_layer(rate, n)))
+            c_in = d
+        self.c_out = c_in
+
+    def out_size(self, size: int) -> int:
+        """The output side of an input side ``size`` (SAME: ceil(size / s))."""
+        for n in range(self.n_convs):
+            size = -(-size // getattr(self, f"Conv_{n}").stride)
+        return size
+
+    def forward(self, x):
+        """:param x: [N, H, W, C]"""
+        for n in range(self.n_convs):
+            x = getattr(self, f"Conv_{n}")(x)
+            is_out = self.has_out and n == self.n_convs - 1
+            fn = self.transfer if is_out else self.hidden_transfer
+            if fn is not None:
+                x = fn(x)
+        return x
+
+
+class UpConvNet(Module):
+    """Subpixel upsampler: each layer a stride-1 conv to ``n_hidden s^2``
+    channels, then depth-to-space by its stride s.  NHWC."""
+
+    def __init__(self, c_in, kernel_shape, n_hiddens, n_out=None, hidden_transfer=F.elu,
+                 transfer=None, stride=1):
+        super().__init__()
+        self.hidden_transfer, self.transfer = hidden_transfer, transfer
+        dims = [int(h) for h in n_hiddens] + ([n_out] if n_out is not None else [])
+        self.n_convs, self.has_out = len(dims), n_out is not None
+        self.strides = [_per_layer(stride, n) for n in range(len(dims))]
+        for n, (d, s) in enumerate(zip(dims, self.strides)):
+            setattr(self, f"Conv_{n}", Conv(c_in, d * s * s, kernel_shape))
+            c_in = d
+
+    def forward(self, x):
+        for n, s in enumerate(self.strides):
+            x = getattr(self, f"Conv_{n}")(x)
+            if s > 1:
+                x = _depth_to_space(x, s)
+            is_out = self.has_out and n == self.n_convs - 1
+            fn = self.transfer if is_out else self.hidden_transfer
+            if fn is not None:
+                x = fn(x)
+        return x
+
+
+class ConvEncoder(Module):
+    """Conv feature extractor over flattened images or glimpses [..., h w]
+    (in the place of ``Encoder``): a stride-2 ConvNet, a flatten in
+    (h, w, c) order and a one-layer MLP (``MLP_0``, linear: one fused_mlp
+    call) to ``n_features``, then elu."""
+
+    def __init__(self, img_size, n_hiddens, n_features=256, kernel_shape=3, stride=2):
+        super().__init__()
+        self.img_size = tuple(int(s) for s in img_size)
+        self.ConvNet_0 = ConvNet(1, kernel_shape, n_hiddens, stride=stride)
+        h, w = (self.ConvNet_0.out_size(s) for s in self.img_size)
+        self.MLP_0 = MLP(h * w * self.ConvNet_0.c_out, [], n_out=n_features)
+        self.d_out = n_features
+
+    def forward(self, x):
+        h, w = self.img_size
+        lead = x.shape[:-1]
+        feats = self.ConvNet_0(x.reshape(-1, h, w, 1))
+        out = F.elu(self.MLP_0(feats.reshape(feats.shape[0], -1)))
+        return out.reshape(lead + (self.d_out,))
+
+
+class SubpixelDecoder(Module):
+    """UpConvNet glimpse decoder (in the place of ``Decoder``): a linear
+    one-layer MLP (``MLP_0``) to a base_size x base_size x 16 seed map, elu,
+    then an UpConvNet whose strides factor the upsampling to the glimpse
+    (stride-2 layers first), one output channel, scaled by a learned
+    scalar."""
+
+    SEED_CHANNELS = 16
+
+    def __init__(self, d_in, n_hiddens, output_size, output_scale=0.25, base_size=5,
+                 kernel_shape=3):
+        super().__init__()
+        gh, gw = self.output_size = tuple(int(s) for s in output_size)
+        if gh % base_size or gw % base_size:
+            raise ValueError("glimpse size must be a multiple of base_size")
+        self.base_size = base_size
+        strides, rem = [], gh // base_size
+        while rem % 2 == 0 and rem > 1:
+            strides.append(2)
+            rem //= 2
+        if rem > 1:
+            strides.append(rem)
+        hiddens = [int(h) for h in n_hiddens]
+        while len(strides) < len(hiddens) + 1:
+            strides.append(1)
+        c = self.SEED_CHANNELS
+        self.MLP_0 = MLP(d_in, [], n_out=base_size * base_size * c)
+        self.UpConvNet_0 = UpConvNet(c, kernel_shape, hiddens, n_out=1, stride=strides)
+        self.add_param("output_scale", (), const(output_scale))
+
+    def forward(self, x):
+        lead, b = x.shape[:-1], self.base_size
+        seed = F.elu(self.MLP_0(x)).reshape(-1, b, b, self.SEED_CHANNELS)
+        out = self.UpConvNet_0(seed)
+        return out[..., 0].reshape(lead + self.output_size) * self.output_scale
+
+
 class _Cell(Module):
     def __init__(self, units):
         super().__init__()
@@ -238,7 +425,28 @@ class GRU(_Cell):
         return (new_h,), new_h
 
 
-RNN_CELLS = {"VanillaRNN": VanillaRNN, "GRU": GRU}
+class LSTM(_Cell):
+    """Standard LSTM with state (c, h): one Dense ``ifgo`` over [x, h], the
+    forget gate's logit + 1, trainable ``c0`` and ``h0``.  Plain PyTorch,
+    as the JAX package runs it in XLA (no kernel)."""
+
+    def __init__(self, d_in, units):
+        super().__init__(units)
+        self.add_param("c0", (1, units), zeros)
+        self.ifgo = Dense(d_in + units, 4 * units)
+
+    def initial_state(self, batch_size: int) -> State:
+        return (self.c0.expand(batch_size, self.units), self.h0.expand(batch_size, self.units))
+
+    def forward(self, state: State, x):
+        c, h = state
+        i, f, g, o = torch.chunk(self.ifgo(torch.cat([x, h], -1)), 4, -1)
+        new_c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        return (new_c, new_h), new_h
+
+
+RNN_CELLS = {"VanillaRNN": VanillaRNN, "GRU": GRU, "LSTM": LSTM}
 
 
 def make_cell(name: str, d_in: int, units: int) -> _Cell:
@@ -249,5 +457,5 @@ def make_cell(name: str, d_in: int, units: int) -> _Cell:
 
 
 def state_feature(state: State) -> torch.Tensor:
-    """The feature half of a cell state (h)."""
+    """The feature half of a cell state: h (the LSTM's second tensor)."""
     return state[-1]

@@ -33,6 +33,17 @@ def full_fp32_matmul():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def deterministic_convolutions():
+    """The conv models' cuDNN settings: full float32 (``full_fp32_matmul``)
+    and deterministic algorithms chosen without benchmarking, so that the
+    same step gives the same bits eager and replayed from a CUDA graph (some
+    of cuDNN's weight-gradient algorithms add with atomics).  Every conv
+    layer calls it when it is made, whatever was imported before."""
+    full_fp32_matmul()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def to_coords(logits: torch.Tensor) -> torch.Tensor:
     """where logits -> ST coords: scale = sigmoid, shift = tanh."""
     scale_logit, shift_logit = torch.chunk(logits, 2, -1)

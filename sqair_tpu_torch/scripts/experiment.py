@@ -35,9 +35,12 @@ figures' batches come from a valid-set iterator of their own, so a figure
 moves no eval's batches (in the JAX package each figure takes the eval
 iterator's next batch).
 
+``--coverage_lr_mult`` (with ``--disc_coverage_signal``) multiplies the
+updates of the discovery steps predictor's 16 coverage input rows
+(``training.scale_coverage_row_updates``).
+
 Not ported yet, and raising: multi-host training (``--coordinator_address``,
-``--num_processes`` > 1; ROADMAP Queue 1 item 8), ``--coverage_lr_mult``
-(item 5).
+``--num_processes`` > 1; ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -60,7 +63,8 @@ from ..experiment import flags
 from ..experiment.experiment_tools import (init_checkpoint, load, parse_flags, print_flags,
                                            print_num_params)
 from ..ops.noise import GeneratorNoise, NoiseSource
-from ..training import init_train, make_eval_step, make_grad_fn, named_grad_leaves
+from ..training import (init_train, make_eval_step, make_grad_fn, named_grad_leaves,
+                        scale_coverage_row_updates)
 from ..training.checkpoint import restore_train_state, save_checkpoint
 from ..training.graph import TrainSnapshot, make_chained_train_step
 from .eval import default_noise
@@ -150,9 +154,8 @@ def main(argv: Optional[Sequence[str]] = None,
     if F.coordinator_address or F.num_processes != 1:
         raise NotImplementedError("multi-host training is not ported yet "
                                   "(ROADMAP Queue 1 item 8)")
-    if F.coverage_lr_mult != 1.0:
-        raise NotImplementedError("--coverage_lr_mult is not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
+    if F.coverage_lr_mult != 1.0 and not F.disc_coverage_signal:
+        raise ValueError("--coverage_lr_mult requires --disc_coverage_signal")
 
     # ------------------------------------------------------------- data
     data_dict = load(F.data_config, F.batch_size)
@@ -164,6 +167,11 @@ def main(argv: Optional[Sequence[str]] = None,
     model = load(F.model_config, F.as_dict(), example_batch["imgs"].shape[2:],
                  mean_img=mean_img, device=device)
     factory, l2 = make_optimizer(F.as_dict())
+    if F.coverage_lr_mult != 1.0:
+        factory = scale_coverage_row_updates(factory, F.coverage_lr_mult,
+                                             model.sequence.named_parameters())
+        print(f"coverage rows lr mult: {F.coverage_lr_mult} (effective lr "
+              f"{F.learning_rate * F.coverage_lr_mult:g} on the 16 coverage rows)")
     state = init_train(model, factory)
     print_flags()
     print_num_params(model.sequence)

@@ -6,12 +6,14 @@ A checkpoint is one file written by ``torch.save`` and read back with
 
   {"step": int,
    "params": {state_dict key: tensor},          # mean_img included
-   "optimizer": {"count": int,                  # TFRMSProp's schedule count
-                 "nu": {key: tensor}, "trace": {key: tensor}},   # optional
+   "optimizer": {"count": int,                  # the optimizer's step count
+                 <slot>: {key: tensor}, ...},   # optional
    "rng": {name: generator state}}              # optional
 
-The optimizer's state is kept per parameter name; a parameter that never
-had a gradient (the decoder's two stds) has none.  ``rng`` holds the
+The optimizer's state is kept per slot of its ``STATE`` (RMSProp: "nu" and
+"trace"; adam: "mu" and "nu"; momentum: "trace"; sgd: none) and per
+parameter name; a parameter that never had a gradient (the decoder's two
+stds, where they are not learnable) has none.  ``rng`` holds the
 states of the training's ``torch.Generator``s (the experiment CLI's batch
 indices and model noise), so that a resumed run draws what an
 uninterrupted one would.
@@ -54,16 +56,17 @@ def latest_checkpoint(run_dir: str) -> Optional[Tuple[int, str]]:
 
 
 def _optimizer_state(sequence: torch.nn.Module, optimizer) -> Dict:
-    """A TFRMSProp's state keyed by the parameters' names in ``sequence``."""
+    """An optimizer's state keyed by slot and by the parameters' names in
+    ``sequence``."""
     names = {id(p): n for n, p in sequence.named_parameters()}
-    nu, trace = {}, {}
+    out = dict(count=int(optimizer.count), **{k: {} for k in optimizer.STATE})
     for group in optimizer.param_groups:
         for p in group["params"]:
             st = optimizer.state.get(p)
             if st:
-                nu[names[id(p)]] = st["nu"].detach().cpu().clone()
-                trace[names[id(p)]] = st["trace"].detach().cpu().clone()
-    return dict(count=int(optimizer.count), nu=nu, trace=trace)
+                for k in optimizer.STATE:
+                    out[k][names[id(p)]] = st[k].detach().cpu().clone()
+    return out
 
 
 def save_checkpoint(run_dir: str, step: int, sequence: torch.nn.Module,
@@ -119,14 +122,18 @@ def restore_train_state(path: str, sequence: torch.nn.Module, train_state: Train
     if saved is None:
         raise KeyError(f"{path} holds no optimizer state")
     params = dict(sequence.named_parameters())
-    unknown = sorted(set(saved["nu"]) - set(params))
-    if unknown or set(saved["nu"]) != set(saved["trace"]):
+    slots = sorted(set(saved) - {"count"})
+    if slots != sorted(opt.STATE):
+        raise KeyError(f"{path} holds the optimizer state {slots}, not the "
+                       f"{type(opt).__name__}'s {sorted(opt.STATE)}")
+    held = [set(saved[k]) for k in opt.STATE]
+    unknown = sorted(set().union(*held) - set(params))
+    if unknown or any(h != held[0] for h in held):
         raise KeyError(f"{path}: optimizer state for unknown parameters {unknown}")
     opt.state.clear()
-    for name, nu in saved["nu"].items():
+    for name in (held[0] if held else ()):
         p = params[name]
-        opt.state[p] = dict(nu=nu.to(p.device, p.dtype).clone(),
-                            trace=saved["trace"][name].to(p.device, p.dtype).clone())
+        opt.state[p] = {k: saved[k][name].to(p.device, p.dtype).clone() for k in opt.STATE}
     opt.count = int(saved["count"])
     train_state.step = int(state["step"])
     return train_state

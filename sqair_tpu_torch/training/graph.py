@@ -14,9 +14,10 @@ What the capture has to get right:
   optimizer's state and the library handles.  The parameters, the
   optimizer's state and count and the generators are put back in place
   afterwards (``TrainSnapshot``), so that the warm-up moves no training.
-- The learning rate.  Step i reads its rate from ``rates[i]``, a device
-  tensor filled before each call with the schedule's rates at the N counts
-  the call covers (a host float would be baked into the graph).
+- The learning rate.  Step i reads its rate (and adam's bias corrections:
+  the optimizer's ``scalars_at``) from ``rates[i]``, a device tensor filled
+  before each call with their values at the N counts the call covers (a
+  host float would be baked into the graph).
 - Generators.  The batch indices and the noise come from explicit CUDA
   generators registered with the graph, so each replay draws on from where
   the last one stopped: the same stream for any N.
@@ -73,7 +74,7 @@ class TrainSnapshot:
             p.grad = None
         for p, st in opt.state.items():
             # a state made since the snapshot goes back to its start
-            saved = self.opt_state.get(p) or TFRMSProp.initial_state(p)
+            saved = self.opt_state.get(p) or opt.initial_state(p)
             for k, v in saved.items():
                 st[k].copy_(v)
         opt.count, self.state.step = self.count, self.step
@@ -106,7 +107,10 @@ class ChainedTrainStep:
         self.noise, self.generators = noise, list(generators)
         self.grad_summaries = grad_summaries
         self.device = model.device
-        self.rates = torch.zeros(self.steps, dtype=torch.float32, device=self.device)
+        opt = state.optimizer
+        n_scalars = len(opt.scalars_at(opt.param_groups[0]["lr"], 0))
+        self.rates = torch.zeros((self.steps, n_scalars), dtype=torch.float32,
+                                 device=self.device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.key = None
         self.metrics: Optional[Dict[str, torch.Tensor]] = None
@@ -130,15 +134,19 @@ class ChainedTrainStep:
         metrics = Model.finalize_metrics({k: v.detach() for k, v in aux["metrics"].items()})
         if self.grad_summaries:
             # what the step added to each parameter: RMSProp's new trace
-            updates = {n: opt.state[p]["trace"] if opt.state.get(p) else torch.zeros_like(p)
-                       for n, p in named.items()}
+            # (optax's update), else the parameter's change
+            if isinstance(opt, TFRMSProp):
+                updates = {n: opt.state[p]["trace"] if opt.state.get(p) else torch.zeros_like(p)
+                           for n, p in named.items()}
+            else:
+                updates = {n: p.detach() - before[n] for n, p in named.items()}
             metrics.update(gradient_summaries(grads, updates, before))
         return metrics
 
     def _fill_rates(self):
         opt = self.state.optimizer
         lr = opt.param_groups[0]["lr"]
-        rates = [opt.rate_at(lr, opt.count + i) for i in range(self.steps)]
+        rates = [opt.scalars_at(lr, opt.count + i) for i in range(self.steps)]
         self.rates.copy_(torch.tensor(rates, dtype=torch.float32))
 
     def __call__(self) -> Dict[str, torch.Tensor]:

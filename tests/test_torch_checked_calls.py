@@ -174,3 +174,43 @@ def test_cancellation_is_held_to_float64(monkeypatch, factor, passes):
     else:
         with pytest.raises(chip_smoke.Failure, match="float64"):
             run_checked(monkeypatch, "fused_mlp", launch, args, {})
+
+
+def _bwd_args(kernel, seed=0):
+    """The backward wrapper's arguments for one call at the release flags'
+    first shape of the forward kernel, ROWS rows."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = next(s for k, s, _ in chip_smoke.main_path_shapes(FLAGS, 2, 3, 2) if k == kernel)
+    args = chip_smoke.make_inputs(torch, kernel, dict(shape, n=ROWS), gen, "cpu")
+    return chip_smoke.make_bwd_inputs(torch, fused, kernel, args, gen)
+
+
+@pytest.mark.parametrize("kernel", ["fused_mlp", "fused_vanilla_rnn", "fused_gru"])
+@pytest.mark.parametrize("off_by", [0.0, 1e-3])
+def test_checked_backward_calls(monkeypatch, kernel, off_by):
+    """chip_smoke's per-call gate of the backward wrappers
+    (``checked_bwd_calls``, the conv phases' train steps): a backward that
+    gives its plain version's gradients passes and is counted, with its
+    shape; one whose input gradient is off by 1e-3 of its value fails."""
+    name = kernel + "_bwd"
+    real = getattr(fused, name)
+
+    def launch(*args, **kw):
+        out = list(real(*args, **kw))
+        if off_by:
+            out[0] = out[0] * (1.0 + off_by)
+        return tuple(out)
+
+    monkeypatch.setattr(fused, name, launch)
+    bargs = _bwd_args(kernel)
+    if off_by:
+        with pytest.raises(chip_smoke.Failure, match=name):
+            with chip_smoke.checked_bwd_calls(torch, "test"):
+                getattr(fused, name)(*bargs)
+        return
+    with chip_smoke.checked_bwd_calls(torch, "test") as report:
+        getattr(fused, name)(*bargs)
+    st = report[name]
+    assert st["calls"] == 1 and float(st["max_abs_err"]) == 0.0 and st["refereed"] == 0
+    (shape, calls), = st["shapes"].items()
+    assert calls == 1 and json.loads(shape)[:2] == [ROWS, bargs[0].shape[1]]

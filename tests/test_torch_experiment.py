@@ -172,7 +172,7 @@ def test_resume_continues_bit_identically(runs):
     (["--on_device_data=false", "--steps_per_call=2"], ValueError,
      "--steps_per_call > 1 requires --on_device_data"),
     (["--coordinator_address=localhost:1234"], NotImplementedError, "multi-host"),
-    (["--coverage_lr_mult=2"], NotImplementedError, "coverage_lr_mult"),
+    (["--coverage_lr_mult=2"], ValueError, "--coverage_lr_mult requires --disc_coverage_signal"),
 ])
 def test_misaligned_cadences_and_unported_flags_raise(tmp_path, extra, error, message):
     with pytest.raises(error, match=message.replace("+", r"\+")):

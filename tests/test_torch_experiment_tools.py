@@ -22,7 +22,8 @@ import sqair_tpu_torch.scripts.experiment  # noqa: F401  (defines the CLI's flag
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RELEASE_FLAGS = os.path.join(REPO, "release_models", "mnist_mlp", "1", "flags.json")
-CONFIGS = ("mlp_mnist_model", "synth_seq_mnist_data", "font_seq_mnist_data", "seq_mnist_data")
+CONFIGS = ("mlp_mnist_model", "conv_mnist_model", "synth_seq_mnist_data", "font_seq_mnist_data",
+           "seq_mnist_data")
 # the port's flags that the JAX package has not
 PORT_ONLY = {"device"}
 
@@ -77,6 +78,11 @@ def test_model_defaults_are_the_flags_defaults():
     assert mlp_mnist_model.DEFAULTS["output_std"] == 0.3
     for name, default in mlp_mnist_model.TRAIN_DEFAULTS.items():
         assert pflags.FLAGS._defs[name][1] == default, name
+    from sqair_tpu_torch.configs import conv_mnist_model
+
+    assert conv_mnist_model.CONV_DEFAULTS == dict(conv_kernel=3, conv_channels="32,64")
+    for name, default in conv_mnist_model.CONV_DEFAULTS.items():
+        assert pflags.FLAGS._defs[name][:2] == (type(default), default), name
 
 
 def test_release_flags_json_loads_and_round_trips(tmp_path, clean_registries):
@@ -158,6 +164,8 @@ def test_resume_cli_flags_override_snapshot(tmp_path, clean_registries):
     ("sqair_tpu/configs/pedestrian_model.py", "sqair_tpu_torch.configs.pedestrian_model"),
     ("sqair_tpu.configs.small_digit_seq_mnist_data",
      "sqair_tpu_torch.configs.small_digit_seq_mnist_data"),
+    ("sqair_tpu/configs/conv_mnist_model.py", "sqair_tpu_torch.configs.conv_mnist_model"),
+    ("sqair_tpu.configs.conv_mnist_model", "sqair_tpu_torch.configs.conv_mnist_model"),
 ])
 def test_jax_config_paths_map_to_the_port(given, module):
     assert ptools.resolve_config(given) == module
@@ -165,9 +173,7 @@ def test_jax_config_paths_map_to_the_port(given, module):
     assert loaded.__name__ == module and "sqair_tpu_torch" in loaded.__file__
 
 
-@pytest.mark.parametrize("given", ["sqair_tpu/configs/conv_mnist_model.py",
-                                   "sqair_tpu/data/loader.py", "sqair_tpu.configs.conv_mnist_model",
-                                   "sqair_tpu.data.loader"])
+@pytest.mark.parametrize("given", ["sqair_tpu/data/loader.py", "sqair_tpu.data.loader"])
 def test_jax_paths_without_a_counterpart_raise(given):
     with pytest.raises(ValueError, match="counterpart"):
         ptools.resolve_config(given)

@@ -1,5 +1,5 @@
-"""sqair_tpu_torch and chip_smoke.py import neither JAX nor the JAX package
-(the card's machine has no JAX)."""
+"""sqair_tpu_torch, chip_smoke.py and tools/pad_coverage_params_torch.py
+import neither JAX nor the JAX package (the card's machine has no JAX)."""
 import ast
 import subprocess
 import sys
@@ -20,7 +20,8 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((REPO / "sqair_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "sqair_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "pad_coverage_params_torch.py"]
     assert len(files) > 20
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
@@ -38,7 +39,10 @@ NEW_MODULES = ("sqair_tpu_torch.scripts.rollout", "sqair_tpu_torch.eval_tools",
                "sqair_tpu_torch.configs.small_digit_mnist_model",
                "sqair_tpu_torch.configs.small_digit_seq_mnist_data",
                "sqair_tpu_torch.configs.font_seq_mnist_data",
-               "sqair_tpu_torch.scripts.create_seq_mnist")
+               "sqair_tpu_torch.scripts.create_seq_mnist",
+               # the conv model family and the model and optimizer options
+               "sqair_tpu_torch.configs.conv_mnist_model", "sqair_tpu_torch.nn.layers",
+               "sqair_tpu_torch.training.train")
 _BLOCKED = """
 import importlib, importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):

@@ -17,7 +17,15 @@ a non-square glimpse, here 10x4, on non-square 24x18 frames, at the
 module defaults, where discovery fuses with both switches).  Under
 generation (sample_from_prior with generate_after, the rollout's model) the
 train record keeps its log-probs and decode in the loop and every frame
-samples discovery's where prior, one more call of its cell a slot."""
+samples discovery's where prior, one more call of its cell a slot.
+
+Under both switches, as JAX's gates decide: the conv model
+(``conv_mnist_model``, here conv_channels "4,8" and 10x10 glimpses on the
+24x24 frames) launches none of the glimpse and frame kernels; the LSTM in
+all three cell roles (at DISC_FLAGS, where the MLP model's discovery would
+fuse) none of the frame kernels, its glimpses still fused; the coverage
+signal (at DISC_FLAGS) no fused discovery, its propagation and glimpses
+still fused."""
 import collections
 import sys
 from pathlib import Path
@@ -27,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from sqair_tpu_torch.configs import mlp_mnist_model, pedestrian_model
+from sqair_tpu_torch.configs import conv_mnist_model, mlp_mnist_model, pedestrian_model
 from sqair_tpu_torch.ops import fused, fused_cells, fused_glimpse
 from sqair_tpu_torch.ops.noise import GeneratorNoise
 from torch_parity import B, H, S, T, golden_batch
@@ -41,6 +49,13 @@ DISC_FLAGS = dict(FLAGS, **chip_smoke.DISC_LEVERS)
 PED_FLAGS = dict(n_units=1, n_what=8, n_steps_per_image=S, k_particles=2, glimpse_hw="10,4",
                  transient_disc_penalty=2.0)
 PED_IMG = (H, 18)
+OPTION_FLAGS = {
+    "conv": dict(FLAGS, model_config="sqair_tpu/configs/conv_mnist_model.py",
+                 conv_channels="4,8", glimpse_size=10),
+    "lstm": dict(DISC_FLAGS, transition="LSTM", time_transition="LSTM",
+                 prior_transition="LSTM"),
+    "coverage": dict(DISC_FLAGS, disc_coverage_signal=True),
+}
 
 
 def _modes(*extra):
@@ -153,6 +168,21 @@ def test_main_path_shapes_match_the_calls_of_generation(mode, setting, monkeypat
                            fuse_cells=setting.startswith("both"), flags=flags, generate=True)
 
 
+@pytest.mark.parametrize("mode", ["full", "train"])
+@pytest.mark.parametrize("both", [False, True])
+@pytest.mark.parametrize("config", sorted(OPTION_FLAGS))
+def test_main_path_shapes_match_the_calls_of_the_conv_model_and_options(mode, both, config,
+                                                                         monkeypatch):
+    calls = _check_calls_of_a_step(mode, both, monkeypatch, fuse_cells=both,
+                                   flags=OPTION_FLAGS[config], config=config)
+    refused = {"conv": ("fused_glimpse", "fused_prop", "fused_disc"),
+               "lstm": ("fused_prop", "fused_disc"), "coverage": ("fused_disc",)}[config]
+    launched = {k[0] for k in calls if isinstance(k, tuple)}
+    assert not launched & set(refused)
+    assert both == ("fused_glimpse" in launched) or config == "conv"
+    assert both == ("fused_prop" in launched) or config != "coverage"
+
+
 def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, flags=FLAGS,
                            config="release", generate=False):
     for name, on in (("SQAIR_FUSE_GLIMPSE", fuse_glimpse), ("SQAIR_FUSE_CELLS", fuse_cells)):
@@ -161,7 +191,10 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, fl
         else:
             monkeypatch.delenv(name, raising=False)
     obs, nums = golden_batch()
-    if config == "release":
+    if config == "conv":
+        img = (H, H)
+        model = conv_mnist_model.load(flags, img, device="cpu", seed=0)
+    elif config != "pedestrian":
         img = (H, H)
         model = mlp_mnist_model.load(flags, img, device="cpu", seed=0)
     else:
@@ -206,8 +239,10 @@ def _check_calls_of_a_step(mode, fuse_glimpse, monkeypatch, fuse_cells=False, fl
     # fused discovery runs the input encoder itself
     no_dx = [s for kn, s, _ in shapes if not chip_smoke.needs_dx(kn, s, img=img)]
     fused_disc = any(kn == "fused_disc" for kn, _, _ in shapes)
-    assert fused_disc == (fuse_cells and (flags.get("early_disc_logit_scale") == 1.0
-                                          or config == "pedestrian"))
-    assert no_dx == ([] if fused_disc else
+    assert fused_disc == (fuse_cells and config in ("release", "pedestrian")
+                          and (flags.get("early_disc_logit_scale") == 1.0
+                               or config == "pedestrian"))
+    assert no_dx == ([] if fused_disc or config == "conv" else
                      [dict(d_in=img[0] * img[1], widths=[32, 32], acts=["elu", "elu"],
                            n=B * 2)])
+    return calls

@@ -8,7 +8,7 @@ Run on a machine with JAX (the CPU will do):
         [--img_size 50,50]
 
 It builds the port's model from the run's flags.json (by default the one
-beside the checkpoint), restores the parameters with
+beside the checkpoint; its model_config, e.g. the conv model's), restores the parameters with
 ``sqair_tpu.training.restore_params`` into the flax tree of that model's
 shapes, converts them with ``sqair_tpu_torch.convert.params_from_flax``
 (strictly: every key and shape must match), and, when the checkpoint holds
@@ -39,6 +39,7 @@ from sqair_tpu.training import restore_checkpoint, restore_params  # noqa: E402
 from sqair_tpu.training.train import make_lr_schedule, make_optimizer  # noqa: E402
 from sqair_tpu_torch.configs import mlp_mnist_model  # noqa: E402
 from sqair_tpu_torch.convert import params_from_flax  # noqa: E402
+from sqair_tpu_torch.experiment import experiment_tools  # noqa: E402
 from sqair_tpu_torch.training import init_train  # noqa: E402
 from sqair_tpu_torch.training.checkpoint import save_checkpoint  # noqa: E402
 
@@ -71,8 +72,9 @@ def convert(checkpoint: str, flags: dict, out_dir: str, img_size=(50, 50)) -> st
     if m is None:
         raise ValueError(f"{checkpoint}: expected a directory named ckpt-<step>")
     step = int(m.group(1))
-    model = mlp_mnist_model.load(flags, img_size, mean_img=np.zeros(img_size, np.float32),
-                                 device="cpu")
+    model_config = flags.get("model_config") or "sqair_tpu/configs/mlp_mnist_model.py"
+    model = experiment_tools.load(model_config, flags, img_size,
+                                  mean_img=np.zeros(img_size, np.float32), device="cpu")
     seq = model.sequence
     example = flax_tree_like(seq)
     to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
@@ -84,6 +86,9 @@ def convert(checkpoint: str, flags: dict, out_dir: str, img_size=(50, 50)) -> st
         # the optimizer as the JAX package's experiment builds it, for the
         # structure of its state
         s = mlp_mnist_model.train_settings(flags)
+        if s["opt"].lower() != "rmsprop":
+            raise NotImplementedError(f"an optax {s['opt']} state is not converted yet "
+                                      "(RMSProp's is)")
         if not s["schedule"]:
             raise NotImplementedError("an optax state without a schedule count is not "
                                       "converted yet")
