@@ -129,9 +129,9 @@ Phases, one line each with its own numbers and seconds:
                  steps a call (one captured CUDA graph of 10 train steps,
                  replayed) against 1 a call; a run killed right after its
                  save at step 10, resumed, against the uninterrupted one; a
-                 captured chain of 10 steps against 10 eager train steps; each
-                 gate bit-identical, or within twice the distance of two
-                 eager runs of the same steps (printed).  Then, with no
+                 captured chain of GATE_STEPS (3) steps against as many eager
+                 train steps; each gate bit-identical, or within twice the
+                 distance of two eager runs of the same steps (printed).  Then, with no
                  switch and both at the release flags and both at DISC_FLAGS:
                  one capture launches N times an eager step's kernels (N = 1,
                  10); the train step's wall ms (median, min, max of repeats),
@@ -164,11 +164,12 @@ Phases, one line each with its own numbers and seconds:
                  steps, an eval at 0 and 10, launch counts); then both
                  switches timed as the experiment phase times its settings
   font-data      the font glyph banks read from the port's glyph file (their
-                 SHA-256), then the training CLI for 10 steps at the small-digit
-                 data and model configs and at the release flags with their
-                 own font data config, on FONT_TRAIN_SEQUENCES sequences (a
-                 render of a glyph bank fails the phase): the retuned flags,
-                 finite losses, the step-10 eval
+                 SHA-256), then the training CLI for FONT_CLI_STEPS (2) steps
+                 at the small-digit data and model configs and at the release
+                 flags with their own font data config, on
+                 FONT_TRAIN_SEQUENCES train and FONT_VALID_SEQUENCES valid
+                 sequences (a render of a glyph bank fails the phase): the
+                 retuned flags, finite losses, the last step's eval
   on-device-data OnDeviceSeqMNIST renders bench.py's set on the card (64
                  stroke templates, 50x50, T = 10, 2048 sequences, generator
                  seed 42); the same draws rendered on the CPU agree to 1e-5;
@@ -195,7 +196,7 @@ Phases, one line each with its own numbers and seconds:
                  train-check
   conv-profile   the train step's time and its device time by group
                  (convolutions, the twelve kernels, the rest) in one step
-  conv-experiment  a 10-step graph against 10 eager steps; eager and N = 1
+  conv-experiment  a GATE_STEPS-step graph against as many eager steps; eager and N = 1
                  and N = 10 graphs timed as the experiment phase times its
                  settings; the training CLI on the conv config with
                  --on_device_data --steps_per_call 10
@@ -212,10 +213,39 @@ Phases, one line each with its own numbers and seconds:
   options-coverage  the training CLI for 3 steps with --disc_coverage_signal
                  --coverage_lr_mult 10 at DISC_FLAGS with both switches: no
                  fused discovery launch, the coverage rows' updates scaled
+  dp-nccl1       data parallelism (sqair_tpu_torch/parallel) in this process,
+                 one rank over NCCL: 3 RMSProp steps of the parallel train step
+                 at the release flags (B 32, k 5, T 10) against the
+                 single-process step on the same noise, and the parallel eval
+                 step against the eval step: bit-identical; launch counts; one
+                 profiled parallel step shows NCCL's all-reduce (the profiler's
+                 nccl:all_reduce record) and lists NCCL's kernels on the device
+                 (one rank's in-place SUM launches none)
+  dp-two-ranks   two worker processes (``--dp-worker``) share the card
+                 through gloo (named: NCCL refuses two ranks on one device),
+                 global B 32, 3 steps with no switch and with both switches,
+                 every kernel call of a rank's step (80 rows) held to its plain
+                 version (checked_calls, checked_bwd_calls), launch counts at
+                 the rank's shapes, the ranks' parameter digests equal after
+                 every step; the ranks' recorded noise replayed here through a
+                 two-shard oracle (per-shard gradients, (g0 + g1) / 2,
+                 RMSProp): parameters and finalized metrics bit-identical
+  dp-cli         the training CLI with --coordinator_address at
+                 --num_processes 1 over NCCL for 20 steps against the same run
+                 without a coordinator: the same records and parameters
+  tools          tools/time_step_torch.py (eager and an N = 10 graph) and
+                 tools/profile_step_torch.py (the sub-steps and a trace) at
+                 the release flags, short; tools/eval_one_ckpt_torch.py and
+                 tools/diag_presence_logits_torch.py on the release checkpoint
+                 over 2 batches; tools/promote_release_torch.py of dp-cli's
+                 run, the promoted checkpoint swept by scripts/eval.py;
+                 notebooks/play_torch.py --quick_train; which path the native
+                 datagen binding took
 
 Each phase group prints its seconds (``seconds=``), and the last phase
-line the total.  ``--only=conv,options`` runs those phase groups alone
-after the build, for development, and prints no result lines.
+line the total.  ``--only=conv,options,dp`` runs those phase groups alone
+after the build, for development, and prints no result lines (dp: the
+dp-* phases and tools).
 
 It exits non-zero on any failure.  The last two lines are a JSON object of
 the kernels' numbers and the JSON result line.
@@ -372,6 +402,9 @@ CELLS_SWITCH = SWITCHES["cells"]
 # the experiment phase: a CLI run's steps, the graphed chain's steps a call,
 # the timing's repeats; the release flags the phase sets itself
 CLI_STEPS, CHAIN_STEPS, TIMING_REPEATS = 20, 10, 3
+# cut depths: the experiment and conv graph gates' steps, the
+# font-data CLI runs' steps and valid sequences
+GATE_STEPS, FONT_CLI_STEPS, FONT_VALID_SEQUENCES = 3, 2, 64
 # the valid sequences of the CLI runs (evals at their first and last step)
 CLI_VALID = 64
 # font-data: the release font run's train sequences (its flags.json has 16384;
@@ -2045,7 +2078,7 @@ def run():
     only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--only=")]
     if only:
         # a development run of some phase groups: no result lines
-        groups = {"conv": conv_phases, "options": options_phases}
+        groups = {"conv": conv_phases, "options": options_phases, "dp": dp_phases}
         for name in only[0]:
             groups[name](torch, card, device)
         log("total", t_all, ok=True, only=jdump(only[0]))
@@ -2641,6 +2674,9 @@ def run():
     conv_phases(torch, card, device)
     options_phases(torch, card, device)
 
+    # ------------- data parallelism across processes, the tools and the notebook
+    dp_phases(torch, card, device)
+
     kernels = []
     for name, meta in KERNELS.items():
         r = rows[name]
@@ -2802,7 +2838,7 @@ def experiment_phase(torch, flags, disc_flags, data, B, k, T, card, device):
         run_flags, IMG, mean_img=mean_img, device=device, seed=SEED), sampler, B, T, device)
 
     # the allowance of the bit gates: two eager runs of the same steps
-    ee_params, ee_metrics = graph_gate(torch, runners, flags, "experiment")
+    ee_params, ee_metrics = graph_gate(torch, runners, flags, "experiment", steps=GATE_STEPS)
 
     # the CLI: 10 steps a call against 1, and a killed and resumed run
     t0 = time.perf_counter()
@@ -3125,10 +3161,9 @@ def pedestrian_phases(torch, card, device):
                   "ped-experiment")
 
 
-def check_cli_run(logdir, step, what):
-    """A CLI run reached CHAIN_STEPS steps (``step``), its heartbeat there is
+def check_cli_run(logdir, step, what, steps=CHAIN_STEPS):
+    """A CLI run reached ``steps`` steps (``step``), its heartbeat there is
     finite and its eval there ran, with finite metrics."""
-    steps = CHAIN_STEPS
     records = cli_records(logdir)
     if step != steps:
         raise Failure(f"{what}: the CLI stopped at step {step}, not {steps}")
@@ -3182,10 +3217,11 @@ def font_data_phase(torch, card, device):
         matplotlib_installed=importlib.util.find_spec("matplotlib") is not None)
 
     release = json.loads(RELEASE_FLAGS.read_text())
-    common = ["--seq_len=10", "--stage_itr=0", "--on_device_data",
-              f"--steps_per_call={CHAIN_STEPS}", f"--train_itr={CHAIN_STEPS}",
-              f"--save_itr={CHAIN_STEPS}", f"--report_loss_every={CHAIN_STEPS}",
-              f"--log_itr={CHAIN_STEPS}", f"--fig_itr={CHAIN_STEPS}", "--device=cuda"]
+    n = FONT_CLI_STEPS
+    common = ["--seq_len=10", "--stage_itr=0", "--on_device_data", f"--steps_per_call={n}",
+              f"--train_itr={n}", f"--save_itr={n}", f"--report_loss_every={n}",
+              f"--log_itr={n}", f"--fig_itr={n}", f"--font_valid_samples={FONT_VALID_SEQUENCES}",
+              "--device=cuda"]
     # the release flags, less the synthetic data config's (which the font
     # config does not define); the small-digit pair's retunes are left to
     # its configs, and its sequences at the config's default
@@ -3213,7 +3249,7 @@ def font_data_phase(torch, card, device):
                 raise Failure(f"font-data {name}: the CLI failed: {out.stderr[-3000:]}")
             step = json.loads(out.stdout.strip().splitlines()[-1])["step"]
             logdir = os.path.join(root, name, "1")
-            beat, ev = check_cli_run(logdir, step, f"font-data {name}")
+            beat, ev = check_cli_run(logdir, step, f"font-data {name}", steps=n)
             with open(os.path.join(logdir, "flags.json")) as f:
                 used = json.load(f)
             got = (used["font_obj_size"], used["output_std"], used["disc_step_bias"])
@@ -3709,38 +3745,57 @@ def conv_flags():
 
 
 @contextlib.contextmanager
-def checked_bwd_calls(torch, label):
-    """Every call of the MLP, vanilla-RNN and GRU backward wrappers inside
-    the block held against its plain version on the same inputs, on the
-    card: each gradient within |d| <= BWD_TOL max|plain| + 1e-6, or else
-    within max(that, 2x the plain version's distance) of the plain version
-    in float64 (the rule of ``frame_fields_check``).  Yields {kernel:
-    dict(calls, max_abs_err, of_tol, refereed, shapes: {shape: calls})}."""
+def checked_bwd_calls(torch, label, frames=False):
+    """Every call of the MLP, vanilla-RNN and GRU backward wrappers (with
+    ``frames``, also of the glimpse, propagation and discovery backward
+    wrappers) inside the block held against its plain version on the same
+    inputs, on the card: each gradient within |d| <= BWD_TOL max|plain| +
+    1e-6, or else within max(that, 2x the plain version's distance) of the
+    plain version in float64 (the rule of ``frame_fields_check``).  Yields
+    {kernel: dict(calls, max_abs_err, of_tol, refereed, shapes: {shape:
+    calls})}: an MLP / RNN call's shape is [rows, d_in, widths..., dx], a
+    frame kernel's its first input's."""
     from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops import fused_cells as fc
+    from sqair_tpu_torch.ops import fused_glimpse as fg
 
-    plains = {"fused_mlp_bwd": fused.mlp_bwd_plain,
-              "fused_vanilla_rnn_bwd": fused.vanilla_rnn_bwd_plain,
-              "fused_gru_bwd": fused.gru_bwd_plain}
-    n_args = {"fused_mlp_bwd": 5, "fused_vanilla_rnn_bwd": 6, "fused_gru_bwd": 9}
+    # kernel: (module, wrapper, plain version, the inputs' count)
+    table = {"fused_mlp_bwd": (fused, "fused_mlp_bwd", fused.mlp_bwd_plain, 5),
+             "fused_vanilla_rnn_bwd": (fused, "fused_vanilla_rnn_bwd",
+                                       fused.vanilla_rnn_bwd_plain, 6),
+             "fused_gru_bwd": (fused, "fused_gru_bwd", fused.gru_bwd_plain, 9)}
+    if frames:
+        table.update({"fused_glimpse_bwd": (fg, "fused_glimpse_bwd", fg.glimpse_plain_bwd, 10),
+                      "fused_prop_bwd": (fc, "prop_bwd", fc.prop_plain_bwd, 14),
+                      "fused_disc_bwd": (fc, "disc_bwd", fc.disc_plain_bwd, 14)})
     report = {}
 
     def flat(kernel, out):
         return flat_grads("fused_mlp", out) if kernel == "fused_mlp_bwd" else list(out)
 
     def checking(kernel, real):
+        _, _, plain, n_args = table[kernel]
+
         def call(*args, **kw):
             out = real(*args, **kw)
-            inputs = args[:n_args[kernel]]
-            got, want = flat(kernel, out), flat(kernel, plains[kernel](*inputs))
+            inputs = args[:n_args]
+            # the frame kernels' crop_keep is an input; the MLP's need_dx
+            # and the like are the wrapper's own
+            kw_in = {} if kernel in BWD_KERNELS else kw
+            got, want = flat(kernel, out), flat(kernel, plain(*inputs, **kw_in))
             st = report.setdefault(kernel, dict(calls=0, max_abs_err=0.0, of_tol=0.0,
                                                 refereed=0, shapes=collections.Counter()))
             st["calls"] += 1
             x = inputs[0]
-            widths = ([w.shape[1] for w, _ in inputs[1]] if kernel == "fused_mlp_bwd"
-                      else [inputs[1].shape[1]])
-            st["shapes"][jdump([x.shape[0], x.shape[1]] + widths + [got[0] is not None])] += 1
+            if kernel in BWD_KERNELS:
+                widths = ([w.shape[1] for w, _ in inputs[1]] if kernel == "fused_mlp_bwd"
+                          else [inputs[1].shape[1]])
+                shape = [x.shape[0], x.shape[1]] + widths + [got[0] is not None]
+            else:
+                shape = list(x.shape)
+            st["shapes"][jdump(shape)] += 1
             ref = None
-            for i, (a, b) in enumerate(zip(got, want)):
+            for i, (a, b) in enumerate(zip(got, want, strict=True)):
                 if a is None:
                     continue
                 d = float(torch.max(torch.abs(a - b))) if a.numel() else 0.0
@@ -3750,7 +3805,9 @@ def checked_bwd_calls(torch, label):
                 if d <= bound:
                     continue
                 if ref is None:
-                    ref = flat(kernel, plains[kernel](*to_double(torch, inputs)))
+                    ref = flat(kernel, plain(*to_double(torch, inputs),
+                                             **dict(zip(kw_in, to_double(torch,
+                                                                         kw_in.values())))))
                 err_k = float(torch.max(torch.abs(a.double() - ref[i])))
                 err_p = float(torch.max(torch.abs(b.double() - ref[i])))
                 st["refereed"] += 1
@@ -3762,9 +3819,9 @@ def checked_bwd_calls(torch, label):
         return call
 
     with contextlib.ExitStack() as stack:
-        for kernel in BWD_KERNELS:
-            stack.enter_context(mock.patch.object(fused, kernel,
-                                                  checking(kernel, getattr(fused, kernel))))
+        for kernel, (module, name, _, _) in table.items():
+            stack.enter_context(mock.patch.object(module, name,
+                                                  checking(kernel, getattr(module, name))))
         yield report
     for st in report.values():
         st.update(max_abs_err=f"{st['max_abs_err']:.3e}", of_tol=f"{st['of_tol']:.3f}",
@@ -3960,7 +4017,7 @@ def conv_phases(torch, card, device):
 
     # ---------------------------------------------------- conv-experiment
     runners = step_runners(torch, load, sampler, B, T, device)
-    graph_gate(torch, runners, flags, "conv-experiment")
+    graph_gate(torch, runners, flags, "conv-experiment", steps=GATE_STEPS)
     time_settings(torch, runners, (("conv_no_switch", flags, {}),), B, k, T, IMG, card,
                   "conv-experiment")
     root = tempfile.mkdtemp(prefix="sqair_conv_experiment_")
@@ -4173,8 +4230,447 @@ def options_phases(torch, card, device):
         shutil.rmtree(root)
 
 
+# ------------------------------------------------- data parallelism, the tools
+DP_STEPS = 3
+DP_SETTINGS = (("no_switch", {}), ("both", CELLS_SWITCH))
+DP_WORLD = 2
+DP_TIMEOUT = 900
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def param_digest(module):
+    """SHA-256 of a module's parameters' bytes, in state_dict order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in module.state_dict().values():
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_batches(torch, B, T):
+    """DP_STEPS global batches (imgs [T, B, 50, 50], nums [T, B, 3]) of the
+    stroke-digit data, as CPU tensors."""
+    from sqair_tpu_torch.data import create_seq_dataset, make_template_bank
+
+    data = create_seq_dataset(n_samples=DP_STEPS * B, n_timesteps=T, canvas_size=IMG,
+                              obj_size=(28, 28), n_objects=(0, 2), seed=SEED + 41,
+                              templates=make_template_bank(256, 28, seed=SEED))
+    imgs = torch.from_numpy(data["imgs"].astype("float32") / 255.0)
+    nums = torch.from_numpy(data["nums"].astype("float32").repeat(T, 0))
+    return [(imgs[:, i * B:(i + 1) * B].contiguous(), nums[:, i * B:(i + 1) * B].contiguous())
+            for i in range(DP_STEPS)]
+
+
+def same_bits(torch, got, want, what):
+    """(bit-identical, the largest |a - b| / (|b| + 1)) of two dicts of tensors."""
+    if sorted(got) != sorted(want):
+        raise Failure(f"{what}: keys {sorted(got)} differ from {sorted(want)}")
+    same = all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+    dist = max((float(torch.max(torch.abs(got[k].cpu().double() - want[k].cpu().double())
+                                / (torch.abs(want[k].cpu().double()) + 1.0)))
+                for k in want if want[k].numel()), default=0.0)
+    return same, dist
+
+
+def dp_nccl1_phase(torch, flags, B, k, T, batches, card, device):
+    """dp-nccl1 (see the module's docstring)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sqair_tpu_torch.configs import mlp_mnist_model
+    from sqair_tpu_torch.ops import fused
+    from sqair_tpu_torch.ops.noise import GeneratorNoise, ReplayNoise
+    from sqair_tpu_torch.parallel import distributed
+    from sqair_tpu_torch.parallel.mesh import (make_mesh, make_parallel_eval_step,
+                                               make_parallel_train_step)
+    from sqair_tpu_torch.training import make_eval_step, make_train_step
+
+    t0 = time.perf_counter()
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh()
+        models = [mlp_model_load(flags, IMG, device) for _ in range(2)]
+        factory, l2 = mlp_mnist_model.make_optimizer(flags)
+        par = make_parallel_train_step(models[0], factory, mesh, l2)
+        one = make_train_step(models[1], factory, l2)
+        gen = torch.Generator(device=device).manual_seed(SEED + 42)
+        counts, steps = collections.Counter(), []
+        for obs, nums in batches:
+            obs, nums = obs.to(device), nums.to(device)
+            noise = GeneratorNoise(gen, device, record=True)
+            fused.reset_launches()
+            m_par = par(obs, nums, noise)
+            torch.cuda.synchronize()
+            counts.update(fused.launches)
+            m_one = one(obs, nums, ReplayNoise(noise.table, device))
+            same_m, d_m = same_bits(torch, m_par, m_one, "dp-nccl1 metrics")
+            same_p, d_p = same_bits(torch, models[0].sequence.state_dict(),
+                                    models[1].sequence.state_dict(), "dp-nccl1 parameters")
+            steps.append(dict(metrics=same_m, params=same_p, d_metrics=f"{d_m:.3e}",
+                              d_params=f"{d_p:.3e}", target=f"{float(m_par['target']):.4f}"))
+        noise = GeneratorNoise(gen, device, record=True)
+        e_par = make_parallel_eval_step(models[0], mesh)(obs, nums, noise)
+        e_one = make_eval_step(models[1])(obs, nums, ReplayNoise(noise.table, device))
+        same_e, d_e = same_bits(torch, e_par, e_one, "dp-nccl1 eval")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            par(obs, nums, GeneratorNoise(gen, device))
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # the collectives the process group ran (the profiler's nccl:* records)
+        reduces = {e.key: e.count for e in events
+                   if e.device_type == DeviceType.CPU and e.key.startswith("nccl:")}
+        # NCCL's kernels on the device, if any (one rank's in-place SUM has none)
+        nccl = {e.key[:80]: round(e.self_device_time_total / 1e3, 4) for e in events
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and ("nccl" in e.key.lower() or "onerank" in e.key.lower())}
+        backend, nccl_version = mesh.backend, torch.cuda.nccl.version()
+    finally:
+        distributed.shutdown()
+    expected = expected_launches(main_path_shapes(flags, B, k, T, train=True), DP_STEPS,
+                                 backward=True)
+    log("dp-nccl1", t0, backend=backend, world=1, B=B, k=k, T=T, steps=jdump(steps),
+        eval_bit_identical=same_e, eval_distance=f"{d_e:.3e}", launches=jdump(dict(counts)),
+        expected=jdump(expected), nccl_records=jdump(reduces), nccl_device_ms=jdump(nccl),
+        nccl=jdump(nccl_version),
+        card=repr(card))
+    if backend != "nccl":
+        raise Failure(f"dp-nccl1: the process group's backend is {backend}, not nccl")
+    if not all(s["metrics"] and s["params"] for s in steps) or not same_e:
+        raise Failure("dp-nccl1: the one-process parallel steps differ from the one-shard "
+                      f"steps: {steps}, eval distance {d_e:.3g}")
+    if dict(counts) != expected:
+        raise Failure(f"dp-nccl1: launch counts {dict(counts)} differ from {expected}")
+    if not reduces.get("nccl:all_reduce"):
+        raise Failure(f"dp-nccl1: the profiled parallel step ran no NCCL all-reduce: {reduces}")
+
+
+def dp_worker(spec_path, rank):
+    """One rank of dp-two-ranks (``chip_smoke.py --dp-worker SPEC RANK``):
+    joins the gloo process group, runs DP_STEPS parallel train steps of its
+    rows of each global batch in each of DP_SETTINGS, every kernel call held
+    to its plain version, and writes its noise, metrics, parameter digests,
+    parameters and launch counts to SPEC's out path."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from sqair_tpu_torch.configs import mlp_mnist_model
+    from sqair_tpu_torch.ops import build, fused, stn
+    from sqair_tpu_torch.ops.noise import GeneratorNoise
+    from sqair_tpu_torch.parallel import distributed
+    from sqair_tpu_torch.parallel.mesh import make_mesh, make_parallel_train_step
+
+    stn.full_fp32_matmul()
+    spec = torch.load(spec_path, weights_only=False)
+    device = torch.device("cuda")
+    build.library()
+    # two ranks on one card: gloo, named (NCCL refuses a second rank on a device)
+    distributed.initialize(spec["address"], DP_WORLD, rank, backend="gloo", device="cuda",
+                           timeout_s=DP_TIMEOUT)
+    out = {}
+    try:
+        mesh = make_mesh()
+        for label, switches in DP_SETTINGS:
+            with switched(switches):
+                model = mlp_model_load(spec["flags"], IMG, device)
+                factory, l2 = mlp_mnist_model.make_optimizer(spec["flags"])
+                step = make_parallel_train_step(model, factory, mesh, l2)
+                gen = torch.Generator(device=device).manual_seed(
+                    distributed.rank_seed(SEED + 43, rank))
+                res = dict(tables=[], metrics=[], digests=[])
+                fused.reset_launches()
+                what = f"dp-two-ranks ({label}) rank {rank}"
+                with checked_calls(torch, what) as calls, \
+                        checked_bwd_calls(torch, what, frames=True) as bwd:
+                    for obs, nums in spec["batches"]:
+                        noise = GeneratorNoise(gen, device, record=True)
+                        m = step(obs.to(device), nums.to(device), noise)
+                        res["metrics"].append({key: v.cpu() for key, v in m.items()})
+                        res["tables"].append({key: v.cpu() for key, v in noise.table.items()})
+                        res["digests"].append(param_digest(model.sequence))
+                    torch.cuda.synchronize()
+                res.update(counts=dict(fused.launches), calls=calls, bwd=bwd,
+                           params={n: v.cpu() for n, v in model.sequence.state_dict().items()})
+            out[label] = res
+    finally:
+        distributed.shutdown()
+    torch.save(out, f"{spec['out']}.{rank}")
+    return 0
+
+
+def dp_two_ranks_phase(torch, flags, B, k, T, batches, card, device):
+    """dp-two-ranks (see the module's docstring)."""
+    from sqair_tpu_torch.configs import mlp_mnist_model
+    from sqair_tpu_torch.models import Model
+    from sqair_tpu_torch.ops.noise import ReplayNoise
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sqair_dp_")
+    try:
+        spec = os.path.join(root, "spec.pt")
+        torch.save(dict(flags=flags, batches=batches, address=f"127.0.0.1:{free_port()}",
+                        out=os.path.join(root, "out.pt")), spec)
+        logs = [open(os.path.join(root, f"rank{r}.log"), "w") for r in range(DP_WORLD)]
+        procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--dp-worker",
+                                   spec, str(r)], cwd=REPO, stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+        try:
+            rcs = [p.wait(timeout=DP_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if rcs != [0] * DP_WORLD:
+            tails = [open(os.path.join(root, f"rank{r}.log")).read()[-3000:]
+                     for r in range(DP_WORLD)]
+            raise Failure(f"dp-two-ranks: the workers exited with {rcs}:\n" + "\n".join(tails))
+        ranks = [torch.load(os.path.join(root, f"out.pt.{r}"), weights_only=False)
+                 for r in range(DP_WORLD)]
+    finally:
+        shutil.rmtree(root)
+    log("dp-two-ranks", t0, workers=DP_WORLD, backend="gloo", card=repr(card))
+
+    rows = B // DP_WORLD
+    for label, switches in DP_SETTINGS:
+        t0 = time.perf_counter()
+        got = [r[label] for r in ranks]
+        agree = [got[0]["digests"][i] == got[1]["digests"][i] for i in range(DP_STEPS)]
+        sw = dict(fuse_glimpse=bool(switches), fuse_cells=bool(switches))
+        expected = expected_launches(main_path_shapes(flags, rows, k, T, train=True, **sw),
+                                     DP_STEPS, backward=True)
+        # the two-shard oracle in this process, on the ranks' noise
+        with switched(switches):
+            model = mlp_model_load(flags, IMG, device)
+            factory, l2 = mlp_mnist_model.make_optimizer(flags)
+            params = list(model.sequence.parameters())
+            opt = factory(params)
+            dists = []
+            for i, (obs, nums) in enumerate(batches):
+                grads, metrics = [], []
+                for s in range(DP_WORLD):
+                    sl = slice(s * rows, (s + 1) * rows)
+                    model.sequence.zero_grad(set_to_none=True)
+                    target, aux = model.loss_and_metrics(
+                        obs[:, sl].to(device), ReplayNoise(got[s]["tables"][i], device),
+                        nums[:, sl].to(device), l2_weight=l2, record_mode="train")
+                    target.backward()
+                    grads.append([p.grad for p in params])
+                    metrics.append({key: v.detach() for key, v in aux["metrics"].items()})
+                for p, g0, g1 in zip(params, *grads):
+                    p.grad = None if g0 is None else (g0 + g1) / 2
+                opt.step()
+                want = Model.finalize_metrics({key: (metrics[0][key] + metrics[1][key]) / 2
+                                               for key in metrics[0]})
+                same_m, d_m = same_bits(torch, got[0]["metrics"][i], want,
+                                        f"dp-two-ranks {label} metrics")
+                dists.append(dict(metrics=same_m, d_metrics=f"{d_m:.3e}"))
+            same_p, d_p = same_bits(torch, got[0]["params"], model.sequence.state_dict(),
+                                    f"dp-two-ranks {label} parameters")
+        log("dp-two-ranks", t0, setting=label, B=B, rows_a_rank=rows * k, k=k, T=T,
+            steps=DP_STEPS, digests_agree=jdump(agree), launches=jdump(got[0]["counts"]),
+            launches_rank1=jdump(got[1]["counts"]), expected=jdump(expected),
+            calls=jdump(got[0]["calls"]), bwd_calls=jdump(got[0]["bwd"]),
+            calls_rank1=jdump(got[1]["calls"]), oracle_metrics=jdump(dists),
+            params_bit_identical=same_p, params_distance=f"{d_p:.3e}",
+            target=f"{float(got[0]['metrics'][-1]['target']):.4f}", card=repr(card))
+        if not all(agree):
+            raise Failure(f"dp-two-ranks {label}: the ranks' parameters part: {agree}")
+        # every kernel call, forward and backward, held to its plain version
+        for r, g in enumerate(got):
+            held = {kn: st["calls"] for kn, st in {**g["calls"], **g["bwd"]}.items()}
+            if g["counts"] != expected or held != expected:
+                raise Failure(f"dp-two-ranks {label}: rank {r} launched {g['counts']} and held "
+                              f"{held} calls, not {expected}")
+        if not same_p or not all(d["metrics"] for d in dists):
+            # a sum of two gradients is the same in either order and halving
+            # is exact: any distance is a kernel or a reduction that is not
+            # deterministic
+            raise Failure(f"dp-two-ranks {label}: the ranks' step differs from the two-shard "
+                          f"oracle: parameters {d_p:.3g}, metrics {dists}")
+
+
+def dp_cli_phase(torch, card, root):
+    """dp-cli (see the module's docstring); returns the coordinated run's dir."""
+    from sqair_tpu_torch.experiment import flags as pflags
+    from sqair_tpu_torch.scripts import experiment as pexp
+
+    t0 = time.perf_counter()
+    release = json.loads(RELEASE_FLAGS.read_text())
+    coordinator = [f"--coordinator_address=127.0.0.1:{free_port()}", "--num_processes=1",
+                   "--process_id=0"]
+    runs = {name: run_cli(pexp, pflags, cli_argv(release, root, name, 1) + extra)
+            for name, extra in (("alone", []), ("coordinated", coordinator))}
+    records = {name: cli_records(r[0]) for name, r in runs.items()}
+    d_records = records_distance(records["coordinated"], records["alone"])
+    d_params = params_distance(torch, runs["coordinated"][1].sequence,
+                               runs["alone"][1].sequence)
+    joined = "multi-process: process 0/1" in runs["coordinated"][3]
+    steps = {name: r[2].step for name, r in runs.items()}
+    log("dp-cli", t0, backend="nccl", steps=jdump(steps), joined_process_group=joined,
+        records=len(records["coordinated"]), records_distance=f"{d_records:.3e}",
+        params_distance=f"{d_params:.3e}", card=repr(card))
+    if steps != {"alone": CLI_STEPS, "coordinated": CLI_STEPS} or not joined:
+        raise Failure(f"dp-cli: the runs ended at {steps} (process group joined: {joined})")
+    if d_records or d_params:
+        raise Failure(f"dp-cli: the coordinated run differs from the run alone: records "
+                      f"{d_records:.3g}, parameters {d_params:.3g}")
+    return runs["coordinated"][0]
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` from a clean flag registry, its output kept aside:
+    (result, output)."""
+    import io
+
+    from sqair_tpu_torch.experiment import flags as pflags
+
+    saved = sys.argv
+    pflags.reset()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = fn(*args)
+    finally:
+        sys.argv = saved
+        pflags.reset()
+    return result, out.getvalue()
+
+
+NATIVE_CHECK = """
+import hashlib, json, sys
+sys.path.insert(0, sys.argv[1])
+from sqair_tpu_torch.data import make_template_bank, native
+gen = native.generate_sequences(make_template_bank(16, 12, seed=0), 64, 6, canvas_size=(30, 30),
+                                n_objects=(0, 2), seed=7)
+print(json.dumps(dict(path="native" if native.native_available() else "numpy",
+                      imgs_sha256=hashlib.sha256(gen["imgs"].tobytes()).hexdigest()[:16],
+                      shape=list(gen["imgs"].shape))))
+"""
+
+
+def tools_phase(torch, card, device, run_dir):
+    """tools (see the module's docstring): ``run_dir`` is dp-cli's run."""
+    from sqair_tpu_torch.data import create_seq_dataset, make_template_bank
+    from sqair_tpu_torch.scripts import eval as port_eval
+
+    for sub in ("tools", "notebooks"):
+        if str(REPO / sub) not in sys.path:
+            sys.path.insert(0, str(REPO / sub))
+    import diag_presence_logits_torch
+    import eval_one_ckpt_torch
+    import play_torch
+    import profile_step_torch
+    import promote_release_torch
+    import time_step_torch
+
+    root = tempfile.mkdtemp(prefix="sqair_tools_")
+    try:
+        t0 = time.perf_counter()
+        ts, _ = quiet(time_step_torch.main, ["--steps", "4", "--trials", "1",
+                                             "--chain", str(CHAIN_STEPS)])
+        log("tools", t0, tool="time_step_torch", eager_ms_a_step=f"{ts['eager'][0]:.3f}",
+            graph_n10_ms_a_step=f"{ts['graph'][0]:.3f}", warm_target=f"{ts['warm_target']:.4f}",
+            card=repr(card))
+        t0 = time.perf_counter()
+        trace = os.path.join(root, "trace")
+        ps, _ = quiet(profile_step_torch.main, ["--iters", "1", "--warmup", "1",
+                                                "--trace", trace])
+        if not os.path.exists(os.path.join(trace, "trace.json")):
+            raise Failure("tools: profile_step_torch wrote no trace")
+        log("tools", t0, tool="profile_step_torch",
+            ms=jdump({key: f"{v:.3f}" for key, v in ps.items()}), card=repr(card))
+
+        # the release checkpoint, 2 batches (the font train set cut: only
+        # mean_img reads it, and the checkpoint holds its own)
+        cut = json.dumps({"font_train_samples": 64})
+        t0 = time.perf_counter()
+        ev, _ = quiet(eval_one_ckpt_torch.main, [str(PORT_RELEASE), "1000000", "2", cut])
+        finite([{key: torch.as_tensor(v) for key, v in ev.items()}], "tools: eval_one_ckpt")
+        log("tools", t0, tool="eval_one_ckpt_torch", batches=2, iwae=f"{ev['iwae']:.4f}",
+            num_step_accuracy=f"{ev['num_step_accuracy']:.4f}",
+            acc_per_t=jdump([round(float(x), 4) for x in ev["num_step_acc_per_t"]]),
+            card=repr(card))
+        t0 = time.perf_counter()
+        diag, _ = quiet(diag_presence_logits_torch.main, [str(PORT_RELEASE), "1000000", cut])
+        log("tools", t0, tool="diag_presence_logits_torch",
+            kept=jdump({t: r["kept"] for t, r in diag.items()}),
+            median_on_count=jdump({t: round(float(np.median(r["on_count"])), 3)
+                                   for t, r in diag.items() if r["on_count"].size}),
+            card=repr(card))
+
+        # dp-cli's run promoted, and the promoted checkpoint swept
+        t0 = time.perf_counter()
+        out = os.path.join(root, "release", "1")
+        path, _ = quiet(promote_release_torch.main, ["--run_dir", run_dir, "--out", out])
+        data = create_seq_dataset(n_samples=CLI_SEQUENCES, n_timesteps=10, canvas_size=IMG,
+                                  obj_size=(28, 28), n_objects=(0, 2), seed=SEED + 7,
+                                  templates=make_template_bank(256, 28, seed=SEED))
+        npz = os.path.join(root, "valid.npz")
+        np.savez(npz, imgs=data["imgs"], nums=data["nums"])
+        done, _ = quiet(port_eval.main, ["--checkpoint_dir", out, "--data_npz", npz])
+        with open(os.path.join(out, "logpx_valid.txt")) as f:
+            logpx = f.read().split()
+        log("tools", t0, tool="promote_release_torch", promoted=os.path.basename(path),
+            swept=jdump(done), logpx=logpx[-1] if logpx else "none", card=repr(card))
+        if done != [CLI_STEPS]:
+            raise Failure(f"tools: the promoted checkpoint's sweep evaluated {done}")
+
+        t0 = time.perf_counter()
+        (metrics, figs), printed = quiet(play_torch.main, [
+            "--quick_train", "--results_dir", os.path.join(root, "play"),
+            "--fig_dir", os.path.join(root, "figs"), "--eval_batches", "2"])
+        skipped = "figures skipped: matplotlib is not installed" in printed
+        finite([{key: torch.as_tensor(v) for key, v in metrics.items()}], "tools: play_torch")
+        log("tools", t0, tool="play_torch", quick_train=True, iwae=f"{metrics['iwae']:.4f}",
+            figures=len(figs), figures_skipped=skipped, card=repr(card))
+        if not (figs or skipped):
+            raise Failure("tools: play_torch drew no figures and did not say it skipped them")
+
+        # the native binding in a process of its own, as a user's would
+        # run it: native where the library runs on this host, else numpy
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", NATIVE_CHECK, str(REPO)],
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise Failure(f"tools: the native binding's process exited with "
+                          f"{out.returncode}: {out.stderr[-1000:]}")
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        log("tools", t0, tool="native_datagen", **{k: jdump(v) for k, v in res.items()})
+    finally:
+        shutil.rmtree(root)
+
+
+def dp_phases(torch, card, device):
+    """dp-nccl1, dp-two-ranks, dp-cli and tools (see the module's docstring)."""
+    flags = json.loads(RELEASE_FLAGS.read_text())
+    B, k, T = int(flags["batch_size"]), int(flags["k_particles"]), 10
+    batches = dp_batches(torch, B, T)
+    dp_nccl1_phase(torch, flags, B, k, T, batches, card, device)
+    dp_two_ranks_phase(torch, flags, B, k, T, batches, card, device)
+    root = tempfile.mkdtemp(prefix="sqair_dp_cli_")
+    try:
+        run_dir = dp_cli_phase(torch, card, root)
+        tools_phase(torch, card, device, run_dir)
+    finally:
+        shutil.rmtree(root)
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--dp-worker"]:
+            sys.exit(dp_worker(sys.argv[2], int(sys.argv[3])))
         sys.exit(run())
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

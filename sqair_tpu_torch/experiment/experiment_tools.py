@@ -30,6 +30,8 @@ from . import flags as tf_flags
 from ..training.checkpoint import latest_checkpoint
 
 FLAG_FILE = "flags.json"
+DEFAULT_CONFIGS = {"data_config": "sqair_tpu/configs/synth_seq_mnist_data.py",
+                   "model_config": "sqair_tpu/configs/mlp_mnist_model.py"}
 PORT = "sqair_tpu_torch"
 JAX_PACKAGE = "sqair_tpu"
 
@@ -118,15 +120,37 @@ def get_git_revision_hash() -> str:
                                    stderr=subprocess.DEVNULL).decode().strip()
 
 
+# flags that say where and how a run was started, not what it computes: a
+# resume that changes only these leaves flags.json as it is
+RESUME_IGNORED = ("resume", "results_dir", "run_name", "device", "coordinator_address",
+                  "process_id")
+
+
+def run_device(checkpoint_dir: str, default: str) -> str:
+    """The ``device`` in the flags.json of the newest run dir under
+    ``checkpoint_dir``, else ``default``: where a resumed run trained, known
+    before ``init_checkpoint`` restores its flags."""
+    runs = (sorted((f for f in os.listdir(checkpoint_dir) if f.isdigit()), key=int)
+            if os.path.isdir(checkpoint_dir) else [])
+    path = os.path.join(checkpoint_dir, runs[-1], FLAG_FILE) if runs else ""
+    return (json_load(path).get("device") or default) if os.path.exists(path) else default
+
+
 def init_checkpoint(checkpoint_dir: str, data_config: str, model_config: str,
-                    resume: bool) -> Tuple[str, Dict, Optional[str]]:
+                    resume: bool, attach: bool = False) -> Tuple[str, Dict, Optional[str]]:
     """Makes (or, resuming, finds) the run dir; returns (run dir, flags,
-    the checkpoint to resume from or None)."""
+    the checkpoint to resume from or None).
+
+    ``attach=True`` joins the newest run dir and writes nothing: the
+    processes of a multi-process run other than 0 share process 0's run dir
+    (which it made, or found resuming) instead of racing it for the next
+    number.  Only process 0 writes flags.json."""
     exists = os.path.exists(checkpoint_dir)
     if not exists:
-        if resume:
+        if resume or attach:
             raise ValueError(
-                f"Can't resume when the checkpoint dir '{checkpoint_dir}' doesn't exist."
+                f"Can't {'resume' if resume else 'attach'} when the checkpoint dir "
+                f"'{checkpoint_dir}' doesn't exist."
             )
         os.makedirs(checkpoint_dir)
     elif not os.path.isdir(checkpoint_dir):
@@ -136,8 +160,10 @@ def init_checkpoint(checkpoint_dir: str, data_config: str, model_config: str,
                if not f.startswith("_") and f.isdigit()]
     if folders:
         n = int(sorted(folders, key=int)[-1])
-        if not resume:
+        if not resume and not attach:
             n += 1
+    elif attach:
+        raise ValueError(f"attach=True but no run dir exists under '{checkpoint_dir}'")
     else:
         if resume:
             raise ValueError(
@@ -146,7 +172,7 @@ def init_checkpoint(checkpoint_dir: str, data_config: str, model_config: str,
         n = 1
 
     experiment_folder = os.path.join(checkpoint_dir, str(n))
-    if not resume:
+    if not resume and not attach:
         os.mkdir(experiment_folder)
 
     flag_path = os.path.join(experiment_folder, FLAG_FILE)
@@ -166,14 +192,13 @@ def init_checkpoint(checkpoint_dir: str, data_config: str, model_config: str,
         flags.update(restored)
         flags.update(cli_values)
         tf_flags.FLAGS.restore(flags)
-        if any(restored.get(k) != v for k, v in cli_values.items()):
+        changed = [k for k, v in cli_values.items()
+                   if k not in RESUME_IGNORED and restored.get(k) != v]
+        if changed and not attach:
             # persist the merged flags, so that a later eval of this run dir
             # sees the overrides; the original git_commit stays
             json_store(flag_path, flags)
-        found = latest_checkpoint(experiment_folder)
-        if found is not None:
-            resume_checkpoint = found[1]
-    else:
+    elif not attach:
         try:
             flags["git_commit"] = get_git_revision_hash()
         except (subprocess.CalledProcessError, FileNotFoundError):
@@ -182,8 +207,37 @@ def init_checkpoint(checkpoint_dir: str, data_config: str, model_config: str,
         for module in modules:
             shutil.copy(module.__file__,
                         os.path.join(experiment_folder, os.path.basename(module.__file__)))
-
+    if resume or attach:
+        found = latest_checkpoint(experiment_folder)
+        if found is not None:
+            resume_checkpoint = found[1]
     return experiment_folder, flags, resume_checkpoint
+
+
+def load_run(run_dir: Optional[str], batch_size: int, device="cuda",
+             overrides: Optional[Dict] = None):
+    """(flags, data dict, model) of a run dir, for the tools: its flags.json
+    (a null keeps the default) under ``overrides`` in the flag registry, the
+    data config's sets in batches of ``batch_size``, and the model config's
+    model on ``device`` with fresh weights (its mean_img the train set's),
+    for the caller to restore a checkpoint into.  Without a run dir, the
+    defaults."""
+    saved = {}
+    if run_dir:
+        saved = {k: v for k, v in json_load(os.path.join(run_dir, FLAG_FILE)).items()
+                 if v is not None}
+    saved = {**DEFAULT_CONFIGS, **saved, **(overrides or {})}
+    F = tf_flags.FLAGS
+    # the configs define their flags (the model config first, as the CLIs
+    # import them) before the run's values go over them
+    for name in ("model_config", "data_config"):
+        _import_module(saved[name])
+    F.restore(saved)
+    data = load(F.data_config, batch_size)
+    imgs = data["train_data"]["imgs"]
+    model = load(F.model_config, F.as_dict(), imgs.shape[-2:],
+                 mean_img=imgs.mean(tuple(range(imgs.ndim - 2))), device=device)
+    return F.as_dict(), data, model
 
 
 def print_flags():

@@ -72,7 +72,7 @@ class Model:
 
     def loss_and_metrics(self, obs, noise: NoiseSource, gt_presence=None,
                          l2_weight: float = 0.0, record_mode: str = "full",
-                         render: bool = False) -> Tuple[torch.Tensor, Dict]:
+                         render: bool = False, group=None) -> Tuple[torch.Tensor, Dict]:
         """The VIMCO target and the JAX package's metric set.
 
         :param obs: [T, B, H, W]
@@ -84,6 +84,15 @@ class Model:
         :param render: (record_mode "full") also draw one particle of each
             example by its importance weight (``resampling_index``) and
             return the figures' tensors under "render"
+        :param group: when the step runs on one shard of a batch split over
+            processes (``parallel.make_parallel_train_step``), their
+            ``parallel.Mesh``: the aspect PENALTY is then
+            the global batch's ratio, the local numerator over the count of
+            present objects summed over every process, times the number of
+            processes, so that the mean of the processes' gradients is the
+            gradient of the global ratio (JAX's ``axis_name``).  The metrics
+            keep the ratio's parts, for ``finalize_metrics`` after the
+            reduction.
         :return: (target, dict(metrics=..., log_weights=[B, k][, render=...]))
         """
         k = self.k_particles
@@ -149,7 +158,13 @@ class Model:
         n_pres = torch.sum(pres)
         aspect = sq / torch.clamp(n_pres, min=1.0)
         if self.aspect_penalty:
-            target = target + self.aspect_penalty * aspect
+            if group is not None:
+                # n_pres carries no gradient: the sum needs no backward
+                n_global = group.all_sum(n_pres)
+                penalty_aspect = sq * group.size / torch.clamp(n_global, min=1.0)
+            else:
+                penalty_aspect = aspect
+            target = target + self.aspect_penalty * penalty_aspect
         metrics.update(aspect=aspect, aspect_sq_sum=sq, aspect_n=n_pres)
 
         # expected early-frame counts in excess of the count at frame H

@@ -31,11 +31,12 @@ import json
 import os
 import sys
 from os import path as osp
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..data.loader import Minibatcher
 from ..device import resolve_device
 from ..experiment import experiment_tools
 from ..ops.noise import GeneratorNoise, NoiseSource
@@ -63,27 +64,6 @@ def _already_evaluated(log_path: str):
     return done
 
 
-class WindowBatcher:
-    """The JAX package's unshuffled ``Minibatcher``: rolling contiguous
-    windows of ``batch_size`` sequences along axis 1, back to the start when
-    the next window would run past the end."""
-
-    def __init__(self, imgs: np.ndarray, nums: np.ndarray, batch_size: int):
-        self.imgs, self.nums, self.batch_size = imgs, nums, batch_size
-        self.n = imgs.shape[1]
-        self._cursor = 0
-
-    def __iter__(self) -> Iterator:
-        return self
-
-    def __next__(self):
-        if self._cursor + self.batch_size > self.n:
-            self._cursor = 0
-        sl = slice(self._cursor, self._cursor + self.batch_size)
-        self._cursor += self.batch_size
-        return self.imgs[:, sl], self.nums[:, sl]
-
-
 def load_npz(path: str):
     """(imgs float32 [T, N, H, W] in [0, 1], nums float32 [T, N, C]), with a
     singleton time axis of nums tiled over T."""
@@ -98,11 +78,19 @@ def load_npz(path: str):
     return imgs, nums
 
 
-def default_noise(device) -> Callable[[], NoiseSource]:
+def eval_batcher(imgs: np.ndarray, nums: np.ndarray, batch_size: int) -> Minibatcher:
+    """The JAX package's eval batches: rolling contiguous windows of
+    ``batch_size`` sequences along axis 1 (``Minibatcher(shuffle=False)``),
+    back to the start when the next window would run past the end."""
+    return Minibatcher({"imgs": imgs, "nums": nums}, batch_size, {"imgs": 1, "nums": 1})
+
+
+def default_noise(device, seed: int = NOISE_SEED) -> Callable[[], NoiseSource]:
     """Every batch's noise from a generator seeded with 1, as the JAX
-    package passes PRNGKey(1) to every batch."""
+    package passes PRNGKey(1) to every batch (a process of a multi-process
+    run: ``parallel.distributed.rank_seed(1, rank)``)."""
     device = torch.device(device)
-    return lambda: GeneratorNoise(torch.Generator(device=device).manual_seed(NOISE_SEED), device)
+    return lambda: GeneratorNoise(torch.Generator(device=device).manual_seed(seed), device)
 
 
 def sweep(run_dir: str, model, batcher, n_batches: int, dataset: str = "valid",
@@ -111,7 +99,8 @@ def sweep(run_dir: str, model, batcher, n_batches: int, dataset: str = "valid",
     """Evaluates every nth checkpoint of ``run_dir`` not yet in its iwae
     file and appends its metrics; returns the steps evaluated.
 
-    :param batcher: iterator of (imgs, nums) batches; ``n_batches`` per checkpoint
+    :param batcher: iterator of dict(imgs, nums) batches (``eval_batcher``);
+        ``n_batches`` per checkpoint
     :param noise: a new noise source per batch (default ``default_noise``)
     """
     noise = noise or default_noise(model.device)
@@ -129,8 +118,8 @@ def sweep(run_dir: str, model, batcher, n_batches: int, dataset: str = "valid",
         restore_params(ckpts[step], model.sequence)
         totals: Dict[str, np.ndarray] = {m: 0.0 for m in METRICS}
         for _ in range(n_batches):
-            imgs, nums = next(batcher)
-            metrics = eval_step(imgs, nums, noise())
+            batch = next(batcher)
+            metrics = eval_step(batch["imgs"], batch["nums"], noise())
             for m in METRICS:
                 v = metrics[m].detach().cpu().numpy() if m in metrics else np.nan
                 totals[m] = totals[m] + np.asarray(v, np.float64)
@@ -206,7 +195,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[int]:
     flags = run_flags(args.checkpoint_dir, overrides)
     imgs, nums = load_npz(args.data_npz)
     n_batches = max(1, imgs.shape[1] // args.eval_batch_size)
-    batcher = WindowBatcher(imgs, nums, args.eval_batch_size)
+    batcher = eval_batcher(imgs, nums, args.eval_batch_size)
     next(batcher)  # the JAX script draws its example batch first
     model_config = (args.model_config or flags.get("model_config")
                     or "sqair_tpu/configs/mlp_mnist_model.py")

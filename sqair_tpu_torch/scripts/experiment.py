@@ -39,8 +39,24 @@ iterator's next batch).
 updates of the discovery steps predictor's 16 coverage input rows
 (``training.scale_coverage_row_updates``).
 
-Not ported yet, and raising: multi-host training (``--coordinator_address``,
-``--num_processes`` > 1; ROADMAP Queue 1 item 8).
+Several processes (``--coordinator_address host:port --num_processes W
+--process_id r``, one process a card; NCCL on the card, gloo with
+``--device cpu``) train one model on the data mesh (``parallel/``): every
+process draws the same global batch and trains on its rows of it with
+noise of its own (its generator seeded from ``NOISE_SEED`` and its rank),
+the gradients averaged over the processes.  Process 0 makes the run dir
+(and writes flags.json and every checkpoint, with a barrier after each);
+the others join it and write their records to ``proc<r>/``.  Each
+checkpoint holds every process's noise generator, so a resumed run draws
+what an uninterrupted one would.  Evals run through the parallel eval
+step; the figures are process 0's.  A SIGTERM to any process is a vote to
+stop, gathered every min(report_loss_every, 250) steps: all processes stop
+at the same step and save.  A multi-process step runs eager, also on the
+card (NCCL's all-reduce is not captured in the step's graph; gloo's cannot
+be), and ``--steps_per_call`` > 1 raises.  With ``--num_processes 1`` the CLI
+takes the single-process path, a coordinator address or not.  A resume
+without ``--device`` sets up the process group for the device in the run's
+flags.json (gloo for a CPU run), read before the flags are restored.
 """
 from __future__ import annotations
 
@@ -61,12 +77,15 @@ from ..device import resolve_device
 from ..eval_tools import MetricWriter, ProgressFig, make_logger
 from ..experiment import flags
 from ..experiment.experiment_tools import (init_checkpoint, load, parse_flags, print_flags,
-                                           print_num_params)
+                                           print_num_params, run_device)
 from ..ops.noise import GeneratorNoise, NoiseSource
+from ..parallel import distributed
+from ..parallel.mesh import make_mesh, make_parallel_eval_step, make_parallel_train_step
 from ..training import (init_train, make_eval_step, make_grad_fn, named_grad_leaves,
                         scale_coverage_row_updates)
-from ..training.checkpoint import restore_train_state, save_checkpoint
+from ..training.checkpoint import rank_noise_key, restore_train_state, save_checkpoint
 from ..training.graph import TrainSnapshot, make_chained_train_step
+from .eval import NOISE_SEED as EVAL_NOISE_SEED
 from .eval import default_noise
 
 DATA_SEED, NOISE_SEED = 0, 2
@@ -102,11 +121,12 @@ flags.define_all((
     (str, "gpu", "0", "Unused; kept for CLI parity (--device picks the device)."),
     (bool, "debug", False, "Gradient summaries in the heartbeat's records."),
     (bool, "data_parallel", True,
-     "Shard the batch over all local devices (one device here: no effect)."),
+     "Shard the batch over the processes of a multi-process run (required there)."),
     (str, "coordinator_address", "",
-     "host:port of process 0 for multi-host training (not ported yet)."),
-    (int, "num_processes", 1, "Total processes (multi-host; not ported yet)."),
-    (int, "process_id", 0, "This process's id (multi-host)."),
+     "host:port of process 0 for multi-process training (torch.distributed). Empty = "
+     "single process."),
+    (int, "num_processes", 1, "Total processes (multi-process)."),
+    (int, "process_id", 0, "This process's id (multi-process)."),
     (bool, "grad_histograms", False,
      "Write per-variable gradient histograms to tensorboard at log_itr cadence."),
     (bool, "on_device_data", False,
@@ -140,20 +160,55 @@ def main(argv: Optional[Sequence[str]] = None,
 
     parse_flags()
     F = flags.FLAGS
-    if not F.resume:
-        resolve_device(F.device)  # before a run dir is made (resuming, flags.json has it)
     if F.test_run:
         for name, value in TEST_RUN.items():
             setattr(F, name, value)
+    device = F.device
+    if not F.resume:
+        resolve_device(device)  # before a run dir is made (resuming, flags.json has it)
+    elif "device" not in F._cli_set:
+        device = run_device(osp.join(F.results_dir, F.run_name), device)
+    # the process group, before any tensor is built; its backend follows the
+    # device (a resume's: the run's own, unless --device names one)
+    joined = distributed.initialize(F.coordinator_address, F.num_processes, F.process_id,
+                                    device=device)
+    if joined:
+        print(f"multi-process: process {distributed.process_index()}/"
+              f"{distributed.process_count()}")
+    try:
+        return _train(F, train_noise, eval_noise)
+    finally:
+        if joined:
+            distributed.shutdown()
 
-    logdir, _, resume_checkpoint = init_checkpoint(
-        osp.join(F.results_dir, F.run_name), F.data_config, F.model_config, F.resume)
+
+def _train(F, train_noise, eval_noise):
+    rank, world = distributed.process_index(), distributed.process_count()
+    multi = world > 1
+
+    run_root = osp.join(F.results_dir, F.run_name)
+    if rank == 0:
+        logdir, _, resume_checkpoint = init_checkpoint(run_root, F.data_config,
+                                                       F.model_config, F.resume)
+    # process 0 makes (or finds) the run dir; the others join it
+    distributed.barrier()
+    if rank != 0:
+        logdir, _, resume_checkpoint = init_checkpoint(run_root, F.data_config,
+                                                       F.model_config, F.resume, attach=True)
     device = resolve_device(F.device)
     if train_noise is not None and device.type == "cuda":
         raise ValueError("a train_noise hook runs eager steps: pass --device cpu")
-    if F.coordinator_address or F.num_processes != 1:
-        raise NotImplementedError("multi-host training is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+    if multi and (not F.data_parallel or F.batch_size % world):
+        # each process computing the whole step would just repeat it
+        raise ValueError(
+            f"a multi-process run needs the data mesh: batch_size={F.batch_size} must be "
+            f"divisible by the {world} processes and --data_parallel must be on "
+            f"(got {F.data_parallel})")
+    if multi and int(F.steps_per_call) > 1:
+        raise ValueError(
+            "--steps_per_call > 1 requires --on_device_data and is incompatible with the "
+            f"data-parallel mesh path (on_device_data={F.on_device_data}, "
+            "data_parallel active=True)")
     if F.coverage_lr_mult != 1.0 and not F.disc_coverage_signal:
         raise ValueError("--coverage_lr_mult requires --disc_coverage_signal")
 
@@ -175,11 +230,19 @@ def main(argv: Optional[Sequence[str]] = None,
     state = init_train(model, factory)
     print_flags()
     print_num_params(model.sequence)
+    # every process draws the same batches and noise of its own
+    noise_key = rank_noise_key(rank)
     generators = {"data": torch.Generator(device=device).manual_seed(DATA_SEED),
-                  "noise": torch.Generator(device=device).manual_seed(NOISE_SEED)}
+                  noise_key: torch.Generator(device=device).manual_seed(
+                      distributed.rank_seed(NOISE_SEED, rank))}
     if resume_checkpoint is not None:
         print(f"Restoring checkpoint from '{resume_checkpoint}'")
         restore_train_state(resume_checkpoint, model.sequence, state, generators)
+    mesh = None
+    if multi:
+        mesh = make_mesh()
+        distributed.replicate_to_mesh(model.sequence, mesh, state.optimizer)
+        print(f"data-parallel over {world} processes")
 
     max_T = data_dict["max_timesteps"]
 
@@ -220,9 +283,19 @@ def main(argv: Optional[Sequence[str]] = None,
         def source():
             return buffers
 
-    noise_gen = generators["noise"]
+    noise_gen = generators[noise_key]
     noise = train_noise or (lambda itr: GeneratorNoise(noise_gen, device))
     chain = None
+    if multi:
+        parallel_step = make_parallel_train_step(model, state, mesh, l2)
+
+        def eager_for(seq_len):
+            # one eager step a call, on this process's rows of the batch
+            def step():
+                b = source()
+                return parallel_step(b["imgs"][:seq_len], b["nums"][:seq_len],
+                                     noise(state.step))
+            return step
 
     def chain_for(seq_len):
         # one captured chain a curriculum stage: the last stage's graph and
@@ -237,9 +310,12 @@ def main(argv: Optional[Sequence[str]] = None,
         return chain
 
     # ---------------------------------------------------------- logging
-    eval_step = make_eval_step(model)
-    eval_noise = eval_noise or default_noise(device)
-    writer = MetricWriter(logdir)
+    eval_step = make_parallel_eval_step(model, mesh) if multi else make_eval_step(model)
+    eval_noise = eval_noise or default_noise(device,
+                                             distributed.rank_seed(EVAL_NOISE_SEED, rank))
+    # the other processes keep records of their own, out of the run dir's
+    writer = (MetricWriter(osp.join(logdir, f"proc{rank}"), use_tb=False) if rank
+              else MetricWriter(logdir))
     factor = F.eval_size_fraction
     ax = data_dict["axes"]["imgs"]
     train_batches = max(1, int(data_dict["train_data"]["imgs"].shape[ax] * factor
@@ -263,6 +339,8 @@ def main(argv: Optional[Sequence[str]] = None,
     fig_iter = Minibatcher(data_dict["valid_data"], F.batch_size, data_dict["axes"])
 
     def try_plot(itr):
+        if rank:
+            return  # process 0 draws the figures
         batch = truncate_batch(next(fig_iter), stage_len(itr))
         try:
             progress_fig.plot_all(itr, batch)
@@ -287,7 +365,17 @@ def main(argv: Optional[Sequence[str]] = None,
             writer.write_histogram(itr, f"grads/{name}", leaf)
 
     def save(itr):
-        save_checkpoint(logdir, itr, model.sequence, state.optimizer, generators)
+        rng = dict(generators)
+        if multi:
+            import torch.distributed as dist
+
+            # every process's noise generator, into process 0's checkpoint
+            states = [None] * world
+            dist.all_gather_object(states, noise_gen.get_state())
+            rng.update({rank_noise_key(r): st for r, st in enumerate(states)})
+        if rank == 0:
+            save_checkpoint(logdir, itr, model.sequence, state.optimizer, rng)
+        distributed.barrier()
 
     def profile(step):
         trace_dir = osp.join(logdir, "profile")
@@ -320,7 +408,12 @@ def main(argv: Optional[Sequence[str]] = None,
     last_saved_itr = -1
 
     # SIGTERM/SIGINT ask for a graceful stop: the loop breaks at the next
-    # call boundary and the final save below checkpoints the step reached
+    # call boundary and the final save below checkpoints the step reached.
+    # In a multi-process run a process that broke out alone would leave its
+    # peers waiting in a collective: the signal is a vote, gathered every
+    # vote_every steps (a preemption's grace window is short), and every
+    # process stops at the same step
+    vote_every = min(report_every, 250)
     stop_signal = {"num": None}
     prev_handlers = {}
 
@@ -337,13 +430,13 @@ def main(argv: Optional[Sequence[str]] = None,
         t0 = time.time()
         frames_done = 0
         while train_itr < F.train_itr:
-            if stop_signal["num"] is not None:
+            if stop_signal["num"] is not None and not multi:
                 print(f"signal {stop_signal['num']}: stopping at iter {train_itr}, "
                       "saving checkpoint")
                 break
             sl = stage_len(train_itr)
             prev_itr = train_itr
-            step = chain_for(sl)
+            step = eager_for(sl) if multi else chain_for(sl)
             if not F.on_device_data:
                 batch = next(data_dict["train_iter"])
                 for k, buf in buffers.items():
@@ -371,6 +464,12 @@ def main(argv: Optional[Sequence[str]] = None,
                     writer.write(train_itr, {k: v for k, v in metrics.items()
                                              if k.startswith("grads/")})
                 t0, frames_done = time.time(), 0
+
+            if (multi and train_itr % vote_every == 0
+                    and mesh.any(stop_signal["num"] is not None)):
+                print(f"coordinated stop (a process was signalled): stopping at iter "
+                      f"{train_itr}, saving checkpoint")
+                break
 
             if train_itr % F.log_itr == 0:
                 log(train_itr)

@@ -15,7 +15,8 @@ The optimizer's state is kept per slot of its ``STATE`` (RMSProp: "nu" and
 parameter name; a parameter that never had a gradient (the decoder's two
 stds, where they are not learnable) has none.  ``rng`` holds the
 states of the training's ``torch.Generator``s (the experiment CLI's batch
-indices and model noise), so that a resumed run draws what an
+indices and model noise; in a multi-process run every process's noise
+generator, under ``rank_noise_key``), so that a resumed run draws what an
 uninterrupted one would.
 ``tools/jax_ckpt_to_torch.py`` writes this format from an orbax checkpoint.
 """
@@ -69,17 +70,33 @@ def _optimizer_state(sequence: torch.nn.Module, optimizer) -> Dict:
     return out
 
 
+def rank_noise_key(rank: int) -> str:
+    """The name of process ``rank``'s noise generator in a checkpoint: that
+    of a single-process run for process 0."""
+    return "noise" if rank == 0 else f"noise_rank{rank}"
+
+
 def save_checkpoint(run_dir: str, step: int, sequence: torch.nn.Module,
                     optimizer=None,
                     generators: Optional[Mapping[str, torch.Generator]] = None) -> str:
     """Writes ``<run_dir>/ckpt-<step>`` (under a temporary name first, so a
-    reader never sees half a file) and returns its path."""
+    reader never sees half a file) and returns its path.
+
+    :param generators: name -> a generator, or the state of one (another
+        process's)"""
     state = dict(step=int(step),
                  params={k: v.detach().cpu().clone() for k, v in sequence.state_dict().items()})
     if optimizer is not None:
         state["optimizer"] = _optimizer_state(sequence, optimizer)
     if generators:
-        state["rng"] = {name: g.get_state() for name, g in generators.items()}
+        state["rng"] = {name: g.get_state() if isinstance(g, torch.Generator) else g
+                        for name, g in generators.items()}
+    return write_checkpoint(run_dir, step, state)
+
+
+def write_checkpoint(run_dir: str, step: int, state: Dict) -> str:
+    """Writes a checkpoint's dict as ``<run_dir>/ckpt-<step>``, under a
+    temporary name first; returns its path."""
     path = os.path.abspath(os.path.join(run_dir, f"{CKPT_PREFIX}{int(step)}"))
     os.makedirs(run_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=".ckpt-", dir=run_dir)

@@ -214,3 +214,97 @@ def test_checked_backward_calls(monkeypatch, kernel, off_by):
     assert st["calls"] == 1 and float(st["max_abs_err"]) == 0.0 and st["refereed"] == 0
     (shape, calls), = st["shapes"].items()
     assert calls == 1 and json.loads(shape)[:2] == [ROWS, bargs[0].shape[1]]
+
+
+def _frame_bwd_args(kernel, seed=0):
+    """The frame kernel's backward wrapper's arguments for one call, ROWS
+    rows at the release flags' widths: its forward's inputs, what the
+    forward saves, and random cotangents."""
+    gen = torch.Generator().manual_seed(seed)
+    args, _ = call_args(kernel, seed)
+    if kernel == "fused_glimpse":
+        want = fg.glimpse_plain_fwd(*args)
+        saved = tuple(want[2:5]) + (want[1],) + tuple(want[5:])
+        dloc, dscale = (torch.randn(want[i].shape, generator=gen) for i in (0, 1))
+        return args[:6] + (saved, dloc, dscale, args[-1])
+    if kernel == "fused_prop":
+        want = fc.prop_plain_fwd(*args)
+        cots = tuple(torch.randn(t.shape, generator=gen) for t in want[:10])
+        saved = (want[0], want[2], want[3], want[5], want[6], want[7], want[9])
+        return args[:-1] + (saved, want[10], cots, args[-1])
+    want = fc.disc_plain_fwd(*args)
+    cots = tuple(torch.randn(t.shape, generator=gen) for t in want[:9])
+    saved = (want[0], want[2], want[3], want[5], want[6], want[7])
+    return args[:-1] + (saved, want[9], want[10], want[11], cots, args[-1])
+
+
+@pytest.mark.parametrize("kernel, module, name", [
+    ("fused_glimpse", fg, "fused_glimpse_bwd"), ("fused_prop", fc, "prop_bwd"),
+    ("fused_disc", fc, "disc_bwd")])
+@pytest.mark.parametrize("off_by", [0.0, 1e-3])
+def test_checked_frame_backward_calls(monkeypatch, kernel, module, name, off_by):
+    """``checked_bwd_calls(frames=True)`` (the two-rank data-parallel
+    steps) also holds the glimpse, propagation and discovery backward
+    wrappers: one that gives its plain version's gradients passes and is
+    counted; one whose first gradient is off by 1e-3 of its value fails."""
+    real = getattr(module, name)
+
+    def launch(*args, **kw):
+        out = list(real(*args, **kw))
+        if off_by:
+            out[0] = out[0] * (1.0 + off_by)
+        return tuple(out)
+
+    monkeypatch.setattr(module, name, launch)
+    bargs = _frame_bwd_args(kernel)
+    if off_by:
+        with pytest.raises(chip_smoke.Failure, match=kernel + "_bwd"):
+            with chip_smoke.checked_bwd_calls(torch, "test", frames=True):
+                getattr(module, name)(*bargs)
+        return
+    with chip_smoke.checked_bwd_calls(torch, "test", frames=True) as report:
+        getattr(module, name)(*bargs)
+    st = report[kernel + "_bwd"]
+    assert st["calls"] == 1 and float(st["max_abs_err"]) == 0.0 and st["refereed"] == 0
+    assert list(st["shapes"].values()) == [1]
+
+
+@pytest.mark.parametrize("switched, levers, frame_kernels", [
+    (False, {}, set()),
+    (True, {}, {"fused_glimpse_bwd", "fused_prop_bwd"}),
+    (True, chip_smoke.DISC_LEVERS, {"fused_prop_bwd", "fused_disc_bwd"})],
+    ids=["off", "both", "both_disc"])
+def test_every_backward_call_of_a_train_step_is_held(monkeypatch, switched, levers,
+                                                    frame_kernels):
+    """The two-rank data-parallel steps' gate, on a train step of a small
+    release model: inside ``checked_bwd_calls(frames=True)`` every backward
+    wrapper call the step makes, with the wrappers' own keywords, is held
+    and counted, as many as ``expected_launches`` says; with both switches
+    the glimpse and propagation backwards (discovery unfused, as at the
+    release flags) or, at DISC_FLAGS, the propagation and discovery ones."""
+    from sqair_tpu_torch.configs import mlp_mnist_model
+    from sqair_tpu_torch.ops.noise import GeneratorNoise
+    from torch_parity import B, H, S, T, golden_batch
+
+    for name in ("SQAIR_FUSE_GLIMPSE", "SQAIR_FUSE_CELLS"):
+        if switched:
+            monkeypatch.setenv(name, "1")
+        else:
+            monkeypatch.delenv(name, raising=False)
+    flags = dict(dict(n_units=1, n_what=8, n_steps_per_image=S, glimpse_size=8,
+                      k_particles=2, early_disc_logit_scale=0.15, transient_disc_penalty=2.0),
+                 **levers)
+    model = mlp_mnist_model.load(flags, (H, H), device="cpu", seed=0)
+    obs, nums = golden_batch()
+    with chip_smoke.checked_bwd_calls(torch, "test", frames=True) as report:
+        target, _ = model.loss_and_metrics(
+            torch.from_numpy(obs), GeneratorNoise(torch.Generator().manual_seed(1), "cpu"),
+            torch.from_numpy(nums), record_mode="train")
+        target.backward()
+    shapes = chip_smoke.main_path_shapes(flags, B, 2, T, train=True, img=(H, H),
+                                         fuse_glimpse=switched, fuse_cells=switched)
+    want = {k: n for k, n in chip_smoke.expected_launches(shapes, 1, backward=True).items()
+            if k.endswith("_bwd")}
+    assert {k: st["calls"] for k, st in report.items()} == want
+    assert all(float(st["max_abs_err"]) == 0.0 for st in report.values())
+    assert set(report) - set(chip_smoke.BWD_KERNELS) == frame_kernels

@@ -82,7 +82,7 @@ def test_release_checkpoint_sweep_reproduces_the_release_metrics(tmp_path):
     args, overrides = port_eval.parse_args(["--checkpoint_dir", run_dir, "--data_npz", npz,
                                             "--device", "cpu"])
     imgs, nums = port_eval.load_npz(npz)
-    batcher = port_eval.WindowBatcher(imgs, nums, args.eval_batch_size)
+    batcher = port_eval.eval_batcher(imgs, nums, args.eval_batch_size)
     next(batcher)
     model = mlp_mnist_model.load(port_eval.run_flags(run_dir, overrides), imgs.shape[2:],
                                  mean_img=np.zeros(imgs.shape[2:]), device="cpu")

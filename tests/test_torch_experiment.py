@@ -171,7 +171,8 @@ def test_resume_continues_bit_identically(runs):
      "stage_itr=3 must be divisible by --steps_per_call=2"),
     (["--on_device_data=false", "--steps_per_call=2"], ValueError,
      "--steps_per_call > 1 requires --on_device_data"),
-    (["--coordinator_address=localhost:1234"], NotImplementedError, "multi-host"),
+    (["--coordinator_address=localhost:1234", "--num_processes=2", "--process_id=2"],
+     ValueError, "process_id 2 is not one of the 2 processes"),
     (["--coverage_lr_mult=2"], ValueError, "--coverage_lr_mult requires --disc_coverage_signal"),
 ])
 def test_misaligned_cadences_and_unported_flags_raise(tmp_path, extra, error, message):

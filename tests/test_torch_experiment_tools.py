@@ -155,6 +155,67 @@ def test_resume_cli_flags_override_snapshot(tmp_path, clean_registries):
         ptools.init_checkpoint(str(tmp_path / "nothing"), data, model, resume=True)
 
 
+def test_attach_joins_the_newest_run_dir_and_writes_nothing(tmp_path, clean_registries):
+    """The counterpart of JAX's ``attach=True``: a process other than 0 of a
+    multi-process run joins process 0's run dir, resuming or not, and
+    writes nothing, not even flags.json when its command line differs."""
+    data, model = "sqair_tpu/configs/synth_seq_mnist_data.py", "sqair_tpu/configs/mlp_mnist_model.py"
+    root = str(tmp_path / "run")
+    with pytest.raises(ValueError, match="attach"):
+        ptools.init_checkpoint(root, data, model, resume=False, attach=True)
+    sys.argv = ["x", "--train_itr=100"]
+    made, _, _ = ptools.init_checkpoint(root, data, model, resume=False)
+    before = {n: open(os.path.join(made, n)).read() for n in os.listdir(made)}
+    for resume, argv in ((False, ["x", "--train_itr=100"]), (True, ["x", "--train_itr=300"])):
+        pflags.reset()
+        sys.argv = argv
+        joined, flags, ckpt = ptools.init_checkpoint(root, data, model, resume=resume,
+                                                     attach=True)
+        assert joined == made and ckpt is None
+        assert sorted(os.listdir(root)) == ["1"]
+        assert {n: open(os.path.join(made, n)).read() for n in os.listdir(made)} == before
+    assert flags["train_itr"] == 300  # resuming, it reads the run's flags as process 0 does
+    open(os.path.join(made, "ckpt-7"), "w").close()
+    assert ptools.init_checkpoint(root, data, model, resume=False, attach=True)[2].endswith(
+        "ckpt-7")
+
+
+def test_a_resume_with_unchanged_flags_writes_no_flags_json(tmp_path, clean_registries):
+    """``--resume`` (and where the run lives, and on which device and
+    coordinator) is no change of the run's flags: flags.json stays as it
+    was; a flag that changes what the run computes is persisted."""
+    data, model = "sqair_tpu/configs/synth_seq_mnist_data.py", "sqair_tpu/configs/mlp_mnist_model.py"
+    results = str(tmp_path / "results")
+    sys.argv = ["x", "--train_itr=100", f"--results_dir={results}", "--run_name=a"]
+    logdir, _, _ = ptools.init_checkpoint(os.path.join(results, "a"), data, model, resume=False)
+    path = os.path.join(logdir, "flags.json")
+    os.utime(path, (1, 1))
+    pflags.reset()
+    sys.argv = ["x", "--resume", f"--results_dir={results}", "--run_name=a", "--device=cpu",
+                "--coordinator_address=127.0.0.1:1234", "--process_id=0", "--train_itr=100"]
+    ptools.init_checkpoint(os.path.join(results, "a"), data, model, resume=True)
+    assert os.stat(path).st_mtime == 1
+    assert ptools.json_load(path)["resume"] is False
+    pflags.reset()
+    sys.argv = ["x", "--resume", "--train_itr=200"]
+    ptools.init_checkpoint(os.path.join(results, "a"), data, model, resume=True)
+    assert ptools.json_load(path)["train_itr"] == 200
+
+
+def test_run_device_reads_the_newest_run_dirs_flags(tmp_path):
+    """A resume's device, known before its flags are restored: the newest
+    run dir's flags.json's, else the default."""
+    root = tmp_path / "run"
+    assert ptools.run_device(str(root), "cuda") == "cuda"
+    for n, device in ((1, "cuda"), (2, "cpu")):
+        (root / str(n)).mkdir(parents=True)
+        ptools.json_store(str(root / str(n) / "flags.json"), dict(device=device))
+    (root / "10").mkdir()
+    assert ptools.run_device(str(root), "cuda") == "cuda"  # run 10 has no flags.json yet
+    ptools.json_store(str(root / "10" / "flags.json"), dict(device="cpu"))
+    assert ptools.run_device(str(root), "cuda") == "cpu"
+
+
 @pytest.mark.parametrize("given, module", [
     ("sqair_tpu/configs/mlp_mnist_model.py", "sqair_tpu_torch.configs.mlp_mnist_model"),
     ("./sqair_tpu/configs/../configs/font_seq_mnist_data.py",

@@ -1,5 +1,6 @@
-"""sqair_tpu_torch, chip_smoke.py and tools/pad_coverage_params_torch.py
-import neither JAX nor the JAX package (the card's machine has no JAX)."""
+"""sqair_tpu_torch, chip_smoke.py, the port's tools (tools/*_torch.py) and
+notebooks/play_torch.py import neither JAX nor the JAX package (the card's
+machine has no JAX)."""
 import ast
 import subprocess
 import sys
@@ -21,7 +22,10 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "sqair_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "pad_coverage_params_torch.py"]
+        REPO / "chip_smoke.py", REPO / "notebooks" / "play_torch.py"] + sorted(
+        f for f in (REPO / "tools").glob("*_torch.py")
+        if f.name != "jax_ckpt_to_torch.py")  # the converter reads JAX's checkpoints
+    assert len([f for f in files if f.parent.name == "tools"]) >= 6
     assert len(files) > 20
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
@@ -42,7 +46,13 @@ NEW_MODULES = ("sqair_tpu_torch.scripts.rollout", "sqair_tpu_torch.eval_tools",
                "sqair_tpu_torch.scripts.create_seq_mnist",
                # the conv model family and the model and optimizer options
                "sqair_tpu_torch.configs.conv_mnist_model", "sqair_tpu_torch.nn.layers",
-               "sqair_tpu_torch.training.train")
+               "sqair_tpu_torch.training.train",
+               # data parallelism, the native binding, the tools and the notebook
+               "sqair_tpu_torch.parallel.mesh", "sqair_tpu_torch.parallel.distributed",
+               "sqair_tpu_torch.data.native", "sqair_tpu_torch.experiment.experiment_tools",
+               "tools.time_step_torch", "tools.profile_step_torch", "tools.eval_one_ckpt_torch",
+               "tools.diag_presence_logits_torch", "tools.promote_release_torch",
+               "notebooks.play_torch")
 _BLOCKED = """
 import importlib, importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):
