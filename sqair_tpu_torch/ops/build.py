@@ -17,10 +17,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from pathlib import Path
 
 import torch
+
+from .. import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -60,11 +61,12 @@ PROTOTYPES = {
     # dims*
     "sqair_fused_prop_scratch_floats": (_P,),
     "sqair_fused_disc_scratch_floats": (_P,),
+    # ring*, capacity, stream (csrc/trace_stamp.cu)
+    "sqair_trace_stamp": (_P, _I, _P),
 }
 
 _lock = threading.Lock()
 _library = None
-last_build = {}  # {"seconds": float, "cached": bool, "path": str}
 
 
 def find_nvcc() -> str:
@@ -95,39 +97,43 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compiles the kernels unless the library for these sources exists."""
+    """Compiles the kernels unless the library for these sources exists.
+    Recorded as the ``sqair.build`` span (``tracing``), with ``cached`` and
+    ``path``."""
     path = library_path()
-    t0 = time.perf_counter()
     cached = path.exists()
-    if not cached:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = find_nvcc()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            objs, procs = [], []
-            for src in sorted(CSRC_DIR.glob("*.cu")):
-                objs.append(os.path.join(tmp, src.stem + ".o"))
-                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
-                procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                    stderr=subprocess.PIPE, text=True)))
-            lib = os.path.join(tmp, "lib.so")
-            link = [nvcc, *LINK_FLAGS, "-o", lib, *objs]
-            failed = []
-            for cmd, proc in procs:
-                out, err = proc.communicate()
-                if proc.returncode != 0:
-                    failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                                  f"{out}\n{err}")
-            if not failed:
-                proc = subprocess.run(link, capture_output=True, text=True)
-                if proc.returncode != 0:
-                    failed.append(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
-                                  f"{proc.stdout}\n{proc.stderr}")
-            if failed:
-                raise RuntimeError("\n".join(failed))
-            os.replace(lib, path)
-    last_build.update(seconds=time.perf_counter() - t0, cached=cached,
-                      path=str(path))
+    with tracing.setup_span("sqair.build", cached=cached, path=str(path)):
+        if not cached:
+            _compile(path)
     return path
+
+
+def _compile(path: Path):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            objs.append(os.path.join(tmp, src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, *LINK_FLAGS, "-o", lib, *objs]
+        failed = []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                              f"{out}\n{err}")
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                              f"{proc.stdout}\n{proc.stderr}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        os.replace(lib, path)
 
 
 def library() -> ctypes.CDLL:

@@ -17,7 +17,13 @@ step replays a captured CUDA graph of ``--steps_per_call`` train steps
 the device and each step gathers its batch there; without it each step's
 host batch is copied into the graph's input buffers.  ``SQAIR_FUSE_GLIMPSE=1``
 and ``SQAIR_FUSE_CELLS=1`` switch the fused kernels on, as in the JAX
-package.
+package.  On that path the program's tracing is on (``tracing.py``), and
+each heartbeat adds ``device_gap_share``, the share of the card's time
+since the last heartbeat's last graph replay that lies between one replay
+and the next (%; after an eval, a save or a figure, from the interval's
+first replay, and NaN where it has only one), and ``host_wait_ms``, its
+calls' median ``sqair.chain.rates_fill`` (the host's wait for the last
+replay to end); ``--profile_itr``'s trace shows the chain's spans.
 
 The batch indices and the model's noise come from two ``torch.Generator``s
 seeded with ``DATA_SEED`` and ``NOISE_SEED``; their states are saved in each
@@ -70,6 +76,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..configs.mlp_mnist_model import TRAIN_DEFAULTS, make_optimizer
 from ..data.loader import Minibatcher, curriculum_seq_len, truncate_batch
 from ..data.moving_mnist import DeviceDatasetSampler
@@ -426,9 +433,13 @@ def _train(F, train_noise, eval_noise):
     except ValueError:  # not the main thread (in-process callers)
         prev_handlers = {}
 
+    traced = device.type == "cuda" and not multi  # the graphed chain's path
+    if traced:
+        tracing.enable()
     try:
         t0 = time.time()
         frames_done = 0
+        since, continued = tracing.mark(), False
         while train_itr < F.train_itr:
             if stop_signal["num"] is not None and not multi:
                 print(f"signal {stop_signal['num']}: stopping at iter {train_itr}, "
@@ -458,12 +469,16 @@ def _train(F, train_noise, eval_noise):
                     "seq_len": sl,
                     "frames_per_sec": frames_done / max(dt, 1e-9),
                 }
+                if traced:
+                    heartbeat.update(_trace_keys(tracing.summary(
+                        calls=(since, tracing.mark()), continued=continued)))
                 print(f"{train_itr}: " + ", ".join(f"{k}={v:.5g}" for k, v in heartbeat.items()))
                 writer.write(train_itr, heartbeat)
                 if F.debug:
                     writer.write(train_itr, {k: v for k, v in metrics.items()
                                              if k.startswith("grads/")})
                 t0, frames_done = time.time(), 0
+                since, continued = tracing.mark(), True
 
             if (multi and train_itr % vote_every == 0
                     and mesh.any(stop_signal["num"] is not None)):
@@ -483,8 +498,10 @@ def _train(F, train_noise, eval_noise):
             if (train_itr % F.log_itr == 0 or train_itr % F.save_itr == 0
                     or train_itr % F.fig_itr == 0):
                 # evals, saves and figures ran inside the next heartbeat's
-                # window: frames_per_sec measures training only
+                # window: frames_per_sec measures training only, and
+                # device_gap_share does not count their device work as idle
                 t0, frames_done = time.time(), 0
+                since, continued = tracing.mark(), False
             # train_itr advances in steps_per_call blocks: fire on the
             # first boundary at or past profile_itr
             if F.profile_itr and train_itr >= F.profile_itr > prev_itr:
@@ -495,9 +512,19 @@ def _train(F, train_noise, eval_noise):
         try_plot(train_itr)
         writer.close()
     finally:
+        if traced:
+            tracing.disable()
         for s, h in prev_handlers.items():
             signal.signal(s, h)
     return logdir, model, state
+
+
+def _trace_keys(summary) -> dict:
+    """The heartbeat's keys from a ``tracing.summary`` of its calls."""
+    gap = summary.get("replays", {}).get("gap_share_pct")
+    wait = summary["spans"].get("sqair.chain.rates_fill", {}).get("median_ms")
+    return {"device_gap_share": np.nan if gap is None else gap,
+            "host_wait_ms": np.nan if wait is None else wait}
 
 
 if __name__ == "__main__":

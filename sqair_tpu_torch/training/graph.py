@@ -32,6 +32,15 @@ The kernels' launch counters (``ops/fused.launches``) advance only while a
 graph is captured; ``launches`` holds one capture's counts, which every
 replay launches again.  A failed capture or replay raises: nothing falls
 back to eager steps on the card.
+
+Tracing (``sqair_tpu_torch/tracing.py``).  Each call advances the chain
+call index; ``sqair.chain.rates_fill`` times ``_fill_rates`` (on the card
+its copy waits for the last replay to end) and ``sqair.chain.graph_launch``
+the replay's launch, both while tracing is on.  ``sqair.chain.prepare``
+(the warm-up step ``sqair.chain.warmup``, then ``sqair.chain.capture``) is
+recorded always.  The captured graph's first and last nodes are stamps
+(``ops/stamp.py``) into the chain's ``stamps`` ring, so each replay leaves
+its start and end on the card's clock.
 """
 from __future__ import annotations
 
@@ -40,8 +49,9 @@ from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 
+from .. import tracing
 from ..models.model import Model
-from ..ops import fused, fused_cells, fused_glimpse
+from ..ops import fused, fused_cells, fused_glimpse, stamp
 from ..ops.noise import NoiseSource
 from .train import TFRMSProp, TrainState, gradient_summaries
 
@@ -111,6 +121,8 @@ class ChainedTrainStep:
         n_scalars = len(opt.scalars_at(opt.param_groups[0]["lr"], 0))
         self.rates = torch.zeros((self.steps, n_scalars), dtype=torch.float32,
                                  device=self.device)
+        self.stamps = (tracing.StampRing(self.device, stamp.stamp, self.steps)
+                       if self.device.type == "cuda" else None)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.key = None
         self.metrics: Optional[Dict[str, torch.Tensor]] = None
@@ -150,7 +162,9 @@ class ChainedTrainStep:
         self.rates.copy_(torch.tensor(rates, dtype=torch.float32))
 
     def __call__(self) -> Dict[str, torch.Tensor]:
-        self._fill_rates()
+        tracing.call()
+        with tracing.span("sqair.chain.rates_fill"):
+            self._fill_rates()
         if self.device.type != "cuda":
             for i in range(self.steps):
                 metrics = self._step(i, self.state.step)
@@ -158,7 +172,9 @@ class ChainedTrainStep:
             return metrics
         if self.graph is None or _switches() != self.key:
             self.capture()
-        self.graph.replay()
+        with tracing.span("sqair.chain.graph_launch"):
+            self.graph.replay()
+        self.stamps.replayed()
         self.state.optimizer.count += self.steps
         self.state.step += self.steps
         return self.metrics
@@ -166,27 +182,34 @@ class ChainedTrainStep:
     def capture(self):
         """Warms up, then captures the chain of ``steps`` train steps under
         the current switches, with no effect on the training's state."""
-        self.release()
-        device = self.device
-        snapshot = TrainSnapshot(self.model, self.state, self.generators)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self._step(0, self.state.step)
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        snapshot.restore()
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            graph.register_generator_state(g)
-        before = collections.Counter(fused.launches)
-        with torch.cuda.graph(graph):
-            for i in range(self.steps):
-                metrics = self._step(i, self.state.step + i)
-        self.launches = dict(collections.Counter(fused.launches) - before)
-        # the capture ran no kernel; this puts back the host's side (the
-        # optimizer's count, the gradients' references, the generators)
-        snapshot.restore()
+        with tracing.setup_span("sqair.chain.prepare", leaf=False):
+            self.release()
+            device = self.device
+            with tracing.setup_span("sqair.chain.warmup"):
+                snapshot = TrainSnapshot(self.model, self.state, self.generators)
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    self._step(0, self.state.step)
+                torch.cuda.current_stream(device).wait_stream(side)
+                torch.cuda.synchronize(device)
+                snapshot.restore()
+            with tracing.setup_span("sqair.chain.capture"):
+                graph = torch.cuda.CUDAGraph()
+                for g in self.generators:
+                    graph.register_generator_state(g)
+                before = collections.Counter(fused.launches)
+                with torch.cuda.graph(graph):
+                    self.stamps.stamp()
+                    for i in range(self.steps):
+                        metrics = self._step(i, self.state.step + i)
+                    self.stamps.stamp()
+                self.launches = dict(collections.Counter(fused.launches) - before)
+                # the capture ran no kernel; this puts back the host's side
+                # (the optimizer's count, the gradients' references, the
+                # generators)
+                snapshot.restore()
+        tracing.register(self.stamps)
         self.graph, self.metrics, self.key = graph, metrics, _switches()
 
     def release(self):

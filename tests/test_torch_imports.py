@@ -52,7 +52,10 @@ NEW_MODULES = ("sqair_tpu_torch.scripts.rollout", "sqair_tpu_torch.eval_tools",
                "sqair_tpu_torch.data.native", "sqair_tpu_torch.experiment.experiment_tools",
                "tools.time_step_torch", "tools.profile_step_torch", "tools.eval_one_ckpt_torch",
                "tools.diag_presence_logits_torch", "tools.promote_release_torch",
-               "notebooks.play_torch")
+               "notebooks.play_torch",
+               # the program's tracing and the tool that reads it in a cell
+               "sqair_tpu_torch.tracing", "sqair_tpu_torch.ops.stamp",
+               "tools.trace_cell_torch")
 _BLOCKED = """
 import importlib, importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):
