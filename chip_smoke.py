@@ -56,7 +56,8 @@ Phases, one line each with its own numbers and seconds:
                  settings' eval step time and busy time
   train          3 train steps (record_mode="train", backward, the release
                  flags' RMSProp) on batches of the device-resident sampler,
-                 with the launch counts of all six kernels per step
+                 with the launch counts of all six kernels per step (no call
+                 takes the long-K kernels)
   train-check    one train step's gradients in thirteen runs with the same
                  noise: every kernel with no switch, the glimpse switch and
                  both switches, and with both switches at DISC_FLAGS ("disc");
@@ -183,14 +184,16 @@ Phases, one line each with its own numbers and seconds:
   conv-kernels   the MLP kernel at the conv shapes (one linear layer: the
                  input encoder's 10816 -> 256, the glimpse encoder's 1600 ->
                  256, the subpixel decoder's seed 50 -> 400), forward and
-                 backward (the encoders' dx included): device ms a call, the
-                 plain version's, the library call's and the bound
+                 backward (the encoders' dx included): the path each shape
+                 takes (long_k: the encoders, ops/fused.is_long_k), device ms
+                 a call, the plain version's, the library call's and the bound
   conv-eval      3 eval steps with no switch and with both switches (the
                  conv model fuses nothing: the same launches and metrics),
                  every kernel call held to its plain version (checked_calls)
   conv-train     3 train steps in each setting, every forward and backward
                  call held to its plain version (checked_bwd_calls; the input
                  encoder's 10816-wide dx must be among them), launch counts
+                 and the long-K calls (100 forward and 100 backward a step)
   conv-train-check  one train step's gradients, the kernels and the plain
                  versions on the card, against the float64 referee, gated as
                  train-check
@@ -613,6 +616,19 @@ def expected_launches(shapes, steps, backward=False):
     out = {name: steps * sum(c for kn, _, c in shapes if kn == name) for name in names}
     if backward:
         out.update({name + "_bwd": out[name] for name in names})
+    return out
+
+
+def expected_long_k(fused, shapes, steps, backward=False):
+    """The MLP calls over ``steps`` steps that take the long-K kernels
+    (``fused.is_long_k``: the conv model's one-layer encoders), as
+    ``fused.long_k_calls`` counts them; with ``backward``, also their
+    backward calls."""
+    n = steps * sum(c for kn, s, c in shapes
+                    if kn == "fused_mlp" and fused.is_long_k(s["n"], [s["d_in"]] + s["widths"]))
+    out = {"fused_mlp": n} if n else {}
+    if backward and n:
+        out["fused_mlp_bwd"] = n
     return out
 
 
@@ -2379,6 +2395,9 @@ def run():
     torch.cuda.synchronize()
     train_counts = dict(fused.launches)
     expected = expected_launches(train_shapes, N_TRAIN_STEPS, backward=True)
+    long_k = dict(fused.long_k_calls)
+    if long_k != expected_long_k(fused, train_shapes, N_TRAIN_STEPS, backward=True):
+        raise Failure(f"train: the release step's calls took the long-K kernels: {long_k}")
     for i, m in enumerate(train_metrics):
         for key, v in m.items():
             if not torch.isfinite(v).all():
@@ -3878,7 +3897,9 @@ def conv_kernel_times(torch, F, B, k, T, card, phase="conv-kernels"):
             t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
             out[label] = dict(bound=max(t_bytes, t_ops),
                               by="bytes" if t_bytes >= t_ops else "operations")
+        dims = [shape["d_in"]] + shape["widths"]
         log(phase, t0, shape=jdump(shape), need_dx=need_dx, calls_per_train_step=calls,
+            path="long_k" if fused.is_long_k(shape["n"], dims) else "tiles_of_8",
             ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
             bound_ms=f"{out['fwd']['bound']:.5f}", bound_by=out["fwd"]["by"],
             bwd_ms=f"{bwd_ms:.5f}", bwd_plain_ms=f"{bwd_plain_ms:.5f}",
@@ -3943,10 +3964,14 @@ def conv_phases(torch, card, device):
                        for b in batches]
                 torch.cuda.synchronize()
                 counts = dict(fused.launches)
+                long_k = dict(fused.long_k_calls)
         expected = expected_launches(main_path_shapes(flags, B, k, T), N_BATCHES)
+        expected_lk = expected_long_k(fused, main_path_shapes(flags, B, k, T), N_BATCHES)
         finite(res, f"conv-eval {label} batch")
         if counts != expected:
             raise Failure(f"conv-eval {label}: launch counts {counts} differ from {expected}")
+        if long_k != expected_lk:
+            raise Failure(f"conv-eval {label}: long-K calls {long_k} differ from {expected_lk}")
         err, worst_metric = (0.0, None) if label == "no_switch" else max(
             compare_metrics(torch, got, want, f"conv-eval batch {i}, both switches vs none")
             for i, (got, want) in enumerate(zip(res, evals["no_switch"])))
@@ -3955,7 +3980,8 @@ def conv_phases(torch, card, device):
             ms = step_ms(torch, lambda: eval_step(batches[0]["imgs"], batches[0]["nums"],
                                                   GeneratorNoise(replay_gen, device)), STEP_REPS)
         log("conv-eval", t0, setting=label, steps=N_BATCHES, launches=jdump(counts),
-            expected=jdump(expected), calls=jdump(calls), vs_switch_off=f"{err:.3e}",
+            expected=jdump(expected), long_k_calls=jdump(long_k), calls=jdump(calls),
+            vs_switch_off=f"{err:.3e}",
             worst_metric=worst_metric, tol=METRIC_TOL, iwae=f"{float(res[0]['iwae']):.4f}",
             eval_step_ms=f"{ms:.3f}", frames_per_s=f"{B * T / (ms / 1e3):.1f}", card=repr(card))
 
@@ -3976,11 +4002,15 @@ def conv_phases(torch, card, device):
                 metrics = [step(b["imgs"], b["nums"], noise) for b in batches]
                 torch.cuda.synchronize()
                 counts = dict(fused.launches)
-        expected = expected_launches(main_path_shapes(flags, B, k, T, train=True),
-                                     N_TRAIN_STEPS, backward=True)
+                long_k = dict(fused.long_k_calls)
+        train_shapes = main_path_shapes(flags, B, k, T, train=True)
+        expected = expected_launches(train_shapes, N_TRAIN_STEPS, backward=True)
+        expected_lk = expected_long_k(fused, train_shapes, N_TRAIN_STEPS, backward=True)
         finite(metrics, f"conv-train {label} step")
         if counts != expected:
             raise Failure(f"conv-train {label}: launch counts {counts} differ from {expected}")
+        if long_k != expected_lk:
+            raise Failure(f"conv-train {label}: long-K calls {long_k} differ from {expected_lk}")
         wide = [sh for sh in bwd_calls["fused_mlp_bwd"]["shapes"]
                 if json.loads(sh)[1] == ts._input_encoder.MLP_0.w_0.shape[0]
                 and json.loads(sh)[-1]]
@@ -3993,7 +4023,8 @@ def conv_phases(torch, card, device):
             torch, metrics[0], trained["no_switch"][0], "conv-train step 0, both vs none")
         trained[label] = metrics
         log("conv-train", t0, setting=label, steps=N_TRAIN_STEPS, launches=jdump(counts),
-            expected=jdump(expected), calls=jdump(calls), bwd_calls=jdump(bwd_calls),
+            expected=jdump(expected), long_k_calls=jdump(long_k), calls=jdump(calls),
+            bwd_calls=jdump(bwd_calls),
             step0_vs_switch_off=f"{err:.3e}", worst_metric=worst_metric, tol=METRIC_TOL,
             target=f"{float(metrics[-1]['target']):.4f}")
 

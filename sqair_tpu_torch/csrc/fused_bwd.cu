@@ -19,9 +19,10 @@
 //   A. row-parallel, redesigned for Hopper: a thread block cluster shares
 //      a tile of 8 rows and splits each transposed product over its blocks
 //      (cluster_dense.cuh).  The MLP's (`mlp_bwd_kernel`) writes each
-//      layer's dz to scratch and dx; the GRU's (`gru_bwd_kernel`) writes
-//      dc_in, da and r h to scratch that the wrapper allocates, and dx and
-//      dh.
+//      layer's dz to scratch and dx (one layer of long K, the conv
+//      encoders: `mlp_bwd_long_k_kernel`, 32-row tiles); the GRU's
+//      (`gru_bwd_kernel`) writes dc_in, da and r h to scratch that the
+//      wrapper allocates, and dx and dh.
 //   B. column-parallel, summing the rows in fixed order
 //      (`tile_reduce_kernel`, which the glimpse, discovery and propagation
 //      backwards launch too): each block owns a 32 x 32 tile of one dW (and,
@@ -257,6 +258,210 @@ __global__ void __launch_bounds__(kThreads, 2) mlp_bwd_kernel(MlpBwdArgs p) {
       cluster_dense_t(t, plan, pe, ring, parts, [&](int r, int k, float v, float) {
         if (r < rows) p.dx[(size_t)(row0 + r) * K + k] = v;
       });
+    }
+  }
+}
+
+// ------------------------------------------ phase A: one long-K layer
+// The conv model's one-layer encoders of long K (10816 or 1600 -> 256, 160
+// rows): dx = dz W^T has 10816 or 1600 output columns and a short j (256).
+// mlp_bwd_kernel's clusters split those columns over blocks of 8 rows, so
+// they re-read W from L2 once per 8 rows, and its unit (2 rows x 4 columns
+// a lane) is bound by shared-memory reads, ~3x its FMA time.  Here a block
+// takes a tile of kLongRows rows: it forms the tile's dz = g act'(a) once in
+// its shared memory (the first block of a row tile also writes it to phase
+// B's scratch), then walks its run of 64-column steps of dx.  A round takes
+// 4 blocks of 32 j of one step: it stages W's rows of the step's columns
+// for them ([2][32 cols][kWLd] each, as cluster_dense.cuh stages them), and
+// warps 2 q and 2 q + 1 form the partial sums p_j of the round's j-block q,
+// 16 rows each, 4 rows x 8 columns a lane (`wide_part_t`), into shared
+// memory; so each staged tile serves 32 rows.  Thread t then adds the
+// round's p_j in j order to its outputs t + 256 e of the step, acc = ((p_0
+// + p_1) + p_2) + ..., the chain mlp_bwd_kernel forms: its bits.
+constexpr int kLongRows = 32;                        // rows of a tile
+constexpr int kLongChunks = 2;                       // 32-column chunks of a step
+constexpr int kLongCols = kLongChunks * kChunk32;    // columns of a step
+constexpr int kLongPairs = kWarps8 / 2;              // blocks of j of a round
+constexpr int kLongSlotT = kLongChunks * kUnitT;     // a block of j's W tiles
+constexpr int kLongStageT = kLongPairs * kLongSlotT; // a round's
+constexpr int kLongPld = kLongCols + 2;              // row stride of the partial sums
+constexpr int kLongParts = kLongPairs * kLongRows * kLongPld;
+constexpr int kLongOwnT = kLongRows * kLongCols / kThreads;  // outputs a thread adds
+
+struct MlpBwdLongKArgs {
+  const float* g;  // [n, D]
+  const float* a;  // the saved output [n, D]
+  const float* w;  // [K, D]
+  float* dz;       // scratch [n, D]
+  float* dx;       // [n, K] or null
+  int n, K, D, act;
+  int col_blocks;  // blocks of a row tile
+  int steps;       // 64-column steps of dx a block takes
+  int ldd;         // row stride of the tile's dz in shared memory
+};
+
+__host__ __device__ inline int bwd_long_k_smem_floats(int ldd) {
+  return 2 * kLongStageT + kLongParts + kLongRows * ldd;
+}
+
+// Round u (step step0 + u / ngroups, blocks of j 4 (u % ngroups) + s) of
+// W's tiles into `stage`: thread t copies row t / 8 and float4 t % 8 of
+// each chunk's [32 cols][32 j] of each block of j.
+__device__ __forceinline__ void stage_bwd_long_k(const MlpBwdLongKArgs& p, int step0, int ngroups,
+                                                 int u, float* stage) {
+  const int st = u / ngroups, gi = u - st * ngroups;
+  const int kr = threadIdx.x >> 3, f4 = (threadIdx.x & 7) * 4;
+#pragma unroll
+  for (int s = 0; s < kLongPairs; ++s) {
+    const int j = (gi * kLongPairs + s) * kBlockK + f4;
+    if (j >= p.D) break;
+#pragma unroll
+    for (int c = 0; c < kLongChunks; ++c) {
+      const int col = (step0 + st) * kLongCols + c * kChunk32 + kr;
+      if (col < p.K)
+        copy4_async(stage + s * kLongSlotT + c * kUnitT + kr * kWLd + f4,
+                    p.w + (size_t)col * p.D + j, p.D - j);
+    }
+  }
+}
+
+// part[i][c] += a_i[j + m] w_c[j + m] for m < 4, in order, for the lane's 4
+// rows (a0, row stride lda) and its 8 staged columns (w0: column cg of the
+// first chunk; c >> 2 picks the chunk, c & 3 the column cg + 8 (c & 3)).
+__device__ __forceinline__ void wide_step4_t(float (&part)[4][8], const float* a0, int lda,
+                                             const float* w0, int j) {
+  float4 xs[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) xs[i] = *reinterpret_cast<const float4*>(a0 + i * lda + j);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float4 wv =
+        *reinterpret_cast<const float4*>(w0 + (c >> 2) * kUnitT + (c & 3) * 8 * kWLd + j);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      part[i][c] = fmaf(xs[i].x, wv.x, part[i][c]);
+      part[i][c] = fmaf(xs[i].y, wv.y, part[i][c]);
+      part[i][c] = fmaf(xs[i].z, wv.z, part[i][c]);
+      part[i][c] = fmaf(xs[i].w, wv.w, part[i][c]);
+    }
+  }
+}
+
+// A lane's partial sums over kn <= 32 steps of j: rows 4 rg .. 4 rg + 3 of
+// `a` (row stride lda) and columns cg + 8 v of each of the two staged
+// chunks `w` ([2][32 cols][kWLd]); part[i][4 c + v] is row 4 rg + i, column
+// 32 c + cg + 8 v.  Each is summed in j order from zero, as unit_sums_t
+// sums it.
+__device__ __forceinline__ void wide_part_t(float (&part)[4][8], const float* a, int lda,
+                                            const float* w, int rg, int cg, int kn) {
+  const float* a0 = a + 4 * rg * lda;
+  const float* w0 = w + cg * kWLd;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) part[i][c] = 0.f;
+  int j = 0;
+  if (kn == kBlockK) {  // a whole block of j, unrolled so that loads run ahead
+#pragma unroll
+    for (int j4 = 0; j4 < kBlockK; j4 += 4) wide_step4_t(part, a0, lda, w0, j4);
+    j = kBlockK;
+  }
+  for (; j + 4 <= kn; j += 4) wide_step4_t(part, a0, lda, w0, j);
+  for (; j < kn; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        part[i][c] = fmaf(a0[i * lda + j], w0[(c >> 2) * kUnitT + (c & 3) * 8 * kWLd + j],
+                          part[i][c]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) mlp_bwd_long_k_kernel(MlpBwdLongKArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                                 // 2 x kLongStageT
+  float* parts = ring + 2 * kLongStageT;              // [kLongPairs][kLongRows][kLongPld]
+  float* dzs = parts + kLongParts;                    // [kLongRows][ldd]
+  const int rt = blockIdx.x / p.col_blocks, cb = blockIdx.x - rt * p.col_blocks;
+  const int row0 = rt * kLongRows, rows = min(kLongRows, p.n - row0);
+  const int step0 = cb * p.steps;
+  const int nsteps = p.dx == nullptr ? 0 : min(p.steps, cdiv(p.K, kLongCols) - step0);
+  const int njb = cdiv(p.D, kBlockK), ngroups = cdiv(njb, kLongPairs);
+  const int rounds = nsteps * ngroups;  // (step, 4 blocks of j), j fastest
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = warp >> 1, h = warp & 1, rg = lane >> 3, cg = lane & 7;
+
+  if (rounds > 0) stage_bwd_long_k(p, step0, ngroups, 0, ring);
+  copy_commit();
+  // the tile's dz while the first tiles fly (thread t takes columns t +
+  // i kThreads of the tile's rows, each column's loads issued at once)
+  for (int j = threadIdx.x; j < p.D; j += kThreads) {
+    float gv[kLongRows], av[kLongRows];
+#pragma unroll
+    for (int r = 0; r < kLongRows; ++r) {
+      if (r < rows) {
+        const size_t o = (size_t)(row0 + r) * p.D + j;
+        gv[r] = __ldg(p.g + o);
+        av[r] = __ldg(p.a + o);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kLongRows; ++r) {
+      float v = 0.f;
+      if (r < rows) {
+        v = gv[r] * act_grad_from_output(av[r], p.act);
+        if (cb == 0) p.dz[(size_t)(row0 + r) * p.D + j] = v;
+      }
+      dzs[r * p.ldd + j] = v;
+    }
+  }
+
+  float acc[kLongOwnT];
+  for (int u = 0; u < rounds; ++u) {
+    copy_wait<0>();
+    __syncthreads();  // round u has landed (and dz); round u - 1's stage and sums are read
+    if (u + 1 < rounds)
+      stage_bwd_long_k(p, step0, ngroups, u + 1, ring + ((u + 1) & 1) * kLongStageT);
+    copy_commit();
+    const int st = u / ngroups, gi = u - st * ngroups;
+    const int jb = gi * kLongPairs + q;
+    const int nj = min(kLongPairs, njb - gi * kLongPairs);
+    if (jb < njb) {
+      float part[4][8];
+      wide_part_t(part, dzs + h * 16 * p.ldd + jb * kBlockK, p.ldd,
+                  ring + (u & 1) * kLongStageT + q * kLongSlotT, rg, cg,
+                  min(kBlockK, p.D - jb * kBlockK));
+      float* pq = parts + q * kLongRows * kLongPld;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          pq[(h * 16 + 4 * rg + i) * kLongPld + (c >> 2) * kChunk32 + cg + 8 * (c & 3)] =
+              part[i][c];
+    }
+    __syncthreads();  // the round's partial sums are in `parts`
+    // outputs t + 256 e of the step: row o / 64, column o % 64
+#pragma unroll
+    for (int e = 0; e < kLongOwnT; ++e) {
+      const int o = threadIdx.x + e * kThreads;
+      const float* src = parts + (o / kLongCols) * kLongPld + o % kLongCols;
+      float v[kLongPairs];
+#pragma unroll
+      for (int s = 0; s < kLongPairs; ++s) v[s] = s < nj ? src[s * kLongRows * kLongPld] : 0.f;
+      float sum = gi == 0 ? 0.f : acc[e];
+#pragma unroll
+      for (int s = 0; s < kLongPairs; ++s)
+        if (s < nj) sum += v[s];
+      acc[e] = sum;
+    }
+    if (gi == ngroups - 1) {
+      const int col0 = (step0 + st) * kLongCols;
+#pragma unroll
+      for (int e = 0; e < kLongOwnT; ++e) {
+        const int o = threadIdx.x + e * kThreads;
+        const int r = o / kLongCols, k = col0 + o % kLongCols;
+        if (r < rows && k < p.K) p.dx[(size_t)(row0 + r) * p.K + k] = acc[e];
+      }
     }
   }
 }
@@ -719,6 +924,54 @@ extern "C" int sqair_fused_mlp_bwd(const void* x, const void* g, void* dx, int n
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  return (int)launch_tiles(q, s);
+}
+
+// fused_mlp backward of one layer of long K (ops/fused.py picks it by
+// shape): x [n, K], g [n, D], the saved output a [n, D], w [K, D] -> dx
+// [n, K] (null to skip), dw [K, D], db [D]; dz [n, D] is scratch.  `geom` is
+// the host's launch geometry of phase A (ops/fused.py
+// mlp_bwd_long_k_geometry): tile rows, blocks of a row tile, steps a block,
+// blocks, dynamic shared memory bytes; the launch is refused unless it
+// matches this file's.  Phase B is sqair_fused_mlp_bwd's.  Same contract
+// as above; the outputs carry its bits.
+extern "C" int sqair_fused_mlp_bwd_long_k(const void* x, const void* g, void* dx, int n, int K,
+                                          int D, int act, const void* w, const void* a,
+                                          void* dz, void* dw, void* db, const int* geom,
+                                          void* stream) {
+  using namespace sqair;
+  if (n <= 0 || K < 1 || D < 1 || D > kMaxWidth || act < kId || act > kTanh)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MlpBwdLongKArgs p{};
+  p.g = static_cast<const float*>(g);
+  p.a = static_cast<const float*>(a);
+  p.w = static_cast<const float*>(w);
+  p.dz = static_cast<float*>(dz);
+  p.dx = static_cast<float*>(dx);
+  p.n = n;
+  p.K = K;
+  p.D = D;
+  p.act = act;
+  p.col_blocks = geom[1];
+  p.steps = geom[2];
+  p.ldd = cdiv(D, 32) * 32 + 4;
+  const int blocks = cdiv(n, kLongRows) * p.col_blocks;
+  const size_t smem = sizeof(float) * (size_t)bwd_long_k_smem_floats(p.ldd);
+  const int steps = cdiv(K, kLongCols);
+  if (geom[0] != kLongRows || p.steps < 1 || p.col_blocks != cdiv(steps, p.steps) ||
+      geom[3] != blocks || (size_t)geom[4] != smem || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(mlp_bwd_long_k_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  mlp_bwd_long_k_kernel<<<blocks, kThreads, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  OuterArgs q{};
+  q.n = n;
+  q.n_jobs = 1;
+  q.job[0] = OuterJob{static_cast<const float*>(x), p.dz, static_cast<float*>(dw),
+                      static_cast<float*>(db), K, D, K, D};
   return (int)launch_tiles(q, s);
 }
 

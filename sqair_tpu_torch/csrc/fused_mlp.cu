@@ -42,8 +42,9 @@
 // phases with clock64 (in a scratch copy) showed the copies landing before
 // the wait and the time spread over issuing the copies, the units'
 // shared-memory reads and the ordered combine.  The 160-row tiles re-read each
-// weight from L2 once per row tile (20 times at 160 rows); a cluster that
-// shared weight columns across row tiles would read them once.  At 4800
+// weight from L2 once per row tile (20 times at 160 rows); one layer of long
+// K (the conv encoders) goes to the long-K kernel at the end of this file
+// instead (ops/fused.py is_long_k), whose staged weights serve 32 rows.  At 4800
 // rows (C = 1, 600 blocks of 23 rounds) the kernel is slower than one
 // block per 8 rows was.  No tensor cores: f32 has none without TF32, which
 // the port keeps off.
@@ -55,6 +56,7 @@
 #include <cooperative_groups.h>
 
 #include "async_copy.cuh"
+#include "cluster_dense.cuh"
 #include "tile_sums.cuh"
 
 namespace cg = cooperative_groups;
@@ -295,6 +297,294 @@ cudaError_t launch_mlp_fwd(const float* x, float* y, int n, int n_layers, const 
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- one long-K layer
+// The conv model's encoders end in one linear layer of long K at 160 rows
+// (10816 -> 256 and 1600 -> 256).  The kernel above walks all of K in every
+// block for 8 rows, re-reading W from L2 once per 8 rows (20 times at 160
+// rows), and its unit (2 rows x 4 columns a lane) reads shared memory 3x
+// faster than its FMAs can use it: a round takes ~3x its FMA time in
+// shared-memory wavefronts (clock64 in a marked copy).
+// Here a tile of kLongRows rows by kLongCols columns belongs to a cluster of
+// KS blocks that split its K-blocks of 32 round-robin (rank s takes s, s +
+// KS, s + 2 KS, ...), so every staged weight serves 32 rows.  A block's
+// round takes 4 of its K-blocks ([2][32 k][32 cols] of W and [32 rows][36]
+// of x each, a double-buffered ring of rounds).  Its 8 compute warps take
+// them in pairs, 16 rows each, 4 rows x 8 columns a lane (`wide_part`: 12
+// float4 reads a lane for 128 FMAs a warp, against 24), and a lane stores
+// its partial sums p_j straight into the shared memory of the block that
+// owns those outputs (`per` consecutive outputs of the tile a rank), round
+// r's into buffer r % 3.  4 helper warps stage the rounds (cp.async; named
+// barriers kFull / kEmpty with the compute warps) and own the outputs: past
+// cluster barrier r (every block's round-r sums stored) they add round r's
+// p_j in K order while the compute warps go on.  Each owner's sum is acc =
+// ((p_0 + p_1) + p_2) + ... of the same p_j, so every output keeps the bits
+// of the kernel above; the bias and the activation follow, as there.  A
+// compute warp stores round r's sums past barrier r - 1, which every owner
+// passes only after adding round r - 2's, so no buffer is written while
+// it is read.
+constexpr int kLongRows = 32;                          // rows of a tile
+constexpr int kLongChunks = 2;                         // 32-column chunks of a tile
+constexpr int kLongCols = kLongChunks * kChunk32;      // columns of a tile
+constexpr int kLongTile = kLongRows * kLongCols;       // outputs of a tile
+constexpr int kLongSlots = kWarps / 2;                 // K-blocks of a round
+constexpr int kLongSlot = kLongChunks * kUnitW + kLongRows * kXLd;  // a K-block's stage
+constexpr int kLongStage = kLongSlots * kLongSlot;     // a round's stage
+constexpr int kLongBufs = 3;                           // the owners' buffers
+constexpr int kHelpers = 128;                          // threads of the helper warps
+constexpr int kLongThreads = kThreads + kHelpers;
+constexpr int kLongOwn = kLongTile / (4 * kHelpers);   // float4s of outputs an owner adds
+constexpr int kFull = 1, kEmpty = 3;                   // named barriers, one a ring stage
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+struct LongKArgs {
+  const float* x;
+  const float* w;
+  const float* b;
+  float* y;
+  int n, K, D, act;
+  int cluster;     // KS: blocks of a cluster, splitting K
+  int col_tiles;   // column tiles of a row tile
+  int per;         // outputs of the tile a block owns (a multiple of 4)
+};
+
+// part[i][4 c + j] += a_i[k + m] w_c[k + m][j] for m < 4, in order: the
+// lane's 4 rows of x (a0, row stride kXLd) and its float4 of columns of
+// each of the two staged chunks (w0, [2][32 k][32]).
+__device__ __forceinline__ void wide_step4(float (&part)[4][8], const float* a0, const float* w0,
+                                           int k) {
+  float xs[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(a0 + i * kXLd + k);
+    xs[i][0] = v.x;
+    xs[i][1] = v.y;
+    xs[i][2] = v.z;
+    xs[i][3] = v.w;
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 u = *reinterpret_cast<const float4*>(w0 + (k + m) * kChunk32);
+    const float4 v = *reinterpret_cast<const float4*>(w0 + kUnitW + (k + m) * kChunk32);
+    const float ws[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[i][j] = fmaf(xs[i][m], ws[j], part[i][j]);
+  }
+}
+
+// A lane's partial sums over kn <= 32 K-steps: rows 4 rg .. 4 rg + 3 of the
+// staged x `a` (row stride kXLd) and columns 4 cg .. 4 cg + 3 of each of
+// the two staged chunks `w` ([2][32 k][32]); part[i][4 c + j] is row
+// 4 rg + i, column 32 c + 4 cg + j.  Each is summed in K order from zero,
+// as unit_sums sums it.
+__device__ __forceinline__ void wide_part(float (&part)[4][8], const float* a, const float* w,
+                                          int rg, int cg, int kn) {
+  const float* a0 = a + 4 * rg * kXLd;
+  const float* w0 = w + 4 * cg;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
+  int k = 0;
+  if (kn == kBlockK) {  // a whole K-block, unrolled so that loads run ahead
+#pragma unroll
+    for (int k4 = 0; k4 < kBlockK; k4 += 4) wide_step4(part, a0, w0, k4);
+    k = kBlockK;
+  }
+  for (; k + 4 <= kn; k += 4) wide_step4(part, a0, w0, k);
+  for (; k < kn; ++k) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        part[i][j] = fmaf(a0[i * kXLd + k], w0[(j >> 2) * kUnitW + k * kChunk32 + (j & 3)],
+                          part[i][j]);
+  }
+}
+
+// A helper thread's share (t of kHelpers) of this block's K-blocks 4 r ..
+// 4 r + 3 (of rank, rank + KS, ...) into `stage`: each K-block's weights
+// [2][32 k][32 cols] and x [32 rows][32 k], a float4 a copy.
+__device__ __forceinline__ void stage_long_k_round(const LongKArgs& p, int r, int rank, int mine,
+                                                   int row0, int col0, int rows, int t,
+                                                   float* stage) {
+  constexpr int kW4 = kLongChunks * kBlockK * 8, kX4 = kLongRows * 8;  // float4s of a K-block
+#pragma unroll 1
+  for (int s = 0; s < kLongSlots; ++s) {
+    const int i = r * kLongSlots + s;
+    if (i >= mine) break;
+    const int k0 = (rank + p.cluster * i) * kBlockK;
+    float* slot = stage + s * kLongSlot;
+    for (int c4 = t; c4 < kW4 + kX4; c4 += kHelpers) {
+      const int f4 = (c4 & 7) * 4;
+      if (c4 < kW4) {
+        const int c = c4 >> 8, kr = (c4 >> 3) & 31;
+        const int col = col0 + c * kChunk32 + f4;
+        if (k0 + kr < p.K && col < p.D)
+          copy4_async(slot + c * kUnitW + kr * kChunk32 + f4,
+                      p.w + (size_t)(k0 + kr) * p.D + col, p.D - col);
+      } else {
+        const int r = (c4 - kW4) >> 3;
+        if (r < rows && k0 + f4 < p.K)
+          copy4_async(slot + kLongChunks * kUnitW + r * kXLd + f4,
+                      p.x + (size_t)(row0 + r) * p.K + k0 + f4, p.K - k0 - f4);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kLongThreads, 1) fused_mlp_long_k_kernel(LongKArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                       // 2 x kLongStage
+  float* sums = ring + 2 * kLongStage;      // kLongBufs x [kLongSlots KS K-blocks][per]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int KS = p.cluster, rank = (int)cluster.block_rank();
+  const int tile = blockIdx.x / KS;
+  const int rt = tile / p.col_tiles;
+  const int row0 = rt * kLongRows, col0 = (tile - rt * p.col_tiles) * kLongCols;
+  const int rows = min(kLongRows, p.n - row0);
+  const int nkb = cdiv(p.K, kBlockK);
+  const int mine = rank < nkb ? cdiv(nkb - rank, KS) : 0;  // K-blocks of this block
+  const int rounds = cdiv(cdiv(nkb, KS), kLongSlots);      // the same in every block
+  const int span = kLongSlots * KS;                         // K-blocks of a round
+  const int buf_floats = span * p.per;
+
+  cluster_arrive_relaxed();
+  if (threadIdx.x >= kThreads) {
+    // helpers: the ring's copies and the owners' sums
+    const int t = threadIdx.x - kThreads;
+    const int lo = rank * p.per, hi = min(kLongTile, lo + p.per);
+    if (rounds > 0) stage_long_k_round(p, 0, rank, mine, row0, col0, rows, t, ring);
+    copy_commit();
+    copy_wait<0>();
+    named_arrive(kFull, kLongThreads);
+    cluster_wait();  // every block of the cluster runs before any writes into its shared memory
+    float4 acc[kLongOwn];
+#pragma unroll
+    for (int e = 0; e < kLongOwn; ++e) acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < rounds; ++r) {
+      const bool next = r + 1 < rounds;
+      if (next) {
+        if (r >= 1) named_sync(kEmpty + ((r + 1) & 1), kLongThreads);  // round r - 1 is read
+        stage_long_k_round(p, r + 1, rank, mine, row0, col0, rows, t,
+                           ring + ((r + 1) & 1) * kLongStage);
+      }
+      copy_commit();
+      if (next) {
+        copy_wait<0>();
+        named_arrive(kFull + ((r + 1) & 1), kLongThreads);  // round r + 1 has landed
+      }
+      cluster_arrive_relaxed();
+      cluster_wait();  // every block's sums of round r are stored
+      const float* buf = sums + (r % kLongBufs) * buf_floats;
+      const int nj = min(span, nkb - r * span);
+#pragma unroll
+      for (int e = 0; e < kLongOwn; ++e) {
+        const int o = lo + 4 * (t + e * kHelpers);
+        if (o < hi) {
+          float4 s4 = acc[e];
+#pragma unroll 4
+          for (int jj = 0; jj < nj; ++jj) {
+            const float4 v = *reinterpret_cast<const float4*>(buf + jj * p.per + (o - lo));
+            s4.x += v.x;
+            s4.y += v.y;
+            s4.z += v.z;
+            s4.w += v.w;
+          }
+          acc[e] = s4;
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kLongOwn; ++e) {
+      const int o = lo + 4 * (t + e * kHelpers);
+      if (o < hi) {
+        const float v[4] = {acc[e].x, acc[e].y, acc[e].z, acc[e].w};
+        const int r = o / kLongCols, col = col0 + o % kLongCols;
+        if (r < rows) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (col + u < p.D)
+              p.y[(size_t)(row0 + r) * p.D + col + u] = apply_act(v[u] + p.b[col + u], p.act);
+        }
+      }
+    }
+    return;
+  }
+
+  // the compute warps
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = warp >> 1, h = warp & 1, rg = lane >> 3, cg = lane & 7;
+  cluster_wait();
+  for (int r = 0; r < rounds; ++r) {
+    named_sync(kFull + (r & 1), kLongThreads);  // round r has landed
+    const int i = r * kLongSlots + q;
+    float part[4][8];
+    const int kb = rank + KS * i;
+    if (i < mine)
+      wide_part(part, ring + (r & 1) * kLongStage + q * kLongSlot + kLongChunks * kUnitW +
+                          h * 16 * kXLd,
+                ring + (r & 1) * kLongStage + q * kLongSlot, rg, cg,
+                min(kBlockK, p.K - kb * kBlockK));
+    if (r + 2 < rounds) named_arrive(kEmpty + (r & 1), kLongThreads);  // its stage is read
+    if (r > 0) cluster_wait();  // past barrier r - 1: round r - 2's sums are added
+    if (i < mine) {
+      // to the owners' slot of K-block kb: rows 16 h + 4 rg + ii, a float4
+      // of columns 4 cg .. 4 cg + 3 of each chunk
+      float* slot = sums + (r % kLongBufs) * buf_floats + (kb - r * span) * p.per;
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int c = 0; c < kLongChunks; ++c) {
+          const int o = (h * 16 + 4 * rg + ii) * kLongCols + c * kChunk32 + 4 * cg;
+          const int owner = o / p.per;
+          *reinterpret_cast<float4*>(cluster.map_shared_rank(slot + o - owner * p.per, owner)) =
+              make_float4(part[ii][4 * c], part[ii][4 * c + 1], part[ii][4 * c + 2],
+                          part[ii][4 * c + 3]);
+        }
+    }
+    cluster_arrive();  // this warp's sums of round r are stored
+  }
+  if (rounds > 0) cluster_wait();
+}
+
+cudaError_t launch_mlp_long_k(const LongKArgs& p, const int* geom, cudaStream_t stream) {
+  if (p.n <= 0 || p.K < 1 || p.D < 1 || p.D > kMaxWidth || p.act < kId || p.act > kTanh)
+    return cudaErrorInvalidValue;
+  const int KS = geom[1], nkb = cdiv(p.K, kBlockK);
+  const int tiles = cdiv(p.n, kLongRows) * p.col_tiles;
+  const size_t smem =
+      sizeof(float) * (2 * (size_t)kLongStage + (size_t)kLongBufs * kLongSlots * KS * p.per);
+  if (geom[0] != kLongRows || KS < 1 || KS > kMaxCluster || KS > nkb ||
+      p.col_tiles != cdiv(p.D, kLongCols) || p.per % 4 != 0 || p.per * KS < kLongTile ||
+      p.per * (KS - 1) >= kLongTile || geom[2] != tiles * KS || (size_t)geom[3] != smem)
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(fused_mlp_long_k_kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * KS);
+  cfg.blockDim = dim3(kLongThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = KS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_mlp_long_k_kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace sqair
 
 // x [n, dims[0]] -> y [n, dims[n_layers]], weights w[l] [dims[l], dims[l+1]]
@@ -316,4 +606,29 @@ extern "C" int sqair_fused_mlp(const void* x, void* y, int n, int n_layers,
                              reinterpret_cast<const float* const*>(b),
                              reinterpret_cast<float* const*>(saved), 0, geom,
                              static_cast<cudaStream_t>(stream));
+}
+
+// One layer of long K: x [n, K] -> y [n, D] = act(x w + b), w [K, D], with
+// the long-K kernel above.  `geom` is the host's launch geometry (ops/fused.py
+// mlp_long_k_geometry): tile rows, cluster size, blocks, dynamic shared
+// memory bytes, column tiles and the outputs a block owns; the launch is
+// refused unless it matches this file's.  Same contract as
+// sqair_fused_mlp; its outputs carry that entry's bits.
+extern "C" int sqair_fused_mlp_long_k(const void* x, void* y, int n, int K, int D, int act,
+                                      const void* w, const void* b, const int* geom,
+                                      void* stream) {
+  using namespace sqair;
+  LongKArgs p{};
+  p.x = static_cast<const float*>(x);
+  p.w = static_cast<const float*>(w);
+  p.b = static_cast<const float*>(b);
+  p.y = static_cast<float*>(y);
+  p.n = n;
+  p.K = K;
+  p.D = D;
+  p.act = act;
+  p.cluster = geom[1];
+  p.col_tiles = geom[4];
+  p.per = geom[5];
+  return (int)launch_mlp_long_k(p, geom, static_cast<cudaStream_t>(stream));
 }

@@ -38,12 +38,16 @@ _I = ctypes.c_int
 PROTOTYPES = {
     # x, y, n, n_layers, dims*, acts*, w**, b**, saved**, geom*, stream
     "sqair_fused_mlp": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # x, y, n, K, D, act, w, b, geom*, stream
+    "sqair_fused_mlp_long_k": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # x, h, w, u, b, hn, n, dx, units, geom*, stream
     "sqair_fused_vanilla_rnn": (_P,) * 6 + (_I, _I, _I, _P, _P),
     # x, h, wg, ug, bg, wc, uc, bc, hn, zr, c, n, dx, units, geom*, stream
     "sqair_fused_gru": (_P,) * 11 + (_I, _I, _I, _P, _P),
     # x, g, dx, n, n_layers, dims*, acts*, w**, a**, dz**, dw**, db**, geom*, stream
     "sqair_fused_mlp_bwd": (_P, _P, _P, _I, _I) + (_P,) * 9,
+    # x, g, dx, n, K, D, act, w, a, dz, dw, db, geom*, stream
+    "sqair_fused_mlp_bwd_long_k": (_P, _P, _P, _I, _I, _I, _I) + (_P,) * 7,
     # x, h, w, u, hn, g, dx, dh, dw, du, db, n, dx, units, geom*, stream
     "sqair_fused_vanilla_rnn_bwd": (_P,) * 11 + (_I, _I, _I, _P, _P),
     # x, h, wg, ug, wc, uc, zr, c, g, dc_in, da, rh, dx, dh, dwg, dug, dbg,

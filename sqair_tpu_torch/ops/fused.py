@@ -19,7 +19,9 @@ backward launches the backward kernel (on the CPU: runs the plain backward).
 ``launches`` counts the calls of each wrapper that launched its kernels:
 ``fused_mlp``, ``fused_vanilla_rnn`` and ``fused_gru`` for the forwards,
 and the same names with ``_bwd`` for the backwards (one count per call,
-however many CUDA launches the call makes).
+however many CUDA launches the call makes).  ``long_k_calls`` counts, under
+``fused_mlp`` and ``fused_mlp_bwd``, the calls among them that took the
+long-K kernels (``is_long_k``).
 """
 from __future__ import annotations
 
@@ -36,10 +38,12 @@ SMS = 132  # streaming multiprocessors of an H100 SXM: the blocks a launch shoul
 MAX_SMEM = 232448  # dynamic shared memory a block may take on Hopper (227 KB)
 
 launches = collections.Counter()
+long_k_calls = collections.Counter()
 
 
 def reset_launches():
     launches.clear()
+    long_k_calls.clear()
 
 
 def apply_act(z: torch.Tensor, act: str) -> torch.Tensor:
@@ -257,6 +261,84 @@ def mlp_bwd_geometry(n, dims):
     return dict(tile_rows=tile_rows, cluster=cluster, blocks=tiles * cluster, smem=smem)
 
 
+LONG_K_MIN = 1024  # the least d_in of a layer the long-K kernels take
+LONG_K_MAX = 10816  # the most
+LONG_K_MAX_WIDTH = 512  # the widest layer they take
+LONG_K_MAX_ROWS = 160  # the most rows they take
+LONG_K_MAX_BLOCKS = 100  # the most blocks of a long-K forward's launch
+GPC_SMS = 16  # SMs of a GPC that a cluster of blocks, one an SM, can count on
+
+
+def is_long_k(n, dims):
+    """Whether an MLP call of n rows and widths ``dims`` takes the long-K
+    kernels (csrc/fused_mlp.cu ``fused_mlp_long_k_kernel``, csrc/fused_bwd.cu
+    ``mlp_bwd_long_k_kernel``): one layer of ``LONG_K_MIN`` to
+    ``LONG_K_MAX`` inputs and at most ``LONG_K_MAX_WIDTH`` outputs at 1 to
+    ``LONG_K_MAX_ROWS`` rows whose forward launch (``mlp_long_k_geometry``)
+    takes at most ``LONG_K_MAX_BLOCKS`` blocks: the conv model's encoders
+    (10816 and 1600 -> 256 at 160 rows, 100 blocks).  There
+    ``mlp_fwd_geometry``'s 8-row tiles re-read W from L2 once per 8 rows;
+    the long-K kernels stage each weight tile once per 32 rows.
+
+    The limits are those of a sweep on an H100 (PERF.md §6) at K 1024, 1600
+    and 10816, widths 100, 256 and 512 and 1 to 192 rows: the long-K
+    backward took 0.33-0.89 of the 8-row kernels' time at every shape, the
+    forward 0.34-0.89 wherever its launch took at most 100 blocks, but up to
+    1.52 at 120 and 128 blocks (clusters of 3, 4, 5 or 8, likely more than
+    the card runs in one wave; ``GPC_SMS`` lets them through).  Every other
+    call keeps the kernels of ``mlp_fwd_geometry`` / ``mlp_bwd_geometry``,
+    tuned for short K and many calls."""
+    return (len(dims) == 2 and LONG_K_MIN <= dims[0] <= LONG_K_MAX
+            and dims[1] <= LONG_K_MAX_WIDTH and 1 <= n <= LONG_K_MAX_ROWS
+            and mlp_long_k_geometry(n, dims)["blocks"] <= LONG_K_MAX_BLOCKS)
+
+
+def mlp_long_k_geometry(n, dims):
+    """The long-K forward's launch (csrc/fused_mlp.cu
+    ``fused_mlp_long_k_kernel``) for n rows and one layer ``dims`` = [K, D].
+
+    A tile of ``tile_rows`` = 32 rows by 64 columns (``col_tiles`` of them
+    a row tile) belongs to a cluster of ``cluster`` blocks that split its
+    K-blocks of 32 round-robin: the most, up to 8 and the K-blocks, whose
+    blocks all run at once, one block an SM: at most ``SMS`` blocks, and
+    clusters that fit GPCs of ``GPC_SMS`` SMs (1 where none does; 5 at 160
+    rows: 100 blocks, where 6 gives 120 blocks that the card runs in two
+    waves; ``is_long_k`` keeps off the launches of more than
+    ``LONG_K_MAX_BLOCKS``, which this rule lets through and the card does
+    not run at once).  Each block owns ``per`` of the tile's 2048 outputs (a multiple
+    of 4).  ``smem`` is the dynamic shared memory in bytes: two stages of a
+    round's 4 K-blocks (weights [2][32][32] and x [32][36] each) and three
+    buffers of a round's partial sums, [4 cluster K-blocks][per]."""
+    k, d = dims
+    tiles = _cdiv(n, 32) * _cdiv(d, 64)
+    nkb = _cdiv(k, 32)
+    cluster = max((c for c in range(1, 9) if c <= nkb and tiles * c <= SMS
+                   and tiles <= SMS // GPC_SMS * (GPC_SMS // c)), default=1)
+    per = _cdiv(_cdiv(32 * 64, cluster), 4) * 4
+    stage = 4 * (2 * 32 * 32 + 32 * (32 + 4))
+    return dict(tile_rows=32, cluster=cluster, blocks=tiles * cluster,
+                smem=4 * (2 * stage + 3 * 4 * cluster * per), col_tiles=_cdiv(d, 64), per=per)
+
+
+def mlp_bwd_long_k_geometry(n, dims):
+    """The launch of the long-K backward's phase A (csrc/fused_bwd.cu
+    ``mlp_bwd_long_k_kernel``) for n rows and one layer ``dims`` = [K, D]:
+    a block takes a tile of ``tile_rows`` = 32 rows and a run of ``steps``
+    64-column steps of dx, ``col_blocks`` blocks a row tile, so that the
+    (row tile, step) pairs spread evenly over ``SMS`` blocks.  ``smem`` is
+    its dynamic shared memory in bytes: two stages of a round's W tiles (4
+    blocks of 32 j of a step, [2][32 cols][36] each), the round's partial
+    sums [4][32][66] and the tile's dz [32][D rounded up to 32, + 4].
+    Phase B, the weight-gradient reducer, plans its own launch."""
+    k, d = dims
+    row_tiles, total = _cdiv(n, 32), _cdiv(k, 64)
+    steps = _cdiv(row_tiles * total, SMS)
+    col_blocks = _cdiv(total, steps)
+    ldd = _cdiv(d, 32) * 32 + 4
+    return dict(tile_rows=32, col_blocks=col_blocks, steps=steps, blocks=row_tiles * col_blocks,
+                smem=4 * (2 * 4 * 2 * 32 * (32 + 4) + 4 * 32 * 66 + 32 * ldd))
+
+
 def gru_bwd_geometry(n, d_x, units):
     """The launch of the GRU backward's phase A (csrc/fused_bwd.cu
     gru_bwd_kernel), as the host picks it for n rows, d_x inputs and
@@ -382,7 +464,17 @@ def _mlp_fwd_cuda(x2, params, transfers, save):
     n, n_layers = x2.shape[0], len(params)
     acts = [_empty(n, d, like=x2) if save else None for d in dims[1:-1]]
     y = _empty(n, dims[-1], like=x2)
-    if n > 0:
+    if n > 0 and is_long_k(n, dims):
+        geom = mlp_long_k_geometry(n, dims)
+        (w, b), = params
+        code = library().sqair_fused_mlp_long_k(
+            _ptr(x2), _ptr(y), n, dims[0], dims[1], ACTS.index(transfers[0]), _ptr(w), _ptr(b),
+            _ints([geom[k] for k in ("tile_rows", "cluster", "blocks", "smem", "col_tiles",
+                                     "per")]), _stream(x2.device))
+        _raise_on("fused_mlp", code)
+        launches["fused_mlp"] += 1
+        long_k_calls["fused_mlp"] += 1
+    elif n > 0:
         geom = mlp_fwd_geometry(n, dims)
         code = library().sqair_fused_mlp(
             _ptr(x2), _ptr(y), n, n_layers, _ints(dims),
@@ -422,16 +514,29 @@ def fused_mlp_bwd(x, params, transfers, acts, g, need_dx=True):
     for d in dims[1:]:
         dz.append(scratch[off:off + n * d])
         off += n * d
-    geom = mlp_bwd_geometry(n, dims)
-    code = library().sqair_fused_mlp_bwd(
-        _ptr(x), _ptr(g), _ptr(dx), n, n_layers, _ints(dims),
-        _ints([ACTS.index(t) for t in transfers]), _ptrs([w for w, _ in params]),
-        _ptrs(list(acts)), _ptrs(dz), _ptrs([dw for dw, _ in dparams]),
-        _ptrs([db for _, db in dparams]),
-        _ints([geom[k] for k in ("tile_rows", "cluster", "blocks", "smem")]),
-        _stream(x.device))
+    long_k = is_long_k(n, dims)
+    if long_k:
+        geom = mlp_bwd_long_k_geometry(n, dims)
+        (w, _), = params
+        (dw, db), = dparams
+        code = library().sqair_fused_mlp_bwd_long_k(
+            _ptr(x), _ptr(g), _ptr(dx), n, dims[0], dims[1], ACTS.index(transfers[0]), _ptr(w),
+            _ptr(acts[0]), _ptr(dz[0]), _ptr(dw), _ptr(db),
+            _ints([geom[k] for k in ("tile_rows", "col_blocks", "steps", "blocks", "smem")]),
+            _stream(x.device))
+    else:
+        geom = mlp_bwd_geometry(n, dims)
+        code = library().sqair_fused_mlp_bwd(
+            _ptr(x), _ptr(g), _ptr(dx), n, n_layers, _ints(dims),
+            _ints([ACTS.index(t) for t in transfers]), _ptrs([w for w, _ in params]),
+            _ptrs(list(acts)), _ptrs(dz), _ptrs([dw for dw, _ in dparams]),
+            _ptrs([db for _, db in dparams]),
+            _ints([geom[k] for k in ("tile_rows", "cluster", "blocks", "smem")]),
+            _stream(x.device))
     _raise_on("fused_mlp_bwd", code)
     launches["fused_mlp_bwd"] += 1
+    if long_k:
+        long_k_calls["fused_mlp_bwd"] += 1
     return dx, dparams
 
 

@@ -30,7 +30,8 @@ What the capture has to get right:
 
 The kernels' launch counters (``ops/fused.launches``) advance only while a
 graph is captured; ``launches`` holds one capture's counts, which every
-replay launches again.  A failed capture or replay raises: nothing falls
+replay launches again, and ``long_k_calls`` its MLP calls that took the
+long-K kernels (``ops/fused.long_k_calls``).  A failed capture or replay raises: nothing falls
 back to eager steps on the card.
 
 Tracing (``sqair_tpu_torch/tracing.py``).  Each call advances the chain
@@ -127,6 +128,7 @@ class ChainedTrainStep:
         self.key = None
         self.metrics: Optional[Dict[str, torch.Tensor]] = None
         self.launches: Optional[Dict[str, int]] = None
+        self.long_k_calls: Optional[Dict[str, int]] = None
 
     def _step(self, i: int, itr: int) -> Dict[str, torch.Tensor]:
         """Train step i of the chain, the itr-th of the run."""
@@ -199,12 +201,14 @@ class ChainedTrainStep:
                 for g in self.generators:
                     graph.register_generator_state(g)
                 before = collections.Counter(fused.launches)
+                before_long_k = collections.Counter(fused.long_k_calls)
                 with torch.cuda.graph(graph):
                     self.stamps.stamp()
                     for i in range(self.steps):
                         metrics = self._step(i, self.state.step + i)
                     self.stamps.stamp()
                 self.launches = dict(collections.Counter(fused.launches) - before)
+                self.long_k_calls = dict(collections.Counter(fused.long_k_calls) - before_long_k)
                 # the capture ran no kernel; this puts back the host's side
                 # (the optimizer's count, the gradients' references, the
                 # generators)

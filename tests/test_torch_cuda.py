@@ -359,6 +359,51 @@ def test_mlp_forward_kernel_tiles_match_plain_on_cuda(n):
                     assert torch.equal(a, b), f"{dims} save={save} layer {i}: two runs differ"
 
 
+# One layer of long K (ops/fused.py is_long_k): the conv encoders' two
+# shapes and a ragged K and width at 1-160 rows, and the path's own limits,
+# the widest layer at the fewest inputs (at one row tile: two take too many
+# blocks)
+_LONG_K_CASES = ([(k, d, act, n)
+                  for k, d, act in ((1600, 256, "id"), (fused.LONG_K_MAX, 256, "id"),
+                                    (1030, 100, "elu"))
+                  for n in (1, 7, 33, fused.LONG_K_MAX_ROWS)]
+                 + [(fused.LONG_K_MIN, fused.LONG_K_MAX_WIDTH, "tanh", n) for n in (1, 7, 32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,act,n", _LONG_K_CASES)
+def test_long_k_kernels_match_plain_on_cuda(k, d, act, n):
+    """The long-K forward and backward against their plain versions (forward
+    1e-5 + 1e-4|v|, backward 1e-4 of each gradient's largest entry), the
+    backward with and without dx; a second run gives the same bits, and
+    ``long_k_calls`` shows that the long-K kernels ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert fused.is_long_k(n, [k, d])
+    gen = torch.Generator(device="cuda").manual_seed(n * 7 + k)
+    rnd = _rnd_fn(gen)
+    x = torch.rand(n, k, generator=gen, device="cuda")
+    params, acts = [(rnd(k, d), 0.1 * rnd(d))], (act,)
+    g = rnd(n, d)
+    fused.reset_launches()
+    with torch.inference_mode():
+        want = fused.mlp_plain_acts(x, params, acts)
+        got, again = (fused._mlp_fwd_cuda(x, params, acts, save=True) for _ in range(2))
+        torch.testing.assert_close(got[-1], want[-1], rtol=1e-4, atol=1e-5)
+        assert torch.equal(got[-1], again[-1]), "two forward runs differ"
+        want = fused.mlp_bwd_plain(x, params, acts, want, g)
+        want = [want[0], *want[1][0]]
+        for need_dx in (True, False):
+            what = f"n={n} {k}->{d} dx={need_dx}"
+            runs = [fused.fused_mlp_bwd(x, params, acts, got, g, need_dx=need_dx)
+                    for _ in range(2)]
+            runs = [[dx, *dwb] for dx, (dwb,) in runs]
+            _assert_grads_close(runs[0], [want[0] if need_dx else None, *want[1:]], what)
+            for a, b in zip(*runs):
+                assert (a is None and b is None) or torch.equal(a, b), what
+    assert dict(fused.long_k_calls) == {"fused_mlp": 2, "fused_mlp_bwd": 4}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 13, 160, 1600])
 def test_vrnn_backward_kernel_tiles_match_plain_on_cuda(n):

@@ -14,6 +14,12 @@ GRU, glimpse, propagation and discovery shape of
 both switches, eval and train (and the propagation and discovery unrolls
 at DISC_FLAGS).
 
+The MLP shapes are also walked at the conv configuration
+(``chip_smoke.conv_flags``), whose one-layer encoders of long K (10816 and
+1600 -> 256 at 160 rows) take the long-K kernels (``fused.is_long_k``,
+``mlp_long_k_geometry``, ``mlp_bwd_long_k_geometry``) and no other call
+does.
+
 Each launch fills the card's 132 SMs wherever n allows it, takes a cluster
 (or column split) of 1-8 blocks and at most the 227 KB of shared memory a
 block may have; the wrappers pass that geometry to the C entry.  Runs on
@@ -42,6 +48,9 @@ SETTINGS = [pytest.param(config, train, fuse,
             for config in ("release", "pedestrian") for train in (False, True)
             for fuse in (False, True)]
 PED_IMG = (64, 48)
+# the conv configuration, whose two switches fuse nothing
+CONV_SETTINGS = [pytest.param("conv", train, False, id=f"conv-{train}")
+                 for train in (False, True)]
 
 
 def _config(config, disc=False):
@@ -49,6 +58,8 @@ def _config(config, disc=False):
     if config == "release":
         flags = json.loads(chip_smoke.RELEASE_FLAGS.read_text())
         T, img = int(flags.get("font_timesteps", 10)), chip_smoke.IMG
+    elif config == "conv":
+        flags, T, img = chip_smoke.conv_flags(), 10, chip_smoke.IMG
     else:
         flags = chip_smoke.ped_flags()
         T, img = int(flags["ped_timesteps"]), PED_IMG
@@ -65,12 +76,47 @@ def _shapes(kernel, config, train, fuse, disc=False):
     return [s for kn, s, _ in shapes if kn == kernel]
 
 
-@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+def _check_long_k_geometry(n, dims):
+    """The long-K launches of n rows of the one layer ``dims``: the forward's
+    clusters split K over the most blocks (up to 8) that run at once, one
+    block an SM, in GPCs of ``GPC_SMS``; its owners cover the tile's 2048
+    outputs; the backward's blocks cover every (row tile, 64-column step)
+    pair, one an SM."""
+    k, d = dims
+    g = fused.mlp_long_k_geometry(n, dims)
+    tiles = math.ceil(n / 32) * math.ceil(d / 64)
+    nkb = math.ceil(k / 32)
+
+    def fits(c):
+        return (c <= nkb and tiles * c <= fused.SMS
+                and tiles <= fused.SMS // fused.GPC_SMS * (fused.GPC_SMS // c))
+    assert g["tile_rows"] == 32 and g["col_tiles"] == math.ceil(d / 64), (n, dims, g)
+    assert g["blocks"] == tiles * g["cluster"], (n, dims, g)
+    assert fits(g["cluster"]) or g["cluster"] == 1, (n, dims, g)
+    assert g["cluster"] == 8 or not fits(g["cluster"] + 1), (n, dims, g)
+    assert g["per"] % 4 == 0 and g["per"] * (g["cluster"] - 1) < 2048 <= g["per"] * g["cluster"]
+    assert g["smem"] <= fused.MAX_SMEM, (n, dims, g)
+    b = fused.mlp_bwd_long_k_geometry(n, dims)
+    row_tiles, steps = math.ceil(n / 32), math.ceil(k / 64)
+    assert b["tile_rows"] == 32 and b["blocks"] == row_tiles * b["col_blocks"], (n, dims, b)
+    assert (b["col_blocks"] - 1) * b["steps"] < steps <= b["col_blocks"] * b["steps"], (n, b)
+    assert b["blocks"] <= fused.SMS or b["steps"] > 1, (n, dims, b)
+    assert b["steps"] == math.ceil(row_tiles * steps / fused.SMS), (n, dims, b)
+    assert b["smem"] <= fused.MAX_SMEM, (n, dims, b)
+    return g, b
+
+
+@pytest.mark.parametrize("config,train,fuse", SETTINGS + CONV_SETTINGS)
 def test_mlp_forward_geometry_fills_the_card(config, train, fuse):
     shapes = _shapes("fused_mlp", config, train, fuse)
     assert shapes
     for s in shapes:
         dims = [s["d_in"]] + s["widths"]
+        if fused.is_long_k(s["n"], dims):
+            g, _ = _check_long_k_geometry(s["n"], dims)
+            if s["n"] == 160:  # 20 tiles of 32 x 64: 5 blocks each, 100 in all
+                assert g["cluster"] == 5 and g["blocks"] == 100, (s, g)
+            continue
         g = fused.mlp_fwd_geometry(s["n"], dims)
         tiles = math.ceil(s["n"] / g["tile_rows"])
         assert 1 <= g["cluster"] <= 8, (s, g)
@@ -83,7 +129,7 @@ def test_mlp_forward_geometry_fills_the_card(config, train, fuse):
             assert g["cluster"] == 8 and g["blocks"] >= fused.SMS, (s, g)
 
 
-@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+@pytest.mark.parametrize("config,train,fuse", SETTINGS + CONV_SETTINGS)
 def test_vrnn_backward_geometry_fills_the_card(config, train, fuse):
     shapes = _shapes("fused_vanilla_rnn", config, train, fuse)
     assert shapes
@@ -175,7 +221,7 @@ CELL_GEOMETRY = {"fused_vanilla_rnn": fused.vrnn_fwd_geometry,
 
 
 @pytest.mark.parametrize("kernel", sorted(CELL_GEOMETRY))
-@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+@pytest.mark.parametrize("config,train,fuse", SETTINGS + CONV_SETTINGS)
 def test_cell_forward_geometry_fills_the_card(kernel, config, train, fuse):
     shapes = _shapes(kernel, config, train, fuse)
     assert shapes
@@ -247,14 +293,21 @@ def test_cell_wrappers_pass_the_geometry_to_the_c_entries(seen, save):
     assert (zr is not None) == save and (c is not None) == save
 
 
-@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+@pytest.mark.parametrize("config,train,fuse", SETTINGS + CONV_SETTINGS)
 def test_mlp_backward_geometry_fills_the_card(config, train, fuse):
     """Phase A: clusters of 1-8 blocks over 8-row tiles, the forward's rule
-    (160 blocks at 160 rows), two blocks an SM in shared memory."""
+    (160 blocks at 160 rows), two blocks an SM in shared memory; at the
+    conv encoders' long K, blocks of 32 rows over runs of dx's 64-column
+    steps (125 blocks at 160 rows)."""
     shapes = _shapes("fused_mlp", config, train, fuse)
     assert shapes
     for s in shapes:
         dims = [s["d_in"]] + s["widths"]
+        if fused.is_long_k(s["n"], dims):
+            _, b = _check_long_k_geometry(s["n"], dims)
+            if s["n"] == 160:
+                assert b["blocks"] == 125, (s, b)
+            continue
         g = fused.mlp_bwd_geometry(s["n"], dims)
         tiles = math.ceil(s["n"] / 8)
         assert g["tile_rows"] == 8 and 1 <= g["cluster"] <= 8, (s, g)
@@ -616,7 +669,7 @@ def _gru_bwd_smem(units):
     return 4 * (_RING + _PARTS + 8 * (2 * _r4(units) + _r4(2 * units)))
 
 
-@pytest.mark.parametrize("config,train,fuse", SETTINGS)
+@pytest.mark.parametrize("config,train,fuse", SETTINGS + CONV_SETTINGS)
 def test_gru_backward_geometry_fills_the_card(config, train, fuse):
     """Phase A of the GRU backward at every GRU shape of a step (release
     flags and DISC_FLAGS) and at tile edges: clusters of 1-8 blocks over
@@ -715,3 +768,178 @@ def test_gru_backward_and_disc_forward_wrappers_pass_the_geometry(seen, monkeypa
     assert list(seen["sqair_fused_disc"][2]) == [
         g["tile_rows"], g["cluster"], g["blocks"], enc["tile_rows"], enc["cluster"],
         enc["blocks"], enc["smem"], *enc["wk"]]
+
+
+LONG_K_SHAPES = {("conv", 10816): "the input encoder", ("conv", 1600): "the glimpse encoder"}
+
+
+@pytest.mark.parametrize("disc", (False, True))
+@pytest.mark.parametrize("config,train,fuse", SETTINGS + CONV_SETTINGS)
+def test_long_k_path_is_the_conv_encoders_alone(config, train, fuse, disc):
+    """The long-K kernels take exactly the conv step's one-layer 10816 -> 256
+    and 1600 -> 256 calls, forward and backward (the wrappers ask
+    ``is_long_k`` for both), and no release or pedestrian call, the 4800-row
+    decoders, the conv decoder's 50 -> 400 seed, nor the discovery unroll's
+    input encoder (#7, two layers, launched from csrc/fused_disc.cu)."""
+    flags, _, _, _, img = _config(config, disc)
+    long_k = []
+    for s in _shapes("fused_mlp", config, train, fuse, disc):
+        dims = [s["d_in"]] + s["widths"]
+        if fused.is_long_k(s["n"], dims):
+            long_k.append((s["n"], dims))
+        if s["n"] == 4800 or s["d_in"] == 50:
+            assert not fused.is_long_k(s["n"], dims), s
+    if config == "conv":
+        assert sorted(long_k) == [(160, [1600, 256]), (160, [10816, 256])], long_k
+    else:
+        assert long_k == [], long_k
+    for n in [s["n"] for s in _shapes("fused_disc", config, train, fuse, disc)] + [1, 161]:
+        dims = _disc_kernel_dims(flags, n, img)
+        assert not fused.is_long_k(n, [dims[2] * dims[3], dims[7], dims[7]])
+
+
+LONG_K_CASES = ([(n, k, d) for n in (1, 7, 32, 33, 64, 96, fused.LONG_K_MAX_ROWS)
+                 for k, d in ((fused.LONG_K_MAX, 256), (1600, 256), (1030, 100))]
+                + [(n, fused.LONG_K_MIN, fused.LONG_K_MAX_WIDTH) for n in (1, 7, 32)])
+
+
+@pytest.mark.parametrize("n,k,d", LONG_K_CASES)
+def test_long_k_geometry_fills_the_card(n, k, d):
+    """The long-K launches at the conv encoders' widths, a ragged K and D
+    and the widest layer, at tile edges and the row limit (the widest layer
+    at one row tile: two take 128 blocks)."""
+    assert fused.is_long_k(n, [k, d])
+    g, _ = _check_long_k_geometry(n, [k, d])
+    assert g["blocks"] <= fused.LONG_K_MAX_BLOCKS
+
+
+def test_long_k_limits():
+    """One layer of LONG_K_MIN to LONG_K_MAX inputs and at most
+    LONG_K_MAX_WIDTH outputs at 1 to LONG_K_MAX_ROWS rows, whose forward
+    launch takes at most LONG_K_MAX_BLOCKS blocks; nothing else."""
+    lim = fused.LONG_K_MAX_ROWS
+    assert fused.is_long_k(lim, [fused.LONG_K_MIN, 256])
+    assert fused.is_long_k(lim, [fused.LONG_K_MAX, 256])
+    assert not fused.is_long_k(lim + 1, [10816, 100])
+    assert not fused.is_long_k(160, [fused.LONG_K_MIN - 1, 256])
+    assert not fused.is_long_k(160, [fused.LONG_K_MAX + 1, 256])
+    # 128 blocks: 16 tiles of 32 x 64 in clusters of 8
+    assert fused.mlp_long_k_geometry(128, [1600, 256])["blocks"] == 128
+    assert not fused.is_long_k(128, [1600, 256])
+    assert not fused.is_long_k(33, [1024, 512])
+    assert not fused.is_long_k(160, [10816, 256, 256])
+    assert not fused.is_long_k(160, [10816, fused.LONG_K_MAX_WIDTH + 1])
+    assert not fused.is_long_k(0, [10816, 256])
+
+
+def test_wrappers_pass_the_long_k_geometry_to_the_c_entries(seen, monkeypatch):
+    """The MLP forward and backward hand the long-K geometry to their
+    long-K C entries at a conv encoder's shape, count the call in
+    ``launches`` as any other and in ``long_k_calls``; a short-K call
+    counts in ``launches`` alone, and ``reset_launches`` clears both."""
+    gen = torch.Generator().manual_seed(0)
+    monkeypatch.setattr(fused, "_on_cuda", lambda name, t: True)
+    fused.reset_launches()
+    x = torch.rand(160, 1600, generator=gen)
+    params = [(torch.rand(1600, 256, generator=gen), torch.rand(256, generator=gen))]
+    y = fused._mlp_fwd_cuda(x, params, ("id",), save=True)[-1]
+    g = fused.mlp_long_k_geometry(160, [1600, 256])
+    args = seen["sqair_fused_mlp_long_k"]
+    assert args[2:6] == (160, 1600, 256, fused.ACTS.index("id"))
+    assert list(args[8]) == [g[k] for k in ("tile_rows", "cluster", "blocks", "smem",
+                                            "col_tiles", "per")]
+    fused.fused_mlp_bwd(x, params, ("id",), [y], torch.rand(160, 256, generator=gen))
+    b = fused.mlp_bwd_long_k_geometry(160, [1600, 256])
+    args = seen["sqair_fused_mlp_bwd_long_k"]
+    assert args[3:7] == (160, 1600, 256, fused.ACTS.index("id"))
+    assert list(args[12]) == [b[k] for k in ("tile_rows", "col_blocks", "steps", "blocks",
+                                             "smem")]
+    assert args[2].value is not None  # dx
+    assert "sqair_fused_mlp" not in seen and "sqair_fused_mlp_bwd" not in seen
+    xs = torch.rand(160, 54, generator=gen)
+    short = [(torch.rand(54, 256, generator=gen), torch.rand(256, generator=gen))]
+    fused._mlp_fwd_cuda(xs, short, ("elu",), save=True)
+    assert "sqair_fused_mlp" in seen
+    assert dict(fused.launches) == {"fused_mlp": 2, "fused_mlp_bwd": 1}
+    assert dict(fused.long_k_calls) == {"fused_mlp": 1, "fused_mlp_bwd": 1}
+    fused.reset_launches()
+    assert not fused.launches and not fused.long_k_calls
+
+
+def _conv_step_mlp_calls(monkeypatch):
+    """The fused_mlp and fused_mlp_bwd calls of one conv train step on the
+    CPU, (args, kwargs) each, at small widths (n_units 1, 2 slots, B 4, k 2,
+    T 3) whose encoders keep the conv cell's long K: channels 4,64 on 50x50
+    frames and 20x20 glimpses, 10816 and 1600 inputs."""
+    from sqair_tpu_torch.configs import conv_mnist_model
+    from sqair_tpu_torch.ops.noise import GeneratorNoise
+
+    flags = dict(n_units=1, n_what=8, n_steps_per_image=2, glimpse_size=20, k_particles=2,
+                 conv_channels="4,64", model_config="sqair_tpu/configs/conv_mnist_model.py")
+    monkeypatch.delenv("SQAIR_FUSE_GLIMPSE", raising=False)
+    monkeypatch.delenv("SQAIR_FUSE_CELLS", raising=False)
+    model = conv_mnist_model.load(flags, (50, 50), device="cpu", seed=0)
+    rs = torch.Generator().manual_seed(5)
+    T, B = 3, 4
+    obs = torch.rand((T, B, 50, 50), generator=rs) * 0.2
+    obs[:, :, 10:30, 12:32] += 0.8
+    nums = torch.zeros((T, B, 3))
+    nums[:, :, 1] = 1
+    calls = {"fused_mlp": [], "fused_mlp_bwd": []}
+
+    def spy(name, fn):
+        def call(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(fused, "fused_mlp", spy("fused_mlp", fused.fused_mlp))
+            m.setattr(fused, "fused_mlp_bwd", spy("fused_mlp_bwd", fused.fused_mlp_bwd))
+            target, _ = model.loss_and_metrics(
+                obs, GeneratorNoise(torch.Generator().manual_seed(1), "cpu"), nums,
+                record_mode="train")
+            target.backward()
+    finally:
+        torch.set_num_threads(threads)
+    shapes = chip_smoke.main_path_shapes(flags, B, 2, T, train=True, img=(50, 50))
+    return calls, shapes
+
+
+def test_long_k_calls_count_the_conv_encoders_of_a_train_step(seen, monkeypatch):
+    """Every MLP call of a conv train step (``_conv_step_mlp_calls``),
+    replayed through the CUDA wrappers with a stand-in library:
+    ``fused.long_k_calls`` counts the encoders' T + 3 S T calls, forward
+    and backward, and ``fused.launches`` one per wrapper call, its keys and
+    counts those of ``expected_launches`` (which the benchmark's capture is
+    held to).  At the benchmark's conv cell that is 100 forward and 100
+    backward calls a step, at its MLP cell none."""
+    calls, shapes = _conv_step_mlp_calls(monkeypatch)
+    monkeypatch.setattr(fused, "_on_cuda", lambda name, t: True)
+    fused.reset_launches()
+    for args, _ in calls["fused_mlp"]:
+        x, params, transfers = args
+        fused._mlp_fwd_cuda(x.reshape(-1, x.shape[-1]).contiguous(),
+                            [(w.detach(), b.detach()) for w, b in params], tuple(transfers),
+                            save=True)
+    for args, kwargs in calls["fused_mlp_bwd"]:
+        fused.fused_mlp_bwd(*args, **kwargs)
+    T, S = 3, 2
+    assert dict(fused.long_k_calls) == {"fused_mlp": T + 3 * S * T, "fused_mlp_bwd": T + 3 * S * T}
+    expected = chip_smoke.expected_launches(shapes, 1, backward=True)
+    assert dict(fused.launches) == {k: expected[k] for k in ("fused_mlp", "fused_mlp_bwd")}
+    assert chip_smoke.expected_long_k(fused, shapes, 1, backward=True) == dict(fused.long_k_calls)
+    fused.reset_launches()
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "benchmark"))
+    from harness import runner, spec, yardstick
+
+    for cell, want in (("conv_mnist-train", 100), ("mlp_release-train-fused", 0)):
+        cell_shapes = runner.main_shapes(spec.cell(cell))
+        n = sum(c for kn, s, c in cell_shapes
+                if kn == "fused_mlp" and fused.is_long_k(s["n"], [s["d_in"]] + s["widths"]))
+        assert n == want, cell
+        assert set(yardstick.expected_launches(cell_shapes, 10, backward=True)) <= {
+            k + suffix for k in yardstick.FORWARD for suffix in ("", "_bwd")}

@@ -6,7 +6,9 @@ cell of the benchmark, and what it costs, on the CUDA card.
         --seed 2147490023 --seconds 51 --rounds 3 --out results/trace_cell.jsonl
 
 Set-up is the benchmark's (``benchmark/harness/runner.set_up``: the data and
-weights from the seed, the graphed chain and its first call).  Then
+weights from the seed, the graphed chain and its first call); its line gives
+the capture's kernel launches and its MLP calls that took the long-K
+kernels (``ChainedTrainStep.launches``, ``long_k_calls``).  Then
 ``--rounds`` pairs of measured windows (``Training.window``, the
 benchmark's closed loop) run with tracing off and on, in alternating
 order, each for ``--seconds`` (many short rounds resolve the cost of
@@ -163,7 +165,8 @@ def main(argv=None) -> int:
     setup = tracing.summary()
     prepare = next(s for s in setup["setup"] if s["name"] == "sqair.chain.prepare")
     emit(dict(part="setup", setup_s=time.perf_counter() - t_start, phases=phases,
-              capture_s=prepare["s"], spans=setup["setup"],
+              capture_s=prepare["s"], spans=setup["setup"], launches=training.chain.launches,
+              long_k_calls=training.chain.long_k_calls,
               card=torch.cuda.get_device_name(device)))
     frames_per_step = int(cell.traffic["batch_size"]) * int(cell.traffic["seq_len"])
     windows = []
